@@ -1,27 +1,46 @@
 #!/usr/bin/env python3
 """Smoke run of flutpu_torch on one NVIDIA GPU (Hopper, sm_90a).
 
-Drives the port's main path, a 1080p baseline-JPEG GOP encode at quality
-85, 4:2:0, 16 frames per dispatch, through the entry points a user calls:
+Drives the port's main paths through the entry points a user calls, at
+1080p (coded 1088x1920), quality 85, 4:2:0:
 
-1. build: compiles the CUDA kernels from ``flutpu_torch/csrc`` with nvcc;
-2. kernels: on one 1080p 16-frame GOP, the front-end kernel against its
-   plain PyTorch version (equal except ±1 on rounding ties, on at most
-   1e-4 of the coefficients) and the Huffman pack kernel against its
-   plain version (bit-identical), each timed with CUDA events;
-3. main path: ``JpegEncoder.encode_gop_dispatch_src`` on the on-device
-   gradient-ball source, 8 GOPs with two in flight, then the pipeline
-   ``videotestsrc ! cudajpegenc ! appsink`` over 32 frames; both kernels'
-   launch counts must be > 0;
-4. checks: every frame's scan decodes (native ``flu_jpeg_decode_scan``)
-   to exactly the front-end kernel's coefficients, equals the native
-   ``flu_jpeg_encode_scan`` of those coefficients byte for byte, and
-   reconstructs at >= 30 dB PSNR against its source.
+1. build: compiles the CUDA kernels from ``flutpu_torch/csrc`` with nvcc
+   (one nvcc per source, all started together);
+2. JPEG kernels: on one 16-frame GOP, the front-end kernel (K1) against
+   its plain PyTorch version (equal except ±1 on rounding ties, on at
+   most 1e-4 of the coefficients) and the Huffman pack kernel (K2)
+   against its plain version (bit-identical), each timed with CUDA
+   events;
+3. JPEG main path: ``JpegEncoder.encode_gop_dispatch_src`` on the
+   on-device gradient-ball source, 8 GOPs with two in flight, then the
+   pipeline ``videotestsrc ! cudajpegenc ! appsink`` over 32 frames;
+4. JPEG checks: every frame's scan decodes (native
+   ``flu_jpeg_decode_scan``) to exactly K1's coefficients, equals the
+   native ``flu_jpeg_encode_scan`` of those coefficients byte for byte,
+   and reconstructs at >= 30 dB PSNR against its source;
+5. motion kernels: the search kernel (K3) against its plain version on
+   three 1080p luma pairs (consecutive gradient-ball frames, a rolled
+   plane plus noise, an in-loop reconstruction as reference): the
+   prediction equals the compensation of the kernel's vectors exactly,
+   and the vectors equal the plain version's except at near-ties of the
+   cost, each verified in float64; the chroma kernel (K4) bit-identical
+   to its plain version at search ranges 7 and 5; both timed;
+6. FVC main paths: ``FvcEncoder(motion=True).encode_chunk_dispatch_src``,
+   6 chunks of 8 frames with two in flight (K2, K3, K4 launched), then
+   2 chunks of FVC v1 (K1, K2), then the pipeline
+   ``videotestsrc ! cudafvcenc motion=true ! appsink`` over 16 frames;
+7. FVC checks: every chunk decodes through the port's ``FvcDecoder`` on
+   the card at >= 30 dB, every payload's scan equals the native
+   ``flu_jpeg_encode_scan`` of its decoded coefficients, and the CPU
+   decode (plain PyTorch) lies within 0.05 dB of the card's.
 
-Prints the card's name and power limit, one JSON line of per-kernel
-results, and as its last line ``{"ok": true, "device": {...}}``. Any
-failed phase raises and the script exits nonzero. It exits nonzero
-without a result where there is no CUDA device or no flutpu_torch.
+Each main path runs with every kernel's launch count set to 0 just
+before it and read just after; a kernel of the path that was not
+launched fails the run. Prints the card's name and power limit, one JSON
+line of per-kernel results, and as its last line
+``{"ok": true, "device": {...}}``. Any failed phase raises and the
+script exits nonzero. It exits nonzero without a result where there is
+no CUDA device or no flutpu_torch.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one GPU).
 """
@@ -43,6 +62,12 @@ PIPE_FRAMES = 32
 QUALITY = 85
 MIN_PSNR = 30.0
 MAX_TIE_SHARE = 1e-4
+CHUNK = 8                  # FVC frames per chunk
+N_CHUNKS = 6               # FVC motion chunks on the timed main path
+N_V1_CHUNKS = 2
+FVC_PIPE_FRAMES = 16
+SEARCH_RANGE = 7
+MAX_DPSNR = 0.05           # card vs CPU decode of one stream, dB
 
 
 def _fail(msg: str) -> int:
@@ -65,11 +90,17 @@ def _smi() -> str:
 
 
 def _time_ms(fn, reps: int) -> float:
-    """Mean device ms per call over ``reps`` calls after one warm call."""
+    """Mean device ms per call over ``reps`` calls after one warm call.
+    The calls queue behind a device-side sleep, so a kernel's time is not
+    its wrapper's host cost where the launch queue holds all the calls
+    (one launch each); a plain version's thousands of launches still
+    pace with the host."""
     import torch
     fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(min(2e6 + reps * 4e5, 2e8)))
     start.record()
     for _ in range(reps):
         fn()
@@ -337,6 +368,11 @@ def run(dev):
           f"kernel's coefficients, match flu_jpeg_encode_scan byte for "
           f"byte; lowest PSNR {worst_psnr:.2f} dB", flush=True)
 
+    results.update(run_motion_kernels(dev))
+    fvc_launches = run_fvc(dev, lib)
+    for name, n in fvc_launches.items():
+        launches[name] = launches.get(name, 0) + n
+
     kernels = [
         dict(name="front_end", route="cuda",
              source="flutpu_torch/csrc/frontend.cu",
@@ -346,12 +382,328 @@ def run(dev):
              source="flutpu_torch/csrc/entropy_pack.cu",
              replaces="flutpu/codec/ops/entropy_pallas.py:439",
              launches=launches["pack_segments"], **results["pack_segments"]),
+        dict(name="motion_search_mc", route="cuda",
+             source="flutpu_torch/csrc/motion.cu",
+             replaces="flutpu/codec/ops/motion_pallas.py:288",
+             launches=launches["motion_search_mc"],
+             **results["motion_search_mc"]),
+        dict(name="chroma_mc", route="cuda",
+             source="flutpu_torch/csrc/motion.cu",
+             replaces="flutpu/codec/ops/motion_pallas.py:771",
+             launches=launches["chroma_mc"], **results["chroma_mc"]),
     ]
     jax_side = sorted(m for m in sys.modules if m == "jax"
                       or m.startswith(("jax.", "flutpu.codec", "flutpu.hype",
                                        "flutpu.ttml", "flutpu.parallel")))
     _require(not jax_side, f"imported from the JAX side: {jax_side}")
     return kernels
+
+
+def _near_tie_check(cur, prev, mv_k, mv_p, r):
+    """Macroblocks where the kernel's and the plain version's vectors
+    differ must be near-ties: their costs, recomputed in float64, agree
+    within the fp32 rounding of a 256-term SAD. Returns the count."""
+    import torch
+    diff = (mv_k != mv_p).any(-1).nonzero().tolist()
+    c64, p64 = cur.double(), prev.double()
+    h, w = cur.shape
+    for by, bx in diff:
+        costs = []
+        for v in (mv_k[by, bx], mv_p[by, bx]):
+            dy, dx = int(v[0]), int(v[1])
+            _require(max(abs(dy), abs(dx)) <= r, f"vector {v} out of range")
+            rows = (torch.arange(16, device=cur.device) + 16 * by - dy) % h
+            cols = (torch.arange(16, device=cur.device) + 16 * bx - dx) % w
+            sad = (c64[16 * by:16 * by + 16, 16 * bx:16 * bx + 16]
+                   - p64[rows][:, cols]).abs().sum()
+            costs.append((float(sad), float(sad) * 64 + abs(dy) + abs(dx)))
+        (sad_k, cost_k), (sad_p, cost_p) = costs
+        tol = 64 * 256 * 2.0 ** -23 * max(sad_k, sad_p, 1.0)
+        _require(abs(cost_k - cost_p) <= tol,
+                 f"mb ({by}, {bx}): vectors {mv_k[by, bx].tolist()} vs "
+                 f"{mv_p[by, bx].tolist()} are no near-tie (float64 costs "
+                 f"{cost_k} vs {cost_p})")
+    return len(diff)
+
+
+def run_motion_kernels(dev):
+    """Phase 5: K3 and K4 against their plain versions at 1080p."""
+    import numpy as np
+    import torch
+    from flutpu_torch.codec.fvc import _code_plane
+    from flutpu_torch.codec.ops import motion_kernels as M
+    from flutpu_torch.codec.ops.colorspace import planes_to_i420
+    from flutpu_torch.codec.ops.quant import LUMA_QTABLE, scale_qtable
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
+
+    r = SEARCH_RANGE
+    rng = np.random.default_rng(1)
+    y = planes_to_i420(*gradient_ball_planes(PH, PW, 2, 3, device=dev))[0]
+    plane = torch.from_numpy(rng.uniform(0, 255, (PH, PW))
+                             .astype(np.float32)).to(dev)
+    noise = torch.from_numpy(rng.normal(0, 2, (PH, PW))
+                             .astype(np.float32)).to(dev)
+    qy = torch.from_numpy(scale_qtable(LUMA_QTABLE, QUALITY)).to(dev)
+    # the loop's reference after an I frame: clip(128 + IDCT residual)
+    rec = (128.0 + _code_plane(y[0] - 128.0, qy)[1]).clamp(0.0, 255.0)
+    pairs = [("gradient-ball frames 3->4", y[1], y[0]),
+             ("rolled plane + noise", torch.roll(plane, (5, -3), (0, 1))
+              + noise, plane),
+             ("in-loop reference", y[1], rec)]
+    err = 0.0
+    for label, cur, prev in pairs:
+        mv, pred = M.motion_search_mc(cur, prev, r)
+        mv_p, _ = M.motion_search_mc_plain(cur, prev, r)
+        d = float((pred - M.motion_compensate(prev, mv, r)).abs().max())
+        _require(d == 0, f"motion_search_mc ({label}): prediction differs "
+                 "from the compensation of its vectors")
+        err = max(err, d)
+        ties = _near_tie_check(cur, prev, mv, mv_p, r)
+        print(f"motion_search_mc vs plain ({label}): {ties} of "
+              f"{mv.shape[0] * mv.shape[1]} macroblocks differ, each a "
+              "float64-verified near-tie; prediction exact", flush=True)
+    cur, prev = pairs[2][1], pairs[2][2]
+    k3_ms = _time_ms(lambda: M.motion_search_mc(cur, prev, r), 20)
+    k3_plain_ms = _time_ms(lambda: M.motion_search_mc_plain(cur, prev, r), 3)
+    print(f"motion_search_mc: kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.3f} "
+          f"ms per 1088x1920 luma frame (r={r})", flush=True)
+
+    k4_err = 0.0
+    for rr in (7, 5):
+        cb, cr = (torch.from_numpy(rng.normal(128, 30, (PH // 2, PW // 2))
+                                   .astype(np.float32)).to(dev)
+                  for _ in range(2))
+        mv = torch.from_numpy(rng.integers(-rr, rr + 1,
+                                           (PH // 16, PW // 16, 2))
+                              .astype(np.int32)).to(dev)
+        got = M.chroma_mc(cb, cr, mv, rr)
+        want = M.chroma_mc_plain(cb, cr, mv, rr)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        print(f"chroma_mc vs plain (r={rr}, random vectors): "
+              f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
+        _require(same, f"chroma_mc differs from its plain version at r={rr}")
+        k4_err = max(k4_err, *(float((a - b).abs().max())
+                               for a, b in zip(got, want)))
+    k4_ms = _time_ms(lambda: M.chroma_mc(cb, cr, mv, rr), 50)
+    k4_plain_ms = _time_ms(lambda: M.chroma_mc_plain(cb, cr, mv, rr), 10)
+    print(f"chroma_mc: kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms per "
+          "pair of 544x960 chroma planes", flush=True)
+    torch.cuda.synchronize()
+    return {"motion_search_mc": dict(max_abs_err=err, ms=k3_ms,
+                                     plain_ms=k3_plain_ms),
+            "chroma_mc": dict(max_abs_err=k4_err, ms=k4_ms,
+                              plain_ms=k4_plain_ms)}
+
+
+def _psnr(a, b) -> float:
+    import numpy as np
+    mse = ((a.astype(np.float64) - b.astype(np.float64)) ** 2).mean()
+    return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
+
+
+def _check_chunks(lib, chunks, sources, label):
+    """Phase 7 for a list of chunks and their (F, H, W, 3) uint8 source
+    frames (numpy): decode on the card and on the CPU, PSNR, scans
+    against the native encoder. Returns (lowest PSNR, max |dRGB|, max
+    dPSNR)."""
+    import numpy as np
+    from flutpu_torch.codec.decode import decode_scan_to_coefs
+    from flutpu_torch.codec.fvc import FvcDecoder
+    card, cpu = FvcDecoder("cuda"), FvcDecoder("cpu")
+    worst, d_rgb, d_psnr = float("inf"), 0, 0.0
+    for ci, (data, src) in enumerate(zip(chunks, sources)):
+        hdr, frames = FvcDecoder.parse_chunk(data)
+        _require((hdr["height"], hdr["width"]) == (H, W),
+                 f"{label} chunk {ci}: header size")
+        for fi, (_, _, payload) in enumerate(frames):
+            coefs = decode_scan_to_coefs(payload, PW // 8, PH // 8, PW // 16,
+                                         PH // 16, True)
+            _require(coefs is not None,
+                     f"{label} chunk {ci} frame {fi}: scan does not decode")
+            _require(_native_scan(lib, *coefs) == payload,
+                     f"{label} chunk {ci} frame {fi}: scan differs from "
+                     "flu_jpeg_encode_scan of its coefficients")
+        rgb, info = card.decode_chunk(data)
+        rgb_cpu, info_cpu = cpu.decode_chunk(data)
+        _require(info["types"] == info_cpu["types"], f"{label}: types")
+        _require(rgb.shape == src.shape, f"{label}: decoded shape "
+                 f"{rgb.shape}")
+        d_rgb = max(d_rgb, int(np.abs(rgb.astype(np.int32)
+                                      - rgb_cpu.astype(np.int32)).max()))
+        for a, b, s in zip(rgb, rgb_cpu, src):
+            p, q = _psnr(a, s), _psnr(b, s)
+            worst = min(worst, p)
+            d_psnr = max(d_psnr, abs(p - q))
+    _require(worst >= MIN_PSNR, f"{label}: PSNR {worst:.2f} dB")
+    _require(d_psnr <= MAX_DPSNR, f"{label}: card vs CPU decode differ by "
+             f"{d_psnr:.4f} dB")
+    return worst, d_rgb, d_psnr
+
+
+def _count_launches(fn):
+    """Run ``fn`` with every kernel's launch count set to 0 just before
+    and read just after; returns (fn's result, counts)."""
+    import torch
+    from flutpu_torch.codec.ops import entropy_kernels as K
+    from flutpu_torch.codec.ops import frontend as F
+    from flutpu_torch.codec.ops import motion_kernels as M
+    wrappers = {"front_end": F.front_end, "pack_segments": K.pack_segments,
+                "motion_search_mc": M.motion_search_mc,
+                "chroma_mc": M.chroma_mc}
+    torch.cuda.synchronize()
+    for w_ in wrappers.values():
+        w_.launches = 0
+    out = fn()
+    return out, {k: w_.launches for k, w_ in wrappers.items()}
+
+
+def run_fvc(dev, lib):
+    """Phases 6 and 7: the FVC main paths and their checks. Returns the
+    kernels' launch counts summed over the paths."""
+    import numpy as np
+    import torch
+    from flutpu.core import parse_launch
+    from flutpu.core.elements import make_test_frame
+    from flutpu_torch.codec.fvc import FvcEncoder
+    from flutpu_torch.codec.ops.testsrc import (gradient_ball_frames,
+                                                gradient_ball_planes)
+
+    def src(ph, pw, n, start):
+        return gradient_ball_planes(ph, pw, n, start, device=dev)
+
+    def sources(n_chunks, first=0):
+        return [gradient_ball_frames(PH, PW, CHUNK, first + c * CHUNK,
+                                     device=dev)[:, :H, :W].cpu().numpy()
+                for c in range(n_chunks)]
+
+    enc = FvcEncoder(QUALITY, motion=True, search_range=SEARCH_RANGE,
+                     device=dev)
+    # one chunk first so the adaptive sizes are learned, as a stream would
+    enc.encode_chunk_finalize(enc.encode_chunk_dispatch_src(src, 0, CHUNK,
+                                                            H, W))
+
+    def motion_path():
+        chunks, spans, pending = {}, [], []
+        t0 = time.perf_counter()
+        for ci in range(N_CHUNKS):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            handle = enc.encode_chunk_dispatch_src(src, ci * CHUNK, CHUNK, H,
+                                                   W)
+            ev1.record()
+            pending.append((ci, handle, ev0, ev1))
+            if len(pending) == 2:           # two chunks in flight
+                c, hnd, a, b = pending.pop(0)
+                chunks[c] = enc.encode_chunk_finalize(hnd)
+                b.synchronize()
+                spans.append(a.elapsed_time(b))
+        for c, hnd, a, b in pending:
+            chunks[c] = enc.encode_chunk_finalize(hnd)
+            b.synchronize()
+            spans.append(a.elapsed_time(b))
+        return [chunks[c] for c in range(N_CHUNKS)], spans, \
+            time.perf_counter() - t0
+
+    (chunks, spans, wall), n_motion = _count_launches(motion_path)
+    sizes = [len(c) for c in chunks]
+    print(f"FVC motion path: {N_CHUNKS} chunks x {CHUNK} frames in "
+          f"{wall:.3f} s = {N_CHUNKS * CHUNK / wall:.1f} frames/s; device "
+          f"span {sum(spans) / len(spans):.3f} ms per chunk (CUDA events); "
+          f"mean {np.mean(sizes):.0f} bytes per chunk; kernel launches "
+          f"{n_motion}", flush=True)
+    for name in ("pack_segments", "motion_search_mc", "chroma_mc"):
+        _require(n_motion[name] > 0, f"{name} was not launched on the FVC "
+                 "motion path")
+
+    v1 = FvcEncoder(QUALITY, motion=False, device=dev)
+
+    def v1_path():
+        t0 = time.perf_counter()
+        hs = [v1.encode_chunk_dispatch_src(src, c * CHUNK, CHUNK, H, W)
+              for c in range(N_V1_CHUNKS)]
+        out = [v1.encode_chunk_finalize(hnd) for hnd in hs]
+        return out, time.perf_counter() - t0
+
+    (v1_chunks, v1_wall), n_v1 = _count_launches(v1_path)
+    print(f"FVC v1 path: {N_V1_CHUNKS} chunks in {v1_wall:.3f} s; "
+          f"{np.mean([len(c) for c in v1_chunks]):.0f} bytes per chunk; "
+          f"kernel launches {n_v1}", flush=True)
+    for name in ("front_end", "pack_segments"):
+        _require(n_v1[name] > 0, f"{name} was not launched on the FVC v1 "
+                 "path")
+
+    def pipeline():
+        pipe = parse_launch(
+            f"videotestsrc num-buffers={FVC_PIPE_FRAMES} pattern=ball "
+            f"width={W} height={H} ! cudafvcenc motion=true "
+            f"gop-size={CHUNK} device={dev} ! appsink name=out")
+        sink = pipe.get_by_name("out")
+        t0 = time.perf_counter()
+        pipe.play()
+        bufs = []
+        try:
+            while (buf := sink.try_pull_buffer(timeout=60)) is not None:
+                bufs.append(buf)
+        finally:
+            pipe.stop()
+        return bufs, time.perf_counter() - t0
+
+    (bufs, pipe_wall), n_pipe = _count_launches(pipeline)
+    print(f"FVC pipeline: {len(bufs)} chunks in {pipe_wall:.3f} s; kernel "
+          f"launches {n_pipe}", flush=True)
+    _require(len(bufs) == FVC_PIPE_FRAMES // CHUNK,
+             f"FVC pipeline gave {len(bufs)} chunks")
+    pts = [p for b in bufs for p in b.meta["frame_pts"]]
+    _require(pts == sorted(pts) and len(pts) == FVC_PIPE_FRAMES,
+             "FVC pipeline output out of order")
+    for name in ("pack_segments", "motion_search_mc", "chroma_mc"):
+        _require(n_pipe[name] > 0, f"{name} was not launched in the FVC "
+                 "pipeline")
+
+    pipe_src = [np.stack([make_test_frame("ball", W, H, i)
+                          for i in range(c * CHUNK, (c + 1) * CHUNK)])
+                for c in range(len(bufs))]
+    checks = [("FVC motion", chunks, sources(N_CHUNKS)),
+              ("FVC v1", v1_chunks, sources(N_V1_CHUNKS)),
+              ("FVC pipeline", [bytes(b.data) for b in bufs], pipe_src)]
+    for label, cs, srcs in checks:
+        worst, d_rgb, d_psnr = _check_chunks(lib, cs, srcs, label)
+        print(f"checks ({label}): {len(cs)} chunks decode on the card at "
+              f">= {worst:.2f} dB; scans equal flu_jpeg_encode_scan; CPU "
+              f"decode max |dRGB| {d_rgb}, max dPSNR {d_psnr:.4f} dB",
+              flush=True)
+    _encode_parity(dev)
+    return {k: n_motion[k] + n_v1[k] + n_pipe[k] for k in n_motion}
+
+
+def _encode_parity(dev):
+    """A measurement, not a check: one 544x960 motion chunk encoded on the
+    card and on the CPU (the kernels' plain versions). Byte identity can
+    break where the card's in-loop DCT (cuBLAS) rounds a coefficient
+    across a quantization tie differently from the CPU's."""
+    import numpy as np
+    from flutpu_torch.codec.fvc import FvcDecoder, FvcEncoder
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_frames
+    frames = gradient_ball_frames(544, 960, CHUNK, 0, device="cpu").numpy()
+    a = FvcEncoder(QUALITY, motion=True, device=dev).encode_chunk(frames)
+    b = FvcEncoder(QUALITY, motion=True, device="cpu").encode_chunk(frames)
+    if a == b:
+        print("card vs CPU encode (544x960 motion chunk): byte-identical",
+              flush=True)
+        return
+    (ha, fa), (hb, fb) = FvcDecoder.parse_chunk(a), FvcDecoder.parse_chunk(b)
+    mv_diff = sum(int((x[1] != y[1]).any(-1).sum()) for x, y in zip(fa, fb)
+                  if x[1] is not None and y[1] is not None)
+    dec = FvcDecoder("cpu")
+    pa = [_psnr(x, s) for x, s in zip(dec.decode_chunk(a)[0], frames)]
+    pb = [_psnr(x, s) for x, s in zip(dec.decode_chunk(b)[0], frames)]
+    print(f"card vs CPU encode (544x960 motion chunk): DIFFERENT "
+          f"({len(a)} vs {len(b)} bytes; frame types "
+          f"{[f[0] for f in fa]} vs {[f[0] for f in fb]}; {mv_diff} vectors "
+          f"differ; max dPSNR {max(abs(x - y) for x, y in zip(pa, pb)):.4f} "
+          f"dB, mean PSNR {np.mean(pa):.2f} vs {np.mean(pb):.2f} dB)",
+          flush=True)
 
 
 if __name__ == "__main__":

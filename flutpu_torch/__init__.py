@@ -10,10 +10,12 @@ kernel under ``csrc/``, built with nvcc at first use (``_build.py``);
 tensors on the CPU take each kernel's plain PyTorch version.
 
 Ported so far: the 4:2:0 baseline-JPEG GOP encoder
-(``codec.jpeg.JpegEncoder``) and its element ``cudajpegenc``, which
-``import flutpu_torch`` registers.
+(``codec.jpeg.JpegEncoder``) and its element ``cudajpegenc``; the FVC
+chunk codec, version 1 and version 2 with P frames
+(``codec.fvc.FvcEncoder``, ``FvcDecoder``) and its element
+``cudafvcenc``. ``import flutpu_torch`` registers both elements.
 """
 
 __version__ = "0.1.0"
 
-from . import codec  # noqa: F401  (registers cudajpegenc)
+from . import codec  # noqa: F401  (registers cudajpegenc, cudafvcenc)

@@ -1,8 +1,9 @@
 """Build and load the port's CUDA kernels (``csrc/*.cu``).
 
 The sources have a plain C interface and are compiled by ``nvcc`` for
-Hopper (``sm_90a``) into one shared library that ``ctypes`` loads: no
-PyTorch headers, so a build takes seconds. The library lands in
+Hopper (``sm_90a``), one nvcc per source side by side, and linked into
+one shared library that ``ctypes`` loads: no PyTorch headers, so a build
+takes seconds. The library lands in
 ``flutpu_torch/_build/`` under a name that carries a hash of the sources
 and flags, so it is built at first use and rebuilt whenever a source
 changes. Nothing here runs at import time: the CPU-only test runs import
@@ -23,9 +24,9 @@ from typing import List, Optional
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("frontend.cu", "entropy_pack.cu")
+SOURCES = ("frontend.cu", "entropy_pack.cu", "motion.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -57,14 +58,28 @@ def find_nvcc() -> str:
     return shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
 
 
-def nvcc_command(out_path: str, nvcc: Optional[str] = None) -> List[str]:
-    return [nvcc or find_nvcc(), *NVCC_FLAGS, "-o", out_path, *source_paths()]
+def compile_commands(obj_dir: str, nvcc: Optional[str] = None):
+    """One nvcc command per source, each to its own object in
+    ``obj_dir``: [(command, object path)]."""
+    nvcc = nvcc or find_nvcc()
+    out = []
+    for src in source_paths():
+        obj = os.path.join(obj_dir, os.path.basename(src) + ".o")
+        out.append(([nvcc, *NVCC_FLAGS, "-c", "-o", obj, src], obj))
+    return out
+
+
+def link_command(out_path: str, objects: List[str],
+                 nvcc: Optional[str] = None) -> List[str]:
+    return [nvcc or find_nvcc(), "-shared", "-o", out_path, *objects]
 
 
 def build(out_path: Optional[str] = None) -> str:
-    """Compile the sources into ``out_path`` (default: library_path()).
-    Concurrent builds serialize on a lock file; the library appears
-    atomically."""
+    """Compile the sources into ``out_path`` (default: library_path()):
+    every source by its own nvcc, all started together, then one link.
+    The compilers' messages (``-Xptxas=-v``: registers, shared memory and
+    spills per kernel) land in ``out_path + ".log"``. Concurrent builds
+    serialize on a lock file; the library appears atomically."""
     out_path = out_path or library_path()
     os.makedirs(os.path.dirname(out_path), exist_ok=True)
     with open(out_path + ".lock", "w") as lockf:
@@ -72,11 +87,32 @@ def build(out_path: Optional[str] = None) -> str:
         if os.path.exists(out_path):
             return out_path
         tmp = f"{out_path}.tmp{os.getpid()}"
-        res = subprocess.run(nvcc_command(tmp), capture_output=True, text=True,
-                             timeout=600)
-        if res.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
-        os.replace(tmp, out_path)
+        obj_dir = tmp + ".d"
+        os.makedirs(obj_dir, exist_ok=True)
+        try:
+            jobs = [(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True),
+                     cmd[-1]) for cmd, _ in compile_commands(obj_dir)]
+            log, failed = [], []
+            for proc, src in jobs:
+                text, _ = proc.communicate(timeout=600)
+                log.append(f"== {os.path.basename(src)}\n{text}")
+                if proc.returncode != 0:
+                    failed.append(f"{src} ({proc.returncode})")
+            if failed:
+                raise RuntimeError("nvcc failed: " + ", ".join(failed)
+                                   + "\n" + "\n".join(log))
+            objs = [obj for _, obj in compile_commands(obj_dir)]
+            res = subprocess.run(link_command(tmp, objs), capture_output=True,
+                                 text=True, timeout=600)
+            if res.returncode != 0:
+                raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                                   f"{res.stderr}")
+            with open(out_path + ".log", "w") as fh:
+                fh.write("\n".join(log))
+            os.replace(tmp, out_path)
+        finally:
+            shutil.rmtree(obj_dir, ignore_errors=True)
     return out_path
 
 
@@ -90,6 +126,10 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.flu_pack_init.restype = i
     lib.flu_pack_segments.argtypes = [p, p, p, p, i, i, i, p]
     lib.flu_pack_segments.restype = i
+    lib.flu_motion_search_mc.argtypes = [p, p, p, p, i, i, i, p]
+    lib.flu_motion_search_mc.restype = i
+    lib.flu_chroma_mc.argtypes = [p, p, p, p, p, i, i, p]
+    lib.flu_chroma_mc.restype = i
 
 
 def load() -> ctypes.CDLL:

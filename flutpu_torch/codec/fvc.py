@@ -1,0 +1,701 @@
+"""FVC — the GOP video codec on the GPU (port of flutpu/codec/fvc.py).
+
+I + P frames in one chunk, coded in the DCT domain with the JPEG entropy
+stage. Version 1 codes each frame's quantized coefficients as a residual
+against the accumulated previous ones (no motion). Version 2 (motion
+mode) runs the hybrid loop per frame: full-search motion estimation
+against the reconstructed reference, motion-compensated prediction, DCT
+and quantization of the pixel residual, and the in-loop reconstruction
+that the decoder mirrors. A frame is coded intra (flat-128 prediction)
+when that leaves less luma residual than the motion prediction, so a
+scene cut inside a chunk becomes an I frame.
+
+On a CUDA device version 1 runs the front-end kernel, an integer scan
+and the Huffman pack kernel; version 2 runs the motion search kernel
+(with the luma prediction) and the chroma compensation kernel per frame,
+the in-loop DCT/IDCT in plain PyTorch (per 8x8 block, full fp32), and the
+pack kernel once per chunk. The per-frame I/P decision stays on the
+device. The chunk's compressed words, its vectors and its frame-type word
+come back in one copy into pinned memory.
+
+Bitstream: byte-compatible with flutpu's (``MAGIC``, the header layout
+and the per-frame records are copies). The port writes header flags
+bit 3 = 0: its in-loop reconstruction uses the per-block DCT, which is
+what flutpu's decoder on the CPU expects for such streams.
+
+Not ported (each raises ``NotImplementedError``): half-pel motion
+(``subpel``), hierarchical search (``hier``), B frames, 4:4:4, batched
+chunk dispatch, rate control (``bitrate``), spatial striping.
+"""
+
+from __future__ import annotations
+
+import functools
+import struct
+import zlib
+from typing import List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
+
+from flutpu.core import Buffer, Caps, PropertySpec, register
+
+from .base import VideoEncoder
+from .convert import encoder_state_from_numpy
+from .decode import coefs_to_rgb, decode_scan_to_coefs
+from .encoder import SCENE_NEW_EVENT_NAME
+from .jpeg import JpegEncoder, _edge_pad, _HostCopy, _pad_to, \
+    _planes_front_end
+from .ops.colorspace import i420_to_rgb, planes_to_i420
+from .ops.dct import dct_matrix, plane_dct, plane_idct, unblockize
+from .ops.entropy import compact_segments_finalize, \
+    encode_gop_scans_segmented
+from .ops.motion import motion_compensate
+from .ops.motion_kernels import MAX_SEARCH_RANGE, chroma_mc, \
+    motion_search_mc
+from .ops.quant import (CHROMA_QTABLE, LUMA_QTABLE, dequantize, quant_map,
+                        quantize, scale_qtable, zigzag_flatten,
+                        zigzag_unflatten)
+
+# copies of flutpu.codec.fvc's constants
+MAGIC = b"FVC1"
+VERSION = 1
+_CLAMP = 1023  # keeps every residual within standard-table magnitude range
+
+
+def _check_full_fp32(device: torch.device) -> None:
+    """The in-loop DCT/IDCT is codec state: the decoder reconstructs in
+    full fp32, so a TF32 matmul on the card would drift the P chain."""
+    if device.type == "cuda" and (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "FVC motion mode needs full-fp32 matmuls on the card: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False and "
+            "torch.set_float32_matmul_precision('highest')")
+
+
+# ----------------------------------------------------------------------------
+# device programs
+# ----------------------------------------------------------------------------
+
+def fvc_residuals(yq: torch.Tensor, cbq: torch.Tensor, crq: torch.Tensor):
+    """Quantized coefficient planes (F, BH, BW, 64) → clamped residual
+    planes (int16). The zero initial state makes frame 0 the I frame;
+    each later frame codes against the accumulated reconstruction."""
+    out = []
+    for plane in (yq, cbq, crq):
+        rec = torch.zeros(plane.shape[1:], dtype=torch.int32,
+                          device=plane.device)
+        res = []
+        for f in range(plane.shape[0]):
+            r = (plane[f].to(torch.int32) - rec).clamp(-_CLAMP, _CLAMP)
+            rec = rec + r
+            res.append(r.to(torch.int16))
+        out.append(torch.stack(res))
+    return tuple(out)
+
+
+def fvc_accumulate(ry: torch.Tensor, rcb: torch.Tensor, rcr: torch.Tensor):
+    """Decoder side: residual planes → absolute coefficient planes
+    (cumulative sum over the frame axis)."""
+    return tuple(torch.cumsum(r.to(torch.int32), dim=0)
+                 for r in (ry, rcb, rcr))
+
+
+def _code_plane(resid: torch.Tensor, qtab: torch.Tensor):
+    """Pixel residual plane → (zigzagged int16 coefficients, the
+    reconstructed residual), per-block DCT (header flags bit 3 = 0)."""
+    coefs = quantize(plane_dct(resid), qtab).clamp(-_CLAMP, _CLAMP)
+    rec = plane_idct(dequantize(coefs, qtab))
+    return zigzag_flatten(coefs).to(torch.int16), rec
+
+
+def _planes(frames):
+    """(r, g, b) channel planes or interleaved (F, H, W, 3) frames →
+    the three channel planes."""
+    if isinstance(frames, (tuple, list)):
+        return tuple(frames)
+    return frames[..., 0], frames[..., 1], frames[..., 2]
+
+
+def fvc_mc_encode_chunk(frames, qy: torch.Tensor, qc: torch.Tensor,
+                        pad_h: int, pad_w: int, search_range: int = 7,
+                        hier: bool = False, subpel: bool = False,
+                        planar: Optional[bool] = None):
+    """Motion-compensated chunk encode (FVC v2, P frames only): per frame,
+    the search kernel against the reconstructed reference (vectors and
+    luma prediction), the chroma kernel, the device-side I/P decision,
+    DCT + quantization of the pixel residual and the in-loop
+    reconstruction. ``frames``: (r, g, b) uint8 planes (F, H, W) or
+    interleaved (F, H, W, 3), edge-padded here to (pad_h, pad_w).
+
+    Returns (ry, rcb, rcr) int16 zigzagged residual coefficients,
+    mvs (F, H/16, W/16, 2) int8 and itypes (F,) int8 (1 = intra)."""
+    if hier:
+        raise NotImplementedError("hierarchical motion search (K5) is not "
+                                  "ported yet")
+    if subpel:
+        raise NotImplementedError("half-pel motion is not ported yet")
+    if planar:
+        raise NotImplementedError("the port reconstructs with the per-block "
+                                  "DCT (header flags bit 3 = 0)")
+    r, g, b = (_edge_pad(p, pad_h, pad_w) for p in _planes(frames))
+    _check_full_fp32(r.device)
+    y, cb, cr = planes_to_i420(r, g, b)
+    f = y.shape[0]
+    dev = y.device
+    mbh, mbw = pad_h // 16, pad_w // 16
+    no_mv = torch.zeros((mbh, mbw, 2), dtype=torch.int32, device=dev)
+    outs, mvs, itypes = [], [], []
+    rec_y = rec_cb = rec_cr = None
+    for i in range(f):
+        cy, ccb, ccr = y[i], cb[i], cr[i]
+        if i == 0:   # the chunk starts on an I frame: no search to run
+            is_i = torch.ones((), dtype=torch.bool, device=dev)
+            mv = no_mv
+            pred_y = pred_cb = pred_cr = 128.0
+        else:
+            mv, pred_p_y = motion_search_mc(cy, rec_y, search_range)
+            # the in-codec scene-cut detector: intra when flat 128 leaves
+            # less luma residual than the motion prediction (sums in
+            # float64, so the CPU and the card decide alike)
+            sad_p = (cy - pred_p_y).abs().sum(dtype=torch.float64)
+            sad_i = (cy - 128.0).abs().sum(dtype=torch.float64)
+            is_i = sad_i < sad_p
+            mv = torch.where(is_i, no_mv, mv)
+            pcb, pcr = chroma_mc(rec_cb, rec_cr, mv, search_range)
+            pred_y = torch.where(is_i, 128.0, pred_p_y)
+            pred_cb = torch.where(is_i, 128.0, pcb)
+            pred_cr = torch.where(is_i, 128.0, pcr)
+        oy, ry_rec = _code_plane(cy - pred_y, qy)
+        ocb, rcb_rec = _code_plane(ccb - pred_cb, qc)
+        ocr, rcr_rec = _code_plane(ccr - pred_cr, qc)
+        rec_y = (pred_y + ry_rec).clamp(0.0, 255.0)
+        rec_cb = (pred_cb + rcb_rec).clamp(0.0, 255.0)
+        rec_cr = (pred_cr + rcr_rec).clamp(0.0, 255.0)
+        outs.append((oy, ocb, ocr))
+        mvs.append(mv.to(torch.int8))
+        itypes.append(is_i.to(torch.int8))
+    ry, rcb, rcr = (torch.stack(p) for p in zip(*outs))
+    return ry, rcb, rcr, torch.stack(mvs), torch.stack(itypes)
+
+
+def _fvc_gop_program_v1(frames, qy, qc, pad_h, pad_w, layout, prefix_words,
+                        seg_g, seg_words):
+    """Front-end kernel → temporal residuals → pack kernel → combined
+    (F, 1 + S + prefix_words) int32 words (see encode_gop_scans_segmented)."""
+    r, g, b = _planes(frames)
+    coefs = _planes_front_end(r, g, b, qy, qc, pad_h, pad_w)
+    ry, rcb, rcr = fvc_residuals(*coefs)
+    return encode_gop_scans_segmented(ry, rcb, rcr, layout=layout,
+                                      prefix_words=prefix_words, seg_g=seg_g,
+                                      seg_words=seg_words)
+
+
+def _fvc_gop_program_v2(frames, qy, qc, pad_h, pad_w, search_range, layout,
+                        prefix_words, seg_g, seg_words):
+    """The v1 program's layout with the motion loop in front and two
+    more fields per frame: the int8 vectors packed four to a word, then
+    the frame-type word — one array, so one copy brings back the chunk."""
+    ry, rcb, rcr, mvs, itypes = fvc_mc_encode_chunk(
+        frames, qy, qc, pad_h, pad_w, search_range)
+    combined = encode_gop_scans_segmented(ry, rcb, rcr, layout=layout,
+                                          prefix_words=prefix_words,
+                                          seg_g=seg_g, seg_words=seg_words)
+    f = mvs.shape[0]
+    side = mvs.reshape(f, -1)
+    pad = (-side.shape[1]) % 4
+    if pad:
+        side = torch.nn.functional.pad(side, (0, pad))
+    mv_words = side.contiguous().view(torch.int32)   # little-endian bytes
+    return torch.cat([combined, mv_words, itypes.to(torch.int32)[:, None]],
+                     dim=1)
+
+
+# ----------------------------------------------------------------------------
+# encoder
+# ----------------------------------------------------------------------------
+
+def _table_quality(qy, qc) -> int:
+    """The quality whose scaled tables are (qy, qc): the FVC header
+    carries a quality, not tables."""
+    qy, qc = np.asarray(qy), np.asarray(qc)
+    for q in range(1, 101):
+        if (np.array_equal(scale_qtable(LUMA_QTABLE, q), qy)
+                and np.array_equal(scale_qtable(CHROMA_QTABLE, q), qc)):
+            return q
+    raise ValueError("the quant tables are not those of any quality 1..100")
+
+
+class _ChunkHandle(NamedTuple):
+    combined: _HostCopy
+    prefix: int
+    prefix_bound: int         # theoretical words/frame of this geometry
+    n_segs: int
+    seg_words: int
+    build: Optional[object]   # None once a redispatch was made
+    f: int
+    h: int
+    w: int
+    ph: int
+    pw: int
+
+
+class FvcEncoder:
+    """Encode GOP chunks of RGB frames into FVC bitstream chunks on one
+    device. ``motion=True`` selects the v2 hybrid codec. ``device`` is
+    where the encode runs: a CUDA device launches the kernels; ``"cpu"``
+    runs their plain PyTorch versions. Sizing of the entropy stage
+    (compressed-prefix window, segment staging, overflow redispatch) is
+    the port's JpegEncoder's, as in flutpu."""
+
+    def __init__(self, quality: int = 85, subsample: bool = True,
+                 motion: bool = False, search_range: int = 7, *,
+                 engine: str = "auto", hier: bool = False,
+                 subpel: bool = False, bframes: int = 0, device="cuda"):
+        if not subsample:
+            raise NotImplementedError("the port encodes 4:2:0 only; 4:4:4 "
+                                      "is not ported yet")
+        if hier:
+            raise NotImplementedError("search=hier (kernel K5) is not ported "
+                                      "yet")
+        if subpel:
+            raise NotImplementedError("half-pel motion is not ported yet")
+        if bframes:
+            raise NotImplementedError("B frames are not ported yet")
+        if engine not in ("auto", "device"):
+            raise NotImplementedError(f"engine={engine!r}: the port codes on "
+                                      "the device only (auto | device)")
+        if not 0 < search_range <= 126:
+            raise ValueError("search_range must be in 1..126 (vectors are "
+                             "int8 in the bitstream)")
+        if search_range > MAX_SEARCH_RANGE:
+            raise NotImplementedError(
+                f"search ranges above {MAX_SEARCH_RANGE} are not ported")
+        self.quality = quality
+        self.motion = bool(motion)
+        self.search_range = int(search_range)
+        self.device = torch.device(device)
+        # shared scan coder: its tables, sizing policy and overflow bounds
+        self._scan_coder = JpegEncoder(quality, device=self.device)
+        self.qy, self.qc = self._scan_coder.qy, self._scan_coder.qc
+
+    @classmethod
+    def from_numpy_state(cls, qy, qc, search_range: int = 7, *,
+                         motion: bool = False,
+                         seg_words: Optional[int] = None,
+                         prefix_window: Optional[int] = None,
+                         device="cuda") -> "FvcEncoder":
+        """An encoder with given quantization tables and adaptive sizes
+        (e.g. flutpu's ``qy``, ``qc``, ``search_range`` and its scan
+        coder's ``_seg_words``, ``_prefix_window``). The tables must be
+        a quality's: the chunk header carries the quality."""
+        enc = cls(_table_quality(qy, qc), motion=motion,
+                  search_range=search_range, device=device)
+        enc._scan_coder._set_state(encoder_state_from_numpy(
+            qy, qc, seg_words=seg_words, prefix_window=prefix_window,
+            device=enc.device))
+        return enc
+
+    # -- dispatch / finalize ------------------------------------------------
+    def _dispatch(self, frames_fn, f: int, h: int, w: int) -> _ChunkHandle:
+        sc = self._scan_coder
+        ph, pw = _pad_to(h, 16), _pad_to(w, 16)
+        qy, qc = sc._qy_dev, sc._qc_dev
+
+        def program(layout, prefix_words, seg_words):
+            if self.motion:
+                return _fvc_gop_program_v2(
+                    frames_fn(), qy, qc, ph, pw, self.search_range, layout,
+                    prefix_words, sc.SEG_G, seg_words)
+            return _fvc_gop_program_v1(frames_fn(), qy, qc, ph, pw, layout,
+                                       prefix_words, sc.SEG_G, seg_words)
+
+        return _ChunkHandle(*sc._run_sized(program, ph, pw), f, h, w, ph,
+                            pw)
+
+    def encode_chunk_dispatch(self, frames) -> _ChunkHandle:
+        """Enqueue the device encode of (F, H, W, 3) uint8 RGB frames
+        (numpy or tensor). Non-blocking on a CUDA device; returns a handle
+        for ``encode_chunk_finalize``."""
+        t = torch.as_tensor(np.ascontiguousarray(frames)
+                            if isinstance(frames, np.ndarray) else frames)
+        t = t.to(self.device)
+        f, h, w, _ = t.shape
+        return self._dispatch(lambda: t, f, h, w)
+
+    def encode_chunk_dispatch_src(self, src_fn, start, n: int, h: int,
+                                  w: int) -> _ChunkHandle:
+        """encode_chunk_dispatch with an on-device frame source:
+        ``src_fn(ph, pw, n, start)`` returns (r, g, b) uint8 planes, each
+        (n, ph, pw), or interleaved (n, ph, pw, 3) frames, at the coded
+        size (h, w rounded up to 16)."""
+        ph, pw = _pad_to(h, 16), _pad_to(w, 16)
+        return self._dispatch(lambda: src_fn(ph, pw, n, start), n, h, w)
+
+    def encode_chunk_finalize(self, handle: _ChunkHandle) -> bytes:
+        """Blocking half: wait for the copy, check the sizes (redispatch
+        once on overflow), compact the scans, assemble the chunk."""
+        payloads, mvs, itypes = self._finalize(handle)
+        return self._build_chunk(payloads, mvs, itypes, handle.f, handle.h,
+                                 handle.w)
+
+    def encode_chunk(self, frames) -> bytes:
+        """(F, H, W, 3) uint8 → one FVC chunk (frame 0 is the I frame)."""
+        return self.encode_chunk_finalize(self.encode_chunk_dispatch(frames))
+
+    def _finalize(self, handle: _ChunkHandle):
+        """Per frame: [0] = aligned words, [1..S] = segment bits,
+        [S+1..S+prefix] = word-aligned stream, then (motion) the vector
+        words and the frame-type word."""
+        arr, handle = self._scan_coder._fetch(handle)
+        n = handle.n_segs
+        scan_end = 1 + n + handle.prefix
+        payloads = [compact_segments_finalize(arr[i, 1:1 + n],
+                                              arr[i, 1 + n:scan_end])
+                    for i in range(arr.shape[0])]
+        mvs = itypes = None
+        if self.motion:
+            mbh, mbw = handle.ph // 16, handle.pw // 16
+            mv_len = mbh * mbw * 2
+            mvs = [np.frombuffer(arr[i, scan_end:-1].tobytes(),
+                                 np.int8)[:mv_len].reshape(mbh, mbw, 2)
+                   for i in range(arr.shape[0])]
+            itypes = arr[:, -1].astype(np.int64)
+        return payloads, mvs, itypes
+
+    def _build_chunk(self, payloads, mvs, itypes, f: int, h: int,
+                     w: int) -> bytes:
+        """Container assembly (flutpu's ``_build_chunk`` for P-only
+        streams)."""
+        version = 2 if self.motion else VERSION
+        flags = 1                      # 4:2:0
+        if self.motion:
+            flags |= 2                 # vectors are zlib-compressed
+        out = [MAGIC, struct.pack(">BBHHBB", version, flags, w, h,
+                                  self.quality, f)]
+        if self.motion:
+            out.append(struct.pack(">B", self.search_range))
+        for i in range(f):
+            payload = payloads[i]
+            if self.motion:
+                it = int(itypes[i])
+                ftype = 0 if (i == 0 or it) else 1
+                mv_bytes = b"" if ftype == 0 else zlib.compress(
+                    mvs[i].astype(np.int8).tobytes(), 6)
+                out.append(struct.pack(">BHI", ftype, len(mv_bytes),
+                                       len(payload)))
+                out.append(mv_bytes)
+            else:
+                ftype = 0 if i == 0 else 1
+                out.append(struct.pack(">BI", ftype, len(payload)))
+            out.append(payload)
+        return b"".join(out)
+
+
+# ----------------------------------------------------------------------------
+# decoder
+# ----------------------------------------------------------------------------
+
+@functools.lru_cache()
+def _bd_dct_matrix(dim: int) -> np.ndarray:
+    """(dim, dim) block-diagonal matrix with the 8x8 DCT on the diagonal
+    (copy of flutpu.codec.ops.dct._bd_dct_matrix)."""
+    c = dct_matrix(8)
+    m = np.zeros((dim, dim), np.float32)
+    for b in range(dim // 8):
+        m[b * 8:(b + 1) * 8, b * 8:(b + 1) * 8] = c
+    return m
+
+
+def _residual_plane(q: torch.Tensor, qtab: torch.Tensor,
+                    planar: bool) -> torch.Tensor:
+    """Zigzagged quantized (BH, BW, 64) coefficients → the residual plane,
+    through the formulation the encoder used (header flags bit 3)."""
+    if not planar:
+        return plane_idct(dequantize(zigzag_unflatten(q.to(torch.float32)),
+                                     qtab))
+    cp = unblockize(zigzag_unflatten(q.to(torch.int32)))
+    h, w = cp.shape[-2:]
+    x = cp.to(torch.float32) * quant_map(qtab, h, w)
+    bh = torch.as_tensor(_bd_dct_matrix(h), device=q.device)
+    bw = torch.as_tensor(_bd_dct_matrix(w), device=q.device)
+    return bh.T @ x @ bw
+
+
+class FvcDecoder:
+    """Decode FVC chunks back to RGB frames: native scan decode on the
+    host, reconstruction in plain PyTorch on ``device``. Reads version 1
+    and version 2 P-only chunks (header flags bits 0, 1 and 3); half-pel
+    vectors (bit 2), coded-size extensions (bit 4), B frames (bit 5) and
+    4:4:4 raise ``NotImplementedError``."""
+
+    def __init__(self, device="cpu"):
+        self.device = torch.device(device)
+
+    @staticmethod
+    def parse_chunk(data: bytes):
+        """Header walk of one chunk → (header dict: ``version``, ``flags``,
+        ``width``, ``height``, ``quality``, ``search_range``; per frame
+        (frame_type, vectors (H/16, W/16, 2) int8 or None, payload))."""
+        if data[:4] != MAGIC:
+            raise ValueError("not an FVC chunk")
+        if len(data) < 12:
+            raise ValueError("truncated FVC chunk header")
+        version, flags, w, h, quality, f = struct.unpack(">BBHHBB",
+                                                         data[4:12])
+        if not flags & 1:
+            raise NotImplementedError("4:4:4 FVC chunks are not ported yet")
+        for bit, what in ((4, "half-pel vectors"),
+                          (16, "coded-size extensions"), (32, "B frames")):
+            if flags & bit:
+                raise NotImplementedError(f"FVC {what} are not ported yet")
+        ph, pw = _pad_to(h, 16), _pad_to(w, 16)
+        if ph == 0 or pw == 0:
+            raise ValueError("zero-sized FVC chunk")
+        off = 12
+        search_range = 7
+        if version >= 2:
+            if len(data) < 13:
+                raise ValueError("truncated FVC v2 header")
+            search_range = data[12]
+            off = 13
+        frames = []
+        for i in range(f):
+            mv = None
+            if version >= 2:
+                if len(data) - off < 7:
+                    raise ValueError(f"truncated frame header (frame {i})")
+                ftype, mv_len, plen = struct.unpack(">BHI",
+                                                    data[off:off + 7])
+                off += 7
+                if mv_len:
+                    if len(data) - off < mv_len:
+                        raise ValueError(f"bad motion block (frame {i})")
+                    raw = data[off:off + mv_len]
+                    if flags & 2:
+                        try:
+                            raw = zlib.decompress(raw)
+                        except zlib.error as e:
+                            raise ValueError(
+                                f"corrupt motion block (frame {i}): {e}")
+                    if len(raw) != (ph // 16) * (pw // 16) * 2:
+                        raise ValueError(f"bad motion block (frame {i})")
+                    mv = np.frombuffer(raw, np.int8).reshape(ph // 16,
+                                                             pw // 16, 2)
+                    off += mv_len
+            else:
+                if len(data) - off < 5:
+                    raise ValueError(f"truncated frame header (frame {i})")
+                ftype, plen = struct.unpack(">BI", data[off:off + 5])
+                off += 5
+            if len(data) - off < plen:
+                raise ValueError(f"truncated payload (frame {i})")
+            frames.append((ftype, mv, data[off:off + plen]))
+            off += plen
+        header = {"version": version, "flags": flags, "width": w,
+                  "height": h, "quality": quality,
+                  "search_range": search_range}
+        return header, frames
+
+    def decode_chunk(self, data: bytes) -> Tuple[np.ndarray, dict]:
+        """One chunk → ((F, H, W, 3) uint8 frames, info with ``quality``,
+        ``types`` (0 = I, 1 = P), ``width``, ``height``)."""
+        hdr, frames = self.parse_chunk(data)
+        h, w, quality = hdr["height"], hdr["width"], hdr["quality"]
+        ph, pw = _pad_to(h, 16), _pad_to(w, 16)
+        planes = []
+        for i, (_, _, payload) in enumerate(frames):
+            coefs = decode_scan_to_coefs(payload, pw // 8, ph // 8, pw // 16,
+                                         ph // 16, True)
+            if coefs is None:
+                raise ValueError(f"corrupt FVC payload (frame {i})")
+            planes.append(coefs)
+        types = [t for t, _, _ in frames]
+        mvs = [m for _, m, _ in frames]
+
+        dev = self.device
+        qy = torch.as_tensor(scale_qtable(LUMA_QTABLE, quality), device=dev)
+        qc = torch.as_tensor(scale_qtable(CHROMA_QTABLE, quality), device=dev)
+        ry, rcb, rcr = (torch.as_tensor(np.stack([p[c] for p in planes]),
+                                        device=dev) for c in range(3))
+        if hdr["version"] >= 2:
+            frames = self._reconstruct_mc(ry, rcb, rcr, mvs, qy, qc,
+                                          planar=bool(hdr["flags"] & 8))
+        else:
+            frames = coefs_to_rgb(*fvc_accumulate(ry, rcb, rcr), qy, qc, h,
+                                  w)
+        frames = frames[:, :h, :w].cpu().numpy()
+        return frames, {"quality": quality, "types": types, "width": w,
+                        "height": h}
+
+    @staticmethod
+    def _reconstruct_mc(ry, rcb, rcr, mvs, qy, qc, planar: bool):
+        """v2 frames → RGB: vectors as an (F, H/16, W/16, 2) array, frames
+        without vectors intra, then the in-loop reconstruction."""
+        mbh, mbw = ry.shape[1] // 2, ry.shape[2] // 2
+        mv_arr = np.zeros((len(mvs), mbh, mbw, 2), np.int8)
+        itypes = np.zeros(len(mvs), np.int8)
+        for i, mv in enumerate(mvs):
+            if mv is None:
+                itypes[i] = 1
+            else:
+                mv_arr[i] = mv
+        y, cb, cr = fvc_mc_decode_chunk(
+            ry, rcb, rcr, torch.from_numpy(mv_arr).to(ry.device),
+            torch.from_numpy(itypes), qy, qc, planar=planar)
+        rgb = i420_to_rgb(y, cb, cr)
+        return (rgb + 0.5).clamp(0, 255).to(torch.uint8)
+
+
+def fvc_mc_decode_chunk(ry, rcb, rcr, mvs, itypes, qy, qc,
+                        search_range: int = 7, planar: bool = False):
+    """The encoder's in-loop reconstruction, frame by frame.
+
+    ry/rcb/rcr: (F, BH, BW, 64) zigzagged residual coefficients; mvs
+    (F, H/16, W/16, 2) integer vectors; itypes (F,) — nonzero where the
+    frame is intra (flat-128 prediction; frame 0 always is). ``planar``
+    is header flags bit 3. Returns the (F, H, W), (F, H/2, W/2) x 2
+    float32 planes. ``search_range`` is accepted for the reference's
+    signature."""
+    out = []
+    rec = None
+    for i in range(ry.shape[0]):
+        if i == 0 or int(itypes[i]):
+            pred = (128.0, 128.0, 128.0)
+        else:
+            m = mvs[i]
+            pred = (motion_compensate(rec[0], m),
+                    motion_compensate(rec[1], m, mb=8),
+                    motion_compensate(rec[2], m, mb=8))
+        rec = tuple(
+            (p + _residual_plane(q[i], t, planar)).clamp(0.0, 255.0)
+            for p, q, t in zip(pred, (ry, rcb, rcr), (qy, qc, qc)))
+        out.append(rec)
+    return tuple(torch.stack(p) for p in zip(*out))
+
+
+# ----------------------------------------------------------------------------
+# element
+# ----------------------------------------------------------------------------
+
+def _scene_gop_size(event) -> Optional[int]:
+    """The chunk size a hype scene-new event announces, or None for any
+    other event (flutpu.hype.events.SceneNewEvent.parse, copied)."""
+    if event.name != SCENE_NEW_EVENT_NAME:
+        return None
+    return int(event.structure["gop_size"])
+
+
+@register
+class CudaFvcEnc(VideoEncoder):
+    """cudafvcenc — the FVC chunk encoder element on a CUDA device (port
+    of flutpu's ``fvcenc``). Each chunk is one device dispatch; a
+    ForceKeyUnit (chunk start) begins a new chunk with an I frame."""
+
+    FACTORY = "cudafvcenc"
+    SINK_CAPS = "video/x-raw, format=RGB"
+    SRC_CAPS = "video/x-fvc"
+    PROPERTIES = [
+        PropertySpec("quality", 85),
+        PropertySpec("gop-size", 8, "frames per chunk when not driven by "
+                                    "hype scene events"),
+        PropertySpec("motion", False, "v2 hybrid codec: motion-compensated "
+                                      "prediction with in-loop recon"),
+        PropertySpec("search-range", 7, "motion full-search window (±px)"),
+        PropertySpec("engine", "auto", "auto | device: entropy coding always "
+                                       "runs on the device here"),
+        PropertySpec("search", "full", "full (hier is not ported yet)"),
+        PropertySpec("subpel", False, "half-pel motion (not ported yet)"),
+        PropertySpec("bframes", 0, "B frames between anchors (not ported "
+                                   "yet: only 0)"),
+        PropertySpec("bitrate", 0, "target bits/sec; 0 = constant quality "
+                                   "(rate control is not ported yet)"),
+        PropertySpec("segmented", "auto", "accepted for launch-string "
+                     "compatibility; the segment layout is always on"),
+        PropertySpec("device", "cuda", "torch device the encode runs on "
+                     "(cuda, cuda:N, or cpu for the plain versions)"),
+    ]
+
+    def __init__(self, name=None, **props):
+        super().__init__(name, **props)
+        self._encoder: Optional[FvcEncoder] = None
+        self._pending: List[Buffer] = []
+        self._chunk_gop: Optional[int] = None
+
+    def _enc(self) -> FvcEncoder:
+        if self._encoder is None:
+            if int(self.get_property("bitrate")) > 0:
+                raise NotImplementedError("cudafvcenc: bitrate (rate control) "
+                                          "is not ported yet")
+            self._encoder = FvcEncoder(
+                int(self.get_property("quality")),
+                motion=bool(self.get_property("motion")),
+                search_range=int(self.get_property("search-range")),
+                engine=str(self.get_property("engine")),
+                hier=str(self.get_property("search")) == "hier",
+                subpel=bool(self.get_property("subpel")),
+                bframes=int(self.get_property("bframes")),
+                device=str(self.get_property("device")))
+        return self._encoder
+
+    def do_set_property(self, name, value):
+        self._encoder = None  # rebuild with the new settings
+
+    def set_format(self, caps: Caps):
+        fields = {k: v for k, v in caps.fields.items()
+                  if k in ("width", "height", "framerate")}
+        return Caps.new("video/x-fvc", **fields)
+
+    def prewarm(self, caps=None) -> bool:
+        """Build the kernels and encode one chunk of ``caps``' geometry."""
+        if caps is None:
+            return False
+        w, h = caps.get("width"), caps.get("height")
+        if not w or not h:
+            return False
+        gop = self._chunk_gop or int(self.get_property("gop-size"))
+        self._enc().encode_chunk(np.zeros((gop, int(h), int(w), 3),
+                                          np.uint8))
+        return True
+
+    def encode_frame(self, buf: Buffer, keyframe: bool) -> Optional[Buffer]:
+        if keyframe and self._pending:
+            self._flush_chunk()  # new sync point closes the open chunk
+        self._pending.append(buf)
+        target = self._chunk_gop or int(self.get_property("gop-size"))
+        if len(self._pending) >= target:
+            self._flush_chunk()
+        return None
+
+    def on_custom_event(self, event) -> None:
+        gop = _scene_gop_size(event)
+        if gop is not None:
+            self._chunk_gop = gop
+
+    def drain(self) -> None:
+        self._flush_chunk()
+
+    def reset(self) -> None:
+        self._pending = []
+
+    def finish(self):
+        self._flush_chunk()
+        return []
+
+    def _flush_chunk(self) -> None:
+        if not self._pending:
+            return
+        batch, self._pending = self._pending, []
+        frames = np.stack([np.asarray(b.data) for b in batch])
+        chunk = self._enc().encode_chunk(frames)
+        first, last = batch[0], batch[-1]
+        duration = None
+        if first.pts is not None and last.pts is not None:
+            duration = last.pts - first.pts + (last.duration or 0)
+        out = Buffer(chunk, pts=first.pts, dts=first.dts, duration=duration,
+                     offset=first.offset)
+        out.meta["n_frames"] = len(batch)
+        out.meta["frame_pts"] = [b.pts for b in batch]
+        self.srcpad.push(out)

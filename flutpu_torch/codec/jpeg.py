@@ -143,11 +143,11 @@ class _Handle(NamedTuple):
     combined: _HostCopy
     prefix: int
     prefix_bound: int         # theoretical words/frame of this geometry
-    h: int
-    w: int
     n_segs: int
     seg_words: int
     build: Optional[object]   # None once a redispatch was made
+    h: int
+    w: int
 
 
 class JpegEncoder:
@@ -312,26 +312,72 @@ class JpegEncoder:
             return new_prefix, self._seg_words
 
     # -- dispatch / finalize ------------------------------------------------
-    def _dispatch(self, planes_fn, h: int, w: int, ph: int, pw: int):
-        ph, pw = _pad_to(ph, 16), _pad_to(pw, 16)
+    def _run_sized(self, program, ph: int, pw: int):
+        """Enqueue ``program(layout, prefix_words, seg_words)`` — a GOP's
+        device work, returning its combined array (see
+        encode_gop_scans_segmented) — at the adaptive sizes, copied into
+        pinned memory. Returns the handle fields (combined, prefix,
+        prefix_bound, n_segs, seg_words, build); ``build(prefix_words,
+        seg_words)`` reruns the same work at other sizes."""
         layout = mcu_layout(pw // 8, ph // 8, pw // 16, ph // 16, True)
         cap = self._prefix_cap(layout)
         bound = self._prefix_bound(layout)
 
         def build(prefix_w, sw):
             p = min(bound, prefix_w or cap)
-            r, g, b = planes_fn()
-            yq, cbq, crq = _planes_front_end(r, g, b, self._qy_dev,
-                                             self._qc_dev, ph, pw)
-            combined = encode_gop_scans_segmented(
-                yq, cbq, crq, layout=layout, prefix_words=p,
-                seg_g=self.SEG_G, seg_words=sw)
-            return _HostCopy(combined), p, sw
+            return _HostCopy(program(layout, p, sw)), p, sw
 
         win, sw = self._sizes()
         combined, prefix, sw = build(min(win, cap) if win else cap, sw)
         n_segs = (layout.n_blocks + self.SEG_G - 1) // self.SEG_G
-        return _Handle(combined, prefix, bound, h, w, n_segs, sw, build)
+        return combined, prefix, bound, n_segs, sw, build
+
+    def _fetch(self, handle):
+        """Wait for a handle's copy and check the usage it reports against
+        the sizes it ran at; record the usage for the next dispatch.
+        Returns (combined words (F, X) uint32, the handle they came
+        from). On an overflow the device reported the true usage, so the
+        same work is redispatched once at sizes that cover it, up to the
+        theoretical bounds; nothing is ever truncated."""
+        arr = handle.combined.numpy()
+        n = handle.n_segs
+        used = arr[:, 0].astype(np.int64)
+        segbits = arr[:, 1:1 + n].astype(np.int64)
+        if ((used > handle.prefix).any()
+                or (segbits > handle.seg_words * 32).any()):
+            if handle.build is None:
+                raise OverflowError("redispatch at the device-reported size "
+                                    "overflowed again")
+            seg_need = None
+            if (segbits > handle.seg_words * 32).any():
+                seg_need = (int(segbits.max()) + 31) // 32
+            w_need = int(used.max())
+            if w_need > handle.prefix_bound or (
+                    seg_need and seg_need > self._seg_bound()):
+                raise OverflowError(
+                    f"entropy output beyond the theoretical bounds: {w_need} "
+                    f"words/frame, {seg_need} words/segment")
+            new_prefix, new_sw = self._overflow_sizes(w_need, seg_need)
+            combined, p, sw = handle.build(max(new_prefix or 0, w_need),
+                                           new_sw)
+            return self._fetch(handle._replace(
+                combined=combined, prefix=p, seg_words=sw, build=None))
+        self._note_prefix_usage(int(used.max()))
+        self._note_seg_usage(int(segbits.max()))
+        return arr, handle
+
+    def _dispatch(self, planes_fn, h: int, w: int, ph: int, pw: int):
+        ph, pw = _pad_to(ph, 16), _pad_to(pw, 16)
+
+        def program(layout, prefix_words, seg_words):
+            r, g, b = planes_fn()
+            yq, cbq, crq = _planes_front_end(r, g, b, self._qy_dev,
+                                             self._qc_dev, ph, pw)
+            return encode_gop_scans_segmented(
+                yq, cbq, crq, layout=layout, prefix_words=prefix_words,
+                seg_g=self.SEG_G, seg_words=seg_words)
+
+        return _Handle(*self._run_sized(program, ph, pw), h, w)
 
     def encode_gop_dispatch(self, frames_dev: torch.Tensor, h: int, w: int):
         """Enqueue the device encode of a GOP resident on the encoder's
@@ -361,41 +407,12 @@ class JpegEncoder:
         """Blocking half: wait for the copy, check the sizes, compact,
         stuff, wrap headers. Combined layout per frame: [0] = aligned
         words, [1..S] = segment bits, [S+1..] = word-aligned stream."""
-        arr = handle.combined.numpy()
+        arr, handle = self._fetch(handle)
         hdr = jpeg_headers(handle.h, handle.w, self.qy, self.qc, True)
         n = handle.n_segs
-        used = arr[:, 0].astype(np.int64)
-        segbits = arr[:, 1:1 + n].astype(np.int64)
-        if ((used > handle.prefix).any()
-                or (segbits > handle.seg_words * 32).any()):
-            return self._refinalize_grown(handle, used, segbits)
-        self._note_prefix_usage(int(used.max()))
-        self._note_seg_usage(int(segbits.max()))
-        return [hdr + compact_segments_finalize(segbits[i], arr[i, 1 + n:])
+        return [hdr + compact_segments_finalize(arr[i, 1:1 + n],
+                                                arr[i, 1 + n:])
                 + b"\xff\xd9" for i in range(arr.shape[0])]
-
-    def _refinalize_grown(self, handle: _Handle, used: np.ndarray,
-                          segbits: np.ndarray) -> List[bytes]:
-        """Overflow: the device reported the true usage, so grow the
-        window/capacity to cover it and redispatch the same GOP once."""
-        build = handle.build
-        if build is None:
-            raise OverflowError("redispatch at the device-reported size "
-                                "overflowed again")
-        seg_need = None
-        if (segbits > handle.seg_words * 32).any():
-            seg_need = (int(segbits.max()) + 31) // 32
-        w_need = int(used.max())
-        if w_need > handle.prefix_bound or (
-                seg_need and seg_need > self._seg_bound()):
-            raise OverflowError(
-                f"entropy output beyond the theoretical bounds: {w_need} "
-                f"words/frame, {seg_need} words/segment")
-        new_prefix, new_sw = self._overflow_sizes(w_need, seg_need)
-        combined, p, sw = build(max(new_prefix or 0, w_need), new_sw)
-        return self.encode_gop_finalize(
-            handle._replace(combined=combined, prefix=p, seg_words=sw,
-                            build=None))
 
     def encode_frame(self, frame: np.ndarray) -> bytes:
         return self.encode_gop(frame[None])[0]

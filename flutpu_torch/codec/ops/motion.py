@@ -1,0 +1,90 @@
+"""Motion estimation/compensation, plain PyTorch (port of
+flutpu/codec/ops/motion.py, its XLA arm).
+
+Full search over every candidate displacement as a whole-plane tensor op
+(roll → absolute difference → per-macroblock sum), wrap-around edges
+(``torch.roll``), 16x16 luma macroblocks; 4:2:0 chroma is compensated
+with the luma vector floor-halved on an 8x8 grid. These are the plain
+versions: the encoder's path runs the search and both compensations in
+CUDA kernels (ops/motion_kernels.py), which are held against them.
+
+The per-macroblock SAD is summed in one fixed order — each of the 16
+columns down its 16 rows, then the 16 column sums left to right — by
+elementwise adds, so it rounds the same on the CPU and on the card, and
+the search kernel sums in exactly this order.
+"""
+
+from __future__ import annotations
+
+import torch
+
+MB = 16  # luma macroblock
+
+
+def _mb_sums(diff: torch.Tensor, mb: int) -> torch.Tensor:
+    """(H, W) → per-macroblock sums (H/mb, W/mb): each column summed down
+    its mb rows in order, then the mb column sums in order."""
+    h, w = diff.shape
+    rows = diff.reshape(h // mb, mb, w)
+    col = rows[:, 0]
+    for i in range(1, mb):
+        col = col + rows[:, i]
+    cols = col.reshape(h // mb, w // mb, mb)
+    s = cols[..., 0]
+    for j in range(1, mb):
+        s = s + cols[..., j]
+    return s
+
+
+def motion_search(cur_y: torch.Tensor, prev_y: torch.Tensor,
+                  search_range: int = 7, mb: int = MB) -> torch.Tensor:
+    """Full-search motion estimation.
+
+    cur_y/prev_y: (H, W) float32 luma (H, W multiples of mb). Returns mv
+    (H/mb, W/mb, 2) int32: per macroblock the (dy, dx) of least cost
+    ``sad * 64 + |dy| + |dx|`` over the ±search_range window, candidates
+    scanned dy-major and the first scanned winning ties. The integer
+    center bias is exact in fp32 (SAD ≤ 65280: SAD*64 + 14 < 2^24)."""
+    h, w = cur_y.shape
+    n = 2 * search_range + 1
+    cur = cur_y.to(torch.float32)
+    prev = prev_y.to(torch.float32)
+    best_cost = torch.full((h // mb, w // mb), float("inf"),
+                           dtype=torch.float32, device=cur.device)
+    best_mv = torch.zeros((h // mb, w // mb, 2), dtype=torch.int32,
+                          device=cur.device)
+    for c in range(n * n):
+        dy = c // n - search_range
+        dx = c % n - search_range
+        shifted = torch.roll(prev, (dy, dx), dims=(0, 1))
+        sad = _mb_sums((cur - shifted).abs(), mb)
+        cost = sad * 64 + (abs(dy) + abs(dx))
+        better = cost < best_cost
+        best_cost = torch.where(better, cost, best_cost)
+        cand = torch.tensor([dy, dx], dtype=torch.int32, device=cur.device)
+        best_mv = torch.where(better[..., None], cand, best_mv)
+    return best_mv
+
+
+def motion_compensate(prev: torch.Tensor, mv: torch.Tensor,
+                      search_range: int = 7, mb: int = MB) -> torch.Tensor:
+    """The prediction: each mb×mb block of the output comes from ``prev``
+    displaced by its vector, wrap-around (``out[i, j] = prev[(i - dy) mod
+    H, (j - dx) mod W]``, ``torch.roll``'s sign). ``mv`` is on the LUMA
+    grid (H/16, W/16, 2); for chroma pass mb=8 and the same vectors,
+    floor-halved here (``-7 // 2 == -4``). The flat-gather formulation;
+    ``search_range`` is accepted for the reference's signature."""
+    h, w = prev.shape
+    mv = mv.to(torch.int64)
+    if mb == MB:
+        dy, dx = mv[..., 0], mv[..., 1]
+    else:
+        dy = torch.div(mv[..., 0], 2, rounding_mode="floor")
+        dx = torch.div(mv[..., 1], 2, rounding_mode="floor")
+    dy_full = dy.repeat_interleave(mb, 0).repeat_interleave(mb, 1)
+    dx_full = dx.repeat_interleave(mb, 0).repeat_interleave(mb, 1)
+    yy = torch.arange(h, device=prev.device)[:, None]
+    xx = torch.arange(w, device=prev.device)[None, :]
+    sy = torch.remainder(yy - dy_full, h)
+    sx = torch.remainder(xx - dx_full, w)
+    return prev.reshape(-1)[sy * w + sx]

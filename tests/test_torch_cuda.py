@@ -1,4 +1,5 @@
-"""flutpu_torch's CUDA kernels against their plain PyTorch versions.
+"""flutpu_torch's CUDA kernels against their plain PyTorch versions, and
+the encoders on the card against the same encoders on the CPU.
 
 Every test here needs an NVIDIA GPU and nvcc: it is marked ``cuda`` and
 skips where ``torch.cuda.is_available()`` is false. The file imports no
@@ -12,9 +13,11 @@ import pytest
 import torch
 
 from flutpu.core.elements import make_test_frame
+from flutpu_torch.codec.fvc import FvcDecoder, FvcEncoder
 from flutpu_torch.codec.jpeg import JpegEncoder
 from flutpu_torch.codec.ops import entropy_kernels as K
 from flutpu_torch.codec.ops import frontend as F
+from flutpu_torch.codec.ops import motion_kernels as M
 from flutpu_torch.codec.ops.quant import (CHROMA_QTABLE, LUMA_QTABLE,
                                           scale_qtable)
 from torch_helpers import cuda_device, rand_planes, tie_contract  # noqa: F401
@@ -75,3 +78,72 @@ def test_encoder_on_card_matches_cpu(cuda_device):
                        for i in range(3)])
     got = JpegEncoder(device=cuda_device).encode_gop(frames)
     assert got == JpegEncoder(device="cpu").encode_gop(frames)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,r", [(1088, 1920, 7), (96, 160, 7),
+                                   (96, 160, 4), (64, 96, 5)])
+def test_motion_search_kernel_matches_plain(cuda_device, h, w, r):
+    """The kernel sums each SAD in the plain version's order, so vectors
+    and predictions are bit-identical, not only near-tie-equal."""
+    rng = np.random.default_rng(h + r)
+    prev = rng.uniform(0, 255, (h, w)).astype(np.float32)
+    cur = (np.roll(prev, (3, -5), axis=(0, 1))
+           + rng.normal(0, 2, (h, w))).astype(np.float32)
+    c = torch.from_numpy(cur).to(cuda_device)
+    p = torch.from_numpy(prev).to(cuda_device)
+    before = M.motion_search_mc.launches
+    mv, pred = M.motion_search_mc(c, p, r)
+    torch.cuda.synchronize()
+    assert M.motion_search_mc.launches == before + 1
+    mv_p, pred_p = M.motion_search_mc_plain(c, p, r)
+    assert torch.equal(mv, mv_p)
+    assert torch.equal(pred, pred_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hc,wc,r", [(544, 960, 7), (544, 960, 5),
+                                     (48, 80, 4)])
+def test_chroma_kernel_matches_plain(cuda_device, hc, wc, r):
+    rng = np.random.default_rng(hc + r)
+    cb, cr = (torch.from_numpy(rng.normal(128, 30, (hc, wc))
+                               .astype(np.float32)).to(cuda_device)
+              for _ in range(2))
+    mv = torch.from_numpy(rng.integers(-r, r + 1, (hc // 8, wc // 8, 2))
+                          .astype(np.int32)).to(cuda_device)
+    before = M.chroma_mc.launches
+    got = M.chroma_mc(cb, cr, mv, r)
+    assert M.chroma_mc.launches == before + 1
+    for a, b in zip(got, M.chroma_mc_plain(cb, cr, mv, r)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("motion", [False, True])
+def test_fvc_on_card_matches_cpu(cuda_device, motion):
+    """The same chunk encoded on the card and on the CPU; a mid-chunk cut
+    exercises the device-side I/P decision."""
+    frames = np.concatenate([
+        np.stack([make_test_frame("ball", 160, 88, i) for i in range(4)]),
+        np.stack([make_test_frame("noise", 160, 88, i) for i in range(4)])])
+    got = FvcEncoder(motion=motion, device=cuda_device).encode_chunk(frames)
+    want = FvcEncoder(motion=motion, device="cpu").encode_chunk(frames)
+    assert got == want
+    a, info = FvcDecoder(cuda_device).decode_chunk(got)
+    b, info_cpu = FvcDecoder("cpu").decode_chunk(got)
+    assert info == info_cpu
+    assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 1
+
+
+@pytest.mark.cuda
+def test_fvc_motion_refuses_tf32(cuda_device):
+    """The in-loop DCT is codec state: a TF32 matmul would drift the
+    decoder's P chain, so the encoder raises rather than run with it."""
+    frames = np.zeros((2, 32, 48, 3), np.uint8)
+    enc = FvcEncoder(motion=True, device=cuda_device)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError):
+            enc.encode_chunk(frames)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False

@@ -1,0 +1,348 @@
+"""The FVC slice: flutpu_torch's chunk codec against flutpu's on the CPU.
+
+Contract: for the same frames and tables, the port's chunks
+(``device="cpu"``, the kernels' plain versions) equal flutpu's
+``FvcEncoder(...).encode_chunk`` byte for byte at q85 ±7, version 1 and
+version 2 (P frames), through every entry point: ``encode_chunk``,
+dispatch/finalize with two chunks in flight, the on-device source, the
+``cudafvcenc`` element against ``fvcenc``, and chunks whose segments or
+prefix window overflow and are redispatched. The inputs are
+``make_test_frame("ball", 160, 96, i)`` and a clip with a cut in the
+middle (ball, then noise), which makes the per-frame I/P decision pick
+intra. At q90 ±5 and q95 ±5 a rounding tie splits the streams (the
+in-loop DCT is within 1e-4 of XLA's, and SADs are summed in another
+order); there the tie contract of ``_tie_contract`` holds instead. The
+port's ``FvcDecoder`` reads flutpu's chunks within one RGB level of
+flutpu's decoder, with the same frame types."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import flutpu_torch  # noqa: F401  (registers cudafvcenc)
+from flutpu.codec import fvc as jf
+from flutpu.codec.ops.testsrc import gradient_ball_planes as j_ball_planes
+from flutpu.core import make, parse_launch
+from flutpu.core.elements import make_test_frame
+from flutpu_torch.codec import fvc as tf
+from flutpu_torch.codec.fvc import FvcDecoder, FvcEncoder
+from flutpu_torch.codec.ops.colorspace import planes_to_i420
+from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
+
+torch.set_num_threads(1)
+
+W, H = 160, 96
+
+
+def _clip(pattern, n=8, start=0, w=W, h=H):
+    return np.stack([make_test_frame(pattern, w, h, i)
+                     for i in range(start, start + n)])
+
+
+CLIPS = {"ball": _clip("ball"),
+         "cut": np.concatenate([_clip("ball", 4), _clip("noise", 4, 4)])}
+CASES = [(m, c) for m in (False, True) for c in CLIPS]
+
+
+def _port(je, **state):
+    return FvcEncoder.from_numpy_state(je.qy, je.qc, je.search_range,
+                                       motion=je.motion, device="cpu",
+                                       **state)
+
+
+@pytest.fixture(scope="module")
+def jax_chunks():
+    """flutpu's chunks for every (motion, clip), encoded once."""
+    out = {}
+    for motion in (False, True):
+        je = jf.FvcEncoder(85, motion=motion)
+        for name, frames in CLIPS.items():
+            out[(motion, name)] = je.encode_chunk(frames)
+    return out
+
+
+@pytest.mark.parametrize("motion,clip", CASES)
+def test_chunk_byte_identical(jax_chunks, motion, clip):
+    je = jf.FvcEncoder(85, motion=motion)
+    assert _port(je).encode_chunk(CLIPS[clip]) == jax_chunks[(motion, clip)]
+
+
+def _near_tie(cur, refs, mb, vecs):
+    """Two vectors the packages chose for one macroblock, each on its own
+    reference plane (the packages' in-loop reconstructions, which differ
+    by fp32 roundings): in float64, each choice costs no more than the
+    other's on its own reference, up to the fp32 rounding of a 256-term
+    SAD — each is right for its reference, and they rank the pair apart
+    only because the references differ."""
+    by, bx = mb
+
+    def cost(ref, v):
+        dy, dx = int(v[0]), int(v[1])
+        rows = (np.arange(16) + 16 * by - dy) % ref.shape[0]
+        cols = (np.arange(16) + 16 * bx - dx) % ref.shape[1]
+        blk = cur[16 * by:16 * by + 16, 16 * bx:16 * bx + 16]
+        sad = np.abs(blk.astype(np.float64)
+                     - ref[np.ix_(rows, cols)].astype(np.float64)).sum()
+        return sad * 64 + abs(dy) + abs(dx), sad
+
+    for ref, mine, other in ((refs[0], vecs[0], vecs[1]),
+                             (refs[1], vecs[1], vecs[0])):
+        (c_mine, sad), (c_other, _) = cost(ref, mine), cost(ref, other)
+        assert c_mine <= c_other + 64 * 256 * 2.0 ** -23 * max(sad, 1.0), \
+            (mb, vecs)
+
+
+def _tie_contract(frames, je, te):
+    """The contract where a rounding tie splits the two streams: equal
+    frame types; vectors equal except at float64-verified near-ties;
+    coefficients within ±1 on at most 1e-4 of them; flutpu's decoder
+    reads the port's chunk within 0.05 dB of flutpu's own chunk."""
+    r = je.search_range
+    j_parts = jf.fvc_mc_encode_chunk(jnp.asarray(frames), je._qy_dev,
+                                     je._qc_dev, pad_h=H, pad_w=W,
+                                     search_range=r, planar=False)
+    j_rec = np.asarray(jf.fvc_mc_decode_chunk(
+        *j_parts, je._qy_dev, je._qc_dev, search_range=r, planar=False)[0])
+    qy, qc = te._scan_coder._qy_dev, te._scan_coder._qc_dev
+    t_parts = tf.fvc_mc_encode_chunk(torch.from_numpy(frames), qy, qc, H, W,
+                                     r)
+    t_rec = tf.fvc_mc_decode_chunk(*t_parts, qy, qc)[0].numpy()
+    j_parts = [np.asarray(p) for p in j_parts]
+    t_parts = [p.numpy() for p in t_parts]
+    np.testing.assert_array_equal(t_parts[4], j_parts[4])      # frame types
+    cur = planes_to_i420(*(torch.from_numpy(frames[..., c])
+                           for c in range(3)))[0].numpy()
+    for f, by, bx in zip(*np.nonzero((t_parts[3] != j_parts[3]).any(-1))):
+        _near_tie(cur[f], (t_rec[f - 1], j_rec[f - 1]), (by, bx),
+                  (t_parts[3][f, by, bx], j_parts[3][f, by, bx]))
+    d = np.concatenate([np.abs(a.astype(np.int32) - b.astype(np.int32))
+                        .ravel() for a, b in zip(t_parts[:3], j_parts[:3])])
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-4
+    dec = jf.FvcDecoder()
+    psnr = []
+    for chunk in (te.encode_chunk(frames), je.encode_chunk(frames)):
+        rgb = dec.decode_chunk(chunk)[0].astype(np.float64)
+        mse = ((rgb - frames) ** 2).mean(axis=(1, 2, 3))
+        psnr.append(10 * np.log10(255.0 ** 2 / np.maximum(mse, 1e-12)))
+    assert np.abs(psnr[0] - psnr[1]).max() <= 0.05
+
+
+@pytest.mark.parametrize("quality,search_range,identical",
+                         [(60, 4, True), (90, 5, False), (95, 5, False)])
+def test_quality_and_search_range(quality, search_range, identical):
+    """Byte identity holds at q60 ±4. At q90 ±5 the two packages pick
+    different vectors for one macroblock of frame 2 (a float64 near-tie,
+    SADs equal to 1e-8), at q95 ±5 nine coefficients of frames 2-3 land
+    on the other side of a quantization tie (the in-loop DCT is within
+    1e-4 of XLA's, not bit-equal): the tie contract holds there."""
+    je = jf.FvcEncoder(quality, motion=True, search_range=search_range)
+    te = _port(je)
+    frames = CLIPS["cut"]
+    assert (te.encode_chunk(frames) == je.encode_chunk(frames)) == identical
+    _tie_contract(frames, je, te)
+
+
+@pytest.mark.parametrize("motion", [False, True])
+def test_edge_padded_geometry_byte_identical(motion):
+    """150x90 frames code at 160x96: both packages edge-pad the frames,
+    and the header carries 150x90."""
+    frames = _clip("ball", 4, w=150, h=90)
+    je = jf.FvcEncoder(85, motion=motion)
+    got = _port(je).encode_chunk(frames)
+    assert got == je.encode_chunk(frames)
+    assert FvcDecoder().decode_chunk(got)[0].shape == (4, 90, 150, 3)
+
+
+def test_cut_makes_intra_frames(jax_chunks):
+    """The mid-chunk cut is coded intra by both packages: the noise
+    frames predict worse from motion than from flat 128."""
+    types = FvcDecoder.parse_chunk(jax_chunks[(True, "cut")])[1]
+    assert [t for t, _, _ in types] == [0, 1, 1, 1, 0, 0, 0, 0]
+    assert all((mv is None) == (t == 0) for t, mv, _ in types)
+
+
+@pytest.mark.parametrize("motion", [False, True])
+def test_dispatch_src_and_two_in_flight(jax_chunks, motion):
+    """The source renders at the coded size (96 rows) and the header
+    carries the frame size (88 rows), in both packages; two chunks in
+    flight finalize in order. Both encoders read the port's source
+    planes: flutpu's jitted source rounds its red ramp differently
+    (``test_reference_source_ramp_rounds_through_a_reciprocal``)."""
+    je = jf.FvcEncoder(85, motion=motion)
+    te = _port(je)
+    h = 88
+    t_src = lambda ph, pw, n, s: gradient_ball_planes(  # noqa: E731
+        ph, pw, n, s, device="cpu")
+    planes = tuple(jnp.asarray(p.numpy()) for p in t_src(96, W, 8, 8))
+    want = je.encode_chunk_finalize(je.encode_chunk_dispatch_src(
+        lambda ph, pw, n, s: planes, jnp.float32(8), 8, h, W))
+    first = te.encode_chunk_dispatch_src(t_src, 8, 8, h, W)
+    second = te.encode_chunk_dispatch(CLIPS["cut"])
+    assert te.encode_chunk_finalize(first) == want
+    assert te.encode_chunk_finalize(second) == jax_chunks[(motion, "cut")]
+
+
+def test_reference_source_ramp_rounds_through_a_reciprocal():
+    """flutpu's jitted gradient-ball source computes ``x * 255 / (w - 1)``
+    as XLA:CPU folds it, through the reciprocal of w - 1: at w = 160 its
+    red channel is one level lower at x = 53, 106, 159. The port divides
+    (IEEE), and equals numpy; everything else of the frames agrees."""
+    j = [np.asarray(p) for p in j_ball_planes(96, W, 8, jnp.float32(8))]
+    t = [p.numpy() for p in gradient_ball_planes(96, W, 8, 8, device="cpu")]
+    np.testing.assert_array_equal(t[1], j[1])
+    np.testing.assert_array_equal(t[2], j[2])
+    x = np.arange(W, dtype=np.float32)
+    ramp = (x * np.float32(255.0) / np.float32(W - 1)).astype(np.uint8)
+    ball = t[0] == 255
+    np.testing.assert_array_equal(np.where(ball, 255, ramp), t[0])
+    cols = np.nonzero((j[0] != t[0]).any(axis=(0, 1)))[0]
+    assert cols.tolist() == [53, 106, 159]
+    assert (t[0] - j[0]).max() == 1
+
+
+@pytest.mark.parametrize("motion,clip", CASES)
+def test_decoder_matches_flutpu(jax_chunks, motion, clip):
+    data = jax_chunks[(motion, clip)]
+    want, j_info = jf.FvcDecoder().decode_chunk(data)
+    got, info = FvcDecoder().decode_chunk(data)
+    assert info == j_info
+    assert got.shape == want.shape and got.dtype == np.uint8
+    assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+
+
+def test_decoder_reads_planar_flag():
+    """A chunk written with the planar in-loop DCT (header flags bit 3, the
+    JAX encoder's TPU formulation) reconstructs through the planar
+    inverse."""
+    je = jf.FvcEncoder(85, motion=True)
+    je.planar = True
+    data = je.encode_chunk(CLIPS["ball"][:4])
+    assert data[5] & 8
+    want, _ = jf.FvcDecoder().decode_chunk(data)
+    got, _ = FvcDecoder().decode_chunk(data)
+    assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+
+
+def test_motion_chunk_program_matches_jax():
+    """The v2 device program's parts: residual coefficients, vectors and
+    frame types equal flutpu's fvc_mc_encode_chunk (planar=False)."""
+    frames = CLIPS["cut"]
+    je = jf.FvcEncoder(85, motion=True)
+    want = jf.fvc_mc_encode_chunk(jnp.asarray(frames), je._qy_dev,
+                                  je._qc_dev, pad_h=H, pad_w=W,
+                                  search_range=7, planar=False)
+    te = _port(je)
+    got = tf.fvc_mc_encode_chunk(torch.from_numpy(frames),
+                                 te._scan_coder._qy_dev,
+                                 te._scan_coder._qc_dev, H, W, 7)
+    for g, w_ in zip(got, want):
+        assert g.dtype == {np.int16: torch.int16, np.int8: torch.int8}[
+            np.asarray(w_).dtype.type]
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+
+
+def test_residual_scan_and_accumulate_match_jax():
+    rng = np.random.default_rng(0)
+    planes = [rng.integers(-2000, 2000, (5, 3, 4, 64)).astype(np.int16)
+              for _ in range(3)]
+    got = tf.fvc_residuals(*(torch.from_numpy(p) for p in planes))
+    want = jf.fvc_residuals(*(jnp.asarray(p) for p in planes))
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+    acc = tf.fvc_accumulate(*got)
+    j_acc = jf.fvc_accumulate(*want)
+    for g, w_ in zip(acc, j_acc):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+
+
+@pytest.mark.parametrize("state", [{"seg_words": 2}, {"prefix_window": 16}])
+def test_overflow_redispatches_at_reported_size(jax_chunks, state):
+    te = _port(jf.FvcEncoder(85, motion=True), **state)
+    assert te.encode_chunk(CLIPS["cut"]) == jax_chunks[(True, "cut")]
+    sc = te._scan_coder
+    if "seg_words" in state:
+        assert sc._seg_words > 2
+    else:
+        assert sc._prefix_window > 16
+
+
+def test_beyond_theoretical_bound_raises():
+    te = _port(jf.FvcEncoder(85, motion=True), seg_words=2)
+    te._scan_coder.BLOCK_BITS_BOUND = 8   # a bound no real content fits
+    with pytest.raises(OverflowError):
+        te.encode_chunk(CLIPS["cut"][:2])
+
+
+def test_from_numpy_state_needs_a_quality_table():
+    je = jf.FvcEncoder(70)
+    assert _port(je).quality == 70
+    with pytest.raises(ValueError):
+        FvcEncoder.from_numpy_state(je.qy + 1, je.qc, device="cpu")
+
+
+@pytest.mark.parametrize("kwargs", [
+    {"subpel": True}, {"hier": True}, {"bframes": 1}, {"subsample": False},
+    {"engine": "host"}, {"search_range": 40}])
+def test_unported_encoder_options_raise(kwargs):
+    with pytest.raises(NotImplementedError):
+        FvcEncoder(85, motion=True, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("bit", [4, 16, 32])
+def test_unported_stream_features_raise(jax_chunks, bit):
+    data = bytearray(jax_chunks[(True, "ball")])
+    data[5] |= bit
+    with pytest.raises(NotImplementedError):
+        FvcDecoder().decode_chunk(bytes(data))
+
+
+def test_unported_program_options_raise():
+    frames = torch.from_numpy(CLIPS["ball"][:2])
+    q = torch.ones((8, 8), dtype=torch.int32)
+    for kw in ({"hier": True}, {"subpel": True}, {"planar": True}):
+        with pytest.raises(NotImplementedError):
+            tf.fvc_mc_encode_chunk(frames, q, q, H, W, 7, **kw)
+
+
+@pytest.mark.parametrize("prop", ["bitrate=100000", "search=hier",
+                                  "subpel=true", "bframes=1"])
+def test_cudafvcenc_unported_properties_raise(prop):
+    name, value = prop.split("=")
+    el = make("cudafvcenc", device="cpu", motion=True)
+    el.set_property(name, {"true": True}.get(value, value if not
+                                              value.isdigit()
+                                              else int(value)))
+    with pytest.raises(NotImplementedError):
+        el._enc()
+
+
+def test_cudafvcenc_matches_fvcenc_in_one_launch():
+    src = f"videotestsrc num-buffers=16 pattern=ball width={W} height={H}"
+    p = parse_launch(f"{src} ! fvcenc motion=true ! appsink name=a "
+                     f"{src} ! cudafvcenc motion=true device=cpu "
+                     "! appsink name=b")
+    p.play()
+    out = {}
+    try:
+        for name in ("a", "b"):
+            sink, bufs = p.get_by_name(name), []
+            while (buf := sink.try_pull_buffer(timeout=60)) is not None:
+                bufs.append(buf)
+            out[name] = bufs
+    finally:
+        p.stop()
+    assert len(out["b"]) == 2
+    assert [bytes(b.data) for b in out["b"]] == \
+        [bytes(b.data) for b in out["a"]]
+    assert [b.pts for b in out["b"]] == [b.pts for b in out["a"]]
+    assert [b.meta["frame_pts"] for b in out["b"]] == \
+        [b.meta["frame_pts"] for b in out["a"]]
+
+
+def test_v2_header_writes_per_block_dct_flag(jax_chunks):
+    """flags = 4:2:0 | zlib vectors; bit 3 (planar DCT) stays 0, as the
+    JAX encoder writes it on the CPU."""
+    data = _port(jf.FvcEncoder(85, motion=True)).encode_chunk(CLIPS["ball"])
+    assert data[:6] == b"FVC1\x02\x03"
+    assert data[12] == 7

@@ -1,6 +1,6 @@
 """flutpu_torch stands without jax: it imports none, its carried copies
 of jax-free host code still equal their originals in flutpu, and its
-kernel build composes the Hopper nvcc command without needing nvcc."""
+kernel build composes the Hopper nvcc commands without needing nvcc."""
 
 import inspect
 import os
@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from flutpu.codec import base as j_base
+from flutpu.codec import fvc as j_fvc
 from flutpu.codec import jpeg as j_jpeg
 from flutpu.codec import jpeg_tables as j_tables
 from flutpu.codec.ops import colorspace as j_cs
@@ -23,6 +24,7 @@ from flutpu.hype import events as j_events
 from flutpu_torch import _build
 from flutpu_torch.codec import base as t_base
 from flutpu_torch.codec import encoder as t_encoder
+from flutpu_torch.codec import fvc as t_fvc
 from flutpu_torch.codec import jpeg as t_jpeg
 from flutpu_torch.codec import jpeg_tables as t_tables
 from flutpu_torch.codec.ops import colorspace as t_cs
@@ -49,8 +51,20 @@ while (buf := sink.try_pull_buffer(timeout=60)) is not None:
 p.stop()
 assert len(out) == 2, len(out)
 assert all(o[:2] == b"\\xff\\xd8" and o[-2:] == b"\\xff\\xd9" for o in out)
+p = parse_launch("videotestsrc num-buffers=3 width=64 height=32 pattern=ball "
+                 "! cudafvcenc device=cpu motion=true gop-size=3 "
+                 "! appsink name=out")
+sink = p.get_by_name("out")
+p.play()
+chunks = []
+while (buf := sink.try_pull_buffer(timeout=60)) is not None:
+    chunks.append(bytes(buf.data))
+p.stop()
+from flutpu_torch.codec.fvc import FvcDecoder
+frames, info = FvcDecoder().decode_chunk(chunks[0])
+assert len(chunks) == 1 and frames.shape == (3, 32, 64, 3), frames.shape
 assert sys.modules["jax"] is None
-print("encoded", len(out))
+print("encoded", len(out), "chunks", len(chunks))
 """
 
 _NO_JAX_IMPORTS = """
@@ -81,7 +95,7 @@ def _run(code):
 
 
 def test_pipeline_encodes_with_jax_blocked():
-    assert "encoded 2" in _run(_NO_JAX_PIPELINE)
+    assert "encoded 2 chunks 1" in _run(_NO_JAX_PIPELINE)
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
@@ -171,24 +185,69 @@ def test_scene_event_name_equal():
     assert t_encoder.SCENE_NEW_EVENT_NAME == j_events.SCENE_NEW_EVENT_NAME
 
 
+def test_scene_event_parse_copy():
+    ev = j_events.SceneNewEvent(3, 12)
+    assert t_fvc._scene_gop_size(ev) == j_events.SceneNewEvent.parse(ev) \
+        .gop_size == 12
+    other = j_events.SceneNewEvent(0, 8)
+    other.name = "something-else"
+    assert t_fvc._scene_gop_size(other) is None
+    assert j_events.SceneNewEvent.parse(other) is None
+
+
+def test_fvc_constants_equal():
+    assert (t_fvc.MAGIC, t_fvc.VERSION, t_fvc._CLAMP) == \
+        (j_fvc.MAGIC, j_fvc.VERSION, j_fvc._CLAMP)
+    for dim in (8, 96, 160):
+        np.testing.assert_array_equal(t_fvc._bd_dct_matrix(dim),
+                                      j_dct._bd_dct_matrix(dim))
+
+
+@pytest.mark.parametrize("motion", [False, True])
+def test_fvc_chunk_layout_equal(motion):
+    """The container writer is flutpu's, byte for byte: header, per-frame
+    records, zlib'd vectors, intra frames without vectors."""
+    rng = np.random.default_rng(1)
+    payloads = [rng.integers(0, 256, n, np.uint8).tobytes()
+                for n in (40, 7, 0, 300)]
+    mvs = [rng.integers(-7, 8, (6, 10, 2)).astype(np.int8) for _ in range(4)]
+    itypes = np.array([1, 0, 1, 0])
+    te = t_fvc.FvcEncoder(60, motion=motion, search_range=5, device="cpu")
+    je = j_fvc.FvcEncoder.__new__(j_fvc.FvcEncoder)
+    je.quality, je.subsample, je.motion, je.search_range = 60, True, motion, 5
+    je.subpel = je.planar = False
+    je.bframes, je.bquality = 0, None
+    args = (payloads, mvs if motion else None, itypes if motion else None,
+            4, 90, 160)
+    assert te._build_chunk(*args) == je._build_chunk(*args)
+
+
 # -- the kernel build, composed but not run ------------------------------------
 
 def test_build_finds_sources_and_composes_sm90a_command():
+    """One nvcc per source (they run side by side), each to an object,
+    then one link into the shared library."""
     paths = _build.source_paths()
-    assert [os.path.basename(p) for p in paths] == ["frontend.cu",
-                                                    "entropy_pack.cu"]
+    assert [os.path.basename(p) for p in paths] == [
+        "frontend.cu", "entropy_pack.cu", "motion.cu"]
     assert all(os.path.isfile(p) for p in paths)
     out = _build.library_path()
     assert os.path.dirname(out) == _build.BUILD_DIR
     assert _build.source_hash() in os.path.basename(out)
-    cmd = _build.nvcc_command(out, nvcc="nvcc")
-    assert cmd[0] == "nvcc"
-    assert cmd[cmd.index("-gencode") + 1] == "arch=compute_90a,code=sm_90a"
-    for flag in ("-std=c++17", "-O3", "-shared", "-fPIC"):
-        assert flag in cmd
-    assert cmd[cmd.index("-Xcompiler") + 1] == "-fPIC"
-    assert cmd[cmd.index("-o") + 1] == out
-    assert cmd[-2:] == paths
+    jobs = _build.compile_commands("/objs", nvcc="nvcc")
+    assert [cmd[-1] for cmd, _ in jobs] == paths
+    for (cmd, obj), src in zip(jobs, paths):
+        assert cmd[0] == "nvcc"
+        assert cmd[cmd.index("-gencode") + 1] == \
+            "arch=compute_90a,code=sm_90a"
+        for flag in ("-std=c++17", "-O3", "-c", "-fPIC", "-Xptxas=-v"):
+            assert flag in cmd
+        assert cmd[cmd.index("-Xcompiler") + 1] == "-fPIC"
+        assert cmd[cmd.index("-o") + 1] == obj
+        assert obj == os.path.join("/objs", os.path.basename(src) + ".o")
+    link = _build.link_command(out, [o for _, o in jobs], nvcc="nvcc")
+    assert link[:4] == ["nvcc", "-shared", "-o", out]
+    assert link[4:] == [o for _, o in jobs]
 
 
 def test_c_entries_match_the_sources():
@@ -197,7 +256,8 @@ def test_c_entries_match_the_sources():
     text = "".join(_read(p) for p in _build.source_paths())
     defined = set(re.findall(r"^int (flu_\w+)\(", text, re.M))
     assert defined == {"flu_front_end_init", "flu_front_end",
-                       "flu_pack_init", "flu_pack_segments"}
+                       "flu_pack_init", "flu_pack_segments",
+                       "flu_motion_search_mc", "flu_chroma_mc"}
 
     class Lib:
         def __getattr__(self, name):
