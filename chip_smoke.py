@@ -29,10 +29,23 @@ Drives the port's main paths through the entry points a user calls, at
    6 chunks of 8 frames with two in flight (K2, K3, K4 launched), then
    2 chunks of FVC v1 (K1, K2), then the pipeline
    ``videotestsrc ! cudafvcenc motion=true ! appsink`` over 16 frames;
+5b. hier and block-size kernels: K6a (the search kernel's 8x8 instance
+   on the three pairs pooled to 544x960 at r=3, its 16x16 instance at
+   r=7), K5 (pool, K6a, base clip and the refine kernel at r=7) and K6b
+   (K3's contract) against their plain versions, held as K3 is; each
+   timed, K5 also its refine kernel alone;
 7. FVC checks: every chunk decodes through the port's ``FvcDecoder`` on
    the card at >= 30 dB, every payload's scan equals the native
    ``flu_jpeg_encode_scan`` of its decoded coefficients, and the CPU
-   decode (plain PyTorch) lies within 0.05 dB of the card's.
+   decode (plain PyTorch) lies within 0.05 dB of the card's;
+8. FVC hier+B main path: ``FvcEncoder(motion=True, hier=True,
+   bframes=1)``, 6 chunks of 8 frames with two in flight (K5, K6a, K4,
+   K2 launched), then one chunk each of its neighbours (``bframes=1``
+   with the full search through K3: BASELINE config 6b; P-only hier;
+   P-only with ``FLUTPU_SEARCH_DYGRID=1`` through K6b), all decoded and
+   checked as in phase 7 with B frames (type 2) where expected, and a
+   544x960 hier+B chunk encoded on the card and on the CPU: byte-identical
+   (else held to the tie contract: same frame types, within 0.05 dB).
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not
@@ -369,9 +382,10 @@ def run(dev):
           f"byte; lowest PSNR {worst_psnr:.2f} dB", flush=True)
 
     results.update(run_motion_kernels(dev))
-    fvc_launches = run_fvc(dev, lib)
-    for name, n in fvc_launches.items():
-        launches[name] = launches.get(name, 0) + n
+    results.update(run_hier_kernels(dev))
+    for counts in (run_fvc(dev, lib), run_fvc_hier_b(dev, lib)):
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
 
     kernels = [
         dict(name="front_end", route="cuda",
@@ -391,6 +405,21 @@ def run(dev):
              source="flutpu_torch/csrc/motion.cu",
              replaces="flutpu/codec/ops/motion_pallas.py:771",
              launches=launches["chroma_mc"], **results["chroma_mc"]),
+        dict(name="motion_search_mc_hier", route="cuda",
+             source="flutpu_torch/csrc/motion.cu",
+             replaces="flutpu/codec/ops/motion_pallas.py:444",
+             launches=launches["motion_search_mc_hier"],
+             **results["motion_search_mc_hier"]),
+        dict(name="motion_search_mc_blocks", route="cuda",
+             source="flutpu_torch/csrc/motion.cu",
+             replaces="flutpu/codec/ops/motion_pallas.py:122",
+             launches=launches["motion_search_mc_blocks"],
+             **results["motion_search_mc_blocks"]),
+        dict(name="motion_search_mc_dygrid", route="cuda",
+             source="flutpu_torch/csrc/motion.cu",
+             replaces="flutpu/codec/ops/motion_pallas.py:615",
+             launches=launches["motion_search_mc_dygrid"],
+             **results["motion_search_mc_dygrid"]),
     ]
     jax_side = sorted(m for m in sys.modules if m == "jax"
                       or m.startswith(("jax.", "flutpu.codec", "flutpu.hype",
@@ -399,26 +428,30 @@ def run(dev):
     return kernels
 
 
-def _near_tie_check(cur, prev, mv_k, mv_p, r):
-    """Macroblocks where the kernel's and the plain version's vectors
-    differ must be near-ties: their costs, recomputed in float64, agree
-    within the fp32 rounding of a 256-term SAD. Returns the count."""
+def _near_tie_check(cur, prev, mv_k, mv_p, r, mb=16, bias=True):
+    """Blocks (mb x mb) where the kernel's and the plain version's vectors
+    differ must be near-ties: their costs (SAD * 64 + |dy| + |dx| with
+    ``bias``, the plain SAD of the hier refine without), recomputed in
+    float64, agree within the fp32 rounding of an mb*mb-term SAD. Returns
+    the count."""
     import torch
     diff = (mv_k != mv_p).any(-1).nonzero().tolist()
     c64, p64 = cur.double(), prev.double()
     h, w = cur.shape
+    scale = 64 if bias else 1
     for by, bx in diff:
         costs = []
         for v in (mv_k[by, bx], mv_p[by, bx]):
             dy, dx = int(v[0]), int(v[1])
             _require(max(abs(dy), abs(dx)) <= r, f"vector {v} out of range")
-            rows = (torch.arange(16, device=cur.device) + 16 * by - dy) % h
-            cols = (torch.arange(16, device=cur.device) + 16 * bx - dx) % w
-            sad = (c64[16 * by:16 * by + 16, 16 * bx:16 * bx + 16]
+            rows = (torch.arange(mb, device=cur.device) + mb * by - dy) % h
+            cols = (torch.arange(mb, device=cur.device) + mb * bx - dx) % w
+            sad = (c64[mb * by:mb * by + mb, mb * bx:mb * bx + mb]
                    - p64[rows][:, cols]).abs().sum()
-            costs.append((float(sad), float(sad) * 64 + abs(dy) + abs(dx)))
+            costs.append((float(sad), float(sad) * scale
+                          + (abs(dy) + abs(dx) if bias else 0)))
         (sad_k, cost_k), (sad_p, cost_p) = costs
-        tol = 64 * 256 * 2.0 ** -23 * max(sad_k, sad_p, 1.0)
+        tol = scale * mb * mb * 2.0 ** -23 * max(sad_k, sad_p, 1.0)
         _require(abs(cost_k - cost_p) <= tol,
                  f"mb ({by}, {bx}): vectors {mv_k[by, bx].tolist()} vs "
                  f"{mv_p[by, bx].tolist()} are no near-tie (float64 costs "
@@ -426,18 +459,17 @@ def _near_tie_check(cur, prev, mv_k, mv_p, r):
     return len(diff)
 
 
-def run_motion_kernels(dev):
-    """Phase 5: K3 and K4 against their plain versions at 1080p."""
+def _motion_pairs(dev, rng):
+    """Three 1088x1920 luma (label, cur, prev) pairs: consecutive
+    gradient-ball frames, a rolled plane plus noise drawn from ``rng``,
+    and an in-loop reconstruction (after an I frame) as the reference."""
     import numpy as np
     import torch
     from flutpu_torch.codec.fvc import _code_plane
-    from flutpu_torch.codec.ops import motion_kernels as M
     from flutpu_torch.codec.ops.colorspace import planes_to_i420
     from flutpu_torch.codec.ops.quant import LUMA_QTABLE, scale_qtable
     from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
 
-    r = SEARCH_RANGE
-    rng = np.random.default_rng(1)
     y = planes_to_i420(*gradient_ball_planes(PH, PW, 2, 3, device=dev))[0]
     plane = torch.from_numpy(rng.uniform(0, 255, (PH, PW))
                              .astype(np.float32)).to(dev)
@@ -446,22 +478,27 @@ def run_motion_kernels(dev):
     qy = torch.from_numpy(scale_qtable(LUMA_QTABLE, QUALITY)).to(dev)
     # the loop's reference after an I frame: clip(128 + IDCT residual)
     rec = (128.0 + _code_plane(y[0] - 128.0, qy)[1]).clamp(0.0, 255.0)
-    pairs = [("gradient-ball frames 3->4", y[1], y[0]),
-             ("rolled plane + noise", torch.roll(plane, (5, -3), (0, 1))
-              + noise, plane),
-             ("in-loop reference", y[1], rec)]
+    return [("gradient-ball frames 3->4", y[1], y[0]),
+            ("rolled plane + noise", torch.roll(plane, (5, -3), (0, 1))
+             + noise, plane),
+            ("in-loop reference", y[1], rec)]
+
+
+def run_motion_kernels(dev):
+    """Phase 5: K3 and K4 against their plain versions at 1080p."""
+    import numpy as np
+    import torch
+    from flutpu_torch.codec.ops import motion_kernels as M
+
+    r = SEARCH_RANGE
+    rng = np.random.default_rng(1)
+    pairs = _motion_pairs(dev, rng)
     err = 0.0
     for label, cur, prev in pairs:
-        mv, pred = M.motion_search_mc(cur, prev, r)
-        mv_p, _ = M.motion_search_mc_plain(cur, prev, r)
-        d = float((pred - M.motion_compensate(prev, mv, r)).abs().max())
-        _require(d == 0, f"motion_search_mc ({label}): prediction differs "
-                 "from the compensation of its vectors")
-        err = max(err, d)
-        ties = _near_tie_check(cur, prev, mv, mv_p, r)
-        print(f"motion_search_mc vs plain ({label}): {ties} of "
-              f"{mv.shape[0] * mv.shape[1]} macroblocks differ, each a "
-              "float64-verified near-tie; prediction exact", flush=True)
+        err = max(err, _hold_search(
+            label, "motion_search_mc", M.motion_search_mc(cur, prev, r),
+            M.motion_search_mc_plain(cur, prev, r), cur, prev, r, 16, True,
+            lambda p, m: M.motion_compensate(p, m, r)))
     cur, prev = pairs[2][1], pairs[2][2]
     k3_ms = _time_ms(lambda: M.motion_search_mc(cur, prev, r), 20)
     k3_plain_ms = _time_ms(lambda: M.motion_search_mc_plain(cur, prev, r), 3)
@@ -493,6 +530,100 @@ def run_motion_kernels(dev):
                                      plain_ms=k3_plain_ms),
             "chroma_mc": dict(max_abs_err=k4_err, ms=k4_ms,
                               plain_ms=k4_plain_ms)}
+
+
+def _hold_search(label, name, got, plain, cur, prev, r, mb, bias, compensate):
+    """One search kernel's (mv, pred) against its plain version's: the
+    prediction equals ``compensate(prev, mv)`` exactly, the vectors equal
+    except at float64-verified near-ties. Returns the prediction's max
+    |difference| (0)."""
+    (mv, pred), (mv_p, _) = got, plain
+    d = float((pred - compensate(prev, mv)).abs().max())
+    _require(d == 0, f"{name} ({label}): prediction differs from the "
+             "compensation of its vectors")
+    ties = _near_tie_check(cur, prev, mv, mv_p, r, mb, bias)
+    print(f"{name} vs plain ({label}): {ties} of {mv.shape[0] * mv.shape[1]}"
+          f" blocks differ, each a float64-verified near-tie; prediction "
+          "exact", flush=True)
+    return d
+
+
+def run_hier_kernels(dev):
+    """Phase 5b: K6a (8x8 blocks on the pooled 544x960 planes at r=3,
+    16x16 on 1088x1920 at r=7), K5 (the whole hier search at r=7) and
+    K6b against their plain versions on the K3 pairs, and their times."""
+    from flutpu_torch.codec.ops import motion_kernels as M
+    from flutpu_torch.codec.ops.colorspace import subsample_420
+    from flutpu_torch.codec.ops.motion import compensate_blocks
+
+    import numpy as np
+    r, rc = SEARCH_RANGE, max(1, SEARCH_RANGE // 2)
+    pairs = _motion_pairs(dev, np.random.default_rng(1))
+    out = {}
+    err = {"blocks": 0.0, "hier": 0.0, "dygrid": 0.0}
+    for label, cur, prev in pairs:
+        pc, pp = subsample_420(cur), subsample_420(prev)
+        err["blocks"] = max(err["blocks"], _hold_search(
+            f"{label}, pooled 544x960, 8x8, r={rc}", "motion_search_mc_blocks",
+            M.motion_search_mc_blocks(pc, pp, rc, 8),
+            M.motion_search_mc_blocks_plain(pc, pp, rc, 8), pc, pp, rc, 8,
+            True, lambda p, m: compensate_blocks(p, m, 8)))
+        err["blocks"] = max(err["blocks"], _hold_search(
+            f"{label}, 16x16, r={r}", "motion_search_mc_blocks",
+            M.motion_search_mc_blocks(cur, prev, r, 16),
+            M.motion_search_mc_blocks_plain(cur, prev, r, 16), cur, prev, r,
+            16, True, lambda p, m: compensate_blocks(p, m, 16)))
+        err["hier"] = max(err["hier"], _hold_search(
+            f"{label}, r={r}", "motion_search_mc_hier",
+            M.motion_search_mc_hier(cur, prev, r),
+            M.motion_search_mc_hier_plain(cur, prev, r), cur, prev, r, 16,
+            False, lambda p, m: M.motion_compensate(p, m, r)))
+    label, cur, prev = pairs[2]
+    err["dygrid"] = _hold_search(
+        f"{label}, r={r}", "motion_search_mc_dygrid",
+        M.motion_search_mc_dygrid(cur, prev, r),
+        M.motion_search_mc_dygrid_plain(cur, prev, r), cur, prev, r, 16,
+        True, lambda p, m: M.motion_compensate(p, m, r))
+
+    pc, pp = subsample_420(cur), subsample_420(prev)
+    t = {"blocks8": (_time_ms(lambda: M.motion_search_mc_blocks(
+             pc, pp, rc, 8), 20), _time_ms(
+             lambda: M.motion_search_mc_blocks_plain(pc, pp, rc, 8), 3)),
+         "blocks16": (_time_ms(lambda: M.motion_search_mc_blocks(
+             cur, prev, r, 16), 20), _time_ms(
+             lambda: M.motion_search_mc_blocks_plain(cur, prev, r, 16), 3)),
+         "hier": (_time_ms(lambda: M.motion_search_mc_hier(cur, prev, r), 20),
+                  _time_ms(lambda: M.motion_search_mc_hier_plain(
+                      cur, prev, r), 3)),
+         "dygrid": (_time_ms(lambda: M.motion_search_mc_dygrid(
+             cur, prev, r), 20), _time_ms(
+             lambda: M.motion_search_mc_dygrid_plain(cur, prev, r), 3))}
+    coarse, _ = M.motion_search_mc_blocks(pc, pp, rc, 8)
+    base = (coarse * 2).clamp(-(r - 1), r - 1)
+    refine_ms = _time_ms(lambda: M._launch_search(
+        "flu_motion_refine_mc", cur, prev, r, 16, base.data_ptr()), 50)
+    print(f"motion_search_mc_blocks: kernel {t['blocks8'][0]:.4f} ms, plain "
+          f"{t['blocks8'][1]:.3f} ms per pooled 544x960 plane (8x8, r={rc}); "
+          f"kernel {t['blocks16'][0]:.4f} ms, plain {t['blocks16'][1]:.3f} ms "
+          f"per 1088x1920 plane (16x16, r={r})", flush=True)
+    print(f"motion_search_mc_hier: kernels {t['hier'][0]:.4f} ms (pool + "
+          f"K6a + clip + refine), refine kernel alone {refine_ms:.4f} ms, "
+          f"plain {t['hier'][1]:.3f} ms per 1088x1920 luma frame (r={r})",
+          flush=True)
+    print(f"motion_search_mc_dygrid: kernel {t['dygrid'][0]:.4f} ms, plain "
+          f"{t['dygrid'][1]:.3f} ms per 1088x1920 luma frame (r={r})",
+          flush=True)
+    # K6a on the hier path runs at 8x8 on the pooled planes: its record
+    # carries that shape's times
+    out["motion_search_mc_blocks"] = dict(
+        max_abs_err=err["blocks"], ms=t["blocks8"][0],
+        plain_ms=t["blocks8"][1])
+    out["motion_search_mc_hier"] = dict(
+        max_abs_err=err["hier"], ms=t["hier"][0], plain_ms=t["hier"][1])
+    out["motion_search_mc_dygrid"] = dict(
+        max_abs_err=err["dygrid"], ms=t["dygrid"][0],
+        plain_ms=t["dygrid"][1])
+    return out
 
 
 def _psnr(a, b) -> float:
@@ -549,7 +680,10 @@ def _count_launches(fn):
     from flutpu_torch.codec.ops import motion_kernels as M
     wrappers = {"front_end": F.front_end, "pack_segments": K.pack_segments,
                 "motion_search_mc": M.motion_search_mc,
-                "chroma_mc": M.chroma_mc}
+                "chroma_mc": M.chroma_mc,
+                "motion_search_mc_hier": M.motion_search_mc_hier,
+                "motion_search_mc_blocks": M.motion_search_mc_blocks,
+                "motion_search_mc_dygrid": M.motion_search_mc_dygrid}
     torch.cuda.synchronize()
     for w_ in wrappers.values():
         w_.launches = 0
@@ -561,7 +695,6 @@ def run_fvc(dev, lib):
     """Phases 6 and 7: the FVC main paths and their checks. Returns the
     kernels' launch counts summed over the paths."""
     import numpy as np
-    import torch
     from flutpu.core import parse_launch
     from flutpu.core.elements import make_test_frame
     from flutpu_torch.codec.fvc import FvcEncoder
@@ -582,34 +715,12 @@ def run_fvc(dev, lib):
     enc.encode_chunk_finalize(enc.encode_chunk_dispatch_src(src, 0, CHUNK,
                                                             H, W))
 
-    def motion_path():
-        chunks, spans, pending = {}, [], []
-        t0 = time.perf_counter()
-        for ci in range(N_CHUNKS):
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            handle = enc.encode_chunk_dispatch_src(src, ci * CHUNK, CHUNK, H,
-                                                   W)
-            ev1.record()
-            pending.append((ci, handle, ev0, ev1))
-            if len(pending) == 2:           # two chunks in flight
-                c, hnd, a, b = pending.pop(0)
-                chunks[c] = enc.encode_chunk_finalize(hnd)
-                b.synchronize()
-                spans.append(a.elapsed_time(b))
-        for c, hnd, a, b in pending:
-            chunks[c] = enc.encode_chunk_finalize(hnd)
-            b.synchronize()
-            spans.append(a.elapsed_time(b))
-        return [chunks[c] for c in range(N_CHUNKS)], spans, \
-            time.perf_counter() - t0
-
-    (chunks, spans, wall), n_motion = _count_launches(motion_path)
+    (chunks, span, wall), n_motion = _count_launches(
+        lambda: _chunks_in_flight(enc, src, N_CHUNKS))
     sizes = [len(c) for c in chunks]
     print(f"FVC motion path: {N_CHUNKS} chunks x {CHUNK} frames in "
           f"{wall:.3f} s = {N_CHUNKS * CHUNK / wall:.1f} frames/s; device "
-          f"span {sum(spans) / len(spans):.3f} ms per chunk (CUDA events); "
+          f"span {span:.3f} ms per chunk (CUDA events); "
           f"mean {np.mean(sizes):.0f} bytes per chunk; kernel launches "
           f"{n_motion}", flush=True)
     for name in ("pack_segments", "motion_search_mc", "chroma_mc"):
@@ -675,6 +786,130 @@ def run_fvc(dev, lib):
               flush=True)
     _encode_parity(dev)
     return {k: n_motion[k] + n_v1[k] + n_pipe[k] for k in n_motion}
+
+
+def _chunks_in_flight(enc, src, n_chunks):
+    """``n_chunks`` chunks of the on-device source through
+    dispatch/finalize with two in flight → (chunks, device span per chunk
+    in ms (CUDA events), wall seconds)."""
+    import torch
+    chunks, spans, pending = {}, [], []
+    t0 = time.perf_counter()
+    for ci in range(n_chunks):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        handle = enc.encode_chunk_dispatch_src(src, ci * CHUNK, CHUNK, H, W)
+        ev1.record()
+        pending.append((ci, handle, ev0, ev1))
+        if len(pending) == 2:           # two chunks in flight
+            c, hnd, a, b = pending.pop(0)
+            chunks[c] = enc.encode_chunk_finalize(hnd)
+            b.synchronize()
+            spans.append(a.elapsed_time(b))
+    for c, hnd, a, b in pending:
+        chunks[c] = enc.encode_chunk_finalize(hnd)
+        b.synchronize()
+        spans.append(a.elapsed_time(b))
+    return ([chunks[c] for c in range(n_chunks)], sum(spans) / len(spans),
+            time.perf_counter() - t0)
+
+
+def run_fvc_hier_b(dev, lib):
+    """Phase 8: FVC v2 with B frames and the hier search (the slice's
+    main path), its neighbours (config 6b: full search + B; P-only hier;
+    the dy-grid search arm), their decode checks, and a 544x960 hier+B
+    chunk on the card against the CPU. Returns the launch counts summed
+    over the paths."""
+    import numpy as np
+    from flutpu_torch.codec.fvc import FvcDecoder, FvcEncoder
+    from flutpu_torch.codec.ops.testsrc import (gradient_ball_frames,
+                                                gradient_ball_planes)
+
+    def src(ph, pw, n, start):
+        return gradient_ball_planes(ph, pw, n, start, device=dev)
+
+    def sources(n_chunks):
+        return [gradient_ball_frames(PH, PW, CHUNK, c * CHUNK,
+                                     device=dev)[:, :H, :W].cpu().numpy()
+                for c in range(n_chunks)]
+
+    def encoder(**kw):
+        enc = FvcEncoder(QUALITY, motion=True, search_range=SEARCH_RANGE,
+                         device=dev, **kw)
+        # one chunk first so the adaptive sizes are learned
+        enc.encode_chunk_finalize(enc.encode_chunk_dispatch_src(
+            src, 0, CHUNK, H, W))
+        return enc
+
+    total = {}
+    enc = encoder(hier=True, bframes=1)
+    (chunks, span, wall), n = _count_launches(
+        lambda: _chunks_in_flight(enc, src, N_CHUNKS))
+    print(f"FVC hier+B path (search=hier bframes=1): {N_CHUNKS} chunks x "
+          f"{CHUNK} frames in {wall:.3f} s = {N_CHUNKS * CHUNK / wall:.1f} "
+          f"frames/s; device span {span:.3f} ms per chunk (CUDA events); "
+          f"mean {np.mean([len(c) for c in chunks]):.0f} bytes per chunk; "
+          f"kernel launches {n}", flush=True)
+    for name in ("motion_search_mc_hier", "motion_search_mc_blocks",
+                 "chroma_mc", "pack_segments"):
+        _require(n[name] > 0, f"{name} was not launched on the hier+B path")
+    for k, v in n.items():
+        total[k] = total.get(k, 0) + v
+    checks = [("FVC hier+B", chunks, sources(N_CHUNKS), True)]
+
+    neighbours = [("FVC full+B (config 6b)", dict(bframes=1), {},
+                   "motion_search_mc", True),
+                  ("FVC hier P-only", dict(hier=True), {},
+                   "motion_search_mc_hier", False),
+                  ("FVC dy-grid P-only", {}, {"FLUTPU_SEARCH_DYGRID": "1"},
+                   "motion_search_mc_dygrid", False)]
+    for label, kw, env, kernel, has_b in neighbours:
+        os.environ.update(env)
+        try:
+            enc = encoder(**kw)
+            (one, span, wall), n = _count_launches(
+                lambda: _chunks_in_flight(enc, src, 1))
+        finally:
+            for k in env:
+                os.environ.pop(k)
+        print(f"{label}: 1 chunk in {wall:.3f} s, device span {span:.3f} ms, "
+              f"{len(one[0])} bytes; kernel launches {n}", flush=True)
+        _require(n[kernel] > 0, f"{kernel} was not launched on the {label} "
+                 "path")
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        checks.append((label, one, sources(1), has_b))
+
+    for label, cs, srcs, has_b in checks:
+        worst, d_rgb, d_psnr = _check_chunks(lib, cs, srcs, label)
+        types = [t for c in cs for t, _, _ in FvcDecoder.parse_chunk(c)[1]]
+        _require((2 in types) == has_b, f"{label}: frame types {types}")
+        print(f"checks ({label}): {len(cs)} chunks decode on the card at "
+              f">= {worst:.2f} dB; frame types {sorted(set(types))}; scans "
+              f"equal flu_jpeg_encode_scan; CPU decode max |dRGB| {d_rgb}, "
+              f"max dPSNR {d_psnr:.4f} dB", flush=True)
+
+    frames = gradient_ball_frames(544, 960, CHUNK, 0, device="cpu").numpy()
+    kw = dict(motion=True, hier=True, bframes=1)
+    a = FvcEncoder(QUALITY, device=dev, **kw).encode_chunk(frames)
+    b = FvcEncoder(QUALITY, device="cpu", **kw).encode_chunk(frames)
+    if a == b:
+        print("card vs CPU encode (544x960 hier+B chunk): byte-identical",
+              flush=True)
+    else:
+        # a rounding tie (cuBLAS vs the CPU's in-loop DCT): hold the
+        # streams to the tie contract
+        dec = FvcDecoder("cpu")
+        (ra, ia), (rb, ib) = dec.decode_chunk(a), dec.decode_chunk(b)
+        dp = max(abs(_psnr(x, s) - _psnr(y, s))
+                 for x, y, s in zip(ra, rb, frames))
+        print(f"card vs CPU encode (544x960 hier+B chunk): DIFFERENT ({len(a)}"
+              f" vs {len(b)} bytes; types {ia['types']} vs {ib['types']}; "
+              f"max dPSNR {dp:.4f} dB)", flush=True)
+        _require(ia["types"] == ib["types"] and dp <= MAX_DPSNR,
+                 "card vs CPU hier+B encode breaks the tie contract")
+    return total
 
 
 def _encode_parity(dev):

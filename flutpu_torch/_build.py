@@ -128,6 +128,10 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.flu_pack_segments.restype = i
     lib.flu_motion_search_mc.argtypes = [p, p, p, p, i, i, i, p]
     lib.flu_motion_search_mc.restype = i
+    lib.flu_motion_search_mc_blocks.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.flu_motion_search_mc_blocks.restype = i
+    lib.flu_motion_refine_mc.argtypes = [p, p, p, p, i, i, i, p, p]
+    lib.flu_motion_refine_mc.restype = i
     lib.flu_chroma_mc.argtypes = [p, p, p, p, p, i, i, p]
     lib.flu_chroma_mc.restype = i
 

@@ -1,22 +1,28 @@
 """FVC — the GOP video codec on the GPU (port of flutpu/codec/fvc.py).
 
-I + P frames in one chunk, coded in the DCT domain with the JPEG entropy
-stage. Version 1 codes each frame's quantized coefficients as a residual
-against the accumulated previous ones (no motion). Version 2 (motion
-mode) runs the hybrid loop per frame: full-search motion estimation
-against the reconstructed reference, motion-compensated prediction, DCT
-and quantization of the pixel residual, and the in-loop reconstruction
-that the decoder mirrors. A frame is coded intra (flat-128 prediction)
-when that leaves less luma residual than the motion prediction, so a
-scene cut inside a chunk becomes an I frame.
+I + P (+ B) frames in one chunk, coded in the DCT domain with the JPEG
+entropy stage. Version 1 codes each frame's quantized coefficients as a
+residual against the accumulated previous ones (no motion). Version 2
+(motion mode) runs the hybrid loop per frame: motion estimation against
+the reconstructed reference (full search, or coarse-to-fine with
+``hier``), motion-compensated prediction, DCT and quantization of the
+pixel residual, and the in-loop reconstruction that the decoder mirrors.
+A frame is coded intra (flat-128 prediction) when that leaves less luma
+residual than the motion prediction, so a scene cut inside a chunk
+becomes an I frame. With ``bframes`` (header flags bit 5) that loop runs
+over the anchor frames only (every ``bframes + 1``-th and the last); each
+frame between two anchors is a non-reference B frame, predicted per
+macroblock from the previous reconstructed anchor, the next one, their
+average or flat 128, and quantized at the ``bquality`` tables.
 
 On a CUDA device version 1 runs the front-end kernel, an integer scan
-and the Huffman pack kernel; version 2 runs the motion search kernel
-(with the luma prediction) and the chroma compensation kernel per frame,
-the in-loop DCT/IDCT in plain PyTorch (per 8x8 block, full fp32), and the
-pack kernel once per chunk. The per-frame I/P decision stays on the
-device. The chunk's compressed words, its vectors and its frame-type word
-come back in one copy into pinned memory.
+and the Huffman pack kernel; version 2 runs a search kernel per frame
+and reference (the full search, or the hier search's coarse-level and
+refine kernels), the chroma compensation kernel, the in-loop DCT/IDCT in
+plain PyTorch (per 8x8 block, full fp32), and the pack kernel once per
+chunk. The per-frame I/P and per-macroblock B mode decisions stay on the
+device. The chunk's compressed words, its vectors (and B modes) and its
+frame-type word come back in one copy into pinned memory.
 
 Bitstream: byte-compatible with flutpu's (``MAGIC``, the header layout
 and the per-frame records are copies). The port writes header flags
@@ -24,8 +30,8 @@ bit 3 = 0: its in-loop reconstruction uses the per-block DCT, which is
 what flutpu's decoder on the CPU expects for such streams.
 
 Not ported (each raises ``NotImplementedError``): half-pel motion
-(``subpel``), hierarchical search (``hier``), B frames, 4:4:4, batched
-chunk dispatch, rate control (``bitrate``), spatial striping.
+(``subpel``), 4:4:4, batched chunk dispatch, rate control
+(``bitrate``), spatial striping.
 """
 
 from __future__ import annotations
@@ -39,6 +45,7 @@ import numpy as np
 import torch
 
 from flutpu.core import Buffer, Caps, PropertySpec, register
+from flutpu.core.env import env_flag
 
 from .base import VideoEncoder
 from .convert import encoder_state_from_numpy
@@ -50,9 +57,9 @@ from .ops.colorspace import i420_to_rgb, planes_to_i420
 from .ops.dct import dct_matrix, plane_dct, plane_idct, unblockize
 from .ops.entropy import compact_segments_finalize, \
     encode_gop_scans_segmented
-from .ops.motion import motion_compensate
+from .ops.motion import MB, _mb_sums, motion_compensate
 from .ops.motion_kernels import MAX_SEARCH_RANGE, chroma_mc, \
-    motion_search_mc
+    motion_search_mc, motion_search_mc_dygrid, motion_search_mc_hier
 from .ops.quant import (CHROMA_QTABLE, LUMA_QTABLE, dequantize, quant_map,
                         quantize, scale_qtable, zigzag_flatten,
                         zigzag_unflatten)
@@ -103,10 +110,16 @@ def fvc_accumulate(ry: torch.Tensor, rcb: torch.Tensor, rcr: torch.Tensor):
                  for r in (ry, rcb, rcr))
 
 
+def _quant_plane(resid: torch.Tensor, qtab: torch.Tensor) -> torch.Tensor:
+    """Pixel residual plane → clamped quantized (BH, BW, 8, 8) coefficients,
+    per-block DCT (header flags bit 3 = 0)."""
+    return quantize(plane_dct(resid), qtab).clamp(-_CLAMP, _CLAMP)
+
+
 def _code_plane(resid: torch.Tensor, qtab: torch.Tensor):
     """Pixel residual plane → (zigzagged int16 coefficients, the
-    reconstructed residual), per-block DCT (header flags bit 3 = 0)."""
-    coefs = quantize(plane_dct(resid), qtab).clamp(-_CLAMP, _CLAMP)
+    reconstructed residual)."""
+    coefs = _quant_plane(resid, qtab)
     rec = plane_idct(dequantize(coefs, qtab))
     return zigzag_flatten(coefs).to(torch.int16), rec
 
@@ -119,35 +132,34 @@ def _planes(frames):
     return frames[..., 0], frames[..., 1], frames[..., 2]
 
 
-def fvc_mc_encode_chunk(frames, qy: torch.Tensor, qc: torch.Tensor,
-                        pad_h: int, pad_w: int, search_range: int = 7,
-                        hier: bool = False, subpel: bool = False,
-                        planar: Optional[bool] = None):
-    """Motion-compensated chunk encode (FVC v2, P frames only): per frame,
-    the search kernel against the reconstructed reference (vectors and
-    luma prediction), the chroma kernel, the device-side I/P decision,
-    DCT + quantization of the pixel residual and the in-loop
-    reconstruction. ``frames``: (r, g, b) uint8 planes (F, H, W) or
-    interleaved (F, H, W, 3), edge-padded here to (pad_h, pad_w).
-
-    Returns (ry, rcb, rcr) int16 zigzagged residual coefficients,
-    mvs (F, H/16, W/16, 2) int8 and itypes (F,) int8 (1 = intra)."""
-    if hier:
-        raise NotImplementedError("hierarchical motion search (K5) is not "
-                                  "ported yet")
-    if subpel:
-        raise NotImplementedError("half-pel motion is not ported yet")
-    if planar:
-        raise NotImplementedError("the port reconstructs with the per-block "
-                                  "DCT (header flags bit 3 = 0)")
+def _i420_planes(frames, pad_h: int, pad_w: int):
+    """(r, g, b) uint8 planes (F, H, W) or interleaved (F, H, W, 3)
+    frames, edge-padded to (pad_h, pad_w) → float32 (Y, Cb, Cr) planes."""
     r, g, b = (_edge_pad(p, pad_h, pad_w) for p in _planes(frames))
     _check_full_fp32(r.device)
-    y, cb, cr = planes_to_i420(r, g, b)
+    return planes_to_i420(r, g, b)
+
+
+def _search_fn(hier: bool, dygrid: bool = False):
+    """The search + luma prediction the motion loop runs: K5 for
+    ``search=hier``, else K6b where the dy-grid arm is chosen, else K3."""
+    if hier:
+        return motion_search_mc_hier
+    return motion_search_mc_dygrid if dygrid else motion_search_mc
+
+
+def _anchor_loop(y, cb, cr, qy, qc, search, search_range: int):
+    """The hybrid loop over (F, ...) planes, frame 0 intra: per frame the
+    search against the reconstructed reference, the chroma kernel, the
+    device-side I/P decision, DCT + quantization of the pixel residual
+    and the in-loop reconstruction. Returns (ry, rcb, rcr) int16
+    zigzagged residual coefficients, mvs (F, H/16, W/16, 2) int8, itypes
+    (F,) int8 (1 = intra) and each frame's reconstructed planes."""
     f = y.shape[0]
     dev = y.device
-    mbh, mbw = pad_h // 16, pad_w // 16
+    mbh, mbw = y.shape[1] // MB, y.shape[2] // MB
     no_mv = torch.zeros((mbh, mbw, 2), dtype=torch.int32, device=dev)
-    outs, mvs, itypes = [], [], []
+    outs, mvs, itypes, recs = [], [], [], []
     rec_y = rec_cb = rec_cr = None
     for i in range(f):
         cy, ccb, ccr = y[i], cb[i], cr[i]
@@ -156,7 +168,7 @@ def fvc_mc_encode_chunk(frames, qy: torch.Tensor, qc: torch.Tensor,
             mv = no_mv
             pred_y = pred_cb = pred_cr = 128.0
         else:
-            mv, pred_p_y = motion_search_mc(cy, rec_y, search_range)
+            mv, pred_p_y = search(cy, rec_y, search_range)
             # the in-codec scene-cut detector: intra when flat 128 leaves
             # less luma residual than the motion prediction (sums in
             # float64, so the CPU and the card decide alike)
@@ -177,8 +189,144 @@ def fvc_mc_encode_chunk(frames, qy: torch.Tensor, qc: torch.Tensor,
         outs.append((oy, ocb, ocr))
         mvs.append(mv.to(torch.int8))
         itypes.append(is_i.to(torch.int8))
+        recs.append((rec_y, rec_cb, rec_cr))
     ry, rcb, rcr = (torch.stack(p) for p in zip(*outs))
-    return ry, rcb, rcr, torch.stack(mvs), torch.stack(itypes)
+    return ry, rcb, rcr, torch.stack(mvs), torch.stack(itypes), recs
+
+
+def fvc_mc_encode_chunk(frames, qy: torch.Tensor, qc: torch.Tensor,
+                        pad_h: int, pad_w: int, search_range: int = 7,
+                        hier: bool = False, subpel: bool = False,
+                        planar: Optional[bool] = None):
+    """Motion-compensated chunk encode (FVC v2, P frames only): the hybrid
+    loop (``_anchor_loop``) over every frame, with the full search (K3;
+    K6b under ``FLUTPU_SEARCH_DYGRID=1``, as flutpu selects it) or, with
+    ``hier``, the coarse-to-fine search (K5). ``frames``: (r, g, b) uint8
+    planes (F, H, W) or interleaved (F, H, W, 3), edge-padded here to
+    (pad_h, pad_w).
+
+    Returns (ry, rcb, rcr) int16 zigzagged residual coefficients,
+    mvs (F, H/16, W/16, 2) int8 and itypes (F,) int8 (1 = intra)."""
+    if subpel:
+        raise NotImplementedError("half-pel motion is not ported yet")
+    if planar:
+        raise NotImplementedError("the port reconstructs with the per-block "
+                                  "DCT (header flags bit 3 = 0)")
+    y, cb, cr = _i420_planes(frames, pad_h, pad_w)
+    search = _search_fn(hier, env_flag("FLUTPU_SEARCH_DYGRID", False))
+    return _anchor_loop(y, cb, cr, qy, qc, search, search_range)[:5]
+
+
+def _bframe_structure(f: int, bframes: int):
+    """Static anchor/B index maps for an ``f``-frame chunk (a copy of
+    flutpu.codec.fvc._bframe_structure).
+
+    Returns (anchor_idx, b_idx, prev_map, next_map): display indices of
+    anchors and B frames, and for each B frame the position IN THE ANCHOR
+    ARRAY of its previous/next reference."""
+    s = bframes + 1
+    anchor_idx = list(range(0, f, s))
+    if anchor_idx[-1] != f - 1:
+        anchor_idx.append(f - 1)
+    aset = set(anchor_idx)
+    b_idx = [i for i in range(f) if i not in aset]
+    prev_map, next_map = [], []
+    for j in b_idx:
+        k = max(p for p, a in enumerate(anchor_idx) if a < j)
+        prev_map.append(k)
+        next_map.append(k + 1)
+    return anchor_idx, b_idx, prev_map, next_map
+
+
+def _select_mode(mode_px: torch.Tensor, bi, fwd, bwd) -> torch.Tensor:
+    """Per-pixel prediction of a B frame: bi / fwd / bwd / flat 128 for
+    mode 0 / 1 / 2 / 3."""
+    return torch.where(mode_px == 0, bi, torch.where(
+        mode_px == 1, fwd, torch.where(mode_px == 2, bwd, 128.0)))
+
+
+def _repeat_blocks(a: torch.Tensor, n: int) -> torch.Tensor:
+    return a.repeat_interleave(n, 0).repeat_interleave(n, 1)
+
+
+def fvc_mc_encode_chunk_b(frames, qy: torch.Tensor, qc: torch.Tensor,
+                          pad_h: int, pad_w: int, search_range: int = 7,
+                          bframes: int = 1, hier: bool = False,
+                          planar: Optional[bool] = None,
+                          qy_b: Optional[torch.Tensor] = None,
+                          qc_b: Optional[torch.Tensor] = None):
+    """Bidirectional chunk encode (FVC v2 + flags bit 5). The anchor
+    frames (every ``bframes + 1``-th, plus the last) run the hybrid loop;
+    then each B frame runs the search (K3, or K5 with ``hier``) against
+    its previous and its next reconstructed anchor, and per macroblock
+    takes the least-SAD of four predictions (0 = their average, 1 =
+    forward, 2 = backward, 3 = flat 128; ties to the lower mode). B frames
+    are non-reference: their residuals are quantized at ``qy_b``/``qc_b``
+    (default: the anchor tables) and never reconstructed. Chroma is
+    compensated with both vectors before the unused ones are zeroed.
+
+    Returns, in display order: (ry, rcb, rcr) int16 zigzagged residual
+    coefficients; fwd and bwd (F, H/16, W/16, 2) int8 (anchor P vectors in
+    fwd; zero where a B macroblock does not use them); modes (F, H/16,
+    W/16) int8 (zero for anchors); ftypes (F,) int8 (0 = P anchor, 1 = I
+    anchor, 2 = B)."""
+    if planar:
+        raise NotImplementedError("the port reconstructs with the per-block "
+                                  "DCT (header flags bit 3 = 0)")
+    qy_b = qy if qy_b is None else qy_b
+    qc_b = qc if qc_b is None else qc_b
+    y, cb, cr = _i420_planes(frames, pad_h, pad_w)
+    search = _search_fn(hier)
+    r = search_range
+    anchor_idx, b_idx, prev_map, next_map = _bframe_structure(y.shape[0],
+                                                              bframes)
+    ary, arcb, arcr, amv, ais_i, recs = _anchor_loop(
+        y[anchor_idx], cb[anchor_idx], cr[anchor_idx], qy, qc, search, r)
+    zero_mv = torch.zeros_like(amv)
+    zero_mode = torch.zeros_like(amv[..., 0])
+    if not b_idx:
+        return ary, arcb, arcr, amv, zero_mv, zero_mode, ais_i
+
+    outs = []
+    for j, p, n in zip(b_idx, prev_map, next_map):
+        cy, ccb, ccr = y[j], cb[j], cr[j]
+        (py, pcb, pcr), (ny, ncb, ncr) = recs[p], recs[n]
+        fwd, pred_f = search(cy, py, r)
+        bwd, pred_b = search(cy, ny, r)
+        pred_bi = (pred_f + pred_b) * 0.5
+        # first minimum on the CPU and on CUDA alike: ties go to mode 0
+        mode = torch.argmin(torch.stack([
+            _mb_sums((cy - pred_bi).abs(), MB),
+            _mb_sums((cy - pred_f).abs(), MB),
+            _mb_sums((cy - pred_b).abs(), MB),
+            _mb_sums((cy - 128.0).abs(), MB)]), dim=0)
+        fcb, fcr = chroma_mc(pcb, pcr, fwd, r)
+        bcb, bcr = chroma_mc(ncb, ncr, bwd, r)
+        mode_y, mode_c = _repeat_blocks(mode, MB), _repeat_blocks(mode, 8)
+        pred_y = _select_mode(mode_y, pred_bi, pred_f, pred_b)
+        pred_cb = _select_mode(mode_c, (fcb + bcb) * 0.5, fcb, bcb)
+        pred_cr = _select_mode(mode_c, (fcr + bcr) * 0.5, fcr, bcr)
+        coefs = [zigzag_flatten(_quant_plane(c - pr, q)).to(torch.int16)
+                 for c, pr, q in ((cy, pred_y, qy_b), (ccb, pred_cb, qc_b),
+                                  (ccr, pred_cr, qc_b))]
+        # zero unused vectors: smaller zlib'd fields, and the decode never
+        # reads them
+        use_f = ((mode == 0) | (mode == 1))[..., None]
+        use_b = ((mode == 0) | (mode == 2))[..., None]
+        outs.append((*coefs, torch.where(use_f, fwd, 0).to(torch.int8),
+                     torch.where(use_b, bwd, 0).to(torch.int8),
+                     mode.to(torch.int8)))
+    boy, bocb, bocr, bfwd, bbwd, bmode = (torch.stack(p) for p in zip(*outs))
+    # interleave back to display order
+    perm = torch.as_tensor(np.argsort(np.asarray(anchor_idx + b_idx)),
+                           device=y.device)
+
+    def cat(a, b):
+        return torch.cat([a, b])[perm]
+
+    btypes = torch.full((len(b_idx),), 2, dtype=torch.int8, device=y.device)
+    return (cat(ary, boy), cat(arcb, bocb), cat(arcr, bocr), cat(amv, bfwd),
+            cat(zero_mv, bbwd), cat(zero_mode, bmode), cat(ais_i, btypes))
 
 
 def _fvc_gop_program_v1(frames, qy, qc, pad_h, pad_w, layout, prefix_words,
@@ -194,22 +342,33 @@ def _fvc_gop_program_v1(frames, qy, qc, pad_h, pad_w, layout, prefix_words,
 
 
 def _fvc_gop_program_v2(frames, qy, qc, pad_h, pad_w, search_range, layout,
-                        prefix_words, seg_g, seg_words):
+                        prefix_words, seg_g, seg_words, hier=False,
+                        bframes=0, qy_b=None, qc_b=None):
     """The v1 program's layout with the motion loop in front and two
-    more fields per frame: the int8 vectors packed four to a word, then
-    the frame-type word — one array, so one copy brings back the chunk."""
-    ry, rcb, rcr, mvs, itypes = fvc_mc_encode_chunk(
-        frames, qy, qc, pad_h, pad_w, search_range)
+    more fields per frame: the int8 side columns packed four to a word
+    (the vectors; with ``bframes`` fwd | bwd | modes), then the
+    frame-type word (0 P, 1 I, 2 B) — one array, so one copy brings back
+    the chunk."""
+    if bframes:
+        ry, rcb, rcr, fwd, bwd, modes, itypes = fvc_mc_encode_chunk_b(
+            frames, qy, qc, pad_h, pad_w, search_range, bframes, hier,
+            qy_b=qy_b, qc_b=qc_b)
+        f = fwd.shape[0]
+        side = torch.cat([fwd.reshape(f, -1), bwd.reshape(f, -1),
+                          modes.reshape(f, -1)], dim=1)
+    else:
+        ry, rcb, rcr, mvs, itypes = fvc_mc_encode_chunk(
+            frames, qy, qc, pad_h, pad_w, search_range, hier)
+        f = mvs.shape[0]
+        side = mvs.reshape(f, -1)
     combined = encode_gop_scans_segmented(ry, rcb, rcr, layout=layout,
                                           prefix_words=prefix_words,
                                           seg_g=seg_g, seg_words=seg_words)
-    f = mvs.shape[0]
-    side = mvs.reshape(f, -1)
     pad = (-side.shape[1]) % 4
     if pad:
         side = torch.nn.functional.pad(side, (0, pad))
-    mv_words = side.contiguous().view(torch.int32)   # little-endian bytes
-    return torch.cat([combined, mv_words, itypes.to(torch.int32)[:, None]],
+    side_words = side.contiguous().view(torch.int32)   # little-endian bytes
+    return torch.cat([combined, side_words, itypes.to(torch.int32)[:, None]],
                      dim=1)
 
 
@@ -244,26 +403,40 @@ class _ChunkHandle(NamedTuple):
 
 class FvcEncoder:
     """Encode GOP chunks of RGB frames into FVC bitstream chunks on one
-    device. ``motion=True`` selects the v2 hybrid codec. ``device`` is
-    where the encode runs: a CUDA device launches the kernels; ``"cpu"``
-    runs their plain PyTorch versions. Sizing of the entropy stage
-    (compressed-prefix window, segment staging, overflow redispatch) is
-    the port's JpegEncoder's, as in flutpu."""
+    device. ``motion=True`` selects the v2 hybrid codec; ``hier`` its
+    coarse-to-fine search; ``bframes`` (1..7, motion only) the number of
+    B frames between anchors, quantized at ``bquality`` (default
+    ``max(10, quality - 8)``). ``device`` is where the encode runs: a
+    CUDA device launches the kernels; ``"cpu"`` runs their plain PyTorch
+    versions. Sizing of the entropy stage (compressed-prefix window,
+    segment staging, overflow redispatch) is the port's JpegEncoder's, as
+    in flutpu."""
 
     def __init__(self, quality: int = 85, subsample: bool = True,
                  motion: bool = False, search_range: int = 7, *,
                  engine: str = "auto", hier: bool = False,
-                 subpel: bool = False, bframes: int = 0, device="cuda"):
+                 subpel: bool = False, bframes: int = 0,
+                 bquality: Optional[int] = None, device="cuda"):
+        # flutpu's checks, in its order
+        if bframes:
+            if not motion:
+                raise ValueError("bframes requires motion=True")
+            if subpel:
+                raise ValueError("bframes does not support subpel")
+            if not 0 < bframes <= 7:
+                raise ValueError("bframes must be in 0..7")
+        self.bframes = int(bframes)
+        self.bquality = None
+        if bframes:
+            self.bquality = int(bquality) if bquality is not None \
+                else max(10, quality - 8)
+            if not 1 <= self.bquality <= 100:
+                raise ValueError("bquality must be in 1..100")
         if not subsample:
             raise NotImplementedError("the port encodes 4:2:0 only; 4:4:4 "
                                       "is not ported yet")
-        if hier:
-            raise NotImplementedError("search=hier (kernel K5) is not ported "
-                                      "yet")
         if subpel:
             raise NotImplementedError("half-pel motion is not ported yet")
-        if bframes:
-            raise NotImplementedError("B frames are not ported yet")
         if engine not in ("auto", "device"):
             raise NotImplementedError(f"engine={engine!r}: the port codes on "
                                       "the device only (auto | device)")
@@ -275,24 +448,34 @@ class FvcEncoder:
                 f"search ranges above {MAX_SEARCH_RANGE} are not ported")
         self.quality = quality
         self.motion = bool(motion)
+        self.hier = bool(hier)
         self.search_range = int(search_range)
         self.device = torch.device(device)
         # shared scan coder: its tables, sizing policy and overflow bounds
         self._scan_coder = JpegEncoder(quality, device=self.device)
         self.qy, self.qc = self._scan_coder.qy, self._scan_coder.qc
+        self._qyb_dev = self._qcb_dev = None
+        if self.bquality is not None:
+            self._qyb_dev, self._qcb_dev = (
+                torch.as_tensor(scale_qtable(t, self.bquality)
+                                .astype(np.int32), device=self.device)
+                for t in (LUMA_QTABLE, CHROMA_QTABLE))
 
     @classmethod
     def from_numpy_state(cls, qy, qc, search_range: int = 7, *,
-                         motion: bool = False,
+                         motion: bool = False, hier: bool = False,
+                         bframes: int = 0, bquality: Optional[int] = None,
                          seg_words: Optional[int] = None,
                          prefix_window: Optional[int] = None,
                          device="cuda") -> "FvcEncoder":
         """An encoder with given quantization tables and adaptive sizes
-        (e.g. flutpu's ``qy``, ``qc``, ``search_range`` and its scan
-        coder's ``_seg_words``, ``_prefix_window``). The tables must be
-        a quality's: the chunk header carries the quality."""
+        (e.g. flutpu's ``qy``, ``qc``, ``search_range``, ``hier``,
+        ``bframes``, ``bquality`` and its scan coder's ``_seg_words``,
+        ``_prefix_window``). The tables must be a quality's: the chunk
+        header carries the quality."""
         enc = cls(_table_quality(qy, qc), motion=motion,
-                  search_range=search_range, device=device)
+                  search_range=search_range, hier=hier, bframes=bframes,
+                  bquality=bquality, device=device)
         enc._scan_coder._set_state(encoder_state_from_numpy(
             qy, qc, seg_words=seg_words, prefix_window=prefix_window,
             device=enc.device))
@@ -308,7 +491,8 @@ class FvcEncoder:
             if self.motion:
                 return _fvc_gop_program_v2(
                     frames_fn(), qy, qc, ph, pw, self.search_range, layout,
-                    prefix_words, sc.SEG_G, seg_words)
+                    prefix_words, sc.SEG_G, seg_words, self.hier,
+                    self.bframes, self._qyb_dev, self._qcb_dev)
             return _fvc_gop_program_v1(frames_fn(), qy, qc, ph, pw, layout,
                                        prefix_words, sc.SEG_G, seg_words)
 
@@ -347,8 +531,9 @@ class FvcEncoder:
 
     def _finalize(self, handle: _ChunkHandle):
         """Per frame: [0] = aligned words, [1..S] = segment bits,
-        [S+1..S+prefix] = word-aligned stream, then (motion) the vector
-        words and the frame-type word."""
+        [S+1..S+prefix] = word-aligned stream, then (motion) the side
+        words (vectors, or fwd | bwd | modes with B frames) and the
+        frame-type word."""
         arr, handle = self._scan_coder._fetch(handle)
         n = handle.n_segs
         scan_end = 1 + n + handle.prefix
@@ -359,31 +544,50 @@ class FvcEncoder:
         if self.motion:
             mbh, mbw = handle.ph // 16, handle.pw // 16
             mv_len = mbh * mbw * 2
-            mvs = [np.frombuffer(arr[i, scan_end:-1].tobytes(),
-                                 np.int8)[:mv_len].reshape(mbh, mbw, 2)
-                   for i in range(arr.shape[0])]
-            itypes = arr[:, -1].astype(np.int64)
+            mvs = []
+            for i in range(arr.shape[0]):
+                raw = np.frombuffer(arr[i, scan_end:-1].tobytes(), np.int8)
+                fwd = raw[:mv_len].reshape(mbh, mbw, 2)
+                if self.bframes:   # side columns: fwd | bwd | modes
+                    mvs.append((fwd,
+                                raw[mv_len:2 * mv_len].reshape(mbh, mbw, 2),
+                                raw[2 * mv_len:2 * mv_len + mbh * mbw]
+                                .reshape(mbh, mbw)))
+                else:
+                    mvs.append(fwd)
+            itypes = arr[:, -1].astype(np.int64)   # 1 = I frame, 2 = B
         return payloads, mvs, itypes
 
     def _build_chunk(self, payloads, mvs, itypes, f: int, h: int,
                      w: int) -> bytes:
-        """Container assembly (flutpu's ``_build_chunk`` for P-only
-        streams)."""
+        """Container assembly (flutpu's ``_build_chunk`` for streams with
+        integer-pel vectors and the per-block in-loop DCT)."""
         version = 2 if self.motion else VERSION
         flags = 1                      # 4:2:0
         if self.motion:
             flags |= 2                 # vectors are zlib-compressed
+            if self.bframes:
+                flags |= 32            # the chunk may hold B frames
         out = [MAGIC, struct.pack(">BBHHBB", version, flags, w, h,
                                   self.quality, f)]
         if self.motion:
             out.append(struct.pack(">B", self.search_range))
+            if self.bframes:
+                out.append(struct.pack(">B", self.bquality))
         for i in range(f):
             payload = payloads[i]
             if self.motion:
+                # itypes: 1 = I anchor, 0 = P anchor, 2 = B
                 it = int(itypes[i])
-                ftype = 0 if (i == 0 or it) else 1
-                mv_bytes = b"" if ftype == 0 else zlib.compress(
-                    mvs[i].astype(np.int8).tobytes(), 6)
+                ftype = 2 if it == 2 else (0 if (i == 0 or it) else 1)
+                if ftype == 2:
+                    mv_bytes = zlib.compress(b"".join(
+                        a.astype(np.int8).tobytes() for a in mvs[i]), 6)
+                elif ftype == 0:
+                    mv_bytes = b""
+                else:
+                    mv = mvs[i][0] if isinstance(mvs[i], tuple) else mvs[i]
+                    mv_bytes = zlib.compress(mv.astype(np.int8).tobytes(), 6)
                 out.append(struct.pack(">BHI", ftype, len(mv_bytes),
                                        len(payload)))
                 out.append(mv_bytes)
@@ -427,8 +631,8 @@ def _residual_plane(q: torch.Tensor, qtab: torch.Tensor,
 class FvcDecoder:
     """Decode FVC chunks back to RGB frames: native scan decode on the
     host, reconstruction in plain PyTorch on ``device``. Reads version 1
-    and version 2 P-only chunks (header flags bits 0, 1 and 3); half-pel
-    vectors (bit 2), coded-size extensions (bit 4), B frames (bit 5) and
+    and version 2 chunks with P and B frames (header flags bits 0, 1, 3
+    and 5); half-pel vectors (bit 2), coded-size extensions (bit 4) and
     4:4:4 raise ``NotImplementedError``."""
 
     def __init__(self, device="cpu"):
@@ -437,8 +641,10 @@ class FvcDecoder:
     @staticmethod
     def parse_chunk(data: bytes):
         """Header walk of one chunk → (header dict: ``version``, ``flags``,
-        ``width``, ``height``, ``quality``, ``search_range``; per frame
-        (frame_type, vectors (H/16, W/16, 2) int8 or None, payload))."""
+        ``width``, ``height``, ``quality``, ``search_range``,
+        ``bquality``; per frame (frame_type, vectors, payload)). Vectors
+        are None for an intra frame, (H/16, W/16, 2) int8 for a P frame,
+        and (fwd, bwd, modes (H/16, W/16) int8) for a B frame."""
         if data[:4] != MAGIC:
             raise ValueError("not an FVC chunk")
         if len(data) < 12:
@@ -447,13 +653,14 @@ class FvcDecoder:
                                                          data[4:12])
         if not flags & 1:
             raise NotImplementedError("4:4:4 FVC chunks are not ported yet")
-        for bit, what in ((4, "half-pel vectors"),
-                          (16, "coded-size extensions"), (32, "B frames")):
-            if flags & bit:
-                raise NotImplementedError(f"FVC {what} are not ported yet")
+        if flags & 16:
+            raise NotImplementedError("FVC coded-size extensions are not "
+                                      "ported yet")
         ph, pw = _pad_to(h, 16), _pad_to(w, 16)
         if ph == 0 or pw == 0:
             raise ValueError("zero-sized FVC chunk")
+        mbh, mbw = ph // 16, pw // 16
+        mbn = mbh * mbw
         off = 12
         search_range = 7
         if version >= 2:
@@ -461,6 +668,15 @@ class FvcDecoder:
                 raise ValueError("truncated FVC v2 header")
             search_range = data[12]
             off = 13
+        bquality = quality
+        if flags & 32:
+            # B-frame quantizer quality (after any coded-size extension)
+            if len(data) < off + 1:
+                raise ValueError("truncated bquality extension")
+            bquality = data[off]
+            off += 1
+            if not 1 <= bquality <= 100:
+                raise ValueError("invalid bquality extension")
         frames = []
         for i in range(f):
             mv = None
@@ -480,11 +696,19 @@ class FvcDecoder:
                         except zlib.error as e:
                             raise ValueError(
                                 f"corrupt motion block (frame {i}): {e}")
-                    if len(raw) != (ph // 16) * (pw // 16) * 2:
+                    b8 = np.frombuffer(raw, np.int8)
+                    if len(raw) != mbn * (5 if ftype == 2 else 2):
                         raise ValueError(f"bad motion block (frame {i})")
-                    mv = np.frombuffer(raw, np.int8).reshape(ph // 16,
-                                                             pw // 16, 2)
+                    if ftype == 2:   # fwd vectors | bwd vectors | modes
+                        mv = (b8[:mbn * 2].reshape(mbh, mbw, 2),
+                              b8[mbn * 2:mbn * 4].reshape(mbh, mbw, 2),
+                              b8[mbn * 4:].reshape(mbh, mbw))
+                    else:
+                        mv = b8.reshape(mbh, mbw, 2)
                     off += mv_len
+                elif ftype == 2:
+                    raise ValueError(f"B frame without motion block "
+                                     f"(frame {i})")
             else:
                 if len(data) - off < 5:
                     raise ValueError(f"truncated frame header (frame {i})")
@@ -494,14 +718,20 @@ class FvcDecoder:
                 raise ValueError(f"truncated payload (frame {i})")
             frames.append((ftype, mv, data[off:off + plen]))
             off += plen
+        if flags & 4:
+            if version >= 2 and any(t == 2 for t, _, _ in frames):
+                raise ValueError("B frames with subpel vectors are not a "
+                                 "valid stream")
+            raise NotImplementedError("FVC half-pel vectors are not ported "
+                                      "yet")
         header = {"version": version, "flags": flags, "width": w,
                   "height": h, "quality": quality,
-                  "search_range": search_range}
+                  "search_range": search_range, "bquality": bquality}
         return header, frames
 
     def decode_chunk(self, data: bytes) -> Tuple[np.ndarray, dict]:
         """One chunk → ((F, H, W, 3) uint8 frames, info with ``quality``,
-        ``types`` (0 = I, 1 = P), ``width``, ``height``)."""
+        ``types`` (0 = I, 1 = P, 2 = B), ``width``, ``height``)."""
         hdr, frames = self.parse_chunk(data)
         h, w, quality = hdr["height"], hdr["width"], hdr["quality"]
         ph, pw = _pad_to(h, 16), _pad_to(w, 16)
@@ -516,13 +746,24 @@ class FvcDecoder:
         mvs = [m for _, m, _ in frames]
 
         dev = self.device
-        qy = torch.as_tensor(scale_qtable(LUMA_QTABLE, quality), device=dev)
-        qc = torch.as_tensor(scale_qtable(CHROMA_QTABLE, quality), device=dev)
+
+        def tables(q):
+            return (torch.as_tensor(scale_qtable(LUMA_QTABLE, q), device=dev),
+                    torch.as_tensor(scale_qtable(CHROMA_QTABLE, q),
+                                    device=dev))
+
+        qy, qc = tables(quality)
         ry, rcb, rcr = (torch.as_tensor(np.stack([p[c] for p in planes]),
                                         device=dev) for c in range(3))
-        if hdr["version"] >= 2:
-            frames = self._reconstruct_mc(ry, rcb, rcr, mvs, qy, qc,
-                                          planar=bool(hdr["flags"] & 8))
+        planar = bool(hdr["flags"] & 8)
+        if hdr["version"] >= 2 and 2 in types:
+            y, cb, cr = self._reconstruct_mc_b(
+                ry, rcb, rcr, mvs, types, qy, qc, *tables(hdr["bquality"]),
+                planar=planar)
+            frames = _to_rgb8(y, cb, cr)
+        elif hdr["version"] >= 2:
+            frames = _to_rgb8(*self._reconstruct_mc(ry, rcb, rcr, mvs, qy,
+                                                    qc, planar=planar))
         else:
             frames = coefs_to_rgb(*fvc_accumulate(ry, rcb, rcr), qy, qc, h,
                                   w)
@@ -532,8 +773,9 @@ class FvcDecoder:
 
     @staticmethod
     def _reconstruct_mc(ry, rcb, rcr, mvs, qy, qc, planar: bool):
-        """v2 frames → RGB: vectors as an (F, H/16, W/16, 2) array, frames
-        without vectors intra, then the in-loop reconstruction."""
+        """v2 P-only frames → (Y, Cb, Cr) planes: vectors as an (F, H/16,
+        W/16, 2) array, frames without vectors intra, then the in-loop
+        reconstruction."""
         mbh, mbw = ry.shape[1] // 2, ry.shape[2] // 2
         mv_arr = np.zeros((len(mvs), mbh, mbw, 2), np.int8)
         itypes = np.zeros(len(mvs), np.int8)
@@ -542,11 +784,51 @@ class FvcDecoder:
                 itypes[i] = 1
             else:
                 mv_arr[i] = mv
-        y, cb, cr = fvc_mc_decode_chunk(
+        return fvc_mc_decode_chunk(
             ry, rcb, rcr, torch.from_numpy(mv_arr).to(ry.device),
             torch.from_numpy(itypes), qy, qc, planar=planar)
-        rgb = i420_to_rgb(y, cb, cr)
-        return (rgb + 0.5).clamp(0, 255).to(torch.uint8)
+
+    @classmethod
+    def _reconstruct_mc_b(cls, ry, rcb, rcr, mvs, types, qy, qc, qy_b, qc_b,
+                          planar: bool):
+        """B-frame chunk → (Y, Cb, Cr) planes in display order: the
+        anchors through the P reconstruction, then each B frame by pure
+        selection from its anchor pair (per macroblock average / forward /
+        backward / flat 128) plus its residual at the bquality tables."""
+        a_idx = [i for i, t in enumerate(types) if t != 2]
+        b_idx = [i for i, t in enumerate(types) if t == 2]
+        if not a_idx or b_idx[0] < a_idx[0] or b_idx[-1] > a_idx[-1]:
+            raise ValueError("B frame without surrounding anchor frames")
+        ay, acb, acr = cls._reconstruct_mc(ry[a_idx], rcb[a_idx], rcr[a_idx],
+                                           [mvs[i] for i in a_idx], qy, qc,
+                                           planar)
+        out = []
+        for j in b_idx:
+            p = max(k for k, a in enumerate(a_idx) if a < j)
+            fwd, bwd, mode = (torch.from_numpy(np.asarray(m, np.int32))
+                              .to(ry.device) for m in mvs[j])
+            mode_y, mode_c = _repeat_blocks(mode, MB), _repeat_blocks(mode, 8)
+            pf, pb = motion_compensate(ay[p], fwd), \
+                motion_compensate(ay[p + 1], bwd)
+            planes = [_select_mode(mode_y, (pf + pb) * 0.5, pf, pb)]
+            for a in (acb, acr):
+                fc = motion_compensate(a[p], fwd, mb=8)
+                bc = motion_compensate(a[p + 1], bwd, mb=8)
+                planes.append(_select_mode(mode_c, (fc + bc) * 0.5, fc, bc))
+            out.append(tuple(
+                (pred + _residual_plane(q[j], t, planar)).clamp(0.0, 255.0)
+                for pred, q, t in zip(planes, (ry, rcb, rcr),
+                                      (qy_b, qc_b, qc_b))))
+        perm = torch.as_tensor(np.argsort(np.asarray(a_idx + b_idx)),
+                               device=ry.device)
+        return tuple(torch.cat([a, torch.stack(b)])[perm]
+                     for a, b in zip((ay, acb, acr), zip(*out)))
+
+
+def _to_rgb8(y, cb, cr) -> torch.Tensor:
+    """(F, H, W) and (F, H/2, W/2) x 2 planes → (F, H, W, 3) uint8 RGB."""
+    rgb = i420_to_rgb(y, cb, cr)
+    return (rgb + 0.5).clamp(0, 255).to(torch.uint8)
 
 
 def fvc_mc_decode_chunk(ry, rcb, rcr, mvs, itypes, qy, qc,
@@ -606,10 +888,13 @@ class CudaFvcEnc(VideoEncoder):
         PropertySpec("search-range", 7, "motion full-search window (±px)"),
         PropertySpec("engine", "auto", "auto | device: entropy coding always "
                                        "runs on the device here"),
-        PropertySpec("search", "full", "full (hier is not ported yet)"),
+        PropertySpec("search", "full", "full | hier motion estimation "
+                                       "(hier = coarse-to-fine)"),
         PropertySpec("subpel", False, "half-pel motion (not ported yet)"),
-        PropertySpec("bframes", 0, "B frames between anchors (not ported "
-                                   "yet: only 0)"),
+        PropertySpec("bframes", 0, "B frames between anchors (motion mode "
+                                   "only): bidirectional per-macroblock "
+                                   "prediction from the surrounding "
+                                   "reconstructed anchors"),
         PropertySpec("bitrate", 0, "target bits/sec; 0 = constant quality "
                                    "(rate control is not ported yet)"),
         PropertySpec("segmented", "auto", "accepted for launch-string "

@@ -11,12 +11,16 @@ CUDA kernels (ops/motion_kernels.py), which are held against them.
 The per-macroblock SAD is summed in one fixed order — each of the 16
 columns down its 16 rows, then the 16 column sums left to right — by
 elementwise adds, so it rounds the same on the CPU and on the card, and
-the search kernel sums in exactly this order.
+the search kernels sum in exactly this order. ``motion_search_hier`` is
+the coarse-to-fine search (``search=hier``): a full search with 8x8
+blocks on 2x2-pooled planes, then a ±1 refine per macroblock.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .colorspace import subsample_420
 
 MB = 16  # luma macroblock
 
@@ -66,25 +70,60 @@ def motion_search(cur_y: torch.Tensor, prev_y: torch.Tensor,
     return best_mv
 
 
-def motion_compensate(prev: torch.Tensor, mv: torch.Tensor,
-                      search_range: int = 7, mb: int = MB) -> torch.Tensor:
-    """The prediction: each mb×mb block of the output comes from ``prev``
-    displaced by its vector, wrap-around (``out[i, j] = prev[(i - dy) mod
-    H, (j - dx) mod W]``, ``torch.roll``'s sign). ``mv`` is on the LUMA
-    grid (H/16, W/16, 2); for chroma pass mb=8 and the same vectors,
-    floor-halved here (``-7 // 2 == -4``). The flat-gather formulation;
-    ``search_range`` is accepted for the reference's signature."""
+def compensate_blocks(prev: torch.Tensor, mv: torch.Tensor,
+                      mb: int) -> torch.Tensor:
+    """Each mb×mb block of the output comes from ``prev`` displaced by
+    that block's FULL vector (``mv``: (H/mb, W/mb, 2)), wrap-around:
+    ``out[i, j] = prev[(i - dy) mod H, (j - dx) mod W]`` (``torch.roll``'s
+    sign). The flat-gather formulation."""
     h, w = prev.shape
     mv = mv.to(torch.int64)
-    if mb == MB:
-        dy, dx = mv[..., 0], mv[..., 1]
-    else:
-        dy = torch.div(mv[..., 0], 2, rounding_mode="floor")
-        dx = torch.div(mv[..., 1], 2, rounding_mode="floor")
-    dy_full = dy.repeat_interleave(mb, 0).repeat_interleave(mb, 1)
-    dx_full = dx.repeat_interleave(mb, 0).repeat_interleave(mb, 1)
+    dy_full = mv[..., 0].repeat_interleave(mb, 0).repeat_interleave(mb, 1)
+    dx_full = mv[..., 1].repeat_interleave(mb, 0).repeat_interleave(mb, 1)
     yy = torch.arange(h, device=prev.device)[:, None]
     xx = torch.arange(w, device=prev.device)[None, :]
     sy = torch.remainder(yy - dy_full, h)
     sx = torch.remainder(xx - dx_full, w)
     return prev.reshape(-1)[sy * w + sx]
+
+
+def motion_compensate(prev: torch.Tensor, mv: torch.Tensor,
+                      search_range: int = 7, mb: int = MB) -> torch.Tensor:
+    """The prediction: each mb×mb block of the output comes from ``prev``
+    displaced by its vector, wrap-around. ``mv`` is on the LUMA grid
+    (H/16, W/16, 2); for chroma pass mb=8 and the same vectors,
+    floor-halved here (``-7 // 2 == -4``). ``search_range`` is accepted
+    for the reference's signature."""
+    if mb != MB:
+        mv = torch.div(mv.to(torch.int64), 2, rounding_mode="floor")
+    return compensate_blocks(prev, mv, mb)
+
+
+def motion_search_hier(cur_y: torch.Tensor, prev_y: torch.Tensor,
+                       search_range: int = 7) -> torch.Tensor:
+    """Two-level coarse-to-fine motion estimation (flutpu's
+    ``motion_search_hier``): a full search of ±max(1, r // 2) with 8x8
+    blocks on the 2x2-mean-pooled planes, the coarse vectors doubled and
+    clipped to ±(r - 1) as each macroblock's base, then a ±1 refine at
+    full resolution. The refine cost is the plain SAD (no centre bias),
+    summed in ``_mb_sums``' order; the first of the nine candidates in
+    (oy, ox) row-major order wins ties. Vectors stay within ±r."""
+    r = search_range
+    coarse = motion_search(subsample_420(cur_y), subsample_420(prev_y),
+                           max(1, r // 2), mb=8)
+    base = (coarse * 2).clamp(-(r - 1), r - 1)
+    cur = cur_y.to(torch.float32)
+    prev = prev_y.to(torch.float32)
+    best_cost = torch.full(base.shape[:2], float("inf"), dtype=torch.float32,
+                           device=cur.device)
+    best_mv = torch.zeros_like(base)
+    for oy in (-1, 0, 1):
+        for ox in (-1, 0, 1):
+            cand = base + torch.tensor([oy, ox], dtype=base.dtype,
+                                       device=base.device)
+            cost = _mb_sums((cur - compensate_blocks(prev, cand, MB)).abs(),
+                            MB)
+            better = cost < best_cost
+            best_cost = torch.where(better, cost, best_cost)
+            best_mv = torch.where(better[..., None], cand, best_mv)
+    return best_mv

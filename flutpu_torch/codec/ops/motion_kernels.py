@@ -1,20 +1,31 @@
 """Motion search + luma prediction and chroma compensation kernels (port
 of flutpu/codec/ops/motion_pallas.py).
 
-``motion_search_mc`` is the wrapper of the CUDA kernel ``csrc/motion.cu``
-that replaces the Pallas TPU kernel ``motion_search_mc_dxmajor_pallas``:
-±r full search per 16x16 macroblock with wrap-around edges, plus the
-luma prediction from the winning vectors. ``chroma_mc`` wraps the kernel
-that replaces ``chroma_mc_pallas``: 4:2:0 compensation of both chroma
-planes from the floor-halved luma vectors.
+Each wrapper replaces one Pallas TPU kernel with a CUDA kernel of
+``csrc/motion.cu``:
 
-``motion_search_mc_plain`` and ``chroma_mc_plain`` are the same
-functions in plain PyTorch (the reference's XLA arm: ops/motion.py). The
-wrappers take them for CPU tensors only; a CUDA tensor launches the
-kernel or raises. The search kernel sums each SAD in the plain version's
-order (ops/motion.py:_mb_sums), so vectors and predictions are
-bit-identical to it; chroma compensation is pure selection and
-bit-identical by construction.
+- ``motion_search_mc`` (K3, ``motion_search_mc_dxmajor_pallas``): ±r
+  full search per 16x16 macroblock with wrap-around edges, plus the luma
+  prediction from the winning vectors;
+- ``motion_search_mc_blocks`` (K6a, ``motion_search_mc_pallas``): the
+  same contract at any block size ``mb`` (8 or 16); the prediction shifts
+  each mb×mb block by its full vector (the TPU kernel's, not
+  ``motion_compensate``'s halving at mb != 16);
+- ``motion_search_mc_dygrid`` (K6b, ``motion_search_mc_dygrid_pallas``):
+  K3's contract; the TPU's dy-grid schedule has no Hopper counterpart,
+  so it launches the 16x16 search kernel;
+- ``motion_search_mc_hier`` (K5, ``motion_search_mc_hier_pallas``): the
+  coarse-to-fine search — 2x2 pool in torch, K6a's kernel at mb=8 and
+  ±max(1, r // 2), the base clip, then the ±1 refine kernel;
+- ``chroma_mc`` (K4, ``chroma_mc_pallas``): 4:2:0 compensation of both
+  chroma planes from the floor-halved luma vectors.
+
+``*_plain`` are the same functions in plain PyTorch (the reference's
+XLA arm: ops/motion.py). The wrappers take them for CPU tensors only; a
+CUDA tensor launches the kernel or raises. The kernels sum each SAD in
+the plain versions' order (ops/motion.py:_mb_sums), so vectors and
+predictions are bit-identical to them; chroma compensation is pure
+selection and bit-identical by construction.
 """
 
 from __future__ import annotations
@@ -22,13 +33,17 @@ from __future__ import annotations
 import torch
 
 from ... import _build
-from .motion import MB, motion_compensate, motion_search
+from .colorspace import subsample_420
+from .motion import (MB, compensate_blocks, motion_compensate, motion_search,
+                     motion_search_hier)
 
 #: largest search range the search kernel stages in shared memory
 MAX_SEARCH_RANGE = 32
 
 
-def _check_search_args(cur, prev, search_range) -> None:
+def _check_search_args(cur, prev, search_range, mb: int = MB) -> None:
+    if mb not in (8, 16):
+        raise ValueError(f"mb must be 8 or 16, got {mb}")
     for p in (cur, prev):
         if p.dtype != torch.float32 or p.dim() != 2 or p.shape != cur.shape:
             raise ValueError("cur, prev must be float32 planes of one (H, W) "
@@ -36,8 +51,8 @@ def _check_search_args(cur, prev, search_range) -> None:
     if prev.device != cur.device:
         raise ValueError("cur and prev must lie on one device")
     h, w = cur.shape
-    if h % MB or w % MB:
-        raise ValueError(f"plane size {(h, w)} is not a multiple of {MB}")
+    if h % mb or w % mb:
+        raise ValueError(f"plane size {(h, w)} is not a multiple of {mb}")
     if not 0 <= search_range <= MAX_SEARCH_RANGE:
         raise ValueError(f"search_range must be in 0..{MAX_SEARCH_RANGE}, "
                          f"got {search_range}")
@@ -73,6 +88,38 @@ def motion_search_mc_plain(cur: torch.Tensor, prev: torch.Tensor,
     return mv, motion_compensate(prev, mv, search_range)
 
 
+def motion_search_mc_blocks_plain(cur: torch.Tensor, prev: torch.Tensor,
+                                  search_range: int = 7, mb: int = MB):
+    """Plain PyTorch version of K6a: ``motion_search(..., mb)``, then each
+    mb×mb block shifted by its full vector (``compensate_blocks``)."""
+    _check_search_args(cur, prev, search_range, mb)
+    mv = motion_search(cur, prev, search_range, mb)
+    return mv, compensate_blocks(prev, mv, mb)
+
+
+def motion_search_mc_dygrid_plain(cur: torch.Tensor, prev: torch.Tensor,
+                                  search_range: int = 7):
+    """Plain PyTorch version of K6b: K3's contract
+    (``motion_search`` + ``motion_compensate``)."""
+    return motion_search_mc_plain(cur, prev, search_range)
+
+
+def _check_hier_args(cur, prev, search_range) -> None:
+    _check_search_args(cur, prev, search_range)
+    if search_range < 1:
+        raise ValueError(f"hier search needs search_range >= 1, got "
+                         f"{search_range}")
+
+
+def motion_search_mc_hier_plain(cur: torch.Tensor, prev: torch.Tensor,
+                                search_range: int = 7):
+    """Plain PyTorch version of K5: ``motion_search_hier`` then
+    ``motion_compensate``."""
+    _check_hier_args(cur, prev, search_range)
+    mv = motion_search_hier(cur, prev, search_range)
+    return mv, motion_compensate(prev, mv, search_range)
+
+
 def chroma_mc_plain(prev_cb: torch.Tensor, prev_cr: torch.Tensor,
                     mv: torch.Tensor, search_range: int = 7):
     """Plain PyTorch version of the chroma kernel:
@@ -80,6 +127,32 @@ def chroma_mc_plain(prev_cb: torch.Tensor, prev_cr: torch.Tensor,
     _check_chroma_args(prev_cb, prev_cr, mv)
     return (motion_compensate(prev_cb, mv, search_range, mb=8),
             motion_compensate(prev_cr, mv, search_range, mb=8))
+
+
+def _on_cuda(t: torch.Tensor, name: str) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if t.device.type == "cpu":
+        return False
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return True
+
+
+def _launch_search(entry: str, cur, prev, search_range, mb, *extra):
+    """One launch of a search kernel entry on the current stream →
+    (mv (H/mb, W/mb, 2) int32, pred (H, W) float32)."""
+    cur, prev = cur.contiguous(), prev.contiguous()
+    h, w = cur.shape
+    mv = torch.empty((h // mb, w // mb, 2), dtype=torch.int32,
+                     device=cur.device)
+    pred = torch.empty_like(cur)
+    lib = _build.load()
+    with torch.cuda.device(cur.device):
+        stream = torch.cuda.current_stream(cur.device).cuda_stream
+        _build.check(getattr(lib, entry)(
+            cur.data_ptr(), prev.data_ptr(), mv.data_ptr(), pred.data_ptr(),
+            h, w, search_range, *extra, stream), f"{entry} launch")
+    return mv, pred
 
 
 def motion_search_mc(cur: torch.Tensor, prev: torch.Tensor,
@@ -90,24 +163,67 @@ def motion_search_mc(cur: torch.Tensor, prev: torch.Tensor,
     to the first in dy-major order, and the prediction ``pred[i, j] =
     prev[(i - dy) mod H, (j - dx) mod W]``. CUDA tensors launch the kernel
     on the current stream; CPU tensors take ``motion_search_mc_plain``."""
-    if cur.device.type == "cpu":
+    if not _on_cuda(cur, "motion_search_mc"):
         return motion_search_mc_plain(cur, prev, search_range)
-    if cur.device.type != "cuda":
-        raise ValueError(f"motion_search_mc: unsupported device {cur.device}")
     _check_search_args(cur, prev, search_range)
-    cur, prev = cur.contiguous(), prev.contiguous()
-    h, w = cur.shape
-    mv = torch.empty((h // MB, w // MB, 2), dtype=torch.int32,
-                     device=cur.device)
-    pred = torch.empty_like(cur)
-    lib = _build.load()
-    with torch.cuda.device(cur.device):
-        stream = torch.cuda.current_stream(cur.device).cuda_stream
-        _build.check(lib.flu_motion_search_mc(
-            cur.data_ptr(), prev.data_ptr(), mv.data_ptr(), pred.data_ptr(),
-            h, w, search_range, stream), "motion_search_mc launch")
+    out = _launch_search("flu_motion_search_mc", cur, prev, search_range, MB)
     motion_search_mc.launches += 1
-    return mv, pred
+    return out
+
+
+def motion_search_mc_blocks(cur: torch.Tensor, prev: torch.Tensor,
+                            search_range: int = 7, mb: int = MB):
+    """K3's contract at block size ``mb`` (8 or 16; H and W multiples of
+    it): mv (H/mb, W/mb, 2) int32 of least ``SAD * 64 + |dy| + |dx|``,
+    first-scanned ties, and each mb×mb block of the prediction shifted by
+    its full vector. CUDA tensors launch the search kernel's ``mb``
+    instance; CPU tensors take ``motion_search_mc_blocks_plain``."""
+    if not _on_cuda(cur, "motion_search_mc_blocks"):
+        return motion_search_mc_blocks_plain(cur, prev, search_range, mb)
+    _check_search_args(cur, prev, search_range, mb)
+    out = _launch_search("flu_motion_search_mc_blocks", cur, prev,
+                         search_range, mb, mb)
+    motion_search_mc_blocks.launches += 1
+    return out
+
+
+def motion_search_mc_dygrid(cur: torch.Tensor, prev: torch.Tensor,
+                            search_range: int = 7):
+    """K6b's counterpart: K3's contract bit for bit (``motion_search_mc``).
+    The TPU kernel's dy-grid schedule (one lane roll per candidate, the dy
+    shift resolved outside) has no Hopper counterpart; CUDA tensors
+    launch the 16x16 search kernel, CPU tensors take
+    ``motion_search_mc_dygrid_plain``."""
+    if not _on_cuda(cur, "motion_search_mc_dygrid"):
+        return motion_search_mc_dygrid_plain(cur, prev, search_range)
+    _check_search_args(cur, prev, search_range)
+    out = _launch_search("flu_motion_search_mc", cur, prev, search_range, MB)
+    motion_search_mc_dygrid.launches += 1
+    return out
+
+
+def motion_search_mc_hier(cur: torch.Tensor, prev: torch.Tensor,
+                          search_range: int = 7):
+    """(H, W) float32 luma, H and W multiples of 16 → (mv (H/16, W/16, 2)
+    int32, pred (H, W) float32), coarse to fine: K6a at mb=8 and
+    ±max(1, r // 2) on the 2x2-mean-pooled planes, base = clip(2 * coarse,
+    ±(r - 1)), then per macroblock the least plain SAD of base + (oy, ox)
+    for oy, ox in -1..1 (first in row-major order wins ties) and its
+    prediction. CUDA tensors launch K6a (counted by
+    ``motion_search_mc_blocks``) and the refine kernel on the current
+    stream; CPU tensors take ``motion_search_mc_hier_plain``."""
+    if not _on_cuda(cur, "motion_search_mc_hier"):
+        return motion_search_mc_hier_plain(cur, prev, search_range)
+    _check_hier_args(cur, prev, search_range)
+    r = search_range
+    coarse, _ = motion_search_mc_blocks(subsample_420(cur),
+                                        subsample_420(prev), max(1, r // 2),
+                                        mb=8)
+    base = (coarse * 2).clamp(-(r - 1), r - 1)
+    out = _launch_search("flu_motion_refine_mc", cur, prev, r, MB,
+                         base.data_ptr())
+    motion_search_mc_hier.launches += 1
+    return out
 
 
 def chroma_mc(prev_cb: torch.Tensor, prev_cr: torch.Tensor, mv: torch.Tensor,
@@ -119,10 +235,8 @@ def chroma_mc(prev_cb: torch.Tensor, prev_cr: torch.Tensor, mv: torch.Tensor,
     covers both planes. CUDA tensors launch the kernel on the current
     stream; CPU tensors take ``chroma_mc_plain``. ``search_range`` is
     accepted for the reference's signature."""
-    if prev_cb.device.type == "cpu":
+    if not _on_cuda(prev_cb, "chroma_mc"):
         return chroma_mc_plain(prev_cb, prev_cr, mv, search_range)
-    if prev_cb.device.type != "cuda":
-        raise ValueError(f"chroma_mc: unsupported device {prev_cb.device}")
     _check_chroma_args(prev_cb, prev_cr, mv)
     prev_cb, prev_cr = prev_cb.contiguous(), prev_cr.contiguous()
     mv = mv.to(torch.int32).contiguous()
@@ -142,4 +256,7 @@ def chroma_mc(prev_cb: torch.Tensor, prev_cr: torch.Tensor, mv: torch.Tensor,
 
 #: kernel launches since the count was last set to 0
 motion_search_mc.launches = 0
+motion_search_mc_blocks.launches = 0
+motion_search_mc_dygrid.launches = 0
+motion_search_mc_hier.launches = 0
 chroma_mc.launches = 0

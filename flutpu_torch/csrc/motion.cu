@@ -1,4 +1,5 @@
-// Full-search motion estimation with luma prediction (K3), and 4:2:0
+// Full-search motion estimation with luma prediction (K3, and K6a at any
+// block size), the hierarchical search's refine stage (K5), and 4:2:0
 // chroma motion compensation of both planes (K4), for Hopper.
 //
 // motion_search_mc_kernel replaces
@@ -32,6 +33,30 @@
 //     c = (dy + r) * (2r + 1) + (dx + r): the block reduces on the pair
 //     (cost, c), never on arrival order.
 //
+// The search kernel is a template on the block size MB (16 or 8). The
+// MB = 16 instance is K3 (entry flu_motion_search_mc). Both instances
+// serve K6a (flu_motion_search_mc_blocks), which replaces
+// motion_pallas.py:motion_search_mc_pallas: K3's contract at any block
+// size, the prediction shifting each MB x MB block by its full vector (as
+// the TPU kernel does; motion_compensate would halve it at MB != 16). K5's
+// coarse level is the MB = 8 instance on 2x2-pooled planes.
+//
+// motion_refine_mc_kernel is K5's refine stage (flu_motion_refine_mc); it
+// replaces motion_pallas.py:_refine_mc_kernel of
+// motion_search_mc_hier_pallas, which rolled whole bands once per
+// absolute candidate that some macroblock wanted and skipped the rest
+// with lax.cond. Here one thread block owns one 16x16 macroblock: it
+// stages the 18x18 wrap-around window around the macroblock's base
+// vector and the current block in shared memory, 144 threads sum the
+// nine candidates' 16 column SADs (each down its 16 rows), nine threads
+// sum each candidate's columns left to right (ops/motion.py:_mb_sums'
+// order, every add rounded on its own), one thread scans the nine costs
+// in (oy, ox) row-major order with a strict < (the first wins ties; the
+// cost is the plain SAD, no centre bias), and the block writes the vector
+// base + (oy, ox) and the prediction from the same window. Bound on the
+// H100 by device memory: ~2.3 KB read and 1 KB written per macroblock,
+// 2,304 absolute differences; the pooled coarse search costs far more.
+//
 // chroma_mc_kernel replaces motion_pallas.py:chroma_mc_pallas (the Pallas
 // TPU kernel `_chroma_mc_kernel`), which rolled a wrap-padded band once per
 // distinct halved shift and selected per pixel. Here each thread gathers
@@ -48,7 +73,7 @@
 
 namespace {
 
-constexpr int kMB = 16;
+constexpr int kMB = 16;  // luma macroblock (K3, K5's refine)
 constexpr int kSearchThreads = 256;
 constexpr int kWarps = kSearchThreads / 32;
 constexpr int kMaxRange = 32;
@@ -68,21 +93,24 @@ __host__ __device__ __forceinline__ int window_stride(int span) {
   return span + ((16 - span % 32) + 32) % 32;
 }
 
+template <int MB>
 __global__ void __launch_bounds__(kSearchThreads)
 motion_search_mc_kernel(const float* __restrict__ cur, const float* __restrict__ prev,
                         int32_t* __restrict__ mv, float* __restrict__ pred, int h, int w,
                         int r) {
+  static_assert(MB * MB <= kSearchThreads && kSearchThreads % (MB * MB) == 0,
+                "one pass of the block's threads covers a whole number of blocks");
   extern __shared__ float smem[];
-  const int span = kMB + 2 * r;
+  const int span = MB + 2 * r;
   const int stride = window_stride(span);
   float* win = smem;                       // span x stride
-  float* blk = win + span * stride;        // 16 x 16 current block
-  float* red_cost = blk + kMB * kMB;       // kWarps
+  float* blk = win + span * stride;        // MB x MB current block
+  float* red_cost = blk + MB * MB;         // kWarps
   int* red_idx = reinterpret_cast<int*>(red_cost + kWarps);  // kWarps + 1
 
   const int t = threadIdx.x;
-  const int y0 = blockIdx.y * kMB;
-  const int x0 = blockIdx.x * kMB;
+  const int y0 = blockIdx.y * MB;
+  const int x0 = blockIdx.x * MB;
 
   // window element (a, b) = prev[(y0 - r + a) mod h, (x0 - r + b) mod w]
   for (int k = t; k < span * span; k += kSearchThreads) {
@@ -90,7 +118,7 @@ motion_search_mc_kernel(const float* __restrict__ cur, const float* __restrict__
     const int b = k - a * span;
     win[a * stride + b] = prev[(size_t)wrap(y0 - r + a, h) * w + wrap(x0 - r + b, w)];
   }
-  blk[t] = cur[(size_t)(y0 + (t >> 4)) * w + x0 + (t & 15)];
+  if (t < MB * MB) blk[t] = cur[(size_t)(y0 + t / MB) * w + x0 + t % MB];
   __syncthreads();
 
   const int n = 2 * r + 1;
@@ -102,11 +130,11 @@ motion_search_mc_kernel(const float* __restrict__ cur, const float* __restrict__
     const float* src = win + (r - dy) * stride + (r - dx);
     float sad = 0.f;
 #pragma unroll 1
-    for (int j = 0; j < kMB; j++) {
+    for (int j = 0; j < MB; j++) {
       float col = fabsf(__fsub_rn(blk[j], src[j]));
 #pragma unroll
-      for (int i = 1; i < kMB; i++)
-        col = __fadd_rn(col, fabsf(__fsub_rn(blk[i * kMB + j], src[i * stride + j])));
+      for (int i = 1; i < MB; i++)
+        col = __fadd_rn(col, fabsf(__fsub_rn(blk[i * MB + j], src[i * stride + j])));
       sad = j == 0 ? col : __fadd_rn(sad, col);
     }
     const float cost = __fadd_rn(__fmul_rn(sad, 64.f), (float)(abs(dy) + abs(dx)));
@@ -157,9 +185,81 @@ motion_search_mc_kernel(const float* __restrict__ cur, const float* __restrict__
     out[0] = dy;
     out[1] = dx;
   }
+  if (t < MB * MB) {
+    const int i = t / MB;
+    const int j = t % MB;
+    pred[(size_t)(y0 + i) * w + x0 + j] = win[(i + r - dy) * stride + (j + r - dx)];
+  }
+}
+
+constexpr int kWin = kMB + 2;  // K5's refine window: the macroblock and a 1-pixel rim
+
+__global__ void __launch_bounds__(kSearchThreads)
+motion_refine_mc_kernel(const float* __restrict__ cur, const float* __restrict__ prev,
+                        const int32_t* __restrict__ base, int32_t* __restrict__ mv,
+                        float* __restrict__ pred, int h, int w) {
+  __shared__ float win[kWin * kWin];
+  __shared__ float blk[kMB * kMB];
+  __shared__ float cols[9 * kMB];
+  __shared__ float cost[9];
+  __shared__ int best_c;
+
+  const int t = threadIdx.x;
+  const size_t m = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
+  const int y0 = blockIdx.y * kMB;
+  const int x0 = blockIdx.x * kMB;
+  const int by = base[m * 2];
+  const int bx = base[m * 2 + 1];
+
+  // window element (a, b) = prev[(y0 - by - 1 + a) mod h, (x0 - bx - 1 + b) mod w]:
+  // candidate base + (oy, ox) predicts pixel (i, j) from element (i + 1 - oy, j + 1 - ox)
+  for (int k = t; k < kWin * kWin; k += kSearchThreads) {
+    const int a = k / kWin;
+    const int b = k - a * kWin;
+    win[k] = prev[(size_t)wrap(y0 - by - 1 + a, h) * w + wrap(x0 - bx - 1 + b, w)];
+  }
+  blk[t] = cur[(size_t)(y0 + (t >> 4)) * w + x0 + (t & 15)];
+  __syncthreads();
+
+  if (t < 9 * kMB) {  // thread (c, j): column j of candidate c, down its 16 rows
+    const int c = t >> 4;
+    const int j = t & 15;
+    const float* src = win + (1 - (c / 3 - 1)) * kWin + (1 - (c % 3 - 1));
+    float col = fabsf(__fsub_rn(blk[j], src[j]));
+#pragma unroll
+    for (int i = 1; i < kMB; i++)
+      col = __fadd_rn(col, fabsf(__fsub_rn(blk[i * kMB + j], src[i * kWin + j])));
+    cols[t] = col;
+  }
+  __syncthreads();
+  if (t < 9) {  // the 16 column sums left to right
+    float sad = cols[t * kMB];
+#pragma unroll
+    for (int j = 1; j < kMB; j++) sad = __fadd_rn(sad, cols[t * kMB + j]);
+    cost[t] = sad;
+  }
+  __syncthreads();
+  if (t == 0) {
+    float best = INFINITY;
+    int bc = -1;
+    for (int c = 0; c < 9; c++) {  // (oy, ox) row-major; strict < keeps the first
+      if (cost[c] < best) {
+        best = cost[c];
+        bc = c;
+      }
+    }
+    best_c = bc;
+    // every cost NaN: the plain version keeps its initial (0, 0)
+    mv[m * 2] = bc < 0 ? 0 : by + bc / 3 - 1;
+    mv[m * 2 + 1] = bc < 0 ? 0 : bx + bc % 3 - 1;
+  }
+  __syncthreads();
+  const int c = best_c;
   const int i = t >> 4;
   const int j = t & 15;
-  pred[(size_t)(y0 + i) * w + x0 + j] = win[(i + r - dy) * stride + (j + r - dx)];
+  pred[(size_t)(y0 + i) * w + x0 + j] =
+      c < 0 ? prev[(size_t)(y0 + i) * w + x0 + j]
+            : win[(i + 1 - (c / 3 - 1)) * kWin + (j + 1 - (c % 3 - 1))];
 }
 
 // floor(v / 2) for any sign
@@ -180,6 +280,20 @@ chroma_mc_kernel(const float* __restrict__ cb, const float* __restrict__ cr,
   dst[(size_t)y * wc + x] = src[(size_t)sy * wc + sx];
 }
 
+template <int MB>
+int launch_search(const void* cur, const void* prev, void* mv, void* pred, int h, int w, int r,
+                  void* stream) {
+  if (h % MB || w % MB || r < 0 || r > kMaxRange) return (int)cudaErrorInvalidValue;
+  if (h == 0 || w == 0) return (int)cudaSuccess;
+  const int span = MB + 2 * r;
+  const size_t smem = sizeof(float) * ((size_t)span * window_stride(span) + MB * MB + kWarps) +
+                      sizeof(int) * (kWarps + 1);
+  const dim3 grid(w / MB, h / MB);
+  motion_search_mc_kernel<MB><<<grid, kSearchThreads, smem, (cudaStream_t)stream>>>(
+      (const float*)cur, (const float*)prev, (int32_t*)mv, (float*)pred, h, w, r);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -188,14 +302,29 @@ extern "C" {
 // int32 out; pred: (h, w) float32 out; 0 <= r <= 32.
 int flu_motion_search_mc(const void* cur, const void* prev, void* mv, void* pred, int h, int w,
                          int r, void* stream) {
-  if (h % kMB || w % kMB || r < 0 || r > kMaxRange) return (int)cudaErrorInvalidValue;
+  return launch_search<kMB>(cur, prev, mv, pred, h, w, r, stream);
+}
+
+// flu_motion_search_mc at block size mb (8 or 16): h and w multiples of mb;
+// mv: (h/mb, w/mb, 2) int32 out.
+int flu_motion_search_mc_blocks(const void* cur, const void* prev, void* mv, void* pred, int h,
+                                int w, int r, int mb, void* stream) {
+  if (mb == 16) return launch_search<16>(cur, prev, mv, pred, h, w, r, stream);
+  if (mb == 8) return launch_search<8>(cur, prev, mv, pred, h, w, r, stream);
+  return (int)cudaErrorInvalidValue;
+}
+
+// K5's refine: cur, prev (h, w) float32, multiples of 16; base (h/16, w/16, 2)
+// int32, each in -(r-1)..r-1; mv (h/16, w/16, 2) int32 out; pred (h, w)
+// float32 out. r bounds the base (the window is 18x18 whatever r is).
+int flu_motion_refine_mc(const void* cur, const void* prev, void* mv, void* pred, int h, int w,
+                         int r, const void* base, void* stream) {
+  if (h % kMB || w % kMB || r < 1 || r > kMaxRange) return (int)cudaErrorInvalidValue;
   if (h == 0 || w == 0) return (int)cudaSuccess;
-  const int span = kMB + 2 * r;
-  const size_t smem = sizeof(float) * ((size_t)span * window_stride(span) + kMB * kMB + kWarps) +
-                      sizeof(int) * (kWarps + 1);
   const dim3 grid(w / kMB, h / kMB);
-  motion_search_mc_kernel<<<grid, kSearchThreads, smem, (cudaStream_t)stream>>>(
-      (const float*)cur, (const float*)prev, (int32_t*)mv, (float*)pred, h, w, r);
+  motion_refine_mc_kernel<<<grid, kSearchThreads, 0, (cudaStream_t)stream>>>(
+      (const float*)cur, (const float*)prev, (const int32_t*)base, (int32_t*)mv, (float*)pred, h,
+      w);
   return (int)cudaGetLastError();
 }
 

@@ -101,6 +101,67 @@ def test_motion_search_kernel_matches_plain(cuda_device, h, w, r):
     assert torch.equal(pred, pred_p)
 
 
+def _rolled_pair(h, w, seed, shift=(3, -5)):
+    rng = np.random.default_rng(seed)
+    prev = rng.uniform(0, 255, (h, w)).astype(np.float32)
+    cur = (np.roll(prev, shift, axis=(0, 1))
+           + rng.normal(0, 2, (h, w))).astype(np.float32)
+    return cur, prev
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,r,mb", [(1088, 1920, 7, 16), (544, 960, 3, 8),
+                                      (96, 160, 7, 16), (96, 160, 3, 8),
+                                      (48, 80, 7, 8)])
+def test_blocks_search_kernel_matches_plain(cuda_device, h, w, r, mb):
+    """K6a: the search kernel's 8x8 and 16x16 instances, bit-identical to
+    the plain version (vectors and the full-vector block prediction)."""
+    c, p = (torch.from_numpy(a).to(cuda_device)
+            for a in _rolled_pair(h, w, h + r + mb, (2, -3)))
+    before = M.motion_search_mc_blocks.launches
+    mv, pred = M.motion_search_mc_blocks(c, p, r, mb)
+    torch.cuda.synchronize()
+    assert M.motion_search_mc_blocks.launches == before + 1
+    mv_p, pred_p = M.motion_search_mc_blocks_plain(c, p, r, mb)
+    assert torch.equal(mv, mv_p)
+    assert torch.equal(pred, pred_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,r", [(1088, 1920, 7), (96, 160, 7),
+                                   (96, 160, 3), (64, 96, 1)])
+def test_hier_kernels_match_plain(cuda_device, h, w, r):
+    """K5: pool, K6a at mb=8 and the refine kernel, bit-identical to the
+    plain version, on a rolled plane with one divergent macroblock and on
+    a flat plane (every refine candidate ties)."""
+    cur, prev = _rolled_pair(h, w, h + r, (4, -3))
+    cur[16:32, 32:48] = np.random.default_rng(r).uniform(0, 255, (16, 16))
+    flat = np.full((h, w), 100.0, np.float32)
+    for a, b in ((cur, prev), (flat, flat)):
+        c, p = (torch.from_numpy(x).to(cuda_device) for x in (a, b))
+        before = (M.motion_search_mc_hier.launches,
+                  M.motion_search_mc_blocks.launches)
+        mv, pred = M.motion_search_mc_hier(c, p, r)
+        torch.cuda.synchronize()
+        assert (M.motion_search_mc_hier.launches,
+                M.motion_search_mc_blocks.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+        mv_p, pred_p = M.motion_search_mc_hier_plain(c, p, r)
+        assert torch.equal(mv, mv_p)
+        assert torch.equal(pred, pred_p)
+
+
+@pytest.mark.cuda
+def test_dygrid_counterpart_matches_plain(cuda_device):
+    c, p = (torch.from_numpy(a).to(cuda_device)
+            for a in _rolled_pair(96, 160, 5))
+    before = M.motion_search_mc_dygrid.launches
+    got = M.motion_search_mc_dygrid(c, p, 7)
+    assert M.motion_search_mc_dygrid.launches == before + 1
+    for a, b in zip(got, M.motion_search_mc_dygrid_plain(c, p, 7)):
+        assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("hc,wc,r", [(544, 960, 7), (544, 960, 5),
                                      (48, 80, 4)])
@@ -147,3 +208,20 @@ def test_fvc_motion_refuses_tf32(cuda_device):
             enc.encode_chunk(frames)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hier,bframes", [(True, 1), (True, 0), (False, 1)])
+def test_fvc_hier_b_on_card_matches_cpu(cuda_device, hier, bframes):
+    """A 160x96 chunk with hier search and B frames, on the card and on the
+    CPU."""
+    frames = np.concatenate([
+        np.stack([make_test_frame("ball", 160, 96, i) for i in range(5)]),
+        np.stack([make_test_frame("noise", 160, 96, i) for i in range(3)])])
+    kw = dict(motion=True, hier=hier, bframes=bframes)
+    got = FvcEncoder(device=cuda_device, **kw).encode_chunk(frames)
+    assert got == FvcEncoder(device="cpu", **kw).encode_chunk(frames)
+    a, info = FvcDecoder(cuda_device).decode_chunk(got)
+    b, info_cpu = FvcDecoder("cpu").decode_chunk(got)
+    assert info == info_cpu and (2 in info["types"]) == bool(bframes)
+    assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 1

@@ -281,26 +281,54 @@ def test_from_numpy_state_needs_a_quality_table():
         FvcEncoder.from_numpy_state(je.qy + 1, je.qc, device="cpu")
 
 
+#: options the port runs since search=hier and B frames were ported; the
+#: others still raise
+PORTED = ({"hier": True}, {"bframes": 1}, "search=hier", "bframes=1")
+
+
 @pytest.mark.parametrize("kwargs", [
     {"subpel": True}, {"hier": True}, {"bframes": 1}, {"subsample": False},
     {"engine": "host"}, {"search_range": 40}])
 def test_unported_encoder_options_raise(kwargs):
+    """Unported options raise; hier and bframes build an encoder that
+    carries them."""
+    if kwargs in PORTED:
+        enc = FvcEncoder(85, motion=True, device="cpu", **kwargs)
+        assert (enc.hier, enc.bframes) == (kwargs.get("hier", False),
+                                           kwargs.get("bframes", 0))
+        return
     with pytest.raises(NotImplementedError):
         FvcEncoder(85, motion=True, device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("bit", [4, 16, 32])
 def test_unported_stream_features_raise(jax_chunks, bit):
+    """Bits 2 (half-pel) and 4 (coded size) raise. Bit 5 (B frames) is
+    read: with its bquality byte after the search range, a P-only chunk
+    flagged for B frames decodes to the same frames."""
     data = bytearray(jax_chunks[(True, "ball")])
     data[5] |= bit
+    if bit == 32:
+        data[13:13] = bytes([77])
+        got, info = FvcDecoder().decode_chunk(bytes(data))
+        want, j_info = FvcDecoder().decode_chunk(jax_chunks[(True, "ball")])
+        assert FvcDecoder.parse_chunk(bytes(data))[0]["bquality"] == 77
+        assert info == j_info
+        np.testing.assert_array_equal(got, want)
+        return
     with pytest.raises(NotImplementedError):
         FvcDecoder().decode_chunk(bytes(data))
 
 
 def test_unported_program_options_raise():
+    """subpel and the planar DCT raise; hier runs the coarse-to-fine
+    search."""
     frames = torch.from_numpy(CLIPS["ball"][:2])
     q = torch.ones((8, 8), dtype=torch.int32)
-    for kw in ({"hier": True}, {"subpel": True}, {"planar": True}):
+    ry, _, _, mvs, itypes = tf.fvc_mc_encode_chunk(frames, q, q, H, W, 7,
+                                                   hier=True)
+    assert ry.shape[0] == mvs.shape[0] == 2 and itypes.tolist() == [1, 0]
+    for kw in ({"subpel": True}, {"planar": True}):
         with pytest.raises(NotImplementedError):
             tf.fvc_mc_encode_chunk(frames, q, q, H, W, 7, **kw)
 
@@ -308,11 +336,18 @@ def test_unported_program_options_raise():
 @pytest.mark.parametrize("prop", ["bitrate=100000", "search=hier",
                                   "subpel=true", "bframes=1"])
 def test_cudafvcenc_unported_properties_raise(prop):
+    """bitrate and subpel raise; search=hier and bframes reach the
+    encoder."""
     name, value = prop.split("=")
     el = make("cudafvcenc", device="cpu", motion=True)
     el.set_property(name, {"true": True}.get(value, value if not
                                               value.isdigit()
                                               else int(value)))
+    if prop in PORTED:
+        enc = el._enc()
+        assert (enc.hier, enc.bframes) == (prop == "search=hier",
+                                           int(prop == "bframes=1"))
+        return
     with pytest.raises(NotImplementedError):
         el._enc()
 

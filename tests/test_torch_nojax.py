@@ -63,6 +63,12 @@ p.stop()
 from flutpu_torch.codec.fvc import FvcDecoder
 frames, info = FvcDecoder().decode_chunk(chunks[0])
 assert len(chunks) == 1 and frames.shape == (3, 32, 64, 3), frames.shape
+import numpy as np
+from flutpu_torch.codec.fvc import FvcEncoder
+clip = np.stack([np.roll(np.arange(32 * 64 * 3, dtype=np.uint8)
+                         .reshape(32, 64, 3), i, axis=1) for i in range(3)])
+b = FvcEncoder(motion=True, hier=True, bframes=1, device="cpu")
+assert 2 in FvcDecoder().decode_chunk(b.encode_chunk(clip))[1]["types"]
 assert sys.modules["jax"] is None
 print("encoded", len(out), "chunks", len(chunks))
 """
@@ -203,23 +209,48 @@ def test_fvc_constants_equal():
                                       j_dct._bd_dct_matrix(dim))
 
 
-@pytest.mark.parametrize("motion", [False, True])
-def test_fvc_chunk_layout_equal(motion):
-    """The container writer is flutpu's, byte for byte: header, per-frame
-    records, zlib'd vectors, intra frames without vectors."""
+@pytest.mark.parametrize("motion,bframes,bquality", [
+    pytest.param(False, 0, None, id="False"),
+    pytest.param(True, 0, None, id="True"),
+    pytest.param(True, 1, None, id="True-bframes"),
+    pytest.param(True, 1, 41, id="True-bframes-bquality")])
+def test_fvc_chunk_layout_equal(motion, bframes, bquality):
+    """The container writer is flutpu's, byte for byte: header (with the
+    bquality byte when B frames are on), per-frame records, zlib'd
+    vectors (fwd | bwd | modes for B frames, fwd alone for P anchors),
+    intra frames without vectors."""
     rng = np.random.default_rng(1)
     payloads = [rng.integers(0, 256, n, np.uint8).tobytes()
-                for n in (40, 7, 0, 300)]
-    mvs = [rng.integers(-7, 8, (6, 10, 2)).astype(np.int8) for _ in range(4)]
-    itypes = np.array([1, 0, 1, 0])
-    te = t_fvc.FvcEncoder(60, motion=motion, search_range=5, device="cpu")
+                for n in (40, 7, 0, 300, 12)]
+
+    def vec():
+        return rng.integers(-7, 8, (6, 10, 2)).astype(np.int8)
+
+    if bframes:
+        mvs = [(vec(), vec(), rng.integers(0, 4, (6, 10)).astype(np.int8))
+               for _ in range(5)]
+        itypes = np.array([1, 2, 0, 2, 1])
+    else:
+        mvs = [vec() for _ in range(5)]
+        itypes = np.array([1, 0, 1, 0, 0])
+    te = t_fvc.FvcEncoder(60, motion=motion, search_range=5, device="cpu",
+                          bframes=bframes, bquality=bquality)
     je = j_fvc.FvcEncoder.__new__(j_fvc.FvcEncoder)
     je.quality, je.subsample, je.motion, je.search_range = 60, True, motion, 5
     je.subpel = je.planar = False
-    je.bframes, je.bquality = 0, None
+    je.bframes, je.bquality = te.bframes, te.bquality
     args = (payloads, mvs if motion else None, itypes if motion else None,
-            4, 90, 160)
+            5, 90, 160)
     assert te._build_chunk(*args) == je._build_chunk(*args)
+    if bframes:
+        assert te.bquality == (bquality or 52)
+
+
+@pytest.mark.parametrize("bframes", range(1, 8))
+def test_bframe_structure_equal(bframes):
+    for f in range(1, 13):
+        assert t_fvc._bframe_structure(f, bframes) == \
+            j_fvc._bframe_structure(f, bframes)
 
 
 # -- the kernel build, composed but not run ------------------------------------
@@ -257,7 +288,8 @@ def test_c_entries_match_the_sources():
     defined = set(re.findall(r"^int (flu_\w+)\(", text, re.M))
     assert defined == {"flu_front_end_init", "flu_front_end",
                        "flu_pack_init", "flu_pack_segments",
-                       "flu_motion_search_mc", "flu_chroma_mc"}
+                       "flu_motion_search_mc", "flu_motion_search_mc_blocks",
+                       "flu_motion_refine_mc", "flu_chroma_mc"}
 
     class Lib:
         def __getattr__(self, name):
