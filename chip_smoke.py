@@ -11,6 +11,11 @@ Drives the port's main paths through the entry points a user calls, at
    most 1e-4 of the coefficients) and the Huffman pack kernel (K2)
    against its plain version (bit-identical), each timed with CUDA
    events;
+2b. block-pack kernels (the non-segment layout): on the 16-frame GOP's
+   MCU blocks (K1's coefficients through ``_mcu_blocks``), K7, K8a (on
+   ``_slot_tables_merged``) and K8b (on ``_slot_tables``) each
+   bit-identical to its plain version and the three to each other, each
+   timed beside its byte bound;
 3. JPEG main path: ``JpegEncoder.encode_gop_dispatch_src`` on the
    on-device gradient-ball source, 8 GOPs with two in flight, then the
    pipeline ``videotestsrc ! cudajpegenc ! appsink`` over 32 frames;
@@ -18,6 +23,14 @@ Drives the port's main paths through the entry points a user calls, at
    ``flu_jpeg_decode_scan``) to exactly K1's coefficients, equals the
    native ``flu_jpeg_encode_scan`` of those coefficients byte for byte,
    and reconstructs at >= 30 dB PSNR against its source;
+4b. the non-segment JPEG path: ``JpegEncoder(segmented=False)``, 8 GOPs
+   of the same source with two in flight (K1 and K7 launched, K2 not),
+   checked as in phase 4 and byte-identical to phase 3's GOPs, frames/s
+   beside phase 3's, and both layouts' device busy time per GOP
+   (torch.profiler); one GOP under ``FLUTPU_NO_FUSED_PACK=1`` (K8a
+   launched, same bytes); the pipeline ``videotestsrc ! cudajpegenc
+   segmented=false ! appsink`` over 32 frames, byte-identical to phase
+   3's pipeline;
 5. motion kernels: the search kernel (K3) against its plain version on
    three 1080p luma pairs (consecutive gradient-ball frames, a rolled
    plane plus noise, an in-loop reconstruction as reference): the
@@ -25,19 +38,20 @@ Drives the port's main paths through the entry points a user calls, at
    and the vectors equal the plain version's except at near-ties of the
    cost, each verified in float64; the chroma kernel (K4) bit-identical
    to its plain version at search ranges 7 and 5; both timed;
-6. FVC main paths: ``FvcEncoder(motion=True).encode_chunk_dispatch_src``,
-   6 chunks of 8 frames with two in flight (K2, K3, K4 launched), then
-   2 chunks of FVC v1 (K1, K2), then the pipeline
-   ``videotestsrc ! cudafvcenc motion=true ! appsink`` over 16 frames;
 5b. hier and block-size kernels: K6a (the search kernel's 8x8 instance
    on the three pairs pooled to 544x960 at r=3, its 16x16 instance at
    r=7), K5 (pool, K6a, base clip and the refine kernel at r=7) and K6b
    (K3's contract) against their plain versions, held as K3 is; each
    timed, K5 also its refine kernel alone;
+6. FVC main paths: ``FvcEncoder(motion=True).encode_chunk_dispatch_src``,
+   6 chunks of 8 frames with two in flight (K2, K3, K4 launched), then
+   2 chunks of FVC v1 (K1, K2), then the pipeline
+   ``videotestsrc ! cudafvcenc motion=true ! appsink`` over 16 frames;
 7. FVC checks: every chunk decodes through the port's ``FvcDecoder`` on
    the card at >= 30 dB, every payload's scan equals the native
    ``flu_jpeg_encode_scan`` of its decoded coefficients, and the CPU
-   decode (plain PyTorch) lies within 0.05 dB of the card's;
+   decode (plain PyTorch) of each path's first chunk lies within 0.05 dB
+   of the card's;
 8. FVC hier+B main path: ``FvcEncoder(motion=True, hier=True,
    bframes=1)``, 6 chunks of 8 frames with two in flight (K5, K6a, K4,
    K2 launched), then one chunk each of its neighbours (``bframes=1``
@@ -45,15 +59,25 @@ Drives the port's main paths through the entry points a user calls, at
    P-only with ``FLUTPU_SEARCH_DYGRID=1`` through K6b), all decoded and
    checked as in phase 7 with B frames (type 2) where expected, and a
    544x960 hier+B chunk encoded on the card and on the CPU: byte-identical
-   (else held to the tie contract: same frame types, within 0.05 dB).
+   (else held to the tie contract: same frame types, within 0.05 dB);
+9. FVC without segments: one chunk each of v1, v2 P-only and hier+B with
+   ``segmented=False`` (K7 launched, K2 not), each byte-identical to the
+   segmented chunk of the same source (the first chunk of phases 6 and 8)
+   and checked as in phase 7.
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not
-launched fails the run. Prints the card's name and power limit, one JSON
-line of per-kernel results, and as its last line
+launched fails the run. Prints each phase's wall time, the card's name
+and power limit, one JSON
+line of per-kernel results (each kernel's launches, error, time, plain
+time, and its bound: the larger of its bytes over 3.35 TB/s and its
+floating-point operations over 67 TFLOP/s, the H100 SXM data sheet's
+HBM and fp32 rates), and as its last line
 ``{"ok": true, "device": {...}}``. Any failed phase raises and the
 script exits nonzero. It exits nonzero without a result where there is
-no CUDA device or no flutpu_torch.
+no CUDA device or no flutpu_torch. It imports nothing of jax or of the
+JAX package ``flutpu``: the port carries its own dataflow core and
+native-library loader.
 
 Usage: ``python3 chip_smoke.py`` from the repository root (one GPU).
 """
@@ -81,6 +105,34 @@ N_V1_CHUNKS = 2
 FVC_PIPE_FRAMES = 16
 SEARCH_RANGE = 7
 MAX_DPSNR = 0.05           # card vs CPU decode of one stream, dB
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at its 700 W limit
+FP32_OPS_PER_S = 67e12     # the same, fp32 outside the tensor cores
+_T_START = time.perf_counter()
+
+
+def _bound(n_bytes: float, fp32_ops: float = 0.0) -> dict:
+    """The least time the card could take for work that moves ``n_bytes``
+    (each input read once, each output written once) and does
+    ``fp32_ops`` float operations. Integer work has no rate in the data
+    sheet's table and is not counted."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = fp32_ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(t_bytes, t_ops),
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+class _Laps:
+    """Wall seconds of each phase, from the end of the one before."""
+
+    def __init__(self):
+        self.t0 = time.perf_counter()
+        self.secs = {}
+
+    def __call__(self, name: str) -> None:
+        t = time.perf_counter()
+        self.secs[name] = round(t - self.t0, 2)
+        self.t0 = t
+        print(f"phase {name}: {self.secs[name]:.2f} s", flush=True)
 
 
 def _fail(msg: str) -> int:
@@ -190,6 +242,8 @@ def main() -> int:
         import flutpu_torch  # noqa: F401  (registers cudajpegenc)
     except ImportError as e:
         return _fail(f"flutpu_torch is not importable here ({e})")
+    if "flutpu" in sys.modules:
+        return _fail("flutpu_torch imported the JAX package flutpu")
 
     print(_smi(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -203,27 +257,31 @@ def main() -> int:
 
 
 def run(dev):
-    """Phases 1-4 on ``dev``; returns the per-kernel records. Raises on
+    """Every phase on ``dev``; returns the per-kernel records. Raises on
     any failed check."""
     import numpy as np
     import torch
-    from flutpu import native
-    from flutpu.core import parse_launch
-    from flutpu_torch import _build
+    from flutpu_torch import _build, native
     from flutpu_torch.codec.jpeg import JpegEncoder
     from flutpu_torch.codec.ops import entropy_kernels as K
     from flutpu_torch.codec.ops import frontend as F
     from flutpu_torch.codec.ops.entropy import mcu_layout, segment_blocks
     from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
-
-    lib = native.get_lib()
-    _require(lib is not None, "the native library (flutpu/_lib) did not build")
+    from flutpu_torch.core import parse_launch
 
     # -- 1. build -----------------------------------------------------------
+    lap = _Laps()
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    _require(lib is not None, "the native library (native/ sources) did "
+             "not build")
+    print(f"native build: {time.perf_counter() - t0:.2f} s "
+          f"({os.path.basename(native.library_path())})", flush=True)
     t0 = time.perf_counter()
     _build.load()
     print(f"build: {time.perf_counter() - t0:.2f} s "
           f"({os.path.basename(_build.library_path())})", flush=True)
+    lap("1 build")
 
     # -- 2. kernels against their plain versions ---------------------------
     enc = JpegEncoder(quality=QUALITY, device=dev)
@@ -260,8 +318,14 @@ def run(dev):
     k1_plain_ms = _time_ms(lambda: F.front_end_plain(*src, qy, qc), 5)
     print(f"front_end: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms "
           "per 16-frame 1080p GOP", flush=True)
+    # u8 RGB in, int16 Y + Cb + Cr out; per pixel ~17 flops of colour
+    # conversion and 1.5 samples of 8x8 DCT (2 x 8 multiply-adds per
+    # dimension: 32 flops) and quantization (~3 flops)
+    px = GOP * PH * PW
     results["front_end"] = dict(max_abs_err=max(err_src, err_noise),
-                                ms=k1_ms, plain_ms=k1_plain_ms)
+                                ms=k1_ms, plain_ms=k1_plain_ms,
+                                **_bound(3 * px + 2 * 1.5 * px,
+                                         px * (17 + 1.5 * 35)))
 
     zz, comp_f = segment_blocks(*coefs0, layout)
     k2_err = 0
@@ -283,10 +347,16 @@ def run(dev):
                            3)
     print(f"pack_segments: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms "
           f"per 16-frame 1080p GOP ({zz.shape[0]} blocks)", flush=True)
-    results["pack_segments"] = dict(max_abs_err=k2_err, ms=k2_ms,
-                                    plain_ms=k2_plain_ms)
-    del zz, comp_f, buf, pbuf, coefs0, src
+    s_count = zz.shape[0] // 16
+    results["pack_segments"] = dict(
+        max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
+        **_bound(zz.shape[0] * (64 + 1) * 4 + s_count * (sw + 1) * 4))
+    del zz, comp_f, buf, pbuf
+    lap("2 K1, K2")
+    results.update(run_block_packs(coefs0, layout))
+    del coefs0, src
     torch.cuda.synchronize()
+    lap("2b K7, K8a, K8b")
 
     # -- 3. the main path ---------------------------------------------------
     def source(ph, pw, start):
@@ -299,55 +369,22 @@ def run(dev):
     F.front_end.launches = 0
     K.pack_segments.launches = 0
 
-    payloads, spans, pending = {}, [], []
-    t0 = time.perf_counter()
-    for gi in range(N_GOPS):
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
-        handle = enc.encode_gop_dispatch_src(source, gi * GOP, H, W, PH, PW)
-        ev1.record()
-        pending.append((gi, handle, ev0, ev1))
-        if len(pending) == 2:           # two GOPs in flight
-            g, hnd, a, b = pending.pop(0)
-            payloads[g] = enc.encode_gop_finalize(hnd)
-            b.synchronize()
-            spans.append(a.elapsed_time(b))
-    for g, hnd, a, b in pending:
-        payloads[g] = enc.encode_gop_finalize(hnd)
-        b.synchronize()
-        spans.append(a.elapsed_time(b))
-    wall = time.perf_counter() - t0
+    payloads, dev_ms, wall = _in_flight(
+        lambda gi: enc.encode_gop_dispatch_src(source, gi * GOP, H, W, PH,
+                                               PW),
+        enc.encode_gop_finalize, N_GOPS)
     fps = N_GOPS * GOP / wall
-    dev_ms = sum(spans) / len(spans)
-    frame_bytes = np.mean([len(p) for v in payloads.values() for p in v])
+    frame_bytes = np.mean([len(p) for v in payloads for p in v])
     print(f"main path: {N_GOPS} GOPs x {GOP} frames in {wall:.3f} s = "
           f"{fps:.1f} frames/s; device span {dev_ms:.3f} ms per GOP "
           f"(CUDA events); seg_words {enc._seg_words}, prefix window "
           f"{enc._prefix_window}; mean {frame_bytes:.0f} bytes/frame",
           flush=True)
 
-    # the registry would import flutpu's own plugin packages (the JAX
-    # package) on the first lookup; this run needs only the core elements
-    # and the port's, so mark the plugins loaded
-    import flutpu.core.elements  # noqa: F401
-    import flutpu.core.queue  # noqa: F401
-    from flutpu.core import registry
-    registry._plugins_loaded = True
-    pipe = parse_launch(
-        f"videotestsrc num-buffers={PIPE_FRAMES} pattern=gradient "
-        f"width={W} height={H} ! cudajpegenc batch-frames={GOP} "
-        "! appsink name=out")
-    sink = pipe.get_by_name("out")
-    t0 = time.perf_counter()
-    pipe.play()
-    bufs = []
-    try:
-        while (buf := sink.try_pull_buffer(timeout=60)) is not None:
-            bufs.append(buf)
-    finally:
-        pipe.stop()
-    pipe_wall = time.perf_counter() - t0
+    bufs, pipe_wall = _pipeline(
+        parse_launch, f"videotestsrc num-buffers={PIPE_FRAMES} "
+        f"pattern=gradient width={W} height={H} ! cudajpegenc "
+        f"batch-frames={GOP} ! appsink name=out")
     launches = {"front_end": F.front_end.launches,
                 "pack_segments": K.pack_segments.launches}
     print(f"pipeline: {len(bufs)} frames in {pipe_wall:.3f} s; kernel "
@@ -357,6 +394,7 @@ def run(dev):
              "pipeline output out of order")
     for name, n in launches.items():
         _require(n > 0, f"{name} was not launched on the main path")
+    lap("3 JPEG main path")
 
     # -- 4. checks ------------------------------------------------------------
     worst_psnr = float("inf")
@@ -366,8 +404,8 @@ def run(dev):
         frames = torch.stack(planes, dim=-1)[:, :H, :W]
         worst_psnr = min(worst_psnr, _check_frames(
             lib, payloads[gi], coefs, frames, enc, f"GOP {gi}"))
-    from flutpu.core.elements import make_test_frame
     from flutpu_torch.codec.jpeg import _edge_pad
+    from flutpu_torch.core.elements import make_test_frame
     for g0 in range(0, PIPE_FRAMES, GOP):
         frames = torch.from_numpy(np.stack([
             make_test_frame("gradient", W, H, i)
@@ -380,12 +418,30 @@ def run(dev):
     print(f"checks: {N_GOPS * GOP + PIPE_FRAMES} frames decode to the "
           f"kernel's coefficients, match flu_jpeg_encode_scan byte for "
           f"byte; lowest PSNR {worst_psnr:.2f} dB", flush=True)
+    lap("4 JPEG checks")
 
-    results.update(run_motion_kernels(dev))
-    results.update(run_hier_kernels(dev))
-    for counts in (run_fvc(dev, lib), run_fvc_hier_b(dev, lib)):
+    def add(counts):
         for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
+
+    add(run_jpeg_blocks(dev, lib, enc, payloads, fps,
+                        [bytes(b.data) for b in bufs]))
+    lap("4b non-segment JPEG")
+    results.update(run_motion_kernels(dev))
+    lap("5 K3, K4")
+    results.update(run_hier_kernels(dev))
+    lap("5b K5, K6a, K6b")
+    counts, seg_chunks = run_fvc(dev, lib)
+    add(counts)
+    lap("6-7 FVC")
+    counts, seg_chunks["hier+B"] = run_fvc_hier_b(dev, lib)
+    add(counts)
+    lap("8 FVC hier+B")
+    add(run_fvc_blocks(dev, lib, seg_chunks))
+    lap("9 FVC non-segment")
+    print(f"phase wall times (s): {json.dumps(lap.secs)}; "
+          f"{time.perf_counter() - _T_START:.2f} s since the script started",
+          flush=True)
 
     kernels = [
         dict(name="front_end", route="cuda",
@@ -420,12 +476,105 @@ def run(dev):
              replaces="flutpu/codec/ops/motion_pallas.py:615",
              launches=launches["motion_search_mc_dygrid"],
              **results["motion_search_mc_dygrid"]),
+        dict(name="pack_block_bits_fused", route="cuda",
+             source="flutpu_torch/csrc/entropy_pack.cu",
+             replaces="flutpu/codec/ops/entropy_pallas.py:245",
+             launches=launches["pack_block_bits_fused"],
+             **results["pack_block_bits_fused"]),
+        dict(name="pack_block_bits64", route="cuda",
+             source="flutpu_torch/csrc/entropy_pack.cu",
+             replaces="flutpu/codec/ops/entropy_pallas.py:493",
+             launches=launches["pack_block_bits64"],
+             **results["pack_block_bits64"]),
+        dict(name="pack_block_bits", route="cuda",
+             source="flutpu_torch/csrc/entropy_pack.cu",
+             replaces="flutpu/codec/ops/entropy_pallas.py:541",
+             launches=launches["pack_block_bits"],
+             **results["pack_block_bits"]),
     ]
-    jax_side = sorted(m for m in sys.modules if m == "jax"
-                      or m.startswith(("jax.", "flutpu.codec", "flutpu.hype",
-                                       "flutpu.ttml", "flutpu.parallel")))
+    for k in kernels:
+        k.setdefault("library_ms", None)   # no single torch call computes any
+    jax_side = sorted(m for m in sys.modules if m in ("jax", "flutpu")
+                      or m.startswith(("jax.", "flutpu.")))
     _require(not jax_side, f"imported from the JAX side: {jax_side}")
     return kernels
+
+
+def _in_flight(dispatch, finalize, n: int):
+    """``n`` dispatches (``dispatch(i)`` → handle) with two in flight, each
+    finalized in order → (outputs, mean device span per dispatch in ms
+    (CUDA events around the dispatch: the host's enqueue where the host
+    sets the pace), wall seconds)."""
+    import torch
+    outs, spans, pending = {}, [], []
+
+    def drain():
+        i, hnd, a, b = pending.pop(0)
+        outs[i] = finalize(hnd)
+        b.synchronize()
+        spans.append(a.elapsed_time(b))
+
+    t0 = time.perf_counter()
+    for i in range(n):
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        handle = dispatch(i)
+        ev1.record()
+        pending.append((i, handle, ev0, ev1))
+        if len(pending) == 2:
+            drain()
+    while pending:
+        drain()
+    return ([outs[i] for i in range(n)], sum(spans) / len(spans),
+            time.perf_counter() - t0)
+
+
+def _device_busy(fn, n: int):
+    """Run ``fn`` (``n`` dispatches' work) under torch.profiler → (device
+    busy ms per dispatch: the union of the traced device intervals,
+    kernels and copies; the five largest kernels as (name, ms per
+    dispatch, launches per dispatch)), or None where the profiler traced
+    no device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    spans, per_name = [], {}
+    for e in prof.events():
+        if e.device_type != DeviceType.CUDA:
+            continue
+        spans.append((e.time_range.start, e.time_range.end))
+        t, c = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (t + e.time_range.elapsed_us(), c + 1)
+    if not spans:
+        return None
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return busy / 1e3 / n, [(k[:48], t / 1e3 / n, c / n)
+                            for k, (t, c) in top]
+
+
+def _pipeline(parse_launch, desc: str):
+    """Play a launch string ending in ``appsink name=out`` and pull every
+    buffer → (buffers, wall seconds)."""
+    pipe = parse_launch(desc)
+    sink = pipe.get_by_name("out")
+    t0 = time.perf_counter()
+    pipe.play()
+    bufs = []
+    try:
+        while (buf := sink.try_pull_buffer(timeout=60)) is not None:
+            bufs.append(buf)
+    finally:
+        pipe.stop()
+    return bufs, time.perf_counter() - t0
 
 
 def _near_tie_check(cur, prev, mv_k, mv_p, r, mb=16, bias=True):
@@ -484,6 +633,156 @@ def _motion_pairs(dev, rng):
             ("in-loop reference", y[1], rec)]
 
 
+def run_block_packs(coefs, layout):
+    """Phase 2b: K7, K8a and K8b on one GOP's MCU blocks against their
+    plain versions and each other, and their times beside their bounds.
+    K8a's and K8b's bytes follow the data (``data_bytes``), plus each
+    block's 64 words and count out."""
+    import torch
+    from flutpu_torch.codec.ops import entropy_kernels as K
+    from flutpu_torch.codec.ops.entropy import (_mcu_blocks, _slot_tables,
+                                                _slot_tables_merged)
+    mcu, comp = _mcu_blocks(*coefs, layout)
+    zz = mcu.reshape(-1, 64)
+    comp = comp.repeat(mcu.shape[0])
+    n = zz.shape[0]
+    merged = _slot_tables_merged(zz, comp)
+    slots = _slot_tables(zz, comp)
+    out_bytes = n * (K.BLOCK_WORDS + 1) * 4
+
+    def data_bytes(lens):
+        """4 bytes per length up to each block's last active slot, and 4
+        per value word the kernel reads: lo where the length is not 0, hi
+        too where it exceeds 32 (K8b's tables have no length above 32)."""
+        pos = torch.arange(1, lens.shape[1] + 1, device=lens.device)
+        last = torch.where(lens > 0, pos, 0).amax(dim=1)
+        return 4 * (int(last.sum()) + int((lens > 0).sum())
+                    + int((lens > 32).sum()))
+
+    cases = {
+        "pack_block_bits_fused": (K.pack_block_bits_fused,
+                                  K.pack_block_bits_fused_plain, (zz, comp),
+                                  n * (64 + 1) * 4),
+        "pack_block_bits64": (K.pack_block_bits64, K.pack_block_bits64_plain,
+                              merged, data_bytes(merged[0])),
+        "pack_block_bits": (K.pack_block_bits, K.pack_block_bits_plain, slots,
+                            data_bytes(slots[0])),
+    }
+    results, outs = {}, []
+    for name, (kernel, plain, args, in_bytes) in cases.items():
+        got, want = kernel(*args), plain(*args)
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        print(f"{name} vs plain ({n} blocks): "
+              f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
+        _require(same, f"{name} differs from its plain version")
+        outs.append(got)
+        ms = _time_ms(lambda: kernel(*args), 20)
+        plain_ms = _time_ms(lambda: plain(*args), 3)
+        bound = _bound(in_bytes + out_bytes)
+        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms per "
+              f"16-frame 1080p GOP; bound {bound['bound_ms']:.4f} ms "
+              f"({(in_bytes + out_bytes) / 1e6:.1f} MB)", flush=True)
+        results[name] = dict(max_abs_err=max(
+            int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+            for a, b in zip(got, want)), ms=ms, plain_ms=plain_ms, **bound)
+    same = all(torch.equal(a, b) for o in outs[1:]
+               for a, b in zip(o, outs[0]))
+    print(f"K7, K8a, K8b against each other: "
+          f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
+    _require(same, "the three block packs disagree")
+    torch.cuda.synchronize()
+    return results
+
+
+def run_jpeg_blocks(dev, lib, seg_enc, seg_payloads, seg_fps, seg_pipe):
+    """Phase 4b: the non-segment JPEG path on the phase-3 GOPs, the K8a
+    arm, and the element; every frame checked and byte-identical to the
+    segment layout's; device busy time per GOP of both layouts (profiler).
+    Returns the kernels' launch counts."""
+    import torch
+    from flutpu_torch.codec.jpeg import JpegEncoder
+    from flutpu_torch.codec.ops import frontend as F
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
+    from flutpu_torch.core import parse_launch
+
+    def source(ph, pw, start):
+        return gradient_ball_planes(ph, pw, GOP, start, device=dev)
+
+    enc = JpegEncoder(quality=QUALITY, segmented=False, device=dev)
+    # one GOP first so the adaptive sizes are learned, as a stream would
+    enc.encode_gop_finalize(enc.encode_gop_dispatch_src(source, 0, H, W,
+                                                        PH, PW))
+    (payloads, dev_ms, wall), n = _count_launches(lambda: _in_flight(
+        lambda gi: enc.encode_gop_dispatch_src(source, gi * GOP, H, W, PH,
+                                               PW),
+        enc.encode_gop_finalize, N_GOPS))
+    fps = N_GOPS * GOP / wall
+    print(f"non-segment path: {N_GOPS} GOPs x {GOP} frames in {wall:.3f} s "
+          f"= {fps:.1f} frames/s (segment path {seg_fps:.1f} in this run); "
+          f"device span {dev_ms:.3f} ms per GOP (CUDA events); prefix "
+          f"window {enc._prefix_window}; kernel launches {n}", flush=True)
+    _require(n["front_end"] > 0 and n["pack_block_bits_fused"] > 0,
+             "K1 and K7 must launch on the non-segment path")
+    _require(n["pack_segments"] == 0 and n["pack_block_bits64"] == 0,
+             "the non-segment path launched K2 or K8a")
+    _require(payloads == seg_payloads,
+             "non-segment GOPs differ from the segment layout's")
+    worst = float("inf")
+    for gi in range(N_GOPS):
+        planes = source(PH, PW, gi * GOP)
+        coefs = F.front_end(*planes, enc._qy_dev, enc._qc_dev)
+        frames = torch.stack(planes, dim=-1)[:, :H, :W]
+        worst = min(worst, _check_frames(lib, payloads[gi], coefs, frames,
+                                         enc, f"non-segment GOP {gi}"))
+    print(f"checks (non-segment): {N_GOPS * GOP} frames decode to K1's "
+          f"coefficients, equal flu_jpeg_encode_scan and the segment "
+          f"layout's bytes; lowest PSNR {worst:.2f} dB", flush=True)
+
+    for label, e in (("segment", seg_enc), ("non-segment", enc)):
+        t0 = time.perf_counter()
+        got = _device_busy(lambda: _in_flight(
+            lambda gi: e.encode_gop_dispatch_src(source, gi * GOP, H, W, PH,
+                                                 PW),
+            e.encode_gop_finalize, 4), 4)
+        if got is None:
+            print(f"device busy ({label}): not measured (the profiler "
+                  "traced no device activity)", flush=True)
+            continue
+        busy, top = got
+        print(f"device busy ({label} layout, torch.profiler, 4 GOPs, "
+              f"{time.perf_counter() - t0:.2f} s with the trace): "
+              f"{busy:.3f} ms per GOP; largest kernels per GOP: "
+              + "; ".join(f"{k} {t:.3f} ms x{c:g}" for k, t, c in top),
+              flush=True)
+
+    os.environ["FLUTPU_NO_FUSED_PACK"] = "1"
+    try:
+        (one, _, wall), n64 = _count_launches(lambda: _in_flight(
+            lambda gi: enc.encode_gop_dispatch_src(source, 0, H, W, PH, PW),
+            enc.encode_gop_finalize, 1))
+    finally:
+        os.environ.pop("FLUTPU_NO_FUSED_PACK")
+    print(f"FLUTPU_NO_FUSED_PACK=1: 1 GOP in {wall:.3f} s; kernel launches "
+          f"{n64}", flush=True)
+    _require(n64["pack_block_bits64"] > 0
+             and n64["pack_block_bits_fused"] == 0,
+             "K8a must launch (and K7 not) under FLUTPU_NO_FUSED_PACK=1")
+    _require(one[0] == seg_payloads[0], "the K8a arm's GOP differs")
+
+    (bufs, pipe_wall), n_pipe = _count_launches(lambda: _pipeline(
+        parse_launch, f"videotestsrc num-buffers={PIPE_FRAMES} "
+        f"pattern=gradient width={W} height={H} ! cudajpegenc "
+        f"segmented=false batch-frames={GOP} ! appsink name=out"))
+    print(f"pipeline (segmented=false): {len(bufs)} frames in "
+          f"{pipe_wall:.3f} s; kernel launches {n_pipe}", flush=True)
+    _require(n_pipe["pack_block_bits_fused"] > 0
+             and n_pipe["pack_segments"] == 0,
+             "cudajpegenc segmented=false did not run K7 alone")
+    _require([bytes(b.data) for b in bufs] == seg_pipe,
+             "cudajpegenc segmented=false differs from the segment layout")
+    return {k: n[k] + n64[k] + n_pipe[k] for k in n}
+
+
 def run_motion_kernels(dev):
     """Phase 5: K3 and K4 against their plain versions at 1080p."""
     import numpy as np
@@ -527,9 +826,20 @@ def run_motion_kernels(dev):
           "pair of 544x960 chroma planes", flush=True)
     torch.cuda.synchronize()
     return {"motion_search_mc": dict(max_abs_err=err, ms=k3_ms,
-                                     plain_ms=k3_plain_ms),
+                                     plain_ms=k3_plain_ms,
+                                     **_search_bound(PH, PW, 16, r)),
             "chroma_mc": dict(max_abs_err=k4_err, ms=k4_ms,
-                              plain_ms=k4_plain_ms)}
+                              plain_ms=k4_plain_ms,
+                              **_bound(4 * (PH // 2) * (PW // 2) * 4
+                                       + (PH // 16) * (PW // 16) * 2 * 4))}
+
+
+def _search_bound(h: int, w: int, mb: int, r: int, extra_ops: float = 0):
+    """A search + compensation of one (h, w) float32 plane pair: cur and
+    prev read, the prediction and the int32 vectors written; a
+    subtraction, an absolute value and an add per pixel and candidate."""
+    n_bytes = 3 * h * w * 4 + (h // mb) * (w // mb) * 2 * 4
+    return _bound(n_bytes, h * w * (2 * r + 1) ** 2 * 3 + extra_ops)
 
 
 def _hold_search(label, name, got, plain, cur, prev, r, mb, bias, compensate):
@@ -617,12 +927,18 @@ def run_hier_kernels(dev):
     # carries that shape's times
     out["motion_search_mc_blocks"] = dict(
         max_abs_err=err["blocks"], ms=t["blocks8"][0],
-        plain_ms=t["blocks8"][1])
+        plain_ms=t["blocks8"][1], **_search_bound(PH // 2, PW // 2, 8, rc))
+    # the whole hier call: the 8x8 coarse search on the pooled planes (its
+    # ops; the pooled planes are intermediates) and the 9-candidate refine
+    # over the full planes, which read cur and prev and write the
+    # prediction and vectors
+    coarse_ops = (PH // 2) * (PW // 2) * (2 * rc + 1) ** 2 * 3
     out["motion_search_mc_hier"] = dict(
-        max_abs_err=err["hier"], ms=t["hier"][0], plain_ms=t["hier"][1])
+        max_abs_err=err["hier"], ms=t["hier"][0], plain_ms=t["hier"][1],
+        **_search_bound(PH, PW, 16, 1, coarse_ops + 2 * PH * PW))
     out["motion_search_mc_dygrid"] = dict(
         max_abs_err=err["dygrid"], ms=t["dygrid"][0],
-        plain_ms=t["dygrid"][1])
+        plain_ms=t["dygrid"][1], **_search_bound(PH, PW, 16, r))
     return out
 
 
@@ -634,9 +950,10 @@ def _psnr(a, b) -> float:
 
 def _check_chunks(lib, chunks, sources, label):
     """Phase 7 for a list of chunks and their (F, H, W, 3) uint8 source
-    frames (numpy): decode on the card and on the CPU, PSNR, scans
-    against the native encoder. Returns (lowest PSNR, max |dRGB|, max
-    dPSNR)."""
+    frames (numpy): decode on the card, PSNR, scans against the native
+    encoder, and the first chunk's decode on the CPU against the card's
+    (a 1080p chunk's CPU decode takes about a second). Returns (lowest
+    PSNR, max |dRGB|, max dPSNR)."""
     import numpy as np
     from flutpu_torch.codec.decode import decode_scan_to_coefs
     from flutpu_torch.codec.fvc import FvcDecoder
@@ -655,16 +972,17 @@ def _check_chunks(lib, chunks, sources, label):
                      f"{label} chunk {ci} frame {fi}: scan differs from "
                      "flu_jpeg_encode_scan of its coefficients")
         rgb, info = card.decode_chunk(data)
-        rgb_cpu, info_cpu = cpu.decode_chunk(data)
-        _require(info["types"] == info_cpu["types"], f"{label}: types")
         _require(rgb.shape == src.shape, f"{label}: decoded shape "
                  f"{rgb.shape}")
-        d_rgb = max(d_rgb, int(np.abs(rgb.astype(np.int32)
-                                      - rgb_cpu.astype(np.int32)).max()))
-        for a, b, s in zip(rgb, rgb_cpu, src):
-            p, q = _psnr(a, s), _psnr(b, s)
-            worst = min(worst, p)
-            d_psnr = max(d_psnr, abs(p - q))
+        worst = min([worst] + [_psnr(a, s) for a, s in zip(rgb, src)])
+        if ci:
+            continue
+        rgb_cpu, info_cpu = cpu.decode_chunk(data)
+        _require(info["types"] == info_cpu["types"], f"{label}: types")
+        d_rgb = int(np.abs(rgb.astype(np.int32)
+                           - rgb_cpu.astype(np.int32)).max())
+        d_psnr = max(abs(_psnr(a, s) - _psnr(b, s))
+                     for a, b, s in zip(rgb, rgb_cpu, src))
     _require(worst >= MIN_PSNR, f"{label}: PSNR {worst:.2f} dB")
     _require(d_psnr <= MAX_DPSNR, f"{label}: card vs CPU decode differ by "
              f"{d_psnr:.4f} dB")
@@ -679,6 +997,9 @@ def _count_launches(fn):
     from flutpu_torch.codec.ops import frontend as F
     from flutpu_torch.codec.ops import motion_kernels as M
     wrappers = {"front_end": F.front_end, "pack_segments": K.pack_segments,
+                "pack_block_bits_fused": K.pack_block_bits_fused,
+                "pack_block_bits64": K.pack_block_bits64,
+                "pack_block_bits": K.pack_block_bits,
                 "motion_search_mc": M.motion_search_mc,
                 "chroma_mc": M.chroma_mc,
                 "motion_search_mc_hier": M.motion_search_mc_hier,
@@ -693,13 +1014,14 @@ def _count_launches(fn):
 
 def run_fvc(dev, lib):
     """Phases 6 and 7: the FVC main paths and their checks. Returns the
-    kernels' launch counts summed over the paths."""
+    kernels' launch counts summed over the paths, and the first chunk of
+    the v1 and the v2 (P-only) paths (source frames 0-7)."""
     import numpy as np
-    from flutpu.core import parse_launch
-    from flutpu.core.elements import make_test_frame
     from flutpu_torch.codec.fvc import FvcEncoder
     from flutpu_torch.codec.ops.testsrc import (gradient_ball_frames,
                                                 gradient_ball_planes)
+    from flutpu_torch.core import parse_launch
+    from flutpu_torch.core.elements import make_test_frame
 
     def src(ph, pw, n, start):
         return gradient_ball_planes(ph, pw, n, start, device=dev)
@@ -744,23 +1066,10 @@ def run_fvc(dev, lib):
         _require(n_v1[name] > 0, f"{name} was not launched on the FVC v1 "
                  "path")
 
-    def pipeline():
-        pipe = parse_launch(
-            f"videotestsrc num-buffers={FVC_PIPE_FRAMES} pattern=ball "
-            f"width={W} height={H} ! cudafvcenc motion=true "
-            f"gop-size={CHUNK} device={dev} ! appsink name=out")
-        sink = pipe.get_by_name("out")
-        t0 = time.perf_counter()
-        pipe.play()
-        bufs = []
-        try:
-            while (buf := sink.try_pull_buffer(timeout=60)) is not None:
-                bufs.append(buf)
-        finally:
-            pipe.stop()
-        return bufs, time.perf_counter() - t0
-
-    (bufs, pipe_wall), n_pipe = _count_launches(pipeline)
+    (bufs, pipe_wall), n_pipe = _count_launches(lambda: _pipeline(
+        parse_launch, f"videotestsrc num-buffers={FVC_PIPE_FRAMES} "
+        f"pattern=ball width={W} height={H} ! cudafvcenc motion=true "
+        f"gop-size={CHUNK} device={dev} ! appsink name=out"))
     print(f"FVC pipeline: {len(bufs)} chunks in {pipe_wall:.3f} s; kernel "
           f"launches {n_pipe}", flush=True)
     _require(len(bufs) == FVC_PIPE_FRAMES // CHUNK,
@@ -785,34 +1094,18 @@ def run_fvc(dev, lib):
               f"decode max |dRGB| {d_rgb}, max dPSNR {d_psnr:.4f} dB",
               flush=True)
     _encode_parity(dev)
-    return {k: n_motion[k] + n_v1[k] + n_pipe[k] for k in n_motion}
+    return ({k: n_motion[k] + n_v1[k] + n_pipe[k] for k in n_motion},
+            {"v1": v1_chunks[0], "v2 P-only": chunks[0]})
 
 
 def _chunks_in_flight(enc, src, n_chunks):
     """``n_chunks`` chunks of the on-device source through
     dispatch/finalize with two in flight → (chunks, device span per chunk
     in ms (CUDA events), wall seconds)."""
-    import torch
-    chunks, spans, pending = {}, [], []
-    t0 = time.perf_counter()
-    for ci in range(n_chunks):
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
-        handle = enc.encode_chunk_dispatch_src(src, ci * CHUNK, CHUNK, H, W)
-        ev1.record()
-        pending.append((ci, handle, ev0, ev1))
-        if len(pending) == 2:           # two chunks in flight
-            c, hnd, a, b = pending.pop(0)
-            chunks[c] = enc.encode_chunk_finalize(hnd)
-            b.synchronize()
-            spans.append(a.elapsed_time(b))
-    for c, hnd, a, b in pending:
-        chunks[c] = enc.encode_chunk_finalize(hnd)
-        b.synchronize()
-        spans.append(a.elapsed_time(b))
-    return ([chunks[c] for c in range(n_chunks)], sum(spans) / len(spans),
-            time.perf_counter() - t0)
+    return _in_flight(
+        lambda ci: enc.encode_chunk_dispatch_src(src, ci * CHUNK, CHUNK, H,
+                                                 W),
+        enc.encode_chunk_finalize, n_chunks)
 
 
 def run_fvc_hier_b(dev, lib):
@@ -820,7 +1113,7 @@ def run_fvc_hier_b(dev, lib):
     main path), its neighbours (config 6b: full search + B; P-only hier;
     the dy-grid search arm), their decode checks, and a 544x960 hier+B
     chunk on the card against the CPU. Returns the launch counts summed
-    over the paths."""
+    over the paths, and the main path's first chunk (source frames 0-7)."""
     import numpy as np
     from flutpu_torch.codec.fvc import FvcDecoder, FvcEncoder
     from flutpu_torch.codec.ops.testsrc import (gradient_ball_frames,
@@ -857,6 +1150,7 @@ def run_fvc_hier_b(dev, lib):
     for k, v in n.items():
         total[k] = total.get(k, 0) + v
     checks = [("FVC hier+B", chunks, sources(N_CHUNKS), True)]
+    first = chunks[0]
 
     neighbours = [("FVC full+B (config 6b)", dict(bframes=1), {},
                    "motion_search_mc", True),
@@ -909,6 +1203,44 @@ def run_fvc_hier_b(dev, lib):
               f"max dPSNR {dp:.4f} dB)", flush=True)
         _require(ia["types"] == ib["types"] and dp <= MAX_DPSNR,
                  "card vs CPU hier+B encode breaks the tie contract")
+    return total, first
+
+
+def run_fvc_blocks(dev, lib, seg_chunks):
+    """Phase 9: one chunk each of FVC v1, v2 P-only and hier+B without
+    segments (K7), each byte-identical to the segmented chunk of the same
+    source (``seg_chunks``: the first chunk of phases 6 and 8, by label)
+    and checked as in phase 7. Returns the launch counts."""
+    from flutpu_torch.codec.fvc import FvcEncoder
+    from flutpu_torch.codec.ops.testsrc import (gradient_ball_frames,
+                                                gradient_ball_planes)
+
+    def src(ph, pw, n, start):
+        return gradient_ball_planes(ph, pw, n, start, device=dev)
+
+    srcs = [gradient_ball_frames(PH, PW, CHUNK, 0, device=dev)[:, :H, :W]
+            .cpu().numpy()]
+    total = {}
+    for label, kw in (("v1", dict(motion=False)), ("v2 P-only", {}),
+                      ("hier+B", dict(hier=True, bframes=1))):
+        kw = dict(dict(motion=True, search_range=SEARCH_RANGE), **kw)
+        enc = FvcEncoder(QUALITY, segmented=False, device=dev, **kw)
+        (one, span, wall), n = _count_launches(
+            lambda: _chunks_in_flight(enc, src, 1))
+        print(f"FVC {label} without segments: 1 chunk in {wall:.3f} s, "
+              f"device span {span:.3f} ms, {len(one[0])} bytes; kernel "
+              f"launches {n}", flush=True)
+        _require(n["pack_block_bits_fused"] > 0 and n["pack_segments"] == 0,
+                 f"FVC {label} without segments did not run K7 alone")
+        _require(one[0] == seg_chunks[label], f"FVC {label}: the "
+                 "non-segment chunk differs from the segmented one")
+        worst, d_rgb, d_psnr = _check_chunks(lib, one, srcs,
+                                             f"FVC {label} non-segment")
+        print(f"checks (FVC {label} non-segment): equal to the segmented "
+              f"chunk; decodes on the card at >= {worst:.2f} dB; CPU decode "
+              f"max |dRGB| {d_rgb}, max dPSNR {d_psnr:.4f} dB", flush=True)
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
     return total
 
 

@@ -126,6 +126,12 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.flu_pack_init.restype = i
     lib.flu_pack_segments.argtypes = [p, p, p, p, i, i, i, p]
     lib.flu_pack_segments.restype = i
+    lib.flu_pack_blocks.argtypes = [p, p, p, p, i, p]
+    lib.flu_pack_blocks.restype = i
+    lib.flu_pack_slots64.argtypes = [p, p, p, p, p, i, i, p]
+    lib.flu_pack_slots64.restype = i
+    lib.flu_pack_slots32.argtypes = [p, p, p, p, i, i, p]
+    lib.flu_pack_slots32.restype = i
     lib.flu_motion_search_mc.argtypes = [p, p, p, p, i, i, i, p]
     lib.flu_motion_search_mc.restype = i
     lib.flu_motion_search_mc_blocks.argtypes = [p, p, p, p, i, i, i, i, p]

@@ -1,7 +1,8 @@
 """VideoEncoder base — the encoder element contract.
 
-Copy of flutpu/codec/base.py (that package imports jax), with
-WARM_DEVICE off: the port runs no jax, so there is no backend to arm.
+Copy of flutpu/codec/base.py (that package imports jax), on the port's
+copy of the dataflow core, without WARM_DEVICE: the port runs no jax,
+so there is no backend to arm.
 
 The reference delegates encoding to off-the-shelf GStreamer encoders and only
 type-checks them (hype/src/hype/imp.rs:139-152: must be a VIDEO_ENCODER
@@ -19,14 +20,13 @@ from __future__ import annotations
 
 from typing import Optional
 
-from flutpu.core import (Buffer, BufferFlags, Caps, Element, Event,
-                         EventType, FlowReturn, Pad, PadDirection)
+from ..core import (Buffer, BufferFlags, Caps, Element, Event, EventType,
+                    FlowReturn, Pad, PadDirection)
 
 
 class VideoEncoder(Element):
     """Base class for video encoder elements."""
 
-    WARM_DEVICE = False
     SINK_CAPS = "video/x-raw"
     SRC_CAPS = ""  # subclasses must declare their bitstream caps
 
@@ -98,7 +98,7 @@ class VideoEncoder(Element):
             self.input_caps = event.caps
             out_caps = self.set_format(event.caps)
             if out_caps is not None:
-                from flutpu.core import CapsEvent
+                from ..core import CapsEvent
                 return self.srcpad.push_event(CapsEvent(out_caps))
             return self.srcpad.push_event(event)
         if event.type == EventType.EOS:

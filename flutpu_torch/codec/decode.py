@@ -17,8 +17,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from flutpu import native
-
+from .. import native
 from . import jpeg_tables as T
 from .ops.colorspace import i420_to_rgb
 from .ops.dct import plane_idct

@@ -2,10 +2,11 @@
 flutpu/codec/encoder.py:TpuJpegEnc).
 
 Frames accumulate into GOP batches on the host; each batch is one device
-dispatch of the flutpu_torch.codec.jpeg path (front-end kernel, Huffman
-pack kernel, word-aligned segments) and one copy back of the compressed
-bits. Every frame is a sync point. Batch sizes are bucketed to powers of
-two, as in the original.
+dispatch of the flutpu_torch.codec.jpeg path (front-end kernel, then the
+segment pack kernel and word-aligned segments, or with
+``segmented=false`` the per-block pack kernel and the block concat) and
+one copy back of the compressed bits. Every frame is a sync point. Batch
+sizes are bucketed to powers of two, as in the original.
 """
 
 from __future__ import annotations
@@ -14,10 +15,10 @@ from typing import List, Optional
 
 import numpy as np
 
-from flutpu.core import Buffer, Caps, PropertySpec, register
+from ..core import Buffer, Caps, PropertySpec, register
 
 from .base import VideoEncoder
-from .jpeg import JpegEncoder
+from .jpeg import JpegEncoder, segmented_property
 
 _BUCKETS = (1, 2, 4, 8, 16, 32)
 
@@ -48,8 +49,9 @@ class CudaJpegEnc(VideoEncoder):
                      "4:2:0 is ported)"),
         PropertySpec("engine", "auto", "auto | device: entropy coding always "
                      "runs on the device here"),
-        PropertySpec("segmented", "auto", "accepted for launch-string "
-                     "compatibility; the segment layout is always on"),
+        PropertySpec("segmented", "auto", "bitstream layout of the device "
+                     "stage: auto (FLUTPU_SEGMENTED, else segments) | true "
+                     "| false (per-block pack); the bytes are the same"),
         PropertySpec("device", "cuda", "torch device the encode runs on "
                      "(cuda, cuda:N, or cpu for the plain versions)"),
     ]
@@ -70,11 +72,12 @@ class CudaJpegEnc(VideoEncoder):
             self._encoder = JpegEncoder(
                 quality=int(self.get_property("quality")),
                 subsample=bool(self.get_property("subsample")),
+                segmented=segmented_property(self.get_property("segmented")),
                 device=str(self.get_property("device")))
         return self._encoder
 
     def do_set_property(self, name, value):
-        if name in ("quality", "subsample", "engine", "device"):
+        if name in ("quality", "subsample", "engine", "segmented", "device"):
             self._encoder = None  # rebuild with new tables / device
 
     def prewarm(self, caps=None) -> bool:

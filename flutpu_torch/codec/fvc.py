@@ -20,8 +20,11 @@ and the Huffman pack kernel; version 2 runs a search kernel per frame
 and reference (the full search, or the hier search's coarse-level and
 refine kernels), the chroma compensation kernel, the in-loop DCT/IDCT in
 plain PyTorch (per 8x8 block, full fp32), and the pack kernel once per
-chunk. The per-frame I/P and per-macroblock B mode decisions stay on the
-device. The chunk's compressed words, its vectors (and B modes) and its
+chunk: the segment pack (K2), or with ``segmented=False`` the per-block
+pack (K7, or K8a under ``FLUTPU_NO_FUSED_PACK=1``) and the block concat,
+as the JPEG encoder's layouts; the chunk's bytes are the same. The
+per-frame I/P and per-macroblock B mode decisions stay on the device.
+The chunk's compressed words, its vectors (and B modes) and its
 frame-type word come back in one copy into pinned memory.
 
 Bitstream: byte-compatible with flutpu's (``MAGIC``, the header layout
@@ -44,19 +47,17 @@ from typing import List, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
-from flutpu.core import Buffer, Caps, PropertySpec, register
-from flutpu.core.env import env_flag
-
+from ..core import Buffer, Caps, PropertySpec, register
+from ..core.env import env_flag
 from .base import VideoEncoder
 from .convert import encoder_state_from_numpy
 from .decode import coefs_to_rgb, decode_scan_to_coefs
 from .encoder import SCENE_NEW_EVENT_NAME
 from .jpeg import JpegEncoder, _edge_pad, _HostCopy, _pad_to, \
-    _planes_front_end
+    _planes_front_end, segmented_property
 from .ops.colorspace import i420_to_rgb, planes_to_i420
 from .ops.dct import dct_matrix, plane_dct, plane_idct, unblockize
-from .ops.entropy import compact_segments_finalize, \
-    encode_gop_scans_segmented
+from .ops.entropy import encode_gop_scans_layout
 from .ops.motion import MB, _mb_sums, motion_compensate
 from .ops.motion_kernels import MAX_SEARCH_RANGE, chroma_mc, \
     motion_search_mc, motion_search_mc_dygrid, motion_search_mc_hier
@@ -332,13 +333,13 @@ def fvc_mc_encode_chunk_b(frames, qy: torch.Tensor, qc: torch.Tensor,
 def _fvc_gop_program_v1(frames, qy, qc, pad_h, pad_w, layout, prefix_words,
                         seg_g, seg_words):
     """Front-end kernel → temporal residuals → pack kernel → combined
-    (F, 1 + S + prefix_words) int32 words (see encode_gop_scans_segmented)."""
+    int32 words (see encode_gop_scans_layout: the segment layout, or the
+    non-segment one where ``seg_words`` is None)."""
     r, g, b = _planes(frames)
     coefs = _planes_front_end(r, g, b, qy, qc, pad_h, pad_w)
     ry, rcb, rcr = fvc_residuals(*coefs)
-    return encode_gop_scans_segmented(ry, rcb, rcr, layout=layout,
-                                      prefix_words=prefix_words, seg_g=seg_g,
-                                      seg_words=seg_words)
+    return encode_gop_scans_layout(ry, rcb, rcr, layout, prefix_words, seg_g,
+                                   seg_words)
 
 
 def _fvc_gop_program_v2(frames, qy, qc, pad_h, pad_w, search_range, layout,
@@ -361,9 +362,8 @@ def _fvc_gop_program_v2(frames, qy, qc, pad_h, pad_w, search_range, layout,
             frames, qy, qc, pad_h, pad_w, search_range, hier)
         f = mvs.shape[0]
         side = mvs.reshape(f, -1)
-    combined = encode_gop_scans_segmented(ry, rcb, rcr, layout=layout,
-                                          prefix_words=prefix_words,
-                                          seg_g=seg_g, seg_words=seg_words)
+    combined = encode_gop_scans_layout(ry, rcb, rcr, layout, prefix_words,
+                                       seg_g, seg_words)
     pad = (-side.shape[1]) % 4
     if pad:
         side = torch.nn.functional.pad(side, (0, pad))
@@ -391,8 +391,8 @@ class _ChunkHandle(NamedTuple):
     combined: _HostCopy
     prefix: int
     prefix_bound: int         # theoretical words/frame of this geometry
-    n_segs: int
-    seg_words: int
+    n_segs: int               # 0: the non-segment layout
+    seg_words: Optional[int]  # None: the non-segment layout
     build: Optional[object]   # None once a redispatch was made
     f: int
     h: int
@@ -408,15 +408,16 @@ class FvcEncoder:
     B frames between anchors, quantized at ``bquality`` (default
     ``max(10, quality - 8)``). ``device`` is where the encode runs: a
     CUDA device launches the kernels; ``"cpu"`` runs their plain PyTorch
-    versions. Sizing of the entropy stage (compressed-prefix window,
-    segment staging, overflow redispatch) is the port's JpegEncoder's, as
-    in flutpu."""
+    versions. The bitstream layout of the entropy stage (``segmented``)
+    and its sizing (compressed-prefix window, segment staging, overflow
+    redispatch) are the port's JpegEncoder's, as in flutpu."""
 
     def __init__(self, quality: int = 85, subsample: bool = True,
                  motion: bool = False, search_range: int = 7, *,
                  engine: str = "auto", hier: bool = False,
-                 subpel: bool = False, bframes: int = 0,
-                 bquality: Optional[int] = None, device="cuda"):
+                 subpel: bool = False, segmented: Optional[bool] = None,
+                 bframes: int = 0, bquality: Optional[int] = None,
+                 device="cuda"):
         # flutpu's checks, in its order
         if bframes:
             if not motion:
@@ -452,7 +453,8 @@ class FvcEncoder:
         self.search_range = int(search_range)
         self.device = torch.device(device)
         # shared scan coder: its tables, sizing policy and overflow bounds
-        self._scan_coder = JpegEncoder(quality, device=self.device)
+        self._scan_coder = JpegEncoder(quality, segmented=segmented,
+                                       device=self.device)
         self.qy, self.qc = self._scan_coder.qy, self._scan_coder.qc
         self._qyb_dev = self._qcb_dev = None
         if self.bquality is not None:
@@ -467,6 +469,7 @@ class FvcEncoder:
                          bframes: int = 0, bquality: Optional[int] = None,
                          seg_words: Optional[int] = None,
                          prefix_window: Optional[int] = None,
+                         segmented: Optional[bool] = None,
                          device="cuda") -> "FvcEncoder":
         """An encoder with given quantization tables and adaptive sizes
         (e.g. flutpu's ``qy``, ``qc``, ``search_range``, ``hier``,
@@ -474,8 +477,8 @@ class FvcEncoder:
         ``_prefix_window``). The tables must be a quality's: the chunk
         header carries the quality."""
         enc = cls(_table_quality(qy, qc), motion=motion,
-                  search_range=search_range, hier=hier, bframes=bframes,
-                  bquality=bquality, device=device)
+                  search_range=search_range, hier=hier, segmented=segmented,
+                  bframes=bframes, bquality=bquality, device=device)
         enc._scan_coder._set_state(encoder_state_from_numpy(
             qy, qc, seg_words=seg_words, prefix_window=prefix_window,
             device=enc.device))
@@ -530,16 +533,16 @@ class FvcEncoder:
         return self.encode_chunk_finalize(self.encode_chunk_dispatch(frames))
 
     def _finalize(self, handle: _ChunkHandle):
-        """Per frame: [0] = aligned words, [1..S] = segment bits,
-        [S+1..S+prefix] = word-aligned stream, then (motion) the side
-        words (vectors, or fwd | bwd | modes with B frames) and the
-        frame-type word."""
+        """Per frame, segments: [0] = aligned words, [1..S] = segment
+        bits, [S+1..S+prefix] = word-aligned stream; blocks (S = 0): [0] =
+        bits, [1..prefix] = the stream. Then (motion) the side words
+        (vectors, or fwd | bwd | modes with B frames) and the frame-type
+        word."""
         arr, handle = self._scan_coder._fetch(handle)
         n = handle.n_segs
         scan_end = 1 + n + handle.prefix
-        payloads = [compact_segments_finalize(arr[i, 1:1 + n],
-                                              arr[i, 1 + n:scan_end])
-                    for i in range(arr.shape[0])]
+        payloads = [JpegEncoder._scan_bytes(row, n, handle.prefix)
+                    for row in arr]
         mvs = itypes = None
         if self.motion:
             mbh, mbw = handle.ph // 16, handle.pw // 16
@@ -897,8 +900,9 @@ class CudaFvcEnc(VideoEncoder):
                                    "reconstructed anchors"),
         PropertySpec("bitrate", 0, "target bits/sec; 0 = constant quality "
                                    "(rate control is not ported yet)"),
-        PropertySpec("segmented", "auto", "accepted for launch-string "
-                     "compatibility; the segment layout is always on"),
+        PropertySpec("segmented", "auto", "bitstream layout of the device "
+                     "stage: auto (FLUTPU_SEGMENTED, else segments) | true "
+                     "| false (per-block pack); the bytes are the same"),
         PropertySpec("device", "cuda", "torch device the encode runs on "
                      "(cuda, cuda:N, or cpu for the plain versions)"),
     ]
@@ -921,6 +925,7 @@ class CudaFvcEnc(VideoEncoder):
                 engine=str(self.get_property("engine")),
                 hier=str(self.get_property("search")) == "hier",
                 subpel=bool(self.get_property("subpel")),
+                segmented=segmented_property(self.get_property("segmented")),
                 bframes=int(self.get_property("bframes")),
                 device=str(self.get_property("device")))
         return self._encoder

@@ -2,10 +2,18 @@
 
 A GOP of frames runs on the device as: edge pad to a multiple of 16 →
 the front-end kernel (RGB→YCbCr → 4:2:0 → DCT → quantize → zigzag) → MCU
-order and DC prediction → the segment Huffman pack kernel → word-aligned
-segment placement. One device→host copy per GOP brings back the per-frame
-bit counts and the word-aligned streams; the host compacts them into the
-exact scan, byte-stuffs it and wraps the JFIF headers.
+order and DC prediction → the entropy stage in one of two bitstream
+layouts, which give the same bytes:
+
+- segments (the default): the segment Huffman pack kernel (K2), then
+  word-aligned segment placement; the host compacts the segments into
+  the exact scan;
+- blocks (``segmented=False``): the per-block pack kernel (K7, or the
+  merged slot tables and K8a under ``FLUTPU_NO_FUSED_PACK=1``), then the
+  block concat into the bit-contiguous scan on the device.
+
+One device→host copy per GOP brings back the per-frame bit counts and
+the streams; the host byte-stuffs them and wraps the JFIF headers.
 
 Dispatch and finalize are split so that a caller keeps GOPs in flight:
 ``encode_gop_dispatch`` (or ``_src``) enqueues the whole GOP on the
@@ -28,10 +36,11 @@ from typing import List, NamedTuple, Optional
 import numpy as np
 import torch
 
+from ..core.env import env_flag
 from . import jpeg_tables as T
 from .convert import encoder_state_from_numpy
-from .ops.entropy import (compact_segments_finalize,
-                          encode_gop_scans_segmented, mcu_layout)
+from .ops.entropy import (compact_segments_finalize, encode_gop_scans_layout,
+                          mcu_layout, stuff_and_finalize)
 from .ops.frontend import front_end
 from .ops.quant import CHROMA_QTABLE, LUMA_QTABLE, scale_qtable, zigzag_order
 
@@ -120,6 +129,28 @@ def jpeg_headers(h: int, w: int, qy: np.ndarray, qc: np.ndarray,
 # public encoder
 # ----------------------------------------------------------------------------
 
+def resolve_segmented(explicit: Optional[bool]) -> bool:
+    """The bitstream layout: the explicit argument, else
+    ``FLUTPU_SEGMENTED`` (``0``/``false``/``no`` off, anything else on),
+    else segments. (flutpu defaults to blocks on the CPU, where its
+    grouped kernel cannot lower; the port's kernels run on every device,
+    and the bytes are the same either way.)"""
+    if explicit is not None:
+        return bool(explicit)
+    env = env_flag("FLUTPU_SEGMENTED")
+    return True if env is None else env
+
+
+def segmented_property(value) -> Optional[bool]:
+    """Map an element ``segmented`` property (auto/true/false, any case,
+    or a bool) to the encoder argument (None = ``resolve_segmented``'s
+    default). A copy of flutpu.codec.jpeg.segmented_property."""
+    s = str(value).strip().lower()
+    if s in ("auto", "", "none"):
+        return None
+    return s not in ("0", "false", "no")
+
+
 class _HostCopy:
     """A device tensor's copy into pinned host memory, enqueued on the
     current stream; ``numpy()`` waits for it (CPU tensors pass through)."""
@@ -143,19 +174,21 @@ class _Handle(NamedTuple):
     combined: _HostCopy
     prefix: int
     prefix_bound: int         # theoretical words/frame of this geometry
-    n_segs: int
-    seg_words: int
+    n_segs: int               # 0: the non-segment layout
+    seg_words: Optional[int]  # None: the non-segment layout
     build: Optional[object]   # None once a redispatch was made
     h: int
     w: int
 
 
 class JpegEncoder:
-    """GOP JPEG encoder on one device (4:2:0, segment bitstream layout).
+    """GOP JPEG encoder on one device (4:2:0).
 
     ``device`` is where the encode runs: a CUDA device launches the
     front-end and pack kernels; ``"cpu"`` runs their plain PyTorch
-    versions (tests, hosts without a card)."""
+    versions (tests, hosts without a card). ``segmented`` picks the
+    bitstream layout of the device stage (``resolve_segmented``); the
+    JFIF bytes are the same in both."""
 
     #: bits one baseline block can need at most, rounded up to whole
     #: words (the JAX encoder's CAP_LADDER[-1])
@@ -170,13 +203,14 @@ class JpegEncoder:
     _PREFIX_BUCKET = 2048
 
     def __init__(self, quality: int = 85, subsample: bool = True, *,
-                 device="cuda"):
+                 segmented: Optional[bool] = None, device="cuda"):
         if not subsample:
             raise NotImplementedError(
                 "the port encodes 4:2:0 only; 4:4:4 is not ported yet")
         self.device = torch.device(device)
         self.quality = quality
         self.subsample = True
+        self.segmented = resolve_segmented(segmented)
         self._seg_words = self.SEG_WORDS0
         self._seg_used_words = 0
         self._seg_gops = 0
@@ -192,11 +226,12 @@ class JpegEncoder:
     @classmethod
     def from_numpy_state(cls, qy, qc, *, seg_words: Optional[int] = None,
                          prefix_window: Optional[int] = None,
+                         segmented: Optional[bool] = None,
                          device="cuda") -> "JpegEncoder":
         """An encoder running with given quantization tables and adaptive
         sizes (e.g. the JAX encoder's ``qy``, ``qc``, ``_seg_words``,
         ``_prefix_window``)."""
-        enc = cls(device=device)
+        enc = cls(segmented=segmented, device=device)
         enc.quality = None
         enc._set_state(encoder_state_from_numpy(
             qy, qc, seg_words=seg_words, prefix_window=prefix_window,
@@ -315,10 +350,11 @@ class JpegEncoder:
     def _run_sized(self, program, ph: int, pw: int):
         """Enqueue ``program(layout, prefix_words, seg_words)`` — a GOP's
         device work, returning its combined array (see
-        encode_gop_scans_segmented) — at the adaptive sizes, copied into
-        pinned memory. Returns the handle fields (combined, prefix,
-        prefix_bound, n_segs, seg_words, build); ``build(prefix_words,
-        seg_words)`` reruns the same work at other sizes."""
+        encode_gop_scans_layout; ``seg_words`` None selects the
+        non-segment layout) — at the adaptive sizes, copied into pinned
+        memory. Returns the handle fields (combined, prefix, prefix_bound,
+        n_segs, seg_words, build); ``build(prefix_words, seg_words)``
+        reruns the same work at other sizes."""
         layout = mcu_layout(pw // 8, ph // 8, pw // 16, ph // 16, True)
         cap = self._prefix_cap(layout)
         bound = self._prefix_bound(layout)
@@ -328,28 +364,38 @@ class JpegEncoder:
             return _HostCopy(program(layout, p, sw)), p, sw
 
         win, sw = self._sizes()
+        n_segs = 0
+        if self.segmented:
+            n_segs = (layout.n_blocks + self.SEG_G - 1) // self.SEG_G
+        else:
+            sw = None
         combined, prefix, sw = build(min(win, cap) if win else cap, sw)
-        n_segs = (layout.n_blocks + self.SEG_G - 1) // self.SEG_G
         return combined, prefix, bound, n_segs, sw, build
 
     def _fetch(self, handle):
         """Wait for a handle's copy and check the usage it reports against
         the sizes it ran at; record the usage for the next dispatch.
         Returns (combined words (F, X) uint32, the handle they came
-        from). On an overflow the device reported the true usage, so the
-        same work is redispatched once at sizes that cover it, up to the
-        theoretical bounds; nothing is ever truncated."""
+        from). Column 0 is a frame's aligned words in the segment layout
+        and its bits in the non-segment layout. On an overflow the device
+        reported the true usage, so the same work is redispatched once at
+        sizes that cover it, up to the theoretical bounds; nothing is ever
+        truncated."""
         arr = handle.combined.numpy()
         n = handle.n_segs
-        used = arr[:, 0].astype(np.int64)
-        segbits = arr[:, 1:1 + n].astype(np.int64)
-        if ((used > handle.prefix).any()
-                or (segbits > handle.seg_words * 32).any()):
+        if n:
+            used = arr[:, 0].astype(np.int64)
+            segbits = arr[:, 1:1 + n].astype(np.int64)
+            seg_over = (segbits > handle.seg_words * 32).any()
+        else:
+            used = (arr[:, 0].astype(np.int64) + 31) // 32
+            seg_over = False
+        if (used > handle.prefix).any() or seg_over:
             if handle.build is None:
                 raise OverflowError("redispatch at the device-reported size "
                                     "overflowed again")
             seg_need = None
-            if (segbits > handle.seg_words * 32).any():
+            if seg_over:
                 seg_need = (int(segbits.max()) + 31) // 32
             w_need = int(used.max())
             if w_need > handle.prefix_bound or (
@@ -359,12 +405,24 @@ class JpegEncoder:
                     f"words/frame, {seg_need} words/segment")
             new_prefix, new_sw = self._overflow_sizes(w_need, seg_need)
             combined, p, sw = handle.build(max(new_prefix or 0, w_need),
-                                           new_sw)
+                                           new_sw if n else None)
             return self._fetch(handle._replace(
                 combined=combined, prefix=p, seg_words=sw, build=None))
         self._note_prefix_usage(int(used.max()))
-        self._note_seg_usage(int(segbits.max()))
+        if n:
+            self._note_seg_usage(int(segbits.max()))
         return arr, handle
+
+    @staticmethod
+    def _scan_bytes(row: np.ndarray, n_segs: int, prefix: int) -> bytes:
+        """One frame's byte-stuffed scan from its combined row (uint32):
+        the segments compacted, or the non-segment stream trimmed to its
+        bit count."""
+        if n_segs:
+            return compact_segments_finalize(row[1:1 + n_segs],
+                                             row[1 + n_segs:1 + n_segs
+                                                 + prefix])
+        return stuff_and_finalize(row[1:1 + prefix], int(row[0]))
 
     def _dispatch(self, planes_fn, h: int, w: int, ph: int, pw: int):
         ph, pw = _pad_to(ph, 16), _pad_to(pw, 16)
@@ -373,9 +431,9 @@ class JpegEncoder:
             r, g, b = planes_fn()
             yq, cbq, crq = _planes_front_end(r, g, b, self._qy_dev,
                                              self._qc_dev, ph, pw)
-            return encode_gop_scans_segmented(
-                yq, cbq, crq, layout=layout, prefix_words=prefix_words,
-                seg_g=self.SEG_G, seg_words=seg_words)
+            return encode_gop_scans_layout(yq, cbq, crq, layout,
+                                           prefix_words, self.SEG_G,
+                                           seg_words)
 
         return _Handle(*self._run_sized(program, ph, pw), h, w)
 
@@ -405,14 +463,13 @@ class JpegEncoder:
 
     def encode_gop_finalize(self, handle: _Handle) -> List[bytes]:
         """Blocking half: wait for the copy, check the sizes, compact,
-        stuff, wrap headers. Combined layout per frame: [0] = aligned
-        words, [1..S] = segment bits, [S+1..] = word-aligned stream."""
+        stuff, wrap headers. Combined layout per frame: segments [0] =
+        aligned words, [1..S] = segment bits, [S+1..] = word-aligned
+        stream; blocks [0] = bits, [1..] = the stream."""
         arr, handle = self._fetch(handle)
         hdr = jpeg_headers(handle.h, handle.w, self.qy, self.qc, True)
-        n = handle.n_segs
-        return [hdr + compact_segments_finalize(arr[i, 1:1 + n],
-                                                arr[i, 1 + n:])
-                + b"\xff\xd9" for i in range(arr.shape[0])]
+        return [hdr + self._scan_bytes(row, handle.n_segs, handle.prefix)
+                + b"\xff\xd9" for row in arr]
 
     def encode_frame(self, frame: np.ndarray) -> bytes:
         return self.encode_gop(frame[None])[0]

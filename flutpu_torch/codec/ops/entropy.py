@@ -1,32 +1,52 @@
-"""Segment-layout JPEG entropy stage (port of the segment half of
-flutpu/codec/ops/entropy.py).
+"""JPEG entropy stage (port of flutpu/codec/ops/entropy.py): the
+segment layout and the non-segment (block) layout.
 
-Device half, plain PyTorch around the pack kernel:
+Segment layout, device half, plain PyTorch around the pack kernel:
 
 1. ``_mcu_blocks``: MCU reorder of the zigzagged coefficient planes and
    DC prediction per component, per frame;
-2. ``pack_segments`` (ops/entropy_kernels.py, the CUDA kernel): Huffman
-   coding of ``seg_g`` consecutive blocks into one bit segment;
+2. ``pack_segments`` (ops/entropy_kernels.py, the CUDA kernel K2):
+   Huffman coding of ``seg_g`` consecutive blocks into one bit segment;
 3. ``_concat_segments_aligned``: every segment placed at the next 32-bit
    word boundary of the frame's stream.
 
 ``encode_gop_scans_segmented`` runs the three and returns one combined
 array per frame; the host half (``compact_segments_finalize``) merges the
 word-aligned segments into the exact bitstream and byte-stuffs it with
-the native library. The layout and the table logic are copies of the
-original (numpy), which cannot be imported without jax.
+the native library.
+
+Non-segment layout (``encode_gop_scans_combined``): after
+``_mcu_blocks``, each block is Huffman-coded into its own 64-word buffer
+(``pack_block_bits_fused``, K7; or, under ``FLUTPU_NO_FUSED_PACK=1``,
+``_slot_tables_merged`` and ``pack_block_bits64``, K8a), and
+``_concat_blocks_v3`` joins the blocks into the bit-contiguous stream on
+the device; the host only byte-stuffs it (``stuff_and_finalize``). The
+32-bit slot tables (``_slot_tables``) feed K8b, which no encoder path
+runs. flutpu's other concat formulations (v1, v2, v4, v5) are not
+ported, and ``FLUTPU_CONCAT`` is not read.
+
+The slot and concat arithmetic runs in int64: torch on the CPU has no
+uint32 shifts or compares. The layout and the table logic are copies of
+the original, which cannot be imported without jax.
 """
 
 from __future__ import annotations
 
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import jpeg_tables as T
-from .entropy_kernels import pack_segments
+from ...core.env import env_flag
+from .entropy_kernels import (BLOCK_WORDS, _as_word_bits, _magnitude,
+                              _tables, pack_block_bits64,
+                              pack_block_bits_fused, pack_segments)
+
+#: blocks per chunk of the slot-table computation (bounds its memory)
+_SLOT_CHUNK = 1 << 18
+_WORD_MASK = 0xFFFFFFFF
 
 
 class McuLayout:
@@ -232,6 +252,195 @@ def encode_gop_scans_segmented(yq: torch.Tensor, cbq: torch.Tensor,
 
 
 # ----------------------------------------------------------------------------
+# non-segment layout (device half)
+# ----------------------------------------------------------------------------
+
+def _slot_pieces(z: torch.Tensor, comp: torch.Tensor):
+    """Shared symbol computation of both slot-table layouts, int64:
+    (dc_len, dc_val, A_len, A_val, B_len, B_val, C_len, C_val, eob_len,
+    eob_val); DC and EOB are (B,), the AC pieces (B, 63). Per AC
+    position, slot A holds up to two ZRLs, slot B the third, slot C the
+    (run, size) code and the extra bits."""
+    dc_code_t, dc_len_t, ac_code_t, ac_len_t = _tables(z.device)
+    z = z.to(torch.int64)
+    b = z.shape[0]
+    t = (comp == 1).long()
+    zero = torch.zeros((), dtype=torch.int64, device=z.device)
+
+    diff = z[:, 0]
+    dsize = _magnitude(diff, 12)
+    extra = torch.where(diff < 0, diff + (1 << dsize) - 1, diff)
+    dc_slot_len = dc_len_t[t, dsize] + dsize
+    dc_slot_val = (dc_code_t[t, dsize] << dsize) | (extra & ((1 << dsize) - 1))
+
+    ac = z[:, 1:]
+    k = torch.arange(1, 64, device=z.device)
+    nz = ac != 0
+    prev_incl = torch.cummax(torch.where(nz, k, zero), dim=1).values
+    prev = torch.cat([prev_incl.new_zeros((b, 1)), prev_incl[:, :-1]], dim=1)
+    run = k - prev - 1
+    asize = _magnitude(ac, 11)
+    zrl_count = torch.where(nz, run >> 4, zero)
+    sym = ((run & 15) << 4) | asize
+    ac_code = ac_code_t[t[:, None], sym]
+    ac_len = ac_len_t[t[:, None], sym]
+    aextra = torch.where(ac < 0, ac + (1 << asize) - 1, ac)
+
+    zc = ac_code_t[t, 0xF0][:, None]
+    zl = ac_len_t[t, 0xF0][:, None]
+    c2 = zrl_count.clamp(max=2)
+    slot_a_len = torch.where(nz, c2 * zl, zero)
+    slot_a_val = torch.where(c2 == 2, (zc << zl) | zc,
+                             torch.where(c2 == 1, zc, zero))
+    slot_b_len = torch.where(nz & (zrl_count >= 3), zl, zero)
+    slot_b_val = torch.where(slot_b_len > 0, zc, zero)
+    slot_c_len = torch.where(nz, ac_len + asize, zero)
+    slot_c_val = torch.where(
+        nz, (ac_code << asize) | (aextra & ((1 << asize) - 1)), zero)
+
+    eob_needed = prev_incl[:, -1] < 63
+    eob_len = torch.where(eob_needed, ac_len_t[t, 0x00], zero)
+    eob_val = torch.where(eob_needed, ac_code_t[t, 0x00], zero)
+    return (dc_slot_len, dc_slot_val, slot_a_len, slot_a_val, slot_b_len,
+            slot_b_val, slot_c_len, slot_c_val, eob_len, eob_val)
+
+
+def _chunked(fn, zz: torch.Tensor, comp: torch.Tensor):
+    """``fn`` over blocks in chunks of ``_SLOT_CHUNK``, outputs joined."""
+    outs = [fn(zz[i:i + _SLOT_CHUNK], comp[i:i + _SLOT_CHUNK])
+            for i in range(0, max(1, zz.shape[0]), _SLOT_CHUNK)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
+def _slot_tables(zz: torch.Tensor, comp: torch.Tensor):
+    """Per-block 32-bit slot tables (K8b's input): zz (B, 64) DC-diffed
+    MCU-ordered coefficients, comp (B,) 0 luma / 1 chroma → (lens, vals)
+    (B, 191) int32: DC, then slots A, B, C per AC position, then EOB.
+    Every value holds exactly its length's bits (≤ 26)."""
+    def tables(z, c):
+        dl, dv, la, va, lb, vb, lc, vc, el, ev = _slot_pieces(z, c)
+        b = z.shape[0]
+        lens = torch.cat([dl[:, None], torch.stack([la, lb, lc], dim=-1)
+                          .reshape(b, -1), el[:, None]], dim=1)
+        vals = torch.cat([dv[:, None], torch.stack([va, vb, vc], dim=-1)
+                          .reshape(b, -1), ev[:, None]], dim=1)
+        return lens.to(torch.int32), vals.to(torch.int32)
+    return _chunked(tables, zz, comp)
+
+
+def _slot_tables_merged(zz: torch.Tensor, comp: torch.Tensor):
+    """Merged-slot tables (K8a's input): per AC position the up-to-three
+    codes of ``_slot_tables`` composed into one slot of at most 59 bits.
+    Returns (lens, his, los) (B, 65) int32; the slot value is the low
+    ``len`` bits of (hi << 32) | lo, hi and lo as uint32 bit patterns."""
+    def tables(z, c):
+        dl, dv, la, va, lb, vb, lc, vc, el, ev = _slot_pieces(z, c)
+        v = (((va << lb) | vb) << lc) | vc          # ≤ 59 bits in int64
+        zero = dv.new_zeros((z.shape[0], 1))
+        lens = torch.cat([dl[:, None], la + lb + lc, el[:, None]], dim=1)
+        his = torch.cat([zero, v >> 32, zero], dim=1)
+        los = torch.cat([dv[:, None], v & _WORD_MASK, ev[:, None]], dim=1)
+        return lens.to(torch.int32), _as_word_bits(his), _as_word_bits(los)
+    return _chunked(tables, zz, comp)
+
+
+def _concat_blocks_v3(buf: torch.Tensor, nbits: torch.Tensor,
+                      out_words: int):
+    """Block concatenation into bit-contiguous streams, batched over
+    frames (scatter formulation of flutpu's ``_concat_blocks_v3``).
+
+    buf (F, B, 64) int32 words MSB-first (every word written, bits past
+    the block's count zero), nbits (F, B). The block containing word w's
+    first bit is a cummax of a scatter-max of block indices into their
+    ceiling words, its start bit likewise; blocks starting strictly
+    inside a word add their first word's bits (disjoint, so ADD == OR);
+    two gathers fetch the containing block's words. Targets past the
+    window go to a junk column (flutpu's ``mode="drop"``). Returns (out
+    (F, out_words) int32 words, total bits (F,) int64)."""
+    f, b, _ = buf.shape
+    dev = buf.device
+    ends = nbits.to(torch.int64).cumsum(dim=1)
+    starts = ends - nbits.to(torch.int64)
+    total = ends[:, -1]
+
+    def target(words):
+        return torch.where(words < out_words, words,
+                           torch.full_like(words, out_words))
+
+    wce = target((starts + 31) >> 5)
+    bidx = torch.arange(b, device=dev).expand(f, b)
+    first = torch.full((f, out_words + 1), -1, dtype=torch.int64, device=dev) \
+        .scatter_reduce_(1, wce, bidx, "amax")[:, :out_words]
+    first = torch.cummax(first, dim=1).values.clamp(0, b - 1)
+    fo = torch.zeros((f, out_words + 1), dtype=torch.int64, device=dev) \
+        .scatter_reduce_(1, wce, starts, "amax")[:, :out_words]
+    fo = torch.cummax(fo, dim=1).values
+
+    sh = starts & 31
+    lead = (buf[:, :, 0].to(torch.int64) & _WORD_MASK) >> sh
+    extra = torch.zeros((f, out_words + 1), dtype=torch.int64, device=dev) \
+        .scatter_add_(1, target(starts >> 5),
+                      torch.where(sh != 0, lead, torch.zeros_like(lead)))
+
+    wbit = torch.arange(out_words, device=dev) << 5
+    pos = wbit - fo
+    p = pos & 31
+    base = first * BLOCK_WORDS + (pos >> 5).clamp(0, BLOCK_WORDS - 1)
+    flat = buf.reshape(f, b * BLOCK_WORDS)
+    b0 = flat.gather(1, base).to(torch.int64) & _WORD_MASK
+    b1 = flat.gather(1, (base + 1).clamp(max=b * BLOCK_WORDS - 1)) \
+        .to(torch.int64) & _WORD_MASK
+    inside = ((b0 << p) & _WORD_MASK) | (b1 >> (32 - p))   # >> 32 is 0
+    out = torch.where(wbit < total[:, None], inside,
+                      torch.zeros_like(inside)) + extra[:, :out_words]
+    return _as_word_bits(out), total
+
+
+def _resolve_pack_variant() -> bool:
+    """The non-segment pack: K7 unless ``FLUTPU_NO_FUSED_PACK=1`` selects
+    the merged slot tables and K8a (flutpu's ``_resolve_pack_variant``;
+    the port has one concat)."""
+    return not env_flag("FLUTPU_NO_FUSED_PACK", False)
+
+
+def encode_gop_scans_combined(yq: torch.Tensor, cbq: torch.Tensor,
+                              crq: torch.Tensor, layout: McuLayout,
+                              prefix_words: int) -> torch.Tensor:
+    """Non-segment scan encode of (F, BH, BW, 64) int16 coefficient
+    planes: MCU order and DC prediction, the per-block pack (K7, or the
+    merged slot tables and K8a), the block concat. Returns one array for
+    one copy: combined (F, 1 + prefix_words) int32 per frame, [0] = the
+    frame's bit count, [1:] = the first ``prefix_words`` words of its
+    bit-contiguous scan (a count above ``prefix_words * 32`` is an
+    overflow: the caller redispatches at the reported size)."""
+    f = yq.shape[0]
+    mcu, comp = _mcu_blocks(yq, cbq, crq, layout)
+    b = mcu.shape[1]
+    flat = mcu.reshape(f * b, 64)
+    comp_flat = comp.repeat(f)
+    if _resolve_pack_variant():
+        buf, nbits = pack_block_bits_fused(flat, comp_flat)
+    else:
+        buf, nbits = pack_block_bits64(*_slot_tables_merged(flat, comp_flat))
+    packed, bits = _concat_blocks_v3(buf.view(f, b, BLOCK_WORDS),
+                                     nbits.view(f, b), prefix_words)
+    return torch.cat([bits.to(torch.int32)[:, None], packed], dim=1)
+
+
+def encode_gop_scans_layout(yq: torch.Tensor, cbq: torch.Tensor,
+                            crq: torch.Tensor, layout: McuLayout,
+                            prefix_words: int, seg_g: int,
+                            seg_words: Optional[int]) -> torch.Tensor:
+    """The combined array of either layout: the segment layout at
+    ``seg_words`` words of staging per segment, or the non-segment layout
+    where ``seg_words`` is None (as flutpu's programs choose)."""
+    if seg_words is None:
+        return encode_gop_scans_combined(yq, cbq, crq, layout, prefix_words)
+    return encode_gop_scans_segmented(yq, cbq, crq, layout, prefix_words,
+                                      seg_g, seg_words)
+
+
+# ----------------------------------------------------------------------------
 # host half (copies of flutpu.codec.ops.entropy's numpy functions)
 # ----------------------------------------------------------------------------
 
@@ -289,9 +498,9 @@ def compact_segments_finalize(seg_bits: np.ndarray,
     """compact_aligned_segments + stuff_and_finalize in one native pass
     (``flu_compact_segments_finalize``, GIL-free); the numpy pair when
     the native library is absent. Byte-identical either way."""
-    from flutpu.native import get_lib
+    from ...native import get_lib
     lib = get_lib()
-    if lib is not None and hasattr(lib, "flu_compact_segments_finalize"):
+    if lib is not None:
         import ctypes
         sb = np.ascontiguousarray(seg_bits, dtype=np.uint32)
         w = np.ascontiguousarray(words, dtype=np.uint32)

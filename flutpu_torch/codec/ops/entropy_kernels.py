@@ -1,13 +1,26 @@
-"""Segment Huffman pack (port of flutpu/codec/ops/entropy_pallas.py).
+"""Huffman packs (port of flutpu/codec/ops/entropy_pallas.py).
 
-``pack_segments`` is the wrapper of the CUDA kernel
-``csrc/entropy_pack.cu``, which replaces the Pallas TPU kernel
-``pack_segments_fused``: baseline-JPEG Huffman coding of ``seg_g``
-consecutive MCU-ordered blocks into one MSB-first bit segment.
-``pack_segments_plain`` is the same function in plain PyTorch, computed
-in int64 (torch on the CPU has no uint32 shifts, adds or compares): the
-wrapper takes it for CPU tensors, and the card's results must equal it
-bit for bit.
+Four wrappers of the CUDA kernels in ``csrc/entropy_pack.cu``, each
+replacing a Pallas TPU kernel:
+
+- ``pack_segments`` (K2, ``pack_segments_fused``): baseline-JPEG Huffman
+  coding of ``seg_g`` consecutive MCU-ordered blocks into one MSB-first
+  bit segment (the segment layout);
+- ``pack_block_bits_fused`` (K7, ``pack_block_bits_fused``): the same
+  coding per block into its own 64-word buffer (the non-segment
+  layout); its kernel runs K2's body at one block per segment;
+- ``pack_block_bits64`` (K8a, ``pack_block_bits_pallas64``): placement
+  of merged slot tables (slots of up to 59 bits) per block;
+- ``pack_block_bits`` (K8b, ``pack_block_bits_pallas``): placement of
+  32-bit slot tables per block.
+
+K7, K8a and K8b compute one function: for the same blocks they return
+the same (buf, nbits). Each wrapper launches its kernel for CUDA tensors
+(or raises), takes its ``*_plain`` version for CPU tensors, refuses any
+other device, and counts its launches in ``.launches``. The plain
+versions are the same functions in plain PyTorch, computed in int64
+(torch on the CPU has no uint32 shifts, adds or compares); the card's
+results must equal them bit for bit.
 
 Words are returned as int32 tensors holding the uint32 bit pattern
 (``.numpy().view(np.uint32)`` recovers the unsigned words).
@@ -24,9 +37,11 @@ from ... import _build
 
 _ready_devices = set()
 
-#: Huffman items per chunk of the plain version (bounds its memory)
+#: Huffman items per chunk of the plain versions (bounds their memory)
 _PLAIN_MAX_ITEMS = 1 << 22
 _ITEMS_PER_BLOCK = 128          # DC, (ZRL run, AC symbol) x 63, EOB
+#: words of one block's buffer in the non-segment layout
+BLOCK_WORDS = 64
 
 
 def _check_args(zz, comp, seg_g, seg_words) -> None:
@@ -150,27 +165,96 @@ def _as_word_bits(words: torch.Tensor) -> torch.Tensor:
         .to(torch.int32)
 
 
+def _place_rows(items, n_rows: int, items_per_row: int, words: int,
+                device):
+    """``_place`` over rows in chunks of about ``_PLAIN_MAX_ITEMS`` items:
+    ``items(r0, r1)`` gives rows [r0, r1)'s (lens, vals) int64, values
+    holding exactly their length's bits (≤ 32). Returns (words (n_rows,
+    words) int32 bit patterns, bits (n_rows,) int32)."""
+    chunk = max(1, _PLAIN_MAX_ITEMS // items_per_row)
+    bufs, bits = [], []
+    for r0 in range(0, n_rows, chunk):
+        w, nb = _place(*items(r0, min(n_rows, r0 + chunk)), words)
+        bufs.append(_as_word_bits(w))
+        bits.append(nb.to(torch.int32))
+    if not bufs:
+        return (torch.zeros((0, words), dtype=torch.int32, device=device),
+                torch.zeros((0,), dtype=torch.int32, device=device))
+    return torch.cat(bufs), torch.cat(bits)
+
+
 def pack_segments_plain(zz: torch.Tensor, comp: torch.Tensor, seg_g: int = 16,
                         seg_words: int = 64):
     """Plain PyTorch version of the segment pack kernel (int64 math).
     Same contract as ``pack_segments``."""
     _check_args(zz, comp, seg_g, seg_words)
-    s_count = zz.shape[0] // seg_g
     tables = _tables(zz.device)
-    chunk = max(1, _PLAIN_MAX_ITEMS // (seg_g * _ITEMS_PER_BLOCK))
-    bufs, bits = [], []
-    for s0 in range(0, s_count, chunk):
-        s1 = min(s_count, s0 + chunk)
+
+    def items(s0, s1):
         lens, vals = _block_items(zz[s0 * seg_g:s1 * seg_g].to(torch.int64),
                                   comp[s0 * seg_g:s1 * seg_g], tables)
-        w, nb = _place(lens.reshape(s1 - s0, -1), vals.reshape(s1 - s0, -1),
-                       seg_words)
-        bufs.append(_as_word_bits(w))
-        bits.append(nb.to(torch.int32))
-    if not bufs:
-        return (torch.zeros((0, seg_words), dtype=torch.int32, device=zz.device),
-                torch.zeros((0,), dtype=torch.int32, device=zz.device))
-    return torch.cat(bufs), torch.cat(bits)
+        return lens.reshape(s1 - s0, -1), vals.reshape(s1 - s0, -1)
+
+    return _place_rows(items, zz.shape[0] // seg_g, seg_g * _ITEMS_PER_BLOCK,
+                       seg_words, zz.device)
+
+
+def pack_block_bits_fused_plain(zz: torch.Tensor, comp: torch.Tensor):
+    """Plain PyTorch version of K7: the segment pack at one block per
+    segment and ``BLOCK_WORDS`` words. Same contract as
+    ``pack_block_bits_fused``."""
+    return pack_segments_plain(zz, comp, 1, BLOCK_WORDS)
+
+
+def _check_slots(lens: torch.Tensor, *vals: torch.Tensor) -> None:
+    if lens.dim() != 2 or lens.dtype != torch.int32:
+        raise ValueError(f"lens must be (B, S) int32, got {lens.dtype} "
+                         f"{tuple(lens.shape)}")
+    for v in vals:
+        if v.shape != lens.shape or v.dtype != torch.int32:
+            raise ValueError(f"slot values must be {tuple(lens.shape)} int32 "
+                             f"like lens, got {v.dtype} {tuple(v.shape)}")
+        if v.device != lens.device:
+            raise ValueError("slot tables must lie on one device")
+
+
+def _low_bits(v: torch.Tensor, n: torch.Tensor) -> torch.Tensor:
+    """The low ``n`` (0..32) bits of int32 bit patterns, as int64."""
+    return (v.to(torch.int64) & 0xFFFFFFFF) & ((1 << n) - 1)
+
+
+def pack_block_bits64_plain(lens: torch.Tensor, his: torch.Tensor,
+                            los: torch.Tensor):
+    """Plain PyTorch version of K8a: each merged slot splits into its
+    high ``len - 32`` bits (from ``his``) and its low bits (from ``los``),
+    two items of at most 32 bits, placed in order. Same contract as
+    ``pack_block_bits64``."""
+    _check_slots(lens, his, los)
+
+    def items(r0, r1):
+        n = lens[r0:r1].to(torch.int64)
+        n_hi, n_lo = (n - 32).clamp(min=0), n.clamp(max=32)
+        b = r1 - r0
+        return (torch.stack([n_hi, n_lo], dim=2).reshape(b, -1),
+                torch.stack([_low_bits(his[r0:r1], n_hi),
+                             _low_bits(los[r0:r1], n_lo)], dim=2)
+                .reshape(b, -1))
+
+    return _place_rows(items, lens.shape[0], 2 * lens.shape[1], BLOCK_WORDS,
+                       lens.device)
+
+
+def pack_block_bits_plain(lens: torch.Tensor, vals: torch.Tensor):
+    """Plain PyTorch version of K8b: the slots (each at most 32 bits)
+    placed in order. Same contract as ``pack_block_bits``."""
+    _check_slots(lens, vals)
+
+    def items(r0, r1):
+        n = lens[r0:r1].to(torch.int64)
+        return n, _low_bits(vals[r0:r1], n)
+
+    return _place_rows(items, lens.shape[0], lens.shape[1], BLOCK_WORDS,
+                       lens.device)
 
 
 def _init_device(lib, device: torch.device) -> None:
@@ -188,6 +272,48 @@ def _init_device(lib, device: torch.device) -> None:
     _ready_devices.add(device)
 
 
+def _device_of(name: str, t: torch.Tensor) -> str:
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {t.device}")
+    return t.device.type
+
+
+def _outputs(rows: int, words: int, device):
+    return (torch.empty((rows, words), dtype=torch.int32, device=device),
+            torch.empty((rows,), dtype=torch.int32, device=device))
+
+
+def _launch(wrapper, entry: str, device, *args, tables: bool = False) -> None:
+    """Call a C entry of the kernel library on ``device``'s current
+    stream (the stream is the last argument), after uploading the Huffman
+    tables where the kernel reads them; raise on a CUDA error, else count
+    the launch on ``wrapper``."""
+    lib = _build.load()
+    with torch.cuda.device(device):
+        if tables:
+            _init_device(lib, device)
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _build.check(getattr(lib, entry)(*args, stream),
+                     f"{wrapper.__name__} launch")
+    wrapper.launches += 1
+
+
+def _launch_pack(wrapper, entry: str, zz, comp, seg_g: int, seg_words: int,
+                 *shape: int):
+    """The Huffman pack ``entry`` (K2 with ``shape`` = (seg_g, seg_words),
+    K7 with none) over (zz, comp); no launch for no segments."""
+    _check_args(zz, comp, seg_g, seg_words)
+    zz = zz.contiguous()
+    comp = comp.contiguous()
+    s_count = zz.shape[0] // seg_g
+    buf, bits = _outputs(s_count, seg_words, zz.device)
+    if s_count:
+        _launch(wrapper, entry, zz.device, zz.data_ptr(), comp.data_ptr(),
+                buf.data_ptr(), bits.data_ptr(), s_count, *shape,
+                tables=True)
+    return buf, bits
+
+
 def pack_segments(zz: torch.Tensor, comp: torch.Tensor, seg_g: int = 16,
                   seg_words: int = 64):
     """(B, 64) int32 DC-diffed MCU-ordered coefficients + (B,) int32 comp
@@ -198,30 +324,67 @@ def pack_segments(zz: torch.Tensor, comp: torch.Tensor, seg_g: int = 16,
     buffer holds the first ``seg_words`` words. CUDA tensors launch the
     kernel on the current stream; CPU tensors take
     ``pack_segments_plain``."""
-    if zz.device.type == "cpu":
+    if _device_of("pack_segments", zz) == "cpu":
         return pack_segments_plain(zz, comp, seg_g, seg_words)
-    if zz.device.type != "cuda":
-        raise ValueError(f"pack_segments: unsupported device {zz.device}")
-    _check_args(zz, comp, seg_g, seg_words)
-    zz = zz.contiguous()
-    comp = comp.contiguous()
-    s_count = zz.shape[0] // seg_g
-    segbuf = torch.empty((s_count, seg_words), dtype=torch.int32,
-                         device=zz.device)
-    segbits = torch.empty((s_count,), dtype=torch.int32, device=zz.device)
-    if s_count == 0:
-        return segbuf, segbits
-    lib = _build.load()
-    with torch.cuda.device(zz.device):
-        _init_device(lib, zz.device)
-        stream = torch.cuda.current_stream(zz.device).cuda_stream
-        _build.check(lib.flu_pack_segments(
-            zz.data_ptr(), comp.data_ptr(), segbuf.data_ptr(),
-            segbits.data_ptr(), s_count, seg_g, seg_words, stream),
-            "pack_segments launch")
-    pack_segments.launches += 1
-    return segbuf, segbits
+    return _launch_pack(pack_segments, "flu_pack_segments", zz, comp, seg_g,
+                        seg_words, seg_g, seg_words)
+
+
+def pack_block_bits_fused(zz: torch.Tensor, comp: torch.Tensor):
+    """(B, 64) int32 DC-diffed MCU-ordered coefficients + (B,) int32 comp
+    flags (0 luma, 1 chroma) → (buf (B, 64) int32 words MSB-first, nbits
+    (B,) int32): each block Huffman-coded into its own buffer, every word
+    written, bits past ``nbits`` zero. CUDA tensors launch K7 (K2's body
+    at one block per segment); CPU tensors take
+    ``pack_block_bits_fused_plain``."""
+    if _device_of("pack_block_bits_fused", zz) == "cpu":
+        return pack_block_bits_fused_plain(zz, comp)
+    return _launch_pack(pack_block_bits_fused, "flu_pack_blocks", zz, comp,
+                        1, BLOCK_WORDS)
+
+
+def _launch_slots(wrapper, entry: str, lens: torch.Tensor,
+                  *vals: torch.Tensor):
+    """K8a's or K8b's kernel ``entry`` over the slot tables; no launch for
+    no blocks."""
+    _check_slots(lens, *vals)
+    lens = lens.contiguous()
+    vals = [v.contiguous() for v in vals]
+    b, s = lens.shape
+    buf, nbits = _outputs(b, BLOCK_WORDS, lens.device)
+    if b:
+        _launch(wrapper, entry, lens.device, lens.data_ptr(),
+                *(v.data_ptr() for v in vals), buf.data_ptr(),
+                nbits.data_ptr(), b, s)
+    return buf, nbits
+
+
+def pack_block_bits64(lens: torch.Tensor, his: torch.Tensor,
+                      los: torch.Tensor):
+    """Merged slot tables (B, S) int32: ``lens`` (0..64), and the slot
+    values as the low ``len`` bits of (hi << 32) | lo, hi and lo as
+    uint32 bit patterns → (buf (B, 64) int32 words MSB-first, nbits (B,)
+    int32), the same as ``pack_block_bits_fused`` for the blocks the
+    tables come from. CUDA tensors launch the kernel; CPU tensors take
+    ``pack_block_bits64_plain``."""
+    if _device_of("pack_block_bits64", lens) == "cpu":
+        return pack_block_bits64_plain(lens, his, los)
+    return _launch_slots(pack_block_bits64, "flu_pack_slots64", lens, his,
+                         los)
+
+
+def pack_block_bits(lens: torch.Tensor, vals: torch.Tensor):
+    """32-bit slot tables (B, S) int32: ``lens`` (0..32) and values (the
+    low ``len`` bits count) → (buf (B, 64) int32 words MSB-first, nbits
+    (B,) int32), as ``pack_block_bits64``. CUDA tensors launch the
+    kernel; CPU tensors take ``pack_block_bits_plain``."""
+    if _device_of("pack_block_bits", lens) == "cpu":
+        return pack_block_bits_plain(lens, vals)
+    return _launch_slots(pack_block_bits, "flu_pack_slots32", lens, vals)
 
 
 #: kernel launches since the count was last set to 0
 pack_segments.launches = 0
+pack_block_bits_fused.launches = 0
+pack_block_bits64.launches = 0
+pack_block_bits.launches = 0

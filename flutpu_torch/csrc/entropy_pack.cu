@@ -1,7 +1,7 @@
-// Baseline-JPEG Huffman coding of MCU-ordered blocks into per-segment
-// MSB-first bit strings, for Hopper.
+// Baseline-JPEG Huffman packs of MCU-ordered blocks, for Hopper: per
+// segment (K2) and per block (K7, K8a, K8b).
 //
-// Replaces flutpu/codec/ops/entropy_pallas.py:pack_segments_fused (the
+// K2 replaces flutpu/codec/ops/entropy_pallas.py:pack_segments_fused (the
 // Pallas TPU kernel `_fused_seg_kernel`). The TPU kernel ran every segment
 // of a 512-lane tile in lockstep and placed each symbol with 96-bit
 // one-hot word selects over the whole staging column, because a TPU lane
@@ -29,6 +29,30 @@
 //   - segbits counts every bit, also past seg_words * 32, but no word past
 //     the buffer is written (the encoder redispatches at the reported
 //     size); every word of the buffer is written, unused ones as 0.
+//
+// K7 (`pack_blocks_kernel`) replaces entropy_pallas.py:pack_block_bits_fused
+// (`_fused_kernel`), the non-segment layout's pack: K2's per-segment body
+// run at seg_g = 1 and seg_words = 64 is that function (one block per
+// thread, its own 64-word buffer, every word written, EOB rule as above),
+// so K7 shares K2's source under a kernel name of its own. What bounds it: 520 bytes per block (its 64 coefficients, its
+// comp flag, its 64 words and its count), 407 MB per 16-frame 1080p GOP.
+//
+// K8a (`pack_slots64_kernel`) replaces pack_block_bits_pallas64
+// (`_pack_kernel64`) and K8b (`pack_slots32_kernel`) pack_block_bits_pallas
+// (`_pack_kernel`): the placement of precomputed slot tables, merged slots
+// of up to 59 bits (hi:lo pairs, 65 per block) or 32-bit slots (191 per
+// block). The TPU kernels ran 1024 blocks in lockstep and placed each slot
+// with one-hot selects over a (64, 1024) word column, bounding each tile's
+// loop by its last active slot. Here one thread walks one block's slot
+// row and appends each active slot's bits through the same BitSink as K2;
+// it reads every length but a slot's value only where the length is not
+// 0, so its bytes follow the data (what the bound in chip_smoke counts:
+// the slots up to each block's last active one). The tables arrive (B, S)
+// row-major, so a warp reads 32 rows S words apart: each load touches 32
+// sectors and the L1 serves the following iterations from them. A
+// transposed table or a warp per block (coalesced reads) is later work.
+// Every word of the 64-word buffer is written and bits past nbits are 0:
+// the block concat reads the word after the containing one.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -47,10 +71,11 @@ struct BitSink {
   int widx;
   int total;
 
-  // append the low `len` (<= 16) bits of `val`
+  // append the low `len` (<= 32) bits of `val`; at most 31 bits are
+  // pending before, so at most 63 after
   __device__ __forceinline__ void put(uint32_t val, int len) {
     if (len == 0) return;
-    acc = (acc << len) | (val & ((1u << len) - 1u));
+    acc = (acc << len) | (val & (0xFFFFFFFFu >> (32 - len)));
     nacc += len;
     total += len;
     if (nacc >= 32) {
@@ -83,12 +108,13 @@ __device__ __forceinline__ uint32_t extra_bits(int v, int size) {
   return (uint32_t)(v < 0 ? v + (1 << size) - 1 : v);
 }
 
-__global__ void __launch_bounds__(64)
-pack_segments_kernel(const int32_t* __restrict__ zz, const int32_t* __restrict__ comp,
-                     uint32_t* __restrict__ segbuf, int32_t* __restrict__ segbits,
-                     int n_segs, int seg_g, int seg_words) {
-  const int s = blockIdx.x * blockDim.x + threadIdx.x;
-  if (s >= n_segs) return;
+// one thread's segment: blocks [s * seg_g, (s + 1) * seg_g) into
+// segbuf[s], their bit count into segbits[s]
+__device__ __forceinline__ void pack_segment(const int32_t* __restrict__ zz,
+                                             const int32_t* __restrict__ comp,
+                                             uint32_t* __restrict__ segbuf,
+                                             int32_t* __restrict__ segbits, int s,
+                                             int seg_g, int seg_words) {
   BitSink bs{segbuf + (size_t)s * seg_words, seg_words, 0ull, 0, 0, 0};
   for (int gi = 0; gi < seg_g; gi++) {
     const size_t blk = (size_t)s * seg_g + gi;
@@ -124,6 +150,66 @@ pack_segments_kernel(const int32_t* __restrict__ zz, const int32_t* __restrict__
   segbits[s] = bs.total;
 }
 
+// K2
+__global__ void __launch_bounds__(64)
+pack_segments_kernel(const int32_t* __restrict__ zz, const int32_t* __restrict__ comp,
+                     uint32_t* __restrict__ segbuf, int32_t* __restrict__ segbits,
+                     int n_segs, int seg_g, int seg_words) {
+  const int s = blockIdx.x * blockDim.x + threadIdx.x;
+  if (s < n_segs) pack_segment(zz, comp, segbuf, segbits, s, seg_g, seg_words);
+}
+
+constexpr int kBlockWords = 64;
+
+// K7: K2's body at one block per segment, under a name of its own so a
+// trace tells the two layouts apart
+__global__ void __launch_bounds__(64)
+pack_blocks_kernel(const int32_t* __restrict__ zz, const int32_t* __restrict__ comp,
+                   uint32_t* __restrict__ buf, int32_t* __restrict__ nbits, int n_blocks) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b < n_blocks) pack_segment(zz, comp, buf, nbits, b, 1, kBlockWords);
+}
+
+// K8a: merged slots, value = low `len` (<= 64) bits of (hi << 32) | lo
+__global__ void __launch_bounds__(64)
+pack_slots64_kernel(const int32_t* __restrict__ lens, const uint32_t* __restrict__ his,
+                    const uint32_t* __restrict__ los, uint32_t* __restrict__ buf,
+                    int32_t* __restrict__ nbits, int n_blocks, int n_slots) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= n_blocks) return;
+  const size_t row = (size_t)b * n_slots;
+  BitSink bs{buf + (size_t)b * kBlockWords, kBlockWords, 0ull, 0, 0, 0};
+  for (int s = 0; s < n_slots; s++) {
+    const int len = lens[row + s];
+    if (len <= 0) continue;
+    if (len > 32) {
+      bs.put(his[row + s], len - 32);
+      bs.put(los[row + s], 32);
+    } else {
+      bs.put(los[row + s], len);
+    }
+  }
+  bs.finish();
+  nbits[b] = bs.total;
+}
+
+// K8b: 32-bit slots, value = low `len` (<= 32) bits of vals
+__global__ void __launch_bounds__(64)
+pack_slots32_kernel(const int32_t* __restrict__ lens, const uint32_t* __restrict__ vals,
+                    uint32_t* __restrict__ buf, int32_t* __restrict__ nbits, int n_blocks,
+                    int n_slots) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= n_blocks) return;
+  const size_t row = (size_t)b * n_slots;
+  BitSink bs{buf + (size_t)b * kBlockWords, kBlockWords, 0ull, 0, 0, 0};
+  for (int s = 0; s < n_slots; s++) {
+    const int len = lens[row + s];
+    if (len > 0) bs.put(vals[row + s], len);
+  }
+  bs.finish();
+  nbits[b] = bs.total;
+}
+
 }  // namespace
 
 extern "C" {
@@ -147,6 +233,45 @@ int flu_pack_segments(const void* zz, const void* comp, void* segbuf, void* segb
     pack_segments_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
         (const int32_t*)zz, (const int32_t*)comp, (uint32_t*)segbuf, (int32_t*)segbits,
         n_segs, seg_g, seg_words);
+  return (int)cudaGetLastError();
+}
+
+// zz: (n_blocks, 64) int32 DC-diffed MCU-ordered coefficients; comp:
+// (n_blocks,) int32 (0 luma, 1 chroma); buf: (n_blocks, 64) uint32;
+// nbits: (n_blocks,) int32.
+int flu_pack_blocks(const void* zz, const void* comp, void* buf, void* nbits, int n_blocks,
+                    void* stream) {
+  const int threads = 64;
+  const int blocks = (n_blocks + threads - 1) / threads;
+  if (blocks > 0)
+    pack_blocks_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)zz, (const int32_t*)comp, (uint32_t*)buf, (int32_t*)nbits, n_blocks);
+  return (int)cudaGetLastError();
+}
+
+// lens, his, los: (n_blocks, n_slots) int32 (his/los uint32 bit patterns);
+// buf: (n_blocks, 64) uint32; nbits: (n_blocks,) int32.
+int flu_pack_slots64(const void* lens, const void* his, const void* los, void* buf,
+                     void* nbits, int n_blocks, int n_slots, void* stream) {
+  const int threads = 64;
+  const int blocks = (n_blocks + threads - 1) / threads;
+  if (blocks > 0)
+    pack_slots64_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)lens, (const uint32_t*)his, (const uint32_t*)los, (uint32_t*)buf,
+        (int32_t*)nbits, n_blocks, n_slots);
+  return (int)cudaGetLastError();
+}
+
+// lens, vals: (n_blocks, n_slots) int32; buf: (n_blocks, 64) uint32;
+// nbits: (n_blocks,) int32.
+int flu_pack_slots32(const void* lens, const void* vals, void* buf, void* nbits,
+                     int n_blocks, int n_slots, void* stream) {
+  const int threads = 64;
+  const int blocks = (n_blocks + threads - 1) / threads;
+  if (blocks > 0)
+    pack_slots32_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const int32_t*)lens, (const uint32_t*)vals, (uint32_t*)buf, (int32_t*)nbits,
+        n_blocks, n_slots);
   return (int)cudaGetLastError();
 }
 

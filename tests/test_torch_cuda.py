@@ -12,14 +12,15 @@ import numpy as np
 import pytest
 import torch
 
-from flutpu.core.elements import make_test_frame
 from flutpu_torch.codec.fvc import FvcDecoder, FvcEncoder
 from flutpu_torch.codec.jpeg import JpegEncoder
 from flutpu_torch.codec.ops import entropy_kernels as K
+from flutpu_torch.codec.ops.entropy import _slot_tables, _slot_tables_merged
 from flutpu_torch.codec.ops import frontend as F
 from flutpu_torch.codec.ops import motion_kernels as M
 from flutpu_torch.codec.ops.quant import (CHROMA_QTABLE, LUMA_QTABLE,
                                           scale_qtable)
+from flutpu_torch.core.elements import make_test_frame
 from torch_helpers import cuda_device, rand_planes, tie_contract  # noqa: F401
 
 torch.set_num_threads(1)
@@ -73,10 +74,61 @@ def test_pack_kernel_matches_plain(cuda_device, seg_words):
 
 
 @pytest.mark.cuda
-def test_encoder_on_card_matches_cpu(cuda_device):
+@pytest.mark.parametrize("dense", [False, True])
+def test_block_pack_kernels_match_plain(cuda_device, dense):
+    """K7, K8a (on the merged slot tables) and K8b (on the 32-bit slot
+    tables) bit-identical to their plain versions and to each other."""
+    z, comp = _blocks(3000, seed=8, dense=dense)
+    comp = np.maximum(comp, 0)           # the non-segment layout: 0 / 1
+    zt, ct = torch.from_numpy(z), torch.from_numpy(comp)
+    cases = [(K.pack_block_bits_fused, K.pack_block_bits_fused_plain,
+              (zt, ct)),
+             (K.pack_block_bits64, K.pack_block_bits64_plain,
+              _slot_tables_merged(zt, ct)),
+             (K.pack_block_bits, K.pack_block_bits_plain,
+              _slot_tables(zt, ct))]
+    first = None
+    for kernel, plain, args in cases:
+        want = plain(*args)
+        before = kernel.launches
+        got = kernel(*(a.to(cuda_device) for a in args))
+        assert kernel.launches == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        first = first or want
+        for a, b in zip(want, first):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wrapper", ["pack_segments", "pack_block_bits_fused",
+                                     "pack_block_bits64", "pack_block_bits"])
+def test_pack_wrappers_count_no_launch_for_no_blocks(cuda_device, wrapper):
+    """An empty batch launches nothing, so the count stays as it was."""
+    z = torch.zeros((0, 64), dtype=torch.int32, device=cuda_device)
+    comp = torch.zeros((0,), dtype=torch.int32, device=cuda_device)
+    slots = torch.zeros((0, 65), dtype=torch.int32, device=cuda_device)
+    args = {"pack_segments": (z, comp), "pack_block_bits_fused": (z, comp),
+            "pack_block_bits64": (slots, slots, slots),
+            "pack_block_bits": (slots, slots)}[wrapper]
+    kernel = getattr(K, wrapper)
+    before = kernel.launches
+    buf, bits = kernel(*args)
+    assert kernel.launches == before
+    assert buf.shape[0] == bits.shape[0] == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segmented,no_fused",[(True, False), (False, False),
+                                                (False, True)])
+def test_encoder_on_card_matches_cpu(cuda_device, segmented, no_fused,
+                                     monkeypatch):
+    if no_fused:
+        monkeypatch.setenv("FLUTPU_NO_FUSED_PACK", "1")
     frames = np.stack([make_test_frame("gradient", 72, 40, i)
                        for i in range(3)])
-    got = JpegEncoder(device=cuda_device).encode_gop(frames)
+    got = JpegEncoder(segmented=segmented,
+                      device=cuda_device).encode_gop(frames)
     assert got == JpegEncoder(device="cpu").encode_gop(frames)
 
 
@@ -180,14 +232,16 @@ def test_chroma_kernel_matches_plain(cuda_device, hc, wc, r):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("motion", [False, True])
-def test_fvc_on_card_matches_cpu(cuda_device, motion):
-    """The same chunk encoded on the card and on the CPU; a mid-chunk cut
-    exercises the device-side I/P decision."""
+@pytest.mark.parametrize("motion,segmented", [(False, True), (True, True),
+                                              (False, False), (True, False)])
+def test_fvc_on_card_matches_cpu(cuda_device, motion, segmented):
+    """The same chunk encoded on the card (either layout) and on the CPU;
+    a mid-chunk cut exercises the device-side I/P decision."""
     frames = np.concatenate([
         np.stack([make_test_frame("ball", 160, 88, i) for i in range(4)]),
         np.stack([make_test_frame("noise", 160, 88, i) for i in range(4)])])
-    got = FvcEncoder(motion=motion, device=cuda_device).encode_chunk(frames)
+    got = FvcEncoder(motion=motion, segmented=segmented,
+                     device=cuda_device).encode_chunk(frames)
     want = FvcEncoder(motion=motion, device="cpu").encode_chunk(frames)
     assert got == want
     a, info = FvcDecoder(cuda_device).decode_chunk(got)

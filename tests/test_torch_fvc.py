@@ -20,15 +20,16 @@ import numpy as np
 import pytest
 import torch
 
-import flutpu_torch  # noqa: F401  (registers cudafvcenc)
+import flutpu.core
+import flutpu_torch.core
 from flutpu.codec import fvc as jf
 from flutpu.codec.ops.testsrc import gradient_ball_planes as j_ball_planes
-from flutpu.core import make, parse_launch
 from flutpu.core.elements import make_test_frame
 from flutpu_torch.codec import fvc as tf
 from flutpu_torch.codec.fvc import FvcDecoder, FvcEncoder
 from flutpu_torch.codec.ops.colorspace import planes_to_i420
 from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
+from torch_helpers import pull_all
 
 torch.set_num_threads(1)
 
@@ -66,6 +67,16 @@ def jax_chunks():
 def test_chunk_byte_identical(jax_chunks, motion, clip):
     je = jf.FvcEncoder(85, motion=motion)
     assert _port(je).encode_chunk(CLIPS[clip]) == jax_chunks[(motion, clip)]
+
+
+@pytest.mark.parametrize("motion,clip", CASES)
+def test_chunk_without_segments_byte_identical(jax_chunks, motion, clip):
+    """``segmented=False``: the per-block pack and the block concat, the
+    layout flutpu's encoder takes on the CPU."""
+    je = jf.FvcEncoder(85, motion=motion)
+    te = _port(je, segmented=False)
+    assert te._scan_coder.segmented is False
+    assert te.encode_chunk(CLIPS[clip]) == jax_chunks[(motion, clip)]
 
 
 def _near_tie(cur, refs, mb, vecs):
@@ -267,6 +278,15 @@ def test_overflow_redispatches_at_reported_size(jax_chunks, state):
         assert sc._prefix_window > 16
 
 
+def test_overflow_without_segments_redispatches(jax_chunks):
+    """The non-segment window overflows (bits > window * 32) and the
+    redispatch at the reported need gives flutpu's chunk."""
+    te = _port(jf.FvcEncoder(85, motion=True), prefix_window=16,
+               segmented=False)
+    assert te.encode_chunk(CLIPS["cut"]) == jax_chunks[(True, "cut")]
+    assert te._scan_coder._prefix_window > 16
+
+
 def test_beyond_theoretical_bound_raises():
     te = _port(jf.FvcEncoder(85, motion=True), seg_words=2)
     te._scan_coder.BLOCK_BITS_BOUND = 8   # a bound no real content fits
@@ -339,7 +359,7 @@ def test_cudafvcenc_unported_properties_raise(prop):
     """bitrate and subpel raise; search=hier and bframes reach the
     encoder."""
     name, value = prop.split("=")
-    el = make("cudafvcenc", device="cpu", motion=True)
+    el = flutpu_torch.core.make("cudafvcenc", device="cpu", motion=True)
     el.set_property(name, {"true": True}.get(value, value if not
                                               value.isdigit()
                                               else int(value)))
@@ -352,27 +372,38 @@ def test_cudafvcenc_unported_properties_raise(prop):
         el._enc()
 
 
-def test_cudafvcenc_matches_fvcenc_in_one_launch():
+def _element_pair(opts: str, port_opts: str = ""):
+    """The same source through ``fvcenc`` (flutpu's parse_launch) and
+    ``cudafvcenc`` (the port's: each package's registry holds its own
+    elements) → {"a": flutpu's buffers, "b": the port's}."""
     src = f"videotestsrc num-buffers=16 pattern=ball width={W} height={H}"
-    p = parse_launch(f"{src} ! fvcenc motion=true ! appsink name=a "
-                     f"{src} ! cudafvcenc motion=true device=cpu "
-                     "! appsink name=b")
-    p.play()
-    out = {}
-    try:
-        for name in ("a", "b"):
-            sink, bufs = p.get_by_name(name), []
-            while (buf := sink.try_pull_buffer(timeout=60)) is not None:
-                bufs.append(buf)
-            out[name] = bufs
-    finally:
-        p.stop()
+    return {"a": pull_all(flutpu.core.parse_launch,
+                          f"{src} ! fvcenc {opts} ! appsink name=out"),
+            "b": pull_all(flutpu_torch.core.parse_launch,
+                          f"{src} ! cudafvcenc {opts} device=cpu "
+                          f"{port_opts} ! appsink name=out")}
+
+
+def test_cudafvcenc_matches_fvcenc_in_one_launch():
+    """The same launch string through each package's parse_launch (each
+    registry holds its own elements): the same buffers."""
+    out = _element_pair("motion=true")
     assert len(out["b"]) == 2
     assert [bytes(b.data) for b in out["b"]] == \
         [bytes(b.data) for b in out["a"]]
     assert [b.pts for b in out["b"]] == [b.pts for b in out["a"]]
     assert [b.meta["frame_pts"] for b in out["b"]] == \
         [b.meta["frame_pts"] for b in out["a"]]
+
+
+@pytest.mark.parametrize("opts", ["", "motion=true"])
+def test_cudafvcenc_without_segments_matches_fvcenc(opts):
+    """``cudafvcenc segmented=false`` (the per-block pack) against flutpu's
+    default ``fvcenc`` on the CPU, which takes the same layout."""
+    out = _element_pair(opts, "segmented=false")
+    assert len(out["b"]) == 2
+    assert [bytes(b.data) for b in out["b"]] == \
+        [bytes(b.data) for b in out["a"]]
 
 
 def test_v2_header_writes_per_block_dct_flag(jax_chunks):

@@ -25,13 +25,14 @@ import numpy as np
 import pytest
 import torch
 
-import flutpu_torch  # noqa: F401  (registers cudafvcenc)
+import flutpu.core
+import flutpu_torch.core
 from flutpu.codec import fvc as jf
-from flutpu.core import parse_launch
 from flutpu.core.elements import make_test_frame
 from flutpu_torch.codec import fvc as tf
 from flutpu_torch.codec.fvc import FvcDecoder, FvcEncoder
 from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
+from torch_helpers import pull_all
 
 torch.set_num_threads(1)
 
@@ -116,6 +117,14 @@ def test_chunk_byte_identical(chunks, config, clip):
         _tie_contract_b(CLIPS[clip], je, _port(je))
     else:
         assert got == want
+
+
+@pytest.mark.parametrize("config", [(True, 1), (False, 1), (True, 0)])
+def test_chunk_without_segments_byte_identical(chunks, config):
+    """``segmented=False`` (the per-block pack) with hier and B frames."""
+    je = _jax(*config)
+    want, _ = chunks[config, "ball"]
+    assert _port(je, segmented=False).encode_chunk(CLIPS["ball"]) == want
 
 
 def test_bframes_2_tie_is_a_half_step():
@@ -308,21 +317,16 @@ def test_short_chunks_byte_identical(n):
 
 
 def test_cudafvcenc_hier_b_matches_fvcenc_in_one_launch():
+    """The same launch string through flutpu's parse_launch (``fvcenc``)
+    and the port's (``cudafvcenc``): each package's registry holds its own
+    elements."""
     src = f"videotestsrc num-buffers=16 pattern=ball width={W} height={H}"
     opts = "motion=true search=hier bframes=1"
-    p = parse_launch(f"{src} ! fvcenc {opts} ! appsink name=a "
-                     f"{src} ! cudafvcenc {opts} device=cpu "
-                     "! appsink name=b")
-    p.play()
-    out = {}
-    try:
-        for name in ("a", "b"):
-            sink, bufs = p.get_by_name(name), []
-            while (buf := sink.try_pull_buffer(timeout=60)) is not None:
-                bufs.append(buf)
-            out[name] = bufs
-    finally:
-        p.stop()
+    out = {"a": pull_all(flutpu.core.parse_launch,
+                         f"{src} ! fvcenc {opts} ! appsink name=out"),
+           "b": pull_all(flutpu_torch.core.parse_launch,
+                         f"{src} ! cudafvcenc {opts} device=cpu "
+                         "! appsink name=out")}
     assert len(out["b"]) == 2
     assert [bytes(b.data) for b in out["b"]] == \
         [bytes(b.data) for b in out["a"]]

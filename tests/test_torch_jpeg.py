@@ -11,19 +11,19 @@ import numpy as np
 import pytest
 import torch
 
-import flutpu_torch  # noqa: F401  (registers cudajpegenc)
 from flutpu.codec.decode import decode_scan_to_coefs as j_decode_scan
 from flutpu.codec.decoders import parse_jfif as j_parse_jfif
 from flutpu.codec.jpeg import JpegEncoder as JaxEncoder
 from flutpu.codec.ops.testsrc import gradient_ball_frames as j_ball_frames
 from flutpu.codec.ops.testsrc import gradient_ball_planes as j_ball_planes
-from flutpu.core import parse_launch
 from flutpu.core.elements import make_test_frame
 from flutpu_torch.codec.convert import encoder_state_from_numpy
 from flutpu_torch.codec.decode import (coefs_to_rgb, decode_scan_to_coefs,
                                        parse_jfif)
 from flutpu_torch.codec.jpeg import JpegEncoder, _planes_front_end
 from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
+from flutpu_torch.core import make, parse_launch
+from torch_helpers import pull_all
 
 torch.set_num_threads(1)
 
@@ -188,7 +188,102 @@ def test_cudajpegenc_element_byte_identical():
 
 
 def test_cudajpegenc_rejects_host_engine():
-    from flutpu.core import make
     el = make("cudajpegenc", device="cpu", engine="host")
     with pytest.raises(ValueError):
         el._get_encoder()
+
+
+# -- the non-segment layout (segmented=False) ---------------------------------
+
+def _blocks_pair(**state):
+    je = JaxEncoder(quality=85, use_pallas=False)
+    assert je.segmented is False         # flutpu's CPU default
+    return je, JpegEncoder.from_numpy_state(je.qy, je.qc, device="cpu",
+                                            segmented=False, **state)
+
+
+@pytest.mark.parametrize("pattern,w,h", [("gradient", 64, 48),
+                                         ("smpte", 72, 40),
+                                         ("noise", 48, 32)])
+def test_nonsegment_encode_gop_byte_identical(pattern, w, h):
+    je, te = _blocks_pair()
+    frames = _frames(pattern, w, h)
+    assert te.encode_gop(frames) == je.encode_gop(frames)
+
+
+def test_nonsegment_dispatch_finalize_and_source():
+    """dispatch/finalize, the on-device source and two GOPs in flight."""
+    je, te = _blocks_pair()
+    h, w, ph, pw = 40, 64, 48, 64
+    want = je.encode_gop_finalize(je.encode_gop_dispatch_src(
+        lambda ph_, pw_, start: j_ball_planes(ph_, pw_, 4, start),
+        jnp.float32(8), h, w, ph, pw))
+    handle = te.encode_gop_dispatch_src(
+        lambda ph_, pw_, start: gradient_ball_planes(ph_, pw_, 4, start,
+                                                     device="cpu"),
+        8, h, w, ph, pw)
+    assert handle.n_segs == 0 and handle.seg_words is None
+    frames = np.array(j_ball_frames(ph, pw, 4, jnp.float32(8)))
+    second = te.encode_gop_dispatch(torch.from_numpy(frames), h, w)
+    assert te.encode_gop_finalize(handle) == want
+    assert te.encode_gop_finalize(second) == want
+
+
+def test_nonsegment_prefix_overflow_redispatches():
+    """Column 0 carries bits here: an overflow is bits > window * 32, and
+    the redispatch runs at the reported need."""
+    je, te = _blocks_pair(prefix_window=16)
+    frames = _frames("noise", 48, 32, n=2)
+    assert te.encode_gop(frames) == je.encode_gop(frames)
+    assert te._prefix_window > 16
+    assert te._seg_used_words == 0       # no segment usage recorded
+
+
+def test_nonsegment_matches_flutpu_k7_in_interpret_mode():
+    """flutpu's device engine with its K7 Pallas kernel in interpret mode
+    (the patch of tests/test_entropy_pallas.py) and the port's layouts
+    give the same bytes."""
+    import flutpu.codec.ops.entropy_pallas as ep
+    frames = make_test_frame("gradient", 32, 32, 2)[None]
+    dev = JaxEncoder(quality=85, engine="device", use_pallas=True)
+    orig = ep.pack_block_bits_fused
+    ep.pack_block_bits_fused = lambda z, c, interpret=False: orig(
+        z, c, interpret=True)
+    try:
+        want = dev.encode_gop(frames)
+    finally:
+        ep.pack_block_bits_fused = orig
+    for segmented in (False, True):
+        te = JpegEncoder(85, segmented=segmented, device="cpu")
+        assert te.encode_gop(frames) == want
+
+
+def test_nonsegment_k8a_arm_byte_identical(monkeypatch):
+    monkeypatch.setenv("FLUTPU_NO_FUSED_PACK", "1")
+    je, te = _blocks_pair()
+    frames = _frames("ball", 64, 48, n=2)
+    assert te.encode_gop(frames) == je.encode_gop(frames)
+
+
+def test_segmented_resolves_explicit_then_environment(monkeypatch):
+    assert JpegEncoder(device="cpu").segmented is True
+    monkeypatch.setenv("FLUTPU_SEGMENTED", "0")
+    assert JpegEncoder(device="cpu").segmented is False
+    assert JpegEncoder(segmented=True, device="cpu").segmented is True
+    monkeypatch.setenv("FLUTPU_SEGMENTED", "yes")
+    assert JpegEncoder(device="cpu").segmented is True
+    assert JpegEncoder(segmented=False, device="cpu").segmented is False
+
+
+def test_cudajpegenc_segmented_property():
+    """``segmented=false`` reaches the encoder, and a change rebuilds it."""
+    bufs = pull_all(parse_launch, "videotestsrc num-buffers=5 pattern=ball "
+                    "width=64 height=48 ! cudajpegenc device=cpu "
+                    "batch-frames=4 segmented=false ! appsink name=out")
+    want = JaxEncoder(quality=85, use_pallas=False).encode_gop(
+        _frames("ball", 64, 48, n=5))
+    assert [bytes(b.data) for b in bufs] == want
+    el = make("cudajpegenc", device="cpu", segmented="false")
+    assert el._get_encoder().segmented is False
+    el.set_property("segmented", "true")
+    assert el._get_encoder().segmented is True

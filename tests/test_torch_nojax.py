@@ -1,6 +1,8 @@
-"""flutpu_torch stands without jax: it imports none, its carried copies
-of jax-free host code still equal their originals in flutpu, and its
-kernel build composes the Hopper nvcc commands without needing nvcc."""
+"""flutpu_torch stands without jax and without the JAX package flutpu:
+it imports neither, its carried copies of jax-free host code still equal
+their originals in flutpu, its kernel build composes the Hopper nvcc
+commands without needing nvcc, and its native-library loader builds the
+repository's C++ sources with the Makefile's flags."""
 
 import inspect
 import os
@@ -21,7 +23,7 @@ from flutpu.codec.ops import dct as j_dct
 from flutpu.codec.ops import entropy as j_entropy
 from flutpu.codec.ops import quant as j_quant
 from flutpu.hype import events as j_events
-from flutpu_torch import _build
+from flutpu_torch import _build, native
 from flutpu_torch.codec import base as t_base
 from flutpu_torch.codec import encoder as t_encoder
 from flutpu_torch.codec import fvc as t_fvc
@@ -39,18 +41,25 @@ ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _NO_JAX_PIPELINE = """
 import sys
 sys.modules["jax"] = None
+sys.modules["flutpu"] = None
 import flutpu_torch
-from flutpu.core import parse_launch
-p = parse_launch("videotestsrc num-buffers=2 width=64 height=32 "
-                 "pattern=gradient ! cudajpegenc device=cpu ! appsink name=out")
-sink = p.get_by_name("out")
-p.play()
-out = []
-while (buf := sink.try_pull_buffer(timeout=60)) is not None:
-    out.append(bytes(buf.data))
-p.stop()
-assert len(out) == 2, len(out)
-assert all(o[:2] == b"\\xff\\xd8" and o[-2:] == b"\\xff\\xd9" for o in out)
+from flutpu_torch.core import parse_launch
+outs = []
+for seg in ("true", "false"):
+    p = parse_launch("videotestsrc num-buffers=2 width=64 height=32 "
+                     "pattern=gradient ! cudajpegenc device=cpu "
+                     f"segmented={seg} ! appsink name=out")
+    sink = p.get_by_name("out")
+    p.play()
+    out = []
+    while (buf := sink.try_pull_buffer(timeout=60)) is not None:
+        out.append(bytes(buf.data))
+    p.stop()
+    assert len(out) == 2, len(out)
+    assert all(o[:2] == b"\\xff\\xd8" and o[-2:] == b"\\xff\\xd9"
+               for o in out)
+    outs.append(out)
+assert outs[0] == outs[1]
 p = parse_launch("videotestsrc num-buffers=3 width=64 height=32 pattern=ball "
                  "! cudafvcenc device=cpu motion=true gop-size=3 "
                  "! appsink name=out")
@@ -69,19 +78,19 @@ clip = np.stack([np.roll(np.arange(32 * 64 * 3, dtype=np.uint8)
                          .reshape(32, 64, 3), i, axis=1) for i in range(3)])
 b = FvcEncoder(motion=True, hier=True, bframes=1, device="cpu")
 assert 2 in FvcDecoder().decode_chunk(b.encode_chunk(clip))[1]["types"]
-assert sys.modules["jax"] is None
+assert sys.modules["jax"] is None and sys.modules["flutpu"] is None
 print("encoded", len(out), "chunks", len(chunks))
 """
 
 _NO_JAX_IMPORTS = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
+sys.modules["flutpu"] = None
 import flutpu_torch
 for m in pkgutil.walk_packages(flutpu_torch.__path__, "flutpu_torch."):
     importlib.import_module(m.name)
-bad = sorted(m for m in sys.modules if m.startswith(
-    ("jax.", "flutpu.codec", "flutpu.hype", "flutpu.ttml", "flutpu.parallel",
-     "flutpu.core.devwarm")))
+flutpu_torch.core.make("cudajpegenc", device="cpu")   # loads the plugins
+bad = sorted(m for m in sys.modules if m.startswith(("jax.", "flutpu.")))
 assert not bad, bad
 print("modules", sum(m.startswith("flutpu_torch") for m in sys.modules))
 """
@@ -173,8 +182,8 @@ def test_header_bytes_equal(h, w, q):
 
 
 def test_video_encoder_base_copy_equal():
-    """Same methods with the same bodies (up to the absolute import of
-    flutpu.core); only WARM_DEVICE differs."""
+    """Same methods with the same bodies (up to the import of the core,
+    the port's own copy); the port has no WARM_DEVICE."""
     a, b = t_base.VideoEncoder, j_base.VideoEncoder
     names = sorted(n for n, v in vars(b).items() if inspect.isfunction(v))
     assert names == sorted(n for n, v in vars(a).items()
@@ -184,7 +193,7 @@ def test_video_encoder_base_copy_equal():
             "from flutpu.core import", "from ..core import")
         assert src == inspect.getsource(getattr(b, n)), n
     assert (a.SINK_CAPS, a.SRC_CAPS) == (b.SINK_CAPS, b.SRC_CAPS)
-    assert a.WARM_DEVICE is False and b.WARM_DEVICE is True
+    assert not hasattr(a, "WARM_DEVICE") and b.WARM_DEVICE is True
 
 
 def test_scene_event_name_equal():
@@ -288,6 +297,7 @@ def test_c_entries_match_the_sources():
     defined = set(re.findall(r"^int (flu_\w+)\(", text, re.M))
     assert defined == {"flu_front_end_init", "flu_front_end",
                        "flu_pack_init", "flu_pack_segments",
+                       "flu_pack_blocks", "flu_pack_slots64", "flu_pack_slots32",
                        "flu_motion_search_mc", "flu_motion_search_mc_blocks",
                        "flu_motion_refine_mc", "flu_chroma_mc"}
 
@@ -305,3 +315,95 @@ def test_c_entries_match_the_sources():
 def test_build_output_is_ignored_by_git():
     lines = _read(os.path.join(ROOT, ".gitignore")).split()
     assert "flutpu_torch/_build/" in lines
+
+
+# -- the native library ---------------------------------------------------------
+
+def _makefile_var(text, name):
+    return re.search(rf"^{name} \?= (.*)$", text, re.M).group(1).split()
+
+
+def test_native_build_follows_the_makefile():
+    """Every source the Makefile builds, compiled with its flags (less its
+    warnings and dependency files), one object each in the port's build
+    directory, linked with -lz; the Makefile itself writes into flutpu."""
+    mk = _read(os.path.join(ROOT, "native", "Makefile"))
+    flags = [f for f in _makefile_var(mk, "CXXFLAGS")
+             if not f.startswith("-W")]
+    assert list(native.CXX_FLAGS) == flags
+    assert list(native.LD_FLAGS) == _makefile_var(mk, "LDFLAGS")
+    srcs = native.source_paths()
+    assert sorted(os.path.relpath(p, native.NATIVE_DIR) for p in srcs) == \
+        sorted(f"{d}/{n}" for d in ("bitstream", "fluc", "downloader")
+               for n in os.listdir(os.path.join(native.NATIVE_DIR, d))
+               if n.endswith(".cpp"))
+    jobs = native.compile_commands("/objs", cxx="g++")
+    for (cmd, obj), src in zip(jobs, srcs):
+        assert cmd == ["g++", *flags, "-c", "-o", obj, src]
+        assert os.path.dirname(obj) == "/objs"
+    assert len({o for _, o in jobs}) == len(jobs)
+    out = native.library_path()
+    assert os.path.dirname(out) == _build.BUILD_DIR
+    assert native.source_hash() in os.path.basename(out)
+    assert native.link_command(out, ["a.o"], cxx="g++") == \
+        ["g++", "-shared", "-pthread", "-o", out, "a.o", "-lz"]
+
+
+def test_native_library_equals_flutpus():
+    """The port's build of the sources and flutpu's give the same scan
+    and the same compacted segments."""
+    from flutpu import native as j_native
+    from flutpu.codec.ops.entropy import compact_segments_finalize as j_comp
+    lib = native.get_lib()
+    assert lib is not None and j_native.get_lib() is not None
+    for name in ("flu_jpeg_encode_scan", "flu_jpeg_decode_scan",
+                 "flu_compact_segments_finalize"):
+        assert getattr(lib, name).restype is not None
+    rng = np.random.default_rng(2)
+    bits = rng.integers(0, 200, 12).astype(np.uint32)
+    words = rng.integers(0, 2 ** 32, int((bits + 31).sum() // 32) + 4,
+                         dtype=np.uint64).astype(np.uint32)
+    aligned = np.zeros_like(words)
+    pos = 0
+    for n in bits:
+        k = (int(n) + 31) // 32
+        aligned[pos:pos + k] = words[pos:pos + k]
+        if n % 32:
+            aligned[pos + k - 1] &= np.uint32((0xFFFFFFFF << (32 - n % 32))
+                                              & 0xFFFFFFFF)
+        pos += k
+    assert t_entropy.compact_segments_finalize(bits, aligned) == \
+        j_comp(bits, aligned)
+
+
+def test_native_build_is_ignored_by_git():
+    lines = _read(os.path.join(ROOT, ".gitignore")).split()
+    assert os.path.relpath(os.path.dirname(native.library_path()),
+                           ROOT) + "/" in lines
+
+
+def test_chip_smoke_imports_only_the_port():
+    """Every import in chip_smoke.py, at any depth, is the standard
+    library, numpy, torch or flutpu_torch."""
+    import ast
+    tree = ast.parse(_read(os.path.join(ROOT, "chip_smoke.py")))
+    names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+             for a in n.names}
+    names |= {n.module for n in ast.walk(tree)
+              if isinstance(n, ast.ImportFrom) and n.module}
+    tops = {n.split(".")[0] for n in names}
+    assert "flutpu_torch" in tops
+    assert not tops & {"jax", "jaxlib", "flutpu"}
+    assert tops <= {"flutpu_torch", "numpy", "torch", "__future__", "ctypes",
+                    "json", "os", "subprocess", "sys", "time"}, tops
+
+
+def test_chip_smoke_fails_without_a_card():
+    """Where torch sees no CUDA device the script exits nonzero and prints
+    no result line."""
+    res = subprocess.run(
+        [sys.executable, os.path.join(ROOT, "chip_smoke.py")], cwd=ROOT,
+        env=dict(os.environ, CUDA_VISIBLE_DEVICES=""), capture_output=True,
+        text=True, timeout=300)
+    assert res.returncode != 0
+    assert '"ok"' not in res.stdout

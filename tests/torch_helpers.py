@@ -38,6 +38,22 @@ def sparse_coefs(f=2, ybh=8, ybw=12, seed=0, dense=False):
             sparse((f, ybh // 2, ybw // 2, 64)))
 
 
+def pull_all(parse_launch, desc: str, timeout: float = 60):
+    """Play the launch string ``desc`` (ending in ``appsink name=out``)
+    through ``parse_launch`` (flutpu's or the port's: each package's
+    registry holds its own elements) and pull every buffer."""
+    p = parse_launch(desc)
+    sink = p.get_by_name("out")
+    p.play()
+    bufs = []
+    try:
+        while (buf := sink.try_pull_buffer(timeout=timeout)) is not None:
+            bufs.append(buf)
+    finally:
+        p.stop()
+    return bufs
+
+
 def tie_contract(got: np.ndarray, want: np.ndarray, max_share: float):
     """Equal except ±1 on at most ``max_share`` of the values (rounding
     ties moved by a different fp32 summation order)."""
