@@ -63,7 +63,35 @@ Drives the port's main paths through the entry points a user calls, at
 9. FVC without segments: one chunk each of v1, v2 P-only and hier+B with
    ``segmented=False`` (K7 launched, K2 not), each byte-identical to the
    segmented chunk of the same source (the first chunk of phases 6 and 8)
-   and checked as in phase 7.
+   and checked as in phase 7;
+10. subtitle burn-in (BASELINE config 5, encode + TTML burn-in):
+   a. K1 with its overlay branch on one 16-frame GOP and a seeded BGRA
+      overlay of 1080 rows (opaque, half-transparent and alpha-0 bands):
+      against its plain version under K1's contract, bit-identical to K1
+      on planes blended beforehand (``overlay_on_planes``), and with
+      alpha 0 bit-identical to K1 without an overlay; timed beside its
+      byte bound and beside the launch without an overlay;
+   b. the renderer: config 5's document through ``cudattmlrender
+      window-width=1920 window-height=1088 device-out=true`` on the card
+      and through the same element on the CPU, equal pixel for pixel and
+      not blank; a second document (5 intervals, an outline, a region
+      opacity) batched, with and without ``crop-delivery``, per interval
+      and on the CPU: equal frames; the compositor on seeded tiles and
+      instance tables, card against CPU; device launches and busy ms
+      per interval (torch.profiler); the font backend;
+   c. the main path: ``JpegEncoder.encode_gop_dispatch_src(..., overlay=
+      window)``, 8 GOPs with two in flight (K1's overlay branch and K2
+      launched), then 2 GOPs with ``segmented=False`` (K1 and K7),
+      byte-identical between the layouts; every scan checked as in phase
+      4 against K1-with-overlay's coefficients, every frame >= 30 dB from
+      its source blended on the CPU and different from the unblended
+      source under the subtitle; frames/s and device busy time per GOP
+      beside the plain JPEG path's from interleaved loops;
+   d. the pipeline: ``videotestsrc`` -> ``comp.video``, the document ->
+      ``cudattmlrender device-out=true`` -> ``comp.overlay``,
+      ``cudaoverlaycompositor name=comp ! cudajpegenc ! appsink``, 32
+      frames, every frame decoded and checked, the frames inside the
+      subtitle's interval carrying it and the others not.
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not
@@ -289,30 +317,13 @@ def run(dev):
     layout = mcu_layout(PW // 8, PH // 8, PW // 16, PH // 16, True)
     results = {}
 
-    def k1_compare(planes, label):
-        got = F.front_end(*planes, qy, qc)
-        want = F.front_end_plain(*planes, qy, qc)
-        n = diff = 0
-        worst = 0
-        for a, b in zip(got, want):
-            d = (a.to(torch.int32) - b.to(torch.int32)).abs()
-            worst = max(worst, int(d.max()))
-            diff += int((d > 0).sum())
-            n += d.numel()
-        share = diff / n
-        print(f"front_end vs plain ({label}): {diff} of {n} coefficients "
-              f"differ (share {share:.3e}), max |diff| {worst}", flush=True)
-        _require(worst <= 1 and share <= MAX_TIE_SHARE,
-                 f"front_end vs plain ({label}): max {worst}, share {share}")
-        return got, worst
-
     src = gradient_ball_planes(PH, PW, GOP, 0, device=dev)
-    coefs0, err_src = k1_compare(src, "gradient-ball GOP")
+    coefs0, err_src = _k1_compare(src, qy, qc, "gradient-ball GOP")
     rng = np.random.default_rng(0)
     noise = tuple(torch.from_numpy(rng.integers(0, 256, (GOP, PH, PW),
                                                 np.uint8)).to(dev)
                   for _ in range(3))
-    _, err_noise = k1_compare(noise, "uniform-noise GOP")
+    _, err_noise = _k1_compare(noise, qy, qc, "uniform-noise GOP")
     del noise
     k1_ms = _time_ms(lambda: F.front_end(*src, qy, qc), 20)
     k1_plain_ms = _time_ms(lambda: F.front_end_plain(*src, qy, qc), 5)
@@ -439,6 +450,10 @@ def run(dev):
     lap("8 FVC hier+B")
     add(run_fvc_blocks(dev, lib, seg_chunks))
     lap("9 FVC non-segment")
+    k1_overlay, counts = run_burnin(dev, lib, results["front_end"]["ms"])
+    results["front_end_overlay"] = k1_overlay
+    add(counts)
+    lap("10 burn-in")
     print(f"phase wall times (s): {json.dumps(lap.secs)}; "
           f"{time.perf_counter() - _T_START:.2f} s since the script started",
           flush=True)
@@ -448,6 +463,11 @@ def run(dev):
              source="flutpu_torch/csrc/frontend.cu",
              replaces="flutpu/codec/ops/frontend_pallas.py:179",
              launches=launches["front_end"], **results["front_end"]),
+        dict(name="front_end_overlay", route="cuda",
+             source="flutpu_torch/csrc/frontend.cu",
+             replaces="flutpu/codec/ops/frontend_pallas.py:122",
+             launches=launches["front_end_overlay"],
+             **results["front_end_overlay"]),
         dict(name="pack_segments", route="cuda",
              source="flutpu_torch/csrc/entropy_pack.cu",
              replaces="flutpu/codec/ops/entropy_pallas.py:439",
@@ -500,6 +520,29 @@ def run(dev):
     return kernels
 
 
+def _k1_compare(planes, qy, qc, label, overlay=None):
+    """K1 against its plain version on ``planes`` (with ``overlay``): equal
+    except ±1 on at most MAX_TIE_SHARE of the coefficients. Returns (the
+    kernel's coefficients, max |difference|)."""
+    import torch
+    from flutpu_torch.codec.ops import frontend as F
+    got = F.front_end(*planes, qy, qc, overlay=overlay)
+    want = F.front_end_plain(*planes, qy, qc, overlay=overlay)
+    n = diff = 0
+    worst = 0
+    for a, b in zip(got, want):
+        d = (a.to(torch.int32) - b.to(torch.int32)).abs()
+        worst = max(worst, int(d.max()))
+        diff += int((d > 0).sum())
+        n += d.numel()
+    share = diff / n
+    print(f"front_end vs plain ({label}): {diff} of {n} coefficients "
+          f"differ (share {share:.3e}), max |diff| {worst}", flush=True)
+    _require(worst <= 1 and share <= MAX_TIE_SHARE,
+             f"front_end vs plain ({label}): max {worst}, share {share}")
+    return got, worst
+
+
 def _in_flight(dispatch, finalize, n: int):
     """``n`` dispatches (``dispatch(i)`` → handle) with two in flight, each
     finalized in order → (outputs, mean device span per dispatch in ms
@@ -534,8 +577,9 @@ def _device_busy(fn, n: int):
     """Run ``fn`` (``n`` dispatches' work) under torch.profiler → (device
     busy ms per dispatch: the union of the traced device intervals,
     kernels and copies; the five largest kernels as (name, ms per
-    dispatch, launches per dispatch)), or None where the profiler traced
-    no device activity."""
+    dispatch, launches per dispatch); device launches per dispatch,
+    kernels and copies), or None where the profiler traced no device
+    activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -557,8 +601,8 @@ def _device_busy(fn, n: int):
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:5]
-    return busy / 1e3 / n, [(k[:48], t / 1e3 / n, c / n)
-                            for k, (t, c) in top]
+    return (busy / 1e3 / n, [(k[:48], t / 1e3 / n, c / n)
+                             for k, (t, c) in top], len(spans) / n)
 
 
 def _pipeline(parse_launch, desc: str):
@@ -748,7 +792,7 @@ def run_jpeg_blocks(dev, lib, seg_enc, seg_payloads, seg_fps, seg_pipe):
             print(f"device busy ({label}): not measured (the profiler "
                   "traced no device activity)", flush=True)
             continue
-        busy, top = got
+        busy, top, _ = got
         print(f"device busy ({label} layout, torch.profiler, 4 GOPs, "
               f"{time.perf_counter() - t0:.2f} s with the trace): "
               f"{busy:.3f} ms per GOP; largest kernels per GOP: "
@@ -1008,8 +1052,12 @@ def _count_launches(fn):
     torch.cuda.synchronize()
     for w_ in wrappers.values():
         w_.launches = 0
+    F.front_end.overlay_launches = 0
     out = fn()
-    return out, {k: w_.launches for k, w_ in wrappers.items()}
+    counts = {k: w_.launches for k, w_ in wrappers.items()}
+    # K1's launches that ran its overlay branch (a share of front_end's)
+    counts["front_end_overlay"] = F.front_end.overlay_launches
+    return out, counts
 
 
 def run_fvc(dev, lib):
@@ -1242,6 +1290,345 @@ def run_fvc_blocks(dev, lib, seg_chunks):
         for k, v in n.items():
             total[k] = total.get(k, 0) + v
     return total
+
+
+BURNIN_DOC = (
+    "<?xml version='1.0'?><tt xmlns='http://www.w3.org/ns/ttml'>"
+    "<body><div><p begin='0s' end='60s'>Burn-in subtitle</p></div>"
+    "</body></tt>")
+# 5 intervals; an outline with a blur, a region opacity, a fractional
+# background alpha
+BATCH_DOC = """<?xml version="1.0"?>
+<tt xmlns="http://www.w3.org/ns/ttml" xmlns:tts="http://www.w3.org/ns/ttml#styling">
+  <head><layout>
+    <region xml:id="r" tts:origin="5% 70%" tts:extent="90% 25%"
+            tts:backgroundColor="#00000080" tts:opacity="0.7"/>
+  </layout></head>
+  <body><div>
+    <p begin="0s" end="1s" region="r" tts:color="white">first cue</p>
+    <p begin="1s" end="2s" region="r" tts:color="yellow">second cue</p>
+    <p begin="3s" end="4s" region="r"
+       tts:textOutline="black 3px 2px">fourth, after a gap</p>
+  </div></body>
+</tt>"""
+# the pipeline's document: the subtitle ends before the last frames do
+PIPE_DOC = BURNIN_DOC.replace("60s", "0.5s")
+
+
+def _render(doc, props):
+    """``doc`` through ``cudattmlrender`` with ``props`` → every output
+    buffer's (pts, duration, data)."""
+    from flutpu_torch.core import Buffer, Harness
+    h = Harness(f"cudattmlrender {props}")
+    h.set_src_caps("application/ttml+xml")
+    h.push(Buffer(doc.encode(), pts=0))
+    h.push_eos()
+    out = []
+    while (b := h.pull(timeout=60)) is not None:
+        out.append((b.pts, b.duration, b.data))
+    h.teardown()
+    return out
+
+
+def _same_windows(a, b, label):
+    """Two renders of one document: the same intervals, equal pixel for
+    pixel (tensors or numpy). Returns the count of lit pixels."""
+    import numpy as np
+    import torch
+    _require(len(a) == len(b) and a, f"{label}: {len(a)} vs {len(b)} "
+             "intervals")
+    lit = 0
+    for i, ((pa, da, fa), (pb, db, fb)) in enumerate(zip(a, b)):
+        fa, fb = (f.cpu().numpy() if isinstance(f, torch.Tensor) else f
+                  for f in (fa, fb))
+        _require((pa, da) == (pb, db), f"{label}: interval {i} timing")
+        bad = np.argwhere(fa != fb)
+        _require(not len(bad), f"{label}: interval {i} differs at "
+                 f"{bad[:3].tolist()} ({len(bad)} values)")
+        lit += int((fa[..., 3] > 0).sum())
+    return lit
+
+
+def run_burnin(dev, lib, k1_ms):
+    """Phase 10: K1's overlay branch, the renderer, the burn-in main path
+    and the burn-in pipeline. ``k1_ms``: phase 2's time of K1 without an
+    overlay. Returns (K1-with-overlay's record, the launch counts of the
+    main path and the pipeline)."""
+    import numpy as np
+    import torch
+    from flutpu_torch.codec.decode import coefs_to_rgb
+    from flutpu_torch.codec.jpeg import JpegEncoder, _edge_pad
+    from flutpu_torch.codec.ops import frontend as F
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
+    from flutpu_torch.core import Buffer, parse_launch
+    from flutpu_torch.core.elements import make_test_frame
+    from flutpu_torch.ttml.render.composite import (overlay_on_frames,
+                                                    overlay_on_planes)
+    from flutpu_torch.ttml.render.fonts import font_backend
+
+    enc = JpegEncoder(quality=QUALITY, device=dev)
+    qy, qc = enc._qy_dev, enc._qc_dev
+
+    # -- 10a. K1 with its overlay branch --------------------------------------
+    src = gradient_ball_planes(PH, PW, GOP, 0, device=dev)
+    rng = np.random.default_rng(5)
+    ov = rng.integers(0, 256, (H, W, 4), np.uint8)
+    ov[:300, :, 3], ov[300:600, :, 3], ov[600:800, :, 3] = 255, 128, 0
+    ov = torch.from_numpy(ov).to(dev)
+    got, err = _k1_compare(src, qy, qc, "gradient-ball GOP + seeded overlay",
+                           overlay=ov)
+    full = ov.new_zeros((PH, PW, 4))
+    full[:H] = ov
+    staged = F.front_end(*overlay_on_planes(*src, full), qy, qc)
+    same = all(torch.equal(a, b) for a, b in zip(got, staged))
+    none = F.front_end(*src, qy, qc)
+    zero = all(torch.equal(a, b) for a, b in zip(
+        F.front_end(*src, qy, qc, overlay=torch.zeros_like(ov)), none))
+    changed = sum(int((a != b).sum()) for a, b in zip(got, none))
+    print(f"front_end(overlay) vs front_end on planes blended beforehand: "
+          f"{'bit-identical' if same else 'DIFFERENT'}; alpha-0 overlay vs "
+          f"no overlay: {'bit-identical' if zero else 'DIFFERENT'}; the "
+          f"overlay changes {changed} coefficients", flush=True)
+    _require(same, "K1 with an overlay differs from K1 on blended planes")
+    _require(zero, "K1 with an alpha-0 overlay differs from K1 without one")
+    _require(changed > 0, "the overlay changed nothing")
+    t_none = [_time_ms(lambda: F.front_end(*src, qy, qc), 20)]
+    t_ov = [_time_ms(lambda: F.front_end(*src, qy, qc, overlay=ov), 20)
+            for _ in range(2)]
+    t_none.append(_time_ms(lambda: F.front_end(*src, qy, qc), 20))
+    plain_ms = _time_ms(lambda: F.front_end_plain(*src, qy, qc, overlay=ov),
+                        5)
+    px = GOP * PH * PW
+    # as K1, plus the overlay's 4 bytes per pixel read once for the whole
+    # GOP, and per pixel a division and 3 x (2 products, 2 sums, a clip
+    # and a floor)
+    bound = _bound(3 * px + 2 * 1.5 * px + H * W * 4,
+                   px * (17 + 1.5 * 35 + 19))
+    print(f"front_end(overlay): kernel {t_ov[0]:.4f}, {t_ov[1]:.4f} ms, "
+          f"without an overlay {t_none[0]:.4f}, {t_none[1]:.4f} ms in the "
+          f"same loop (phase 2: {k1_ms:.4f}), plain {plain_ms:.3f} ms per "
+          f"16-frame 1080p GOP; bound {bound['bound_ms']:.4f} ms",
+          flush=True)
+    record = dict(max_abs_err=err, ms=min(t_ov), plain_ms=plain_ms, **bound)
+    del src, got, staged, none, full, ov
+
+    # -- 10b. the renderer ------------------------------------------------------
+    print(f"font backend: {font_backend()}", flush=True)
+    size = f"window-width={PW} window-height={PH}"
+    t0 = time.perf_counter()
+    card = _render(BURNIN_DOC, f"{size} device-out=true device={dev}")
+    t_card = time.perf_counter() - t0
+    cpu = _render(BURNIN_DOC, f"{size} device=cpu")
+    window = card[0][2]
+    _require(isinstance(window, torch.Tensor) and window.is_cuda
+             and tuple(window.shape) == (PH, PW, 4),
+             "device-out did not hand over a tensor on the card")
+    lit = _same_windows(card, cpu, "config-5 document, card vs CPU")
+    _require(lit > 500, f"the rendered window is blank ({lit} lit pixels)")
+    ys, xs = np.nonzero(cpu[0][2][..., 3])
+    box = (int(ys.min()), int(ys.max()) + 1, int(xs.min()), int(xs.max()) + 1)
+    print(f"render (config-5 document, {PW}x{PH}): card == CPU pixel for "
+          f"pixel; {lit} lit pixels in rows {box[0]}-{box[1]}, columns "
+          f"{box[2]}-{box[3]}; first render {t_card:.3f} s", flush=True)
+    got = _device_busy(lambda: _render(
+        BURNIN_DOC, f"{size} device-out=true device={dev}"), 1)
+    if got is None:
+        print("compositor: not measured (the profiler traced no device "
+              "activity)", flush=True)
+    else:
+        print(f"compositor (config-5 interval, batch path, atlas warm): "
+              f"{got[2]:g} device launches, {got[0]:.3f} ms busy per "
+              "interval (torch.profiler)", flush=True)
+    small = "window-width=640 window-height=368"
+    base = _render(BATCH_DOC, f"{small} device={dev}")
+    _require(len(base) >= 4, f"batch document gave {len(base)} intervals")
+    for label, props in (
+            ("without crop-delivery", f"device={dev} crop-delivery=false"),
+            ("per interval", f"device={dev} batch-intervals=false"),
+            ("device-out", f"device={dev} device-out=true"),
+            ("on the CPU", "device=cpu")):
+        lit = _same_windows(_render(BATCH_DOC, f"{small} {props}"), base,
+                            f"batch document {label}")
+    got = _device_busy(lambda: _render(BATCH_DOC, f"{small} device={dev}"),
+                       len(base))
+    print(f"render (batch document, {len(base)} intervals, 640x368): "
+          "batched with crop-delivery == without == per interval == "
+          f"device-out == CPU; {lit} lit pixels"
+          + ("" if got is None else
+             f"; {got[2]:g} device launches, {got[0]:.3f} ms busy per "
+             "interval"), flush=True)
+
+    # seeded tiles and instance tables (random coverage, fractional
+    # opacities, overlapping and clipped placements): where a rounding
+    # difference between the card and the CPU would show first
+    from flutpu_torch.ttml.render import atlas as A
+    from flutpu_torch.ttml.render.device import composite_instances
+    tiles = [np.full((A.TILE_H, A.TILE_W), 255, np.uint8)] + [
+        rng.integers(0, 256, (A.TILE_H, A.TILE_W), np.uint8)
+        for _ in range(3)]
+    ints = np.zeros((16, 9), np.int32)
+    cols = np.zeros((16, 4), np.float32)
+    for i in range(12):
+        ints[i] = (rng.integers(0, 4), rng.integers(-400, 640),
+                   rng.integers(-100, 368), rng.integers(1, A.TILE_W + 1),
+                   rng.integers(1, A.TILE_H + 1), rng.integers(-20, 320),
+                   rng.integers(-20, 184), rng.integers(320, 670),
+                   rng.integers(184, 400))
+        cols[i] = (*rng.random(3), rng.choice([1.0, 0.5, rng.random()]))
+    wins = [composite_instances(
+        A.atlas_from_numpy(tiles, device=d).device_array(), ints, cols, 368,
+        640).cpu() for d in (dev, "cpu")]
+    same = torch.equal(*wins)
+    print("compositor on seeded tiles and 12 instances (640x368), card vs "
+          f"CPU: {'pixel-identical' if same else 'DIFFERENT'}; "
+          f"{int((wins[1][..., 3] > 0).sum())} lit pixels", flush=True)
+    _require(same, "the compositor on the card differs from the CPU's")
+
+    # -- 10c. the main path -------------------------------------------------------
+    def source(ph, pw, start):
+        return gradient_ball_planes(ph, pw, GOP, start, device=dev)
+
+    def loop(e, overlay, n=N_GOPS):
+        return _in_flight(
+            lambda gi: e.encode_gop_dispatch_src(source, gi * GOP, H, W, PH,
+                                                 PW, overlay=overlay),
+            e.encode_gop_finalize, n)
+
+    # one GOP first so the adaptive sizes are learned, as a stream would
+    loop(enc, window, 1)
+    walls = {"plain": [loop(enc, None)[2]]}
+    (payloads, dev_ms, wall), n = _count_launches(lambda: loop(enc, window))
+    walls["burn-in"] = [wall, loop(enc, window)[2]]
+    walls["plain"].append(loop(enc, None)[2])
+    fps = {k: [N_GOPS * GOP / w_ for w_ in v] for k, v in walls.items()}
+    print(f"burn-in main path: {N_GOPS} GOPs x {GOP} frames with overlay= "
+          f"in {wall:.3f} s = {fps['burn-in'][0]:.1f} frames/s, again "
+          f"{fps['burn-in'][1]:.1f}; the same loop without an overlay "
+          f"{fps['plain'][0]:.1f} before, {fps['plain'][1]:.1f} after; "
+          f"device span {dev_ms:.3f} ms per GOP (CUDA events); kernel "
+          f"launches {n}", flush=True)
+    _require(n["front_end_overlay"] > 0 and n["pack_segments"] > 0,
+             "K1's overlay branch and K2 must launch on the burn-in path")
+    _require(n["front_end_overlay"] == n["front_end"],
+             "a GOP of the burn-in path ran K1 without its overlay")
+    total = dict(n)
+
+    blk = JpegEncoder(quality=QUALITY, segmented=False, device=dev)
+    loop(blk, window, 1)
+    (blk_payloads, _, blk_wall), n = _count_launches(
+        lambda: loop(blk, window, 2))
+    print(f"burn-in, segmented=False: 2 GOPs in {blk_wall:.3f} s; kernel "
+          f"launches {n}", flush=True)
+    _require(n["front_end_overlay"] > 0 and n["pack_block_bits_fused"] > 0
+             and n["pack_segments"] == 0,
+             "K1's overlay branch and K7 must launch on the non-segment "
+             "burn-in path")
+    _require(blk_payloads == payloads[:2],
+             "burn-in GOPs differ between the layouts")
+    for k, v in n.items():
+        total[k] += v
+
+    window_cpu = window.cpu()
+    ys, xs = np.nonzero(window_cpu.numpy()[:H, :W, 3] > 200)
+    worst = float("inf")
+    for gi in range(N_GOPS):
+        planes = source(PH, PW, gi * GOP)
+        coefs = F.front_end(*planes, qy, qc, overlay=window)
+        frames = torch.stack(planes, dim=-1)[:, :H, :W]
+        blended = overlay_on_frames(frames.cpu(), window_cpu[:H, :W]).to(dev)
+        worst = min(worst, _check_frames(lib, payloads[gi], coefs, blended,
+                                         enc, f"burn-in GOP {gi}"))
+        if gi == 0:
+            rgb = coefs_to_rgb(*coefs, qy, qc, H, W)[0].float().cpu()
+            under = (rgb - frames[0].float().cpu()).abs()[ys, xs].mean()
+            burnt = (rgb - blended[0].float().cpu()).abs()[ys, xs].mean()
+            print(f"under the subtitle ({len(ys)} pixels of alpha > 200): "
+                  f"decoded frame 0 is {float(burnt):.2f} levels from the "
+                  f"blended source, {float(under):.2f} from the unblended",
+                  flush=True)
+            _require(len(ys) > 200 and under > 4 * burnt and under > 8,
+                     "the decoded frame does not carry the subtitle")
+    print(f"checks (burn-in): {N_GOPS * GOP} frames decode to K1-with-"
+          f"overlay's coefficients, equal flu_jpeg_encode_scan; lowest PSNR "
+          f"against the source blended on the CPU {worst:.2f} dB",
+          flush=True)
+
+    for key, label, overlay in (("plain", "plain JPEG", None),
+                                ("burn-in", "burn-in", window)):
+        got = _device_busy(lambda: loop(enc, overlay, 4), 4)
+        if got is None:
+            print(f"device busy ({label}): not measured (the profiler "
+                  "traced no device activity)", flush=True)
+            continue
+        wall_ms = min(walls[key]) / N_GOPS * 1e3
+        print(f"device busy ({label}, torch.profiler, 4 GOPs): "
+              f"{got[0]:.3f} ms per GOP, {got[2]:g} launches per GOP; busy "
+              f"share {got[0] / wall_ms:.3f} of {wall_ms:.2f} ms wall per "
+              "GOP (the faster 8-GOP loop); largest kernels per GOP: "
+              + "; ".join(f"{k} {t:.3f} ms x{c:g}" for k, t, c in got[1]),
+              flush=True)
+
+    # -- 10d. the pipeline ----------------------------------------------------------
+    def pipeline():
+        pipe = parse_launch(
+            f"videotestsrc num-buffers={PIPE_FRAMES} pattern=gradient "
+            f"width={W} height={H} ! comp.video "
+            "appsrc name=ssrc caps='application/ttml+xml' "
+            f"! cudattmlrender window-width={W} window-height={H} "
+            "device-out=true ! comp.overlay "
+            f"cudaoverlaycompositor name=comp ! cudajpegenc "
+            f"batch-frames={GOP} ! appsink name=out")
+        ssrc, sink = pipe.get_by_name("ssrc"), pipe.get_by_name("out")
+        # the document first: the renderer runs in this thread, so its
+        # window waits in the compositor when the first frame arrives
+        ssrc.push(Buffer(PIPE_DOC.encode(), pts=0))
+        ssrc.end_of_stream()
+        t0 = time.perf_counter()
+        pipe.play()
+        bufs = []
+        try:
+            while (buf := sink.try_pull_buffer(timeout=60)) is not None:
+                bufs.append(buf)
+        finally:
+            pipe.stop()
+        return bufs, time.perf_counter() - t0
+
+    (bufs, pipe_wall), n = _count_launches(pipeline)
+    print(f"burn-in pipeline: {len(bufs)} frames in {pipe_wall:.3f} s; "
+          f"kernel launches {n}", flush=True)
+    _require(len(bufs) == PIPE_FRAMES, f"pipeline gave {len(bufs)} frames")
+    _require([b.pts for b in bufs] == sorted(b.pts for b in bufs),
+             "pipeline output out of order")
+    _require(n["front_end"] > 0 and n["pack_segments"] > 0,
+             "K1 and K2 must launch in the burn-in pipeline")
+    for k, v in n.items():
+        total[k] += v
+    (_, _, pipe_window), = _render(
+        PIPE_DOC, f"window-width={W} window-height={H} device=cpu")
+    pipe_window = torch.from_numpy(pipe_window)
+    stop = 0.5 * 1e9
+    worst, n_sub = float("inf"), 0
+    for g0 in range(0, PIPE_FRAMES, GOP):
+        raw = torch.from_numpy(np.stack([
+            make_test_frame("gradient", W, H, i)
+            for i in range(g0, g0 + GOP)]))
+        inside = torch.tensor([b.pts < stop for b in bufs[g0:g0 + GOP]],
+                              dtype=torch.bool)
+        n_sub += int(inside.sum())
+        frames = torch.where(inside[:, None, None, None],
+                             overlay_on_frames(raw, pipe_window), raw).to(dev)
+        planes = [_edge_pad(frames[..., c], PH, PW) for c in range(3)]
+        coefs = F.front_end(*planes, qy, qc)
+        worst = min(worst, _check_frames(
+            lib, [b.data for b in bufs[g0:g0 + GOP]], coefs, frames, enc,
+            f"burn-in pipeline frames {g0}-{g0 + GOP - 1}"))
+    _require(0 < n_sub < PIPE_FRAMES, f"{n_sub} frames inside the subtitle")
+    print(f"checks (burn-in pipeline): {PIPE_FRAMES} frames decode to K1's "
+          f"coefficients of the frames blended on the CPU ({n_sub} inside "
+          f"the subtitle's interval carry it, {PIPE_FRAMES - n_sub} after "
+          f"it do not); lowest PSNR {worst:.2f} dB", flush=True)
+    torch.cuda.synchronize()
+    return record, total
 
 
 def _encode_parity(dev):

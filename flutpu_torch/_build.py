@@ -120,7 +120,8 @@ def _configure(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.flu_front_end_init.argtypes = [p, p, p]
     lib.flu_front_end_init.restype = i
-    lib.flu_front_end.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
+    lib.flu_front_end.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p, i, i,
+                                  p]
     lib.flu_front_end.restype = i
     lib.flu_pack_init.argtypes = [p, p]
     lib.flu_pack_init.restype = i

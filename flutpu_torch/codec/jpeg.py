@@ -1,7 +1,8 @@
 """Baseline JPEG / MJPEG encoder on the GPU (port of flutpu/codec/jpeg.py).
 
 A GOP of frames runs on the device as: edge pad to a multiple of 16 →
-the front-end kernel (RGB→YCbCr → 4:2:0 → DCT → quantize → zigzag) → MCU
+the front-end kernel (optional burn-in of a BGRA subtitle overlay →
+RGB→YCbCr → 4:2:0 → DCT → quantize → zigzag) → MCU
 order and DC prediction → the entropy stage in one of two bitstream
 layouts, which give the same bytes:
 
@@ -64,15 +65,20 @@ def _edge_pad(p: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
     return p[:, rows][:, :, cols].contiguous()
 
 
-def _planes_front_end(r, g, b, qy, qc, pad_h: int, pad_w: int):
+def _planes_front_end(r, g, b, qy, qc, pad_h: int, pad_w: int,
+                      overlay=None):
     """(r, g, b) uint8 planes (F, H, W) → (y, cb, cr) int16 zigzagged
     quantized coefficients of the frames edge-padded to (pad_h, pad_w),
-    both multiples of 16."""
+    both multiples of 16. ``overlay``: an (oh, ow, 4) uint8 BGRA window
+    no larger than the padded frames, burned into every frame inside the
+    front-end kernel. The frames are padded first and blended second, on
+    every device (the order of flutpu's kernel path; its CPU path blends
+    an overlay of exactly the frames' size first and pads second)."""
     if pad_h % 16 or pad_w % 16:
         raise ValueError(f"padded size {(pad_h, pad_w)} is not a multiple "
                          "of 16")
     r, g, b = (_edge_pad(p, pad_h, pad_w) for p in (r, g, b))
-    return front_end(r, g, b, qy, qc)
+    return front_end(r, g, b, qy, qc, overlay)
 
 
 # ----------------------------------------------------------------------------
@@ -424,32 +430,41 @@ class JpegEncoder:
                                                  + prefix])
         return stuff_and_finalize(row[1:1 + prefix], int(row[0]))
 
-    def _dispatch(self, planes_fn, h: int, w: int, ph: int, pw: int):
+    def _dispatch(self, planes_fn, h: int, w: int, ph: int, pw: int,
+                  overlay=None):
         ph, pw = _pad_to(ph, 16), _pad_to(pw, 16)
+        if overlay is not None:
+            overlay = torch.as_tensor(overlay).to(self.device)
 
+        # the overlay rides in the closure, so an overflow redispatch
+        # blends it again
         def program(layout, prefix_words, seg_words):
             r, g, b = planes_fn()
             yq, cbq, crq = _planes_front_end(r, g, b, self._qy_dev,
-                                             self._qc_dev, ph, pw)
+                                             self._qc_dev, ph, pw, overlay)
             return encode_gop_scans_layout(yq, cbq, crq, layout,
                                            prefix_words, self.SEG_G,
                                            seg_words)
 
         return _Handle(*self._run_sized(program, ph, pw), h, w)
 
-    def encode_gop_dispatch(self, frames_dev: torch.Tensor, h: int, w: int):
+    def encode_gop_dispatch(self, frames_dev: torch.Tensor, h: int, w: int,
+                            overlay=None):
         """Enqueue the device encode of a GOP resident on the encoder's
         device ((F, PH, PW, 3) uint8; edge-padded here to multiples of 16
         if it is not already). Non-blocking; returns a handle for
         ``encode_gop_finalize``. ``h``, ``w`` are the frame size written
-        in the headers."""
+        in the headers. ``overlay``: an (oh, ow, 4) uint8 BGRA window
+        (tensor or numpy, no larger than the padded frames) burned into
+        every frame by the front-end kernel — subtitle burn-in and encode
+        are one pass over the frames."""
         ph, pw = frames_dev.shape[1], frames_dev.shape[2]
         return self._dispatch(
             lambda: (frames_dev[..., 0], frames_dev[..., 1],
-                     frames_dev[..., 2]), h, w, ph, pw)
+                     frames_dev[..., 2]), h, w, ph, pw, overlay)
 
     def encode_gop_dispatch_src(self, src_fn, start, h: int, w: int,
-                                ph: int, pw: int):
+                                ph: int, pw: int, overlay=None):
         """encode_gop_dispatch with an on-device frame source:
         ``src_fn(ph, pw, start)`` returns channel planes ``(r, g, b)``,
         each (F, ph, pw) uint8, or interleaved (F, ph, pw, 3) frames."""
@@ -459,7 +474,7 @@ class JpegEncoder:
                 return out
             return out[..., 0], out[..., 1], out[..., 2]
 
-        return self._dispatch(planes, h, w, ph, pw)
+        return self._dispatch(planes, h, w, ph, pw, overlay)
 
     def encode_gop_finalize(self, handle: _Handle) -> List[bytes]:
         """Blocking half: wait for the copy, check the sizes, compact,

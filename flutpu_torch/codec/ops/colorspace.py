@@ -73,3 +73,18 @@ def i420_to_rgb(y: torch.Tensor, cb: torch.Tensor,
     """I420 planes → [..., H, W, 3] float RGB in [0,255] (unclipped)."""
     return ycbcr_to_rgb(
         torch.stack([y, upsample_420(cb), upsample_420(cr)], dim=-1))
+
+
+def scale_bilinear(img: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize of [..., H, W] or [..., H, W, C] to float32
+    (half-pixel centres, no corner alignment; a triangle filter widened by
+    the scale when shrinking, as ``jax.image.resize`` does)."""
+    has_c = img.dim() >= 3 and img.shape[-1] <= 4
+    x = img if has_c else img[..., None]
+    *lead, h, w, c = x.shape
+    x = x.reshape(-1, h, w, c).permute(0, 3, 1, 2).to(torch.float32)
+    out = torch.nn.functional.interpolate(
+        x, size=(out_h, out_w), mode="bilinear", align_corners=False,
+        antialias=True)
+    out = out.permute(0, 2, 3, 1).reshape(*lead, out_h, out_w, c)
+    return out if has_c else out[..., 0]

@@ -53,6 +53,7 @@ def _ensure_plugins_loaded() -> None:
     for mod in (
         "flutpu_torch.core.elements",
         "flutpu_torch.core.queue",
+        "flutpu_torch.ttml",
         "flutpu_torch.codec",
     ):
         try:

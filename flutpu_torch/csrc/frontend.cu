@@ -1,8 +1,9 @@
-// Fused JPEG front end for Hopper: u8 RGB planes -> YCbCr -> 4:2:0 ->
-// 8x8 DCT -> quantize -> zigzag, one pass over device memory.
+// Fused JPEG front end for Hopper: u8 RGB planes [-> blend of a BGRA
+// subtitle overlay] -> YCbCr -> 4:2:0 -> 8x8 DCT -> quantize -> zigzag,
+// one pass over device memory.
 //
 // Replaces flutpu/codec/ops/frontend_pallas.py:front_end_pallas (the
-// Pallas TPU kernel `_kernel`, without its overlay blend). The TPU kernel
+// Pallas TPU kernel `_kernel`, its overlay blend included). The TPU kernel
 // folded the DCT and the chroma pair-mean into block-diagonal matrices so
 // that every product was a full 128x128 MXU tile; none of that is needed
 // here, and the arithmetic is the plain per-block C * X * C^T.
@@ -16,11 +17,27 @@
 // threads, one pixel each. Zigzag and blockize are fused into the store,
 // so the coefficients leave in the layout the entropy stage reads.
 //
+// The overlay (burn-in) variant blends each pixel in registers before the
+// colour conversion, so the blended planes never exist in device memory.
+// The TPU kernel took four zero-padded (H, W) planes because Mosaic cannot
+// read an interleaved [..., 4] layout; here each thread loads its pixel's
+// 4 BGRA bytes at once from the (oh, ow, 4) overlay as it is, and pixels
+// at rows >= oh or columns >= ow keep their value (the zero-alpha pad).
+// One overlay serves every frame of the launch and stays in L2 across
+// them (8.4 MB at 1080p). The variant is a template instance: the launch
+// without an overlay runs the code it ran before the blend existed.
+//
 // Numerics: every product and sum is rounded on its own
 // (__fmul_rn/__fadd_rn, no FMA contraction) and quantization rounds half
 // to even (rintf), so the kernel follows the plain PyTorch version
 // (ops/frontend.py:front_end_plain) and differs from it only where a
 // different summation order moves a coefficient across a rounding tie.
+// The blend is a * ov + (1 - a) * p with a = alpha / 255, then
+// floor(clip(o + 0.5, 0, 255)) (the u8 round of overlay_on_planes). For
+// 8-bit p, ov and alpha, o + 0.5 lies at least 1/510 from an integer, far
+// above fp32 rounding, so the blended pixel is exact however the sum is
+// rounded: the overlay launch equals the plain launch on planes blended
+// beforehand, bit for bit.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -34,12 +51,18 @@ __constant__ int c_zigzag[64];    // zigzag position -> row-major index
 __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 
+__device__ __forceinline__ float blend(float p, float ov, float a) {
+  const float o = add(mul(p, 1.0f - a), mul(ov, a));
+  return floorf(fminf(fmaxf(o + 0.5f, 0.0f), 255.0f));
+}
+
+template <bool OVERLAY>
 __global__ void __launch_bounds__(256)
 front_end_kernel(const uint8_t* __restrict__ r, const uint8_t* __restrict__ g,
                  const uint8_t* __restrict__ b, const int32_t* __restrict__ qy,
                  const int32_t* __restrict__ qc, int16_t* __restrict__ y_out,
                  int16_t* __restrict__ cb_out, int16_t* __restrict__ cr_out,
-                 int h, int w) {
+                 int h, int w, const uchar4* __restrict__ ov, int oh, int ow) {
   // blocks 0..3: the four luma blocks (sy * 2 + sx); 4: Cb; 5: Cr
   __shared__ float pix[6][64];
   __shared__ float rows[6][64];
@@ -53,7 +76,17 @@ front_end_kernel(const uint8_t* __restrict__ r, const uint8_t* __restrict__ g,
   const int mx = blockIdx.x, my = blockIdx.y, f = blockIdx.z;
 
   const size_t idx = ((size_t)f * h + (size_t)(my * 16 + ty)) * w + mx * 16 + tx;
-  const float rf = r[idx], gf = g[idx], bf = b[idx];
+  float rf = r[idx], gf = g[idx], bf = b[idx];
+  if (OVERLAY) {
+    const int row = my * 16 + ty, col = mx * 16 + tx;
+    if (row < oh && col < ow) {
+      const uchar4 o = __ldg(ov + (size_t)row * ow + col);  // b, g, r, a
+      const float a = __fdiv_rn((float)o.w, 255.0f);
+      rf = blend(rf, (float)o.z, a);
+      gf = blend(gf, (float)o.y, a);
+      bf = blend(bf, (float)o.x, a);
+    }
+  }
   const float* m = c_rgb2ycc;
   const float yv = add(add(mul(m[0], rf), mul(m[1], gf)), mul(m[2], bf));
   const float cbv = add(add(add(mul(m[3], rf), mul(m[4], gf)), mul(m[5], bf)), 128.0f);
@@ -123,14 +156,17 @@ int flu_front_end_init(const float* dct, const float* rgb2ycc, const int* zigzag
 
 // r, g, b: (f, h, w) u8; qy, qc: (8, 8) int32 row-major; y: (f, h/8, w/8,
 // 64) int16; cb, cr: (f, h/16, w/16, 64) int16. h and w multiples of 16.
+// ov: null, or one (oh, ow, 4) u8 BGRA overlay (4-byte aligned, oh <= h,
+// ow <= w) blended into every frame before the colour conversion.
 int flu_front_end(const void* r, const void* g, const void* b, const void* qy,
                   const void* qc, void* y, void* cb, void* cr, int f, int h,
-                  int w, void* stream) {
+                  int w, const void* ov, int oh, int ow, void* stream) {
   dim3 grid(w / 16, h / 16, f);
-  front_end_kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
+  auto kernel = ov ? front_end_kernel<true> : front_end_kernel<false>;
+  kernel<<<grid, 256, 0, (cudaStream_t)stream>>>(
       (const uint8_t*)r, (const uint8_t*)g, (const uint8_t*)b,
       (const int32_t*)qy, (const int32_t*)qc, (int16_t*)y, (int16_t*)cb,
-      (int16_t*)cr, h, w);
+      (int16_t*)cr, h, w, (const uchar4*)ov, oh, ow);
   return (int)cudaGetLastError();
 }
 

@@ -279,3 +279,130 @@ def test_fvc_hier_b_on_card_matches_cpu(cuda_device, hier, bframes):
     b, info_cpu = FvcDecoder("cpu").decode_chunk(got)
     assert info == info_cpu and (2 in info["types"]) == bool(bframes)
     assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 1
+
+
+# -- subtitle burn-in -------------------------------------------------------------
+
+def _bgra(h, w, seed=2):
+    rng = np.random.default_rng(seed)
+    ov = rng.integers(0, 256, (h, w, 4), np.uint8)
+    q = max(1, h // 5)
+    ov[:q, :, 3], ov[q:2 * q, :, 3], ov[2 * q:3 * q, :, 3] = 255, 128, 0
+    return ov
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,ov_shape", [((2, 1088, 1920), (1080, 1920)),
+                                            ((1, 48, 80), (48, 80)),
+                                            ((2, 64, 96), (50, 70))])
+def test_front_end_overlay_kernel(cuda_device, shape, ov_shape):
+    """K1 with an overlay: equal to K1 on planes blended beforehand bit for
+    bit, to its plain version under K1's contract, and with alpha 0 to K1
+    without an overlay; a smaller overlay leaves the rest as it was."""
+    from flutpu_torch.ttml.render.composite import overlay_on_planes
+    planes = [torch.from_numpy(p).to(cuda_device)
+              for p in rand_planes(*shape, seed=7)]
+    qy = torch.from_numpy(QY).to(cuda_device)
+    qc = torch.from_numpy(QC).to(cuda_device)
+    ov = torch.from_numpy(_bgra(*ov_shape)).to(cuda_device)
+    before = F.front_end.launches
+    got = F.front_end(*planes, qy, qc, overlay=ov)
+    assert F.front_end.launches == before + 1
+    full = ov.new_zeros((shape[1], shape[2], 4))
+    full[:ov_shape[0], :ov_shape[1]] = ov
+    staged = F.front_end(*overlay_on_planes(*planes, full), qy, qc)
+    for a, c in zip(got, staged):
+        assert torch.equal(a, c)
+    for a, c in zip(got, F.front_end_plain(*planes, qy, qc, overlay=ov)):
+        tie_contract(a.cpu().numpy(), c.cpu().numpy(), 1e-4)
+    none = F.front_end(*planes, qy, qc)
+    assert any(not torch.equal(a, c) for a, c in zip(got, none))
+    for a, c in zip(F.front_end(*planes, qy, qc,
+                                overlay=torch.zeros_like(ov)), none):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+def test_front_end_overlay_raises_on_what_the_kernel_does_not_take(
+        cuda_device):
+    planes = [torch.from_numpy(p).to(cuda_device)
+              for p in rand_planes(1, 32, 64, seed=8)]
+    qy = torch.from_numpy(QY).to(cuda_device)
+    qc = torch.from_numpy(QC).to(cuda_device)
+    for bad in (torch.zeros((33, 64, 4), dtype=torch.uint8,
+                            device=cuda_device),
+                torch.zeros((32, 64, 4), dtype=torch.uint8),       # on the CPU
+                torch.zeros((32, 64, 3), dtype=torch.uint8,
+                            device=cuda_device)):
+        before = F.front_end.launches
+        with pytest.raises(ValueError):
+            F.front_end(*planes, qy, qc, overlay=bad)
+        assert F.front_end.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("segmented", [True, False])
+def test_encoder_with_overlay_on_card_matches_cpu(cuda_device, segmented):
+    frames = np.stack([make_test_frame("gradient", 96, 64, i)
+                       for i in range(3)])
+    ov = _bgra(64, 96)
+
+    def encode(device):
+        enc = JpegEncoder(85, segmented=segmented, device=device)
+        return enc.encode_gop_finalize(enc.encode_gop_dispatch(
+            torch.from_numpy(frames).to(device), 64, 96, overlay=ov))
+
+    assert encode(cuda_device) == encode("cpu")
+
+
+@pytest.mark.cuda
+def test_render_on_card_matches_cpu(cuda_device):
+    """The compositor, the stroke filter and both atlases: the same
+    windows on the card as on the CPU, pixel for pixel."""
+    from flutpu_torch.core import Buffer, Harness
+    from flutpu_torch.ttml.render import atlas as A
+    from flutpu_torch.ttml.render import device as D
+    doc = """<?xml version="1.0"?>
+<tt xmlns="http://www.w3.org/ns/ttml" xmlns:tts="http://www.w3.org/ns/ttml#styling">
+  <head><layout>
+    <region xml:id="r" tts:origin="5% 70%" tts:extent="90% 25%"
+            tts:backgroundColor="#00000080" tts:opacity="0.7"/>
+  </layout></head>
+  <body><div>
+    <p begin="0s" end="1s" region="r" tts:color="white">first cue</p>
+    <p begin="1s" end="2s" region="r" tts:color="yellow"
+       tts:textOutline="black 2px 1px">second cue</p>
+  </div></body>
+</tt>"""
+
+    def render(device, props=""):
+        h = Harness(f"cudattmlrender window-width=320 window-height=192 "
+                    f"device={device} {props}")
+        h.set_src_caps("application/ttml+xml")
+        h.push(Buffer(doc.encode(), pts=0))
+        h.push_eos()
+        out = []
+        while (b := h.pull(timeout=30)) is not None:
+            out.append(b.data)
+        h.teardown()
+        return out
+
+    cpu = render("cpu")
+    assert len(cpu) >= 2 and any((f[..., 3] > 0).any() for f in cpu)
+    for props in ("", "crop-delivery=false", "batch-intervals=false"):
+        for a, c in zip(render(cuda_device, props), cpu):
+            np.testing.assert_array_equal(a, c)
+    for t, c in zip(render(cuda_device, "device-out=true"), cpu):
+        assert t.is_cuda
+        np.testing.assert_array_equal(t.cpu().numpy(), c)
+    rng = np.random.default_rng(9)
+    tiles = rng.integers(0, 256, (3, A.TILE_H, A.TILE_W), np.uint8)
+    a = A._stroke_tiles(torch.from_numpy(tiles).to(cuda_device), 2, 3)
+    assert torch.equal(a.cpu(), A._stroke_tiles(torch.from_numpy(tiles), 2, 3))
+    ints = np.array([[1, -30, 10, 400, 100, 0, 0, 200, 100],
+                     [2, 50, -20, 512, 128, 10, 10, 190, 90]], np.int32)
+    cols = np.array([[1, 0.5, 0.2, 0.5], [0.1, 0.9, 0.3, 0.77]], np.float32)
+    wins = [D.composite_instances(
+        A.atlas_from_numpy(list(tiles), device=d).device_array(), ints, cols,
+        100, 200) for d in (cuda_device, "cpu")]
+    assert wins[0].is_cuda and torch.equal(wins[0].cpu(), wins[1])

@@ -82,6 +82,50 @@ assert sys.modules["jax"] is None and sys.modules["flutpu"] is None
 print("encoded", len(out), "chunks", len(chunks))
 """
 
+_NO_JAX_BURNIN = """
+import sys
+sys.modules["jax"] = None
+sys.modules["flutpu"] = None
+import numpy as np
+import flutpu_torch.ttml
+from flutpu_torch.core import Buffer, Harness, parse_launch
+from flutpu_torch.codec.jpeg import JpegEncoder
+doc = (b"<?xml version='1.0'?><tt xmlns='http://www.w3.org/ns/ttml'>"
+       b"<body><div><p begin='0s' end='60s'>Burn-in subtitle</p></div>"
+       b"</body></tt>")
+h = Harness("cudattmlrender window-width=96 window-height=64 device=cpu")
+h.set_src_caps("application/ttml+xml")
+h.push(Buffer(doc, pts=0))
+h.push_eos()
+window = np.asarray(h.pull(timeout=30).data)
+h.teardown()
+assert window.shape == (64, 96, 4) and (window[..., 3] > 0).any()
+enc = JpegEncoder(85, device="cpu")
+frames = np.full((2, 64, 96, 3), 30, np.uint8)
+import torch
+plain = enc.encode_gop(frames)
+burnt = enc.encode_gop_finalize(enc.encode_gop_dispatch(
+    torch.from_numpy(frames), 64, 96, overlay=window))
+assert len(burnt) == 2 and burnt != plain
+p = parse_launch(
+    "videotestsrc num-buffers=3 width=96 height=64 pattern=gradient "
+    "! comp.video appsrc name=ssrc caps='application/ttml+xml' "
+    "! cudattmlrender window-width=96 window-height=64 device=cpu "
+    "device-out=true ! comp.overlay cudaoverlaycompositor name=comp "
+    "device=cpu ! cudajpegenc device=cpu batch-frames=2 ! appsink name=out")
+ssrc, sink = p.get_by_name("ssrc"), p.get_by_name("out")
+ssrc.push(Buffer(doc, pts=0))
+ssrc.end_of_stream()
+p.play()
+n = 0
+while (buf := sink.try_pull_buffer(timeout=60)) is not None:
+    assert bytes(buf.data)[:2] == b"\\xff\\xd8"
+    n += 1
+p.stop()
+assert sys.modules["jax"] is None and sys.modules["flutpu"] is None
+print("rendered", int((window[..., 3] > 0).sum()) > 0, "frames", n)
+"""
+
 _NO_JAX_IMPORTS = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
@@ -92,7 +136,8 @@ for m in pkgutil.walk_packages(flutpu_torch.__path__, "flutpu_torch."):
 flutpu_torch.core.make("cudajpegenc", device="cpu")   # loads the plugins
 bad = sorted(m for m in sys.modules if m.startswith(("jax.", "flutpu.")))
 assert not bad, bad
-print("modules", sum(m.startswith("flutpu_torch") for m in sys.modules))
+print("modules", sum(m.startswith("flutpu_torch") for m in sys.modules),
+      "ttml", sum(m.startswith("flutpu_torch.ttml.") for m in sys.modules))
 """
 
 
@@ -113,8 +158,13 @@ def test_pipeline_encodes_with_jax_blocked():
     assert "encoded 2 chunks 1" in _run(_NO_JAX_PIPELINE)
 
 
+def test_ttml_renders_and_burns_in_with_jax_blocked():
+    assert "rendered True frames 3" in _run(_NO_JAX_BURNIN)
+
+
 def test_every_module_imports_without_jax_or_the_jax_package():
-    assert "modules" in _run(_NO_JAX_IMPORTS)
+    out = _run(_NO_JAX_IMPORTS)
+    assert "modules" in out and "ttml 19" in out
 
 
 # -- carried copies ----------------------------------------------------------
@@ -380,6 +430,36 @@ def test_native_build_is_ignored_by_git():
     lines = _read(os.path.join(ROOT, ".gitignore")).split()
     assert os.path.relpath(os.path.dirname(native.library_path()),
                            ROOT) + "/" in lines
+
+
+def test_no_port_source_names_jax_or_the_jax_package():
+    """The import scan, file by file: no module under flutpu_torch/ (the
+    ttml tree included) has an import statement of jax or of flutpu."""
+    import ast
+    pkg = os.path.join(ROOT, "flutpu_torch")
+    seen = set()
+    for d, _, files in os.walk(pkg):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(d, f)
+            seen.add(os.path.relpath(path, pkg))
+            for n in ast.walk(ast.parse(_read(path))):
+                names = []
+                if isinstance(n, ast.Import):
+                    names = [a.name for a in n.names]
+                elif isinstance(n, ast.ImportFrom) and not n.level:
+                    names = [n.module or ""]
+                elif isinstance(n, ast.Call) and getattr(
+                        n.func, "id", "") == "__import__" and n.args:
+                    names = [getattr(n.args[0], "value", "")]
+                for name in names:
+                    assert name.split(".")[0] not in ("jax", "jaxlib",
+                                                      "flutpu"), (path, name)
+    for must in ("ttml/base.py", "ttml/render/device.py",
+                 "ttml/render/atlas.py", "ttml/render/render_el.py",
+                 "ttml/render/overlay_el.py", "ttml/render/fonts.py"):
+        assert must in seen
 
 
 def test_chip_smoke_imports_only_the_port():

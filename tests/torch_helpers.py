@@ -62,3 +62,36 @@ def tie_contract(got: np.ndarray, want: np.ndarray, max_share: float):
     share = float((d > 0).mean()) if d.size else 0.0
     assert share <= max_share, share
     return share
+
+
+def run_element(harness_cls, buffer_cls, launch: str, doc: str):
+    """Push one TTML document through the element ``launch`` in a
+    ``harness_cls`` (flutpu's or the port's, with its ``buffer_cls``) and
+    return every output buffer as (pts, duration, data). The harness runs
+    the chain in the caller's thread, so after the EOS everything is
+    there."""
+    h = harness_cls(launch)
+    h.set_src_caps("application/ttml+xml")
+    h.push(buffer_cls(doc.encode(), pts=0))
+    h.push_eos()
+    out = []
+    while (b := h.pull(timeout=30)) is not None:
+        out.append((b.pts, b.duration, b.data))
+    h.teardown()
+    return out
+
+
+def corpus_docs():
+    """(key, text) of every document of tests/ttml_corpus."""
+    import os
+    root = os.path.join(os.path.dirname(__file__), "ttml_corpus")
+    out = []
+    for area in sorted(os.listdir(root)):
+        d = os.path.join(root, area)
+        if not os.path.isdir(d):
+            continue
+        for name in sorted(os.listdir(d)):
+            if name.endswith(".xml"):
+                with open(os.path.join(d, name)) as fh:
+                    out.append((f"{area}/{name[:-4]}", fh.read()))
+    return out
