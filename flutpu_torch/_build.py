@@ -123,6 +123,8 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.flu_front_end.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p, i, i,
                                   p]
     lib.flu_front_end.restype = i
+    lib.flu_front_end_quotient_check.argtypes = [p, p]
+    lib.flu_front_end_quotient_check.restype = i
     lib.flu_pack_init.argtypes = [p, p]
     lib.flu_pack_init.restype = i
     lib.flu_pack_segments.argtypes = [p, p, p, p, i, i, i, p]

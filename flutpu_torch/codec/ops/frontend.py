@@ -3,8 +3,9 @@ coefficients (port of flutpu/codec/ops/frontend_pallas.py).
 
 ``front_end`` is the wrapper of the CUDA kernel ``csrc/frontend.cu``
 (optional blend of a BGRA subtitle overlay → RGB→YCbCr → 4:2:0 pair
-mean → 8x8 DCT → quantize → zigzag, one pass over device memory). It
-replaces the Pallas TPU kernel ``front_end_pallas``, its overlay branch
+mean → 8x8 DCT → quantize → zigzag, one pass over device memory: a
+block walks strips of 8 macroblocks, and the 8x8 DCT runs as two
+register-resident passes). It replaces the Pallas TPU kernel ``front_end_pallas``, its overlay branch
 included: the blended planes never exist in device memory. The TPU
 kernel's block-diagonal and subsample-folded matrices and its four
 zero-padded overlay planes were Mosaic workarounds and are not carried
@@ -25,6 +26,7 @@ Output layout is the one the entropy stage reads (the JAX package's
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import numpy as np
 import torch
@@ -35,6 +37,9 @@ from .dct import dct_matrix, plane_dct
 from .quant import quantize, zigzag_flatten, zigzag_order
 
 _ready_devices = set()
+#: id(table) -> (weak reference, version) of the tables whose values were
+#: read back and found in 1..255
+_checked_tables = {}
 
 
 def _check_args(r, g, b, qy, qc) -> None:
@@ -102,6 +107,32 @@ def _init_device(lib, device: torch.device) -> None:
     _ready_devices.add(device)
 
 
+def _check_table_values(q: torch.Tensor) -> None:
+    """Raise unless every entry of the quantization table lies in 1..255
+    (what ``scale_qtable`` gives): the kernel's division is proven for
+    those divisors. Reading the values back waits for the device, so a
+    table is read once and remembered while it lives unmodified; an
+    encoder hands over the same two tensors for every GOP."""
+    key = id(q)
+    hit = _checked_tables.get(key)
+    if hit is not None and hit[0]() is q and hit[1] == q._version:
+        return
+    lo, hi = (int(v) for v in torch.aminmax(q))
+    if lo < 1 or hi > 255:
+        raise ValueError(f"quantization table entries must lie in 1..255, "
+                         f"got {lo}..{hi}")
+    _checked_tables[key] = (
+        weakref.ref(q, lambda _, key=key: _checked_tables.pop(key, None)),
+        q._version)
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """``t`` (contiguous) at a 16-byte aligned address: the kernel loads
+    8 and 16 bytes at a time, and a slice of a larger tensor may start
+    anywhere."""
+    return t.clone() if t.data_ptr() % 16 else t
+
+
 def front_end(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
               qy: torch.Tensor, qc: torch.Tensor, overlay=None):
     """(r, g, b) uint8 planes (F, H, W), H and W multiples of 16, and
@@ -116,14 +147,15 @@ def front_end(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     if r.device.type != "cuda":
         raise ValueError(f"front_end: unsupported device {r.device}")
     _check_args(r, g, b, qy, qc)
+    _check_table_values(qy)
+    _check_table_values(qc)
     ov_ptr, oh, ow = None, 0, 0
     if overlay is not None:
         overlay = _check_overlay(overlay, r)
         oh, ow = overlay.shape[:2]
-        if overlay.data_ptr() % 4:    # the kernel loads 4 bytes per pixel
-            overlay = overlay.clone()
+        overlay = _aligned(overlay)
         ov_ptr = overlay.data_ptr() if oh and ow else None
-    r, g, b = (p.contiguous() for p in (r, g, b))
+    r, g, b = (_aligned(p.contiguous()) for p in (r, g, b))
     qy = qy.to(torch.int32).contiguous()
     qc = qc.to(torch.int32).contiguous()
     f, h, w = r.shape
@@ -145,6 +177,26 @@ def front_end(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     if ov_ptr is not None:
         front_end.overlay_launches += 1
     return y, cb, cr
+
+
+def quotient_check(device) -> tuple:
+    """Run the kernel library's check of its quantizer's division on
+    ``device`` (a CUDA device): the product with the table entry's
+    reciprocal, corrected once, against IEEE division for every divisor
+    1..255 and every float of magnitude 2^-3 .. 2^12. Returns (pairs
+    compared, pairs that differ in any bit): the second must be 0."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        raise ValueError(f"quotient_check needs a CUDA device, got {device}")
+    counts = torch.zeros(2, dtype=torch.int64, device=device)
+    lib = _build.load()
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        _build.check(lib.flu_front_end_quotient_check(counts.data_ptr(),
+                                                      stream),
+                     "quotient check launch")
+    n, bad = counts.tolist()
+    return n, bad
 
 
 #: kernel launches since the count was last set to 0, and those of them

@@ -6,7 +6,9 @@ Each wrapper replaces one Pallas TPU kernel with a CUDA kernel of
 
 - ``motion_search_mc`` (K3, ``motion_search_mc_dxmajor_pallas``): ±r
   full search per 16x16 macroblock with wrap-around edges, plus the luma
-  prediction from the winning vectors;
+  prediction from the winning vectors (a thread block takes a row of
+  macroblocks under one shared window; a thread sums 4 adjacent dx by 8
+  columns from registers);
 - ``motion_search_mc_blocks`` (K6a, ``motion_search_mc_pallas``): the
   same contract at any block size ``mb`` (8 or 16); the prediction shifts
   each mb×mb block by its full vector (the TPU kernel's, not
@@ -141,7 +143,9 @@ def _on_cuda(t: torch.Tensor, name: str) -> bool:
 def _launch_search(entry: str, cur, prev, search_range, mb, *extra):
     """One launch of a search kernel entry on the current stream →
     (mv (H/mb, W/mb, 2) int32, pred (H, W) float32)."""
-    cur, prev = cur.contiguous(), prev.contiguous()
+    # the kernels move 16 bytes at a time; a view may start anywhere
+    cur, prev = (t.clone() if t.data_ptr() % 16 else t
+                 for t in (cur.contiguous(), prev.contiguous()))
     h, w = cur.shape
     mv = torch.empty((h // mb, w // mb, 2), dtype=torch.int32,
                      device=cur.device)

@@ -15,18 +15,26 @@ def _gradient_ball_channels(h: int, w: int, n: int, start, device):
     """Shared math of the gradient-ball pattern as three f32 channel
     planes (r, g, b), each (n, h, w), BEFORE clip/cast."""
     f32 = torch.float32
-    idx = torch.as_tensor(start, dtype=f32, device=device) + torch.arange(
-        n, dtype=f32, device=device)
+    # per-frame scalars (blue level, ball centre) are computed on the CPU
+    # whatever the device: the card's sin and cos differ from the CPU's in
+    # the last bit, which moves a pixel of the ball's edge
+    idx = torch.as_tensor(start, dtype=f32).cpu() + torch.arange(n, dtype=f32)
+    blue = ((idx * 5.0) % 256.0).to(device)[:, None, None]
+    cx = ((0.5 + 0.4 * torch.sin(idx * 0.2)) * w).to(device)[:, None, None]
+    cy = ((0.5 + 0.4 * torch.cos(idx * 0.23)) * h).to(device)[:, None, None]
     yy = torch.arange(h, dtype=f32, device=device)[None, :, None]
     xx = torch.arange(w, dtype=f32, device=device)[None, None, :]
-    i = idx[:, None, None]
 
-    r = (xx * 255.0 / max(w - 1, 1)).expand(n, h, w)
-    g = (yy * 255.0 / max(h - 1, 1)).expand(n, h, w)
-    b = ((i * 5.0) % 256.0).expand(n, h, w)
+    # the divisors are tensors on the device: given a Python number,
+    # torch's CUDA kernel multiplies by its reciprocal instead, which
+    # rounds some ramp values one level below the CPU's IEEE division
+    def span(size):
+        return torch.tensor(float(max(size - 1, 1)), dtype=f32, device=device)
 
-    cx = (0.5 + 0.4 * torch.sin(i * 0.2)) * w
-    cy = (0.5 + 0.4 * torch.cos(i * 0.23)) * h
+    r = (xx * 255.0 / span(w)).expand(n, h, w)
+    g = (yy * 255.0 / span(h)).expand(n, h, w)
+    b = blue.expand(n, h, w)
+
     rad = max(4.0, min(h, w) / 10.0)
     mask = ((xx - cx) ** 2 + (yy - cy) ** 2) <= rad * rad
     return tuple(torch.where(mask, 255.0, p) for p in (r, g, b))

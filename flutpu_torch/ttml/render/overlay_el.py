@@ -55,6 +55,24 @@ class OverlayCompositor(Element):
     def _device(self) -> torch.device:
         return torch.device(str(self.get_property("device")))
 
+    def prewarm(self, caps=None) -> bool:
+        """Run the burn-in blend once at ``caps``' geometry on the
+        element's device (one zero frame under a zero overlay), so that
+        an injectbin swap finds the device context and the blend's
+        kernels loaded before it installs any dataflow block (see
+        Element.prewarm). False without caps or a width and height."""
+        if caps is None:
+            return False
+        w, h = caps.get("width"), caps.get("height")
+        if not w or not h:
+            return False
+        dev = self._device()
+        frames = torch.zeros((1, int(h), int(w), 3), dtype=torch.uint8,
+                             device=dev)
+        ov = torch.zeros((int(h), int(w), 4), dtype=torch.uint8, device=dev)
+        overlay_on_frames(frames, ov).cpu()
+        return True
+
     # -- overlay branch ----------------------------------------------------
     def _overlay_chain(self, pad: Pad, buf: Buffer) -> FlowReturn:
         start = buf.pts if buf.pts is not None else 0

@@ -45,6 +45,76 @@ def test_front_end_kernel_matches_plain(cuda_device, shape):
         tie_contract(a.cpu().numpy(), c.cpu().numpy(), 1e-4)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1, 16, 16), (3, 48, 160), (2, 32, 1936),
+                                   (1, 32, 3840), (2, 2160, 3840)])
+def test_front_end_strip_kernel_shapes(cuda_device, shape):
+    """Widths that are no multiple of the kernel's 128-column strip, one
+    macroblock, and 4K; planes that are views at odd addresses."""
+    f, h, w = shape
+    planes = [torch.from_numpy(p).to(cuda_device)
+              for p in rand_planes(*shape, seed=11)]
+    qy = torch.from_numpy(QY).to(cuda_device)
+    qc = torch.from_numpy(QC).to(cuda_device)
+    got = F.front_end(*planes, qy, qc)
+    for a, c in zip(got, F.front_end_plain(*planes, qy, qc)):
+        tie_contract(a.cpu().numpy(), c.cpu().numpy(), 1e-4)
+    # the same planes as slices that start 1 byte into a larger buffer
+    views = []
+    for p in planes:
+        buf = torch.empty(p.numel() + 1, dtype=torch.uint8,
+                          device=cuda_device)
+        buf[1:] = p.reshape(-1)
+        views.append(buf[1:].view(f, h, w))
+    for a, c in zip(F.front_end(*views, qy, qc), got):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,w,n", [(96, 160, 4), (1088, 1920, 3),
+                                   (2160, 3840, 2)])
+def test_gradient_ball_planes_on_card_match_cpu(cuda_device, h, w, n):
+    """The on-device source gives the CPU's values on the card: its ramps
+    divide by a tensor, where a Python divisor would become a product
+    with the reciprocal on the card and round some levels down."""
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
+    for start in (0, 37):
+        card = gradient_ball_planes(h, w, n, start, device=cuda_device)
+        cpu = gradient_ball_planes(h, w, n, start, device="cpu")
+        for a, b in zip(card, cpu):
+            assert a.is_cuda and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_front_end_quotient_equals_ieee_division(cuda_device):
+    """The quantizer divides through the table entry's reciprocal; the
+    library compares that with IEEE division for every divisor 1..255 and
+    every float of magnitude 2^-3..2^12, both signs."""
+    pairs, bad = F.quotient_check(cuda_device)
+    assert pairs == 255 * 15 * 2 ** 23 * 2 and bad == 0
+
+
+@pytest.mark.cuda
+def test_front_end_raises_on_table_entries_outside_1_255(cuda_device):
+    planes = [torch.from_numpy(p).to(cuda_device)
+              for p in rand_planes(1, 16, 16, seed=3)]
+    good = torch.from_numpy(QY).to(cuda_device)
+    for bad_value in (0, 256):
+        bad = good.clone()
+        bad[3, 4] = bad_value
+        before = F.front_end.launches
+        with pytest.raises(ValueError):
+            F.front_end(*planes, bad, good)
+        with pytest.raises(ValueError):
+            F.front_end(*planes, good, bad)
+        assert F.front_end.launches == before
+    table = good.clone()
+    F.front_end(*planes, table, good)
+    table[0, 0] = 0          # a table changed in place is read again
+    with pytest.raises(ValueError):
+        F.front_end(*planes, table, good)
+
+
 def _blocks(n, seed, dense):
     rng = np.random.default_rng(seed)
     z = rng.integers(-60, 60, (n, 64)).astype(np.int32)
@@ -151,6 +221,58 @@ def test_motion_search_kernel_matches_plain(cuda_device, h, w, r):
     mv_p, pred_p = M.motion_search_mc_plain(c, p, r)
     assert torch.equal(mv, mv_p)
     assert torch.equal(pred, pred_p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb", [8, 16])
+@pytest.mark.parametrize("r", [0, 1, 3, 7, 16, 32])
+@pytest.mark.parametrize("h,w", [(32, 48), (96, 160)])
+def test_search_kernel_ranges_and_block_sizes(cuda_device, h, w, r, mb):
+    """Every range class of the tiled search (one group of shifts, several,
+    a spare shift in the last group, windows wider than the plane) at both
+    block sizes, on non-integer and integer-valued planes (ties abound in
+    the latter): vectors and prediction bit-identical to the plain
+    version."""
+    rng = np.random.default_rng(1000 * r + h + mb)
+    for integer in (False, True):
+        cur, prev = _rolled_pair(h, w, 7 * r + mb, (min(r, 2), -min(r, 3)))
+        if integer:
+            prev = rng.integers(0, 4, (h, w)).astype(np.float32)
+            cur = np.roll(prev, (min(r, 1), 0), axis=(0, 1))
+            cur[:mb] = rng.integers(0, 4, (mb, w))
+        c, p = (torch.from_numpy(a).to(cuda_device) for a in (cur, prev))
+        mv, pred = M.motion_search_mc_blocks(c, p, r, mb)
+        mv_p, pred_p = M.motion_search_mc_blocks_plain(c, p, r, mb)
+        assert torch.equal(mv, mv_p)
+        assert torch.equal(pred, pred_p)
+        if mb == 16:
+            for a, b in zip(M.motion_search_mc(c, p, r),
+                            M.motion_search_mc_plain(c, p, r)):
+                assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mb", [8, 16])
+def test_search_kernel_plane_smaller_than_window_and_nan(cuda_device, mb):
+    """A 16x16 plane at r = 32 (the wrap goes round several times), and
+    planes whose costs are all NaN, or NaN for one block only: a NaN cost
+    never wins and a block without a winner keeps (0, 0)."""
+    cur, prev = _rolled_pair(16, 16, 3, (1, -2))
+    c, p = (torch.from_numpy(a).to(cuda_device) for a in (cur, prev))
+    for a, b in zip(M.motion_search_mc_blocks(c, p, 32, mb),
+                    M.motion_search_mc_blocks_plain(c, p, 32, mb)):
+        assert torch.equal(a, b)
+    cur, prev = _rolled_pair(48, 64, 4)
+    nan = np.full_like(cur, np.nan)
+    part = cur.copy()
+    part[:mb, :mb] = np.nan
+    for a in (nan, part):
+        c, p = (torch.from_numpy(x).to(cuda_device) for x in (a, prev))
+        mv, pred = M.motion_search_mc_blocks(c, p, 3, mb)
+        mv_p, pred_p = M.motion_search_mc_blocks_plain(c, p, 3, mb)
+        assert torch.equal(mv, mv_p)
+        assert not mv[0, 0].any()
+        assert torch.equal(pred, pred_p)
 
 
 def _rolled_pair(h, w, seed, shift=(3, -5)):
@@ -294,7 +416,11 @@ def _bgra(h, w, seed=2):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,ov_shape", [((2, 1088, 1920), (1080, 1920)),
                                             ((1, 48, 80), (48, 80)),
-                                            ((2, 64, 96), (50, 70))])
+                                            ((2, 64, 96), (50, 70)),
+                                            ((1, 1088, 1920), (37, 1001)),
+                                            ((2, 32, 1936), (32, 1936)),
+                                            ((1, 16, 16), (16, 16)),
+                                            ((1, 2160, 3840), (2160, 3840))])
 def test_front_end_overlay_kernel(cuda_device, shape, ov_shape):
     """K1 with an overlay: equal to K1 on planes blended beforehand bit for
     bit, to its plain version under K1's contract, and with alpha 0 to K1

@@ -93,3 +93,50 @@ def test_rejects_what_the_kernel_does_not_take(shape, dtype):
     planes = [np.zeros(shape, dtype) for _ in range(3)]
     with pytest.raises(ValueError):
         _port(planes)
+
+
+@pytest.mark.parametrize("value,ok", [(1, True), (255, True), (0, False),
+                                      (256, False), (-3, False)])
+def test_table_entries_outside_1_255_are_refused(value, ok):
+    """The CUDA kernel's quantizer is proven for divisors 1..255 (what
+    scale_qtable gives); the wrapper's check of the table holds it to
+    them."""
+    q = torch.from_numpy(QY.copy())
+    q[2, 5] = value
+    if ok:
+        F._check_table_values(q)
+    else:
+        with pytest.raises(ValueError, match="1..255"):
+            F._check_table_values(q)
+
+
+def test_table_check_reads_a_table_again_after_a_change_in_place():
+    q = torch.from_numpy(QY.copy())
+    F._check_table_values(q)
+    F._check_table_values(q)          # remembered: no second read
+    q[0, 0] = 0
+    with pytest.raises(ValueError):
+        F._check_table_values(q)
+    key = id(q)
+    del q                             # and forgotten with the tensor
+    assert key not in F._checked_tables
+
+
+def test_kernel_source_holds_the_dct_matrix_bit_for_bit():
+    """csrc/frontend.cu compiles the 8x8 DCT matrix in (FLU_DCT8) so that
+    the multiplies take it as immediates: the literals must be
+    dct_matrix(8) as float32, value for value."""
+    import os
+    import re
+    from flutpu_torch import _build
+    from flutpu_torch.codec.ops.dct import dct_matrix
+    path = os.path.join(os.path.dirname(_build.__file__), "csrc",
+                        "frontend.cu")
+    with open(path, encoding="utf-8") as fh:
+        text = fh.read()
+    body = re.search(r"#define FLU_DCT8(.*?)\n\n", text, re.S).group(1)
+    values = np.array([float(v) for v in
+                       re.findall(r"-?\d+\.\d+(?=f)", body)], np.float32)
+    want = np.ascontiguousarray(dct_matrix(8), np.float32)
+    assert values.shape == (64,)
+    assert values.tobytes() == want.tobytes()

@@ -346,7 +346,7 @@ def test_c_entries_match_the_sources():
     text = "".join(_read(p) for p in _build.source_paths())
     defined = set(re.findall(r"^int (flu_\w+)\(", text, re.M))
     assert defined == {"flu_front_end_init", "flu_front_end",
-                       "flu_pack_init", "flu_pack_segments",
+                       "flu_front_end_quotient_check", "flu_pack_init", "flu_pack_segments",
                        "flu_pack_blocks", "flu_pack_slots64", "flu_pack_slots32",
                        "flu_motion_search_mc", "flu_motion_search_mc_blocks",
                        "flu_motion_refine_mc", "flu_chroma_mc"}
@@ -475,7 +475,8 @@ def test_chip_smoke_imports_only_the_port():
     assert "flutpu_torch" in tops
     assert not tops & {"jax", "jaxlib", "flutpu"}
     assert tops <= {"flutpu_torch", "numpy", "torch", "__future__", "ctypes",
-                    "json", "os", "subprocess", "sys", "time"}, tops
+                    "hashlib", "json", "os", "subprocess", "sys",
+                    "time"}, tops
 
 
 def test_chip_smoke_fails_without_a_card():
