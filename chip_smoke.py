@@ -11,13 +11,19 @@ Drives the port's main paths through the entry points a user calls, at
    most 1e-4 of the coefficients), its output on a seeded noise GOP
    against the pinned SHA-256 of the first port's kernel, and its
    quantizer's division against IEEE division on every pair it can meet;
-   the Huffman pack kernel (K2) against its plain version
-   (bit-identical); each timed with CUDA events;
+   the Huffman pack kernel (K2, a lane per block) against its plain
+   version (bit-identical) on that GOP and on the noise GOP's
+   coefficients, at ``seg_words`` 64 and 8; each timed with CUDA events,
+   K2 in turns with the parent's thread-per-segment kernel (parent, new,
+   new, parent; the two bit-identical), beside an ablation of its parts
+   (staging, symbols, placement, stores);
 2b. block-pack kernels (the non-segment layout): on the 16-frame GOP's
    MCU blocks (K1's coefficients through ``_mcu_blocks``), K7, K8a (on
    ``_slot_tables_merged``) and K8b (on ``_slot_tables``) each
    bit-identical to its plain version and the three to each other, each
-   timed beside its byte bound;
+   timed beside its byte bound; K7 (a lane per block) also bit-identical
+   on the noise GOP's blocks, timed in turns with the parent's kernel and
+   ablated as K2;
 3. JPEG main path: ``JpegEncoder.encode_gop_dispatch_src`` on the
    on-device gradient-ball source, 8 GOPs with two in flight, then the
    pipeline ``videotestsrc ! cudajpegenc ! appsink`` over 32 frames;
@@ -110,7 +116,8 @@ Drives the port's main paths through the entry points a user calls, at
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not
 launched fails the run. Prints each phase's wall time, the card's name
-and power limit, one JSON
+and power limit, K2's and K7's times before and after
+their redesign (the parent's kernels timed in the same call), one JSON
 line of per-kernel results (each kernel's launches, error, time, plain
 time, and its bound: the larger of its bytes over 3.35 TB/s and its
 floating-point operations over 67 TFLOP/s, the H100 SXM data sheet's
@@ -341,7 +348,7 @@ def run(dev):
     _hold_k1_hash("noise", coefs_n)
     _hold_k1_hash("noise+overlay", F.front_end(*noise, qy, qc,
                                                overlay=_seeded_overlay(dev)))
-    del noise, coefs_n
+    del noise
     t0 = time.perf_counter()
     pairs, bad = F.quotient_check(dev)
     print(f"front_end quantizer: the reciprocal quotient equals IEEE "
@@ -363,34 +370,51 @@ def run(dev):
                                 **_bound(3 * px + 2 * 1.5 * px,
                                          px * (17 + 1.5 * 35)))
 
-    zz, comp_f = segment_blocks(*coefs0, layout)
+    gops = {"gradient-ball": segment_blocks(*coefs0, layout),
+            "uniform-noise": segment_blocks(*coefs_n, layout)}
     k2_err = 0
-    for sw in (JpegEncoder.SEG_WORDS0, 8):
-        buf, bits = K.pack_segments(zz, comp_f, 16, sw)
-        pbuf, pbits = K.pack_segments_plain(zz, comp_f, 16, sw)
-        over = int((pbits > sw * 32).sum())
-        same = torch.equal(buf, pbuf) and torch.equal(bits, pbits)
-        print(f"pack_segments vs plain (seg_words={sw}, {bits.numel()} "
-              f"segments, {over} over capacity): "
-              f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
-        _require(same, f"pack_segments differs from its plain version at "
-                 f"seg_words={sw}")
-        k2_err = max(k2_err, int((buf.to(torch.int64)
-                                  - pbuf.to(torch.int64)).abs().max()))
+    for label, (zz, comp_f) in gops.items():
+        nnz = (zz[:, 1:] != 0).sum(dim=1)[comp_f >= 0]
+        print(f"{label} GOP: {nnz.numel()} blocks, AC coefficients per "
+              f"block: mean {float(nnz.float().mean()):.3f}; share with "
+              f"0 {float((nnz == 0).float().mean()):.3f}, 1 "
+              f"{float((nnz == 1).float().mean()):.3f}, 2-8 "
+              f"{float(((nnz > 1) & (nnz <= 8)).float().mean()):.3f}, "
+              f"over 32 {float((nnz > 32).float().mean()):.3f}", flush=True)
+        for sw in (JpegEncoder.SEG_WORDS0, 8):
+            buf, bits = K.pack_segments(zz, comp_f, 16, sw)
+            pbuf, pbits = K.pack_segments_plain(zz, comp_f, 16, sw)
+            over = int((pbits > sw * 32).sum())
+            same = torch.equal(buf, pbuf) and torch.equal(bits, pbits)
+            print(f"pack_segments vs plain ({label} GOP, seg_words={sw}, "
+                  f"{bits.numel()} segments, {over} over capacity): "
+                  f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
+            _require(same, f"pack_segments differs from its plain version "
+                     f"on the {label} GOP at seg_words={sw}")
+            k2_err = max(k2_err, int((buf.to(torch.int64)
+                                      - pbuf.to(torch.int64)).abs().max()))
+    del buf, pbuf
     sw = JpegEncoder.SEG_WORDS0
-    k2_ms = _time_ms(lambda: K.pack_segments(zz, comp_f, 16, sw), 20)
+    zz, comp_f = gops["gradient-ball"]
+    k2_ms, k2_parent = _time_pack(
+        "pack_segments (K2)", lambda z, c: K.pack_segments(z, c, 16, sw),
+        "flu_pack_segments_serial", gops, 16, sw)
     k2_plain_ms = _time_ms(lambda: K.pack_segments_plain(zz, comp_f, 16, sw),
                            3)
-    print(f"pack_segments: kernel {k2_ms:.3f} ms, plain {k2_plain_ms:.3f} ms "
-          f"per 16-frame 1080p GOP ({zz.shape[0]} blocks)", flush=True)
     s_count = zz.shape[0] // 16
-    results["pack_segments"] = dict(
-        max_abs_err=k2_err, ms=k2_ms, plain_ms=k2_plain_ms,
-        **_bound(zz.shape[0] * (64 + 1) * 4 + s_count * (sw + 1) * 4))
-    del zz, comp_f, buf, pbuf
+    bound = _bound(zz.shape[0] * (64 + 1) * 4 + s_count * (sw + 1) * 4)
+    print(f"pack_segments: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.3f} ms "
+          f"per 16-frame 1080p GOP ({zz.shape[0]} blocks); bound "
+          f"{bound['bound_ms']:.4f} ms", flush=True)
+    results["pack_segments"] = dict(max_abs_err=k2_err, ms=k2_ms,
+                                    plain_ms=k2_plain_ms, **bound)
+    parent_ms = {"pack_segments": k2_parent}
+    del zz, comp_f, gops
     lap("2 K1, K2")
-    results.update(run_block_packs(coefs0, layout))
-    del coefs0, src
+    block_results, parent_ms["pack_block_bits_fused"] = run_block_packs(
+        coefs0, coefs_n, layout)
+    results.update(block_results)
+    del coefs0, coefs_n, src
     torch.cuda.synchronize()
     lap("2b K7, K8a, K8b")
 
@@ -487,6 +511,13 @@ def run(dev):
         r_ = results[name]
         print(f"{key}: {was:.4f} ms before the redesign (PERF.md, same card "
               f"model and power limit), {r_['ms']:.4f} ms now, bound "
+              f"{r_['bound_ms']:.4f} ms ({r_['ms'] / r_['bound_ms']:.1f}x)",
+              flush=True)
+    for name, key in (("pack_segments", "K2 pack_segments"),
+                      ("pack_block_bits_fused", "K7 pack_block_bits_fused")):
+        r_ = results[name]
+        print(f"{key}: {parent_ms[name]:.4f} ms before the redesign (the "
+              f"parent's kernel, this call), {r_['ms']:.4f} ms now, bound "
               f"{r_['bound_ms']:.4f} ms ({r_['ms'] / r_['bound_ms']:.1f}x)",
               flush=True)
     print(f"phase wall times (s): {json.dumps(lap.secs)}; "
@@ -886,18 +917,98 @@ def _motion_pairs(dev, rng):
             ("in-loop reference", y[1], rec)]
 
 
-def run_block_packs(coefs, layout):
+def _pack_entry(entry, zz, comp, seg_g, seg_words, *shape):
+    """A comparison kernel of csrc/entropy_pack.cu (the parent's
+    thread-per-segment K2 and K7, the ablated K2 and K7) through K2's
+    launch path, its launches counted apart from the wrappers'."""
+    from flutpu_torch.codec.ops import entropy_kernels as K
+
+    def counter():
+        pass
+    counter.launches = 0
+    return K._launch_pack(counter, entry, zz, comp, seg_g, seg_words, *shape)
+
+
+#: the parts of K2's and K7's kernel, each with those before it
+#: (``Part`` in csrc/entropy_pack.cu)
+ABLATION = ("staging (tile loads, row stores)",
+            "+ masks, lengths and offsets", "+ placement",
+            "= the kernel (+ stores)")
+
+
+def _time_pack(label, kernel, parent, gops, seg_g, seg_words):
+    """K2 or K7 (``kernel(zz, comp)``) against the parent's kernel (the
+    C entry ``parent``) on each GOP of ``gops`` ({label: (zz, comp)},
+    gradient-ball first): bit-identical, then timed in turns parent, new,
+    new, parent; and the ablation on the first GOP. Returns the first
+    GOP's (new ms, parent ms), each the mean of its two turns."""
+    import torch
+    blocks = seg_g == 1
+    shape = () if blocks else (seg_g, seg_words)
+    first = None
+    for name, (zz, comp) in gops.items():
+        got = kernel(zz, comp)
+        old = _pack_entry(parent, zz, comp, seg_g, seg_words, *shape)
+        _require(all(torch.equal(a, b) for a, b in zip(got, old)),
+                 f"{label} differs from the parent's kernel ({name} GOP)")
+        new_fn = lambda: kernel(zz, comp)  # noqa: E731
+        old_fn = lambda: _pack_entry(parent, zz, comp, seg_g,  # noqa: E731
+                                     seg_words, *shape)
+        turns = [_time_ms(f, 20) for f in (old_fn, new_fn, new_fn, old_fn)]
+        ms, was = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+        print(f"{label} on the {name} GOP, ms in turns parent, new, new, "
+              f"parent: {', '.join(f'{t:.4f}' for t in turns)}; "
+              f"{was / ms:.2f}x", flush=True)
+        if first is None:
+            first = (ms, was)
+            parts = []
+            for part in range(len(ABLATION)):
+                args = (zz, comp, seg_g, seg_words, seg_g, seg_words,
+                        int(blocks), part)
+                if part == len(ABLATION) - 1:
+                    full = _pack_entry("flu_pack_ablation", *args)
+                    _require(all(torch.equal(a, b)
+                                 for a, b in zip(full, got)),
+                             f"{label}: the ablation's whole kernel differs")
+                parts.append(_time_ms(
+                    lambda: _pack_entry("flu_pack_ablation", *args), 20))
+            print(f"{label} ablation on the {name} GOP (ms): " + "; ".join(
+                f"{p} {t:.4f}" for p, t in zip(ABLATION, parts)), flush=True)
+    return first
+
+
+def run_block_packs(coefs, coefs_n, layout):
     """Phase 2b: K7, K8a and K8b on one GOP's MCU blocks against their
-    plain versions and each other, and their times beside their bounds.
-    K8a's and K8b's bytes follow the data (``data_bytes``), plus each
-    block's 64 words and count out."""
+    plain versions and each other, and their times beside their bounds;
+    K7 also on the uniform-noise GOP's (``coefs_n``) and against the
+    parent's kernel. K8a's and K8b's bytes follow the data
+    (``data_bytes``), plus each block's 64 words and count out. Returns
+    (the kernels' results, the parent's K7 ms)."""
     import torch
     from flutpu_torch.codec.ops import entropy_kernels as K
     from flutpu_torch.codec.ops.entropy import (_mcu_blocks, _slot_tables,
                                                 _slot_tables_merged)
-    mcu, comp = _mcu_blocks(*coefs, layout)
-    zz = mcu.reshape(-1, 64)
-    comp = comp.repeat(mcu.shape[0])
+
+    def blocks(c):
+        mcu, comp = _mcu_blocks(*c, layout)
+        return mcu.reshape(-1, 64), comp.repeat(mcu.shape[0])
+
+    zz, comp = blocks(coefs)
+    zz_n, comp_n = blocks(coefs_n)
+    got, want = (K.pack_block_bits_fused(zz_n, comp_n),
+                 K.pack_block_bits_fused_plain(zz_n, comp_n))
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    print(f"pack_block_bits_fused vs plain (uniform-noise GOP): "
+          f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
+    _require(same, "pack_block_bits_fused differs from its plain version "
+             "on the uniform-noise GOP")
+    del got, want
+    k7_ms, k7_parent = _time_pack(
+        "pack_block_bits_fused (K7)", K.pack_block_bits_fused,
+        "flu_pack_blocks_serial",
+        {"gradient-ball": (zz, comp), "uniform-noise": (zz_n, comp_n)}, 1,
+        K.BLOCK_WORDS)
+    del zz_n, comp_n
     n = zz.shape[0]
     merged = _slot_tables_merged(zz, comp)
     slots = _slot_tables(zz, comp)
@@ -929,7 +1040,8 @@ def run_block_packs(coefs, layout):
               f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
         _require(same, f"{name} differs from its plain version")
         outs.append(got)
-        ms = _time_ms(lambda: kernel(*args), 20)
+        ms = (k7_ms if kernel is K.pack_block_bits_fused
+              else _time_ms(lambda: kernel(*args), 20))
         plain_ms = _time_ms(lambda: plain(*args), 3)
         bound = _bound(in_bytes + out_bytes)
         print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms per "
@@ -944,7 +1056,7 @@ def run_block_packs(coefs, layout):
           f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
     _require(same, "the three block packs disagree")
     torch.cuda.synchronize()
-    return results
+    return results, k7_parent
 
 
 def run_jpeg_blocks(dev, lib, seg_enc, seg_payloads, seg_fps, seg_pipe):

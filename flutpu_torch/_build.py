@@ -131,6 +131,12 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.flu_pack_segments.restype = i
     lib.flu_pack_blocks.argtypes = [p, p, p, p, i, p]
     lib.flu_pack_blocks.restype = i
+    lib.flu_pack_ablation.argtypes = [p, p, p, p, i, i, i, i, i, p]
+    lib.flu_pack_ablation.restype = i
+    lib.flu_pack_segments_serial.argtypes = [p, p, p, p, i, i, i, p]
+    lib.flu_pack_segments_serial.restype = i
+    lib.flu_pack_blocks_serial.argtypes = [p, p, p, p, i, p]
+    lib.flu_pack_blocks_serial.restype = i
     lib.flu_pack_slots64.argtypes = [p, p, p, p, p, i, i, p]
     lib.flu_pack_slots64.restype = i
     lib.flu_pack_slots32.argtypes = [p, p, p, p, i, i, p]

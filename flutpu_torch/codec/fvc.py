@@ -638,7 +638,7 @@ class FvcDecoder:
     and 5); half-pel vectors (bit 2), coded-size extensions (bit 4) and
     4:4:4 raise ``NotImplementedError``."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device="cuda"):
         self.device = torch.device(device)
 
     @staticmethod

@@ -8,7 +8,8 @@ replacing a Pallas TPU kernel:
   bit segment (the segment layout);
 - ``pack_block_bits_fused`` (K7, ``pack_block_bits_fused``): the same
   coding per block into its own 64-word buffer (the non-segment
-  layout); its kernel runs K2's body at one block per segment;
+  layout); its kernel runs K2's device routine (a lane per block, segments
+  assembled in shared memory) at one block per segment;
 - ``pack_block_bits64`` (K8a, ``pack_block_bits_pallas64``): placement
   of merged slot tables (slots of up to 59 bits) per block;
 - ``pack_block_bits`` (K8b, ``pack_block_bits_pallas``): placement of
@@ -42,6 +43,14 @@ _PLAIN_MAX_ITEMS = 1 << 22
 _ITEMS_PER_BLOCK = 128          # DC, (ZRL run, AC symbol) x 63, EOB
 #: words of one block's buffer in the non-segment layout
 BLOCK_WORDS = 64
+#: the most bits one block codes to (``JpegEncoder.BLOCK_BITS_BOUND``)
+BLOCK_BITS_BOUND = 1664
+#: shared memory one CUDA block may hold on Hopper; in K2's and K7's
+#: kernel the Huffman tables' words (2 x 16 DC + 2 x 256 AC) and a warp's
+#: tile of the 32 blocks its lanes code (rows of 68 words)
+_SMEM_BYTES = 232_448
+_TABLE_WORDS = 2 * 16 + 2 * 256
+_TILE_WORDS = 32 * 68
 
 
 def _check_args(zz, comp, seg_g, seg_words) -> None:
@@ -56,6 +65,36 @@ def _check_args(zz, comp, seg_g, seg_words) -> None:
         raise ValueError(f"B={zz.shape[0]} is not a multiple of seg_g={seg_g}")
     if seg_words < 1:
         raise ValueError("seg_words must be positive")
+
+
+def staging_words(seg_g: int, seg_words: int) -> int:
+    """Words of the shared-memory row in which K2's kernel assembles one
+    segment: its buffer, or all that ``seg_g`` blocks can fill (one word
+    more, as the kernel allocates it)."""
+    return min(seg_words, -(-seg_g * BLOCK_BITS_BOUND // 32) + 1)
+
+
+def warp_words(seg_g: int, seg_words: int) -> int:
+    """Shared-memory words one warp of K2's kernel holds: the rows of the
+    segments it codes at once (all that fit 32 lanes at a lane per block,
+    else one), and its tile (``csrc/entropy_pack.cu``: ``row_stride``,
+    ``segs_per_warp``)."""
+    spw = 32 // seg_g if seg_g <= 32 else 1
+    stride = -(-staging_words(seg_g, seg_words) // 4) * 4
+    if spw > 1 and stride % 8 == 0:
+        stride += 4
+    return spw * stride + _TILE_WORDS
+
+
+def _check_staging(seg_g: int, seg_words: int) -> None:
+    """Raise where one warp's rows and tile and the tables do not fit a
+    CUDA block's shared memory."""
+    need = (_TABLE_WORDS + warp_words(seg_g, seg_words)) * 4
+    if need > _SMEM_BYTES:
+        raise ValueError(f"pack_segments: one warp's staging takes {need} "
+                         f"bytes (seg_g={seg_g}, seg_words={seg_words}), "
+                         f"more than the {_SMEM_BYTES} bytes of shared "
+                         f"memory of a CUDA block")
 
 
 def _pow2(n: torch.Tensor) -> torch.Tensor:
@@ -301,8 +340,10 @@ def _launch(wrapper, entry: str, device, *args, tables: bool = False) -> None:
 def _launch_pack(wrapper, entry: str, zz, comp, seg_g: int, seg_words: int,
                  *shape: int):
     """The Huffman pack ``entry`` (K2 with ``shape`` = (seg_g, seg_words),
-    K7 with none) over (zz, comp); no launch for no segments."""
+    K7 with none: the entry's arguments after the segment count) over
+    (zz, comp), counted on ``wrapper``; no launch for no segments."""
     _check_args(zz, comp, seg_g, seg_words)
+    _check_staging(seg_g, seg_words)
     zz = zz.contiguous()
     comp = comp.contiguous()
     s_count = zz.shape[0] // seg_g
@@ -322,7 +363,9 @@ def pack_segments(zz: torch.Tensor, comp: torch.Tensor, seg_g: int = 16,
     S = B / seg_g; blocks [s*seg_g, (s+1)*seg_g) concatenate into segment
     s. ``segbits`` counts every bit, also past ``seg_words * 32``; the
     buffer holds the first ``seg_words`` words. CUDA tensors launch the
-    kernel on the current stream; CPU tensors take
+    kernel on the current stream (``ValueError`` where one warp's staging,
+    ``warp_words``, does not fit a CUDA block's shared memory: ``seg_g``
+    above 1,065 with as many words); CPU tensors take
     ``pack_segments_plain``."""
     if _device_of("pack_segments", zz) == "cpu":
         return pack_segments_plain(zz, comp, seg_g, seg_words)
@@ -334,8 +377,8 @@ def pack_block_bits_fused(zz: torch.Tensor, comp: torch.Tensor):
     """(B, 64) int32 DC-diffed MCU-ordered coefficients + (B,) int32 comp
     flags (0 luma, 1 chroma) → (buf (B, 64) int32 words MSB-first, nbits
     (B,) int32): each block Huffman-coded into its own buffer, every word
-    written, bits past ``nbits`` zero. CUDA tensors launch K7 (K2's body
-    at one block per segment); CPU tensors take
+    written, bits past ``nbits`` zero. CUDA tensors launch K7 (K2's
+    device routine at one block per segment); CPU tensors take
     ``pack_block_bits_fused_plain``."""
     if _device_of("pack_block_bits_fused", zz) == "cpu":
         return pack_block_bits_fused_plain(zz, comp)

@@ -20,7 +20,7 @@ from flutpu.codec.ops.entropy_pallas import (pack_block_bits_fused,
                                              pack_block_bits_pallas64)
 from flutpu_torch.codec.ops import entropy as TE
 from flutpu_torch.codec.ops import entropy_kernels as K
-from torch_helpers import sparse_coefs
+from torch_helpers import pack_edge_blocks, sparse_coefs
 
 torch.set_num_threads(1)
 
@@ -75,6 +75,21 @@ def test_fused_pack_matches_pallas_kernel(b, table):
     j, t = _both(*_blocks(b, table))
     _same(K.pack_block_bits_fused(*t),
           pack_block_bits_fused(*j, interpret=True))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_fused_pack_edge_cases_match_pallas_kernel(seed):
+    """K7's yardstick on the card tests' generator (``pack_edge_blocks``
+    at one block per segment, flags 0 and 1 only: the non-segment layout
+    has no padding blocks) equals the Pallas kernel bit for bit, and K8a
+    and K8b on the slot tables of the same blocks equal it."""
+    zz, comp = pack_edge_blocks(300, 1, seed=seed, padding=False)
+    j, t = _both(zz, comp)
+    want = pack_block_bits_fused(*j, interpret=True)
+    got = K.pack_block_bits_fused(*t)
+    _same(got, want)
+    _same(K.pack_block_bits64(*TE._slot_tables_merged(*t)), want)
+    _same(K.pack_block_bits(*TE._slot_tables(*t)), want)
 
 
 @pytest.mark.parametrize("b,table", CASES)

@@ -21,7 +21,8 @@ from flutpu_torch.codec.ops import motion_kernels as M
 from flutpu_torch.codec.ops.quant import (CHROMA_QTABLE, LUMA_QTABLE,
                                           scale_qtable)
 from flutpu_torch.core.elements import make_test_frame
-from torch_helpers import cuda_device, rand_planes, tie_contract  # noqa: F401
+from torch_helpers import (cuda_device, pack_edge_blocks,  # noqa: F401
+                           rand_planes, tie_contract)
 
 torch.set_num_threads(1)
 
@@ -168,6 +169,93 @@ def test_block_pack_kernels_match_plain(cuda_device, dense):
         first = first or want
         for a, b in zip(want, first):
             assert torch.equal(a, b)
+
+
+def _pack_entry(entry, zz, comp, seg_g, seg_words, *shape):
+    """A comparison kernel of csrc/entropy_pack.cu (the first port's
+    thread-per-segment kernels) through K2's launch path, counted on a
+    counter of its own."""
+    def counter():
+        pass
+    counter.launches = 0
+    return K._launch_pack(counter, entry, zz, comp, seg_g, seg_words, *shape)
+
+
+#: (seg_g, seg_words): 1, 2, 16 and 17 blocks per segment; one word,
+#: segments over capacity, the encoder's largest buffer (832), buffers past
+#: all a segment can fill (1000: the staging row is shorter than the
+#: buffer), rows that take more than 48 KB of shared memory per CTA (3400)
+PACK_SHAPES = [(1, 64), (2, 64), (16, 64), (17, 64), (16, 1), (16, 4),
+               (16, 832), (16, 1000), (17, 1000), (64, 3400)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seg_g,seg_words", PACK_SHAPES)
+def test_pack_kernel_edge_cases(cuda_device, seg_g, seg_words):
+    """K2 (a lane per block) bit for bit against its plain version on
+    ``pack_edge_blocks`` (every size cap, ZRL count, EOB rule, dense
+    blocks, padding blocks and a whole padding segment), at 13 segments
+    (no whole number of a warp's segments, nor of a CTA's warps) and at
+    about 120,000 blocks (more than the card's resident warps take at
+    once: a warp walks several units); the first port's kernel gives the
+    same."""
+    for n_segs in (13, max(13, 120_000 // seg_g)):
+        z, comp = pack_edge_blocks(n_segs, seg_g, seed=n_segs + seg_words)
+        zt, ct = torch.from_numpy(z), torch.from_numpy(comp)
+        want = K.pack_segments_plain(zt, ct, seg_g, seg_words)
+        zc, cc = zt.to(cuda_device), ct.to(cuda_device)
+        before = K.pack_segments.launches
+        got = K.pack_segments(zc, cc, seg_g, seg_words)
+        torch.cuda.synchronize()
+        assert K.pack_segments.launches == before + 1
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+        serial = _pack_entry("flu_pack_segments_serial", zc, cc, seg_g,
+                             seg_words, seg_g, seg_words)
+        for a, b in zip(serial, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_blocks", [13, 120_001])
+def test_block_pack_kernel_edge_cases(cuda_device, n_blocks):
+    """K7 (a lane per block) on ``pack_edge_blocks`` at one block per
+    segment: bit for bit its plain version, K8a and K8b on the slot
+    tables of the same blocks, and the first port's kernel."""
+    z, comp = pack_edge_blocks(n_blocks, 1, seed=n_blocks, padding=False)
+    zt, ct = torch.from_numpy(z), torch.from_numpy(comp)
+    want = K.pack_block_bits_fused_plain(zt, ct)
+    zc, cc = zt.to(cuda_device), ct.to(cuda_device)
+    before = K.pack_block_bits_fused.launches
+    outs = [K.pack_block_bits_fused(zc, cc),
+            K.pack_block_bits64(*_slot_tables_merged(zc, cc)),
+            K.pack_block_bits(*_slot_tables(zc, cc)),
+            _pack_entry("flu_pack_blocks_serial", zc, cc, 1, K.BLOCK_WORDS)]
+    torch.cuda.synchronize()
+    assert K.pack_block_bits_fused.launches == before + 1
+    for got in outs:
+        for a, b in zip(got, want):
+            assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.cuda
+def test_pack_kernel_refuses_a_staging_row_past_shared_memory(cuda_device):
+    """At seg_g 1066 one warp's staging row and tile no longer fit a CTA's
+    227 KB: the wrapper raises and launches nothing. At 1065 (230 KB, one
+    warp per CTA) they fit and the kernel equals its plain version."""
+    z = torch.zeros((1066, 64), dtype=torch.int32, device=cuda_device)
+    comp = torch.zeros((1066,), dtype=torch.int32, device=cuda_device)
+    z[:, 0] = torch.arange(1066, device=cuda_device) % 7 - 3
+    before = K.pack_segments.launches
+    with pytest.raises(ValueError):
+        K.pack_segments(z, comp, 1066, 60_000)
+    assert K.pack_segments.launches == before
+    got = K.pack_segments(z[:1065], comp[:1065], 1065, 60_000)
+    assert K.pack_segments.launches == before + 1
+    want = K.pack_segments_plain(z[:1065].cpu(), comp[:1065].cpu(), 1065,
+                                 60_000)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.cuda

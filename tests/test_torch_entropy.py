@@ -17,7 +17,7 @@ from flutpu.codec.ops import entropy as JE
 from flutpu.codec.ops.entropy_pallas import pack_segments_fused
 from flutpu_torch.codec.ops import entropy as TE
 from flutpu_torch.codec.ops import entropy_kernels as K
-from torch_helpers import sparse_coefs
+from torch_helpers import pack_edge_blocks, sparse_coefs
 
 torch.set_num_threads(1)
 
@@ -74,6 +74,49 @@ def test_pack_matches_pallas_kernel(case):
     if case == "padding":
         # segment 2 ends in padding blocks, segment 3 is all padding
         assert int(bits[2]) > 0 and int(bits[3]) == 0
+
+
+@pytest.mark.parametrize("seg_g,seg_words", [
+    (1, 64), (2, 4), (16, 1), (16, 4), (16, 64), (16, 832), (16, 1000),
+    (17, 64)])
+def test_pack_edge_cases_match_pallas_kernel(seg_g, seg_words):
+    """The yardstick of the card tests (``pack_segments_plain`` on
+    ``pack_edge_blocks``, the generator tests/test_torch_cuda.py holds the
+    kernel to) equals the Pallas kernel bit for bit at the segment sizes
+    and capacities the card tests use: one word, segments over capacity,
+    the encoder's largest buffer (832) and one past all a segment can
+    fill (1000)."""
+    z, comp = pack_edge_blocks(max(2, 320 // seg_g), seg_g,
+                               seed=seg_g * 7 + seg_words)
+    want_buf, want_bits = pack_segments_fused(
+        jnp.asarray(z), jnp.asarray(comp), seg_g=seg_g, seg_words=seg_words,
+        interpret=True)
+    buf, bits = K.pack_segments(torch.from_numpy(z), torch.from_numpy(comp),
+                                seg_g=seg_g, seg_words=seg_words)
+    np.testing.assert_array_equal(bits.numpy(), np.asarray(want_bits))
+    np.testing.assert_array_equal(_words(buf), np.asarray(want_buf))
+    assert int(bits[-1]) == 0                    # a whole padding segment
+
+
+def test_staging_row_limit():
+    """K2's kernel stages a segment in a shared-memory row: the buffer,
+    or all ``seg_g`` blocks can fill at ``JpegEncoder.BLOCK_BITS_BOUND``
+    bits each; a warp holds the rows of the segments its 32 lanes code
+    at once (a lane per block) and a tile of 32 blocks. The encoder's
+    largest buffer fits; a warp's share past a CUDA block's 227 KB is
+    refused before any launch."""
+    from flutpu_torch.codec.jpeg import JpegEncoder
+    assert K.BLOCK_BITS_BOUND == JpegEncoder.BLOCK_BITS_BOUND
+    assert K.staging_words(16, 64) == 64
+    assert K.staging_words(16, 832) == 832
+    assert K.staging_words(16, 1000) == 16 * 1664 // 32 + 1
+    assert K.warp_words(16, 64) == 2 * 68 + 32 * 68      # 64 words + 4
+    assert K.warp_words(1, 64) == 32 * 60 + 32 * 68      # 53 words, padded
+    assert K.warp_words(17, 64) == 64 + 32 * 68
+    K._check_staging(16, 832)
+    K._check_staging(1065, 10 ** 6)
+    with pytest.raises(ValueError):
+        K._check_staging(1066, 10 ** 6)
 
 
 def test_padding_segment_emits_nothing():

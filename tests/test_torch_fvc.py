@@ -162,7 +162,8 @@ def test_edge_padded_geometry_byte_identical(motion):
     je = jf.FvcEncoder(85, motion=motion)
     got = _port(je).encode_chunk(frames)
     assert got == je.encode_chunk(frames)
-    assert FvcDecoder().decode_chunk(got)[0].shape == (4, 90, 150, 3)
+    assert FvcDecoder(device="cpu").decode_chunk(got)[0].shape \
+        == (4, 90, 150, 3)
 
 
 def test_cut_makes_intra_frames(jax_chunks):
@@ -216,7 +217,7 @@ def test_reference_source_ramp_rounds_through_a_reciprocal():
 def test_decoder_matches_flutpu(jax_chunks, motion, clip):
     data = jax_chunks[(motion, clip)]
     want, j_info = jf.FvcDecoder().decode_chunk(data)
-    got, info = FvcDecoder().decode_chunk(data)
+    got, info = FvcDecoder(device="cpu").decode_chunk(data)
     assert info == j_info
     assert got.shape == want.shape and got.dtype == np.uint8
     assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
@@ -231,8 +232,16 @@ def test_decoder_reads_planar_flag():
     data = je.encode_chunk(CLIPS["ball"][:4])
     assert data[5] & 8
     want, _ = jf.FvcDecoder().decode_chunk(data)
-    got, _ = FvcDecoder().decode_chunk(data)
+    got, _ = FvcDecoder(device="cpu").decode_chunk(data)
     assert np.abs(got.astype(np.int32) - want.astype(np.int32)).max() <= 1
+
+
+def test_decoder_defaults_to_the_card():
+    """Like every entry point of the port, the decoder runs on the card
+    unless the caller names another device (a torch.device needs no
+    card to exist)."""
+    assert FvcDecoder().device.type == "cuda"
+    assert FvcDecoder(device="cpu").device.type == "cpu"
 
 
 def test_motion_chunk_program_matches_jax():
@@ -330,14 +339,15 @@ def test_unported_stream_features_raise(jax_chunks, bit):
     data[5] |= bit
     if bit == 32:
         data[13:13] = bytes([77])
-        got, info = FvcDecoder().decode_chunk(bytes(data))
-        want, j_info = FvcDecoder().decode_chunk(jax_chunks[(True, "ball")])
+        got, info = FvcDecoder(device="cpu").decode_chunk(bytes(data))
+        want, j_info = FvcDecoder(device="cpu").decode_chunk(
+            jax_chunks[(True, "ball")])
         assert FvcDecoder.parse_chunk(bytes(data))[0]["bquality"] == 77
         assert info == j_info
         np.testing.assert_array_equal(got, want)
         return
     with pytest.raises(NotImplementedError):
-        FvcDecoder().decode_chunk(bytes(data))
+        FvcDecoder(device="cpu").decode_chunk(bytes(data))
 
 
 def test_unported_program_options_raise():

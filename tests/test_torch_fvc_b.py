@@ -187,7 +187,7 @@ def test_b_chunk_program_matches_jax():
 @pytest.mark.parametrize("config,clip", CASES)
 def test_decoders_read_each_others_b_chunks(chunks, config, clip):
     want, got = chunks[config, clip]
-    j_dec, t_dec = jf.FvcDecoder(), FvcDecoder()
+    j_dec, t_dec = jf.FvcDecoder(), FvcDecoder(device="cpu")
     j_own, j_info = j_dec.decode_chunk(want)
     t_own, t_info = t_dec.decode_chunk(got)
     assert t_info == j_info and (2 in t_info["types"]) == (config[1] > 0)
@@ -256,7 +256,7 @@ def test_decoder_errors_match_flutpu(chunks, fault):
         data[5] |= 4
         data = bytes(data)
     errors = []
-    for dec in (jf.FvcDecoder(), FvcDecoder()):
+    for dec in (jf.FvcDecoder(), FvcDecoder(device="cpu")):
         with pytest.raises(ValueError) as e:
             dec.decode_chunk(data)
         errors.append(str(e.value))
@@ -312,7 +312,7 @@ def test_short_chunks_byte_identical(n):
     frames = CLIPS["ball"][:n]
     got = _port(je).encode_chunk(frames)
     assert got == je.encode_chunk(frames)
-    types = FvcDecoder().decode_chunk(got)[1]["types"]
+    types = FvcDecoder(device="cpu").decode_chunk(got)[1]["types"]
     assert types == [[0], [0, 1], [0, 2, 1]][n - 1]
 
 
@@ -332,5 +332,5 @@ def test_cudafvcenc_hier_b_matches_fvcenc_in_one_launch():
         [bytes(b.data) for b in out["a"]]
     assert [b.meta["frame_pts"] for b in out["b"]] == \
         [b.meta["frame_pts"] for b in out["a"]]
-    assert 2 in FvcDecoder().decode_chunk(bytes(out["b"][0].data))[1][
-        "types"]
+    assert 2 in FvcDecoder(device="cpu").decode_chunk(
+        bytes(out["b"][0].data))[1]["types"]

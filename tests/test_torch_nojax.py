@@ -70,14 +70,15 @@ while (buf := sink.try_pull_buffer(timeout=60)) is not None:
     chunks.append(bytes(buf.data))
 p.stop()
 from flutpu_torch.codec.fvc import FvcDecoder
-frames, info = FvcDecoder().decode_chunk(chunks[0])
+frames, info = FvcDecoder(device="cpu").decode_chunk(chunks[0])
 assert len(chunks) == 1 and frames.shape == (3, 32, 64, 3), frames.shape
 import numpy as np
 from flutpu_torch.codec.fvc import FvcEncoder
 clip = np.stack([np.roll(np.arange(32 * 64 * 3, dtype=np.uint8)
                          .reshape(32, 64, 3), i, axis=1) for i in range(3)])
 b = FvcEncoder(motion=True, hier=True, bframes=1, device="cpu")
-assert 2 in FvcDecoder().decode_chunk(b.encode_chunk(clip))[1]["types"]
+dec = FvcDecoder(device="cpu")
+assert 2 in dec.decode_chunk(b.encode_chunk(clip))[1]["types"]
 assert sys.modules["jax"] is None and sys.modules["flutpu"] is None
 print("encoded", len(out), "chunks", len(chunks))
 """
@@ -347,7 +348,9 @@ def test_c_entries_match_the_sources():
     defined = set(re.findall(r"^int (flu_\w+)\(", text, re.M))
     assert defined == {"flu_front_end_init", "flu_front_end",
                        "flu_front_end_quotient_check", "flu_pack_init", "flu_pack_segments",
-                       "flu_pack_blocks", "flu_pack_slots64", "flu_pack_slots32",
+                       "flu_pack_blocks", "flu_pack_ablation",
+                       "flu_pack_segments_serial", "flu_pack_blocks_serial",
+                       "flu_pack_slots64", "flu_pack_slots32",
                        "flu_motion_search_mc", "flu_motion_search_mc_blocks",
                        "flu_motion_refine_mc", "flu_chroma_mc"}
 

@@ -38,6 +38,74 @@ def sparse_coefs(f=2, ybh=8, ybw=12, seed=0, dense=False):
             sparse((f, ybh // 2, ybw // 2, 64)))
 
 
+def pack_edge_rows() -> np.ndarray:
+    """DC-diffed blocks (int32, 64 each) that reach every rule of the
+    Huffman packs and the seams a kernel on 32 lanes can split them at: DC
+    |diff| 2047, 2048 and 4095 (4095 at the size-12 cap), AC |v| 1023,
+    1024 and 2047 (2047 at the size-11 cap), zero runs of 15, 16, 31, 47
+    and 48 before a nonzero (0 to 3 ZRLs) from the DC and from another
+    nonzero, a nonzero at position 63 (no EOB) alone and after others,
+    all-zero AC, 33, 40 and 63 nonzeros (more than a warp's lanes), and
+    nonzeros on both sides of position 32 only."""
+    rows = []
+
+    def row(dc=0, **at):
+        r = np.zeros(64, np.int32)
+        r[0] = dc
+        for p, v in at.items():
+            r[int(p[1:])] = v
+        rows.append(r)
+
+    for dc in (2047, -2047, 2048, -2048, 4095, -4095, 0, 1, -1):
+        row(dc)                                   # all-zero AC
+    row(5, p1=1023, p2=-1023, p3=1024, p4=-1024, p5=2047, p6=-2047)
+    row(-3, p62=1024, p63=-2047)
+    for run in (15, 16, 31, 47, 48):
+        row(7, **{f"p{1 + run}": -2})             # from the DC
+        row(-7, **{f"p{3}": 1, f"p{4 + run}": 300})  # from a nonzero
+    row(0, p63=-3)                                # three ZRLs, no EOB
+    row(9, p1=1, p31=2, p32=-3, p63=4)            # no EOB after others
+    row(1, p31=5, p32=-6)                         # the halves' seam
+    row(2, p33=1)                                 # a run across the seam
+    rng = np.random.default_rng(17)
+    for n in (33, 40, 63):
+        r = np.zeros(64, np.int32)
+        r[0] = -100
+        pos = np.sort(rng.choice(np.arange(1, 64), n, replace=False))
+        r[pos] = rng.choice([-1, 1], n) * rng.integers(1, 2048, n)
+        rows.append(r)
+    sign = np.where(np.arange(64) % 2, -1, 1)
+    rows.append(np.arange(1, 65, dtype=np.int32) * sign * 31)  # every size
+    return np.stack(rows)
+
+
+def pack_edge_blocks(n_segs: int, seg_g: int, seed: int = 0,
+                     padding: bool = True):
+    """(zz (n_segs * seg_g, 64) int32, comp int32) for the segment pack:
+    ``pack_edge_rows`` first, then random blocks of mixed density (DC in
+    ±4095, AC mostly small with some up to ±2047), on a 4:2:0 flag
+    pattern (0 luma, 1 chroma). With ``padding`` the blocks that end the
+    second-to-last segment (past its first) and the whole last segment are
+    padding blocks (comp -1, all zero), as the encoder pads a frame."""
+    rng = np.random.default_rng(seed)
+    n = n_segs * seg_g
+    density = rng.choice([0.0, 0.03, 0.1, 0.4, 0.9], n)[:, None]
+    small = rng.integers(-40, 41, (n, 64))
+    large = rng.integers(-2047, 2048, (n, 64))
+    ac = np.where(rng.random((n, 64)) < 0.05, large, small)
+    zz = np.where(rng.random((n, 64)) < density, ac, 0).astype(np.int32)
+    zz[:, 0] = rng.integers(-4095, 4096, n)
+    edge = pack_edge_rows()
+    k = min(n, len(edge))
+    zz[:k] = edge[:k]
+    comp = np.tile(np.array([0, 0, 0, 0, 1, 1], np.int32), n // 6 + 1)[:n]
+    if padding and n_segs >= 2:
+        last = (n_segs - 1) * seg_g
+        half = last - seg_g + (seg_g + 1) // 2
+        zz[half:], comp[half:] = 0, -1
+    return zz, comp
+
+
 def pull_all(parse_launch, desc: str, timeout: float = 60):
     """Play the launch string ``desc`` (ending in ``appsink name=out``)
     through ``parse_launch`` (flutpu's or the port's: each package's
