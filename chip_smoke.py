@@ -45,12 +45,18 @@ Drives the port's main paths through the entry points a user calls, at
    prediction equals the compensation of the kernel's vectors exactly,
    and the vectors equal the plain version's except at near-ties of the
    cost, each verified in float64; the chroma kernel (K4) bit-identical
-   to its plain version at search ranges 7 and 5; both timed;
+   to its plain version, to the parent's kernel and to its own other way
+   of reading a row at search ranges 7, 5 and 32 (random vectors, odd
+   negative ones among them); both timed, K4 in turns with the parent's
+   kernel and the other row read;
 5b. hier and block-size kernels: K6a (the search kernel's 8x8 instance
    on the three pairs pooled to 544x960 at r=3, its 16x16 instance at
-   r=7), K5 (pool, K6a, base clip and the refine kernel at r=7) and K6b
-   (K3's contract) against their plain versions, held as K3 is; each
-   timed, K5 also its refine kernel alone;
+   r=7), K5 (the whole hier search in one launch, at r = 1, 2, 3, 7, 16
+   and 32 on the three pairs, a flat pair and a pair with NaN) and K6b
+   (K3's contract) against their plain versions, held as K3 is, K5 also
+   bit-identical to the parent's composition (pool, K6a, clip and the
+   parent's refine kernel); each timed, K5 in turns with the parent's
+   composition, whose refine kernel is also timed alone;
 6. FVC main paths: ``FvcEncoder(motion=True).encode_chunk_dispatch_src``,
    6 chunks of 8 frames with two in flight (K2, K3, K4 launched), then
    2 chunks of FVC v1 (K1, K2), then the pipeline
@@ -61,13 +67,14 @@ Drives the port's main paths through the entry points a user calls, at
    decode (plain PyTorch) of each path's first chunk lies within 0.05 dB
    of the card's;
 8. FVC hier+B main path: ``FvcEncoder(motion=True, hier=True,
-   bframes=1)``, 6 chunks of 8 frames with two in flight (K5, K6a, K4,
-   K2 launched), then one chunk each of its neighbours (``bframes=1``
+   bframes=1)``, 6 chunks of 8 frames with two in flight (K5, K4, K2
+   launched), then one chunk each of its neighbours (``bframes=1``
    with the full search through K3: BASELINE config 6b; P-only hier;
    P-only with ``FLUTPU_SEARCH_DYGRID=1`` through K6b), all decoded and
-   checked as in phase 7 with B frames (type 2) where expected, and a
-   544x960 hier+B chunk encoded on the card and on the CPU: byte-identical
-   (else held to the tie contract: same frame types, within 0.05 dB);
+   checked as in phase 7 with B frames (type 2) where expected; device
+   busy time and device launches per chunk of hier+B and of P-only hier
+   (torch.profiler, 4 chunks each); and a 544x960 hier+B chunk encoded on
+   the card and on the CPU: byte-identical;
 9. FVC without segments: one chunk each of v1, v2 P-only and hier+B with
    ``segmented=False`` (K7 launched, K2 not), each byte-identical to the
    segmented chunk of the same source (the first chunk of phases 6 and 8)
@@ -116,7 +123,7 @@ Drives the port's main paths through the entry points a user calls, at
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not
 launched fails the run. Prints each phase's wall time, the card's name
-and power limit, K2's and K7's times before and after
+and power limit, K2's, K7's, K5's and K4's times before and after
 their redesign (the parent's kernels timed in the same call), one JSON
 line of per-kernel results (each kernel's launches, error, time, plain
 time, and its bound: the larger of its bytes over 3.35 TB/s and its
@@ -487,9 +494,11 @@ def run(dev):
     add(run_jpeg_blocks(dev, lib, enc, payloads, fps,
                         [bytes(b.data) for b in bufs]))
     lap("4b non-segment JPEG")
-    results.update(run_motion_kernels(dev))
+    got, parent_ms["chroma_mc"] = run_motion_kernels(dev)
+    results.update(got)
     lap("5 K3, K4")
-    results.update(run_hier_kernels(dev))
+    got, parent_ms["motion_search_mc_hier"] = run_hier_kernels(dev)
+    results.update(got)
     lap("5b K5, K6a, K6b")
     counts, seg_chunks = run_fvc(dev, lib)
     add(counts)
@@ -514,7 +523,9 @@ def run(dev):
               f"{r_['bound_ms']:.4f} ms ({r_['ms'] / r_['bound_ms']:.1f}x)",
               flush=True)
     for name, key in (("pack_segments", "K2 pack_segments"),
-                      ("pack_block_bits_fused", "K7 pack_block_bits_fused")):
+                      ("pack_block_bits_fused", "K7 pack_block_bits_fused"),
+                      ("motion_search_mc_hier", "K5 motion_search_mc_hier"),
+                      ("chroma_mc", "K4 chroma_mc")):
         r_ = results[name]
         print(f"{key}: {parent_ms[name]:.4f} ms before the redesign (the "
               f"parent's kernel, this call), {r_['ms']:.4f} ms now, bound "
@@ -643,7 +654,9 @@ EARLIER_MS = (("front_end", "K1 front_end", 0.435),
               ("front_end_overlay", "K1 + overlay", 0.469),
               ("motion_search_mc", "K3 motion_search_mc", 0.200),
               ("motion_search_mc_blocks", "K6a 8x8 r=3", 0.0295),
-              ("motion_search_mc_dygrid", "K6b dygrid", 0.200))
+              ("motion_search_mc_dygrid", "K6b dygrid", 0.200),
+              ("motion_search_mc_hier", "K5 motion_search_mc_hier", 0.0680),
+              ("chroma_mc", "K4 chroma_mc", 0.0075))
 
 
 def run_source_check(dev):
@@ -840,9 +853,32 @@ def _device_busy(fn, n: int):
     # the five largest, and the redesigned kernels wherever they rank
     top = ranked[:5] + [kv for kv in ranked[5:]
                         if "front_end_kernel" in kv[0]
-                        or "motion_search_mc_kernel" in kv[0]]
+                        or "motion_search_mc_kernel" in kv[0]
+                        or "motion_search_hier_kernel" in kv[0]
+                        or "chroma_mc_kernel" in kv[0]]
     return (busy / 1e3 / n, [(k[:48], t / 1e3 / n, c / n)
                              for k, (t, c) in top], len(spans) / n)
+
+
+def _call_launches(fn, dev):
+    """Names of the device kernels and copies of one call of ``fn``
+    (torch.profiler). Fills queued before and after the call bracket it
+    and are left out: the profiler has been seen to miss the first launch
+    of a window."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    mark = torch.empty(1, device=dev)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            mark.fill_(0)
+        torch.cuda.synchronize()
+        fn()
+        mark.fill_(0)
+        torch.cuda.synchronize()
+    return [e.name[:48] for e in prof.events()
+            if e.device_type == DeviceType.CUDA and "Fill" not in e.name]
 
 
 def _pipeline(parse_launch, desc: str):
@@ -1149,7 +1185,9 @@ def run_jpeg_blocks(dev, lib, seg_enc, seg_payloads, seg_fps, seg_pipe):
 
 
 def run_motion_kernels(dev):
-    """Phase 5: K3 and K4 against their plain versions at 1080p."""
+    """Phase 5: K3 and K4 against their plain versions at 1080p, K4 also
+    against the parent's kernel and its other row read, and timed in
+    turns with them. Returns (results, the parent's K4 ms)."""
     import numpy as np
     import torch
     from flutpu_torch.codec.ops import motion_kernels as M
@@ -1170,7 +1208,7 @@ def run_motion_kernels(dev):
           f"ms per 1088x1920 luma frame (r={r})", flush=True)
 
     k4_err = 0.0
-    for rr in (7, 5):
+    for rr in (7, 5, 32):
         cb, cr = (torch.from_numpy(rng.normal(128, 30, (PH // 2, PW // 2))
                                    .astype(np.float32)).to(dev)
                   for _ in range(2))
@@ -1179,24 +1217,45 @@ def run_motion_kernels(dev):
                               .astype(np.int32)).to(dev)
         got = M.chroma_mc(cb, cr, mv, rr)
         want = M.chroma_mc_plain(cb, cr, mv, rr)
-        same = all(torch.equal(a, b) for a, b in zip(got, want))
-        print(f"chroma_mc vs plain (r={rr}, random vectors): "
-              f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
-        _require(same, f"chroma_mc differs from its plain version at r={rr}")
+        same = {"plain": want,
+                "parent": M._launch_chroma(CHROMA_PARENT, cb, cr, mv)}
+        same = {k: all(torch.equal(a, b) for a, b in zip(got, v))
+                for k, v in same.items()}
+        odd = int(((mv < 0) & (mv % 2 == 1)).sum())
+        print(f"chroma_mc vs plain and the parent's kernel (r={rr}, random "
+              f"vectors, {odd} odd negative components): {same}", flush=True)
+        _require(all(same.values()), f"chroma_mc differs at r={rr}: {same}")
         k4_err = max(k4_err, *(float((a - b).abs().max())
                                for a, b in zip(got, want)))
-    k4_ms = _time_ms(lambda: M.chroma_mc(cb, cr, mv, rr), 50)
-    k4_plain_ms = _time_ms(lambda: M.chroma_mc_plain(cb, cr, mv, rr), 10)
-    print(f"chroma_mc: kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms per "
-          "pair of 544x960 chroma planes", flush=True)
+        if rr == SEARCH_RANGE:
+            timed = (cb, cr, mv)
+    cb, cr, mv = timed
+    fns = {"new": lambda: M.chroma_mc(cb, cr, mv, SEARCH_RANGE),
+           "parent": lambda: M._launch_chroma(CHROMA_PARENT, cb, cr, mv)}
+    order = ("parent", "new", "new", "parent")
+    turns = [_time_ms(fns[k], 50) for k in order]
+    k4_ms, k4_parent = ((turns[i] + turns[3 - i]) / 2 for i in (1, 0))
+    k4_plain_ms = _time_ms(
+        lambda: M.chroma_mc_plain(cb, cr, mv, SEARCH_RANGE), 10)
+    print(f"chroma_mc (K4) at r={SEARCH_RANGE}, ms in turns parent, new, "
+          f"new, parent: {', '.join(f'{t:.4f}' for t in turns)}", flush=True)
+    print(f"chroma_mc: kernel {k4_ms:.4f} ms,"
+          f" the parent's kernel {k4_parent:.4f} ms, plain "
+          f"{k4_plain_ms:.4f} ms per pair of 544x960 chroma planes",
+          flush=True)
     torch.cuda.synchronize()
-    return {"motion_search_mc": dict(max_abs_err=err, ms=k3_ms,
-                                     plain_ms=k3_plain_ms,
-                                     **_search_bound(PH, PW, 16, r)),
-            "chroma_mc": dict(max_abs_err=k4_err, ms=k4_ms,
-                              plain_ms=k4_plain_ms,
-                              **_bound(4 * (PH // 2) * (PW // 2) * 4
-                                       + (PH // 16) * (PW // 16) * 2 * 4))}
+    return ({"motion_search_mc": dict(max_abs_err=err, ms=k3_ms,
+                                      plain_ms=k3_plain_ms,
+                                      **_search_bound(PH, PW, 16, r)),
+             "chroma_mc": dict(max_abs_err=k4_err, ms=k4_ms,
+                               plain_ms=k4_plain_ms,
+                               **_bound(4 * (PH // 2) * (PW // 2) * 4
+                                        + (PH // 16) * (PW // 16) * 2 * 4))},
+            k4_parent)
+
+
+#: K4's parent: the first port's kernel, a thread per pixel
+CHROMA_PARENT = "flu_chroma_mc_serial"
 
 
 def _search_bound(h: int, w: int, mb: int, r: int, extra_ops: float = 0):
@@ -1212,10 +1271,14 @@ def _hold_search(label, name, got, plain, cur, prev, r, mb, bias, compensate):
     prediction equals ``compensate(prev, mv)`` exactly, the vectors equal
     except at float64-verified near-ties. Returns the prediction's max
     |difference| (0)."""
+    import torch
     (mv, pred), (mv_p, _) = got, plain
-    d = float((pred - compensate(prev, mv)).abs().max())
-    _require(d == 0, f"{name} ({label}): prediction differs from the "
-             "compensation of its vectors")
+    # bit patterns: a NaN of prev is copied, not computed
+    _require(torch.equal(pred.view(torch.int32),
+                         compensate(prev, mv).view(torch.int32)),
+             f"{name} ({label}): prediction differs from the compensation "
+             "of its vectors")
+    d = 0.0
     ties = _near_tie_check(cur, prev, mv, mv_p, r, mb, bias)
     print(f"{name} vs plain ({label}): {ties} of {mv.shape[0] * mv.shape[1]}"
           f" blocks differ, each a float64-verified near-tie; prediction "
@@ -1223,10 +1286,32 @@ def _hold_search(label, name, got, plain, cur, prev, r, mb, bias, compensate):
     return d
 
 
+#: K5's search ranges in phase 5b (the encoder's default is 7)
+HIER_RANGES = (1, 2, 3, 7, 16, 32)
+
+
+def _hier_pairs(pairs, dev):
+    """The K3 pairs, a flat pair (every refine candidate ties) and a pair
+    with NaN: the first macroblock row of cur (every cost NaN: vector
+    (0, 0)) and one pixel of prev (the candidates that read it never
+    win)."""
+    import torch
+    flat = torch.full((PH, PW), 100.0, device=dev)
+    cur, prev = pairs[0][1].clone(), pairs[0][2].clone()
+    cur[:16] = float("nan")
+    prev[500, 700] = float("nan")
+    return pairs + [("flat", flat, flat), ("NaN", cur, prev)]
+
+
 def run_hier_kernels(dev):
     """Phase 5b: K6a (8x8 blocks on the pooled 544x960 planes at r=3,
-    16x16 on 1088x1920 at r=7), K5 (the whole hier search at r=7) and
-    K6b against their plain versions on the K3 pairs, and their times."""
+    16x16 on 1088x1920 at r=7), K5 (the whole hier search in one launch)
+    and K6b against their plain versions, and their times. K5 runs at
+    every range of HIER_RANGES on the K3 pairs, a flat pair and a pair
+    with NaN, and must be bit-identical to the parent's composition (the
+    pool, K6a, the clip and the parent's refine kernel), which it is timed
+    against in turns. Returns (results, the parent's K5 ms)."""
+    import torch
     from flutpu_torch.codec.ops import motion_kernels as M
     from flutpu_torch.codec.ops.colorspace import subsample_420
     from flutpu_torch.codec.ops.motion import compensate_blocks
@@ -1248,11 +1333,19 @@ def run_hier_kernels(dev):
             M.motion_search_mc_blocks(cur, prev, r, 16),
             M.motion_search_mc_blocks_plain(cur, prev, r, 16), cur, prev, r,
             16, True, lambda p, m: compensate_blocks(p, m, 16)))
-        err["hier"] = max(err["hier"], _hold_search(
-            f"{label}, r={r}", "motion_search_mc_hier",
-            M.motion_search_mc_hier(cur, prev, r),
-            M.motion_search_mc_hier_plain(cur, prev, r), cur, prev, r, 16,
-            False, lambda p, m: M.motion_compensate(p, m, r)))
+    for rr in HIER_RANGES:
+        for label, cur, prev in _hier_pairs(pairs, dev):
+            got = M.motion_search_mc_hier(cur, prev, rr)
+            old = M._motion_search_mc_hier_parent(cur, prev, rr)
+            _require(torch.equal(got[0], old[0]) and torch.equal(
+                got[1].view(torch.int32), old[1].view(torch.int32)),
+                f"motion_search_mc_hier ({label}, r={rr}) differs from the "
+                "parent's composition")
+            err["hier"] = max(err["hier"], _hold_search(
+                f"{label}, r={rr}; bit-identical to the parent's composition",
+                "motion_search_mc_hier", got,
+                M.motion_search_mc_hier_plain(cur, prev, rr), cur, prev, rr,
+                16, False, lambda p, m: M.motion_compensate(p, m, rr)))
     label, cur, prev = pairs[2]
     err["dygrid"] = _hold_search(
         f"{label}, r={r}", "motion_search_mc_dygrid",
@@ -1267,29 +1360,45 @@ def run_hier_kernels(dev):
          "blocks16": (_time_ms(lambda: M.motion_search_mc_blocks(
              cur, prev, r, 16), 20), _time_ms(
              lambda: M.motion_search_mc_blocks_plain(cur, prev, r, 16), 3)),
-         "hier": (_time_ms(lambda: M.motion_search_mc_hier(cur, prev, r), 20),
-                  _time_ms(lambda: M.motion_search_mc_hier_plain(
-                      cur, prev, r), 3)),
+         "hier_plain": _time_ms(lambda: M.motion_search_mc_hier_plain(
+             cur, prev, r), 3),
          "dygrid": (_time_ms(lambda: M.motion_search_mc_dygrid(
              cur, prev, r), 20), _time_ms(
              lambda: M.motion_search_mc_dygrid_plain(cur, prev, r), 3))}
-    coarse, _ = M.motion_search_mc_blocks(pc, pp, rc, 8)
-    base = (coarse * 2).clamp(-(r - 1), r - 1)
+    new_fn = lambda: M.motion_search_mc_hier(cur, prev, r)  # noqa: E731
+    old_fn = lambda: M._motion_search_mc_hier_parent(  # noqa: E731
+        cur, prev, r)
+    turns = [_time_ms(f, 20) for f in (old_fn, new_fn, new_fn, old_fn)]
+    hier_ms, hier_parent = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    calls = {label: _call_launches(fn, dev) for label, fn in
+             (("the parent's composition", old_fn), ("K5", new_fn))}
+    for label, names in calls.items():
+        print(f"motion_search_mc_hier, one call of {label} (torch.profiler): "
+              f"{len(names)} device launches: {names}", flush=True)
+    _require(len(calls["K5"]) == 1
+             and "motion_search_hier_kernel" in calls["K5"][0],
+             f"a call of K5 is not one launch of its kernel: {calls['K5']}")
+    base = (M.motion_search_mc_blocks_plain(pc, pp, rc, 8)[0] * 2).clamp(
+        -(r - 1), r - 1)
     refine_ms = _time_ms(lambda: M._launch_search(
-        "flu_motion_refine_mc", cur, prev, r, 16, base.data_ptr()), 50)
+        "flu_motion_refine_mc_serial", cur, prev, r, 16, base.data_ptr()), 50)
     print(f"motion_search_mc_blocks: kernel {t['blocks8'][0]:.4f} ms, plain "
           f"{t['blocks8'][1]:.3f} ms per pooled 544x960 plane (8x8, r={rc}); "
           f"kernel {t['blocks16'][0]:.4f} ms, plain {t['blocks16'][1]:.3f} ms "
           f"per 1088x1920 plane (16x16, r={r})", flush=True)
-    print(f"motion_search_mc_hier: kernels {t['hier'][0]:.4f} ms (pool + "
-          f"K6a + clip + refine), refine kernel alone {refine_ms:.4f} ms, "
-          f"plain {t['hier'][1]:.3f} ms per 1088x1920 luma frame (r={r})",
-          flush=True)
+    print(f"motion_search_mc_hier (K5) at r={r}, ms in turns parent, new, "
+          f"new, parent: {', '.join(f'{x:.4f}' for x in turns)}; "
+          f"{hier_parent / hier_ms:.2f}x", flush=True)
+    print(f"motion_search_mc_hier: kernel {hier_ms:.4f} ms (one launch); "
+          f"the parent's composition {hier_parent:.4f} ms (pool + K6a + "
+          f"clip + refine), its refine kernel alone {refine_ms:.4f} ms; "
+          f"plain {t['hier_plain']:.3f} ms per 1088x1920 luma frame "
+          f"(r={r})", flush=True)
     print(f"motion_search_mc_dygrid: kernel {t['dygrid'][0]:.4f} ms, plain "
           f"{t['dygrid'][1]:.3f} ms per 1088x1920 luma frame (r={r})",
           flush=True)
-    # K6a on the hier path runs at 8x8 on the pooled planes: its record
-    # carries that shape's times
+    # K6a on the hier path ran at 8x8 on the pooled planes until K5 took
+    # its search into its own kernel: its record keeps that shape's times
     out["motion_search_mc_blocks"] = dict(
         max_abs_err=err["blocks"], ms=t["blocks8"][0],
         plain_ms=t["blocks8"][1], **_search_bound(PH // 2, PW // 2, 8, rc))
@@ -1299,12 +1408,12 @@ def run_hier_kernels(dev):
     # prediction and vectors
     coarse_ops = (PH // 2) * (PW // 2) * (2 * rc + 1) ** 2 * 3
     out["motion_search_mc_hier"] = dict(
-        max_abs_err=err["hier"], ms=t["hier"][0], plain_ms=t["hier"][1],
+        max_abs_err=err["hier"], ms=hier_ms, plain_ms=t["hier_plain"],
         **_search_bound(PH, PW, 16, 1, coarse_ops + 2 * PH * PW))
     out["motion_search_mc_dygrid"] = dict(
         max_abs_err=err["dygrid"], ms=t["dygrid"][0],
         plain_ms=t["dygrid"][1], **_search_bound(PH, PW, 16, r))
-    return out
+    return out, hier_parent
 
 
 def _psnr(a, b) -> float:
@@ -1418,16 +1527,7 @@ def run_fvc(dev, lib):
         _require(n_motion[name] > 0, f"{name} was not launched on the FVC "
                  "motion path")
 
-    got = _device_busy(lambda: _chunks_in_flight(enc, src, 4), 4)
-    if got is None:
-        print("device busy (FVC full-search P chunk): not measured (the "
-              "profiler traced no device activity)", flush=True)
-    else:
-        print(f"device busy (FVC full-search P chunk, torch.profiler, 4 "
-              f"chunks): {got[0]:.3f} ms per chunk, {got[2]:g} launches per "
-              "chunk; largest kernels per chunk: "
-              + "; ".join(f"{k} {t:.3f} ms x{c:g}" for k, t, c in got[1]),
-              flush=True)
+    _print_busy("FVC full-search P chunk", enc, src)
 
     v1 = FvcEncoder(QUALITY, motion=False, device=dev)
 
@@ -1524,13 +1624,14 @@ def run_fvc_hier_b(dev, lib):
           f"frames/s; device span {span:.3f} ms per chunk (CUDA events); "
           f"mean {np.mean([len(c) for c in chunks]):.0f} bytes per chunk; "
           f"kernel launches {n}", flush=True)
-    for name in ("motion_search_mc_hier", "motion_search_mc_blocks",
-                 "chroma_mc", "pack_segments"):
+    # K5 is one launch: K6a no longer runs on this path
+    for name in ("motion_search_mc_hier", "chroma_mc", "pack_segments"):
         _require(n[name] > 0, f"{name} was not launched on the hier+B path")
     for k, v in n.items():
         total[k] = total.get(k, 0) + v
     checks = [("FVC hier+B", chunks, sources(N_CHUNKS), True)]
     first = chunks[0]
+    _print_busy("FVC hier+B chunk", enc, src)
 
     neighbours = [("FVC full+B (config 6b)", dict(bframes=1), {},
                    "motion_search_mc", True),
@@ -1554,6 +1655,8 @@ def run_fvc_hier_b(dev, lib):
         for k, v in n.items():
             total[k] = total.get(k, 0) + v
         checks.append((label, one, sources(1), has_b))
+        if kw == dict(hier=True):
+            _print_busy(f"{label} chunk", enc, src)
 
     for label, cs, srcs, has_b in checks:
         worst, d_rgb, d_psnr = _check_chunks(lib, cs, srcs, label)
@@ -1568,22 +1671,25 @@ def run_fvc_hier_b(dev, lib):
     kw = dict(motion=True, hier=True, bframes=1)
     a = FvcEncoder(QUALITY, device=dev, **kw).encode_chunk(frames)
     b = FvcEncoder(QUALITY, device="cpu", **kw).encode_chunk(frames)
-    if a == b:
-        print("card vs CPU encode (544x960 hier+B chunk): byte-identical",
-              flush=True)
-    else:
-        # a rounding tie (cuBLAS vs the CPU's in-loop DCT): hold the
-        # streams to the tie contract
-        dec = FvcDecoder("cpu")
-        (ra, ia), (rb, ib) = dec.decode_chunk(a), dec.decode_chunk(b)
-        dp = max(abs(_psnr(x, s) - _psnr(y, s))
-                 for x, y, s in zip(ra, rb, frames))
-        print(f"card vs CPU encode (544x960 hier+B chunk): DIFFERENT ({len(a)}"
-              f" vs {len(b)} bytes; types {ia['types']} vs {ib['types']}; "
-              f"max dPSNR {dp:.4f} dB)", flush=True)
-        _require(ia["types"] == ib["types"] and dp <= MAX_DPSNR,
-                 "card vs CPU hier+B encode breaks the tie contract")
+    print(f"card vs CPU encode (544x960 hier+B chunk): "
+          f"{'byte-identical' if a == b else 'DIFFERENT'} ({len(a)} vs "
+          f"{len(b)} bytes)", flush=True)
+    _require(a == b, "the card's 544x960 hier+B chunk differs from the CPU's")
     return total, first
+
+
+def _print_busy(label, enc, src):
+    """Device busy ms and launches per chunk of ``enc`` over 4 chunks of
+    the on-device source (torch.profiler)."""
+    got = _device_busy(lambda: _chunks_in_flight(enc, src, 4), 4)
+    if got is None:
+        print(f"device busy ({label}): not measured (the profiler traced no "
+              "device activity)", flush=True)
+        return
+    print(f"device busy ({label}, torch.profiler, 4 chunks): {got[0]:.3f} ms "
+          f"per chunk, {got[2]:g} device launches per chunk; largest kernels "
+          "per chunk: " + "; ".join(f"{k} {t:.3f} ms x{c:g}"
+                                    for k, t, c in got[1]), flush=True)
 
 
 def run_fvc_blocks(dev, lib, seg_chunks):

@@ -145,10 +145,13 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.flu_motion_search_mc.restype = i
     lib.flu_motion_search_mc_blocks.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.flu_motion_search_mc_blocks.restype = i
-    lib.flu_motion_refine_mc.argtypes = [p, p, p, p, i, i, i, p, p]
-    lib.flu_motion_refine_mc.restype = i
-    lib.flu_chroma_mc.argtypes = [p, p, p, p, p, i, i, p]
-    lib.flu_chroma_mc.restype = i
+    lib.flu_motion_search_hier.argtypes = [p, p, p, p, i, i, i, p]
+    lib.flu_motion_search_hier.restype = i
+    lib.flu_motion_refine_mc_serial.argtypes = [p, p, p, p, i, i, i, p, p]
+    lib.flu_motion_refine_mc_serial.restype = i
+    for entry in ("flu_chroma_mc", "flu_chroma_mc_serial"):
+        getattr(lib, entry).argtypes = [p, p, p, p, p, i, i, p]
+        getattr(lib, entry).restype = i
 
 
 def load() -> ctypes.CDLL:

@@ -17,10 +17,14 @@ Each wrapper replaces one Pallas TPU kernel with a CUDA kernel of
   K3's contract; the TPU's dy-grid schedule has no Hopper counterpart,
   so it launches the 16x16 search kernel;
 - ``motion_search_mc_hier`` (K5, ``motion_search_mc_hier_pallas``): the
-  coarse-to-fine search — 2x2 pool in torch, K6a's kernel at mb=8 and
-  ±max(1, r // 2), the base clip, then the ±1 refine kernel;
+  coarse-to-fine search in one launch — a thread block stages one
+  full-resolution window of ``prev``, pools it and its current rows in
+  shared memory, runs K6a's 8x8 search at ±max(1, r // 2) there (K3's
+  device routine), clips the base and refines ±1 from the same window,
+  then writes the prediction;
 - ``chroma_mc`` (K4, ``chroma_mc_pallas``): 4:2:0 compensation of both
-  chroma planes from the floor-halved luma vectors.
+  chroma planes from the floor-halved luma vectors, a thread per 8-wide
+  row of a block in both planes.
 
 ``*_plain`` are the same functions in plain PyTorch (the reference's
 XLA arm: ops/motion.py). The wrappers take them for CPU tensors only; a
@@ -28,6 +32,12 @@ CUDA tensor launches the kernel or raises. The kernels sum each SAD in
 the plain versions' order (ops/motion.py:_mb_sums), so vectors and
 predictions are bit-identical to them; chroma compensation is pure
 selection and bit-identical by construction.
+
+``_motion_search_mc_hier_parent`` and the C entries
+``flu_motion_refine_mc_serial`` and ``flu_chroma_mc_serial`` are the
+first port's K5 composition and K4 kernel, kept so that chip_smoke.py
+and the card tests can hold and time the kernels against them in one
+run; no encoder path reaches them.
 """
 
 from __future__ import annotations
@@ -209,25 +219,34 @@ def motion_search_mc_dygrid(cur: torch.Tensor, prev: torch.Tensor,
 def motion_search_mc_hier(cur: torch.Tensor, prev: torch.Tensor,
                           search_range: int = 7):
     """(H, W) float32 luma, H and W multiples of 16 → (mv (H/16, W/16, 2)
-    int32, pred (H, W) float32), coarse to fine: K6a at mb=8 and
-    ±max(1, r // 2) on the 2x2-mean-pooled planes, base = clip(2 * coarse,
-    ±(r - 1)), then per macroblock the least plain SAD of base + (oy, ox)
-    for oy, ox in -1..1 (first in row-major order wins ties) and its
-    prediction. CUDA tensors launch K6a (counted by
-    ``motion_search_mc_blocks``) and the refine kernel on the current
+    int32, pred (H, W) float32), coarse to fine: K6a's search at mb=8 and
+    ±max(1, r // 2) on the 2x2-mean-pooled planes, base = clip(2 *
+    coarse, ±(r - 1)), then per macroblock the least plain SAD of base +
+    (oy, ox) for oy, ox in -1..1 (first in row-major order wins ties) and
+    its prediction. CUDA tensors launch the one K5 kernel on the current
     stream; CPU tensors take ``motion_search_mc_hier_plain``."""
     if not _on_cuda(cur, "motion_search_mc_hier"):
         return motion_search_mc_hier_plain(cur, prev, search_range)
     _check_hier_args(cur, prev, search_range)
-    r = search_range
-    coarse, _ = motion_search_mc_blocks(subsample_420(cur),
-                                        subsample_420(prev), max(1, r // 2),
-                                        mb=8)
-    base = (coarse * 2).clamp(-(r - 1), r - 1)
-    out = _launch_search("flu_motion_refine_mc", cur, prev, r, MB,
-                         base.data_ptr())
+    out = _launch_search("flu_motion_search_hier", cur, prev, search_range,
+                         MB)
     motion_search_mc_hier.launches += 1
     return out
+
+
+def _motion_search_mc_hier_parent(cur: torch.Tensor, prev: torch.Tensor,
+                                  search_range: int = 7):
+    """The first port's K5 on CUDA tensors, for comparison: the pool in
+    torch, K6a's 8x8 kernel, the clip in torch, then the refine kernel of
+    one thread block per macroblock. Counts no launch."""
+    _check_hier_args(cur, prev, search_range)
+    r = search_range
+    coarse, _ = _launch_search("flu_motion_search_mc_blocks",
+                               subsample_420(cur), subsample_420(prev),
+                               max(1, r // 2), 8, 8)
+    base = (coarse * 2).clamp(-(r - 1), r - 1)
+    return _launch_search("flu_motion_refine_mc_serial", cur, prev, r, MB,
+                          base.data_ptr())
 
 
 def chroma_mc(prev_cb: torch.Tensor, prev_cr: torch.Tensor, mv: torch.Tensor,
@@ -242,19 +261,31 @@ def chroma_mc(prev_cb: torch.Tensor, prev_cr: torch.Tensor, mv: torch.Tensor,
     if not _on_cuda(prev_cb, "chroma_mc"):
         return chroma_mc_plain(prev_cb, prev_cr, mv, search_range)
     _check_chroma_args(prev_cb, prev_cr, mv)
-    prev_cb, prev_cr = prev_cb.contiguous(), prev_cr.contiguous()
+    out = _launch_chroma("flu_chroma_mc", prev_cb, prev_cr, mv)
+    chroma_mc.launches += 1
+    return out
+
+
+def _launch_chroma(entry: str, prev_cb, prev_cr, mv):
+    """One launch of a chroma entry on the current stream → (pred_cb,
+    pred_cr)."""
+    # the kernel moves 16 bytes (the vectors 8) at a time; a view may
+    # start anywhere
+    prev_cb, prev_cr = (t.clone() if t.data_ptr() % 16 else t
+                        for t in (prev_cb.contiguous(), prev_cr.contiguous()))
     mv = mv.to(torch.int32).contiguous()
+    if mv.data_ptr() % 8:
+        mv = mv.clone()
     hc, wc = prev_cb.shape
     pcb = torch.empty_like(prev_cb)
     pcr = torch.empty_like(prev_cr)
     lib = _build.load()
     with torch.cuda.device(prev_cb.device):
         stream = torch.cuda.current_stream(prev_cb.device).cuda_stream
-        _build.check(lib.flu_chroma_mc(
+        _build.check(getattr(lib, entry)(
             prev_cb.data_ptr(), prev_cr.data_ptr(), mv.data_ptr(),
             pcb.data_ptr(), pcr.data_ptr(), hc, wc, stream),
-            "chroma_mc launch")
-    chroma_mc.launches += 1
+            f"{entry} launch")
     return pcb, pcr
 
 

@@ -1,5 +1,5 @@
 // Full-search motion estimation with luma prediction (K3, and K6a at any
-// block size), the hierarchical search's refine stage (K5), and 4:2:0
+// block size), the hierarchical search (K5) in one launch, and 4:2:0
 // chroma motion compensation of both planes (K4), for Hopper.
 //
 // motion_search_mc_kernel replaces
@@ -75,33 +75,72 @@
 // serve K6a (flu_motion_search_mc_blocks), which replaces
 // motion_pallas.py:motion_search_mc_pallas: K3's contract at any block
 // size, the prediction shifting each MB x MB block by its full vector (as
-// the TPU kernel does; motion_compensate would halve it at MB != 16). K5's
-// coarse level is the MB = 8 instance on 2x2-pooled planes.
+// the TPU kernel does; motion_compensate would halve it at MB != 16). K5
+// runs the same device routines (stage_*, search_blocks<8>) on the pooled
+// window of its own kernel.
 //
-// motion_refine_mc_kernel is K5's refine stage (flu_motion_refine_mc); it
-// replaces motion_pallas.py:_refine_mc_kernel of
-// motion_search_mc_hier_pallas, which rolled whole bands once per
-// absolute candidate that some macroblock wanted and skipped the rest
-// with lax.cond. Here one thread block owns one 16x16 macroblock: it
-// stages the 18x18 wrap-around window around the macroblock's base
-// vector and the current block in shared memory, 144 threads sum the
-// nine candidates' 16 column SADs (each down its 16 rows), nine threads
-// sum each candidate's columns left to right (ops/motion.py:_mb_sums'
-// order, every add rounded on its own), one thread scans the nine costs
-// in (oy, ox) row-major order with a strict < (the first wins ties; the
-// cost is the plain SAD, no centre bias), and the block writes the vector
-// base + (oy, ox) and the prediction from the same window. Bound on the
-// H100 by device memory: ~2.3 KB read and 1 KB written per macroblock,
-// 2,304 absolute differences; the pooled coarse search costs far more.
+// motion_search_hier_kernel is K5 (flu_motion_search_hier): it replaces
+// motion_pallas.py:motion_search_mc_hier_pallas, the coarse-to-fine
+// search (a full search of +-rc = max(1, r / 2) with 8x8 blocks on the
+// 2x2-mean-pooled planes, the coarse vector doubled and clipped to
+// +-(r - 1) as each macroblock's base, then a +-1 refine at full
+// resolution), whose refine stage rolled whole bands once per absolute
+// candidate that some macroblock wanted and skipped the rest with
+// lax.cond. Bound on the H100 by device memory: cur and prev read once,
+// the prediction written (25 MB at 1088x1920, 7.5 us); its 44 M absolute
+// differences at r = 7 take about a quarter of that at the fp32 rate.
+// The first port ran it as about twelve launches (the pool in torch,
+// K6a's 8x8 instance, which also wrote a prediction nobody read, the
+// clip in torch, and a refine kernel with one 256-thread block per
+// macroblock and one thread choosing), paced by the host. Here it is one
+// launch:
+//   - a 128-thread block owns K3's row of nb macroblocks (8, or 4 at
+//     r > 8): the coarse stage's items (112 at r = 7) and the refine's
+//     columns (128) keep most of its lanes busy, where 256 threads left
+//     half of them idle in both (0.0228 against 0.0223 ms per 1088x1920
+//     frame, PERF.md). It stages ONE wrap-around window of prev at full
+//     resolution, rows y0 - R .. y0 + 15 + R and columns likewise with
+//     R = max(r, 2 rc) (the coarse stage reaches +-2 rc full-resolution
+//     pixels, the refine +-r), and the current rows, 16 bytes per thread
+//     and step as K3 does; a plane smaller than the window wraps more
+//     than once (a true modulo);
+//   - it pools the window and the current rows into K6a's coarse window
+//     and blocks in shared memory, in subsample_420's order ((a + b) + c)
+//     + d, then / 4: the pooled window starts at an even full-resolution
+//     row and column, so the full plane's wrap mod h equals the pooled
+//     plane's mod h / 2;
+//   - the coarse search is K3's device routine (search_blocks<8>) on that
+//     window: K6a's contract, nothing written to device memory;
+//   - the base clip, then the refine: a thread per macroblock column
+//     walks its 16 rows once with a sliding 3-row register window and
+//     sums the column for all nine candidates (4 shared loads per 9
+//     differences), sixteen lanes per macroblock add the 16 column sums
+//     of one candidate left to right, and a 4-step xor shuffle picks the
+//     least (cost, candidate) key;
+//   - the prediction comes from the same window, 16 bytes per store.
+// motion_refine_mc_serial_kernel is the first port's refine kernel
+// (flu_motion_refine_mc_serial), kept so that a run can time the old
+// composition against the new kernel.
 //
 // chroma_mc_kernel replaces motion_pallas.py:chroma_mc_pallas (the Pallas
 // TPU kernel `_chroma_mc_kernel`), which rolled a wrap-padded band once per
-// distinct halved shift and selected per pixel. Here each thread gathers
-// its pixel directly. It is pure selection, bound by device memory
-// (about 8 MB moved for both 544x960 planes), and bit-identical to
-// ops/motion.py:motion_compensate(prev, mv, mb=8): the luma vectors are
-// floor-halved (-7 -> -4; C's `/` truncates, so the halving subtracts the
-// low bit first).
+// distinct halved shift and selected per pixel. It is pure selection,
+// bound by device memory (8.4 MB moved for both 544x960 planes, 2.5 us),
+// and bit-identical to ops/motion.py:motion_compensate(prev, mv, mb=8):
+// the luma vectors are floor-halved (-7 -> -4; C's `/` truncates, so the
+// halving subtracts the low bit first). A thread takes one 8-wide row of
+// an 8x8 block in both planes: it loads the block's vector once, finds
+// its source row and first column with one modulo each, reads the 8
+// source values (the row is contiguous except where it wraps, and w is a
+// multiple of 4, so whole 16-byte words wrap as units) with three aligned
+// 16-byte loads and a register shift, and writes two 16-byte words per
+// plane. Eight 4-byte loads per row were measured too and were slower
+// (0.0059-0.0061 against 0.0052-0.0054 ms per pair of 544x960 planes,
+// PERF.md), so only the words remain. Threads walk the block rows
+// grid-stride, at most a few waves of the card's SMs. The first port's
+// kernel, a thread per pixel that reloads its block's vector and wraps
+// each pixel with a modulo, stays as chroma_mc_serial_kernel
+// (flu_chroma_mc_serial) for the in-turn timing.
 
 #include <climits>
 #include <cmath>
@@ -110,9 +149,12 @@
 
 namespace {
 
-constexpr int kMB = 16;  // luma macroblock (K3, K5's refine)
-constexpr int kSearchThreads = 256;
+constexpr int kMB = 16;  // luma macroblock (K3, K5)
+constexpr int kSearchThreads = 256;  // K3, K6a
+constexpr int kHierThreads = 128;    // K5: each of its stages keeps most of them busy
+constexpr int kHierBlocksPerSM = 6;  // what its shared memory allows at r <= 8
 constexpr int kMaxRange = 32;
+constexpr size_t kMaxSmem = 232448;  // what one block may ask for on Hopper
 
 __device__ __forceinline__ int wrap(int v, int n) {
   const int m = v % n;
@@ -130,6 +172,7 @@ constexpr int kCols = 8;    // adjacent columns of the current block per work it
 constexpr unsigned long long kNoWinner = ~0ull;
 
 static_assert(kShifts == 4 && kCols % 4 == 0, "window and block rows move as 16-byte words");
+static_assert(kHierThreads >= 128, "K5 takes a thread per column of its 8 macroblocks");
 
 // what the host sizes for a launch and the kernel lays out the same way
 struct SearchShape {
@@ -140,9 +183,10 @@ struct SearchShape {
   size_t smem;  // bytes
 };
 
-__host__ __device__ inline SearchShape search_shape(int mb, int r) {
+// the search's layout for nb macroblocks of mb x mb at range r
+__host__ __device__ inline SearchShape search_shape(int mb, int r, int nb) {
   SearchShape s;
-  s.nb = (r <= 8 ? 128 : 64) / mb;
+  s.nb = nb;
   // the window starts at plane column x0 - r - off, a multiple of 4, so
   // that it is staged 16 bytes at a time; the shifts are grouped by
   // window column, so an item's 16-byte loads stay aligned too
@@ -157,12 +201,52 @@ __host__ __device__ inline SearchShape search_shape(int mb, int r) {
   return s;
 }
 
+// K3's and K6a's: a row of 128 columns of blocks (64 at r > 8)
+__host__ __device__ inline SearchShape search_shape(int mb, int r) {
+  return search_shape(mb, r, (r <= 8 ? 128 : 64) / mb);
+}
+
 // floor(a / d) from inv = 1 / d rounded to nearest, for 0 <= a < 2^20 and
 // d <= 2^10: (a + 0.5) / d lies at least 0.5 / d from an integer, the two
 // roundings move it by less than a / d * 2^-22. Three instructions where
 // the integer division takes about forty.
 __device__ __forceinline__ int div_by(int a, float inv) {
   return __float2int_rz(__fmul_rn((float)a + 0.5f, inv));
+}
+
+// dst[a * stride + b] = src[(row0 + a) mod h, (col0 + b) mod w] for a <
+// rows, b < stride, 16 bytes per thread and step. stride and col0 are
+// multiples of 4 and w of 8, so a word that starts at a multiple of 4
+// lies inside the plane after the wrap; only words outside it take the
+// modulo, which is a true one (a plane smaller than the window wraps more
+// than once). NT: the block's threads.
+template <int NT>
+__device__ __forceinline__ void stage_window(float* dst, const float* __restrict__ src, int h,
+                                             int w, int row0, int col0, int rows, int stride) {
+  const int s4 = stride / 4;
+  const float inv_s4 = __frcp_rn((float)s4);
+  for (int k = threadIdx.x; k < rows * s4; k += NT) {
+    const int a = div_by(k, inv_s4), b = 4 * (k - a * s4);
+    int row = row0 + a, col = col0 + b;
+    if (row < 0 || row >= h) row = wrap(row, h);
+    if (col < 0 || col >= w) col = wrap(col, w);
+    *reinterpret_cast<float4*>(dst + a * stride + b) =
+        __ldg(reinterpret_cast<const float4*>(src + (size_t)row * w + col));
+  }
+}
+
+// dst[i * stride + b] = src[row0 + i, col0 + b] for i < rows, b < cols (a
+// multiple of 4), 16 bytes per thread and step
+template <int NT>
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src, int w,
+                                           int row0, int col0, int rows, int cols, int stride) {
+  const int c4 = cols / 4;
+  const float inv_c4 = __frcp_rn((float)c4);
+  for (int k = threadIdx.x; k < rows * c4; k += NT) {
+    const int i = div_by(k, inv_c4), b = 4 * (k - i * c4);
+    *reinterpret_cast<float4*>(dst + i * stride + b) =
+        __ldg(reinterpret_cast<const float4*>(src + (size_t)(row0 + i) * w + col0 + b));
+  }
 }
 
 // One row of a work item: 8 current values against 12 window values (the
@@ -184,52 +268,21 @@ __device__ __forceinline__ void sad_row(float (&acc)[kShifts][kCols], const floa
       acc[s][c] = __fadd_rn(acc[s][c], fabsf(__fsub_rn(cv[c], wv[c + s])));
 }
 
-template <int MB>
-__global__ void __launch_bounds__(kSearchThreads, 4)
-motion_search_mc_kernel(const float* __restrict__ cur, const float* __restrict__ prev,
-                        int32_t* __restrict__ mv, float* __restrict__ pred, int h, int w,
-                        int r) {
+// The search of nbv blocks of MB x MB staged under one window (win: MB +
+// 2r rows of shape.stride; blk: MB rows of shape.nb * MB, the current
+// blocks): each block's least (cost, c) folded into best[] (kNoWinner
+// beforehand) with a 64-bit atomicMin by the block's NT threads; the
+// caller synchronises before it reads best[].
+template <int MB, int NT>
+__device__ __forceinline__ void search_blocks(const float* win, const float* blk,
+                                              const SearchShape& shape, int nbv, int r,
+                                              unsigned long long* best) {
   static_assert(MB % kCols == 0 && 32 % (MB / kCols) == 0,
                 "the items of one candidate's columns share a warp");
   constexpr int JG = MB / kCols;  // items per candidate group
-  extern __shared__ __align__(16) float smem[];
-  const SearchShape shape = search_shape(MB, r);
   const int stride = shape.stride, groups = shape.groups, off = shape.off;
   const int cstride = shape.nb * MB;
-  const int span = MB + 2 * r;
-  float* win = smem;                  // span x stride
-  float* blk = win + span * stride;   // MB x cstride: the current blocks
-  unsigned long long* best = reinterpret_cast<unsigned long long*>(blk + MB * cstride);
-  int* vec = reinterpret_cast<int*>(best + shape.nb);  // (dy, dx) per macroblock
-
   const int t = threadIdx.x;
-  const int y0 = blockIdx.y * MB;
-  const int mb0 = blockIdx.x * shape.nb;
-  const int x0 = mb0 * MB;
-  const int nbv = min(shape.nb, w / MB - mb0);  // macroblocks of this block
-
-  // window element (a, b) = prev[(y0 - r + a) mod h, (x0 - r - off + b) mod w],
-  // 16 bytes per thread and step; w is a multiple of 8, so a word that
-  // starts at a multiple of 4 lies inside the plane after the wrap
-  const int s4 = stride / 4;
-  const float inv_s4 = __frcp_rn((float)s4);
-  for (int k = t; k < span * s4; k += kSearchThreads) {
-    const int a = div_by(k, inv_s4), b = 4 * (k - a * s4);
-    int row = y0 - r + a, col = x0 - r - off + b;
-    if (row < 0 || row >= h) row = wrap(row, h);
-    if (col < 0 || col >= w) col = wrap(col, w);
-    *reinterpret_cast<float4*>(win + a * stride + b) =
-        __ldg(reinterpret_cast<const float4*>(prev + (size_t)row * w + col));
-  }
-  const int c4 = nbv * MB / 4;
-  const float inv_c4 = __frcp_rn((float)c4);
-  for (int k = t; k < MB * c4; k += kSearchThreads) {
-    const int i = div_by(k, inv_c4), b = 4 * (k - i * c4);
-    *reinterpret_cast<float4*>(blk + i * cstride + b) =
-        __ldg(reinterpret_cast<const float4*>(cur + (size_t)(y0 + i) * w + x0 + b));
-  }
-  if (t < shape.nb) best[t] = kNoWinner;
-  __syncthreads();
 
   // item = ((macroblock * n + ey) * groups + eg) * JG + jg, where candidate
   // row dy = r - ey reads window rows ey + i, and dx = r - e, e = 4 eg + s - off,
@@ -237,7 +290,7 @@ motion_search_mc_kernel(const float* __restrict__ cur, const float* __restrict__
   const int n = 2 * r + 1;
   const int total = nbv * n * groups * JG;
   const float inv_groups = __frcp_rn((float)groups), inv_n = __frcp_rn((float)n);
-  for (int base = 0; base < total; base += kSearchThreads) {
+  for (int base = 0; base < total; base += NT) {
     const int item = base + t;
     const bool valid = item < total;
     const int jg = item % JG;
@@ -303,21 +356,57 @@ motion_search_mc_kernel(const float* __restrict__ cur, const float* __restrict__
         atomicMin(best + mbk, ((unsigned long long)__float_as_uint(lo) << 32) | (unsigned)lo_c);
     }
   }
+}
+
+// the (dy, dx) of a best[] key at range r; no winner (every cost NaN or
+// +inf) keeps the plain version's initial (0, 0)
+__device__ __forceinline__ int2 winner(unsigned long long key, int r) {
+  const int n = 2 * r + 1;
+  const int c = key == kNoWinner ? r * n + r : (int)(key & 0xffffffffu);
+  return make_int2(c / n - r, c - (c / n) * n - r);
+}
+
+template <int MB>
+__global__ void __launch_bounds__(kSearchThreads, 4)
+motion_search_mc_kernel(const float* __restrict__ cur, const float* __restrict__ prev,
+                        int32_t* __restrict__ mv, float* __restrict__ pred, int h, int w,
+                        int r) {
+  extern __shared__ __align__(16) float smem[];
+  const SearchShape shape = search_shape(MB, r);
+  const int stride = shape.stride, off = shape.off;
+  const int cstride = shape.nb * MB;
+  const int span = MB + 2 * r;
+  float* win = smem;                  // span x stride
+  float* blk = win + span * stride;   // MB x cstride: the current blocks
+  unsigned long long* best = reinterpret_cast<unsigned long long*>(blk + MB * cstride);
+  int* vec = reinterpret_cast<int*>(best + shape.nb);  // (dy, dx) per macroblock
+
+  const int t = threadIdx.x;
+  const int y0 = blockIdx.y * MB;
+  const int mb0 = blockIdx.x * shape.nb;
+  const int x0 = mb0 * MB;
+  const int nbv = min(shape.nb, w / MB - mb0);  // macroblocks of this block
+
+  // window element (a, b) = prev[(y0 - r + a) mod h, (x0 - r - off + b) mod w]
+  stage_window<kSearchThreads>(win, prev, h, w, y0 - r, x0 - r - off, span, stride);
+  stage_rows<kSearchThreads>(blk, cur, w, y0, x0, MB, nbv * MB, cstride);
+  if (t < shape.nb) best[t] = kNoWinner;
+  __syncthreads();
+
+  search_blocks<MB, kSearchThreads>(win, blk, shape, nbv, r, best);
   __syncthreads();
 
   if (t < nbv) {
-    // no winner only when every cost is NaN or +inf; the plain version
-    // then keeps its initial (0, 0)
-    const int c = best[t] == kNoWinner ? r * n + r : (int)(best[t] & 0xffffffffu);
-    const int dy = c / n - r;
-    const int dx = c - (c / n) * n - r;
-    vec[2 * t] = dy;
-    vec[2 * t + 1] = dx;
+    const int2 v = winner(best[t], r);
+    vec[2 * t] = v.x;
+    vec[2 * t + 1] = v.y;
     int32_t* out = mv + ((size_t)blockIdx.y * (w / MB) + mb0 + t) * 2;
-    out[0] = dy;
-    out[1] = dx;
+    out[0] = v.x;
+    out[1] = v.y;
   }
   __syncthreads();
+  const int c4 = nbv * MB / 4;
+  const float inv_c4 = __frcp_rn((float)c4);
   for (int k = t; k < MB * c4; k += kSearchThreads) {
     const int i = div_by(k, inv_c4), b = 4 * (k - i * c4);
     const int m = b / MB;
@@ -327,12 +416,201 @@ motion_search_mc_kernel(const float* __restrict__ cur, const float* __restrict__
   }
 }
 
-constexpr int kWin = kMB + 2;  // K5's refine window: the macroblock and a 1-pixel rim
+constexpr int kColStride = kMB + 1;  // K5's refine column sums of one candidate
 
+// what the host sizes for a launch of K5 and the kernel lays out the same way
+struct HierShape {
+  int nb;              // macroblocks per thread block (K3's count at r)
+  int rc;              // the coarse range, max(1, r / 2)
+  int rim;             // the window's rim R = max(r, 2 rc), full-resolution pixels
+  int off;             // spare window columns on the left: rim + off is a multiple of 4
+  int stride;          // full-resolution window row, words
+  SearchShape coarse;  // the pooled window and blocks: K6a's layout at 8x8, rc and nb
+  size_t smem;         // bytes
+};
+
+__host__ __device__ inline HierShape hier_shape(int r) {
+  HierShape s;
+  s.nb = search_shape(kMB, r).nb;
+  s.rc = r / 2 > 1 ? r / 2 : 1;
+  s.rim = r > 2 * s.rc ? r : 2 * s.rc;
+  s.off = (4 - s.rim % 4) % 4;
+  // the prediction reads up to column nb * 16 - 1 + off + 2 rim
+  s.stride = (s.off + s.nb * kMB + 2 * s.rim + 3) / 4 * 4;
+  if (s.stride % 32 == 0) s.stride += 4;
+  s.coarse = search_shape(8, s.rc, s.nb);
+  const size_t floats = (size_t)(kMB + 2 * s.rim) * s.stride + (size_t)kMB * s.nb * kMB +
+                        (size_t)(8 + 2 * s.rc) * s.coarse.stride + (size_t)8 * s.nb * 8 +
+                        (size_t)s.nb * 9 * kColStride;
+  s.smem = sizeof(float) * floats + sizeof(unsigned long long) * s.nb + sizeof(int) * 2 * s.nb;
+  return s;
+}
+
+// the 2x2 mean of p[0], p[1], p[s], p[s + 1] as subsample_420 takes it:
+// ((a + b) + c) + d, then / 4 (a product with 0.25 rounds the same)
+__device__ __forceinline__ float pool4(const float* p, int s) {
+  return __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(p[0], p[1]), p[s]), p[s + 1]), 0.25f);
+}
+
+// x[q] = p[1 - q]: the window values that candidates ox = q - 1 read
+__device__ __forceinline__ void load3(float (&x)[3], const float* p) {
+  x[0] = p[1];
+  x[1] = p[0];
+  x[2] = p[-1];
+}
+
+__global__ void __launch_bounds__(kHierThreads, kHierBlocksPerSM)
+motion_search_hier_kernel(const float* __restrict__ cur, const float* __restrict__ prev,
+                          int32_t* __restrict__ mv, float* __restrict__ pred, int h, int w,
+                          int r) {
+  extern __shared__ __align__(16) float smem[];
+  const HierShape shape = hier_shape(r);
+  const SearchShape& cs = shape.coarse;
+  const int nb = shape.nb, rc = shape.rc, rim = shape.rim, off = shape.off;
+  const int stride = shape.stride, bstride = nb * kMB;
+  const int span = kMB + 2 * rim, cspan = 8 + 2 * rc, cbstride = nb * 8;
+  float* win = smem;                    // span x stride: prev at full resolution
+  float* blk = win + span * stride;     // 16 x bstride: the current rows
+  float* cwin = blk + kMB * bstride;    // cspan x cs.stride: the pooled window
+  float* cblk = cwin + cspan * cs.stride;  // 8 x cbstride: the pooled current rows
+  unsigned long long* best = reinterpret_cast<unsigned long long*>(cblk + 8 * cbstride);
+  float* cols = reinterpret_cast<float*>(best + nb);  // nb x 9 x kColStride
+  int* vec = reinterpret_cast<int*>(cols + nb * 9 * kColStride);  // (dy, dx) per macroblock
+
+  const int t = threadIdx.x;
+  const int y0 = blockIdx.y * kMB;
+  const int mb0 = blockIdx.x * nb;
+  const int x0 = mb0 * kMB;
+  const int nbv = min(nb, w / kMB - mb0);  // macroblocks of this block
+
+  // window element (a, b) = prev[(y0 - rim + a) mod h, (x0 - rim - off + b) mod w]
+  stage_window<kHierThreads>(win, prev, h, w, y0 - rim, x0 - rim - off, span, stride);
+  stage_rows<kHierThreads>(blk, cur, w, y0, x0, kMB, nbv * kMB, bstride);
+  if (t < nb) best[t] = kNoWinner;
+  __syncthreads();
+
+  // pooled window element (a, b) = pooled prev[(y0/2 - rc + a) mod h/2,
+  // (x0/2 - rc - cs.off + b) mod w/2]: for b = cs.off + k the mean of
+  // window rows 2a + rim - 2rc (+1) and columns 2k + rim + off - 2rc (+1).
+  // The columns no kept shift reads (the groups' spare ones) are 0.
+  const int used = cs.off + nbv * 8 + 2 * rc;
+  const float inv_cstride = __frcp_rn((float)cs.stride);
+  for (int k = t; k < cspan * cs.stride; k += kHierThreads) {
+    const int a = div_by(k, inv_cstride), b = k - a * cs.stride;
+    cwin[k] = b >= cs.off && b < used
+                  ? pool4(win + (2 * a + rim - 2 * rc) * stride + 2 * (b - cs.off) + rim + off -
+                              2 * rc,
+                          stride)
+                  : 0.f;
+  }
+  const int cw = nbv * 8;
+  const float inv_cw = __frcp_rn((float)cw);
+  for (int k = t; k < 8 * cw; k += kHierThreads) {
+    const int i = div_by(k, inv_cw), j = k - i * cw;
+    cblk[i * cbstride + j] = pool4(blk + 2 * i * bstride + 2 * j, bstride);
+  }
+  __syncthreads();
+
+  // the coarse search, K6a's contract at 8x8 and rc
+  search_blocks<8, kHierThreads>(cwin, cblk, cs, nbv, rc, best);
+  __syncthreads();
+
+  // the base: the coarse vector doubled, clipped to +-(r - 1)
+  if (t < nbv) {
+    const int2 c = winner(best[t], rc);
+    vec[2 * t] = max(-(r - 1), min(r - 1, 2 * c.x));
+    vec[2 * t + 1] = max(-(r - 1), min(r - 1, 2 * c.y));
+  }
+  __syncthreads();
+
+  // the refine: thread (m, j) sums column j of macroblock m down its 16
+  // rows for the nine candidates base + (oy, ox), c = 3 (oy + 1) + ox + 1.
+  // Candidate (oy, ox) reads window row i + rim - by - oy, column
+  // m * 16 + j + rim + off - bx - ox: rows i - 1, i, i + 1 around wp's, so
+  // each row of the walk loads one new window row of three values.
+  if (t < nbv * kMB) {
+    const int m = t >> 4, j = t & 15;
+    const float* cp = blk + m * kMB + j;
+    const float* wp = win + (rim - vec[2 * m]) * stride + m * kMB + j + rim + off - vec[2 * m + 1];
+    float acc[9];
+#pragma unroll
+    for (int c = 0; c < 9; c++) acc[c] = 0.f;
+    float up[3], mid[3], down[3];
+    load3(up, wp - stride);
+    load3(mid, wp);
+#pragma unroll
+    for (int i = 0; i < kMB; i++) {
+      const float cv = cp[i * bstride];
+      load3(down, wp + (i + 1) * stride);
+#pragma unroll
+      for (int q = 0; q < 3; q++) {
+        acc[q] = __fadd_rn(acc[q], fabsf(__fsub_rn(cv, down[q])));        // oy = -1
+        acc[3 + q] = __fadd_rn(acc[3 + q], fabsf(__fsub_rn(cv, mid[q])));  // oy = 0
+        acc[6 + q] = __fadd_rn(acc[6 + q], fabsf(__fsub_rn(cv, up[q])));   // oy = 1
+        up[q] = mid[q];
+        mid[q] = down[q];
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 9; c++) cols[(m * 9 + c) * kColStride + j] = acc[c];
+  }
+  __syncthreads();
+
+  // lanes (m, c), 16 to a macroblock: candidate c < 9 adds its 16 column
+  // sums left to right; the least (cost, c) key of the 16 lanes wins (the
+  // first in row-major order among equal costs, as a strict < scan keeps
+  // it; NaN and +inf never win). nb * 16 threads are whole warps.
+  if (t < nb * kMB) {
+    const int m = t >> 4, c = t & 15;
+    unsigned long long key = kNoWinner;
+    if (m < nbv && c < 9) {
+      const float* cp = cols + (m * 9 + c) * kColStride;
+      float sad = cp[0];
+#pragma unroll
+      for (int j = 1; j < kMB; j++) sad = __fadd_rn(sad, cp[j]);
+      // SADs are >= +0, so their bit patterns order as they do
+      if (sad < INFINITY) key = ((unsigned long long)__float_as_uint(sad) << 32) | (unsigned)c;
+    }
+#pragma unroll
+    for (int s = 8; s; s >>= 1) {
+      const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, s);
+      key = other < key ? other : key;
+    }
+    if (c == 0 && m < nbv) {
+      int vy = 0, vx = 0;  // every cost NaN: the plain version keeps (0, 0)
+      if (key != kNoWinner) {
+        const int b = (int)(key & 0xffffffffu);
+        vy = vec[2 * m] + b / 3 - 1;
+        vx = vec[2 * m + 1] + b % 3 - 1;
+      }
+      vec[2 * m] = vy;
+      vec[2 * m + 1] = vx;
+      *reinterpret_cast<int2*>(mv + ((size_t)blockIdx.y * (w / kMB) + mb0 + m) * 2) =
+          make_int2(vy, vx);
+    }
+  }
+  __syncthreads();
+
+  // the prediction from the window, 16 bytes per store
+  const int c4 = nbv * kMB / 4;
+  const float inv_c4 = __frcp_rn((float)c4);
+  for (int k = t; k < kMB * c4; k += kHierThreads) {
+    const int i = div_by(k, inv_c4), b = 4 * (k - i * c4);
+    const int m = b / kMB;
+    const float* src = win + (i + rim - vec[2 * m]) * stride + b + rim + off - vec[2 * m + 1];
+    *reinterpret_cast<float4*>(pred + (size_t)(y0 + i) * w + x0 + b) =
+        make_float4(src[0], src[1], src[2], src[3]);
+  }
+}
+
+constexpr int kWin = kMB + 2;  // the first port's refine window: the macroblock and a 1-pixel rim
+
+// The first port's refine stage of K5 (one thread block per macroblock):
+// base (h/16, w/16, 2) in, each within +-(r - 1).
 __global__ void __launch_bounds__(kSearchThreads)
-motion_refine_mc_kernel(const float* __restrict__ cur, const float* __restrict__ prev,
-                        const int32_t* __restrict__ base, int32_t* __restrict__ mv,
-                        float* __restrict__ pred, int h, int w) {
+motion_refine_mc_serial_kernel(const float* __restrict__ cur, const float* __restrict__ prev,
+                               const int32_t* __restrict__ base, int32_t* __restrict__ mv,
+                               float* __restrict__ pred, int h, int w) {
   __shared__ float win[kWin * kWin];
   __shared__ float blk[kMB * kMB];
   __shared__ float cols[9 * kMB];
@@ -400,10 +678,64 @@ motion_refine_mc_kernel(const float* __restrict__ cur, const float* __restrict__
 // floor(v / 2) for any sign
 __device__ __forceinline__ int floor_half(int v) { return (v - (v & 1)) / 2; }
 
-__global__ void __launch_bounds__(128)
+constexpr int kChromaThreads = 256;
+constexpr int kChromaWaves = 4;  // resident blocks per SM the grid asks for
+
+// o[k] = row[(sx + k) mod wc], k < 8, sx in 0..wc-1; w a multiple of 8.
+// Three aligned 16-byte words cover the 8 values (a word past the end
+// wraps whole, as wc is a multiple of 4) and a register shift by sx mod 4
+// picks them.
+__device__ __forceinline__ void read_row(float (&o)[8], const float* __restrict__ row, int sx,
+                                         int wc) {
+  const int a = sx & ~3, s = sx & 3;
+  float v[12];
+#pragma unroll
+  for (int q = 0; q < 3; q++) {
+    int col = a + 4 * q;
+    if (col >= wc) col -= wc;
+    const float4 x = __ldg(reinterpret_cast<const float4*>(row + col));
+    v[4 * q] = x.x;
+    v[4 * q + 1] = x.y;
+    v[4 * q + 2] = x.z;
+    v[4 * q + 3] = x.w;
+  }
+#pragma unroll
+  for (int k = 0; k < 8; k++)
+    o[k] = s == 0 ? v[k] : s == 1 ? v[k + 1] : s == 2 ? v[k + 2] : v[k + 3];
+}
+
+__device__ __forceinline__ void write_row(float* dst, const float (&o)[8]) {
+  reinterpret_cast<float4*>(dst)[0] = make_float4(o[0], o[1], o[2], o[3]);
+  reinterpret_cast<float4*>(dst)[1] = make_float4(o[4], o[5], o[6], o[7]);
+}
+
+__global__ void __launch_bounds__(kChromaThreads)
 chroma_mc_kernel(const float* __restrict__ cb, const float* __restrict__ cr,
                  const int32_t* __restrict__ mv, float* __restrict__ pcb,
                  float* __restrict__ pcr, int hc, int wc) {
+  const int bw = wc >> 3;
+  const int rows = hc * bw;  // 8-wide rows of blocks, row-major
+  for (int g = blockIdx.x * kChromaThreads + threadIdx.x; g < rows;
+       g += gridDim.x * kChromaThreads) {
+    const int y = g / bw, bx = g - y * bw;
+    const int2 v = __ldg(reinterpret_cast<const int2*>(mv) + (size_t)(y >> 3) * bw + bx);
+    int sy = y - floor_half(v.x), sx = bx * 8 - floor_half(v.y);
+    if (sy < 0 || sy >= hc) sy = wrap(sy, hc);
+    if (sx < 0 || sx >= wc) sx = wrap(sx, wc);
+    const size_t src = (size_t)sy * wc, dst = (size_t)y * wc + bx * 8;
+    float o[8];
+    read_row(o, cb + src, sx, wc);
+    write_row(pcb + dst, o);
+    read_row(o, cr + src, sx, wc);
+    write_row(pcr + dst, o);
+  }
+}
+
+// The first port's K4: a thread per pixel
+__global__ void __launch_bounds__(128)
+chroma_mc_serial_kernel(const float* __restrict__ cb, const float* __restrict__ cr,
+                        const int32_t* __restrict__ mv, float* __restrict__ pcb,
+                        float* __restrict__ pcr, int hc, int wc) {
   const int x = blockIdx.x * blockDim.x + threadIdx.x;
   const int y = blockIdx.y;
   if (x >= wc) return;
@@ -432,6 +764,45 @@ int launch_search(const void* cur, const void* prev, void* mv, void* pred, int h
   return (int)cudaGetLastError();
 }
 
+bool chroma_args_ok(const void* cb, const void* cr, const void* mv, const void* pcb,
+                    const void* pcr, int hc, int wc) {
+  return hc >= 0 && wc >= 0 && hc % 8 == 0 && wc % 8 == 0 &&
+         ((uintptr_t)cb | (uintptr_t)cr | (uintptr_t)pcb | (uintptr_t)pcr) % 16 == 0 &&
+         (uintptr_t)mv % 8 == 0;
+}
+
+// the card's SM count, read once per device
+int sm_count(int* sms) {
+  static int cached[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev < 64 && cached[dev] > 0) {
+    *sms = cached[dev];
+    return (int)cudaSuccess;
+  }
+  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess && dev < 64) cached[dev] = *sms;
+  return (int)err;
+}
+
+int launch_chroma(const void* cb, const void* cr, const void* mv, void* pcb, void* pcr, int hc,
+                  int wc, void* stream) {
+  if (!chroma_args_ok(cb, cr, mv, pcb, pcr, hc, wc)) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)hc * (wc / 8);
+  if (rows == 0) return (int)cudaSuccess;
+  if (rows > INT32_MAX / 2) return (int)cudaErrorInvalidValue;
+  int sms = 0;
+  const int err = sm_count(&sms);
+  if (err != (int)cudaSuccess) return err;
+  const long long need = (rows + kChromaThreads - 1) / kChromaThreads;
+  const long long room = (long long)sms * kChromaWaves;
+  chroma_mc_kernel<<<(unsigned)(need < room ? need : room), kChromaThreads, 0,
+                     (cudaStream_t)stream>>>(
+      (const float*)cb, (const float*)cr, (const int32_t*)mv, (float*)pcb, (float*)pcr, hc, wc);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -452,29 +823,59 @@ int flu_motion_search_mc_blocks(const void* cur, const void* prev, void* mv, voi
   return (int)cudaErrorInvalidValue;
 }
 
-// K5's refine: cur, prev (h, w) float32, multiples of 16; base (h/16, w/16, 2)
-// int32, each in -(r-1)..r-1; mv (h/16, w/16, 2) int32 out; pred (h, w)
-// float32 out. r bounds the base (the window is 18x18 whatever r is).
-int flu_motion_refine_mc(const void* cur, const void* prev, void* mv, void* pred, int h, int w,
-                         int r, const void* base, void* stream) {
+// K5, the whole hier search: cur, prev (h, w) float32, multiples of 16,
+// 16-byte aligned; mv (h/16, w/16, 2) int32 out; pred (h, w) float32 out;
+// 1 <= r <= 32. Above 48 KB of shared memory (r >= 24) the launch asks
+// for more; a shape past the 227 KB a block may have is refused.
+int flu_motion_search_hier(const void* cur, const void* prev, void* mv, void* pred, int h, int w,
+                           int r, void* stream) {
+  if (h % kMB || w % kMB || r < 1 || r > kMaxRange) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)cur | (uintptr_t)prev | (uintptr_t)pred) % 16) return (int)cudaErrorInvalidValue;
+  if (h == 0 || w == 0) return (int)cudaSuccess;
+  const HierShape shape = hier_shape(r);
+  if (shape.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (shape.smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        motion_search_hier_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shape.smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  const dim3 grid((w / kMB + shape.nb - 1) / shape.nb, h / kMB);
+  motion_search_hier_kernel<<<grid, kHierThreads, shape.smem, (cudaStream_t)stream>>>(
+      (const float*)cur, (const float*)prev, (int32_t*)mv, (float*)pred, h, w, r);
+  return (int)cudaGetLastError();
+}
+
+// The first port's refine stage of K5: cur, prev (h, w) float32, multiples
+// of 16; base (h/16, w/16, 2) int32, each in -(r-1)..r-1; mv (h/16, w/16,
+// 2) int32 out; pred (h, w) float32 out. r bounds the base (the window is
+// 18x18 whatever r is).
+int flu_motion_refine_mc_serial(const void* cur, const void* prev, void* mv, void* pred, int h,
+                                int w, int r, const void* base, void* stream) {
   if (h % kMB || w % kMB || r < 1 || r > kMaxRange) return (int)cudaErrorInvalidValue;
   if (h == 0 || w == 0) return (int)cudaSuccess;
   const dim3 grid(w / kMB, h / kMB);
-  motion_refine_mc_kernel<<<grid, kSearchThreads, 0, (cudaStream_t)stream>>>(
+  motion_refine_mc_serial_kernel<<<grid, kSearchThreads, 0, (cudaStream_t)stream>>>(
       (const float*)cur, (const float*)prev, (const int32_t*)base, (int32_t*)mv, (float*)pred, h,
       w);
   return (int)cudaGetLastError();
 }
 
-// cb, cr: (hc, wc) float32, multiples of 8; mv: (hc/8, wc/8, 2) int32 luma
-// vectors; pcb, pcr: (hc, wc) float32 out.
+// K4: cb, cr (hc, wc) float32, multiples of 8, 16-byte aligned; mv
+// (hc/8, wc/8, 2) int32 luma vectors, 8-byte aligned; pcb, pcr (hc, wc)
+// float32 out, 16-byte aligned.
 int flu_chroma_mc(const void* cb, const void* cr, const void* mv, void* pcb, void* pcr, int hc,
                   int wc, void* stream) {
+  return launch_chroma(cb, cr, mv, pcb, pcr, hc, wc, stream);
+}
+
+// The first port's K4 (a thread per pixel); flu_chroma_mc's arguments
+int flu_chroma_mc_serial(const void* cb, const void* cr, const void* mv, void* pcb, void* pcr,
+                         int hc, int wc, void* stream) {
   if (hc % 8 || wc % 8) return (int)cudaErrorInvalidValue;
   if (hc == 0 || wc == 0) return (int)cudaSuccess;
   const int threads = 128;
   const dim3 grid((wc + threads - 1) / threads, hc, 2);
-  chroma_mc_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+  chroma_mc_serial_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
       (const float*)cb, (const float*)cr, (const int32_t*)mv, (float*)pcb, (float*)pcr, hc, wc);
   return (int)cudaGetLastError();
 }

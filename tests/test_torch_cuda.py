@@ -389,17 +389,36 @@ def test_blocks_search_kernel_matches_plain(cuda_device, h, w, r, mb):
     assert torch.equal(pred, pred_p)
 
 
+def _same_bits(a, b):
+    """Equal values, a NaN equal to the same NaN (the predictions copy
+    prev's values, they compute none)."""
+    return a.shape == b.shape and torch.equal(a.view(torch.int32),
+                                              b.view(torch.int32))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("h,w,r", [(1088, 1920, 7), (96, 160, 7),
-                                   (96, 160, 3), (64, 96, 1)])
+                                   (96, 160, 3), (64, 96, 1), (96, 160, 1),
+                                   (96, 160, 2), (96, 160, 16),
+                                   (96, 160, 32), (96, 176, 7),
+                                   (64, 96, 32)])
 def test_hier_kernels_match_plain(cuda_device, h, w, r):
-    """K5: pool, K6a at mb=8 and the refine kernel, bit-identical to the
-    plain version, on a rolled plane with one divergent macroblock and on
-    a flat plane (every refine candidate ties)."""
+    """K5: one launch of the hier kernel (K6a's wrapper counts none),
+    bit-identical to the plain version and to the parent's composition
+    (pool, K6a, clip, the parent's refine kernel), on a rolled plane with
+    one divergent macroblock, a flat plane (every refine candidate ties),
+    a plane of NaN (every cost NaN: (0, 0)) and a pair with NaN in one
+    macroblock of cur and one pixel of prev. 96x176 leaves a thread block
+    with 3 of its 8 macroblocks; at r = 32 a 64x96 plane is smaller than
+    the staged window, which wraps more than once."""
     cur, prev = _rolled_pair(h, w, h + r, (4, -3))
     cur[16:32, 32:48] = np.random.default_rng(r).uniform(0, 255, (16, 16))
     flat = np.full((h, w), 100.0, np.float32)
-    for a, b in ((cur, prev), (flat, flat)):
+    nan = np.full((h, w), np.nan, np.float32)
+    part_c, part_p = cur.copy(), prev.copy()
+    part_c[16:32, 16:32] = np.nan
+    part_p[h // 2, w // 3] = np.nan
+    for a, b in ((cur, prev), (flat, flat), (nan, prev), (part_c, part_p)):
         c, p = (torch.from_numpy(x).to(cuda_device) for x in (a, b))
         before = (M.motion_search_mc_hier.launches,
                   M.motion_search_mc_blocks.launches)
@@ -407,10 +426,16 @@ def test_hier_kernels_match_plain(cuda_device, h, w, r):
         torch.cuda.synchronize()
         assert (M.motion_search_mc_hier.launches,
                 M.motion_search_mc_blocks.launches) == (before[0] + 1,
-                                                        before[1] + 1)
+                                                        before[1])
         mv_p, pred_p = M.motion_search_mc_hier_plain(c, p, r)
         assert torch.equal(mv, mv_p)
-        assert torch.equal(pred, pred_p)
+        assert _same_bits(pred, pred_p)
+        mv_o, pred_o = M._motion_search_mc_hier_parent(c, p, r)
+        assert torch.equal(mv, mv_o)
+        assert _same_bits(pred, pred_o)
+    assert not M.motion_search_mc_hier(
+        torch.from_numpy(nan).to(cuda_device),
+        torch.from_numpy(prev).to(cuda_device), r)[0].any()
 
 
 @pytest.mark.cuda
@@ -426,19 +451,29 @@ def test_dygrid_counterpart_matches_plain(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("hc,wc,r", [(544, 960, 7), (544, 960, 5),
-                                     (48, 80, 4)])
+                                     (48, 80, 4), (544, 960, 32),
+                                     (24, 40, 7), (16, 8, 32)])
 def test_chroma_kernel_matches_plain(cuda_device, hc, wc, r):
+    """K4 bit-identical to the plain version and the parent's kernel,
+    with odd negative vectors (floor-halved, not
+    truncated) and widths of 5 and 1 blocks (a row of a 40-wide plane
+    wraps inside a 16-byte word); at r = 32 a vector moves a 16x8 plane
+    round more than once."""
     rng = np.random.default_rng(hc + r)
     cb, cr = (torch.from_numpy(rng.normal(128, 30, (hc, wc))
                                .astype(np.float32)).to(cuda_device)
               for _ in range(2))
-    mv = torch.from_numpy(rng.integers(-r, r + 1, (hc // 8, wc // 8, 2))
-                          .astype(np.int32)).to(cuda_device)
+    mv = rng.integers(-r, r + 1, (hc // 8, wc // 8, 2)).astype(np.int32)
+    mv[0, 0] = (-r | 1, -(r // 2) | 1)           # odd and negative
+    mv = torch.from_numpy(mv).to(cuda_device)
     before = M.chroma_mc.launches
     got = M.chroma_mc(cb, cr, mv, r)
     assert M.chroma_mc.launches == before + 1
     for a, b in zip(got, M.chroma_mc_plain(cb, cr, mv, r)):
         assert torch.equal(a, b)
+    for a, b in zip(got, M._launch_chroma("flu_chroma_mc_serial", cb, cr, mv)):
+        assert torch.equal(a, b)
+    assert M.chroma_mc.launches == before + 1
 
 
 @pytest.mark.cuda

@@ -152,6 +152,38 @@ def test_hier_small_ranges_match_xla(r):
     assert int(got.abs().max()) <= r
 
 
+@pytest.mark.parametrize("r", [16, 32])
+@pytest.mark.parametrize("h,w", [(64, 96), (96, 176)])
+def test_hier_plain_matches_xla_at_large_ranges(h, w, r):
+    """The ranges where the CUDA kernel's staged window outgrows a small
+    plane (at r = 32 the window of a 64x96 plane wraps more than once),
+    and 96x176 (11 macroblocks a row: a thread block of the kernel takes
+    a partial row of them)."""
+    cur, prev = _pair(h, w, r, seed=h + w + r)
+    xmv = np.asarray(jm.motion_search_hier(jnp.asarray(cur),
+                                           jnp.asarray(prev), search_range=r))
+    xpred = np.asarray(jm.motion_compensate(jnp.asarray(prev),
+                                            jnp.asarray(xmv), search_range=r))
+    mv, pred = K.motion_search_mc_hier_plain(*_t(cur, prev), r)
+    np.testing.assert_array_equal(mv.numpy(), xmv)
+    np.testing.assert_array_equal(pred.numpy(), xpred)
+    assert int(mv.abs().max()) <= r
+
+
+@pytest.mark.parametrize("a,b", [(0, 0), (1, -2), (-3, 5), (17, -29)])
+def test_pool_commutes_with_even_wraps(a, b):
+    """subsample_420(roll(x, (2a, 2b))) == roll(subsample_420(x), (a, b))
+    on a plane of non-integers, shifts past the pooled plane's size
+    included: the premise of pooling the hier kernel's staged window,
+    which starts at an even row and column of the wrapped plane."""
+    x = torch.from_numpy(np.random.default_rng(100 + 7 * a + b).uniform(
+        0, 255, (32, 48)).astype(np.float32))
+    got = tm.subsample_420(torch.roll(x, (2 * a, 2 * b), dims=(0, 1)))
+    want = torch.roll(tm.subsample_420(x), (a, b), dims=(0, 1))
+    assert torch.equal(got, want)
+    assert not torch.equal(x, x.round())
+
+
 def test_pool_is_flutpus_mean():
     """The hier pool is subsample_420's expression; on integer planes the
     mean of four is exact, a multiple of 0.25."""

@@ -120,6 +120,25 @@ def test_chroma_floor_halves_odd_vectors(v):
     np.testing.assert_array_equal(got[8:16, 16:24], shifted[8:16, 16:24])
 
 
+def test_chroma_plain_matches_pallas_at_range_32():
+    """Vectors of ±32 (±16 after the halving) on a 48x64 plane move
+    blocks further than a block, and a third of the plane's height."""
+    rng = np.random.default_rng(32)
+    cb, cr = (rng.normal(128, 30, (48, 64)).astype(np.float32)
+              for _ in range(2))
+    mv = rng.integers(-32, 33, (6, 8, 2)).astype(np.int32)
+    mv[0, 0], mv[1, 1] = (-32, 32), (-31, -17)
+    got = K.chroma_mc_plain(torch.from_numpy(cb), torch.from_numpy(cr),
+                            torch.from_numpy(mv), 32)
+    want = chroma_mc_pallas(jnp.asarray(cb), jnp.asarray(cr),
+                            jnp.asarray(mv), search_range=32, interpret=True)
+    for g, p, w_ in zip(got, (cb, cr), want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+        np.testing.assert_array_equal(g.numpy(), np.asarray(
+            jm.motion_compensate(jnp.asarray(p), jnp.asarray(mv),
+                                 search_range=32, mb=8)))
+
+
 def test_luma_compensate_matches_xla_on_random_vectors():
     rng = np.random.default_rng(4)
     p = rng.uniform(0, 255, (48, 80)).astype(np.float32)

@@ -352,7 +352,8 @@ def test_c_entries_match_the_sources():
                        "flu_pack_segments_serial", "flu_pack_blocks_serial",
                        "flu_pack_slots64", "flu_pack_slots32",
                        "flu_motion_search_mc", "flu_motion_search_mc_blocks",
-                       "flu_motion_refine_mc", "flu_chroma_mc"}
+                       "flu_motion_search_hier", "flu_motion_refine_mc_serial",
+                       "flu_chroma_mc", "flu_chroma_mc_serial"}
 
     class Lib:
         def __getattr__(self, name):
