@@ -13,17 +13,17 @@ Drives the port's main paths through the entry points a user calls, at
    quantizer's division against IEEE division on every pair it can meet;
    the Huffman pack kernel (K2, a lane per block) against its plain
    version (bit-identical) on that GOP and on the noise GOP's
-   coefficients, at ``seg_words`` 64 and 8; each timed with CUDA events,
-   K2 in turns with the parent's thread-per-segment kernel (parent, new,
-   new, parent; the two bit-identical), beside an ablation of its parts
-   (staging, symbols, placement, stores);
-2b. block-pack kernels (the non-segment layout): on the 16-frame GOP's
-   MCU blocks (K1's coefficients through ``_mcu_blocks``), K7, K8a (on
-   ``_slot_tables_merged``) and K8b (on ``_slot_tables``) each
-   bit-identical to its plain version and the three to each other, each
-   timed beside its byte bound; K7 (a lane per block) also bit-identical
-   on the noise GOP's blocks, timed in turns with the parent's kernel and
-   ablated as K2;
+   coefficients, at ``seg_words`` 64 and 8; each timed with CUDA events
+   (K2 on both GOPs);
+2b. block-pack kernels (the non-segment layout): on the MCU blocks of
+   the gradient-ball GOP and of the noise GOP (K1's coefficients through
+   ``_mcu_blocks``), K7, K8a (on ``_slot_tables_merged``) and K8b (on
+   ``_slot_tables``) each bit-identical to its plain version and the
+   three to each other, each timed beside its byte bound; K8a and K8b
+   (a few blocks' rows per warp staged with 16-byte copies, several
+   lanes per block) also bit-identical to the first port's kernels (a
+   thread per block) and timed in turns with them (parent, new, new,
+   parent), faster in every turn;
 3. JPEG main path: ``JpegEncoder.encode_gop_dispatch_src`` on the
    on-device gradient-ball source, 8 GOPs with two in flight, then the
    pipeline ``videotestsrc ! cudajpegenc ! appsink`` over 32 frames;
@@ -45,18 +45,14 @@ Drives the port's main paths through the entry points a user calls, at
    prediction equals the compensation of the kernel's vectors exactly,
    and the vectors equal the plain version's except at near-ties of the
    cost, each verified in float64; the chroma kernel (K4) bit-identical
-   to its plain version, to the parent's kernel and to its own other way
-   of reading a row at search ranges 7, 5 and 32 (random vectors, odd
-   negative ones among them); both timed, K4 in turns with the parent's
-   kernel and the other row read;
+   to its plain version at search ranges 7, 5 and 32 (random vectors,
+   odd negative ones among them); both timed;
 5b. hier and block-size kernels: K6a (the search kernel's 8x8 instance
    on the three pairs pooled to 544x960 at r=3, its 16x16 instance at
    r=7), K5 (the whole hier search in one launch, at r = 1, 2, 3, 7, 16
    and 32 on the three pairs, a flat pair and a pair with NaN) and K6b
-   (K3's contract) against their plain versions, held as K3 is, K5 also
-   bit-identical to the parent's composition (pool, K6a, clip and the
-   parent's refine kernel); each timed, K5 in turns with the parent's
-   composition, whose refine kernel is also timed alone;
+   (K3's contract) against their plain versions, held as K3 is; each
+   timed, and one call of K5 profiled (one device launch);
 6. FVC main paths: ``FvcEncoder(motion=True).encode_chunk_dispatch_src``,
    6 chunks of 8 frames with two in flight (K2, K3, K4 launched), then
    2 chunks of FVC v1 (K1, K2), then the pipeline
@@ -123,8 +119,9 @@ Drives the port's main paths through the entry points a user calls, at
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not
 launched fails the run. Prints each phase's wall time, the card's name
-and power limit, K2's, K7's, K5's and K4's times before and after
-their redesign (the parent's kernels timed in the same call), one JSON
+and power limit, the redesigned kernels' times before (``EARLIER_MS``;
+for K8a and K8b the parent's kernels timed in the same call) and after
+their redesign, one JSON
 line of per-kernel results (each kernel's launches, error, time, plain
 time, and its bound: the larger of its bytes over 3.35 TB/s and its
 floating-point operations over 67 TFLOP/s, the H100 SXM data sheet's
@@ -402,24 +399,23 @@ def run(dev):
                                       - pbuf.to(torch.int64)).abs().max()))
     del buf, pbuf
     sw = JpegEncoder.SEG_WORDS0
+    k2_ms = {label: _time_ms(lambda: K.pack_segments(zz, comp_f, 16, sw), 20)
+             for label, (zz, comp_f) in gops.items()}
     zz, comp_f = gops["gradient-ball"]
-    k2_ms, k2_parent = _time_pack(
-        "pack_segments (K2)", lambda z, c: K.pack_segments(z, c, 16, sw),
-        "flu_pack_segments_serial", gops, 16, sw)
     k2_plain_ms = _time_ms(lambda: K.pack_segments_plain(zz, comp_f, 16, sw),
                            3)
     s_count = zz.shape[0] // 16
     bound = _bound(zz.shape[0] * (64 + 1) * 4 + s_count * (sw + 1) * 4)
-    print(f"pack_segments: kernel {k2_ms:.4f} ms, plain {k2_plain_ms:.3f} ms "
-          f"per 16-frame 1080p GOP ({zz.shape[0]} blocks); bound "
-          f"{bound['bound_ms']:.4f} ms", flush=True)
-    results["pack_segments"] = dict(max_abs_err=k2_err, ms=k2_ms,
+    print(f"pack_segments: kernel {k2_ms['gradient-ball']:.4f} ms "
+          f"(uniform-noise GOP {k2_ms['uniform-noise']:.4f}), plain "
+          f"{k2_plain_ms:.3f} ms per 16-frame 1080p GOP ({zz.shape[0]} "
+          f"blocks); bound {bound['bound_ms']:.4f} ms", flush=True)
+    results["pack_segments"] = dict(max_abs_err=k2_err,
+                                    ms=k2_ms["gradient-ball"],
                                     plain_ms=k2_plain_ms, **bound)
-    parent_ms = {"pack_segments": k2_parent}
     del zz, comp_f, gops
     lap("2 K1, K2")
-    block_results, parent_ms["pack_block_bits_fused"] = run_block_packs(
-        coefs0, coefs_n, layout)
+    block_results, parent_ms = run_block_packs(coefs0, coefs_n, layout)
     results.update(block_results)
     del coefs0, coefs_n, src
     torch.cuda.synchronize()
@@ -494,11 +490,9 @@ def run(dev):
     add(run_jpeg_blocks(dev, lib, enc, payloads, fps,
                         [bytes(b.data) for b in bufs]))
     lap("4b non-segment JPEG")
-    got, parent_ms["chroma_mc"] = run_motion_kernels(dev)
-    results.update(got)
+    results.update(run_motion_kernels(dev))
     lap("5 K3, K4")
-    got, parent_ms["motion_search_mc_hier"] = run_hier_kernels(dev)
-    results.update(got)
+    results.update(run_hier_kernels(dev))
     lap("5b K5, K6a, K6b")
     counts, seg_chunks = run_fvc(dev, lib)
     add(counts)
@@ -522,10 +516,8 @@ def run(dev):
               f"model and power limit), {r_['ms']:.4f} ms now, bound "
               f"{r_['bound_ms']:.4f} ms ({r_['ms'] / r_['bound_ms']:.1f}x)",
               flush=True)
-    for name, key in (("pack_segments", "K2 pack_segments"),
-                      ("pack_block_bits_fused", "K7 pack_block_bits_fused"),
-                      ("motion_search_mc_hier", "K5 motion_search_mc_hier"),
-                      ("chroma_mc", "K4 chroma_mc")):
+    for name, key in (("pack_block_bits64", "K8a pack_block_bits64"),
+                      ("pack_block_bits", "K8b pack_block_bits")):
         r_ = results[name]
         print(f"{key}: {parent_ms[name]:.4f} ms before the redesign (the "
               f"parent's kernel, this call), {r_['ms']:.4f} ms now, bound "
@@ -655,6 +647,8 @@ EARLIER_MS = (("front_end", "K1 front_end", 0.435),
               ("motion_search_mc", "K3 motion_search_mc", 0.200),
               ("motion_search_mc_blocks", "K6a 8x8 r=3", 0.0295),
               ("motion_search_mc_dygrid", "K6b dygrid", 0.200),
+              ("pack_segments", "K2 pack_segments", 0.2471),
+              ("pack_block_bits_fused", "K7 pack_block_bits_fused", 1.0465),
               ("motion_search_mc_hier", "K5 motion_search_mc_hier", 0.0680),
               ("chroma_mc", "K4 chroma_mc", 0.0075))
 
@@ -953,73 +947,40 @@ def _motion_pairs(dev, rng):
             ("in-loop reference", y[1], rec)]
 
 
-def _pack_entry(entry, zz, comp, seg_g, seg_words, *shape):
-    """A comparison kernel of csrc/entropy_pack.cu (the parent's
-    thread-per-segment K2 and K7, the ablated K2 and K7) through K2's
-    launch path, its launches counted apart from the wrappers'."""
+def _slots_parent(wide, *tables):
+    """The first port's K8a (``wide``) or K8b kernel, a thread per block,
+    on the wrapper's launch path, its launches counted apart from the
+    wrapper's."""
     from flutpu_torch.codec.ops import entropy_kernels as K
 
     def counter():
         pass
     counter.launches = 0
-    return K._launch_pack(counter, entry, zz, comp, seg_g, seg_words, *shape)
+    entry = "flu_pack_slots64_serial" if wide else "flu_pack_slots32_serial"
+    return K._launch_slots(counter, entry, *tables)
 
 
-#: the parts of K2's and K7's kernel, each with those before it
-#: (``Part`` in csrc/entropy_pack.cu)
-ABLATION = ("staging (tile loads, row stores)",
-            "+ masks, lengths and offsets", "+ placement",
-            "= the kernel (+ stores)")
-
-
-def _time_pack(label, kernel, parent, gops, seg_g, seg_words):
-    """K2 or K7 (``kernel(zz, comp)``) against the parent's kernel (the
-    C entry ``parent``) on each GOP of ``gops`` ({label: (zz, comp)},
-    gradient-ball first): bit-identical, then timed in turns parent, new,
-    new, parent; and the ablation on the first GOP. Returns the first
-    GOP's (new ms, parent ms), each the mean of its two turns."""
+def _slot_bytes(lens):
+    """K8a's or K8b's bytes in: 4 per length up to each block's last
+    active slot, and 4 per value word the kernel reads: lo where the
+    length is not 0, hi too where it exceeds 32 (K8b's tables have no
+    length above 32)."""
     import torch
-    blocks = seg_g == 1
-    shape = () if blocks else (seg_g, seg_words)
-    first = None
-    for name, (zz, comp) in gops.items():
-        got = kernel(zz, comp)
-        old = _pack_entry(parent, zz, comp, seg_g, seg_words, *shape)
-        _require(all(torch.equal(a, b) for a, b in zip(got, old)),
-                 f"{label} differs from the parent's kernel ({name} GOP)")
-        new_fn = lambda: kernel(zz, comp)  # noqa: E731
-        old_fn = lambda: _pack_entry(parent, zz, comp, seg_g,  # noqa: E731
-                                     seg_words, *shape)
-        turns = [_time_ms(f, 20) for f in (old_fn, new_fn, new_fn, old_fn)]
-        ms, was = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
-        print(f"{label} on the {name} GOP, ms in turns parent, new, new, "
-              f"parent: {', '.join(f'{t:.4f}' for t in turns)}; "
-              f"{was / ms:.2f}x", flush=True)
-        if first is None:
-            first = (ms, was)
-            parts = []
-            for part in range(len(ABLATION)):
-                args = (zz, comp, seg_g, seg_words, seg_g, seg_words,
-                        int(blocks), part)
-                if part == len(ABLATION) - 1:
-                    full = _pack_entry("flu_pack_ablation", *args)
-                    _require(all(torch.equal(a, b)
-                                 for a, b in zip(full, got)),
-                             f"{label}: the ablation's whole kernel differs")
-                parts.append(_time_ms(
-                    lambda: _pack_entry("flu_pack_ablation", *args), 20))
-            print(f"{label} ablation on the {name} GOP (ms): " + "; ".join(
-                f"{p} {t:.4f}" for p, t in zip(ABLATION, parts)), flush=True)
-    return first
+    pos = torch.arange(1, lens.shape[1] + 1, device=lens.device)
+    last = torch.where(lens > 0, pos, 0).amax(dim=1)
+    return 4 * (int(last.sum()) + int((lens > 0).sum())
+                + int((lens > 32).sum()))
 
 
 def run_block_packs(coefs, coefs_n, layout):
-    """Phase 2b: K7, K8a and K8b on one GOP's MCU blocks against their
-    plain versions and each other, and their times beside their bounds;
-    K7 also on the uniform-noise GOP's (``coefs_n``) and against the
-    parent's kernel. K8a's and K8b's bytes follow the data
-    (``data_bytes``), plus each block's 64 words and count out. Returns
-    (the kernels' results, the parent's K7 ms)."""
+    """Phase 2b: K7, K8a and K8b on the gradient-ball and uniform-noise
+    GOPs' MCU blocks (K8a on ``_slot_tables_merged``, K8b on
+    ``_slot_tables``), each bit-identical to its plain version and the
+    three to each other; K8a and K8b also to the first port's kernels,
+    timed in turns with them (parent, new, new, parent); each time beside
+    its bound. K8a's and K8b's bytes follow the data (``_slot_bytes``),
+    plus each block's 64 words and count out. Returns (the kernels'
+    results, {name: the parent's ms}), both of the gradient-ball GOP."""
     import torch
     from flutpu_torch.codec.ops import entropy_kernels as K
     from flutpu_torch.codec.ops.entropy import (_mcu_blocks, _slot_tables,
@@ -1029,70 +990,72 @@ def run_block_packs(coefs, coefs_n, layout):
         mcu, comp = _mcu_blocks(*c, layout)
         return mcu.reshape(-1, 64), comp.repeat(mcu.shape[0])
 
-    zz, comp = blocks(coefs)
-    zz_n, comp_n = blocks(coefs_n)
-    got, want = (K.pack_block_bits_fused(zz_n, comp_n),
-                 K.pack_block_bits_fused_plain(zz_n, comp_n))
-    same = all(torch.equal(a, b) for a, b in zip(got, want))
-    print(f"pack_block_bits_fused vs plain (uniform-noise GOP): "
-          f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
-    _require(same, "pack_block_bits_fused differs from its plain version "
-             "on the uniform-noise GOP")
-    del got, want
-    k7_ms, k7_parent = _time_pack(
-        "pack_block_bits_fused (K7)", K.pack_block_bits_fused,
-        "flu_pack_blocks_serial",
-        {"gradient-ball": (zz, comp), "uniform-noise": (zz_n, comp_n)}, 1,
-        K.BLOCK_WORDS)
-    del zz_n, comp_n
-    n = zz.shape[0]
-    merged = _slot_tables_merged(zz, comp)
-    slots = _slot_tables(zz, comp)
-    out_bytes = n * (K.BLOCK_WORDS + 1) * 4
-
-    def data_bytes(lens):
-        """4 bytes per length up to each block's last active slot, and 4
-        per value word the kernel reads: lo where the length is not 0, hi
-        too where it exceeds 32 (K8b's tables have no length above 32)."""
-        pos = torch.arange(1, lens.shape[1] + 1, device=lens.device)
-        last = torch.where(lens > 0, pos, 0).amax(dim=1)
-        return 4 * (int(last.sum()) + int((lens > 0).sum())
-                    + int((lens > 32).sum()))
-
-    cases = {
-        "pack_block_bits_fused": (K.pack_block_bits_fused,
-                                  K.pack_block_bits_fused_plain, (zz, comp),
-                                  n * (64 + 1) * 4),
-        "pack_block_bits64": (K.pack_block_bits64, K.pack_block_bits64_plain,
-                              merged, data_bytes(merged[0])),
-        "pack_block_bits": (K.pack_block_bits, K.pack_block_bits_plain, slots,
-                            data_bytes(slots[0])),
-    }
-    results, outs = {}, []
-    for name, (kernel, plain, args, in_bytes) in cases.items():
-        got, want = kernel(*args), plain(*args)
-        same = all(torch.equal(a, b) for a, b in zip(got, want))
-        print(f"{name} vs plain ({n} blocks): "
+    results, parent_ms = {}, {}
+    for gop, c in (("gradient-ball", coefs), ("uniform-noise", coefs_n)):
+        zz, comp = blocks(c)
+        n = zz.shape[0]
+        out_bytes = n * (K.BLOCK_WORDS + 1) * 4
+        cases = {"pack_block_bits_fused": (
+                     K.pack_block_bits_fused, K.pack_block_bits_fused_plain,
+                     None, (zz, comp), n * (64 + 1) * 4)}
+        for name, kernel, plain, wide, tables in (
+                ("pack_block_bits64", K.pack_block_bits64,
+                 K.pack_block_bits64_plain, True, _slot_tables_merged),
+                ("pack_block_bits", K.pack_block_bits,
+                 K.pack_block_bits_plain, False, _slot_tables)):
+            args = tables(zz, comp)
+            cases[name] = (kernel, plain, wide, args, _slot_bytes(args[0]))
+        outs = []
+        for name, (kernel, plain, wide, args, in_bytes) in cases.items():
+            got, want = kernel(*args), plain(*args)
+            same = all(torch.equal(a, b) for a, b in zip(got, want))
+            print(f"{name} vs plain ({gop} GOP, {n} blocks): "
+                  f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
+            _require(same, f"{name} differs from its plain version on the "
+                     f"{gop} GOP")
+            outs.append(got)
+            bound = _bound(in_bytes + out_bytes)
+            if wide is None:
+                ms = _time_ms(lambda: kernel(*args), 20)
+                note = ""
+            else:
+                old = _slots_parent(wide, *args)
+                _require(all(torch.equal(a, b) for a, b in zip(got, old)),
+                         f"{name} differs from the parent's kernel on the "
+                         f"{gop} GOP")
+                fns = {"new": lambda: kernel(*args),
+                       "parent": lambda: _slots_parent(wide, *args)}
+                turns = [_time_ms(fns[k], 20)
+                         for k in ("parent", "new", "new", "parent")]
+                ms, was = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+                note = (f"; in turns parent, new, new, parent: "
+                        f"{', '.join(f'{t:.4f}' for t in turns)} "
+                        f"({was / ms:.2f}x); bit-identical to the parent's")
+                _require(max(turns[1:3]) < min(turns[0], turns[3]),
+                         f"{name} is not faster than the parent's kernel in "
+                         f"every turn on the {gop} GOP: {turns}")
+            mb = (in_bytes + out_bytes) / 1e6
+            print(f"{name} ({gop} GOP): kernel {ms:.4f} ms, bound "
+                  f"{bound['bound_ms']:.4f} ms ({mb:.1f} MB, "
+                  f"{ms / bound['bound_ms']:.1f}x){note}", flush=True)
+            if gop == "gradient-ball":
+                plain_ms = _time_ms(lambda: plain(*args), 3)
+                print(f"{name}: plain {plain_ms:.3f} ms per 16-frame 1080p "
+                      "GOP", flush=True)
+                results[name] = dict(max_abs_err=max(
+                    int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
+                    for a, b in zip(got, want)), ms=ms, plain_ms=plain_ms,
+                    **bound)
+                if wide is not None:
+                    parent_ms[name] = was
+        same = all(torch.equal(a, b) for o in outs[1:]
+                   for a, b in zip(o, outs[0]))
+        print(f"K7, K8a, K8b against each other ({gop} GOP): "
               f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
-        _require(same, f"{name} differs from its plain version")
-        outs.append(got)
-        ms = (k7_ms if kernel is K.pack_block_bits_fused
-              else _time_ms(lambda: kernel(*args), 20))
-        plain_ms = _time_ms(lambda: plain(*args), 3)
-        bound = _bound(in_bytes + out_bytes)
-        print(f"{name}: kernel {ms:.4f} ms, plain {plain_ms:.3f} ms per "
-              f"16-frame 1080p GOP; bound {bound['bound_ms']:.4f} ms "
-              f"({(in_bytes + out_bytes) / 1e6:.1f} MB)", flush=True)
-        results[name] = dict(max_abs_err=max(
-            int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
-            for a, b in zip(got, want)), ms=ms, plain_ms=plain_ms, **bound)
-    same = all(torch.equal(a, b) for o in outs[1:]
-               for a, b in zip(o, outs[0]))
-    print(f"K7, K8a, K8b against each other: "
-          f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
-    _require(same, "the three block packs disagree")
-    torch.cuda.synchronize()
-    return results, k7_parent
+        _require(same, f"the three block packs disagree on the {gop} GOP")
+        del zz, comp, cases, outs, got, want
+        torch.cuda.synchronize()
+    return results, parent_ms
 
 
 def run_jpeg_blocks(dev, lib, seg_enc, seg_payloads, seg_fps, seg_pipe):
@@ -1185,9 +1148,8 @@ def run_jpeg_blocks(dev, lib, seg_enc, seg_payloads, seg_fps, seg_pipe):
 
 
 def run_motion_kernels(dev):
-    """Phase 5: K3 and K4 against their plain versions at 1080p, K4 also
-    against the parent's kernel and its other row read, and timed in
-    turns with them. Returns (results, the parent's K4 ms)."""
+    """Phase 5: K3 and K4 against their plain versions at 1080p, and their
+    times. Returns the kernels' results."""
     import numpy as np
     import torch
     from flutpu_torch.codec.ops import motion_kernels as M
@@ -1217,32 +1179,22 @@ def run_motion_kernels(dev):
                               .astype(np.int32)).to(dev)
         got = M.chroma_mc(cb, cr, mv, rr)
         want = M.chroma_mc_plain(cb, cr, mv, rr)
-        same = {"plain": want,
-                "parent": M._launch_chroma(CHROMA_PARENT, cb, cr, mv)}
-        same = {k: all(torch.equal(a, b) for a, b in zip(got, v))
-                for k, v in same.items()}
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
         odd = int(((mv < 0) & (mv % 2 == 1)).sum())
-        print(f"chroma_mc vs plain and the parent's kernel (r={rr}, random "
-              f"vectors, {odd} odd negative components): {same}", flush=True)
-        _require(all(same.values()), f"chroma_mc differs at r={rr}: {same}")
+        print(f"chroma_mc vs plain (r={rr}, random vectors, {odd} odd "
+              f"negative components): "
+              f"{'bit-identical' if same else 'DIFFERENT'}", flush=True)
+        _require(same, f"chroma_mc differs from its plain version at r={rr}")
         k4_err = max(k4_err, *(float((a - b).abs().max())
                                for a, b in zip(got, want)))
         if rr == SEARCH_RANGE:
             timed = (cb, cr, mv)
     cb, cr, mv = timed
-    fns = {"new": lambda: M.chroma_mc(cb, cr, mv, SEARCH_RANGE),
-           "parent": lambda: M._launch_chroma(CHROMA_PARENT, cb, cr, mv)}
-    order = ("parent", "new", "new", "parent")
-    turns = [_time_ms(fns[k], 50) for k in order]
-    k4_ms, k4_parent = ((turns[i] + turns[3 - i]) / 2 for i in (1, 0))
+    k4_ms = _time_ms(lambda: M.chroma_mc(cb, cr, mv, SEARCH_RANGE), 50)
     k4_plain_ms = _time_ms(
         lambda: M.chroma_mc_plain(cb, cr, mv, SEARCH_RANGE), 10)
-    print(f"chroma_mc (K4) at r={SEARCH_RANGE}, ms in turns parent, new, "
-          f"new, parent: {', '.join(f'{t:.4f}' for t in turns)}", flush=True)
-    print(f"chroma_mc: kernel {k4_ms:.4f} ms,"
-          f" the parent's kernel {k4_parent:.4f} ms, plain "
-          f"{k4_plain_ms:.4f} ms per pair of 544x960 chroma planes",
-          flush=True)
+    print(f"chroma_mc: kernel {k4_ms:.4f} ms, plain {k4_plain_ms:.4f} ms per "
+          f"pair of 544x960 chroma planes (r={SEARCH_RANGE})", flush=True)
     torch.cuda.synchronize()
     return ({"motion_search_mc": dict(max_abs_err=err, ms=k3_ms,
                                       plain_ms=k3_plain_ms,
@@ -1250,12 +1202,7 @@ def run_motion_kernels(dev):
              "chroma_mc": dict(max_abs_err=k4_err, ms=k4_ms,
                                plain_ms=k4_plain_ms,
                                **_bound(4 * (PH // 2) * (PW // 2) * 4
-                                        + (PH // 16) * (PW // 16) * 2 * 4))},
-            k4_parent)
-
-
-#: K4's parent: the first port's kernel, a thread per pixel
-CHROMA_PARENT = "flu_chroma_mc_serial"
+                                        + (PH // 16) * (PW // 16) * 2 * 4))})
 
 
 def _search_bound(h: int, w: int, mb: int, r: int, extra_ops: float = 0):
@@ -1308,10 +1255,8 @@ def run_hier_kernels(dev):
     16x16 on 1088x1920 at r=7), K5 (the whole hier search in one launch)
     and K6b against their plain versions, and their times. K5 runs at
     every range of HIER_RANGES on the K3 pairs, a flat pair and a pair
-    with NaN, and must be bit-identical to the parent's composition (the
-    pool, K6a, the clip and the parent's refine kernel), which it is timed
-    against in turns. Returns (results, the parent's K5 ms)."""
-    import torch
+    with NaN, and one call of it is one device launch (torch.profiler).
+    Returns the kernels' results."""
     from flutpu_torch.codec.ops import motion_kernels as M
     from flutpu_torch.codec.ops.colorspace import subsample_420
     from flutpu_torch.codec.ops.motion import compensate_blocks
@@ -1336,14 +1281,8 @@ def run_hier_kernels(dev):
     for rr in HIER_RANGES:
         for label, cur, prev in _hier_pairs(pairs, dev):
             got = M.motion_search_mc_hier(cur, prev, rr)
-            old = M._motion_search_mc_hier_parent(cur, prev, rr)
-            _require(torch.equal(got[0], old[0]) and torch.equal(
-                got[1].view(torch.int32), old[1].view(torch.int32)),
-                f"motion_search_mc_hier ({label}, r={rr}) differs from the "
-                "parent's composition")
             err["hier"] = max(err["hier"], _hold_search(
-                f"{label}, r={rr}; bit-identical to the parent's composition",
-                "motion_search_mc_hier", got,
+                f"{label}, r={rr}", "motion_search_mc_hier", got,
                 M.motion_search_mc_hier_plain(cur, prev, rr), cur, prev, rr,
                 16, False, lambda p, m: M.motion_compensate(p, m, rr)))
     label, cur, prev = pairs[2]
@@ -1360,38 +1299,22 @@ def run_hier_kernels(dev):
          "blocks16": (_time_ms(lambda: M.motion_search_mc_blocks(
              cur, prev, r, 16), 20), _time_ms(
              lambda: M.motion_search_mc_blocks_plain(cur, prev, r, 16), 3)),
+         "hier": _time_ms(lambda: M.motion_search_mc_hier(cur, prev, r), 20),
          "hier_plain": _time_ms(lambda: M.motion_search_mc_hier_plain(
              cur, prev, r), 3),
          "dygrid": (_time_ms(lambda: M.motion_search_mc_dygrid(
              cur, prev, r), 20), _time_ms(
              lambda: M.motion_search_mc_dygrid_plain(cur, prev, r), 3))}
-    new_fn = lambda: M.motion_search_mc_hier(cur, prev, r)  # noqa: E731
-    old_fn = lambda: M._motion_search_mc_hier_parent(  # noqa: E731
-        cur, prev, r)
-    turns = [_time_ms(f, 20) for f in (old_fn, new_fn, new_fn, old_fn)]
-    hier_ms, hier_parent = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
-    calls = {label: _call_launches(fn, dev) for label, fn in
-             (("the parent's composition", old_fn), ("K5", new_fn))}
-    for label, names in calls.items():
-        print(f"motion_search_mc_hier, one call of {label} (torch.profiler): "
-              f"{len(names)} device launches: {names}", flush=True)
-    _require(len(calls["K5"]) == 1
-             and "motion_search_hier_kernel" in calls["K5"][0],
-             f"a call of K5 is not one launch of its kernel: {calls['K5']}")
-    base = (M.motion_search_mc_blocks_plain(pc, pp, rc, 8)[0] * 2).clamp(
-        -(r - 1), r - 1)
-    refine_ms = _time_ms(lambda: M._launch_search(
-        "flu_motion_refine_mc_serial", cur, prev, r, 16, base.data_ptr()), 50)
+    names = _call_launches(lambda: M.motion_search_mc_hier(cur, prev, r), dev)
+    print(f"motion_search_mc_hier, one call (torch.profiler): {len(names)} "
+          f"device launches: {names}", flush=True)
+    _require(len(names) == 1 and "motion_search_hier_kernel" in names[0],
+             f"a call of K5 is not one launch of its kernel: {names}")
     print(f"motion_search_mc_blocks: kernel {t['blocks8'][0]:.4f} ms, plain "
           f"{t['blocks8'][1]:.3f} ms per pooled 544x960 plane (8x8, r={rc}); "
           f"kernel {t['blocks16'][0]:.4f} ms, plain {t['blocks16'][1]:.3f} ms "
           f"per 1088x1920 plane (16x16, r={r})", flush=True)
-    print(f"motion_search_mc_hier (K5) at r={r}, ms in turns parent, new, "
-          f"new, parent: {', '.join(f'{x:.4f}' for x in turns)}; "
-          f"{hier_parent / hier_ms:.2f}x", flush=True)
-    print(f"motion_search_mc_hier: kernel {hier_ms:.4f} ms (one launch); "
-          f"the parent's composition {hier_parent:.4f} ms (pool + K6a + "
-          f"clip + refine), its refine kernel alone {refine_ms:.4f} ms; "
+    print(f"motion_search_mc_hier: kernel {t['hier']:.4f} ms (one launch), "
           f"plain {t['hier_plain']:.3f} ms per 1088x1920 luma frame "
           f"(r={r})", flush=True)
     print(f"motion_search_mc_dygrid: kernel {t['dygrid'][0]:.4f} ms, plain "
@@ -1408,12 +1331,12 @@ def run_hier_kernels(dev):
     # prediction and vectors
     coarse_ops = (PH // 2) * (PW // 2) * (2 * rc + 1) ** 2 * 3
     out["motion_search_mc_hier"] = dict(
-        max_abs_err=err["hier"], ms=hier_ms, plain_ms=t["hier_plain"],
+        max_abs_err=err["hier"], ms=t["hier"], plain_ms=t["hier_plain"],
         **_search_bound(PH, PW, 16, 1, coarse_ops + 2 * PH * PW))
     out["motion_search_mc_dygrid"] = dict(
         max_abs_err=err["dygrid"], ms=t["dygrid"][0],
         plain_ms=t["dygrid"][1], **_search_bound(PH, PW, 16, r))
-    return out, hier_parent
+    return out
 
 
 def _psnr(a, b) -> float:

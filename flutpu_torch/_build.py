@@ -3,9 +3,9 @@
 The sources have a plain C interface and are compiled by ``nvcc`` for
 Hopper (``sm_90a``), one nvcc per source side by side, and linked into
 one shared library that ``ctypes`` loads: no PyTorch headers, so a build
-takes seconds. The library lands in
-``flutpu_torch/_build/`` under a name that carries a hash of the sources
-and flags, so it is built at first use and rebuilt whenever a source
+takes seconds. The library lands in ``flutpu_torch/_build/`` under a
+name that carries a hash of the sources, the header they include and the
+flags, so it is built at first use and rebuilt whenever one of them
 changes. Nothing here runs at import time: the CPU-only test runs import
 every module of the package without a CUDA toolkit.
 """
@@ -25,6 +25,7 @@ _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
 SOURCES = ("frontend.cu", "entropy_pack.cu", "motion.cu")
+HEADERS = ("device.cuh",)  # included by the sources: part of the hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -38,7 +39,7 @@ def source_paths() -> List[str]:
 
 def source_hash() -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for path in source_paths():
+    for path in source_paths() + [os.path.join(CSRC_DIR, n) for n in HEADERS]:
         h.update(os.path.basename(path).encode())
         with open(path, "rb") as fh:
             h.update(fh.read())
@@ -131,27 +132,20 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.flu_pack_segments.restype = i
     lib.flu_pack_blocks.argtypes = [p, p, p, p, i, p]
     lib.flu_pack_blocks.restype = i
-    lib.flu_pack_ablation.argtypes = [p, p, p, p, i, i, i, i, i, p]
-    lib.flu_pack_ablation.restype = i
-    lib.flu_pack_segments_serial.argtypes = [p, p, p, p, i, i, i, p]
-    lib.flu_pack_segments_serial.restype = i
-    lib.flu_pack_blocks_serial.argtypes = [p, p, p, p, i, p]
-    lib.flu_pack_blocks_serial.restype = i
-    lib.flu_pack_slots64.argtypes = [p, p, p, p, p, i, i, p]
-    lib.flu_pack_slots64.restype = i
-    lib.flu_pack_slots32.argtypes = [p, p, p, p, i, i, p]
-    lib.flu_pack_slots32.restype = i
+    for entry in ("flu_pack_slots64", "flu_pack_slots64_serial"):
+        getattr(lib, entry).argtypes = [p, p, p, p, p, i, i, p]
+        getattr(lib, entry).restype = i
+    for entry in ("flu_pack_slots32", "flu_pack_slots32_serial"):
+        getattr(lib, entry).argtypes = [p, p, p, p, i, i, p]
+        getattr(lib, entry).restype = i
     lib.flu_motion_search_mc.argtypes = [p, p, p, p, i, i, i, p]
     lib.flu_motion_search_mc.restype = i
     lib.flu_motion_search_mc_blocks.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.flu_motion_search_mc_blocks.restype = i
     lib.flu_motion_search_hier.argtypes = [p, p, p, p, i, i, i, p]
     lib.flu_motion_search_hier.restype = i
-    lib.flu_motion_refine_mc_serial.argtypes = [p, p, p, p, i, i, i, p, p]
-    lib.flu_motion_refine_mc_serial.restype = i
-    for entry in ("flu_chroma_mc", "flu_chroma_mc_serial"):
-        getattr(lib, entry).argtypes = [p, p, p, p, p, i, i, p]
-        getattr(lib, entry).restype = i
+    lib.flu_chroma_mc.argtypes = [p, p, p, p, p, i, i, p]
+    lib.flu_chroma_mc.restype = i
 
 
 def load() -> ctypes.CDLL:

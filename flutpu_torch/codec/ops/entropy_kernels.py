@@ -11,9 +11,13 @@ replacing a Pallas TPU kernel:
   layout); its kernel runs K2's device routine (a lane per block, segments
   assembled in shared memory) at one block per segment;
 - ``pack_block_bits64`` (K8a, ``pack_block_bits_pallas64``): placement
-  of merged slot tables (slots of up to 59 bits) per block;
+  of merged slot tables (slots of up to 64 bits) per block;
 - ``pack_block_bits`` (K8b, ``pack_block_bits_pallas``): placement of
-  32-bit slot tables per block.
+  32-bit slot tables per block. Both kernels stage a few consecutive
+  blocks' rows of lengths per warp with 16-byte copies, give each block
+  up to 32 lanes of at most 32 slots each, fetch the values of the
+  nonzero lengths alone and assemble the blocks in shared memory, as K7
+  does; at most ``MAX_SLOTS`` slots per block.
 
 K7, K8a and K8b compute one function: for the same blocks they return
 the same (buf, nbits). Each wrapper launches its kernel for CUDA tensors
@@ -43,6 +47,8 @@ _PLAIN_MAX_ITEMS = 1 << 22
 _ITEMS_PER_BLOCK = 128          # DC, (ZRL run, AC symbol) x 63, EOB
 #: words of one block's buffer in the non-segment layout
 BLOCK_WORDS = 64
+#: slots per block the K8a/K8b kernels take (32 lanes of 32 slots)
+MAX_SLOTS = 1024
 #: the most bits one block codes to (``JpegEncoder.BLOCK_BITS_BOUND``)
 BLOCK_BITS_BOUND = 1664
 #: shared memory one CUDA block may hold on Hopper; in K2's and K7's
@@ -391,9 +397,14 @@ def _launch_slots(wrapper, entry: str, lens: torch.Tensor,
     """K8a's or K8b's kernel ``entry`` over the slot tables; no launch for
     no blocks."""
     _check_slots(lens, *vals)
-    lens = lens.contiguous()
-    vals = [v.contiguous() for v in vals]
     b, s = lens.shape
+    if b and not 1 <= s <= MAX_SLOTS:
+        raise ValueError(f"{wrapper.__name__}: the kernel takes 1..{MAX_SLOTS}"
+                         f" slots per block, got {s}")
+    # the kernels stage whole spans 16 bytes at a time; a view may start
+    # anywhere
+    tables = [t.contiguous() for t in (lens, *vals)]
+    lens, *vals = [t.clone() if t.data_ptr() % 16 else t for t in tables]
     buf, nbits = _outputs(b, BLOCK_WORDS, lens.device)
     if b:
         _launch(wrapper, entry, lens.device, lens.data_ptr(),
@@ -408,7 +419,8 @@ def pack_block_bits64(lens: torch.Tensor, his: torch.Tensor,
     values as the low ``len`` bits of (hi << 32) | lo, hi and lo as
     uint32 bit patterns → (buf (B, 64) int32 words MSB-first, nbits (B,)
     int32), the same as ``pack_block_bits_fused`` for the blocks the
-    tables come from. CUDA tensors launch the kernel; CPU tensors take
+    tables come from. CUDA tensors launch the kernel (``ValueError``
+    past ``MAX_SLOTS`` slots); CPU tensors take
     ``pack_block_bits64_plain``."""
     if _device_of("pack_block_bits64", lens) == "cpu":
         return pack_block_bits64_plain(lens, his, los)
@@ -420,7 +432,8 @@ def pack_block_bits(lens: torch.Tensor, vals: torch.Tensor):
     """32-bit slot tables (B, S) int32: ``lens`` (0..32) and values (the
     low ``len`` bits count) → (buf (B, 64) int32 words MSB-first, nbits
     (B,) int32), as ``pack_block_bits64``. CUDA tensors launch the
-    kernel; CPU tensors take ``pack_block_bits_plain``."""
+    kernel (``ValueError`` past ``MAX_SLOTS`` slots); CPU tensors take
+    ``pack_block_bits_plain``."""
     if _device_of("pack_block_bits", lens) == "cpu":
         return pack_block_bits_plain(lens, vals)
     return _launch_slots(pack_block_bits, "flu_pack_slots32", lens, vals)

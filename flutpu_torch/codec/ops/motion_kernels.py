@@ -32,12 +32,6 @@ CUDA tensor launches the kernel or raises. The kernels sum each SAD in
 the plain versions' order (ops/motion.py:_mb_sums), so vectors and
 predictions are bit-identical to them; chroma compensation is pure
 selection and bit-identical by construction.
-
-``_motion_search_mc_hier_parent`` and the C entries
-``flu_motion_refine_mc_serial`` and ``flu_chroma_mc_serial`` are the
-first port's K5 composition and K4 kernel, kept so that chip_smoke.py
-and the card tests can hold and time the kernels against them in one
-run; no encoder path reaches them.
 """
 
 from __future__ import annotations
@@ -45,7 +39,6 @@ from __future__ import annotations
 import torch
 
 from ... import _build
-from .colorspace import subsample_420
 from .motion import (MB, compensate_blocks, motion_compensate, motion_search,
                      motion_search_hier)
 
@@ -232,21 +225,6 @@ def motion_search_mc_hier(cur: torch.Tensor, prev: torch.Tensor,
                          MB)
     motion_search_mc_hier.launches += 1
     return out
-
-
-def _motion_search_mc_hier_parent(cur: torch.Tensor, prev: torch.Tensor,
-                                  search_range: int = 7):
-    """The first port's K5 on CUDA tensors, for comparison: the pool in
-    torch, K6a's 8x8 kernel, the clip in torch, then the refine kernel of
-    one thread block per macroblock. Counts no launch."""
-    _check_hier_args(cur, prev, search_range)
-    r = search_range
-    coarse, _ = _launch_search("flu_motion_search_mc_blocks",
-                               subsample_420(cur), subsample_420(prev),
-                               max(1, r // 2), 8, 8)
-    base = (coarse * 2).clamp(-(r - 1), r - 1)
-    return _launch_search("flu_motion_refine_mc_serial", cur, prev, r, MB,
-                          base.data_ptr())
 
 
 def chroma_mc(prev_cb: torch.Tensor, prev_cr: torch.Tensor, mv: torch.Tensor,

@@ -97,6 +97,8 @@
 #include <cstring>
 #include <cuda_runtime.h>
 
+#include "device.cuh"
+
 namespace {
 
 constexpr int kThreads = 128;
@@ -477,10 +479,9 @@ int flu_front_end(const void* r, const void* g, const void* b, const void* qy,
   const long long total = (long long)nsx * (h / 16) * f;
   if (total == 0) return (int)cudaSuccess;
   if (total > INT32_MAX / 2) return (int)cudaErrorInvalidValue;
-  int dev = 0, sms = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return (int)err;
+  int sms = 0;
+  const int err = sm_count(&sms);
+  if (err != (int)cudaSuccess) return err;
   const long long resident = (long long)sms * kBlocksPerSM;
   const int grid = (int)(total < resident ? total : resident);
   auto kernel = ov ? front_end_kernel<true> : front_end_kernel<false>;

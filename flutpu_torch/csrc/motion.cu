@@ -118,9 +118,6 @@
 //     of one candidate left to right, and a 4-step xor shuffle picks the
 //     least (cost, candidate) key;
 //   - the prediction comes from the same window, 16 bytes per store.
-// motion_refine_mc_serial_kernel is the first port's refine kernel
-// (flu_motion_refine_mc_serial), kept so that a run can time the old
-// composition against the new kernel.
 //
 // chroma_mc_kernel replaces motion_pallas.py:chroma_mc_pallas (the Pallas
 // TPU kernel `_chroma_mc_kernel`), which rolled a wrap-padded band once per
@@ -137,15 +134,14 @@
 // plane. Eight 4-byte loads per row were measured too and were slower
 // (0.0059-0.0061 against 0.0052-0.0054 ms per pair of 544x960 planes,
 // PERF.md), so only the words remain. Threads walk the block rows
-// grid-stride, at most a few waves of the card's SMs. The first port's
-// kernel, a thread per pixel that reloads its block's vector and wraps
-// each pixel with a modulo, stays as chroma_mc_serial_kernel
-// (flu_chroma_mc_serial) for the in-turn timing.
+// grid-stride, at most a few waves of the card's SMs.
 
 #include <climits>
 #include <cmath>
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "device.cuh"
 
 namespace {
 
@@ -603,78 +599,6 @@ motion_search_hier_kernel(const float* __restrict__ cur, const float* __restrict
   }
 }
 
-constexpr int kWin = kMB + 2;  // the first port's refine window: the macroblock and a 1-pixel rim
-
-// The first port's refine stage of K5 (one thread block per macroblock):
-// base (h/16, w/16, 2) in, each within +-(r - 1).
-__global__ void __launch_bounds__(kSearchThreads)
-motion_refine_mc_serial_kernel(const float* __restrict__ cur, const float* __restrict__ prev,
-                               const int32_t* __restrict__ base, int32_t* __restrict__ mv,
-                               float* __restrict__ pred, int h, int w) {
-  __shared__ float win[kWin * kWin];
-  __shared__ float blk[kMB * kMB];
-  __shared__ float cols[9 * kMB];
-  __shared__ float cost[9];
-  __shared__ int best_c;
-
-  const int t = threadIdx.x;
-  const size_t m = (size_t)blockIdx.y * gridDim.x + blockIdx.x;
-  const int y0 = blockIdx.y * kMB;
-  const int x0 = blockIdx.x * kMB;
-  const int by = base[m * 2];
-  const int bx = base[m * 2 + 1];
-
-  // window element (a, b) = prev[(y0 - by - 1 + a) mod h, (x0 - bx - 1 + b) mod w]:
-  // candidate base + (oy, ox) predicts pixel (i, j) from element (i + 1 - oy, j + 1 - ox)
-  for (int k = t; k < kWin * kWin; k += kSearchThreads) {
-    const int a = k / kWin;
-    const int b = k - a * kWin;
-    win[k] = prev[(size_t)wrap(y0 - by - 1 + a, h) * w + wrap(x0 - bx - 1 + b, w)];
-  }
-  blk[t] = cur[(size_t)(y0 + (t >> 4)) * w + x0 + (t & 15)];
-  __syncthreads();
-
-  if (t < 9 * kMB) {  // thread (c, j): column j of candidate c, down its 16 rows
-    const int c = t >> 4;
-    const int j = t & 15;
-    const float* src = win + (1 - (c / 3 - 1)) * kWin + (1 - (c % 3 - 1));
-    float col = fabsf(__fsub_rn(blk[j], src[j]));
-#pragma unroll
-    for (int i = 1; i < kMB; i++)
-      col = __fadd_rn(col, fabsf(__fsub_rn(blk[i * kMB + j], src[i * kWin + j])));
-    cols[t] = col;
-  }
-  __syncthreads();
-  if (t < 9) {  // the 16 column sums left to right
-    float sad = cols[t * kMB];
-#pragma unroll
-    for (int j = 1; j < kMB; j++) sad = __fadd_rn(sad, cols[t * kMB + j]);
-    cost[t] = sad;
-  }
-  __syncthreads();
-  if (t == 0) {
-    float best = INFINITY;
-    int bc = -1;
-    for (int c = 0; c < 9; c++) {  // (oy, ox) row-major; strict < keeps the first
-      if (cost[c] < best) {
-        best = cost[c];
-        bc = c;
-      }
-    }
-    best_c = bc;
-    // every cost NaN: the plain version keeps its initial (0, 0)
-    mv[m * 2] = bc < 0 ? 0 : by + bc / 3 - 1;
-    mv[m * 2 + 1] = bc < 0 ? 0 : bx + bc % 3 - 1;
-  }
-  __syncthreads();
-  const int c = best_c;
-  const int i = t >> 4;
-  const int j = t & 15;
-  pred[(size_t)(y0 + i) * w + x0 + j] =
-      c < 0 ? prev[(size_t)(y0 + i) * w + x0 + j]
-            : win[(i + 1 - (c / 3 - 1)) * kWin + (j + 1 - (c % 3 - 1))];
-}
-
 // floor(v / 2) for any sign
 __device__ __forceinline__ int floor_half(int v) { return (v - (v & 1)) / 2; }
 
@@ -731,22 +655,6 @@ chroma_mc_kernel(const float* __restrict__ cb, const float* __restrict__ cr,
   }
 }
 
-// The first port's K4: a thread per pixel
-__global__ void __launch_bounds__(128)
-chroma_mc_serial_kernel(const float* __restrict__ cb, const float* __restrict__ cr,
-                        const int32_t* __restrict__ mv, float* __restrict__ pcb,
-                        float* __restrict__ pcr, int hc, int wc) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  if (x >= wc) return;
-  const int32_t* v = mv + ((size_t)(y >> 3) * (wc >> 3) + (x >> 3)) * 2;
-  const int sy = wrap(y - floor_half(v[0]), hc);
-  const int sx = wrap(x - floor_half(v[1]), wc);
-  const float* src = blockIdx.z ? cr : cb;
-  float* dst = blockIdx.z ? pcr : pcb;
-  dst[(size_t)y * wc + x] = src[(size_t)sy * wc + sx];
-}
-
 template <int MB>
 int launch_search(const void* cur, const void* prev, void* mv, void* pred, int h, int w, int r,
                   void* stream) {
@@ -769,21 +677,6 @@ bool chroma_args_ok(const void* cb, const void* cr, const void* mv, const void* 
   return hc >= 0 && wc >= 0 && hc % 8 == 0 && wc % 8 == 0 &&
          ((uintptr_t)cb | (uintptr_t)cr | (uintptr_t)pcb | (uintptr_t)pcr) % 16 == 0 &&
          (uintptr_t)mv % 8 == 0;
-}
-
-// the card's SM count, read once per device
-int sm_count(int* sms) {
-  static int cached[64];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev < 64 && cached[dev] > 0) {
-    *sms = cached[dev];
-    return (int)cudaSuccess;
-  }
-  err = cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess && dev < 64) cached[dev] = *sms;
-  return (int)err;
 }
 
 int launch_chroma(const void* cb, const void* cr, const void* mv, void* pcb, void* pcr, int hc,
@@ -845,39 +738,12 @@ int flu_motion_search_hier(const void* cur, const void* prev, void* mv, void* pr
   return (int)cudaGetLastError();
 }
 
-// The first port's refine stage of K5: cur, prev (h, w) float32, multiples
-// of 16; base (h/16, w/16, 2) int32, each in -(r-1)..r-1; mv (h/16, w/16,
-// 2) int32 out; pred (h, w) float32 out. r bounds the base (the window is
-// 18x18 whatever r is).
-int flu_motion_refine_mc_serial(const void* cur, const void* prev, void* mv, void* pred, int h,
-                                int w, int r, const void* base, void* stream) {
-  if (h % kMB || w % kMB || r < 1 || r > kMaxRange) return (int)cudaErrorInvalidValue;
-  if (h == 0 || w == 0) return (int)cudaSuccess;
-  const dim3 grid(w / kMB, h / kMB);
-  motion_refine_mc_serial_kernel<<<grid, kSearchThreads, 0, (cudaStream_t)stream>>>(
-      (const float*)cur, (const float*)prev, (const int32_t*)base, (int32_t*)mv, (float*)pred, h,
-      w);
-  return (int)cudaGetLastError();
-}
-
 // K4: cb, cr (hc, wc) float32, multiples of 8, 16-byte aligned; mv
 // (hc/8, wc/8, 2) int32 luma vectors, 8-byte aligned; pcb, pcr (hc, wc)
 // float32 out, 16-byte aligned.
 int flu_chroma_mc(const void* cb, const void* cr, const void* mv, void* pcb, void* pcr, int hc,
                   int wc, void* stream) {
   return launch_chroma(cb, cr, mv, pcb, pcr, hc, wc, stream);
-}
-
-// The first port's K4 (a thread per pixel); flu_chroma_mc's arguments
-int flu_chroma_mc_serial(const void* cb, const void* cr, const void* mv, void* pcb, void* pcr,
-                         int hc, int wc, void* stream) {
-  if (hc % 8 || wc % 8) return (int)cudaErrorInvalidValue;
-  if (hc == 0 || wc == 0) return (int)cudaSuccess;
-  const int threads = 128;
-  const dim3 grid((wc + threads - 1) / threads, hc, 2);
-  chroma_mc_serial_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const float*)cb, (const float*)cr, (const int32_t*)mv, (float*)pcb, (float*)pcr, hc, wc);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

@@ -20,7 +20,7 @@ from flutpu.codec.ops.entropy_pallas import (pack_block_bits_fused,
                                              pack_block_bits_pallas64)
 from flutpu_torch.codec.ops import entropy as TE
 from flutpu_torch.codec.ops import entropy_kernels as K
-from torch_helpers import pack_edge_blocks, sparse_coefs
+from torch_helpers import pack_edge_blocks, slot_tables, sparse_coefs
 
 torch.set_num_threads(1)
 
@@ -114,6 +114,38 @@ def test_slot_tables_and_pack_match(b, table):
         np.testing.assert_array_equal(a.numpy(), np.asarray(w))
     _same(K.pack_block_bits(*got), pack_block_bits_pallas(*want,
                                                           interpret=True))
+
+
+@pytest.mark.parametrize("wide", [True, False])
+@pytest.mark.parametrize("n_slots", [1, 7, 65, 191])
+def test_slot_packs_on_hand_made_tables_match_pallas(wide, n_slots):
+    """K8a (``wide``) and K8b on ``slot_tables`` of 13 blocks, not made
+    from blocks: lengths 0..64 (32, 33 and 64 among them) and 0..32, rows
+    past 1664 and 2048 bits where S allows; the port equals flutpu's
+    Pallas kernel bit for bit."""
+    tables = slot_tables(13, n_slots, wide, seed=n_slots)
+    got = (K.pack_block_bits64 if wide else K.pack_block_bits)(
+        *(torch.from_numpy(a) for a in tables))
+    if wide:
+        lens, his, los = tables
+        want = pack_block_bits_pallas64(
+            jnp.asarray(lens), jnp.asarray(his.view(np.uint32)),
+            jnp.asarray(los.view(np.uint32)), interpret=True)
+    else:
+        want = pack_block_bits_pallas(*(jnp.asarray(a) for a in tables),
+                                      interpret=True)
+    _same(got, want)
+
+
+@pytest.mark.parametrize("wide", [True, False])
+def test_slot_plain_versions_ignore_bits_above_the_length(wide):
+    """The port's contract masks each value to its length: tables with
+    random bits above it pack as the clean ones do (the card tests feed
+    the kernels such tables)."""
+    pack = K.pack_block_bits64 if wide else K.pack_block_bits
+    clean, dirty = (pack(*(torch.from_numpy(a) for a in slot_tables(
+        13, 65, wide, seed=3, garbage=g))) for g in (False, True))
+    assert all(torch.equal(a, b) for a, b in zip(clean, dirty))
 
 
 @pytest.mark.parametrize("b,table", CASES)

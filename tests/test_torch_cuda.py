@@ -22,7 +22,7 @@ from flutpu_torch.codec.ops.quant import (CHROMA_QTABLE, LUMA_QTABLE,
                                           scale_qtable)
 from flutpu_torch.core.elements import make_test_frame
 from torch_helpers import (cuda_device, pack_edge_blocks,  # noqa: F401
-                           rand_planes, tie_contract)
+                           rand_planes, slot_tables, tie_contract)
 
 torch.set_num_threads(1)
 
@@ -148,7 +148,8 @@ def test_pack_kernel_matches_plain(cuda_device, seg_words):
 @pytest.mark.parametrize("dense", [False, True])
 def test_block_pack_kernels_match_plain(cuda_device, dense):
     """K7, K8a (on the merged slot tables) and K8b (on the 32-bit slot
-    tables) bit-identical to their plain versions and to each other."""
+    tables) bit-identical to their plain versions and to each other, on
+    sparse and on dense blocks."""
     z, comp = _blocks(3000, seed=8, dense=dense)
     comp = np.maximum(comp, 0)           # the non-segment layout: 0 / 1
     zt, ct = torch.from_numpy(z), torch.from_numpy(comp)
@@ -171,16 +172,6 @@ def test_block_pack_kernels_match_plain(cuda_device, dense):
             assert torch.equal(a, b)
 
 
-def _pack_entry(entry, zz, comp, seg_g, seg_words, *shape):
-    """A comparison kernel of csrc/entropy_pack.cu (the first port's
-    thread-per-segment kernels) through K2's launch path, counted on a
-    counter of its own."""
-    def counter():
-        pass
-    counter.launches = 0
-    return K._launch_pack(counter, entry, zz, comp, seg_g, seg_words, *shape)
-
-
 #: (seg_g, seg_words): 1, 2, 16 and 17 blocks per segment; one word,
 #: segments over capacity, the encoder's largest buffer (832), buffers past
 #: all a segment can fill (1000: the staging row is shorter than the
@@ -197,8 +188,7 @@ def test_pack_kernel_edge_cases(cuda_device, seg_g, seg_words):
     blocks, padding blocks and a whole padding segment), at 13 segments
     (no whole number of a warp's segments, nor of a CTA's warps) and at
     about 120,000 blocks (more than the card's resident warps take at
-    once: a warp walks several units); the first port's kernel gives the
-    same."""
+    once: a warp walks several units)."""
     for n_segs in (13, max(13, 120_000 // seg_g)):
         z, comp = pack_edge_blocks(n_segs, seg_g, seed=n_segs + seg_words)
         zt, ct = torch.from_numpy(z), torch.from_numpy(comp)
@@ -210,18 +200,14 @@ def test_pack_kernel_edge_cases(cuda_device, seg_g, seg_words):
         assert K.pack_segments.launches == before + 1
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
-        serial = _pack_entry("flu_pack_segments_serial", zc, cc, seg_g,
-                             seg_words, seg_g, seg_words)
-        for a, b in zip(serial, want):
-            assert torch.equal(a.cpu(), b)
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("n_blocks", [13, 120_001])
 def test_block_pack_kernel_edge_cases(cuda_device, n_blocks):
     """K7 (a lane per block) on ``pack_edge_blocks`` at one block per
-    segment: bit for bit its plain version, K8a and K8b on the slot
-    tables of the same blocks, and the first port's kernel."""
+    segment: bit for bit its plain version, and K8a and K8b on the slot
+    tables of the same blocks."""
     z, comp = pack_edge_blocks(n_blocks, 1, seed=n_blocks, padding=False)
     zt, ct = torch.from_numpy(z), torch.from_numpy(comp)
     want = K.pack_block_bits_fused_plain(zt, ct)
@@ -229,13 +215,69 @@ def test_block_pack_kernel_edge_cases(cuda_device, n_blocks):
     before = K.pack_block_bits_fused.launches
     outs = [K.pack_block_bits_fused(zc, cc),
             K.pack_block_bits64(*_slot_tables_merged(zc, cc)),
-            K.pack_block_bits(*_slot_tables(zc, cc)),
-            _pack_entry("flu_pack_blocks_serial", zc, cc, 1, K.BLOCK_WORDS)]
+            K.pack_block_bits(*_slot_tables(zc, cc))]
     torch.cuda.synchronize()
     assert K.pack_block_bits_fused.launches == before + 1
     for got in outs:
         for a, b in zip(got, want):
             assert torch.equal(a.cpu(), b)
+
+
+def slots_parent(wide, *tables):
+    """The first port's K8a (``wide``) or K8b kernel, kept for timing, on
+    the wrapper's launch path, its launches counted apart."""
+    def counter():
+        pass
+    counter.launches = 0
+    entry = "flu_pack_slots64_serial" if wide else "flu_pack_slots32_serial"
+    return K._launch_slots(counter, entry, *tables)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [True, False])
+@pytest.mark.parametrize("n_blocks,n_slots", [
+    (13, 1), (13, 7), (13, 65), (13, 191), (120_001, 65), (120_001, 191),
+    (70, 33), (45, 700), (5, 1024)])
+def test_slot_pack_kernels_on_hand_made_tables(cuda_device, wide, n_blocks,
+                                               n_slots):
+    """K8a (``wide``) and K8b on ``slot_tables`` (not made from blocks)
+    with random bits above every length: bit for bit the plain version and
+    the first port's kernel. 13 blocks fill no warp; 120,001 take more
+    than the card's resident warps at once (a warp walks several units);
+    33 slots take two lanes per block, 700 and 1,024 (``MAX_SLOTS``) one
+    block per warp at 22 and 32 slots a lane; spans start anywhere in a
+    16-byte word."""
+    tables = [torch.from_numpy(a).to(cuda_device) for a in slot_tables(
+        n_blocks, n_slots, wide, seed=n_blocks + n_slots, garbage=True)]
+    kernel = K.pack_block_bits64 if wide else K.pack_block_bits
+    plain = K.pack_block_bits64_plain if wide else K.pack_block_bits_plain
+    before = kernel.launches
+    got = kernel(*tables)
+    torch.cuda.synchronize()
+    assert kernel.launches == before + 1
+    for want in (plain(*tables), slots_parent(wide, *tables)):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("wide", [True, False])
+def test_slot_pack_kernels_refuse_past_max_slots(cuda_device, wide):
+    """Past ``MAX_SLOTS`` slots per block the wrappers raise and launch
+    nothing; a view that starts off a 16-byte boundary still packs."""
+    tables = [torch.from_numpy(a).to(cuda_device) for a in slot_tables(
+        4, K.MAX_SLOTS + 1, wide, seed=1)]
+    kernel = K.pack_block_bits64 if wide else K.pack_block_bits
+    plain = K.pack_block_bits64_plain if wide else K.pack_block_bits_plain
+    before = kernel.launches
+    with pytest.raises(ValueError):
+        kernel(*tables)
+    assert kernel.launches == before
+    n = 4 * K.MAX_SLOTS                     # contiguous, 4 bytes off
+    view = [t.reshape(-1)[1:n + 1].view(4, K.MAX_SLOTS) for t in tables]
+    for a, b in zip(kernel(*view), plain(*view)):
+        assert torch.equal(a, b)
+    assert kernel.launches == before + 1
 
 
 @pytest.mark.cuda
@@ -404,8 +446,7 @@ def _same_bits(a, b):
                                    (64, 96, 32)])
 def test_hier_kernels_match_plain(cuda_device, h, w, r):
     """K5: one launch of the hier kernel (K6a's wrapper counts none),
-    bit-identical to the plain version and to the parent's composition
-    (pool, K6a, clip, the parent's refine kernel), on a rolled plane with
+    bit-identical to the plain version, on a rolled plane with
     one divergent macroblock, a flat plane (every refine candidate ties),
     a plane of NaN (every cost NaN: (0, 0)) and a pair with NaN in one
     macroblock of cur and one pixel of prev. 96x176 leaves a thread block
@@ -430,9 +471,6 @@ def test_hier_kernels_match_plain(cuda_device, h, w, r):
         mv_p, pred_p = M.motion_search_mc_hier_plain(c, p, r)
         assert torch.equal(mv, mv_p)
         assert _same_bits(pred, pred_p)
-        mv_o, pred_o = M._motion_search_mc_hier_parent(c, p, r)
-        assert torch.equal(mv, mv_o)
-        assert _same_bits(pred, pred_o)
     assert not M.motion_search_mc_hier(
         torch.from_numpy(nan).to(cuda_device),
         torch.from_numpy(prev).to(cuda_device), r)[0].any()
@@ -454,11 +492,10 @@ def test_dygrid_counterpart_matches_plain(cuda_device):
                                      (48, 80, 4), (544, 960, 32),
                                      (24, 40, 7), (16, 8, 32)])
 def test_chroma_kernel_matches_plain(cuda_device, hc, wc, r):
-    """K4 bit-identical to the plain version and the parent's kernel,
-    with odd negative vectors (floor-halved, not
-    truncated) and widths of 5 and 1 blocks (a row of a 40-wide plane
-    wraps inside a 16-byte word); at r = 32 a vector moves a 16x8 plane
-    round more than once."""
+    """K4 bit-identical to the plain version, with odd negative vectors
+    (floor-halved, not truncated) and widths of 5 and 1 blocks (a row of
+    a 40-wide plane wraps inside a 16-byte word); at r = 32 a vector
+    moves a 16x8 plane round more than once."""
     rng = np.random.default_rng(hc + r)
     cb, cr = (torch.from_numpy(rng.normal(128, 30, (hc, wc))
                                .astype(np.float32)).to(cuda_device)
@@ -471,9 +508,6 @@ def test_chroma_kernel_matches_plain(cuda_device, hc, wc, r):
     assert M.chroma_mc.launches == before + 1
     for a, b in zip(got, M.chroma_mc_plain(cb, cr, mv, r)):
         assert torch.equal(a, b)
-    for a, b in zip(got, M._launch_chroma("flu_chroma_mc_serial", cb, cr, mv)):
-        assert torch.equal(a, b)
-    assert M.chroma_mc.launches == before + 1
 
 
 @pytest.mark.cuda

@@ -341,6 +341,16 @@ def test_build_finds_sources_and_composes_sm90a_command():
     assert link[4:] == [o for _, o in jobs]
 
 
+def test_build_hash_covers_every_included_header():
+    """Each header the sources include is hashed with them, so a change to
+    it rebuilds the library."""
+    text = "".join(_read(p) for p in _build.source_paths())
+    assert set(re.findall(r'^#include "([^"]+)"', text, re.M)) == \
+        set(_build.HEADERS)
+    for name in _build.HEADERS:
+        assert os.path.isfile(os.path.join(_build.CSRC_DIR, name))
+
+
 def test_c_entries_match_the_sources():
     """Every entry _configure binds is an extern "C" function of the
     sources, returning int (a cudaError_t)."""
@@ -348,12 +358,11 @@ def test_c_entries_match_the_sources():
     defined = set(re.findall(r"^int (flu_\w+)\(", text, re.M))
     assert defined == {"flu_front_end_init", "flu_front_end",
                        "flu_front_end_quotient_check", "flu_pack_init", "flu_pack_segments",
-                       "flu_pack_blocks", "flu_pack_ablation",
-                       "flu_pack_segments_serial", "flu_pack_blocks_serial",
-                       "flu_pack_slots64", "flu_pack_slots32",
+                       "flu_pack_blocks", "flu_pack_slots64",
+                       "flu_pack_slots32",
+                       "flu_pack_slots64_serial", "flu_pack_slots32_serial",
                        "flu_motion_search_mc", "flu_motion_search_mc_blocks",
-                       "flu_motion_search_hier", "flu_motion_refine_mc_serial",
-                       "flu_chroma_mc", "flu_chroma_mc_serial"}
+                       "flu_motion_search_hier", "flu_chroma_mc"}
 
     class Lib:
         def __getattr__(self, name):

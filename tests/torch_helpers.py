@@ -106,6 +106,45 @@ def pack_edge_blocks(n_segs: int, seg_g: int, seed: int = 0,
     return zz, comp
 
 
+def slot_tables(b: int, s: int, wide: bool, seed: int = 0,
+                garbage: bool = False):
+    """Hand-made slot tables, not made from blocks, as (B, S) int32 numpy
+    arrays: ``(lens, his, los)`` for K8a (``wide``: lengths 0..64, the
+    value the low ``len`` bits of (hi << 32) | lo) or ``(lens, vals)`` for
+    K8b (lengths 0..32). Rows of every density (empty, sparse, dense,
+    full), the lengths 1, 31, 32 (and 33, 63, 64 for K8a) on row 0, and,
+    where S allows, rows whose bits pass 1664 (row 1), stop exactly at
+    2048 (row 2) and pass 2048 in the middle of a slot (row 3 and every
+    full row). Values hold exactly their length's bits; with ``garbage``
+    the bits above it are random too (the port masks them, flutpu's
+    kernels take none)."""
+    rng = np.random.default_rng(seed)
+    top = 64 if wide else 32
+    density = rng.choice([0.0, 0.05, 0.3, 1.0], b)[:, None]
+    lens = np.where(rng.random((b, s)) < density,
+                    rng.integers(1, top + 1, (b, s)), 0)
+    edge = [1, 31, 32, 33, 63, 64] if wide else [1, 31, 32]
+    if b > 0:
+        lens[0] = np.resize(edge, s)
+    for row, n, tail in ((1, 1728 // top, ()), (2, 2048 // top, ()),
+                         (3, 2048 // top - 1, (top - 1, top))):
+        if row < b and s >= n + 2:
+            lens[row] = 0
+            lens[row, :n] = top
+            lens[row, n:n + len(tail)] = tail
+    lens = lens.astype(np.int32)
+    words = rng.integers(0, 1 << 32, (2, b, s), dtype=np.uint64)
+    if not garbage:
+        hi_bits = np.clip(lens - 32, 0, 32).astype(np.uint64)
+        lo_bits = np.clip(lens, 0, 32).astype(np.uint64)
+        words[0] &= (np.uint64(1) << hi_bits) - np.uint64(1)
+        words[1] &= (np.uint64(1) << lo_bits) - np.uint64(1)
+    his, los = (w.astype(np.uint32).view(np.int32) for w in words)
+    if wide:
+        return lens, his, los
+    return lens, los
+
+
 def pull_all(parse_launch, desc: str, timeout: float = 60):
     """Play the launch string ``desc`` (ending in ``appsink name=out``)
     through ``parse_launch`` (flutpu's or the port's: each package's
