@@ -19,11 +19,7 @@ Drives the port's main paths through the entry points a user calls, at
    the gradient-ball GOP and of the noise GOP (K1's coefficients through
    ``_mcu_blocks``), K7, K8a (on ``_slot_tables_merged``) and K8b (on
    ``_slot_tables``) each bit-identical to its plain version and the
-   three to each other, each timed beside its byte bound; K8a and K8b
-   (a few blocks' rows per warp staged with 16-byte copies, several
-   lanes per block) also bit-identical to the first port's kernels (a
-   thread per block) and timed in turns with them (parent, new, new,
-   parent), faster in every turn;
+   three to each other, each timed beside its byte bound;
 3. JPEG main path: ``JpegEncoder.encode_gop_dispatch_src`` on the
    on-device gradient-ball source, 8 GOPs with two in flight, then the
    pipeline ``videotestsrc ! cudajpegenc ! appsink`` over 32 frames;
@@ -114,14 +110,40 @@ Drives the port's main paths through the entry points a user calls, at
    beside its byte bound; K3 on one 4K luma pair at r=7 against its plain
    version; one 8-frame 4K GOP through
    ``JpegEncoder.encode_gop_dispatch_src`` / ``encode_gop_finalize``,
-   checked as in phase 4; ``cudaoverlaycompositor.prewarm`` at 4K.
+   checked as in phase 4; ``cudaoverlaycompositor.prewarm`` at 4K;
+13. GOP-chunk parallelism (BASELINE config 3: a 1080p30 10 s clip in
+   GOP chunks, parallel encode and ordered stitch):
+   a. ``videotestsrc`` 300 frames ``! hype gop-size=30
+      encoder-0..3=cudajpegenc ! appsink``: four encoder branches share
+      the card from their own streaming threads; every frame in order,
+      decoding to K1's coefficients at >= 30 dB, byte-identical to one
+      ``JpegEncoder`` of the same frames;
+   b. the same frames through ``cudahype codec=jpeg chunks=8
+      gop-size=30`` (8 chunks per dispatch): the same checks, bytes
+      identical to (a);
+   c. ``cudahype codec=fvc-motion chunks=8 gop-size=8`` on 64 frames,
+      then ``search=hier bframes=1`` on 70 (a truncated tail): every
+      chunk decodes through ``FvcDecoder`` on the card at >= 30 dB, with
+      B frames where expected; each chunk against a per-chunk
+      ``FvcEncoder`` on the card: byte-identical, or (counted) the same
+      frame types, coefficients within ±1 on at most 1e-4 of them and
+      PSNR within 0.05 dB;
+   d. ``injectbin`` swaps a prewarmed ``cudajpegenc`` into a running
+      720p ``videotestsrc ! injectbin ! appsink`` stream: no buffer lost
+      or reordered, the largest gap between outputs printed (BASELINE
+      config 2's swap, less the decoder);
+   e. K3, K5 and K4 with a chunk axis: 8 chunks' 1080p planes in one
+      launch each equal to the chunk's own launch (and K4 to its plain
+      version, K3 and K5 to theirs but for float64-verified near-ties),
+      timed beside 8 single-chunk launches;
+   for (a)-(c) frames/s, the peak device memory, and device busy ms and
+   launches per chunk (torch.profiler).
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not
 launched fails the run. Prints each phase's wall time, the card's name
-and power limit, the redesigned kernels' times before (``EARLIER_MS``;
-for K8a and K8b the parent's kernels timed in the same call) and after
-their redesign, one JSON
+and power limit, the redesigned kernels' times before (``EARLIER_MS``)
+and after their redesign, one JSON
 line of per-kernel results (each kernel's launches, error, time, plain
 time, and its bound: the larger of its bytes over 3.35 TB/s and its
 floating-point operations over 67 TFLOP/s, the H100 SXM data sheet's
@@ -415,8 +437,7 @@ def run(dev):
                                     plain_ms=k2_plain_ms, **bound)
     del zz, comp_f, gops
     lap("2 K1, K2")
-    block_results, parent_ms = run_block_packs(coefs0, coefs_n, layout)
-    results.update(block_results)
+    results.update(run_block_packs(coefs0, coefs_n, layout))
     del coefs0, coefs_n, src
     torch.cuda.synchronize()
     lap("2b K7, K8a, K8b")
@@ -510,17 +531,12 @@ def run(dev):
     lap("11 source card == CPU")
     add(run_4k(dev, lib))
     lap("12 4K")
+    add(run_hype(dev, lib, lap, {k: results[k]["ms"] for k in (
+        "motion_search_mc", "motion_search_mc_hier", "chroma_mc")}))
     for name, key, was in EARLIER_MS:
         r_ = results[name]
         print(f"{key}: {was:.4f} ms before the redesign (PERF.md, same card "
               f"model and power limit), {r_['ms']:.4f} ms now, bound "
-              f"{r_['bound_ms']:.4f} ms ({r_['ms'] / r_['bound_ms']:.1f}x)",
-              flush=True)
-    for name, key in (("pack_block_bits64", "K8a pack_block_bits64"),
-                      ("pack_block_bits", "K8b pack_block_bits")):
-        r_ = results[name]
-        print(f"{key}: {parent_ms[name]:.4f} ms before the redesign (the "
-              f"parent's kernel, this call), {r_['ms']:.4f} ms now, bound "
               f"{r_['bound_ms']:.4f} ms ({r_['ms'] / r_['bound_ms']:.1f}x)",
               flush=True)
     print(f"phase wall times (s): {json.dumps(lap.secs)}; "
@@ -650,7 +666,9 @@ EARLIER_MS = (("front_end", "K1 front_end", 0.435),
               ("pack_segments", "K2 pack_segments", 0.2471),
               ("pack_block_bits_fused", "K7 pack_block_bits_fused", 1.0465),
               ("motion_search_mc_hier", "K5 motion_search_mc_hier", 0.0680),
-              ("chroma_mc", "K4 chroma_mc", 0.0075))
+              ("chroma_mc", "K4 chroma_mc", 0.0075),
+              ("pack_block_bits64", "K8a pack_block_bits64", 1.2077),
+              ("pack_block_bits", "K8b pack_block_bits", 1.6292))
 
 
 def run_source_check(dev):
@@ -947,19 +965,6 @@ def _motion_pairs(dev, rng):
             ("in-loop reference", y[1], rec)]
 
 
-def _slots_parent(wide, *tables):
-    """The first port's K8a (``wide``) or K8b kernel, a thread per block,
-    on the wrapper's launch path, its launches counted apart from the
-    wrapper's."""
-    from flutpu_torch.codec.ops import entropy_kernels as K
-
-    def counter():
-        pass
-    counter.launches = 0
-    entry = "flu_pack_slots64_serial" if wide else "flu_pack_slots32_serial"
-    return K._launch_slots(counter, entry, *tables)
-
-
 def _slot_bytes(lens):
     """K8a's or K8b's bytes in: 4 per length up to each block's last
     active slot, and 4 per value word the kernel reads: lo where the
@@ -976,11 +981,10 @@ def run_block_packs(coefs, coefs_n, layout):
     """Phase 2b: K7, K8a and K8b on the gradient-ball and uniform-noise
     GOPs' MCU blocks (K8a on ``_slot_tables_merged``, K8b on
     ``_slot_tables``), each bit-identical to its plain version and the
-    three to each other; K8a and K8b also to the first port's kernels,
-    timed in turns with them (parent, new, new, parent); each time beside
-    its bound. K8a's and K8b's bytes follow the data (``_slot_bytes``),
-    plus each block's 64 words and count out. Returns (the kernels'
-    results, {name: the parent's ms}), both of the gradient-ball GOP."""
+    three to each other, each timed beside its bound. K8a's and K8b's
+    bytes follow the data (``_slot_bytes``), plus each block's 64 words
+    and count out. Returns the kernels' results of the gradient-ball
+    GOP."""
     import torch
     from flutpu_torch.codec.ops import entropy_kernels as K
     from flutpu_torch.codec.ops.entropy import (_mcu_blocks, _slot_tables,
@@ -990,23 +994,23 @@ def run_block_packs(coefs, coefs_n, layout):
         mcu, comp = _mcu_blocks(*c, layout)
         return mcu.reshape(-1, 64), comp.repeat(mcu.shape[0])
 
-    results, parent_ms = {}, {}
+    results = {}
     for gop, c in (("gradient-ball", coefs), ("uniform-noise", coefs_n)):
         zz, comp = blocks(c)
         n = zz.shape[0]
         out_bytes = n * (K.BLOCK_WORDS + 1) * 4
         cases = {"pack_block_bits_fused": (
                      K.pack_block_bits_fused, K.pack_block_bits_fused_plain,
-                     None, (zz, comp), n * (64 + 1) * 4)}
-        for name, kernel, plain, wide, tables in (
+                     (zz, comp), n * (64 + 1) * 4)}
+        for name, kernel, plain, tables in (
                 ("pack_block_bits64", K.pack_block_bits64,
-                 K.pack_block_bits64_plain, True, _slot_tables_merged),
+                 K.pack_block_bits64_plain, _slot_tables_merged),
                 ("pack_block_bits", K.pack_block_bits,
-                 K.pack_block_bits_plain, False, _slot_tables)):
+                 K.pack_block_bits_plain, _slot_tables)):
             args = tables(zz, comp)
-            cases[name] = (kernel, plain, wide, args, _slot_bytes(args[0]))
+            cases[name] = (kernel, plain, args, _slot_bytes(args[0]))
         outs = []
-        for name, (kernel, plain, wide, args, in_bytes) in cases.items():
+        for name, (kernel, plain, args, in_bytes) in cases.items():
             got, want = kernel(*args), plain(*args)
             same = all(torch.equal(a, b) for a, b in zip(got, want))
             print(f"{name} vs plain ({gop} GOP, {n} blocks): "
@@ -1015,29 +1019,11 @@ def run_block_packs(coefs, coefs_n, layout):
                      f"{gop} GOP")
             outs.append(got)
             bound = _bound(in_bytes + out_bytes)
-            if wide is None:
-                ms = _time_ms(lambda: kernel(*args), 20)
-                note = ""
-            else:
-                old = _slots_parent(wide, *args)
-                _require(all(torch.equal(a, b) for a, b in zip(got, old)),
-                         f"{name} differs from the parent's kernel on the "
-                         f"{gop} GOP")
-                fns = {"new": lambda: kernel(*args),
-                       "parent": lambda: _slots_parent(wide, *args)}
-                turns = [_time_ms(fns[k], 20)
-                         for k in ("parent", "new", "new", "parent")]
-                ms, was = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
-                note = (f"; in turns parent, new, new, parent: "
-                        f"{', '.join(f'{t:.4f}' for t in turns)} "
-                        f"({was / ms:.2f}x); bit-identical to the parent's")
-                _require(max(turns[1:3]) < min(turns[0], turns[3]),
-                         f"{name} is not faster than the parent's kernel in "
-                         f"every turn on the {gop} GOP: {turns}")
+            ms = _time_ms(lambda: kernel(*args), 20)
             mb = (in_bytes + out_bytes) / 1e6
             print(f"{name} ({gop} GOP): kernel {ms:.4f} ms, bound "
                   f"{bound['bound_ms']:.4f} ms ({mb:.1f} MB, "
-                  f"{ms / bound['bound_ms']:.1f}x){note}", flush=True)
+                  f"{ms / bound['bound_ms']:.1f}x)", flush=True)
             if gop == "gradient-ball":
                 plain_ms = _time_ms(lambda: plain(*args), 3)
                 print(f"{name}: plain {plain_ms:.3f} ms per 16-frame 1080p "
@@ -1046,8 +1032,6 @@ def run_block_packs(coefs, coefs_n, layout):
                     int((a.to(torch.int64) - b.to(torch.int64)).abs().max())
                     for a, b in zip(got, want)), ms=ms, plain_ms=plain_ms,
                     **bound)
-                if wide is not None:
-                    parent_ms[name] = was
         same = all(torch.equal(a, b) for o in outs[1:]
                    for a, b in zip(o, outs[0]))
         print(f"K7, K8a, K8b against each other ({gop} GOP): "
@@ -1055,7 +1039,7 @@ def run_block_packs(coefs, coefs_n, layout):
         _require(same, f"the three block packs disagree on the {gop} GOP")
         del zz, comp, cases, outs, got, want
         torch.cuda.synchronize()
-    return results, parent_ms
+    return results
 
 
 def run_jpeg_blocks(dev, lib, seg_enc, seg_payloads, seg_fps, seg_pipe):
@@ -1601,10 +1585,17 @@ def run_fvc_hier_b(dev, lib):
     return total, first
 
 
+#: the per-chunk encoder's device busy ms and launches per chunk, by
+#: label (phases 6 and 8), for phase 13's cudahype lines
+PER_CHUNK_BUSY = {}
+
+
 def _print_busy(label, enc, src):
     """Device busy ms and launches per chunk of ``enc`` over 4 chunks of
     the on-device source (torch.profiler)."""
     got = _device_busy(lambda: _chunks_in_flight(enc, src, 4), 4)
+    if got is not None:
+        PER_CHUNK_BUSY[label] = (got[0], got[2])
     if got is None:
         print(f"device busy ({label}): not measured (the profiler traced no "
               "device activity)", flush=True)
@@ -2017,6 +2008,567 @@ def _encode_parity(dev):
           f"differ; max dPSNR {max(abs(x - y) for x, y in zip(pa, pb)):.4f} "
           f"dB, mean PSNR {np.mean(pa):.2f} vs {np.mean(pb):.2f} dB)",
           flush=True)
+
+
+# -- 13. GOP-chunk parallelism (BASELINE config 3) ------------------------------
+
+HYPE_FRAMES = 300      # config 3: a 1080p30 clip of 10 s
+HYPE_GOP = 30
+HYPE_CHUNKS = 8
+HYPE_BRANCHES = 4
+FVC_HYPE_FRAMES = (64, 70)   # 70: a truncated tail of 6 frames
+SWAP_W, SWAP_H, SWAP_FRAMES, SWAP_AT = 1280, 720, 60, 20
+FRAME_NS = 33_333_333    # 30 frames/s
+
+
+def _gradient_frames(dev, first: int, n: int):
+    """``videotestsrc pattern=gradient`` frames first .. first + n - 1 at
+    (H, W), built on ``dev``: frame 0's red and green ramps, blue (i * 5)
+    mod 256 (``make_test_frame``'s values, without its per-frame host
+    cost)."""
+    import torch
+    from flutpu_torch.core.elements import make_test_frame
+    base = torch.from_numpy(make_test_frame("gradient", W, H, 0)).to(dev)
+    out = base.expand(n, H, W, 3).clone()
+    out[..., 2] = torch.tensor([(i * 5) % 256 for i in range(first,
+                                                              first + n)],
+                               dtype=torch.uint8, device=dev)[:, None, None]
+    return out
+
+
+def _union_ms(spans) -> float:
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    return busy / 1e3
+
+
+def _traced(fn):
+    """Run ``fn`` under torch.profiler → (fn's result, (device busy ms:
+    the union of traced device intervals, and of its kernels alone, the
+    copies left out; the six largest device items as (name, ms,
+    launches)), device launches), busy None where the profiler traced no
+    device activity."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        return out, None, 0
+    spans = [(e.time_range.start, e.time_range.end) for e in events]
+    kernels = [(e.time_range.start, e.time_range.end) for e in events
+               if not e.name.startswith(("Memcpy", "Memset"))]
+    per_name = {}
+    for e in events:
+        t, c = per_name.get(e.name, (0.0, 0))
+        per_name[e.name] = (t + e.time_range.elapsed_us() / 1e3, c + 1)
+    top = sorted(per_name.items(), key=lambda kv: -kv[1][0])[:6]
+    return out, (_union_ms(spans), _union_ms(kernels), top), len(events)
+
+
+def _harness_run(desc, frames, caps, warm=None, trace=0):
+    """Push ``frames`` (numpy) through the element ``desc`` in a Harness
+    (the chain runs in this thread) and pull everything → (buffers, wall
+    seconds, (busy, launches, wall seconds) of ``_traced`` over the pushes
+    of the first ``trace`` frames, or None). ``warm``: frames pushed first, their
+    outputs drained before the clock and the trace start (a fresh encoder
+    sizes its entropy stage on its first dispatch and redispatches once
+    where the sizes fall short); the measured frames' pts follow the warm
+    frames'."""
+    from flutpu_torch.core import Buffer, Harness
+    h = Harness(desc)
+    h.set_src_caps(caps)
+    first = 0
+    if warm is not None:
+        for i, f in enumerate(warm):
+            h.push(Buffer(f, pts=i * FRAME_NS, duration=FRAME_NS, offset=i))
+        try:
+            while h.pull(timeout=0.5) is not None:
+                pass
+        except TimeoutError:   # drained: the warm outputs are out
+            pass
+        first = len(warm)
+
+    def push(start, stop):
+        for i in range(start, stop):
+            h.push(Buffer(frames[i], pts=(first + i) * FRAME_NS,
+                          duration=FRAME_NS, offset=first + i))
+
+    t0 = time.perf_counter()
+    traced = None
+    if trace:
+        _, busy, launches = _traced(lambda: push(0, trace))
+        traced = (busy, launches, time.perf_counter() - t0)
+    push(trace, len(frames))
+    h.push_eos()
+    out = []
+    while (b := h.pull(timeout=120)) is not None:
+        out.append(b)
+    wall = time.perf_counter() - t0
+    h.teardown()
+    return out, wall, traced
+
+
+def _report(label, n_frames, wall, busy, launches, n_chunks, peak,
+            busy_wall=None):
+    """One line of frames/s, peak memory, busy and launches per chunk;
+    ``busy_wall``: the wall seconds the trace covered, where it covered
+    a part of the run."""
+    busy_txt = "busy not measured (the profiler traced no device activity)" \
+        if busy is None else (f"device busy {busy[0] / n_chunks:.3f} ms per "
+                              f"chunk (share "
+                              f"{busy[0] / 1e3 / (busy_wall or wall):.3f}; "
+                              f"kernels alone {busy[1] / n_chunks:.3f}, the "
+                              "rest copies)")
+    print(f"{label}: {n_frames} frames in {wall:.3f} s = "
+          f"{n_frames / wall:.1f} frames/s; peak device memory "
+          f"{peak / 2 ** 30:.2f} GiB; {busy_txt}, "
+          f"{launches / n_chunks:g} device launches per chunk "
+          f"(torch.profiler, {n_chunks} chunks)", flush=True)
+    if busy is not None:
+        print("  largest device items per chunk: " + "; ".join(
+            f"{k[:48]} {t / n_chunks:.3f} ms x{c / n_chunks:g}"
+            for k, (t, c) in busy[2]), flush=True)
+
+
+def run_hype(dev, lib, lap, single_ms):
+    """Phase 13: config 3 through the hype bin and cudahype, the FVC arms
+    of cudahype, the injectbin swap, and K3, K5, K4 with a chunk axis.
+    Returns the kernels' launch counts over the paths."""
+    import torch
+    from flutpu_torch.codec.jpeg import JpegEncoder, _edge_pad
+    from flutpu_torch.codec.ops import frontend as F
+    from flutpu_torch.core import parse_launch
+
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    caps = f"video/x-raw, format=RGB, width={W}, height={H}, framerate=30/1"
+    n_gops = HYPE_FRAMES // HYPE_GOP
+    enc = JpegEncoder(quality=QUALITY, device=dev)
+
+    def pipeline(tail):
+        torch.cuda.reset_peak_memory_stats()
+        (bufs, wall), n = _count_launches(lambda: _pipeline(
+            parse_launch, f"videotestsrc num-buffers={HYPE_FRAMES} "
+            f"pattern=gradient width={W} height={H} ! {tail} "
+            "! appsink name=out"))
+        return bufs, wall, n, torch.cuda.max_memory_allocated()
+
+    # -- 13a. the hype bin: four cudajpegenc branches on one card ---------
+    branches = " ".join(f"encoder-{k}='cudajpegenc batch-frames=16 "
+                        f"device={dev}'" for k in range(HYPE_BRANCHES))
+    (bufs_a, wall, n, peak), busy, launches = _traced(
+        lambda: pipeline(f"hype gop-size={HYPE_GOP} {branches}"))
+    _report(f"13a hype gop-size={HYPE_GOP} {HYPE_BRANCHES} x cudajpegenc "
+            "(videotestsrc 1080p, under the profiler)", HYPE_FRAMES, wall,
+            busy, launches, n_gops, peak)
+    print(f"13a kernel launches {n}", flush=True)
+    _require(n["front_end"] > 0 and n["pack_segments"] > 0,
+             "K1 and K2 must launch in the hype bin")
+    add(n)
+    _require(len(bufs_a) == HYPE_FRAMES,
+             f"the hype bin gave {len(bufs_a)} frames")
+    pts = [b.pts for b in bufs_a]
+    _require(all(a < b for a, b in zip(pts, pts[1:])),
+             "the hype bin's output is out of order")
+    worst = float("inf")
+    for g in range(n_gops):
+        frames = _gradient_frames(dev, g * HYPE_GOP, HYPE_GOP)
+        got = [bytes(b.data) for b in bufs_a[g * HYPE_GOP:(g + 1) * HYPE_GOP]]
+        _require(got == enc.encode_gop(frames),
+                 f"hype GOP {g} differs from a JpegEncoder encode")
+        planes = [_edge_pad(frames[..., c], PH, PW) for c in range(3)]
+        worst = min(worst, _check_frames(
+            lib, got, F.front_end(*planes, enc._qy_dev, enc._qc_dev),
+            frames, enc, f"hype GOP {g}", size=(H, W, PH, PW)))
+    print(f"13a checks: {HYPE_FRAMES} frames in order (pts strictly "
+          f"increasing), each byte-identical to a JpegEncoder encode, "
+          f"decoding to K1's coefficients; lowest PSNR {worst:.2f} dB",
+          flush=True)
+    lap("13a hype bin")
+
+    # -- 13b. cudahype: 8 chunks per dispatch -----------------------------
+    (bufs_b, wall, n, peak), busy, launches = _traced(lambda: pipeline(
+        f"cudahype codec=jpeg chunks={HYPE_CHUNKS} gop-size={HYPE_GOP} "
+        f"device={dev}"))
+    _report(f"13b cudahype codec=jpeg chunks={HYPE_CHUNKS} "
+            f"gop-size={HYPE_GOP} (videotestsrc 1080p, under the profiler; "
+            f"2 dispatches, the second padded)", HYPE_FRAMES, wall, busy,
+            launches, n_gops, peak)
+    print(f"13b kernel launches {n}", flush=True)
+    _require(n["front_end"] > 0 and n["pack_segments"] > 0,
+             "K1 and K2 must launch in cudahype")
+    add(n)
+    _require([b.pts for b in bufs_b] == pts,
+             "cudahype's output order differs from the hype bin's")
+    _require([bytes(b.data) for b in bufs_b]
+             == [bytes(b.data) for b in bufs_a],
+             "cudahype's JPEG bytes differ from the hype bin's")
+    print(f"13b checks: {HYPE_FRAMES} frames in order, byte-identical to "
+          "13a's (so each equals a JpegEncoder encode and decodes to K1's "
+          "coefficients)", flush=True)
+    # the element alone on frames already in host memory: one dispatch
+    frames = _gradient_frames(dev, 0, HYPE_CHUNKS * HYPE_GOP).cpu().numpy()
+    for label, desc in (
+            ("hype bin", f"hype gop-size={HYPE_GOP} {branches}"),
+            ("cudahype", f"cudahype codec=jpeg chunks={HYPE_CHUNKS} "
+                         f"gop-size={HYPE_GOP} device={dev}")):
+        torch.cuda.reset_peak_memory_stats()
+        out, wall, _ = _harness_run(desc, frames, caps)
+        _require([bytes(b.data) for b in out]
+                 == [bytes(b.data) for b in bufs_a[:len(frames)]],
+                 f"{label} on host frames differs from 13a")
+        print(f"13b {label}, {len(frames)} frames pushed from host memory "
+              f"(no source): {wall:.3f} s = {len(frames) / wall:.1f} "
+              f"frames/s; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB",
+              flush=True)
+    del frames, bufs_a, bufs_b
+    lap("13b cudahype jpeg")
+
+    add(_run_hype_fvc(dev, lib, caps))
+    lap("13c cudahype fvc")
+    _run_swap(dev)
+    lap("13d injectbin swap")
+    _batched_kernels(dev, single_ms)
+    lap("13e batched K3, K5, K4")
+    return total
+
+
+def _run_hype_fvc(dev, lib, caps):
+    """Phase 13c. Returns the launch counts."""
+    import torch
+    from flutpu_torch.codec.fvc import FvcDecoder, FvcEncoder
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_frames
+
+    total = {}
+    card = FvcDecoder(dev)
+    for props, kw, n_frames, kernel in (
+            ("", {}, FVC_HYPE_FRAMES[0], "motion_search_mc"),
+            (" search=hier bframes=1", dict(hier=True, bframes=1),
+             FVC_HYPE_FRAMES[1], "motion_search_mc_hier")):
+        desc = (f"cudahype codec=fvc-motion chunks={HYPE_CHUNKS} "
+                f"gop-size={CHUNK} search-range={SEARCH_RANGE} "
+                f"device={dev}{props}")
+        frames = gradient_ball_frames(PH, PW, n_frames, 0, device=dev)[
+            :, :H, :W].cpu().numpy()
+        # one dispatch first, as a stream would run: the element's first
+        # dispatch sizes its entropy stage and may redispatch once
+        warm = frames[:HYPE_CHUNKS * CHUNK]
+        torch.cuda.reset_peak_memory_stats()
+        (out, wall, (busy, launches, busy_wall)), n = _count_launches(
+            lambda: _harness_run(desc, frames, caps, warm=warm,
+                                 trace=len(warm)))
+        peak = torch.cuda.max_memory_allocated()
+        _require(n[kernel] > 0 and n["chroma_mc"] > 0
+                 and n["pack_segments"] > 0,
+                 f"{desc}: {kernel}, K4 and K2 must launch")
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+        n_chunks = -(-n_frames // CHUNK)
+        # busy and launches: the first dispatch of the measured frames
+        _report(f"13c {desc} (after one warm dispatch; the trace over its "
+                f"first {HYPE_CHUNKS}-chunk dispatch)", n_frames, wall, busy,
+                launches, HYPE_CHUNKS, peak, busy_wall)
+        was = PER_CHUNK_BUSY.get("FVC hier+B chunk" if kw else
+                                 "FVC full-search P chunk")
+        if was is not None:
+            print(f"13c beside it, the per-chunk encoder on the on-device "
+                  f"source (phase {8 if kw else 6}): {was[0]:.3f} ms busy, "
+                  f"{was[1]:g} device launches per chunk", flush=True)
+        print(f"13c kernel launches (warm dispatch included) {n}",
+              flush=True)
+        _require(len(out) == n_chunks, f"{desc}: {len(out)} chunks")
+        _require([b.pts for b in out] == [(len(warm) + c * CHUNK) * FRAME_NS
+                                          for c in range(n_chunks)],
+                 f"{desc}: chunks out of order")
+        ref = FvcEncoder(QUALITY, motion=True, search_range=SEARCH_RANGE,
+                         device=dev, **kw)
+        sources, same = [], 0
+        for ci, b in enumerate(out):
+            src = frames[ci * CHUNK:(ci + 1) * CHUNK]
+            sources.append(src)
+            want = ref.encode_chunk(src)
+            types = [t for t, _, _ in FvcDecoder.parse_chunk(b.data)[1]]
+            # a B frame needs an anchor on each side: 3 frames or more
+            _require((2 in types) == bool(kw.get("bframes") and len(src) > 2),
+                     f"{desc} chunk {ci}: frame types {types}")
+            if bytes(b.data) == want:
+                same += 1
+                continue
+            label = f"{desc} chunk {ci}"
+            fd, what = _verify_split(bytes(b.data), want, src, SEARCH_RANGE,
+                                     bool(kw.get("hier")), dev, label)
+            da, db = card.decode_chunk(bytes(b.data))[0], \
+                card.decode_chunk(want)[0]
+            dp = max(abs(_psnr(x, s_) - _psnr(y, s_))
+                     for x, y, s_ in zip(da, db, src))
+            _require(dp <= MAX_DPSNR, f"{label}: PSNR differs by {dp:.4f} "
+                     "dB from the per-chunk encode")
+            print(f"{label}: differs from the per-chunk encode from frame "
+                  f"{fd} on (coding order), there at {what}; max dPSNR "
+                  f"{dp:.4f} dB", flush=True)
+        worst, d_rgb, d_psnr = _check_chunks(lib, [bytes(b.data) for b in out],
+                                             sources, f"13c {desc}")
+        print(f"13c checks ({desc}): {len(out)} chunks in order; {same} of "
+              f"{len(out)} byte-identical to a per-chunk FvcEncoder on the "
+              f"card, the others within the tie contract; decode on the "
+              f"card at >= {worst:.2f} dB; scans equal flu_jpeg_encode_scan; "
+              f"CPU decode max |dRGB| {d_rgb}, max dPSNR {d_psnr:.4f} dB",
+              flush=True)
+    return total
+
+
+def _dct64(x):
+    """(..., H, W) float64 → (..., H/8, W/8, 8, 8) 8x8 DCT in float64 with
+    the codec's (float32) DCT matrix."""
+    import torch
+    from flutpu_torch.codec.ops.dct import blockize, dct_matrix
+    c = torch.as_tensor(dct_matrix(8), device=x.device).double()
+    return c @ blockize(x) @ c.T
+
+
+def _idct64(coefs):
+    import torch
+    from flutpu_torch.codec.ops.dct import dct_matrix, unblockize
+    c = torch.as_tensor(dct_matrix(8), device=coefs.device).double()
+    return unblockize(c.T @ coefs @ c)
+
+
+def _verify_split(a: bytes, b: bytes, src, r: int, hier: bool, dev, label):
+    """Two encodes of one chunk that differ: a float tie split them. At the
+    first frame (in coding order: anchors, then B frames) whose record
+    differs, everything before is the same in both, so the reference is
+    rebuilt in float64 from the decoded frames; there the two must differ
+    only where float64 shows a tie: vectors whose costs are equal within
+    fp32 rounding (``_near_tie_check``), or, with the same vectors and
+    modes, coefficients that differ by 1 where the float64 quotient lies
+    within 2e-3 of a rounding boundary. Returns (the first differing
+    frame, its differing coefficients)."""
+    import numpy as np
+    import torch
+    from flutpu_torch.codec.decode import decode_scan_to_coefs
+    from flutpu_torch.codec.fvc import FvcDecoder, _select_mode, \
+        _repeat_blocks
+    from flutpu_torch.codec.jpeg import _edge_pad
+    from flutpu_torch.codec.ops.colorspace import planes_to_i420
+    from flutpu_torch.codec.ops.motion import motion_compensate
+    from flutpu_torch.codec.ops.quant import (CHROMA_QTABLE, LUMA_QTABLE,
+                                              scale_qtable,
+                                              zigzag_unflatten)
+    (ha, fa), (_, fb) = FvcDecoder.parse_chunk(a), FvcDecoder.parse_chunk(b)
+    types = [f[0] for f in fa]
+    _require(types == [f[0] for f in fb], f"{label}: frame types differ")
+
+    def same(x, y):
+        if x[1] is None or y[1] is None:
+            mv_same = x[1] is None and y[1] is None
+        elif isinstance(x[1], tuple):
+            mv_same = all(np.array_equal(u, v) for u, v in zip(x[1], y[1]))
+        else:
+            mv_same = np.array_equal(x[1], y[1])
+        return mv_same and x[2] == y[2]
+
+    anchors = [i for i, t in enumerate(types) if t != 2]
+    order = anchors + [i for i, t in enumerate(types) if t == 2]
+    fd = next(i for i in order if not same(fa[i], fb[i]))
+
+    def tables(q):
+        return [torch.as_tensor(scale_qtable(t, q), device=dev).double()
+                for t in (LUMA_QTABLE, CHROMA_QTABLE, CHROMA_QTABLE)]
+
+    def coefs(rec):
+        return [torch.as_tensor(c.astype(np.int64), device=dev)
+                for c in decode_scan_to_coefs(rec[2], PW // 8, PH // 8,
+                                              PW // 16, PH // 16, True)]
+
+    q = tables(ha["quality"])
+    frames = torch.as_tensor(src, device=dev)
+    cur = [p.double() for p in planes_to_i420(*(
+        _edge_pad(frames[..., c], PH, PW) for c in range(3)))]
+
+    def predict(ref, mv):
+        mv = torch.as_tensor(mv.astype(np.int64), device=dev)
+        return [motion_compensate(ref[0], mv)] + [
+            motion_compensate(p, mv, mb=8) for p in ref[1:]]
+
+    recs = {}
+    for i in anchors:
+        if i == fd:
+            break
+        pred = [128.0] * 3 if types[i] == 0 else predict(recs[prev], fa[i][1])
+        recs[i] = [(p + _idct64(zigzag_unflatten(c).double() * t))
+                   .clamp(0.0, 255.0)
+                   for p, c, t in zip(pred, coefs(fa[i]), q)]
+        prev = i
+    if types[fd] == 2:
+        p0 = max(i for i in anchors if i < fd)
+        p1 = min(i for i in anchors if i > fd)
+        fwd, bwd, mode = fa[fd][1]
+        _require(all(np.array_equal(u, v) for u, v in zip(fa[fd][1],
+                                                          fb[fd][1])),
+                 f"{label}: B frame {fd} differs in its vectors or modes")
+        pf, pb = predict(recs[p0], fwd), predict(recs[p1], bwd)
+        mode = torch.as_tensor(mode.astype(np.int64), device=dev)
+        pred = [_select_mode(_repeat_blocks(mode, m), (x + y) * 0.5, x, y)
+                for m, x, y in zip((16, 8, 8), pf, pb)]
+        q = tables(ha["bquality"])
+    elif types[fd] == 0:
+        pred = [128.0] * 3
+    else:
+        ref = recs[prev]
+        mv_a, mv_b = (torch.as_tensor(f[1].astype(np.int32), device=dev)
+                      for f in (fa[fd], fb[fd]))
+        if not torch.equal(mv_a, mv_b):
+            n = _near_tie_check(cur[0][fd].float(), ref[0].float(), mv_a,
+                                mv_b, r, 16, not hier)
+            return fd, f"{n} vectors, each a float64-verified near-tie"
+        pred = predict(ref, fa[fd][1])
+    n_diff = 0
+    for c, ca, cb_, t, pr in zip(cur, coefs(fa[fd]), coefs(fb[fd]), q, pred):
+        v = _dct64(c[fd] - pr) / t
+        # the float64 model holds: each stream's coefficients are its
+        # quotients rounded (a split could not be told from a model error)
+        for x in (ca, cb_):
+            miss = float((v - zigzag_unflatten(x)).abs().max())
+            _require(miss <= 0.5 + 2e-3, f"{label}: frame {fd}: the float64 "
+                     f"quotients miss the coefficients by {miss:.4f}")
+        d = (ca - cb_).abs()
+        if not bool(d.any()):
+            continue
+        _require(int(d.max()) == 1, f"{label}: frame {fd}: a coefficient "
+                 f"moved by {int(d.max())}")
+        lo = torch.minimum(zigzag_unflatten(ca), zigzag_unflatten(cb_))
+        where = zigzag_unflatten(d) > 0
+        off = (v - (lo.double() + 0.5)).abs()[where]
+        _require(float(off.max()) <= 2e-3, f"{label}: frame {fd}: a "
+                 f"coefficient differs {float(off.max()):.2e} away from a "
+                 "rounding tie")
+        n_diff += int(where.sum())
+    return fd, f"{n_diff} coefficients, each within 2e-3 of a float64 tie"
+
+
+def _run_swap(dev):
+    """Phase 13d: a prewarmed cudajpegenc swapped into a running 720p
+    stream; no buffer lost or reordered; the largest output gap."""
+    import numpy as np
+    from flutpu_torch.codec.jpeg import JpegEncoder
+    from flutpu_torch.core import make, parse_launch
+    from flutpu_torch.core.elements import make_test_frame
+    p = parse_launch(f"videotestsrc num-buffers={SWAP_FRAMES} is-live=true "
+                     f"pattern=ball width={SWAP_W} height={SWAP_H} "
+                     "! injectbin name=ib ! appsink name=out")
+    ib, sink = p.get_by_name("ib"), p.get_by_name("out")
+    enc = make("cudajpegenc", batch_frames=1, device=str(dev))
+    arrivals, bufs, swap_s = [], [], None
+    p.play()
+    try:
+        while (buf := sink.try_pull_buffer(timeout=60)) is not None:
+            arrivals.append(time.perf_counter())
+            bufs.append(buf)
+            if len(bufs) == SWAP_AT:
+                t0 = time.perf_counter()
+                ib.set_property("element", enc)   # prewarm, then the probe
+                swap_s = time.perf_counter() - t0
+    finally:
+        p.stop()
+    _require(len(bufs) == SWAP_FRAMES, f"the swap lost buffers: "
+             f"{len(bufs)} of {SWAP_FRAMES}")
+    pts = [b.pts for b in bufs]
+    _require(all(a < b for a, b in zip(pts, pts[1:])),
+             "the swap reordered buffers")
+    jpeg = [isinstance(b.data, (bytes, bytearray))
+            and bytes(b.data[:2]) == b"\xff\xd8" for b in bufs]
+    first = jpeg.index(True)
+    _require(all(jpeg[first:]) and not any(jpeg[:first]) and
+             first >= SWAP_AT, f"raw frames then JPEG expected: {jpeg}")
+    ref = JpegEncoder(QUALITY, device=dev)
+    want = ref.encode_gop(np.stack([make_test_frame("ball", SWAP_W, SWAP_H, i)
+                                    for i in range(first, SWAP_FRAMES)]))
+    _require([bytes(b.data) for b in bufs[first:]] == want,
+             "the swapped-in encoder's frames differ from a JpegEncoder's")
+    gaps = np.diff(np.asarray(arrivals)) * 1e3
+    print(f"13d injectbin swap (720p, live 30 frames/s): {SWAP_FRAMES} "
+          f"buffers in order, none lost; raw before frame {first}, JPEG "
+          f"from it on, equal to a JpegEncoder encode; set_property "
+          f"(prewarm and probe) {swap_s * 1e3:.1f} ms on the caller's "
+          f"thread; output gap median {float(np.median(gaps)):.1f} ms, "
+          f"largest {float(gaps.max()):.1f} ms (at output "
+          f"{int(gaps.argmax()) + 1})", flush=True)
+
+
+def _batched_kernels(dev, single_ms):
+    """Phase 13e: K3, K5 and K4 with a chunk axis at 1080p: one launch of
+    8 chunks equal to each chunk's own launch (bit for bit) and to the
+    plain version (K4 bit for bit; K3 and K5 but for float64-verified
+    near-ties, predictions exact), timed beside 8 single launches."""
+    import torch
+    from flutpu_torch.codec.ops import motion_kernels as M
+    from flutpu_torch.codec.ops.colorspace import planes_to_i420
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
+    c, r = HYPE_CHUNKS, SEARCH_RANGE
+    y, cb, cr = planes_to_i420(*gradient_ball_planes(PH, PW, 2 * c, 0,
+                                                     device=dev))
+    cur, prev = y[1::2].contiguous(), y[0::2].contiguous()
+    for name, kernel, plain, bias in (
+            ("motion_search_mc", M.motion_search_mc,
+             M.motion_search_mc_plain, True),
+            ("motion_search_mc_hier", M.motion_search_mc_hier,
+             M.motion_search_mc_hier_plain, False)):
+        mv, pred = kernel(cur, prev, r)
+        mv_p, _ = plain(cur, prev, r)
+        for k in range(c):
+            one = kernel(cur[k], prev[k], r)
+            _require(torch.equal(mv[k], one[0]) and torch.equal(
+                pred[k], one[1]), f"{name}: chunk {k} of a batched launch "
+                "differs from its own launch")
+            _hold_search(f"batched chunk {k}", name, (mv[k], pred[k]),
+                         (mv_p[k], None), cur[k], prev[k], r, 16, bias,
+                         lambda p_, m: M.motion_compensate(p_, m, r))
+        _time_batched(name, lambda: kernel(cur, prev, r),
+                      [lambda k=k: kernel(cur[k], prev[k], r)
+                       for k in range(c)], c, single_ms[name])
+    mv = M.motion_search_mc(cur, prev, r)[0]
+    pcb, pcr = cb[0::2].contiguous(), cr[0::2].contiguous()
+    got = M.chroma_mc(pcb, pcr, mv, r)
+    _require(all(torch.equal(a, b) for a, b in zip(
+        got, M.chroma_mc_plain(pcb, pcr, mv, r))),
+        "chroma_mc (8 chunks) differs from its plain version")
+    for k in range(c):
+        one = M.chroma_mc(pcb[k], pcr[k], mv[k], r)
+        _require(torch.equal(one[0], got[0][k]) and torch.equal(
+            one[1], got[1][k]), f"chroma_mc: chunk {k} differs from its "
+            "own launch")
+    _time_batched("chroma_mc", lambda: M.chroma_mc(pcb, pcr, mv, r),
+                  [lambda k=k: M.chroma_mc(pcb[k], pcr[k], mv[k], r)
+                   for k in range(c)], c, single_ms["chroma_mc"])
+
+
+def _time_batched(name, batched, singles, c, one_ms):
+    """One launch of c chunks against c single launches, in turns (single,
+    batched, batched, single); the singles get fewer repetitions, so that
+    all their launches queue behind ``_time_ms``'s device sleep.
+    ``one_ms``: the kernel's time per single launch from phase 5/5b."""
+    def all_singles():
+        for fn in singles:
+            fn()
+    reps = {all_singles: max(2, 40 // c), batched: 20}
+    turns = [_time_ms(f, reps[f]) for f in (all_singles, batched, batched,
+                                            all_singles)]
+    print(f"{name} with a chunk axis: {c} chunks in one launch "
+          f"{turns[1]:.4f}, {turns[2]:.4f} ms per frame step; {c} single "
+          f"launches {turns[0]:.4f}, {turns[3]:.4f} ms (1080p; "
+          f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}x); {c} x "
+          f"phase 5's single-launch time {c * one_ms:.4f} ms", flush=True)
 
 
 if __name__ == "__main__":

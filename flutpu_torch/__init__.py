@@ -16,8 +16,12 @@ Ported so far: the 4:2:0 baseline-JPEG GOP encoder
 (``codec.jpeg.JpegEncoder``, both bitstream layouts) and its element
 ``cudajpegenc``; the FVC chunk codec, version 1 and version 2 with P and
 B frames (``codec.fvc.FvcEncoder``, ``FvcDecoder``) and its element
-``cudafvcenc``. ``import flutpu_torch`` registers both elements in the
-port's registry (``flutpu_torch.core``).
+``cudafvcenc``; subtitle burn-in (``ttml``); GOP-chunk parallelism
+(``hype``: the ``hype`` bin with the port's encoders in its branches,
+and ``cudahype``, C chunks per dispatch; ``parallel``; ``inject``:
+``injectbin``). ``import flutpu_torch`` registers the encoders in the
+port's registry (``flutpu_torch.core``), which loads the other plugins
+on first use.
 """
 
 __version__ = "0.1.0"

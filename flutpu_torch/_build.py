@@ -132,19 +132,18 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.flu_pack_segments.restype = i
     lib.flu_pack_blocks.argtypes = [p, p, p, p, i, p]
     lib.flu_pack_blocks.restype = i
-    for entry in ("flu_pack_slots64", "flu_pack_slots64_serial"):
-        getattr(lib, entry).argtypes = [p, p, p, p, p, i, i, p]
-        getattr(lib, entry).restype = i
-    for entry in ("flu_pack_slots32", "flu_pack_slots32_serial"):
-        getattr(lib, entry).argtypes = [p, p, p, p, i, i, p]
-        getattr(lib, entry).restype = i
-    lib.flu_motion_search_mc.argtypes = [p, p, p, p, i, i, i, p]
+    lib.flu_pack_slots64.argtypes = [p, p, p, p, p, i, i, p]
+    lib.flu_pack_slots64.restype = i
+    lib.flu_pack_slots32.argtypes = [p, p, p, p, i, i, p]
+    lib.flu_pack_slots32.restype = i
+    # the motion entries take nc planes of (h, w) one after the other
+    lib.flu_motion_search_mc.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.flu_motion_search_mc.restype = i
-    lib.flu_motion_search_mc_blocks.argtypes = [p, p, p, p, i, i, i, i, p]
+    lib.flu_motion_search_mc_blocks.argtypes = [p, p, p, p, i, i, i, i, i, p]
     lib.flu_motion_search_mc_blocks.restype = i
-    lib.flu_motion_search_hier.argtypes = [p, p, p, p, i, i, i, p]
+    lib.flu_motion_search_hier.argtypes = [p, p, p, p, i, i, i, i, p]
     lib.flu_motion_search_hier.restype = i
-    lib.flu_chroma_mc.argtypes = [p, p, p, p, p, i, i, p]
+    lib.flu_chroma_mc.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.flu_chroma_mc.restype = i
 
 
@@ -166,3 +165,14 @@ def check(err: int, what: str) -> None:
     """Raise on a nonzero ``cudaError_t`` returned by a C entry."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err}")
+
+
+_count_lock = threading.Lock()
+
+
+def count_launch(wrapper, attr: str = "launches") -> None:
+    """Add one to ``wrapper``'s launch count. Several streaming threads
+    (one per encoder branch of a hype bin) launch kernels at once; the
+    lock keeps their counts from overwriting each other."""
+    with _count_lock:
+        setattr(wrapper, attr, getattr(wrapper, attr) + 1)

@@ -32,9 +32,15 @@ and the per-frame records are copies). The port writes header flags
 bit 3 = 0: its in-loop reconstruction uses the per-block DCT, which is
 what flutpu's decoder on the CPU expects for such streams.
 
+C GOP chunks in one dispatch: ``encode_chunks_dispatch`` /
+``encode_chunks_finalize`` (``cudahype``) run the same code with a
+leading chunk axis; a chunk's bytes are those of its own dispatch but
+where a float tie in the batched in-loop transform splits them.
+
 Not ported (each raises ``NotImplementedError``): half-pel motion
-(``subpel``), 4:4:4, batched chunk dispatch, rate control
-(``bitrate``), spatial striping.
+(``subpel``), 4:4:4, rate control (``bitrate``), spatial striping;
+flutpu's batched dispatch from the on-device source
+(``encode_chunk_batch_dispatch_src``) has no counterpart yet.
 """
 
 from __future__ import annotations
@@ -54,7 +60,7 @@ from .convert import encoder_state_from_numpy
 from .decode import coefs_to_rgb, decode_scan_to_coefs
 from .encoder import SCENE_NEW_EVENT_NAME
 from .jpeg import JpegEncoder, _edge_pad, _HostCopy, _pad_to, \
-    _planes_front_end, segmented_property
+    segmented_property
 from .ops.colorspace import i420_to_rgb, planes_to_i420
 from .ops.dct import dct_matrix, plane_dct, plane_idct, unblockize
 from .ops.entropy import encode_gop_scans_layout
@@ -126,15 +132,32 @@ def _code_plane(resid: torch.Tensor, qtab: torch.Tensor):
 
 
 def _planes(frames):
-    """(r, g, b) channel planes or interleaved (F, H, W, 3) frames →
+    """(r, g, b) channel planes or interleaved (..., H, W, 3) frames →
     the three channel planes."""
     if isinstance(frames, (tuple, list)):
         return tuple(frames)
     return frames[..., 0], frames[..., 1], frames[..., 2]
 
 
+def _chunked(frames):
+    """One chunk's frames ((r, g, b) planes (F, H, W) or interleaved (F,
+    H, W, 3)) or C chunks' ((C, F, H, W) planes or (C, F, H, W, 3)) →
+    (the frames with a leading chunk axis, whether it was added)."""
+    if isinstance(frames, (tuple, list)):
+        if frames[0].dim() == 3:
+            return tuple(p[None] for p in frames), True
+        return tuple(frames), False
+    if frames.dim() == 4:
+        return frames[None], True
+    return frames, False
+
+
+def _unchunked(parts, added: bool):
+    return tuple(p[0] for p in parts) if added else tuple(parts)
+
+
 def _i420_planes(frames, pad_h: int, pad_w: int):
-    """(r, g, b) uint8 planes (F, H, W) or interleaved (F, H, W, 3)
+    """(r, g, b) uint8 planes (..., H, W) or interleaved (..., H, W, 3)
     frames, edge-padded to (pad_h, pad_w) → float32 (Y, Cb, Cr) planes."""
     r, g, b = (_edge_pad(p, pad_h, pad_w) for p in _planes(frames))
     _check_full_fp32(r.device)
@@ -150,37 +173,44 @@ def _search_fn(hier: bool, dygrid: bool = False):
 
 
 def _anchor_loop(y, cb, cr, qy, qc, search, search_range: int):
-    """The hybrid loop over (F, ...) planes, frame 0 intra: per frame the
-    search against the reconstructed reference, the chroma kernel, the
-    device-side I/P decision, DCT + quantization of the pixel residual
-    and the in-loop reconstruction. Returns (ry, rcb, rcr) int16
-    zigzagged residual coefficients, mvs (F, H/16, W/16, 2) int8, itypes
-    (F,) int8 (1 = intra) and each frame's reconstructed planes."""
-    f = y.shape[0]
+    """The hybrid loop over (C, F, ...) planes: C GOP chunks side by side,
+    frame 0 of each intra. Per frame step, for every chunk at once: the
+    search against its reconstructed reference (one launch for all C),
+    the chroma kernel, the device-side I/P decision of each chunk over
+    its own plane, DCT + quantization of the pixel residual and the
+    in-loop reconstruction. Returns (ry, rcb, rcr) (C, F, BH, BW, 64)
+    int16 zigzagged residual coefficients, mvs (C, F, H/16, W/16, 2)
+    int8, itypes (C, F) int8 (1 = intra) and each frame's reconstructed
+    (C, ...) planes."""
+    c, f = y.shape[:2]
     dev = y.device
-    mbh, mbw = y.shape[1] // MB, y.shape[2] // MB
-    no_mv = torch.zeros((mbh, mbw, 2), dtype=torch.int32, device=dev)
+    mbh, mbw = y.shape[2] // MB, y.shape[3] // MB
+    # frame-major: a frame step of all chunks is one contiguous (C, H, W)
+    # block, as the kernels read it (no copy where C is 1)
+    y, cb, cr = (p.transpose(0, 1).contiguous() for p in (y, cb, cr))
+    no_mv = torch.zeros((c, mbh, mbw, 2), dtype=torch.int32, device=dev)
     outs, mvs, itypes, recs = [], [], [], []
     rec_y = rec_cb = rec_cr = None
     for i in range(f):
         cy, ccb, ccr = y[i], cb[i], cr[i]
-        if i == 0:   # the chunk starts on an I frame: no search to run
-            is_i = torch.ones((), dtype=torch.bool, device=dev)
+        if i == 0:   # each chunk starts on an I frame: no search to run
+            is_i = torch.ones((c,), dtype=torch.bool, device=dev)
             mv = no_mv
             pred_y = pred_cb = pred_cr = 128.0
         else:
             mv, pred_p_y = search(cy, rec_y, search_range)
-            # the in-codec scene-cut detector: intra when flat 128 leaves
-            # less luma residual than the motion prediction (sums in
-            # float64, so the CPU and the card decide alike)
-            sad_p = (cy - pred_p_y).abs().sum(dtype=torch.float64)
-            sad_i = (cy - 128.0).abs().sum(dtype=torch.float64)
+            # the in-codec scene-cut detector, per chunk: intra when flat
+            # 128 leaves less luma residual than the motion prediction
+            # (sums in float64, so the CPU and the card decide alike)
+            sad_p = (cy - pred_p_y).abs().sum(dim=(1, 2), dtype=torch.float64)
+            sad_i = (cy - 128.0).abs().sum(dim=(1, 2), dtype=torch.float64)
             is_i = sad_i < sad_p
-            mv = torch.where(is_i, no_mv, mv)
+            intra = is_i[:, None, None]
+            mv = torch.where(intra[..., None], no_mv, mv)
             pcb, pcr = chroma_mc(rec_cb, rec_cr, mv, search_range)
-            pred_y = torch.where(is_i, 128.0, pred_p_y)
-            pred_cb = torch.where(is_i, 128.0, pcb)
-            pred_cr = torch.where(is_i, 128.0, pcr)
+            pred_y = torch.where(intra, 128.0, pred_p_y)
+            pred_cb = torch.where(intra, 128.0, pcb)
+            pred_cr = torch.where(intra, 128.0, pcr)
         oy, ry_rec = _code_plane(cy - pred_y, qy)
         ocb, rcb_rec = _code_plane(ccb - pred_cb, qc)
         ocr, rcr_rec = _code_plane(ccr - pred_cr, qc)
@@ -191,8 +221,9 @@ def _anchor_loop(y, cb, cr, qy, qc, search, search_range: int):
         mvs.append(mv.to(torch.int8))
         itypes.append(is_i.to(torch.int8))
         recs.append((rec_y, rec_cb, rec_cr))
-    ry, rcb, rcr = (torch.stack(p) for p in zip(*outs))
-    return ry, rcb, rcr, torch.stack(mvs), torch.stack(itypes), recs
+    ry, rcb, rcr = (torch.stack(p, dim=1) for p in zip(*outs))
+    return (ry, rcb, rcr, torch.stack(mvs, dim=1), torch.stack(itypes, dim=1),
+            recs)
 
 
 def fvc_mc_encode_chunk(frames, qy: torch.Tensor, qc: torch.Tensor,
@@ -204,18 +235,22 @@ def fvc_mc_encode_chunk(frames, qy: torch.Tensor, qc: torch.Tensor,
     K6b under ``FLUTPU_SEARCH_DYGRID=1``, as flutpu selects it) or, with
     ``hier``, the coarse-to-fine search (K5). ``frames``: (r, g, b) uint8
     planes (F, H, W) or interleaved (F, H, W, 3), edge-padded here to
-    (pad_h, pad_w).
+    (pad_h, pad_w); or C chunks' ((C, F, H, W) planes, (C, F, H, W, 3)),
+    encoded side by side.
 
     Returns (ry, rcb, rcr) int16 zigzagged residual coefficients,
-    mvs (F, H/16, W/16, 2) int8 and itypes (F,) int8 (1 = intra)."""
+    mvs ([C,] F, H/16, W/16, 2) int8 and itypes ([C,] F) int8 (1 =
+    intra)."""
     if subpel:
         raise NotImplementedError("half-pel motion is not ported yet")
     if planar:
         raise NotImplementedError("the port reconstructs with the per-block "
                                   "DCT (header flags bit 3 = 0)")
+    frames, added = _chunked(frames)
     y, cb, cr = _i420_planes(frames, pad_h, pad_w)
     search = _search_fn(hier, env_flag("FLUTPU_SEARCH_DYGRID", False))
-    return _anchor_loop(y, cb, cr, qy, qc, search, search_range)[:5]
+    return _unchunked(_anchor_loop(y, cb, cr, qy, qc, search,
+                                   search_range)[:5], added)
 
 
 def _bframe_structure(f: int, bframes: int):
@@ -247,7 +282,9 @@ def _select_mode(mode_px: torch.Tensor, bi, fwd, bwd) -> torch.Tensor:
 
 
 def _repeat_blocks(a: torch.Tensor, n: int) -> torch.Tensor:
-    return a.repeat_interleave(n, 0).repeat_interleave(n, 1)
+    """(..., BH, BW) → (..., BH * n, BW * n), each value over an n x n
+    block."""
+    return a.repeat_interleave(n, -2).repeat_interleave(n, -1)
 
 
 def fvc_mc_encode_chunk_b(frames, qy: torch.Tensor, qc: torch.Tensor,
@@ -266,31 +303,38 @@ def fvc_mc_encode_chunk_b(frames, qy: torch.Tensor, qc: torch.Tensor,
     (default: the anchor tables) and never reconstructed. Chroma is
     compensated with both vectors before the unused ones are zeroed.
 
+    ``frames``: one chunk's, or C chunks' with a leading chunk axis (as
+    ``fvc_mc_encode_chunk``): every step below then covers all C chunks
+    at once, each chunk's searches, costs and modes its own.
+
     Returns, in display order: (ry, rcb, rcr) int16 zigzagged residual
-    coefficients; fwd and bwd (F, H/16, W/16, 2) int8 (anchor P vectors in
-    fwd; zero where a B macroblock does not use them); modes (F, H/16,
-    W/16) int8 (zero for anchors); ftypes (F,) int8 (0 = P anchor, 1 = I
-    anchor, 2 = B)."""
+    coefficients; fwd and bwd ([C,] F, H/16, W/16, 2) int8 (anchor P
+    vectors in fwd; zero where a B macroblock does not use them); modes
+    ([C,] F, H/16, W/16) int8 (zero for anchors); ftypes ([C,] F) int8 (0
+    = P anchor, 1 = I anchor, 2 = B)."""
     if planar:
         raise NotImplementedError("the port reconstructs with the per-block "
                                   "DCT (header flags bit 3 = 0)")
     qy_b = qy if qy_b is None else qy_b
     qc_b = qc if qc_b is None else qc_b
+    frames, added = _chunked(frames)
     y, cb, cr = _i420_planes(frames, pad_h, pad_w)
     search = _search_fn(hier)
     r = search_range
-    anchor_idx, b_idx, prev_map, next_map = _bframe_structure(y.shape[0],
+    anchor_idx, b_idx, prev_map, next_map = _bframe_structure(y.shape[1],
                                                               bframes)
     ary, arcb, arcr, amv, ais_i, recs = _anchor_loop(
-        y[anchor_idx], cb[anchor_idx], cr[anchor_idx], qy, qc, search, r)
+        y[:, anchor_idx], cb[:, anchor_idx], cr[:, anchor_idx], qy, qc,
+        search, r)
     zero_mv = torch.zeros_like(amv)
     zero_mode = torch.zeros_like(amv[..., 0])
     if not b_idx:
-        return ary, arcb, arcr, amv, zero_mv, zero_mode, ais_i
+        return _unchunked((ary, arcb, arcr, amv, zero_mv, zero_mode, ais_i),
+                          added)
 
     outs = []
     for j, p, n in zip(b_idx, prev_map, next_map):
-        cy, ccb, ccr = y[j], cb[j], cr[j]
+        cy, ccb, ccr = y[:, j], cb[:, j], cr[:, j]
         (py, pcb, pcr), (ny, ncb, ncr) = recs[p], recs[n]
         fwd, pred_f = search(cy, py, r)
         bwd, pred_b = search(cy, ny, r)
@@ -317,59 +361,53 @@ def fvc_mc_encode_chunk_b(frames, qy: torch.Tensor, qc: torch.Tensor,
         outs.append((*coefs, torch.where(use_f, fwd, 0).to(torch.int8),
                      torch.where(use_b, bwd, 0).to(torch.int8),
                      mode.to(torch.int8)))
-    boy, bocb, bocr, bfwd, bbwd, bmode = (torch.stack(p) for p in zip(*outs))
+    boy, bocb, bocr, bfwd, bbwd, bmode = (torch.stack(p, dim=1)
+                                          for p in zip(*outs))
     # interleave back to display order
     perm = torch.as_tensor(np.argsort(np.asarray(anchor_idx + b_idx)),
                            device=y.device)
 
     def cat(a, b):
-        return torch.cat([a, b])[perm]
+        return torch.cat([a, b], dim=1)[:, perm]
 
-    btypes = torch.full((len(b_idx),), 2, dtype=torch.int8, device=y.device)
-    return (cat(ary, boy), cat(arcb, bocb), cat(arcr, bocr), cat(amv, bfwd),
-            cat(zero_mv, bbwd), cat(zero_mode, bmode), cat(ais_i, btypes))
-
-
-def _fvc_gop_program_v1(frames, qy, qc, pad_h, pad_w, layout, prefix_words,
-                        seg_g, seg_words):
-    """Front-end kernel → temporal residuals → pack kernel → combined
-    int32 words (see encode_gop_scans_layout: the segment layout, or the
-    non-segment one where ``seg_words`` is None)."""
-    r, g, b = _planes(frames)
-    coefs = _planes_front_end(r, g, b, qy, qc, pad_h, pad_w)
-    ry, rcb, rcr = fvc_residuals(*coefs)
-    return encode_gop_scans_layout(ry, rcb, rcr, layout, prefix_words, seg_g,
-                                   seg_words)
+    btypes = torch.full((y.shape[0], len(b_idx)), 2, dtype=torch.int8,
+                        device=y.device)
+    return _unchunked((cat(ary, boy), cat(arcb, bocb), cat(arcr, bocr),
+                       cat(amv, bfwd), cat(zero_mv, bbwd),
+                       cat(zero_mode, bmode), cat(ais_i, btypes)), added)
 
 
-def _fvc_gop_program_v2(frames, qy, qc, pad_h, pad_w, search_range, layout,
-                        prefix_words, seg_g, seg_words, hier=False,
-                        bframes=0, qy_b=None, qc_b=None):
-    """The v1 program's layout with the motion loop in front and two
-    more fields per frame: the int8 side columns packed four to a word
-    (the vectors; with ``bframes`` fwd | bwd | modes), then the
-    frame-type word (0 P, 1 I, 2 B) — one array, so one copy brings back
-    the chunk."""
-    if bframes:
-        ry, rcb, rcr, fwd, bwd, modes, itypes = fvc_mc_encode_chunk_b(
-            frames, qy, qc, pad_h, pad_w, search_range, bframes, hier,
-            qy_b=qy_b, qc_b=qc_b)
-        f = fwd.shape[0]
-        side = torch.cat([fwd.reshape(f, -1), bwd.reshape(f, -1),
-                          modes.reshape(f, -1)], dim=1)
-    else:
-        ry, rcb, rcr, mvs, itypes = fvc_mc_encode_chunk(
-            frames, qy, qc, pad_h, pad_w, search_range, hier)
-        f = mvs.shape[0]
-        side = mvs.reshape(f, -1)
+def fvc_residuals_chunks(yq: torch.Tensor, cbq: torch.Tensor,
+                         crq: torch.Tensor):
+    """``fvc_residuals`` of C chunks at once: (C, F, BH, BW, 64) quantized
+    coefficient planes → (C, F, ...) int16 residual planes, each chunk's
+    chain its own (frame 0 of every chunk is its I frame)."""
+    out = fvc_residuals(*(p.transpose(0, 1) for p in (yq, cbq, crq)))
+    return tuple(p.transpose(0, 1) for p in out)
+
+
+def _combined_rows(parts, layout, prefix_words, seg_g, seg_words):
+    """The chunk codec's output for C chunks of F frames (``fvc_chunks``:
+    (ry, rcb, rcr), and with motion the vectors (or fwd, bwd and modes)
+    and the frame types) → one (C * F, X) int32 array, a row per frame
+    in chunk order, so one copy brings back every chunk: the frame's
+    scan words (``encode_gop_scans_layout``: the segment layout, or the
+    non-segment one where ``seg_words`` is None), then with motion its
+    int8 side columns packed four to a word and its frame-type word (0
+    P, 1 I, 2 B)."""
+    c, f = parts[0].shape[:2]
+    ry, rcb, rcr = (p.flatten(0, 1) for p in parts[:3])
     combined = encode_gop_scans_layout(ry, rcb, rcr, layout, prefix_words,
                                        seg_g, seg_words)
+    if len(parts) == 3:
+        return combined
+    side = torch.cat([p.reshape(c * f, -1) for p in parts[3:-1]], dim=1)
     pad = (-side.shape[1]) % 4
     if pad:
         side = torch.nn.functional.pad(side, (0, pad))
     side_words = side.contiguous().view(torch.int32)   # little-endian bytes
-    return torch.cat([combined, side_words, itypes.to(torch.int32)[:, None]],
-                     dim=1)
+    itypes = parts[-1].reshape(c * f).to(torch.int32)
+    return torch.cat([combined, side_words, itypes[:, None]], dim=1)
 
 
 # ----------------------------------------------------------------------------
@@ -486,18 +524,22 @@ class FvcEncoder:
 
     # -- dispatch / finalize ------------------------------------------------
     def _dispatch(self, frames_fn, f: int, h: int, w: int) -> _ChunkHandle:
+        """Enqueue ``frames_fn()``'s chunks (one chunk's frames, or C
+        chunks' with a leading chunk axis) through ``fvc_chunks`` and the
+        entropy stage, one row per frame in chunk order."""
+        from ..parallel.gop import fvc_chunks
         sc = self._scan_coder
         ph, pw = _pad_to(h, 16), _pad_to(w, 16)
         qy, qc = sc._qy_dev, sc._qc_dev
 
         def program(layout, prefix_words, seg_words):
-            if self.motion:
-                return _fvc_gop_program_v2(
-                    frames_fn(), qy, qc, ph, pw, self.search_range, layout,
-                    prefix_words, sc.SEG_G, seg_words, self.hier,
-                    self.bframes, self._qyb_dev, self._qcb_dev)
-            return _fvc_gop_program_v1(frames_fn(), qy, qc, ph, pw, layout,
-                                       prefix_words, sc.SEG_G, seg_words)
+            parts = fvc_chunks(
+                _chunked(frames_fn())[0], qy, qc, motion=self.motion,
+                search_range=self.search_range, hier=self.hier,
+                bframes=self.bframes, qy_b=self._qyb_dev,
+                qc_b=self._qcb_dev)
+            return _combined_rows(parts, layout, prefix_words, sc.SEG_G,
+                                  seg_words)
 
         return _ChunkHandle(*sc._run_sized(program, ph, pw), f, h, w, ph,
                             pw)
@@ -512,6 +554,18 @@ class FvcEncoder:
         f, h, w, _ = t.shape
         return self._dispatch(lambda: t, f, h, w)
 
+    def encode_chunks_dispatch(self, frames) -> _ChunkHandle:
+        """Enqueue C GOP chunks of (C, F, H, W, 3) uint8 RGB frames (numpy
+        or tensor) as ONE dispatch: each chunk an independent chunk
+        (frame 0 intra), every frame step of the motion loop one launch
+        per kernel for all C, one entropy pack over the C * F frames and
+        one copy back. Returns a handle for ``encode_chunks_finalize``."""
+        t = torch.as_tensor(np.ascontiguousarray(frames)
+                            if isinstance(frames, np.ndarray) else frames)
+        t = t.to(self.device)
+        _, f, h, w, _ = t.shape
+        return self._dispatch(lambda: t, f, h, w)
+
     def encode_chunk_dispatch_src(self, src_fn, start, n: int, h: int,
                                   w: int) -> _ChunkHandle:
         """encode_chunk_dispatch with an on-device frame source:
@@ -524,9 +578,26 @@ class FvcEncoder:
     def encode_chunk_finalize(self, handle: _ChunkHandle) -> bytes:
         """Blocking half: wait for the copy, check the sizes (redispatch
         once on overflow), compact the scans, assemble the chunk."""
+        return self.encode_chunks_finalize(handle)[0]
+
+    def encode_chunks_finalize(self, handle: _ChunkHandle,
+                               counts=None) -> List[bytes]:
+        """``encode_chunk_finalize`` of a dispatch of C chunks → C chunk
+        containers in chunk order. ``counts[i]`` keeps the first frames of
+        chunk i alone (default: all F); the P chain is causal, so they
+        are the bytes of an encode of those frames alone (a truncated B
+        structure is not: re-encode such a tail)."""
         payloads, mvs, itypes = self._finalize(handle)
-        return self._build_chunk(payloads, mvs, itypes, handle.f, handle.h,
-                                 handle.w)
+        f = handle.f
+        out = []
+        for ci in range(len(payloads) // f):
+            n = f if counts is None else int(counts[ci])
+            rows = slice(ci * f, ci * f + n)
+            out.append(self._build_chunk(
+                payloads[rows], None if mvs is None else mvs[rows],
+                None if itypes is None else itypes[rows], n, handle.h,
+                handle.w))
+        return out
 
     def encode_chunk(self, frames) -> bytes:
         """(F, H, W, 3) uint8 → one FVC chunk (frame 0 is the I frame)."""

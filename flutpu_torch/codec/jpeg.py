@@ -55,14 +55,14 @@ def _pad_to(x: int, m: int) -> int:
 # ----------------------------------------------------------------------------
 
 def _edge_pad(p: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
-    """(F, H, W) → (F, ph, pw), repeating the last row and column
+    """(..., H, W) → (..., ph, pw), repeating the last row and column
     (``jnp.pad(mode="edge")``)."""
-    f, h, w = p.shape
+    h, w = p.shape[-2:]
     if (h, w) == (ph, pw):
         return p.contiguous()
     rows = torch.arange(ph, device=p.device).clamp(max=h - 1)
     cols = torch.arange(pw, device=p.device).clamp(max=w - 1)
-    return p[:, rows][:, :, cols].contiguous()
+    return p.index_select(-2, rows).index_select(-1, cols).contiguous()
 
 
 def _planes_front_end(r, g, b, qy, qc, pad_h: int, pad_w: int,

@@ -34,6 +34,7 @@ Words are returned as int32 tensors holding the uint32 bit pattern
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -41,6 +42,7 @@ import torch
 from ... import _build
 
 _ready_devices = set()
+_init_lock = threading.Lock()
 
 #: Huffman items per chunk of the plain versions (bounds their memory)
 _PLAIN_MAX_ITEMS = 1 << 22
@@ -303,8 +305,18 @@ def pack_block_bits_plain(lens: torch.Tensor, vals: torch.Tensor):
 
 
 def _init_device(lib, device: torch.device) -> None:
+    """Upload the Huffman tables to ``device`` once. Several threads may
+    launch first at the same moment: one uploads, the others wait for it,
+    and none launches before the tables are there."""
     if device in _ready_devices:
         return
+    with _init_lock:
+        if device not in _ready_devices:
+            _upload_tables(lib)
+            _ready_devices.add(device)
+
+
+def _upload_tables(lib) -> None:
     from .entropy import _device_tables
     dc_code, dc_len, ac_code, ac_len = _device_tables()
     dc = np.ascontiguousarray(((dc_len[:, :16].astype(np.uint32) << 16)
@@ -314,7 +326,6 @@ def _init_device(lib, device: torch.device) -> None:
     _build.check(lib.flu_pack_init(dc.ctypes.data_as(ctypes.c_void_p),
                                    ac.ctypes.data_as(ctypes.c_void_p)),
                  "pack_segments tables")
-    _ready_devices.add(device)
 
 
 def _device_of(name: str, t: torch.Tensor) -> str:
@@ -340,7 +351,7 @@ def _launch(wrapper, entry: str, device, *args, tables: bool = False) -> None:
         stream = torch.cuda.current_stream(device).cuda_stream
         _build.check(getattr(lib, entry)(*args, stream),
                      f"{wrapper.__name__} launch")
-    wrapper.launches += 1
+    _build.count_launch(wrapper)
 
 
 def _launch_pack(wrapper, entry: str, zz, comp, seg_g: int, seg_words: int,

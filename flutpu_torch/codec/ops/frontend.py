@@ -26,6 +26,7 @@ Output layout is the one the entropy stage reads (the JAX package's
 from __future__ import annotations
 
 import ctypes
+import threading
 import weakref
 
 import numpy as np
@@ -37,6 +38,7 @@ from .dct import dct_matrix, plane_dct
 from .quant import quantize, zigzag_flatten, zigzag_order
 
 _ready_devices = set()
+_init_lock = threading.Lock()
 #: id(table) -> (weak reference, version) of the tables whose values were
 #: read back and found in 1..255
 _checked_tables = {}
@@ -96,15 +98,22 @@ def front_end_plain(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
 
 
 def _init_device(lib, device: torch.device) -> None:
+    """Upload the kernel's constants to ``device`` once. Several threads
+    may launch first at the same moment: one uploads, the others wait for
+    it, and none launches before the constants are there."""
     if device in _ready_devices:
         return
-    dct = np.ascontiguousarray(dct_matrix(8), np.float32)
-    rgb = np.ascontiguousarray(_RGB2YCBCR, np.float32)
-    zz = np.ascontiguousarray(zigzag_order(8), np.int32)
-    _build.check(lib.flu_front_end_init(
-        dct.ctypes.data_as(ctypes.c_void_p), rgb.ctypes.data_as(ctypes.c_void_p),
-        zz.ctypes.data_as(ctypes.c_void_p)), "front_end constants")
-    _ready_devices.add(device)
+    with _init_lock:
+        if device in _ready_devices:
+            return
+        dct = np.ascontiguousarray(dct_matrix(8), np.float32)
+        rgb = np.ascontiguousarray(_RGB2YCBCR, np.float32)
+        zz = np.ascontiguousarray(zigzag_order(8), np.int32)
+        _build.check(lib.flu_front_end_init(
+            dct.ctypes.data_as(ctypes.c_void_p),
+            rgb.ctypes.data_as(ctypes.c_void_p),
+            zz.ctypes.data_as(ctypes.c_void_p)), "front_end constants")
+        _ready_devices.add(device)
 
 
 def _check_table_values(q: torch.Tensor) -> None:
@@ -173,9 +182,9 @@ def front_end(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
             r.data_ptr(), g.data_ptr(), b.data_ptr(), qy.data_ptr(),
             qc.data_ptr(), y.data_ptr(), cb.data_ptr(), cr.data_ptr(),
             f, h, w, ov_ptr, oh, ow, stream), "front_end launch")
-    front_end.launches += 1
+    _build.count_launch(front_end)
     if ov_ptr is not None:
-        front_end.overlay_launches += 1
+        _build.count_launch(front_end, "overlay_launches")
     return y, cb, cr
 
 

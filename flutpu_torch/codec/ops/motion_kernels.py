@@ -26,6 +26,13 @@ Each wrapper replaces one Pallas TPU kernel with a CUDA kernel of
   chroma planes from the floor-halved luma vectors, a thread per 8-wide
   row of a block in both planes.
 
+Each wrapper also takes a leading chunk axis: (C, H, W) planes (and
+(C, H/16, W/16, 2) vectors), one per GOP chunk, served by ONE launch,
+each chunk searched and compensated inside its own plane as a launch of
+it alone would (``cudahype`` runs one frame step of all its chunks so;
+on the TPU, ``vmap`` gives the Pallas kernel a batch grid axis). A call
+counts one launch whatever C is.
+
 ``*_plain`` are the same functions in plain PyTorch (the reference's
 XLA arm: ops/motion.py). The wrappers take them for CPU tensors only; a
 CUDA tensor launches the kernel or raises. The kernels sum each SAD in
@@ -50,12 +57,14 @@ def _check_search_args(cur, prev, search_range, mb: int = MB) -> None:
     if mb not in (8, 16):
         raise ValueError(f"mb must be 8 or 16, got {mb}")
     for p in (cur, prev):
-        if p.dtype != torch.float32 or p.dim() != 2 or p.shape != cur.shape:
-            raise ValueError("cur, prev must be float32 planes of one (H, W) "
-                             f"shape, got {p.dtype} {tuple(p.shape)}")
+        if p.dtype != torch.float32 or p.dim() not in (2, 3) \
+                or p.shape != cur.shape:
+            raise ValueError("cur, prev must be float32 planes of one "
+                             "([C,] H, W) shape, got "
+                             f"{p.dtype} {tuple(p.shape)}")
     if prev.device != cur.device:
         raise ValueError("cur and prev must lie on one device")
-    h, w = cur.shape
+    h, w = cur.shape[-2:]
     if h % mb or w % mb:
         raise ValueError(f"plane size {(h, w)} is not a multiple of {mb}")
     if not 0 <= search_range <= MAX_SEARCH_RANGE:
@@ -65,17 +74,17 @@ def _check_search_args(cur, prev, search_range, mb: int = MB) -> None:
 
 def _check_chroma_args(prev_cb, prev_cr, mv) -> None:
     for p in (prev_cb, prev_cr):
-        if p.dtype != torch.float32 or p.dim() != 2 \
+        if p.dtype != torch.float32 or p.dim() not in (2, 3) \
                 or p.shape != prev_cb.shape:
             raise ValueError("prev_cb, prev_cr must be float32 planes of one "
-                             f"(H/2, W/2) shape, got {p.dtype} "
+                             f"([C,] H/2, W/2) shape, got {p.dtype} "
                              f"{tuple(p.shape)}")
-    hc, wc = prev_cb.shape
+    *lead, hc, wc = prev_cb.shape
     if hc % 8 or wc % 8:
         raise ValueError(f"chroma plane size {(hc, wc)} is not a multiple "
                          "of 8")
-    if tuple(mv.shape) != (hc // 8, wc // 8, 2):
-        raise ValueError(f"mv must be ({hc // 8}, {wc // 8}, 2), got "
+    if tuple(mv.shape) != (*lead, hc // 8, wc // 8, 2):
+        raise ValueError(f"mv must be {(*lead, hc // 8, wc // 8, 2)}, got "
                          f"{tuple(mv.shape)}")
     if mv.dtype.is_floating_point or mv.dtype == torch.bool:
         raise ValueError(f"mv must be integer, got {mv.dtype}")
@@ -143,14 +152,18 @@ def _on_cuda(t: torch.Tensor, name: str) -> bool:
     return True
 
 
-def _launch_search(entry: str, cur, prev, search_range, mb, *extra):
-    """One launch of a search kernel entry on the current stream →
-    (mv (H/mb, W/mb, 2) int32, pred (H, W) float32)."""
+def _launch_search(wrapper, entry: str, cur, prev, search_range, mb,
+                   *extra):
+    """One launch of a search kernel entry on the current stream, counted
+    on ``wrapper`` → (mv ([C,] H/mb, W/mb, 2) int32, pred ([C,] H, W)
+    float32): C chunks' planes, each (H, W) plane a multiple of 16 bytes,
+    so every chunk's base stays 16-byte aligned."""
     # the kernels move 16 bytes at a time; a view may start anywhere
     cur, prev = (t.clone() if t.data_ptr() % 16 else t
                  for t in (cur.contiguous(), prev.contiguous()))
-    h, w = cur.shape
-    mv = torch.empty((h // mb, w // mb, 2), dtype=torch.int32,
+    *lead, h, w = cur.shape
+    nc = cur.shape[0] if lead else 1
+    mv = torch.empty((*lead, h // mb, w // mb, 2), dtype=torch.int32,
                      device=cur.device)
     pred = torch.empty_like(cur)
     lib = _build.load()
@@ -158,24 +171,26 @@ def _launch_search(entry: str, cur, prev, search_range, mb, *extra):
         stream = torch.cuda.current_stream(cur.device).cuda_stream
         _build.check(getattr(lib, entry)(
             cur.data_ptr(), prev.data_ptr(), mv.data_ptr(), pred.data_ptr(),
-            h, w, search_range, *extra, stream), f"{entry} launch")
+            nc, h, w, search_range, *extra, stream), f"{entry} launch")
+    if nc and h and w:
+        _build.count_launch(wrapper)
     return mv, pred
 
 
 def motion_search_mc(cur: torch.Tensor, prev: torch.Tensor,
                      search_range: int = 7):
-    """(H, W) float32 current and reference luma, H and W multiples of 16
-    → (mv (H/16, W/16, 2) int32, pred (H, W) float32): per macroblock the
-    (dy, dx) in ±search_range of least ``SAD * 64 + |dy| + |dx|``, ties
-    to the first in dy-major order, and the prediction ``pred[i, j] =
-    prev[(i - dy) mod H, (j - dx) mod W]``. CUDA tensors launch the kernel
-    on the current stream; CPU tensors take ``motion_search_mc_plain``."""
+    """([C,] H, W) float32 current and reference luma, H and W multiples
+    of 16 → (mv ([C,] H/16, W/16, 2) int32, pred ([C,] H, W) float32):
+    per macroblock the (dy, dx) in ±search_range of least ``SAD * 64 +
+    |dy| + |dx|``, ties to the first in dy-major order, and the prediction
+    ``pred[i, j] = prev[(i - dy) mod H, (j - dx) mod W]``. CUDA tensors
+    launch the kernel on the current stream; CPU tensors take
+    ``motion_search_mc_plain``."""
     if not _on_cuda(cur, "motion_search_mc"):
         return motion_search_mc_plain(cur, prev, search_range)
     _check_search_args(cur, prev, search_range)
-    out = _launch_search("flu_motion_search_mc", cur, prev, search_range, MB)
-    motion_search_mc.launches += 1
-    return out
+    return _launch_search(motion_search_mc, "flu_motion_search_mc", cur,
+                          prev, search_range, MB)
 
 
 def motion_search_mc_blocks(cur: torch.Tensor, prev: torch.Tensor,
@@ -188,10 +203,9 @@ def motion_search_mc_blocks(cur: torch.Tensor, prev: torch.Tensor,
     if not _on_cuda(cur, "motion_search_mc_blocks"):
         return motion_search_mc_blocks_plain(cur, prev, search_range, mb)
     _check_search_args(cur, prev, search_range, mb)
-    out = _launch_search("flu_motion_search_mc_blocks", cur, prev,
-                         search_range, mb, mb)
-    motion_search_mc_blocks.launches += 1
-    return out
+    return _launch_search(motion_search_mc_blocks,
+                          "flu_motion_search_mc_blocks", cur, prev,
+                          search_range, mb, mb)
 
 
 def motion_search_mc_dygrid(cur: torch.Tensor, prev: torch.Tensor,
@@ -204,15 +218,14 @@ def motion_search_mc_dygrid(cur: torch.Tensor, prev: torch.Tensor,
     if not _on_cuda(cur, "motion_search_mc_dygrid"):
         return motion_search_mc_dygrid_plain(cur, prev, search_range)
     _check_search_args(cur, prev, search_range)
-    out = _launch_search("flu_motion_search_mc", cur, prev, search_range, MB)
-    motion_search_mc_dygrid.launches += 1
-    return out
+    return _launch_search(motion_search_mc_dygrid, "flu_motion_search_mc",
+                          cur, prev, search_range, MB)
 
 
 def motion_search_mc_hier(cur: torch.Tensor, prev: torch.Tensor,
                           search_range: int = 7):
-    """(H, W) float32 luma, H and W multiples of 16 → (mv (H/16, W/16, 2)
-    int32, pred (H, W) float32), coarse to fine: K6a's search at mb=8 and
+    """([C,] H, W) float32 luma, H and W multiples of 16 → (mv ([C,] H/16,
+    W/16, 2) int32, pred ([C,] H, W) float32), coarse to fine: K6a's search at mb=8 and
     ±max(1, r // 2) on the 2x2-mean-pooled planes, base = clip(2 *
     coarse, ±(r - 1)), then per macroblock the least plain SAD of base +
     (oy, ox) for oy, ox in -1..1 (first in row-major order wins ties) and
@@ -221,16 +234,14 @@ def motion_search_mc_hier(cur: torch.Tensor, prev: torch.Tensor,
     if not _on_cuda(cur, "motion_search_mc_hier"):
         return motion_search_mc_hier_plain(cur, prev, search_range)
     _check_hier_args(cur, prev, search_range)
-    out = _launch_search("flu_motion_search_hier", cur, prev, search_range,
-                         MB)
-    motion_search_mc_hier.launches += 1
-    return out
+    return _launch_search(motion_search_mc_hier, "flu_motion_search_hier",
+                          cur, prev, search_range, MB)
 
 
 def chroma_mc(prev_cb: torch.Tensor, prev_cr: torch.Tensor, mv: torch.Tensor,
               search_range: int = 7):
-    """(H/2, W/2) float32 chroma planes and (H/16, W/16, 2) integer luma
-    vectors → (pred_cb, pred_cr): each 8x8 block of a plane comes from the
+    """([C,] H/2, W/2) float32 chroma planes and ([C,] H/16, W/16, 2)
+    integer luma vectors → (pred_cb, pred_cr): each 8x8 block of a plane comes from the
     plane displaced by its macroblock's vector floor-halved, wrap-around
     (``motion_compensate(plane, mv, mb=8)``, bit for bit). One launch
     covers both planes. CUDA tensors launch the kernel on the current
@@ -239,14 +250,12 @@ def chroma_mc(prev_cb: torch.Tensor, prev_cr: torch.Tensor, mv: torch.Tensor,
     if not _on_cuda(prev_cb, "chroma_mc"):
         return chroma_mc_plain(prev_cb, prev_cr, mv, search_range)
     _check_chroma_args(prev_cb, prev_cr, mv)
-    out = _launch_chroma("flu_chroma_mc", prev_cb, prev_cr, mv)
-    chroma_mc.launches += 1
-    return out
+    return _launch_chroma(chroma_mc, "flu_chroma_mc", prev_cb, prev_cr, mv)
 
 
-def _launch_chroma(entry: str, prev_cb, prev_cr, mv):
-    """One launch of a chroma entry on the current stream → (pred_cb,
-    pred_cr)."""
+def _launch_chroma(wrapper, entry: str, prev_cb, prev_cr, mv):
+    """One launch of a chroma entry on the current stream, counted on
+    ``wrapper`` → (pred_cb, pred_cr), for one plane pair or C chunks'."""
     # the kernel moves 16 bytes (the vectors 8) at a time; a view may
     # start anywhere
     prev_cb, prev_cr = (t.clone() if t.data_ptr() % 16 else t
@@ -254,7 +263,8 @@ def _launch_chroma(entry: str, prev_cb, prev_cr, mv):
     mv = mv.to(torch.int32).contiguous()
     if mv.data_ptr() % 8:
         mv = mv.clone()
-    hc, wc = prev_cb.shape
+    *lead, hc, wc = prev_cb.shape
+    nc = prev_cb.shape[0] if lead else 1
     pcb = torch.empty_like(prev_cb)
     pcr = torch.empty_like(prev_cr)
     lib = _build.load()
@@ -262,8 +272,10 @@ def _launch_chroma(entry: str, prev_cb, prev_cr, mv):
         stream = torch.cuda.current_stream(prev_cb.device).cuda_stream
         _build.check(getattr(lib, entry)(
             prev_cb.data_ptr(), prev_cr.data_ptr(), mv.data_ptr(),
-            pcb.data_ptr(), pcr.data_ptr(), hc, wc, stream),
+            pcb.data_ptr(), pcr.data_ptr(), nc, hc, wc, stream),
             f"{entry} launch")
+    if nc and hc and wc:
+        _build.count_launch(wrapper)
     return pcb, pcr
 
 

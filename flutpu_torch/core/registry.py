@@ -55,6 +55,8 @@ def _ensure_plugins_loaded() -> None:
         "flutpu_torch.core.queue",
         "flutpu_torch.ttml",
         "flutpu_torch.codec",
+        "flutpu_torch.hype",
+        "flutpu_torch.inject",
     ):
         try:
             importlib.import_module(mod)

@@ -118,11 +118,6 @@
 //     containing one), then each block's count from its last lane.
 // At most 1,024 slots per block (32 lanes of 32); the wrapper refuses
 // more.
-//
-// `pack_slots64_serial_kernel` and `pack_slots32_serial_kernel` are the
-// first port's K8a and K8b (a thread per block, BitSink), kept under these
-// names so that chip_smoke.py and the card tests can time and hold the new
-// kernels against them in one run; no encoder path reaches them.
 
 #include <cstdint>
 #include <mutex>
@@ -142,37 +137,6 @@ constexpr int kBlockWords = 64;
 constexpr int kBlockBitsBound = 1664;    // JpegEncoder.BLOCK_BITS_BOUND
 constexpr int kSmemBytes = 232448;       // Hopper's shared memory per block
 constexpr int kWarpsPerCta = 2;
-
-struct BitSink {
-  uint32_t* out;
-  int cap;
-  uint64_t acc;  // pending bits are the low `nacc` bits
-  int nacc;
-  int widx;
-  int total;
-
-  // append the low `len` (<= 32) bits of `val`; at most 31 bits are
-  // pending before, so at most 63 after
-  __device__ __forceinline__ void put(uint32_t val, int len) {
-    if (len == 0) return;
-    acc = (acc << len) | (val & (0xFFFFFFFFu >> (32 - len)));
-    nacc += len;
-    total += len;
-    if (nacc >= 32) {
-      nacc -= 32;
-      if (widx < cap) out[widx] = (uint32_t)(acc >> nacc);
-      widx++;
-    }
-  }
-
-  __device__ __forceinline__ void finish() {
-    if (nacc > 0) {
-      if (widx < cap) out[widx] = (uint32_t)(acc << (32 - nacc));
-      widx++;
-    }
-    for (int k = widx; k < cap; k++) out[k] = 0u;
-  }
-};
 
 __device__ __forceinline__ int magnitude(int v, int max_bits) {
   const int a = v < 0 ? -v : v;
@@ -610,46 +574,6 @@ pack_slots32_kernel(const int32_t* __restrict__ lens, const uint32_t* __restrict
   pack_slot_lanes<1>(lens, nullptr, vals, buf, nbits, n_blocks, n_slots);
 }
 
-// -- the first port's K8a and K8b (comparison only) -------------------------
-
-__global__ void __launch_bounds__(64)
-pack_slots64_serial_kernel(const int32_t* __restrict__ lens, const uint32_t* __restrict__ his,
-                           const uint32_t* __restrict__ los, uint32_t* __restrict__ buf,
-                           int32_t* __restrict__ nbits, int n_blocks, int n_slots) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n_blocks) return;
-  const size_t row = (size_t)b * n_slots;
-  BitSink bs{buf + (size_t)b * kBlockWords, kBlockWords, 0ull, 0, 0, 0};
-  for (int s = 0; s < n_slots; s++) {
-    const int len = lens[row + s];
-    if (len <= 0) continue;
-    if (len > 32) {
-      bs.put(his[row + s], len - 32);
-      bs.put(los[row + s], 32);
-    } else {
-      bs.put(los[row + s], len);
-    }
-  }
-  bs.finish();
-  nbits[b] = bs.total;
-}
-
-__global__ void __launch_bounds__(64)
-pack_slots32_serial_kernel(const int32_t* __restrict__ lens, const uint32_t* __restrict__ vals,
-                           uint32_t* __restrict__ buf, int32_t* __restrict__ nbits,
-                           int n_blocks, int n_slots) {
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= n_blocks) return;
-  const size_t row = (size_t)b * n_slots;
-  BitSink bs{buf + (size_t)b * kBlockWords, kBlockWords, 0ull, 0, 0, 0};
-  for (int s = 0; s < n_slots; s++) {
-    const int len = lens[row + s];
-    if (len > 0) bs.put(vals[row + s], len);
-  }
-  bs.finish();
-  nbits[b] = bs.total;
-}
-
 // CTAs of `kernel` at `threads` threads and `smem` bytes that the card
 // holds at once, worked out once per device and shape (the queries cost
 // host time on every launch otherwise); a kernel that a shape takes past
@@ -807,30 +731,6 @@ int flu_pack_slots32(const void* lens, const void* vals, void* buf, void* nbits,
                      int n_blocks, int n_slots, void* stream) {
   return (int)launch_slots(1, lens, nullptr, vals, buf, nbits, n_blocks, n_slots,
                            (cudaStream_t)stream);
-}
-
-// The first port's K8a and K8b (a thread per block), same arguments as
-// flu_pack_slots64 and flu_pack_slots32.
-int flu_pack_slots64_serial(const void* lens, const void* his, const void* los, void* buf,
-                            void* nbits, int n_blocks, int n_slots, void* stream) {
-  const int threads = 64;
-  const int blocks = (n_blocks + threads - 1) / threads;
-  if (blocks > 0)
-    pack_slots64_serial_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)lens, (const uint32_t*)his, (const uint32_t*)los, (uint32_t*)buf,
-        (int32_t*)nbits, n_blocks, n_slots);
-  return (int)cudaGetLastError();
-}
-
-int flu_pack_slots32_serial(const void* lens, const void* vals, void* buf, void* nbits,
-                            int n_blocks, int n_slots, void* stream) {
-  const int threads = 64;
-  const int blocks = (n_blocks + threads - 1) / threads;
-  if (blocks > 0)
-    pack_slots32_serial_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const int32_t*)lens, (const uint32_t*)vals, (uint32_t*)buf, (int32_t*)nbits,
-        n_blocks, n_slots);
-  return (int)cudaGetLastError();
 }
 
 }  // extern "C"

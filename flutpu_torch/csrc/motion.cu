@@ -135,6 +135,17 @@
 // (0.0059-0.0061 against 0.0052-0.0054 ms per pair of 544x960 planes,
 // PERF.md), so only the words remain. Threads walk the block rows
 // grid-stride, at most a few waves of the card's SMs.
+//
+// A chunk axis, for GOP-chunk-parallel encoding (cudahype): each entry takes
+// nc planes (or plane pairs) of one shape stored one after the other, one
+// per GOP chunk, and one launch serves one frame step of all of them. The
+// TPU build vmaps its per-chunk codec, which gives each Pallas kernel a
+// batch grid axis; here the searches take the chunk as blockIdx.z and K4
+// walks the rows of all chunks' planes. Each chunk's base is its index
+// times its plane's size (a multiple of 16 bytes, as the 16-byte loads
+// need), and the wrap-around stays inside the chunk's own plane, so every
+// chunk gets exactly what a launch with nc = 1 gives it. Nothing else of
+// the kernels changes.
 
 #include <climits>
 #include <cmath>
@@ -150,6 +161,7 @@ constexpr int kSearchThreads = 256;  // K3, K6a
 constexpr int kHierThreads = 128;    // K5: each of its stages keeps most of them busy
 constexpr int kHierBlocksPerSM = 6;  // what its shared memory allows at r <= 8
 constexpr int kMaxRange = 32;
+constexpr int kMaxChunks = 65535;  // the grid's z extent: one chunk per z
 constexpr size_t kMaxSmem = 232448;  // what one block may ask for on Hopper
 
 __device__ __forceinline__ int wrap(int v, int n) {
@@ -368,6 +380,13 @@ motion_search_mc_kernel(const float* __restrict__ cur, const float* __restrict__
                         int32_t* __restrict__ mv, float* __restrict__ pred, int h, int w,
                         int r) {
   extern __shared__ __align__(16) float smem[];
+  // chunk blockIdx.z: its planes, vectors and prediction follow the
+  // chunks before it; the wrap stays inside its own plane
+  const size_t plane = (size_t)blockIdx.z * h * w;
+  cur += plane;
+  prev += plane;
+  pred += plane;
+  mv += (size_t)blockIdx.z * (h / MB) * (w / MB) * 2;
   const SearchShape shape = search_shape(MB, r);
   const int stride = shape.stride, off = shape.off;
   const int cstride = shape.nb * MB;
@@ -460,6 +479,12 @@ motion_search_hier_kernel(const float* __restrict__ cur, const float* __restrict
                           int32_t* __restrict__ mv, float* __restrict__ pred, int h, int w,
                           int r) {
   extern __shared__ __align__(16) float smem[];
+  // chunk blockIdx.z, as in motion_search_mc_kernel
+  const size_t plane = (size_t)blockIdx.z * h * w;
+  cur += plane;
+  prev += plane;
+  pred += plane;
+  mv += (size_t)blockIdx.z * (h / kMB) * (w / kMB) * 2;
   const HierShape shape = hier_shape(r);
   const SearchShape& cs = shape.coarse;
   const int nb = shape.nb, rc = shape.rc, rim = shape.rim, off = shape.off;
@@ -636,17 +661,21 @@ __device__ __forceinline__ void write_row(float* dst, const float (&o)[8]) {
 __global__ void __launch_bounds__(kChromaThreads)
 chroma_mc_kernel(const float* __restrict__ cb, const float* __restrict__ cr,
                  const int32_t* __restrict__ mv, float* __restrict__ pcb,
-                 float* __restrict__ pcr, int hc, int wc) {
+                 float* __restrict__ pcr, int nc, int hc, int wc) {
   const int bw = wc >> 3;
-  const int rows = hc * bw;  // 8-wide rows of blocks, row-major
+  // 8-wide rows of blocks, row-major, of nc chunks' planes one after the
+  // other: rows of chunk k are k * hc .. k * hc + hc - 1, and a row's
+  // source wraps inside its own chunk's plane
+  const int rows = nc * hc * bw;
   for (int g = blockIdx.x * kChromaThreads + threadIdx.x; g < rows;
        g += gridDim.x * kChromaThreads) {
-    const int y = g / bw, bx = g - y * bw;
-    const int2 v = __ldg(reinterpret_cast<const int2*>(mv) + (size_t)(y >> 3) * bw + bx);
+    const int yk = g / bw, bx = g - yk * bw;  // row of all chunks' planes
+    const int k = yk / hc, y = yk - k * hc;
+    const int2 v = __ldg(reinterpret_cast<const int2*>(mv) + (size_t)(yk >> 3) * bw + bx);
     int sy = y - floor_half(v.x), sx = bx * 8 - floor_half(v.y);
     if (sy < 0 || sy >= hc) sy = wrap(sy, hc);
     if (sx < 0 || sx >= wc) sx = wrap(sx, wc);
-    const size_t src = (size_t)sy * wc, dst = (size_t)y * wc + bx * 8;
+    const size_t src = ((size_t)k * hc + sy) * wc, dst = (size_t)yk * wc + bx * 8;
     float o[8];
     read_row(o, cb + src, sx, wc);
     write_row(pcb + dst, o);
@@ -656,17 +685,18 @@ chroma_mc_kernel(const float* __restrict__ cb, const float* __restrict__ cr,
 }
 
 template <int MB>
-int launch_search(const void* cur, const void* prev, void* mv, void* pred, int h, int w, int r,
-                  void* stream) {
+int launch_search(const void* cur, const void* prev, void* mv, void* pred, int nc, int h, int w,
+                  int r, void* stream) {
   if (h % MB || w % MB || r < 0 || r > kMaxRange) return (int)cudaErrorInvalidValue;
+  if (nc < 0 || nc > kMaxChunks) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)cur | (uintptr_t)prev | (uintptr_t)pred) % 16) return (int)cudaErrorInvalidValue;
-  if (h == 0 || w == 0) return (int)cudaSuccess;
+  if (nc == 0 || h == 0 || w == 0) return (int)cudaSuccess;
   const SearchShape shape = search_shape(MB, r);
   // the largest, MB = 16 at r = 32, is 45.3 KB: within what a launch may
   // ask for without cudaFuncSetAttribute
   if (shape.smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int mbw = w / MB;
-  const dim3 grid((mbw + shape.nb - 1) / shape.nb, h / MB);
+  const dim3 grid((mbw + shape.nb - 1) / shape.nb, h / MB, nc);
   motion_search_mc_kernel<MB><<<grid, kSearchThreads, shape.smem, (cudaStream_t)stream>>>(
       (const float*)cur, (const float*)prev, (int32_t*)mv, (float*)pred, h, w, r);
   return (int)cudaGetLastError();
@@ -679,10 +709,10 @@ bool chroma_args_ok(const void* cb, const void* cr, const void* mv, const void* 
          (uintptr_t)mv % 8 == 0;
 }
 
-int launch_chroma(const void* cb, const void* cr, const void* mv, void* pcb, void* pcr, int hc,
-                  int wc, void* stream) {
-  if (!chroma_args_ok(cb, cr, mv, pcb, pcr, hc, wc)) return (int)cudaErrorInvalidValue;
-  const long long rows = (long long)hc * (wc / 8);
+int launch_chroma(const void* cb, const void* cr, const void* mv, void* pcb, void* pcr, int nc,
+                  int hc, int wc, void* stream) {
+  if (nc < 0 || !chroma_args_ok(cb, cr, mv, pcb, pcr, hc, wc)) return (int)cudaErrorInvalidValue;
+  const long long rows = (long long)nc * hc * (wc / 8);
   if (rows == 0) return (int)cudaSuccess;
   if (rows > INT32_MAX / 2) return (int)cudaErrorInvalidValue;
   int sms = 0;
@@ -692,7 +722,8 @@ int launch_chroma(const void* cb, const void* cr, const void* mv, void* pcb, voi
   const long long room = (long long)sms * kChromaWaves;
   chroma_mc_kernel<<<(unsigned)(need < room ? need : room), kChromaThreads, 0,
                      (cudaStream_t)stream>>>(
-      (const float*)cb, (const float*)cr, (const int32_t*)mv, (float*)pcb, (float*)pcr, hc, wc);
+      (const float*)cb, (const float*)cr, (const int32_t*)mv, (float*)pcb, (float*)pcr, nc, hc,
+      wc);
   return (int)cudaGetLastError();
 }
 
@@ -700,31 +731,37 @@ int launch_chroma(const void* cb, const void* cr, const void* mv, void* pcb, voi
 
 extern "C" {
 
-// cur, prev: (h, w) float32, h and w multiples of 16; mv: (h/16, w/16, 2)
-// int32 out; pred: (h, w) float32 out; 0 <= r <= 32.
-int flu_motion_search_mc(const void* cur, const void* prev, void* mv, void* pred, int h, int w,
-                         int r, void* stream) {
-  return launch_search<kMB>(cur, prev, mv, pred, h, w, r, stream);
+// Each entry takes nc chunks' planes one after the other (one frame step of
+// nc GOP chunks) and serves them in one launch; nc = 1 is one plane pair.
+//
+// cur, prev: (nc, h, w) float32, h and w multiples of 16; mv: (nc, h/16,
+// w/16, 2) int32 out; pred: (nc, h, w) float32 out; 0 <= r <= 32;
+// 0 <= nc <= 65535.
+int flu_motion_search_mc(const void* cur, const void* prev, void* mv, void* pred, int nc, int h,
+                         int w, int r, void* stream) {
+  return launch_search<kMB>(cur, prev, mv, pred, nc, h, w, r, stream);
 }
 
 // flu_motion_search_mc at block size mb (8 or 16): h and w multiples of mb;
-// mv: (h/mb, w/mb, 2) int32 out.
-int flu_motion_search_mc_blocks(const void* cur, const void* prev, void* mv, void* pred, int h,
-                                int w, int r, int mb, void* stream) {
-  if (mb == 16) return launch_search<16>(cur, prev, mv, pred, h, w, r, stream);
-  if (mb == 8) return launch_search<8>(cur, prev, mv, pred, h, w, r, stream);
+// mv: (nc, h/mb, w/mb, 2) int32 out.
+int flu_motion_search_mc_blocks(const void* cur, const void* prev, void* mv, void* pred, int nc,
+                                int h, int w, int r, int mb, void* stream) {
+  if (mb == 16) return launch_search<16>(cur, prev, mv, pred, nc, h, w, r, stream);
+  if (mb == 8) return launch_search<8>(cur, prev, mv, pred, nc, h, w, r, stream);
   return (int)cudaErrorInvalidValue;
 }
 
-// K5, the whole hier search: cur, prev (h, w) float32, multiples of 16,
-// 16-byte aligned; mv (h/16, w/16, 2) int32 out; pred (h, w) float32 out;
-// 1 <= r <= 32. Above 48 KB of shared memory (r >= 24) the launch asks
-// for more; a shape past the 227 KB a block may have is refused.
-int flu_motion_search_hier(const void* cur, const void* prev, void* mv, void* pred, int h, int w,
-                           int r, void* stream) {
+// K5, the whole hier search: cur, prev (nc, h, w) float32, multiples of 16,
+// 16-byte aligned; mv (nc, h/16, w/16, 2) int32 out; pred (nc, h, w)
+// float32 out; 1 <= r <= 32. Above 48 KB of shared memory (r >= 24) the
+// launch asks for more; a shape past the 227 KB a block may have is
+// refused.
+int flu_motion_search_hier(const void* cur, const void* prev, void* mv, void* pred, int nc, int h,
+                           int w, int r, void* stream) {
   if (h % kMB || w % kMB || r < 1 || r > kMaxRange) return (int)cudaErrorInvalidValue;
+  if (nc < 0 || nc > kMaxChunks) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)cur | (uintptr_t)prev | (uintptr_t)pred) % 16) return (int)cudaErrorInvalidValue;
-  if (h == 0 || w == 0) return (int)cudaSuccess;
+  if (nc == 0 || h == 0 || w == 0) return (int)cudaSuccess;
   const HierShape shape = hier_shape(r);
   if (shape.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
   if (shape.smem > 48 * 1024) {
@@ -732,18 +769,18 @@ int flu_motion_search_hier(const void* cur, const void* prev, void* mv, void* pr
         motion_search_hier_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shape.smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((w / kMB + shape.nb - 1) / shape.nb, h / kMB);
+  const dim3 grid((w / kMB + shape.nb - 1) / shape.nb, h / kMB, nc);
   motion_search_hier_kernel<<<grid, kHierThreads, shape.smem, (cudaStream_t)stream>>>(
       (const float*)cur, (const float*)prev, (int32_t*)mv, (float*)pred, h, w, r);
   return (int)cudaGetLastError();
 }
 
-// K4: cb, cr (hc, wc) float32, multiples of 8, 16-byte aligned; mv
-// (hc/8, wc/8, 2) int32 luma vectors, 8-byte aligned; pcb, pcr (hc, wc)
-// float32 out, 16-byte aligned.
-int flu_chroma_mc(const void* cb, const void* cr, const void* mv, void* pcb, void* pcr, int hc,
-                  int wc, void* stream) {
-  return launch_chroma(cb, cr, mv, pcb, pcr, hc, wc, stream);
+// K4: cb, cr (nc, hc, wc) float32, multiples of 8, 16-byte aligned; mv
+// (nc, hc/8, wc/8, 2) int32 luma vectors, 8-byte aligned; pcb, pcr (nc,
+// hc, wc) float32 out, 16-byte aligned.
+int flu_chroma_mc(const void* cb, const void* cr, const void* mv, void* pcb, void* pcr, int nc,
+                  int hc, int wc, void* stream) {
+  return launch_chroma(cb, cr, mv, pcb, pcr, nc, hc, wc, stream);
 }
 
 }  // extern "C"

@@ -21,8 +21,9 @@ from flutpu_torch.codec.ops import motion_kernels as M
 from flutpu_torch.codec.ops.quant import (CHROMA_QTABLE, LUMA_QTABLE,
                                           scale_qtable)
 from flutpu_torch.core.elements import make_test_frame
-from torch_helpers import (cuda_device, pack_edge_blocks,  # noqa: F401
-                           rand_planes, slot_tables, tie_contract)
+from torch_helpers import (chunk_pairs, cuda_device,  # noqa: F401
+                           pack_edge_blocks, rand_planes, slot_tables,
+                           tie_contract)
 
 torch.set_num_threads(1)
 
@@ -223,16 +224,6 @@ def test_block_pack_kernel_edge_cases(cuda_device, n_blocks):
             assert torch.equal(a.cpu(), b)
 
 
-def slots_parent(wide, *tables):
-    """The first port's K8a (``wide``) or K8b kernel, kept for timing, on
-    the wrapper's launch path, its launches counted apart."""
-    def counter():
-        pass
-    counter.launches = 0
-    entry = "flu_pack_slots64_serial" if wide else "flu_pack_slots32_serial"
-    return K._launch_slots(counter, entry, *tables)
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("wide", [True, False])
 @pytest.mark.parametrize("n_blocks,n_slots", [
@@ -241,8 +232,8 @@ def slots_parent(wide, *tables):
 def test_slot_pack_kernels_on_hand_made_tables(cuda_device, wide, n_blocks,
                                                n_slots):
     """K8a (``wide``) and K8b on ``slot_tables`` (not made from blocks)
-    with random bits above every length: bit for bit the plain version and
-    the first port's kernel. 13 blocks fill no warp; 120,001 take more
+    with random bits above every length: bit for bit the plain version.
+    13 blocks fill no warp; 120,001 take more
     than the card's resident warps at once (a warp walks several units);
     33 slots take two lanes per block, 700 and 1,024 (``MAX_SLOTS``) one
     block per warp at 22 and 32 slots a lane; spans start anywhere in a
@@ -255,9 +246,8 @@ def test_slot_pack_kernels_on_hand_made_tables(cuda_device, wide, n_blocks,
     got = kernel(*tables)
     torch.cuda.synchronize()
     assert kernel.launches == before + 1
-    for want in (plain(*tables), slots_parent(wide, *tables)):
-        for a, b in zip(got, want):
-            assert torch.equal(a, b)
+    for a, b in zip(got, plain(*tables)):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda
@@ -508,6 +498,180 @@ def test_chroma_kernel_matches_plain(cuda_device, hc, wc, r):
     assert M.chroma_mc.launches == before + 1
     for a, b in zip(got, M.chroma_mc_plain(cb, cr, mv, r)):
         assert torch.equal(a, b)
+
+
+# -- the chunk axis (cudahype) ------------------------------------------------
+
+SEARCHES = {"K3": (lambda c, p, r: M.motion_search_mc(c, p, r),
+                   lambda c, p, r: M.motion_search_mc_plain(c, p, r),
+                   "motion_search_mc"),
+            "K5": (lambda c, p, r: M.motion_search_mc_hier(c, p, r),
+                   lambda c, p, r: M.motion_search_mc_hier_plain(c, p, r),
+                   "motion_search_mc_hier"),
+            "K6a-8": (lambda c, p, r: M.motion_search_mc_blocks(c, p, r, 8),
+                      lambda c, p, r: M.motion_search_mc_blocks_plain(
+                          c, p, r, 8), "motion_search_mc_blocks"),
+            "K6b": (lambda c, p, r: M.motion_search_mc_dygrid(c, p, r),
+                    lambda c, p, r: M.motion_search_mc_dygrid_plain(c, p, r),
+                    "motion_search_mc_dygrid")}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SEARCHES))
+@pytest.mark.parametrize("c,h,w,r", [(1, 96, 160, 7), (3, 96, 160, 7),
+                                     (8, 96, 176, 7), (3, 64, 96, 32),
+                                     (8, 1088, 1920, 7)])
+def test_batched_search_kernels(cuda_device, name, c, h, w, r):
+    """K3, K5, K6a and K6b over C chunks' planes in ONE launch: each
+    chunk bit-identical to its own C = 1 launch and to the plain version
+    (which takes the same chunk axis), on unlike chunks (rolled, static,
+    scene cut, flat, integer-valued); the wrap stays inside each chunk's
+    plane (at r = 32 a 64x96 plane is smaller than the window)."""
+    kernel, plain, wrapper = SEARCHES[name]
+    count = getattr(M, wrapper)
+    cur, prev = (torch.from_numpy(a).to(cuda_device)
+                 for a in chunk_pairs(c, h, w, seed=c + h + r))
+    before = count.launches
+    mv, pred = kernel(cur, prev, r)
+    torch.cuda.synchronize()
+    assert count.launches == before + 1
+    assert mv.shape[0] == pred.shape[0] == c
+    mv_p, pred_p = plain(cur, prev, r)
+    assert torch.equal(mv, mv_p)
+    assert _same_bits(pred, pred_p)
+    for k in range(c):
+        one_mv, one_pred = kernel(cur[k], prev[k], r)
+        assert torch.equal(mv[k], one_mv)
+        assert _same_bits(pred[k], one_pred)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c,hc,wc,r", [(1, 544, 960, 7), (3, 48, 80, 4),
+                                       (8, 544, 960, 7), (3, 16, 8, 32)])
+def test_batched_chroma_kernel(cuda_device, c, hc, wc, r):
+    """K4 over C chunks' plane pairs in one launch: bit-identical to the
+    plain version and to each chunk's own launch (a chunk's rows wrap
+    inside its own planes)."""
+    rng = np.random.default_rng(c + hc + r)
+    cb, cr = (torch.from_numpy(rng.normal(128, 30, (c, hc, wc))
+                               .astype(np.float32)).to(cuda_device)
+              for _ in range(2))
+    mv = rng.integers(-r, r + 1, (c, hc // 8, wc // 8, 2)).astype(np.int32)
+    mv[:, 0, 0] = (-r | 1, -(r // 2) | 1)
+    mv = torch.from_numpy(mv).to(cuda_device)
+    before = M.chroma_mc.launches
+    got = M.chroma_mc(cb, cr, mv, r)
+    assert M.chroma_mc.launches == before + 1
+    for a, b in zip(got, M.chroma_mc_plain(cb, cr, mv, r)):
+        assert torch.equal(a, b)
+    for k in range(c):
+        for a, b in zip(M.chroma_mc(cb[k], cr[k], mv[k], r),
+                        (got[0][k], got[1][k])):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_kernel_state_initialises_once_under_threads(cuda_device):
+    """Several encoder threads launching first at the same moment: the
+    per-device constants of K1 and K2 are uploaded once, no thread
+    launches before they are there, every thread's GOP equals the CPU's,
+    and every launch is counted."""
+    import threading
+    frames = np.stack([make_test_frame("ball", 96, 64, i) for i in range(4)])
+    want = JpegEncoder(85, device="cpu").encode_gop(frames)
+    F._ready_devices.discard(cuda_device)
+    K._ready_devices.discard(cuda_device)
+    n = 6
+    gate, out, errors = threading.Barrier(n), [None] * n, []
+    before = (F.front_end.launches, K.pack_segments.launches)
+
+    def run(i):
+        try:
+            enc = JpegEncoder(85, device=cuda_device)
+            gate.wait()
+            out[i] = enc.encode_gop(frames)
+        except Exception as e:     # reported below
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert not errors, errors
+    assert all(o == want for o in out)
+    assert (F.front_end.launches, K.pack_segments.launches) == (
+        before[0] + n, before[1] + n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("codec", ["jpeg", "fvc", "fvc-motion",
+                                   "fvc-motion search=hier bframes=1"])
+def test_cudahype_on_card(cuda_device, codec):
+    """cudahype on the card, 3 chunks per dispatch, 14 frames of unlike
+    chunks (a truncated last batch): JPEG bytes equal a plain encode of
+    the same frames; FVC chunks decode like per-chunk encodes on the card
+    (byte-identical, or where a float tie split them, the same frame
+    types within 0.05 dB)."""
+    from flutpu_torch.core import Buffer, Harness, MSECOND
+    w, h, gop = 96, 64, 4
+    frames = [make_test_frame("ball" if i < 6 else "noise", w, h, i)
+              for i in range(14)]
+    hh = Harness(f"cudahype codec={codec} gop-size={gop} chunks=3 "
+                 f"device={cuda_device}")
+    hh.set_src_caps(f"video/x-raw, format=RGB, width={w}, height={h}, "
+                    "framerate=30/1")
+    for i, f in enumerate(frames):
+        hh.push(Buffer(f, pts=i * MSECOND, duration=MSECOND, offset=i))
+    hh.push_eos()
+    outs = []
+    while (o := hh.pull(timeout=60)) is not None:
+        outs.append(o)
+    hh.teardown()
+    if codec == "jpeg":
+        assert [o.pts for o in outs] == [i * MSECOND for i in range(14)]
+        assert [bytes(o.data) for o in outs] == JpegEncoder(
+            85, device=cuda_device).encode_gop(np.stack(frames))
+        return
+    assert [o.pts for o in outs] == [i * gop * MSECOND for i in range(4)]
+    kw = dict(motion=codec.startswith("fvc-motion"),
+              hier="hier" in codec, bframes=int("bframes" in codec))
+    enc = FvcEncoder(85, device=cuda_device, **kw)
+    dec = FvcDecoder(cuda_device)
+    for ci, o in enumerate(outs):
+        clip = np.stack(frames[ci * gop:(ci + 1) * gop])
+        want = enc.encode_chunk(clip)
+        if bytes(o.data) == want:
+            continue
+        a, ia = dec.decode_chunk(bytes(o.data))
+        b, ib = dec.decode_chunk(want)
+        assert ia["types"] == ib["types"]
+        pa = [_psnr8(x, s) for x, s in zip(a, clip)]
+        pb = [_psnr8(x, s) for x, s in zip(b, clip)]
+        assert max(abs(x - y) for x, y in zip(pa, pb)) <= 0.05
+
+
+def _psnr8(a, b):
+    mse = ((a.astype(np.float64) - b.astype(np.float64)) ** 2).mean()
+    return 10 * np.log10(255.0 ** 2 / max(mse, 1e-12))
+
+
+@pytest.mark.cuda
+def test_hype_bin_with_card_encoders(cuda_device):
+    """``hype`` with two ``cudajpegenc`` branches sharing the card from
+    their own streaming threads: every frame, in order, each equal to a
+    plain encode."""
+    from flutpu_torch.core import parse_launch
+    from torch_helpers import pull_all
+    bufs = pull_all(parse_launch, (
+        "videotestsrc num-buffers=24 pattern=ball width=96 height=64 "
+        f"! hype gop-size=3 encoder-0='cudajpegenc device={cuda_device}' "
+        f"encoder-1='cudajpegenc device={cuda_device}' ! appsink name=out"))
+    assert len(bufs) == 24
+    assert [b.pts for b in bufs] == sorted(b.pts for b in bufs)
+    frames = np.stack([make_test_frame("ball", 96, 64, i) for i in range(24)])
+    assert [bytes(b.data) for b in bufs] == JpegEncoder(
+        85, device=cuda_device).encode_gop(frames)
 
 
 @pytest.mark.cuda

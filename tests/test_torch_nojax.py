@@ -127,6 +127,53 @@ assert sys.modules["jax"] is None and sys.modules["flutpu"] is None
 print("rendered", int((window[..., 3] > 0).sum()) > 0, "frames", n)
 """
 
+_NO_JAX_HYPE = """
+import sys
+sys.modules["jax"] = None
+sys.modules["flutpu"] = None
+import numpy as np
+from flutpu_torch.core import Buffer, Harness, parse_launch
+out = []
+p = parse_launch("videotestsrc num-buffers=6 width=48 height=32 "
+                 "pattern=ball ! hype gop-size=2 "
+                 "encoder-0='cudajpegenc device=cpu' "
+                 "encoder-1='cudajpegenc device=cpu' ! appsink name=out")
+sink = p.get_by_name("out")
+p.play()
+while (buf := sink.try_pull_buffer(timeout=60)) is not None:
+    out.append(buf.pts)
+p.stop()
+assert out == sorted(out) and len(out) == 6, out
+for codec in ("jpeg", "fvc-motion search=hier bframes=1"):
+    h = Harness(f"cudahype device=cpu gop-size=2 chunks=2 codec={codec}")
+    h.set_src_caps("video/x-raw, format=RGB, width=48, height=32")
+    for i in range(5):
+        h.push(Buffer(np.full((32, 48, 3), 9 * i, np.uint8), pts=i))
+    h.push_eos()
+    n = 0
+    while h.pull(timeout=60) is not None:
+        n += 1
+    h.teardown()
+    assert n == (5 if codec == "jpeg" else 3), n
+from flutpu_torch.core import make
+p = parse_launch("videotestsrc num-buffers=4 width=48 height=32 "
+                 "! injectbin name=ib ! appsink name=out")
+p.get_by_name("ib").set_property("element", make(
+    "cudajpegenc", device="cpu", batch_frames=1))
+sink = p.get_by_name("out")
+p.play()
+jpegs = []
+while (buf := sink.try_pull_buffer(timeout=60)) is not None:
+    jpegs.append(bytes(buf.data)[:2] == b"\\xff\\xd8")
+p.stop()
+assert jpegs == [True] * 4, jpegs
+from flutpu_torch.parallel import gop, mesh, multihost
+assert sys.modules["jax"] is None and sys.modules["flutpu"] is None
+bad = sorted(m for m in sys.modules if m.startswith(("jax.", "flutpu.")))
+assert not bad, bad
+print("hype", len(out), "cudahype ok", "parallel", gop.__name__)
+"""
+
 _NO_JAX_IMPORTS = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
@@ -161,6 +208,13 @@ def test_pipeline_encodes_with_jax_blocked():
 
 def test_ttml_renders_and_burns_in_with_jax_blocked():
     assert "rendered True frames 3" in _run(_NO_JAX_BURNIN)
+
+
+def test_hype_cudahype_and_injectbin_run_with_jax_blocked():
+    """The hype bin with the port's encoders, cudahype (JPEG and FVC) and
+    injectbin, and flutpu_torch.parallel, with jax and flutpu blocked."""
+    assert "hype 6 cudahype ok parallel flutpu_torch.parallel.gop" in \
+        _run(_NO_JAX_HYPE)
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
@@ -360,7 +414,6 @@ def test_c_entries_match_the_sources():
                        "flu_front_end_quotient_check", "flu_pack_init", "flu_pack_segments",
                        "flu_pack_blocks", "flu_pack_slots64",
                        "flu_pack_slots32",
-                       "flu_pack_slots64_serial", "flu_pack_slots32_serial",
                        "flu_motion_search_mc", "flu_motion_search_mc_blocks",
                        "flu_motion_search_hier", "flu_chroma_mc"}
 
@@ -469,7 +522,9 @@ def test_no_port_source_names_jax_or_the_jax_package():
                 for name in names:
                     assert name.split(".")[0] not in ("jax", "jaxlib",
                                                       "flutpu"), (path, name)
-    for must in ("ttml/base.py", "ttml/render/device.py",
+    for must in ("hype/cuda.py", "hype/hypebin.py", "parallel/gop.py",
+                 "parallel/mesh.py", "parallel/multihost.py",
+                 "inject/injectbin.py", "ttml/base.py", "ttml/render/device.py",
                  "ttml/render/atlas.py", "ttml/render/render_el.py",
                  "ttml/render/overlay_el.py", "ttml/render/fonts.py"):
         assert must in seen

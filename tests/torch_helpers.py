@@ -202,3 +202,44 @@ def corpus_docs():
                 with open(os.path.join(d, name)) as fh:
                     out.append((f"{area}/{name[:-4]}", fh.read()))
     return out
+
+
+def chunk_pairs(c: int, h: int, w: int, seed: int = 0):
+    """(cur, prev) float32 (c, h, w) numpy planes of unlike chunks, one
+    per GOP chunk, cycling through: a rolled plane plus noise, a static
+    plane (cur == prev), a scene cut (cur unrelated to prev), a flat pair
+    (every candidate ties) and a rolled integer-valued plane (ties
+    abound)."""
+    rng = np.random.default_rng(seed)
+    cur = np.empty((c, h, w), np.float32)
+    prev = np.empty((c, h, w), np.float32)
+    for k in range(c):
+        base = rng.uniform(0, 255, (h, w)).astype(np.float32)
+        kind = k % 5
+        if kind == 0:
+            cur[k] = np.roll(base, (3, -5), axis=(0, 1)) \
+                + rng.normal(0, 2, (h, w))
+        elif kind == 1:
+            cur[k] = base
+        elif kind == 2:
+            cur[k] = rng.uniform(0, 255, (h, w))
+        elif kind == 3:
+            base[:] = 100.0
+            cur[k] = base
+        else:
+            base = rng.integers(0, 4, (h, w)).astype(np.float32)
+            cur[k] = np.roll(base, (1, 2), axis=(0, 1))
+        prev[k] = base
+    return cur, prev
+
+
+def code_of(module):
+    """A module's code as AST dumps of its statements, less its docstring
+    (a port's copy says in its docstring that it is one)."""
+    import ast
+    import inspect
+    body = ast.parse(inspect.getsource(module)).body
+    if body and isinstance(body[0], ast.Expr) and isinstance(
+            body[0].value, ast.Constant):
+        body = body[1:]
+    return [ast.dump(n) for n in body]
