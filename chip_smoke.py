@@ -137,7 +137,38 @@ Drives the port's main paths through the entry points a user calls, at
       version, K3 and K5 to theirs but for float64-verified near-ties),
       timed beside 8 single-chunk launches;
    for (a)-(c) frames/s, the peak device memory, and device busy ms and
-   launches per chunk (torch.profiler).
+   launches per chunk (torch.profiler);
+14. the decode side (the decoders reconstruct in plain PyTorch on the
+   card after the host's native scan decode):
+   a. BASELINE config 2 as written: 90 frames of 720p ``videotestsrc
+      pattern=ball`` encoded once by ``cudajpegenc``, the JFIF bytes in
+      host memory, fed live at 30 frames/s through ``appsrc !
+      cudajpegdec ! injectbin ! appsink``; at frame 30 a prewarmed
+      ``cudaoverlaycompositor`` whose ``overlay`` pad holds a seeded
+      window is swapped in: no frame lost or reordered, the frames before
+      the swap equal ``cudajpegdec``'s plain decode, those after the CPU
+      blend of it (±1), every frame >= 30 dB, the largest output gap
+      beside the median;
+   b. config 3 at contract scale: 13b's 300 frames through ``cudahype
+      codec=jpeg chunks=8 gop-size=30 ! avimux ! avidemux ! cudajpegdec``
+      (in order; the AVI's frames are the JFIF buffers that entered
+      ``avimux``, byte for byte; >= 30 dB, PSNR on the card), the decoder
+      alone from host memory under the profiler; 13c's FVC chunks
+      concatenated: ``FvcDecoder.decode_stream`` on the card equal to
+      per-chunk ``decode_chunk``, and ``cudafvcdec`` fed 4096-byte blocks
+      the same frames;
+   c. half-pel: ``FvcEncoder(motion=True, subpel=True)``, 2 chunks of 8
+      at 1080p, full and hier search (K3, K5 launched, K4 not), each
+      through ``cudafvcdec`` >= 30 dB and the CPU decode within 0.05 dB;
+      ``cudahype codec=fvc-motion subpel=true chunks=8`` on 64 frames,
+      each chunk byte-identical to a per-chunk encode or split at
+      float64-verified ties; 4:4:4: one 16-frame ``JpegEncoder
+      (subsample=False)`` GOP and one ``FvcEncoder(subsample=False)``
+      chunk (K2 launched, K1 not) under phase 4's checks against the
+      plain 4:4:4 front end, decoded through ``cudajpegdec`` /
+      ``cudafvcdec`` at >= 30 dB;
+   d. header flags bit 4: a 1088-row chunk rewritten to 1080 rows plus
+      the coded-size extension decodes to the 1088-row decode's crop.
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not
@@ -249,8 +280,9 @@ def _time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _native_scan(lib, y, cb, cr) -> bytes:
-    """flu_jpeg_encode_scan of one frame's (BH, BW, 64) int16 planes."""
+def _native_scan(lib, y, cb, cr, subsample: bool = True) -> bytes:
+    """flu_jpeg_encode_scan of one frame's (BH, BW, 64) int16 planes
+    (4:2:0, or 4:4:4 without ``subsample``)."""
     import numpy as np
     from flutpu_torch.codec import jpeg_tables as T
     c = ctypes
@@ -267,18 +299,19 @@ def _native_scan(lib, y, cb, cr) -> bytes:
                  lens.ctypes.data_as(c.POINTER(c.c_uint8))]
     n = lib.flu_jpeg_encode_scan(
         i16p(y), y.shape[1], y.shape[0], i16p(cb), i16p(cr), cb.shape[1],
-        cb.shape[0], 1, 3, *tabs, out.ctypes.data_as(c.POINTER(c.c_uint8)),
+        cb.shape[0], 1 if subsample else 0, 3, *tabs,
+        out.ctypes.data_as(c.POINTER(c.c_uint8)),
         cap)
     _require(n >= 0, f"flu_jpeg_encode_scan failed ({n})")
     return out[:n].tobytes()
 
 
 def _check_frames(lib, payloads, coefs, sources, enc, label,
-                  size=(H, W, PH, PW)):
-    """Every payload against the kernel's coefficients and its source.
+                  size=(H, W, PH, PW), subsample=True):
+    """Every payload against the front end's coefficients and its source.
     coefs: (y, cb, cr) device int16 of the GOP; sources: (F, H, W, 3)
-    uint8 device frames; size: frame and coded (H, W, PH, PW). Returns
-    the lowest PSNR."""
+    uint8 device frames; size: frame and coded (H, W, PH, PW);
+    ``subsample``: 4:2:0, else 4:4:4. Returns the lowest PSNR."""
     H, W, PH, PW = size
     import numpy as np
     import torch
@@ -290,15 +323,20 @@ def _check_frames(lib, payloads, coefs, sources, enc, label,
         info = parse_jfif(data)
         _require(info is not None and (info["h"], info["w"]) == (H, W),
                  f"{label} frame {i}: JFIF headers")
-        dec = decode_scan_to_coefs(info["scan"], PW // 8, PH // 8, PW // 16,
-                                   PH // 16, True)
+        c = 16 if subsample else 8
+        _require(info["subsample"] == subsample, f"{label} frame {i}: SOF0 "
+                 "sampling")
+        dec = decode_scan_to_coefs(info["scan"], PW // 8, PH // 8, PW // c,
+                                   PH // c, subsample)
         _require(dec is not None, f"{label} frame {i}: scan does not decode")
         for a, b_, name in zip(dec, (y[i], cb[i], cr[i]), "y cb cr".split()):
             _require(np.array_equal(a, b_), f"{label} frame {i}: decoded "
                      f"{name} differs from the kernel's coefficients")
-        _require(info["scan"] == _native_scan(lib, y[i], cb[i], cr[i]),
+        _require(info["scan"] == _native_scan(lib, y[i], cb[i], cr[i],
+                                              subsample),
                  f"{label} frame {i}: scan differs from flu_jpeg_encode_scan")
-    rgb = coefs_to_rgb(*coefs, enc._qy_dev, enc._qc_dev, H, W)
+    rgb = coefs_to_rgb(*coefs, enc._qy_dev, enc._qc_dev, H, W,
+                       subsample=subsample)
     mse = ((rgb.float() - sources.float()) ** 2).mean(dim=(1, 2, 3))
     psnr = (10 * torch.log10(255.0 ** 2 / mse.clamp(min=1e-12))).cpu()
     _require(bool((psnr >= MIN_PSNR).all()),
@@ -533,6 +571,7 @@ def run(dev):
     lap("12 4K")
     add(run_hype(dev, lib, lap, {k: results[k]["ms"] for k in (
         "motion_search_mc", "motion_search_mc_hier", "chroma_mc")}))
+    add(run_decode(dev, lib, lap))
     for name, key, was in EARLIER_MS:
         r_ = results[name]
         print(f"{key}: {was:.4f} ms before the redesign (PERF.md, same card "
@@ -937,6 +976,63 @@ def _near_tie_check(cur, prev, mv_k, mv_p, r, mb=16, bias=True):
                  f"mb ({by}, {bx}): vectors {mv_k[by, bx].tolist()} vs "
                  f"{mv_p[by, bx].tolist()} are no near-tie (float64 costs "
                  f"{cost_k} vs {cost_p})")
+    return len(diff)
+
+
+def _subpel_tie_check(cur, ref, mv_a, mv_b, r, bias=True):
+    """Macroblocks where two half-pel vector fields differ must be
+    near-ties, in float64 on ``ref``: either of the half-pel cost (the
+    SADs of the two bilinear predictions agree within one fp32 rounding
+    of a sample below 256 per pixel: the encoders' references differ
+    from this float64 one by such roundings), or of the integer search
+    that fed the refine (two integer vectors consistent with them whose
+    costs agree as ``_near_tie_check`` requires). Returns the count."""
+    import torch
+    from flutpu_torch.codec.ops.motion import motion_compensate_subpel
+    c64, r64 = cur.double(), ref.double()
+    h, w = cur.shape
+    diff = (mv_a != mv_b).any(-1).nonzero().tolist()
+
+    def block(a, by, bx):
+        return a[16 * by:16 * by + 16, 16 * bx:16 * bx + 16]
+
+    def half_cost(by, bx, v):
+        mv = torch.zeros((h // 16, w // 16, 2), dtype=torch.int64,
+                         device=cur.device)
+        mv[by, bx] = v.to(torch.int64)
+        pred = motion_compensate_subpel(r64, mv)
+        return float((block(c64, by, bx) - block(pred, by, bx)).abs().sum())
+
+    def int_cost(by, bx, dy, dx):
+        rows = (torch.arange(16, device=cur.device) + 16 * by - dy) % h
+        cols = (torch.arange(16, device=cur.device) + 16 * bx - dx) % w
+        sad = float((block(c64, by, bx) - r64[rows][:, cols]).abs().sum())
+        return sad, sad * (64 if bias else 1) + (abs(dy) + abs(dx)
+                                                  if bias else 0)
+
+    def bases(v):
+        return [((int(v[0]) - oy) // 2, (int(v[1]) - ox) // 2)
+                for oy in (-1, 0, 1) for ox in (-1, 0, 1)
+                if (int(v[0]) - oy) % 2 == 0 and (int(v[1]) - ox) % 2 == 0]
+
+    for by, bx in diff:
+        ca, cb = half_cost(by, bx, mv_a[by, bx]), half_cost(by, bx,
+                                                             mv_b[by, bx])
+        if abs(ca - cb) <= 256 * 2.0 ** -16:
+            continue
+        tie = False
+        for ba in bases(mv_a[by, bx]):
+            for bb in bases(mv_b[by, bx]):
+                if ba == bb or max(map(abs, ba + bb)) > r:
+                    continue
+                (sa, ka), (sb, kb) = int_cost(by, bx, *ba), int_cost(by, bx,
+                                                                     *bb)
+                tol = (64 if bias else 1) * 256 * 2.0 ** -23 * max(sa, sb,
+                                                                   1.0)
+                tie = tie or abs(ka - kb) <= tol
+        _require(tie, f"mb ({by}, {bx}): half-pel vectors "
+                 f"{mv_a[by, bx].tolist()} vs {mv_b[by, bx].tolist()} are no "
+                 f"near-tie (float64 half-pel costs {ca} vs {cb})")
     return len(diff)
 
 
@@ -2019,6 +2115,9 @@ HYPE_BRANCHES = 4
 FVC_HYPE_FRAMES = (64, 70)   # 70: a truncated tail of 6 frames
 SWAP_W, SWAP_H, SWAP_FRAMES, SWAP_AT = 1280, 720, 60, 20
 FRAME_NS = 33_333_333    # 30 frames/s
+#: 13c's cudahype FVC output per launch string: (chunk bytes, source
+#: frames (numpy)), read again by phase 14b
+HYPE_FVC_STREAMS = {}
 
 
 def _gradient_frames(dev, first: int, n: int):
@@ -2317,6 +2416,7 @@ def _run_hype_fvc(dev, lib, caps):
             print(f"{label}: differs from the per-chunk encode from frame "
                   f"{fd} on (coding order), there at {what}; max dPSNR "
                   f"{dp:.4f} dB", flush=True)
+        HYPE_FVC_STREAMS[desc] = ([bytes(b.data) for b in out], frames)
         worst, d_rgb, d_psnr = _check_chunks(lib, [bytes(b.data) for b in out],
                                              sources, f"13c {desc}")
         print(f"13c checks ({desc}): {len(out)} chunks in order; {same} of "
@@ -2344,16 +2444,18 @@ def _idct64(coefs):
     return unblockize(c.T @ coefs @ c)
 
 
-def _verify_split(a: bytes, b: bytes, src, r: int, hier: bool, dev, label):
+def _verify_split(a: bytes, b: bytes, src, r: int, hier: bool, dev, label,
+                  subpel: bool = False):
     """Two encodes of one chunk that differ: a float tie split them. At the
     first frame (in coding order: anchors, then B frames) whose record
     differs, everything before is the same in both, so the reference is
     rebuilt in float64 from the decoded frames; there the two must differ
     only where float64 shows a tie: vectors whose costs are equal within
-    fp32 rounding (``_near_tie_check``), or, with the same vectors and
-    modes, coefficients that differ by 1 where the float64 quotient lies
-    within 2e-3 of a rounding boundary. Returns (the first differing
-    frame, its differing coefficients)."""
+    fp32 rounding (``_near_tie_check``; half-pel vectors
+    ``_subpel_tie_check``), or, with the same vectors and modes,
+    coefficients that differ by 1 where the float64 quotient lies within
+    2e-3 of a rounding boundary. Returns (the first differing frame, its
+    differing coefficients)."""
     import numpy as np
     import torch
     from flutpu_torch.codec.decode import decode_scan_to_coefs
@@ -2361,7 +2463,8 @@ def _verify_split(a: bytes, b: bytes, src, r: int, hier: bool, dev, label):
         _repeat_blocks
     from flutpu_torch.codec.jpeg import _edge_pad
     from flutpu_torch.codec.ops.colorspace import planes_to_i420
-    from flutpu_torch.codec.ops.motion import motion_compensate
+    from flutpu_torch.codec.ops.motion import (motion_compensate,
+                                               motion_compensate_subpel)
     from flutpu_torch.codec.ops.quant import (CHROMA_QTABLE, LUMA_QTABLE,
                                               scale_qtable,
                                               zigzag_unflatten)
@@ -2398,8 +2501,8 @@ def _verify_split(a: bytes, b: bytes, src, r: int, hier: bool, dev, label):
 
     def predict(ref, mv):
         mv = torch.as_tensor(mv.astype(np.int64), device=dev)
-        return [motion_compensate(ref[0], mv)] + [
-            motion_compensate(p, mv, mb=8) for p in ref[1:]]
+        mc = motion_compensate_subpel if subpel else motion_compensate
+        return [mc(ref[0], mv)] + [mc(p, mv, mb=8) for p in ref[1:]]
 
     recs = {}
     for i in anchors:
@@ -2429,8 +2532,12 @@ def _verify_split(a: bytes, b: bytes, src, r: int, hier: bool, dev, label):
         mv_a, mv_b = (torch.as_tensor(f[1].astype(np.int32), device=dev)
                       for f in (fa[fd], fb[fd]))
         if not torch.equal(mv_a, mv_b):
-            n = _near_tie_check(cur[0][fd].float(), ref[0].float(), mv_a,
-                                mv_b, r, 16, not hier)
+            if subpel:
+                n = _subpel_tie_check(cur[0][fd], ref[0], mv_a, mv_b, r,
+                                      not hier)
+            else:
+                n = _near_tie_check(cur[0][fd].float(), ref[0].float(),
+                                    mv_a, mv_b, r, 16, not hier)
             return fd, f"{n} vectors, each a float64-verified near-tie"
         pred = predict(ref, fa[fd][1])
     n_diff = 0
@@ -2570,6 +2677,467 @@ def _time_batched(name, batched, singles, c, one_ms):
           f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.2f}x); {c} x "
           f"phase 5's single-launch time {c * one_ms:.4f} ms", flush=True)
 
+
+
+# -- 14. the decode side: BASELINE config 2 as written, config 3 at contract
+# scale, half-pel and 4:4:4 on the card, the coded-size extension ---------
+
+DEC_W, DEC_H = 1280, 720      # config 2: 720p30
+DEC_FRAMES, DEC_SWAP_AT = 90, 30
+STREAM_BLOCK = 4096           # bytes per buffer of the FVC byte stream
+
+
+def run_decode(dev, lib, lap):
+    """Phase 14. Returns the kernels' launch counts over its paths."""
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    add(_run_config2(dev))
+    lap("14a config 2")
+    add(_run_config3_decode(dev))
+    lap("14b config 3 decode")
+    add(_run_subpel_444(dev, lib))
+    lap("14c half-pel, 4:4:4")
+    add(_run_coded_size(dev))
+    lap("14d coded size")
+    return total
+
+
+def _decode_band_overlay(h, w):
+    """Phase 14a's seeded (h, w, 4) BGRA window over the whole frame:
+    noise colours in an opaque, a half-transparent and an alpha-0 band."""
+    import numpy as np
+    rng = np.random.default_rng(14)
+    ov = rng.integers(0, 256, (h, w, 4), np.uint8)
+    ov[: h // 3, :, 3], ov[h // 3: 2 * h // 3, :, 3] = 255, 128
+    ov[2 * h // 3:, :, 3] = 0
+    return ov
+
+
+def _run_config2(dev):
+    """Phase 14a: BASELINE config 2 as written. 90 frames of 720p
+    ``videotestsrc pattern=ball`` encoded once by ``cudajpegenc``, the JFIF
+    bytes in host memory; ``appsrc ! cudajpegdec ! injectbin ! appsink``
+    fed live at 30 frames/s; at frame 30 a prewarmed
+    ``cudaoverlaycompositor`` (its ``overlay`` pad fed beforehand: the
+    bin links only the element's first sink pad) swapped in. Returns the
+    launch counts of the encode that made the source (the decode path is
+    plain PyTorch)."""
+    import threading
+    import numpy as np
+    import torch
+    from flutpu_torch.core import Buffer, make, parse_launch
+    from flutpu_torch.core.elements import make_test_frame
+    from flutpu_torch.ttml.render.composite import overlay_on_frames
+    (bufs, enc_wall), n = _count_launches(lambda: _pipeline(
+        parse_launch, f"videotestsrc num-buffers={DEC_FRAMES} pattern=ball "
+        f"width={DEC_W} height={DEC_H} ! cudajpegenc batch-frames=16 "
+        f"device={dev} ! appsink name=out"))
+    jfif = [bytes(b.data) for b in bufs]
+    _require(len(jfif) == DEC_FRAMES and n["front_end"] > 0
+             and n["pack_segments"] > 0,
+             f"14a source: {len(jfif)} frames, launches {n}")
+    ov = _decode_band_overlay(DEC_H, DEC_W)
+    comp = make("cudaoverlaycompositor", device=str(dev))
+    _require(comp.overlay_pad.chain(Buffer(ov, pts=0)).name == "OK",
+             "14a: the compositor refused its window")
+    p = parse_launch(
+        f"appsrc name=src caps='image/jpeg, width={DEC_W}, height={DEC_H}, "
+        f"framerate=30/1' ! cudajpegdec device={dev} ! injectbin name=ib "
+        "! appsink name=out")
+    src, ib, sink = (p.get_by_name(k) for k in ("src", "ib", "out"))
+    errors = []
+
+    def feed():
+        try:
+            t0 = time.perf_counter()
+            for i, data in enumerate(jfif):
+                delay = t0 + i * FRAME_NS / 1e9 - time.perf_counter()
+                if delay > 0:
+                    time.sleep(delay)
+                src.push(Buffer(data, pts=i * FRAME_NS, duration=FRAME_NS,
+                                offset=i))
+        except Exception as e:   # reported by the checks below
+            errors.append(repr(e))
+        finally:
+            src.end_of_stream()
+
+    arrivals, out, swap_s = [], [], None
+    p.play()
+    feeder = threading.Thread(target=feed)
+    feeder.start()
+    try:
+        while (buf := sink.try_pull_buffer(timeout=60)) is not None:
+            arrivals.append(time.perf_counter())
+            out.append(buf)
+            if len(out) == DEC_SWAP_AT:
+                t0 = time.perf_counter()
+                ib.set_property("element", comp)   # prewarm, then the probe
+                swap_s = time.perf_counter() - t0
+    finally:
+        feeder.join()
+        p.stop()
+    _require(not errors, f"14a feeder: {errors}")
+    _require(len(out) == DEC_FRAMES,
+             f"14a lost frames: {len(out)} of {DEC_FRAMES}")
+    _require([b.pts for b in out] == [i * FRAME_NS
+                                      for i in range(DEC_FRAMES)],
+             "14a reordered frames")
+    dec = make("cudajpegdec", device=str(dev))
+    ov_t = torch.from_numpy(ov)
+    first, worst, off_by_one = None, float("inf"), 0
+    for i, (b, data) in enumerate(zip(out, jfif)):
+        plain = dec.decode(data)
+        got = np.asarray(b.data)
+        worst = min(worst, _psnr(plain, make_test_frame("ball", DEC_W, DEC_H,
+                                                        i)))
+        if first is None and not np.array_equal(got, plain):
+            first = i
+        if first is None:
+            continue
+        want = overlay_on_frames(torch.from_numpy(plain)[None], ov_t)[0] \
+            .numpy()
+        d = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        _require(int(d.max()) <= 1, f"14a frame {i}: differs by "
+                 f"{int(d.max())} from the CPU blend of its decode")
+        off_by_one += int((d > 0).sum())
+    _require(first is not None and first >= DEC_SWAP_AT,
+             f"14a: the swap took effect at frame {first}")
+    _require(worst >= MIN_PSNR, f"14a: PSNR {worst:.2f} dB")
+    gaps = np.diff(np.asarray(arrivals)) * 1e3
+    print(f"14a config 2 (720p, {DEC_FRAMES} frames live at 30 frames/s, "
+          f"JFIF from host memory ! cudajpegdec ! injectbin ! appsink): "
+          f"none lost or reordered; frames 0-{first - 1} equal cudajpegdec's "
+          f"plain decode, {first}-{DEC_FRAMES - 1} the CPU blend of it "
+          f"(cudaoverlaycompositor swapped in at output {DEC_SWAP_AT}; "
+          f"{off_by_one} values off by one); lowest PSNR {worst:.2f} dB; "
+          f"set_property (prewarm and probe) {swap_s * 1e3:.1f} ms; output "
+          f"gap median {float(np.median(gaps)):.1f} ms, largest "
+          f"{float(gaps.max()):.1f} ms (at output {int(gaps.argmax()) + 1}); "
+          f"source encode {enc_wall:.2f} s, launches {n}", flush=True)
+    return n
+
+
+def _run_config3_decode(dev):
+    """Phase 14b: config 3 at contract scale (``cudahype`` → ``avimux`` →
+    ``avidemux`` → ``cudajpegdec``, 300 frames of 1080p), then 13c's FVC
+    chunks through ``decode_stream`` and ``cudafvcdec`` as a byte
+    stream. Returns the launch counts."""
+    import numpy as np
+    import torch
+    from flutpu_torch.codec.avimux import parse_avi
+    from flutpu_torch.codec.fvc import FvcDecoder
+    from flutpu_torch.core import Buffer, Harness, ProbeType, parse_launch
+    p = parse_launch(
+        f"videotestsrc num-buffers={HYPE_FRAMES} pattern=gradient width={W} "
+        f"height={H} ! cudahype codec=jpeg chunks={HYPE_CHUNKS} "
+        f"gop-size={HYPE_GOP} device={dev} ! avimux name=mux ! avidemux "
+        f"name=demux ! cudajpegdec device={dev} ! appsink name=out")
+    jfif, avi = [], []
+    p.get_by_name("mux").sinkpad.add_probe(
+        ProbeType.BUFFER, lambda pad, b: jfif.append(bytes(b.data)))
+    p.get_by_name("demux").sinkpad.add_probe(
+        ProbeType.BUFFER, lambda pad, b: avi.append(bytes(b.data)))
+    sink = p.get_by_name("out")
+
+    def play():
+        t0 = time.perf_counter()
+        p.play()
+        got = []
+        try:
+            while (buf := sink.try_pull_buffer(timeout=120)) is not None:
+                got.append(buf)
+        finally:
+            p.stop()
+        return got, time.perf_counter() - t0
+
+    (out, wall), n = _count_launches(play)
+    _require(n["front_end"] > 0 and n["pack_segments"] > 0,
+             f"14b: K1 and K2 must launch in cudahype ({n})")
+    _require(len(out) == HYPE_FRAMES and len(jfif) == HYPE_FRAMES,
+             f"14b: {len(out)} frames out, {len(jfif)} into avimux")
+    pts = [b.pts for b in out]
+    _require(all(a < b for a, b in zip(pts, pts[1:])), "14b: out of order")
+    parsed = parse_avi(b"".join(avi))
+    _require(parsed["frames"] == jfif and (parsed["width"],
+                                           parsed["height"]) == (W, H),
+             "14b: the AVI's frames differ from the JFIF entering avimux")
+    worst = float("inf")
+    for g in range(HYPE_FRAMES // HYPE_GOP):
+        srcs = _gradient_frames(dev, g * HYPE_GOP, HYPE_GOP).float()
+        got = torch.from_numpy(np.stack([np.asarray(b.data) for b in out[
+            g * HYPE_GOP:(g + 1) * HYPE_GOP]])).to(dev).float()
+        mse = ((got - srcs) ** 2).mean(dim=(1, 2, 3))
+        psnr = 10 * torch.log10(255.0 ** 2 / mse.clamp(min=1e-12))
+        worst = min(worst, float(psnr.min()))
+    _require(worst >= MIN_PSNR, f"14b: PSNR {worst:.2f} dB")
+    print(f"14b config 3: videotestsrc {HYPE_FRAMES} x 1080p ! cudahype "
+          f"chunks={HYPE_CHUNKS} gop-size={HYPE_GOP} ! avimux ! avidemux ! "
+          f"cudajpegdec: {HYPE_FRAMES} frames in order in {wall:.2f} s; the "
+          f"AVI ({sum(map(len, avi))} bytes) holds the {len(jfif)} JFIF "
+          "buffers that entered avimux byte for byte; lowest PSNR "
+          f"{worst:.2f} dB (on the card); launches {n}", flush=True)
+    first = [np.asarray(b.data) for b in out[:8]]
+    del out
+    # the decoder alone, from host memory, under the profiler
+    caps = f"image/jpeg, width={W}, height={H}, framerate=30/1"
+    dec_out, dwall, (busy, launches, busy_wall) = _harness_run(
+        f"cudajpegdec device={dev}", jfif, caps, trace=len(jfif))
+    _require(len(dec_out) == HYPE_FRAMES and all(
+        np.array_equal(np.asarray(a.data), b)
+        for a, b in zip(dec_out, first)), "14b: cudajpegdec alone differs")
+    del dec_out
+    print(f"14b cudajpegdec alone, {HYPE_FRAMES} frames from host memory in "
+          f"{dwall:.3f} s = {HYPE_FRAMES / dwall:.1f} frames/s; " + _busy_line(
+              HYPE_FRAMES, busy, launches, "frame", busy_wall), flush=True)
+    card = FvcDecoder(dev)
+    for desc, (chunks, frames) in HYPE_FVC_STREAMS.items():
+        data = b"".join(chunks)
+        got, busy, launches = _traced(lambda: card.decode_stream(data))
+        t0 = time.perf_counter()
+        got = card.decode_stream(data)
+        swall = time.perf_counter() - t0
+        want = np.concatenate([card.decode_chunk(c)[0] for c in chunks])
+        _require(got.shape == frames.shape and np.array_equal(got, want),
+                 f"14b {desc}: decode_stream differs from decode_chunk")
+        del want
+        h = Harness(f"cudafvcdec device={dev}")
+        h.set_src_caps("video/x-fvc, framerate=30/1")
+        t0 = time.perf_counter()
+        for off in range(0, len(data), STREAM_BLOCK):
+            h.push(Buffer(data[off:off + STREAM_BLOCK], pts=0))
+        h.push_eos()
+        el = []
+        while (b := h.pull(timeout=120)) is not None:
+            el.append(b)
+        ewall = time.perf_counter() - t0
+        h.teardown()
+        _require(len(el) == got.shape[0] and all(
+            np.array_equal(np.asarray(b.data), g) for b, g in zip(el, got)),
+            f"14b {desc}: cudafvcdec in {STREAM_BLOCK}-byte blocks differs")
+        _require([b.pts for b in el] == [i * FRAME_NS for i in range(len(el))],
+                 f"14b {desc}: cudafvcdec pts")
+        print(f"14b {len(chunks)} FVC chunks of 13c ({desc}), {len(data)} "
+              f"bytes: decode_stream on the card = per-chunk decode_chunk "
+              f"({got.shape[0] / swall:.1f} frames/s); cudafvcdec fed "
+              f"{STREAM_BLOCK}-byte blocks: the same frames, pts "
+              f"synthesized at 30 frames/s ({len(el) / ewall:.1f} frames/s); "
+              "decode_stream " + _busy_line(got.shape[0], busy, launches,
+                                            "frame", swall), flush=True)
+        del got, el
+    return n
+
+
+def _busy_line(n, busy, launches, unit, wall=None):
+    """``_traced``'s device busy time per ``unit`` (n of them), its share
+    of ``wall`` seconds where given, launches and the largest items."""
+    if busy is None:
+        return "busy not measured (the profiler traced no device activity)"
+    share = f"share {busy[0] / 1e3 / wall:.3f}; " if wall else ""
+    return (f"device busy {busy[0] / n:.3f} ms per {unit} ({share}kernels "
+            f"alone {busy[1] / n:.3f}, the rest copies), {launches / n:g} "
+            f"device launches per {unit} (torch.profiler); largest: "
+            + "; ".join(f"{k[:40]} {t / n:.3f} ms x{c / n:g}"
+                        for k, (t, c) in busy[2][:4]))
+
+
+def _element_frames(desc, chunks):
+    """Each chunk as one buffer through the decoder element ``desc`` →
+    the frames (numpy) in order."""
+    import numpy as np
+    from flutpu_torch.core import Buffer, Harness
+    h = Harness(desc)
+    h.set_src_caps("video/x-fvc, framerate=30/1")
+    for ci, c in enumerate(chunks):
+        h.push(Buffer(c, pts=ci * CHUNK * FRAME_NS,
+                      duration=CHUNK * FRAME_NS))
+    h.push_eos()
+    out = []
+    while (b := h.pull(timeout=120)) is not None:
+        out.append(np.asarray(b.data))
+    h.teardown()
+    return np.stack(out)
+
+
+def _run_subpel_444(dev, lib):
+    """Phase 14c: half-pel FVC (full and hier search; ``cudahype
+    subpel=true``) and 4:4:4 (a JPEG GOP, an FVC v1 chunk) on the card.
+    Returns the launch counts."""
+    import numpy as np
+    from flutpu_torch.codec.decode import decode_scan_to_coefs
+    from flutpu_torch.codec.fvc import (FvcDecoder, FvcEncoder,
+                                        fvc_residuals)
+    from flutpu_torch.codec.jpeg import JpegEncoder
+    from flutpu_torch.codec.ops.frontend import front_end_444
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_frames
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    card = FvcDecoder(dev)
+    frames = gradient_ball_frames(PH, PW, 2 * CHUNK, 0, device=dev)[
+        :, :H, :W]
+    src = frames.cpu().numpy()
+    sources = [src[:CHUNK], src[CHUNK:]]
+    for hier, kernel in ((False, "motion_search_mc"),
+                         (True, "motion_search_mc_hier")):
+        enc = FvcEncoder(QUALITY, motion=True, subpel=True, hier=hier,
+                         search_range=SEARCH_RANGE, device=dev)
+        (chunks, n), busy, launches = _traced(lambda: _count_launches(
+            lambda: [enc.encode_chunk(frames[c * CHUNK:(c + 1) * CHUNK])
+                     for c in range(2)]))
+        label = f"14c FvcEncoder(subpel=True{', hier=True' if hier else ''})"
+        _require(n[kernel] > 0 and n["chroma_mc"] == 0
+                 and n["pack_segments"] > 0,
+                 f"{label}: {kernel} and K2 must launch, K4 not ({n})")
+        add(n)
+        _require(all(c[5] & 4 for c in chunks), f"{label}: flags bit 2")
+        worst, d_rgb, d_psnr = _check_chunks(lib, chunks, sources, label)
+        el = _element_frames(f"cudafvcdec device={dev}", chunks)
+        _require(np.array_equal(el, np.concatenate(
+            [card.decode_chunk(c)[0] for c in chunks])),
+            f"{label}: cudafvcdec differs from FvcDecoder")
+        print(f"{label}: 2 chunks of {CHUNK} at 1080p, launches {n}; "
+              f"through cudafvcdec on the card at >= {worst:.2f} dB; CPU "
+              f"decode max |dRGB| {d_rgb}, max dPSNR {d_psnr:.4f} dB; "
+              "encode " + _busy_line(2, busy, launches, "chunk"), flush=True)
+    # cudahype with half-pel, held per chunk as 13c holds its chunks
+    desc = (f"cudahype codec=fvc-motion subpel=true chunks={HYPE_CHUNKS} "
+            f"gop-size={CHUNK} search-range={SEARCH_RANGE} device={dev}")
+    caps = f"video/x-raw, format=RGB, width={W}, height={H}, framerate=30/1"
+    clip = gradient_ball_frames(PH, PW, FVC_HYPE_FRAMES[0], 0, device=dev)[
+        :, :H, :W].cpu().numpy()
+    (out, wall, _), n = _count_launches(lambda: _harness_run(desc, clip,
+                                                             caps))
+    _require(n["motion_search_mc"] > 0 and n["chroma_mc"] == 0,
+             f"{desc}: K3 must launch, K4 not ({n})")
+    add(n)
+    n_chunks = FVC_HYPE_FRAMES[0] // CHUNK
+    _require(len(out) == n_chunks, f"{desc}: {len(out)} chunks")
+    ref = FvcEncoder(QUALITY, motion=True, subpel=True,
+                     search_range=SEARCH_RANGE, device=dev)
+    same, srcs = 0, []
+    for ci, b in enumerate(out):
+        s_ = clip[ci * CHUNK:(ci + 1) * CHUNK]
+        srcs.append(s_)
+        want = ref.encode_chunk(s_)
+        if bytes(b.data) == want:
+            same += 1
+            continue
+        label = f"{desc} chunk {ci}"
+        fd, what = _verify_split(bytes(b.data), want, s_, SEARCH_RANGE,
+                                 False, dev, label, subpel=True)
+        da, db = card.decode_chunk(bytes(b.data))[0], card.decode_chunk(
+            want)[0]
+        dp = max(abs(_psnr(x, t) - _psnr(y, t)) for x, y, t in zip(da, db,
+                                                                  s_))
+        _require(dp <= MAX_DPSNR, f"{label}: PSNR differs by {dp:.4f} dB")
+        print(f"{label}: differs from the per-chunk encode from frame {fd} "
+              f"on, there at {what}; max dPSNR {dp:.4f} dB", flush=True)
+    worst, d_rgb, d_psnr = _check_chunks(lib, [bytes(b.data) for b in out],
+                                         srcs, f"14c {desc}")
+    print(f"14c {desc}: {len(out)} chunks in order in {wall:.2f} s "
+          f"({FVC_HYPE_FRAMES[0] / wall:.1f} frames/s from host memory); "
+          f"{same} of {len(out)} byte-identical to a per-chunk encode on "
+          f"the card, the others within the tie contract; >= {worst:.2f} "
+          f"dB; CPU decode max |dRGB| {d_rgb}, max dPSNR {d_psnr:.4f} dB; "
+          f"launches {n}", flush=True)
+    # 4:4:4: 1080 rows are a multiple of 8, so the coded size is the frame's
+    gop = frames[:GOP]
+    jenc = JpegEncoder(QUALITY, subsample=False, device=dev)
+    jenc.encode_gop(gop)    # sizes the entropy stage, as a stream would
+    (payloads, n), busy, launches = _traced(lambda: _count_launches(
+        lambda: jenc.encode_gop(gop)))
+    _require(n["pack_segments"] > 0 and n["front_end"] == 0,
+             f"14c 4:4:4 GOP: K2 must launch, K1 not ({n})")
+    add(n)
+    planes = [gop[..., c].contiguous() for c in range(3)]
+    coefs = front_end_444(*planes, jenc._qy_dev, jenc._qc_dev)
+    worst = _check_frames(lib, payloads, coefs, gop, jenc, "14c 4:4:4 GOP",
+                          size=(H, W, H, W), subsample=False)
+    from flutpu_torch.core import make
+    dec = make("cudajpegdec", device=str(dev))
+    worst_dec = min(_psnr(dec.decode(p_), s_) for p_, s_ in zip(
+        payloads, gop.cpu().numpy()))
+    _require(worst_dec >= MIN_PSNR, f"14c 4:4:4 GOP through cudajpegdec: "
+             f"{worst_dec:.2f} dB")
+    fenc = FvcEncoder(QUALITY, subsample=False, device=dev)
+    chunk, n = _count_launches(lambda: fenc.encode_chunk(frames[:CHUNK]))
+    _require(n["pack_segments"] > 0 and n["front_end"] == 0,
+             f"14c 4:4:4 FVC chunk: K2 must launch, K1 not ({n})")
+    add(n)
+    hdr, recs = FvcDecoder.parse_chunk(chunk)
+    _require(not hdr["subsample"] and hdr["version"] == 1,
+             "14c 4:4:4 FVC chunk header")
+    res = [r.cpu().numpy() for r in fvc_residuals(*front_end_444(
+        *(frames[:CHUNK, ..., c].contiguous() for c in range(3)),
+        fenc._scan_coder._qy_dev, fenc._scan_coder._qc_dev))]
+    for i, (_, _, payload) in enumerate(recs):
+        got = decode_scan_to_coefs(payload, W // 8, H // 8, W // 8, H // 8,
+                                   False)
+        _require(got is not None and all(np.array_equal(a, r[i])
+                                         for a, r in zip(got, res)),
+                 f"14c 4:4:4 FVC frame {i}: scan != front end residuals")
+        _require(_native_scan(lib, *got, subsample=False) == payload,
+                 f"14c 4:4:4 FVC frame {i}: scan != flu_jpeg_encode_scan")
+    el = _element_frames(f"cudafvcdec device={dev}", [chunk])
+    worst_fvc = min(_psnr(a, b) for a, b in zip(el, src[:CHUNK]))
+    _require(worst_fvc >= MIN_PSNR, f"14c 4:4:4 FVC: {worst_fvc:.2f} dB")
+    print(f"14c 4:4:4: one {gop.shape[0]}-frame JpegEncoder(subsample=False) "
+          f"GOP and one FvcEncoder(subsample=False) chunk at 1080p (K2 "
+          f"launched, K1 not); every scan decodes to the plain 4:4:4 front "
+          f"end's coefficients (the chunk's to their residuals) and equals "
+          f"flu_jpeg_encode_scan; >= {worst:.2f} dB, through cudajpegdec "
+          f">= {worst_dec:.2f} dB, through cudafvcdec >= {worst_fvc:.2f} dB; "
+          "the GOP's encode (after one warm GOP) " + _busy_line(
+              1, busy, launches, "GOP"), flush=True)
+    return total
+
+
+def _with_coded_size(chunk: bytes, h: int) -> bytes:
+    """The chunk's header rewritten to frame height ``h`` with the
+    coded-size extension (header flags bit 4: the chunk's coded width and
+    height) after the v2 search-range byte."""
+    import struct
+    ver, flags, w, ph = struct.unpack(">BBHH", chunk[4:10])
+    off = 13 if ver >= 2 else 12
+    return (chunk[:4] + struct.pack(">BBHH", ver, flags | 16, w, h)
+            + chunk[10:off] + struct.pack(">HH", w, ph) + chunk[off:])
+
+
+def _run_coded_size(dev):
+    """Phase 14d: a P chunk coded at 1088 rows, its header rewritten to
+    1080 rows plus the coded-size extension (1920, 1088), decodes on the
+    card (FvcDecoder and cudafvcdec) to the 1080-row crop of the
+    1088-row chunk's decode. Returns the launch counts of its encode."""
+    import numpy as np
+    from flutpu_torch.codec.fvc import FvcDecoder, FvcEncoder
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_frames
+    enc = FvcEncoder(QUALITY, motion=True, search_range=SEARCH_RANGE,
+                     device=dev)
+    tall = gradient_ball_frames(PH, PW, CHUNK, 0, device=dev)
+    chunk, n = _count_launches(lambda: enc.encode_chunk(tall))
+    ext = _with_coded_size(chunk, H)
+    card = FvcDecoder(dev)
+    hdr = card.parse_chunk(ext)[0]
+    _require((hdr["height"], hdr["coded_height"], hdr["coded_width"])
+             == (H, PH, PW), f"14d header {hdr}")
+    full = card.decode_chunk(chunk)[0]
+    got = card.decode_chunk(ext)[0]
+    el = _element_frames(f"cudafvcdec device={dev}", [ext])
+    _require(got.shape == (CHUNK, H, W, 3) and np.array_equal(
+        got, full[:, :H]) and np.array_equal(el, got),
+        "14d: the coded-size chunk does not decode to the taller crop")
+    print(f"14d coded-size extension: a {PH}-row P chunk rewritten to {H} "
+          f"rows + (pw, ph) = ({PW}, {PH}) decodes on the card (FvcDecoder "
+          f"and cudafvcdec) to the {H}-row crop of its {PH}-row decode",
+          flush=True)
+    return n
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -1,4 +1,4 @@
-"""flutpu_torch.codec — the GPU encode paths.
+"""flutpu_torch.codec — the GPU encode and decode paths.
 
 Baseline JPEG: colorspace conversion, 4:2:0, 8x8 DCT and quantization run
 in one CUDA kernel; Huffman coding of the blocks runs in a second, per
@@ -7,14 +7,19 @@ compacts the word-aligned segments (the port's native C++ library) or
 byte-stuffs the device-joined stream, and wraps JFIF headers. FVC
 chunks add temporal prediction on top: version 1 accumulates coefficient
 residuals, version 2 runs the motion search and chroma compensation
-kernels in the hybrid loop. Importing
-this package registers ``cudajpegenc`` and ``cudafvcenc``.
+kernels in the hybrid loop. The decode side reconstructs in plain
+PyTorch on the device after the host's entropy decode. Importing this
+package registers ``cudajpegenc``, ``cudafvcenc``, ``cudajpegdec``,
+``cudafvcdec`` and the host-only ``avimux`` and ``avidemux``.
 """
 
+from .avimux import AviDemux, AviMux
 from .base import VideoEncoder
+from .decoders import CudaFvcDec, CudaJpegDec
 from .encoder import CudaJpegEnc
 from .fvc import CudaFvcEnc, FvcDecoder, FvcEncoder
 from .jpeg import JpegEncoder
 
-__all__ = ["VideoEncoder", "CudaJpegEnc", "CudaFvcEnc", "FvcDecoder",
-           "FvcEncoder", "JpegEncoder"]
+__all__ = ["AviDemux", "AviMux", "VideoEncoder", "CudaFvcDec", "CudaJpegDec",
+           "CudaJpegEnc", "CudaFvcEnc", "FvcDecoder", "FvcEncoder",
+           "JpegEncoder"]

@@ -5,7 +5,10 @@ flutpu/codec/decoders.py (copies; that package imports jax). The encoder
 and its checks use them to read a stream back without an external
 decoder: the native scan decoder (``flu_jpeg_decode_scan``) recovers the
 zigzagged quantized coefficients, and ``coefs_to_rgb`` de-zigzags,
-dequantizes, inverse-transforms, upsamples and converts to RGB.
+dequantizes, inverse-transforms, upsamples (4:2:0) and converts to RGB
+in plain PyTorch on the coefficients' device (flutpu's XLA program;
+there is no Pallas kernel on this path). The decoder elements
+(``decoders.py``) and ``FvcDecoder`` run it.
 """
 
 from __future__ import annotations
@@ -19,7 +22,7 @@ import torch
 
 from .. import native
 from . import jpeg_tables as T
-from .ops.colorspace import i420_to_rgb
+from .ops.colorspace import i420_to_rgb, ycbcr_to_rgb
 from .ops.dct import plane_idct
 from .ops.quant import dequantize, inverse_zigzag_order, zigzag_unflatten
 
@@ -100,13 +103,21 @@ def decode_scan_to_coefs(scan: bytes, ybw: int, ybh: int, cbw: int, cbh: int,
 
 
 def coefs_to_rgb(yq: torch.Tensor, cbq: torch.Tensor, crq: torch.Tensor,
-                 qy: torch.Tensor, qc: torch.Tensor, h: int,
-                 w: int) -> torch.Tensor:
-    """4:2:0 quantized zigzag coefficient planes ((..., BH, BW, 64)) →
-    (..., h, w, 3) uint8 RGB on the coefficients' device."""
+                 qy: torch.Tensor, qc: torch.Tensor, h: int, w: int,
+                 subsample: bool = True) -> torch.Tensor:
+    """Quantized zigzag coefficient planes ((..., BH, BW, 64); chroma at
+    half the blocks with ``subsample``, 4:2:0, at the luma's without,
+    4:4:4) → (..., h, w, 3) uint8 RGB on the coefficients' device. Every
+    device runs the per-block IDCT: a decoded frame feeds no later frame,
+    so flutpu's planar formulation on accelerators is no format matter
+    here."""
     def plane(q, qtab):
         blocks = zigzag_unflatten(q.to(torch.float32))
         return plane_idct(dequantize(blocks, qtab)) + 128.0
 
-    rgb = i420_to_rgb(plane(yq, qy), plane(cbq, qc), plane(crq, qc))
+    y, cb, cr = plane(yq, qy), plane(cbq, qc), plane(crq, qc)
+    if subsample:
+        rgb = i420_to_rgb(y, cb, cr)
+    else:
+        rgb = ycbcr_to_rgb(torch.stack([y, cb, cr], dim=-1))
     return (rgb + 0.5).clamp(0, 255).to(torch.uint8)[..., :h, :w, :]

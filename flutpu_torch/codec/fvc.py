@@ -37,10 +37,18 @@ C GOP chunks in one dispatch: ``encode_chunks_dispatch`` /
 leading chunk axis; a chunk's bytes are those of its own dispatch but
 where a float tie in the batched in-loop transform splits them.
 
-Not ported (each raises ``NotImplementedError``): half-pel motion
-(``subpel``), 4:4:4, rate control (``bitrate``), spatial striping;
-flutpu's batched dispatch from the on-device source
-(``encode_chunk_batch_dispatch_src``) has no counterpart yet.
+Half-pel motion (``subpel``, header flags bit 2) refines K3's (K5's)
+integer vectors with ``subpel_refine`` and predicts luma and chroma with
+``motion_compensate_subpel``, plain PyTorch on the device (flutpu's XLA
+programs). Version 1 also codes 4:4:4 (``subsample=False``, flags bit 0
+clear) through the plain 4:4:4 front end. ``FvcDecoder`` reads every
+chunk kind flutpu writes, and ``split_stream``/``decode_stream`` read
+concatenated chunks.
+
+Not ported (each raises ``NotImplementedError``): rate control
+(``bitrate``), spatial striping; flutpu's batched dispatch from the
+on-device source (``encode_chunk_batch_dispatch_src``) has no
+counterpart yet.
 """
 
 from __future__ import annotations
@@ -64,7 +72,8 @@ from .jpeg import JpegEncoder, _edge_pad, _HostCopy, _pad_to, \
 from .ops.colorspace import i420_to_rgb, planes_to_i420
 from .ops.dct import dct_matrix, plane_dct, plane_idct, unblockize
 from .ops.entropy import encode_gop_scans_layout
-from .ops.motion import MB, _mb_sums, motion_compensate
+from .ops.motion import (MB, _mb_sums, motion_compensate,
+                         motion_compensate_subpel, subpel_refine)
 from .ops.motion_kernels import MAX_SEARCH_RANGE, chroma_mc, \
     motion_search_mc, motion_search_mc_dygrid, motion_search_mc_hier
 from .ops.quant import (CHROMA_QTABLE, LUMA_QTABLE, dequantize, quant_map,
@@ -172,16 +181,22 @@ def _search_fn(hier: bool, dygrid: bool = False):
     return motion_search_mc_dygrid if dygrid else motion_search_mc
 
 
-def _anchor_loop(y, cb, cr, qy, qc, search, search_range: int):
+def _anchor_loop(y, cb, cr, qy, qc, search, search_range: int,
+                 subpel: bool = False):
     """The hybrid loop over (C, F, ...) planes: C GOP chunks side by side,
     frame 0 of each intra. Per frame step, for every chunk at once: the
     search against its reconstructed reference (one launch for all C),
     the chroma kernel, the device-side I/P decision of each chunk over
     its own plane, DCT + quantization of the pixel residual and the
-    in-loop reconstruction. Returns (ry, rcb, rcr) (C, F, BH, BW, 64)
-    int16 zigzagged residual coefficients, mvs (C, F, H/16, W/16, 2)
-    int8, itypes (C, F) int8 (1 = intra) and each frame's reconstructed
-    (C, ...) planes."""
+    in-loop reconstruction. With ``subpel`` the search's integer vectors
+    are refined to half-pel (``subpel_refine``, plain PyTorch over the C
+    planes) and both predictions are bilinear
+    (``motion_compensate_subpel``): the search's own prediction is
+    discarded and the chroma kernel, whose contract is integer vectors,
+    is not launched. Returns (ry, rcb, rcr) (C, F, BH, BW, 64) int16
+    zigzagged residual coefficients, mvs (C, F, H/16, W/16, 2) int8
+    (half-pel units with ``subpel``), itypes (C, F) int8 (1 = intra) and
+    each frame's reconstructed (C, ...) planes."""
     c, f = y.shape[:2]
     dev = y.device
     mbh, mbw = y.shape[2] // MB, y.shape[3] // MB
@@ -199,6 +214,9 @@ def _anchor_loop(y, cb, cr, qy, qc, search, search_range: int):
             pred_y = pred_cb = pred_cr = 128.0
         else:
             mv, pred_p_y = search(cy, rec_y, search_range)
+            if subpel:
+                mv = subpel_refine(cy, rec_y, mv)
+                pred_p_y = motion_compensate_subpel(rec_y, mv)
             # the in-codec scene-cut detector, per chunk: intra when flat
             # 128 leaves less luma residual than the motion prediction
             # (sums in float64, so the CPU and the card decide alike)
@@ -207,7 +225,11 @@ def _anchor_loop(y, cb, cr, qy, qc, search, search_range: int):
             is_i = sad_i < sad_p
             intra = is_i[:, None, None]
             mv = torch.where(intra[..., None], no_mv, mv)
-            pcb, pcr = chroma_mc(rec_cb, rec_cr, mv, search_range)
+            if subpel:
+                pcb = motion_compensate_subpel(rec_cb, mv, mb=8)
+                pcr = motion_compensate_subpel(rec_cr, mv, mb=8)
+            else:
+                pcb, pcr = chroma_mc(rec_cb, rec_cr, mv, search_range)
             pred_y = torch.where(intra, 128.0, pred_p_y)
             pred_cb = torch.where(intra, 128.0, pcb)
             pred_cr = torch.where(intra, 128.0, pcr)
@@ -233,16 +255,15 @@ def fvc_mc_encode_chunk(frames, qy: torch.Tensor, qc: torch.Tensor,
     """Motion-compensated chunk encode (FVC v2, P frames only): the hybrid
     loop (``_anchor_loop``) over every frame, with the full search (K3;
     K6b under ``FLUTPU_SEARCH_DYGRID=1``, as flutpu selects it) or, with
-    ``hier``, the coarse-to-fine search (K5). ``frames``: (r, g, b) uint8
-    planes (F, H, W) or interleaved (F, H, W, 3), edge-padded here to
-    (pad_h, pad_w); or C chunks' ((C, F, H, W) planes, (C, F, H, W, 3)),
-    encoded side by side.
+    ``hier``, the coarse-to-fine search (K5); with ``subpel`` the
+    search's vectors refined to half-pel and bilinear predictions.
+    ``frames``: (r, g, b) uint8 planes (F, H, W) or interleaved (F, H, W,
+    3), edge-padded here to (pad_h, pad_w); or C chunks' ((C, F, H, W)
+    planes, (C, F, H, W, 3)), encoded side by side.
 
     Returns (ry, rcb, rcr) int16 zigzagged residual coefficients,
-    mvs ([C,] F, H/16, W/16, 2) int8 and itypes ([C,] F) int8 (1 =
-    intra)."""
-    if subpel:
-        raise NotImplementedError("half-pel motion is not ported yet")
+    mvs ([C,] F, H/16, W/16, 2) int8 (half-pel units with ``subpel``) and
+    itypes ([C,] F) int8 (1 = intra)."""
     if planar:
         raise NotImplementedError("the port reconstructs with the per-block "
                                   "DCT (header flags bit 3 = 0)")
@@ -250,7 +271,7 @@ def fvc_mc_encode_chunk(frames, qy: torch.Tensor, qc: torch.Tensor,
     y, cb, cr = _i420_planes(frames, pad_h, pad_w)
     search = _search_fn(hier, env_flag("FLUTPU_SEARCH_DYGRID", False))
     return _unchunked(_anchor_loop(y, cb, cr, qy, qc, search,
-                                   search_range)[:5], added)
+                                   search_range, subpel)[:5], added)
 
 
 def _bframe_structure(f: int, bframes: int):
@@ -442,9 +463,12 @@ class _ChunkHandle(NamedTuple):
 class FvcEncoder:
     """Encode GOP chunks of RGB frames into FVC bitstream chunks on one
     device. ``motion=True`` selects the v2 hybrid codec; ``hier`` its
-    coarse-to-fine search; ``bframes`` (1..7, motion only) the number of
-    B frames between anchors, quantized at ``bquality`` (default
-    ``max(10, quality - 8)``). ``device`` is where the encode runs: a
+    coarse-to-fine search; ``subpel`` half-pel vectors (header flags bit
+    2; search range at most 62); ``bframes`` (1..7, motion only, not with
+    ``subpel``) the number of B frames between anchors, quantized at
+    ``bquality`` (default ``max(10, quality - 8)``). ``subsample=False``
+    codes version 1 chunks in 4:4:4 (flags bit 0 clear); motion needs
+    4:2:0. ``device`` is where the encode runs: a
     CUDA device launches the kernels; ``"cpu"`` runs their plain PyTorch
     versions. The bitstream layout of the entropy stage (``segmented``)
     and its sizing (compressed-prefix window, segment staging, overflow
@@ -471,27 +495,31 @@ class FvcEncoder:
                 else max(10, quality - 8)
             if not 1 <= self.bquality <= 100:
                 raise ValueError("bquality must be in 1..100")
-        if not subsample:
-            raise NotImplementedError("the port encodes 4:2:0 only; 4:4:4 "
-                                      "is not ported yet")
-        if subpel:
-            raise NotImplementedError("half-pel motion is not ported yet")
+        if motion and not subsample:
+            raise ValueError("motion mode requires 4:2:0")
         if engine not in ("auto", "device"):
             raise NotImplementedError(f"engine={engine!r}: the port codes on "
                                       "the device only (auto | device)")
-        if not 0 < search_range <= 126:
-            raise ValueError("search_range must be in 1..126 (vectors are "
-                             "int8 in the bitstream)")
+        # half-pel vectors reach ±(2 * search_range + 1): int8 bounds the
+        # range at 62 (flutpu's limit)
+        limit = 62 if subpel else 126
+        if not 0 < search_range <= limit:
+            raise ValueError(
+                f"search_range must be in 1..{limit} "
+                f"(subpel={subpel}; vectors are int8 in the bitstream)")
         if search_range > MAX_SEARCH_RANGE:
             raise NotImplementedError(
                 f"search ranges above {MAX_SEARCH_RANGE} are not ported")
         self.quality = quality
+        self.subsample = bool(subsample)
         self.motion = bool(motion)
         self.hier = bool(hier)
+        self.subpel = bool(subpel)
         self.search_range = int(search_range)
         self.device = torch.device(device)
         # shared scan coder: its tables, sizing policy and overflow bounds
-        self._scan_coder = JpegEncoder(quality, segmented=segmented,
+        self._scan_coder = JpegEncoder(quality, subsample=subsample,
+                                       segmented=segmented,
                                        device=self.device)
         self.qy, self.qc = self._scan_coder.qy, self._scan_coder.qc
         self._qyb_dev = self._qcb_dev = None
@@ -504,6 +532,7 @@ class FvcEncoder:
     @classmethod
     def from_numpy_state(cls, qy, qc, search_range: int = 7, *,
                          motion: bool = False, hier: bool = False,
+                         subpel: bool = False, subsample: bool = True,
                          bframes: int = 0, bquality: Optional[int] = None,
                          seg_words: Optional[int] = None,
                          prefix_window: Optional[int] = None,
@@ -511,12 +540,14 @@ class FvcEncoder:
                          device="cuda") -> "FvcEncoder":
         """An encoder with given quantization tables and adaptive sizes
         (e.g. flutpu's ``qy``, ``qc``, ``search_range``, ``hier``,
-        ``bframes``, ``bquality`` and its scan coder's ``_seg_words``,
+        ``subpel``, ``subsample``, ``bframes``, ``bquality`` and its scan
+        coder's ``_seg_words``,
         ``_prefix_window``). The tables must be a quality's: the chunk
         header carries the quality."""
-        enc = cls(_table_quality(qy, qc), motion=motion,
-                  search_range=search_range, hier=hier, segmented=segmented,
-                  bframes=bframes, bquality=bquality, device=device)
+        enc = cls(_table_quality(qy, qc), subsample=subsample, motion=motion,
+                  search_range=search_range, hier=hier, subpel=subpel,
+                  segmented=segmented, bframes=bframes, bquality=bquality,
+                  device=device)
         enc._scan_coder._set_state(encoder_state_from_numpy(
             qy, qc, seg_words=seg_words, prefix_window=prefix_window,
             device=enc.device))
@@ -529,15 +560,15 @@ class FvcEncoder:
         entropy stage, one row per frame in chunk order."""
         from ..parallel.gop import fvc_chunks
         sc = self._scan_coder
-        ph, pw = _pad_to(h, 16), _pad_to(w, 16)
+        ph, pw = _pad_to(h, sc.mult), _pad_to(w, sc.mult)
         qy, qc = sc._qy_dev, sc._qc_dev
 
         def program(layout, prefix_words, seg_words):
             parts = fvc_chunks(
                 _chunked(frames_fn())[0], qy, qc, motion=self.motion,
                 search_range=self.search_range, hier=self.hier,
-                bframes=self.bframes, qy_b=self._qyb_dev,
-                qc_b=self._qcb_dev)
+                subpel=self.subpel, bframes=self.bframes, qy_b=self._qyb_dev,
+                qc_b=self._qcb_dev, subsample=self.subsample)
             return _combined_rows(parts, layout, prefix_words, sc.SEG_G,
                                   seg_words)
 
@@ -571,8 +602,9 @@ class FvcEncoder:
         """encode_chunk_dispatch with an on-device frame source:
         ``src_fn(ph, pw, n, start)`` returns (r, g, b) uint8 planes, each
         (n, ph, pw), or interleaved (n, ph, pw, 3) frames, at the coded
-        size (h, w rounded up to 16)."""
-        ph, pw = _pad_to(h, 16), _pad_to(w, 16)
+        size (h, w rounded up to 16, or to 8 for 4:4:4)."""
+        mult = self._scan_coder.mult
+        ph, pw = _pad_to(h, mult), _pad_to(w, mult)
         return self._dispatch(lambda: src_fn(ph, pw, n, start), n, h, w)
 
     def encode_chunk_finalize(self, handle: _ChunkHandle) -> bytes:
@@ -635,11 +667,13 @@ class FvcEncoder:
     def _build_chunk(self, payloads, mvs, itypes, f: int, h: int,
                      w: int) -> bytes:
         """Container assembly (flutpu's ``_build_chunk`` for streams with
-        integer-pel vectors and the per-block in-loop DCT)."""
+        the per-block in-loop DCT)."""
         version = 2 if self.motion else VERSION
-        flags = 1                      # 4:2:0
+        flags = 1 if self.subsample else 0
         if self.motion:
             flags |= 2                 # vectors are zlib-compressed
+            if self.subpel:
+                flags |= 4             # vectors are in half-pel units
             if self.bframes:
                 flags |= 32            # the chunk may hold B frames
         out = [MAGIC, struct.pack(">BBHHBB", version, flags, w, h,
@@ -704,10 +738,13 @@ def _residual_plane(q: torch.Tensor, qtab: torch.Tensor,
 
 class FvcDecoder:
     """Decode FVC chunks back to RGB frames: native scan decode on the
-    host, reconstruction in plain PyTorch on ``device``. Reads version 1
-    and version 2 chunks with P and B frames (header flags bits 0, 1, 3
-    and 5); half-pel vectors (bit 2), coded-size extensions (bit 4) and
-    4:4:4 raise ``NotImplementedError``."""
+    host, reconstruction in plain PyTorch on ``device`` (flutpu's XLA
+    programs; no Pallas kernel runs on the decode side). Reads every
+    chunk flutpu writes: version 1 in 4:2:0 and 4:4:4 (header flags bit
+    0), version 2 with P and B frames (bit 5; all B frames of a chunk in
+    one pass, ``fvc_mc_decode_chunk_b``), zlib'd vectors (bit 1),
+    half-pel vectors (bit 2), either in-loop DCT (bit 3) and an explicit
+    coded size (bit 4). ``decode_stream`` reads concatenated chunks."""
 
     def __init__(self, device="cuda"):
         self.device = torch.device(device)
@@ -715,26 +752,24 @@ class FvcDecoder:
     @staticmethod
     def parse_chunk(data: bytes):
         """Header walk of one chunk → (header dict: ``version``, ``flags``,
-        ``width``, ``height``, ``quality``, ``search_range``,
+        ``width``, ``height``, ``coded_width``, ``coded_height``,
+        ``subsample``, ``subpel``, ``quality``, ``search_range``,
         ``bquality``; per frame (frame_type, vectors, payload)). Vectors
         are None for an intra frame, (H/16, W/16, 2) int8 for a P frame,
-        and (fwd, bwd, modes (H/16, W/16) int8) for a B frame."""
+        and (fwd, bwd, modes (H/16, W/16) int8) for a B frame, on the
+        coded size's macroblock grid. Raises ValueError on a corrupt or
+        truncated chunk."""
         if data[:4] != MAGIC:
             raise ValueError("not an FVC chunk")
         if len(data) < 12:
             raise ValueError("truncated FVC chunk header")
         version, flags, w, h, quality, f = struct.unpack(">BBHHBB",
                                                          data[4:12])
-        if not flags & 1:
-            raise NotImplementedError("4:4:4 FVC chunks are not ported yet")
-        if flags & 16:
-            raise NotImplementedError("FVC coded-size extensions are not "
-                                      "ported yet")
-        ph, pw = _pad_to(h, 16), _pad_to(w, 16)
+        subsample = bool(flags & 1)
+        mult = 16 if subsample else 8
+        ph, pw = _pad_to(h, mult), _pad_to(w, mult)
         if ph == 0 or pw == 0:
             raise ValueError("zero-sized FVC chunk")
-        mbh, mbw = ph // 16, pw // 16
-        mbn = mbh * mbw
         off = 12
         search_range = 7
         if version >= 2:
@@ -742,6 +777,20 @@ class FvcDecoder:
                 raise ValueError("truncated FVC v2 header")
             search_range = data[12]
             off = 13
+        if flags & 16:
+            # explicit coded size (bit 4): the coded geometry exceeds the
+            # minimum macroblock padding (flutpu's striped encodes pad H
+            # to 16 * stripes)
+            if len(data) < off + 4:
+                raise ValueError("truncated coded-size extension")
+            pw, ph = struct.unpack(">HH", data[off:off + 4])
+            off += 4
+            if ph < h or pw < w or ph % mult or pw % mult:
+                raise ValueError("invalid coded-size extension")
+        if version >= 2 and not subsample:
+            raise ValueError("motion-compensated FVC chunks are 4:2:0 only")
+        mbh, mbw = ph // 16, pw // 16
+        mbn = mbh * mbw
         bquality = quality
         if flags & 32:
             # B-frame quantizer quality (after any coded-size extension)
@@ -792,15 +841,14 @@ class FvcDecoder:
                 raise ValueError(f"truncated payload (frame {i})")
             frames.append((ftype, mv, data[off:off + plen]))
             off += plen
-        if flags & 4:
-            if version >= 2 and any(t == 2 for t, _, _ in frames):
-                raise ValueError("B frames with subpel vectors are not a "
-                                 "valid stream")
-            raise NotImplementedError("FVC half-pel vectors are not ported "
-                                      "yet")
+        if flags & 4 and version >= 2 and any(t == 2 for t, _, _ in frames):
+            raise ValueError("B frames with subpel vectors are not a valid "
+                             "stream")
         header = {"version": version, "flags": flags, "width": w,
-                  "height": h, "quality": quality,
-                  "search_range": search_range, "bquality": bquality}
+                  "height": h, "coded_width": pw, "coded_height": ph,
+                  "subsample": subsample, "subpel": bool(flags & 4),
+                  "quality": quality, "search_range": search_range,
+                  "bquality": bquality}
         return header, frames
 
     def decode_chunk(self, data: bytes) -> Tuple[np.ndarray, dict]:
@@ -808,11 +856,13 @@ class FvcDecoder:
         ``types`` (0 = I, 1 = P, 2 = B), ``width``, ``height``)."""
         hdr, frames = self.parse_chunk(data)
         h, w, quality = hdr["height"], hdr["width"], hdr["quality"]
-        ph, pw = _pad_to(h, 16), _pad_to(w, 16)
+        ph, pw = hdr["coded_height"], hdr["coded_width"]
+        sub = hdr["subsample"]
+        cbw, cbh = (pw // 16, ph // 16) if sub else (pw // 8, ph // 8)
         planes = []
         for i, (_, _, payload) in enumerate(frames):
-            coefs = decode_scan_to_coefs(payload, pw // 8, ph // 8, pw // 16,
-                                         ph // 16, True)
+            coefs = decode_scan_to_coefs(payload, pw // 8, ph // 8, cbw, cbh,
+                                         sub)
             if coefs is None:
                 raise ValueError(f"corrupt FVC payload (frame {i})")
             planes.append(coefs)
@@ -831,26 +881,24 @@ class FvcDecoder:
                                         device=dev) for c in range(3))
         planar = bool(hdr["flags"] & 8)
         if hdr["version"] >= 2 and 2 in types:
-            y, cb, cr = self._reconstruct_mc_b(
+            frames = _to_rgb8(*self._reconstruct_mc_b(
                 ry, rcb, rcr, mvs, types, qy, qc, *tables(hdr["bquality"]),
-                planar=planar)
-            frames = _to_rgb8(y, cb, cr)
+                planar=planar))
         elif hdr["version"] >= 2:
-            frames = _to_rgb8(*self._reconstruct_mc(ry, rcb, rcr, mvs, qy,
-                                                    qc, planar=planar))
+            frames = _to_rgb8(*self._reconstruct_mc(
+                ry, rcb, rcr, mvs, qy, qc, planar=planar,
+                subpel=hdr["subpel"]))
         else:
             frames = coefs_to_rgb(*fvc_accumulate(ry, rcb, rcr), qy, qc, h,
-                                  w)
+                                  w, subsample=sub)
         frames = frames[:, :h, :w].cpu().numpy()
         return frames, {"quality": quality, "types": types, "width": w,
                         "height": h}
 
     @staticmethod
-    def _reconstruct_mc(ry, rcb, rcr, mvs, qy, qc, planar: bool):
-        """v2 P-only frames → (Y, Cb, Cr) planes: vectors as an (F, H/16,
-        W/16, 2) array, frames without vectors intra, then the in-loop
-        reconstruction."""
-        mbh, mbw = ry.shape[1] // 2, ry.shape[2] // 2
+    def _mc_arrays(mvs, mbh: int, mbw: int):
+        """P/I frames' vectors → ((F, mbh, mbw, 2) int8, (F,) int8 itypes:
+        1 where a frame carries no vectors, an intra frame)."""
         mv_arr = np.zeros((len(mvs), mbh, mbw, 2), np.int8)
         itypes = np.zeros(len(mvs), np.int8)
         for i, mv in enumerate(mvs):
@@ -858,45 +906,97 @@ class FvcDecoder:
                 itypes[i] = 1
             else:
                 mv_arr[i] = mv
+        return mv_arr, itypes
+
+    @classmethod
+    def _reconstruct_mc(cls, ry, rcb, rcr, mvs, qy, qc, planar: bool,
+                        subpel: bool = False):
+        """v2 P-only frames → (Y, Cb, Cr) planes: the in-loop
+        reconstruction (``fvc_mc_decode_chunk``)."""
+        mv_arr, itypes = cls._mc_arrays(mvs, ry.shape[1] // 2,
+                                        ry.shape[2] // 2)
         return fvc_mc_decode_chunk(
             ry, rcb, rcr, torch.from_numpy(mv_arr).to(ry.device),
-            torch.from_numpy(itypes), qy, qc, planar=planar)
+            torch.from_numpy(itypes), qy, qc, subpel=subpel, planar=planar)
 
     @classmethod
     def _reconstruct_mc_b(cls, ry, rcb, rcr, mvs, types, qy, qc, qy_b, qc_b,
                           planar: bool):
         """B-frame chunk → (Y, Cb, Cr) planes in display order: the
-        anchors through the P reconstruction, then each B frame by pure
-        selection from its anchor pair (per macroblock average / forward /
-        backward / flat 128) plus its residual at the bquality tables."""
+        anchors through the P reconstruction, then every B frame at once
+        from its anchor pair (``fvc_mc_decode_chunk_b``)."""
         a_idx = [i for i, t in enumerate(types) if t != 2]
         b_idx = [i for i, t in enumerate(types) if t == 2]
         if not a_idx or b_idx[0] < a_idx[0] or b_idx[-1] > a_idx[-1]:
             raise ValueError("B frame without surrounding anchor frames")
-        ay, acb, acr = cls._reconstruct_mc(ry[a_idx], rcb[a_idx], rcr[a_idx],
-                                           [mvs[i] for i in a_idx], qy, qc,
-                                           planar)
-        out = []
-        for j in b_idx:
-            p = max(k for k, a in enumerate(a_idx) if a < j)
-            fwd, bwd, mode = (torch.from_numpy(np.asarray(m, np.int32))
-                              .to(ry.device) for m in mvs[j])
-            mode_y, mode_c = _repeat_blocks(mode, MB), _repeat_blocks(mode, 8)
-            pf, pb = motion_compensate(ay[p], fwd), \
-                motion_compensate(ay[p + 1], bwd)
-            planes = [_select_mode(mode_y, (pf + pb) * 0.5, pf, pb)]
-            for a in (acb, acr):
-                fc = motion_compensate(a[p], fwd, mb=8)
-                bc = motion_compensate(a[p + 1], bwd, mb=8)
-                planes.append(_select_mode(mode_c, (fc + bc) * 0.5, fc, bc))
-            out.append(tuple(
-                (pred + _residual_plane(q[j], t, planar)).clamp(0.0, 255.0)
-                for pred, q, t in zip(planes, (ry, rcb, rcr),
-                                      (qy_b, qc_b, qc_b))))
+        prev_map = [max(k for k, a in enumerate(a_idx) if a < j)
+                    for j in b_idx]
+        next_map = [k + 1 for k in prev_map]
+        dev = ry.device
+        a_mv, a_it = cls._mc_arrays([mvs[i] for i in a_idx],
+                                    ry.shape[1] // 2, ry.shape[2] // 2)
+
+        def stack(c):
+            return torch.as_tensor(np.stack([mvs[i][c] for i in b_idx]),
+                                   device=dev)
+
+        (ay, acb, acr), (by, bcb, bcr) = fvc_mc_decode_chunk_b(
+            ry[a_idx], rcb[a_idx], rcr[a_idx],
+            torch.from_numpy(a_mv).to(dev), torch.from_numpy(a_it),
+            ry[b_idx], rcb[b_idx], rcr[b_idx], stack(0), stack(1), stack(2),
+            prev_map, next_map, qy, qc, planar=planar, qy_b=qy_b, qc_b=qc_b)
         perm = torch.as_tensor(np.argsort(np.asarray(a_idx + b_idx)),
-                               device=ry.device)
-        return tuple(torch.cat([a, torch.stack(b)])[perm]
-                     for a, b in zip((ay, acb, acr), zip(*out)))
+                               device=dev)
+        return tuple(torch.cat([a, b])[perm]
+                     for a, b in ((ay, by), (acb, bcb), (acr, bcr)))
+
+    @staticmethod
+    def split_stream(data: bytes) -> List[bytes]:
+        """Walk a concatenated stream into per-chunk byte slices (a header
+        walk, a copy of flutpu's; raises ValueError on a corrupt
+        boundary)."""
+        chunks = []
+        off = 0
+        while off < len(data):
+            if len(data) - off < 12 or data[off:off + 4] != MAGIC:
+                raise ValueError(f"bad or truncated chunk boundary at {off}")
+            ver, cflags, w, h, _, f = struct.unpack(">BBHHBB",
+                                                    data[off + 4:off + 12])
+            end = off + (13 if ver >= 2 else 12)
+            if cflags & 16:
+                end += 4  # explicit coded-size extension
+            if cflags & 32:
+                end += 1  # B-frame bquality extension
+            hdr = 7 if ver >= 2 else 5
+            for _ in range(f):
+                if len(data) - end < hdr:
+                    raise ValueError(f"truncated frame header at {end}")
+                if ver >= 2:
+                    _, mv_len, plen = struct.unpack(">BHI", data[end:end + 7])
+                    end += 7 + mv_len + plen
+                else:
+                    _, plen = struct.unpack(">BI", data[end:end + 5])
+                    end += 5 + plen
+            if end > len(data):
+                raise ValueError("truncated chunk payload")
+            chunks.append(data[off:end])
+            off = end
+        return chunks
+
+    def decode_stream(self, data: bytes, parallel: bool = True) -> np.ndarray:
+        """Concatenated chunks → all frames in chunk order. Chunks are
+        independent (each starts on an I frame), so with ``parallel``
+        they decode in a pool of up to 8 threads (the native scan decoder
+        releases the GIL); the output keeps the chunks' order."""
+        chunks = self.split_stream(data)
+        if parallel and len(chunks) > 1:
+            from concurrent.futures import ThreadPoolExecutor
+            with ThreadPoolExecutor(max_workers=min(8, len(chunks))) as pool:
+                out = list(pool.map(lambda c: self.decode_chunk(c)[0],
+                                    chunks))
+        else:
+            out = [self.decode_chunk(c)[0] for c in chunks]
+        return np.concatenate(out, axis=0)
 
 
 def _to_rgb8(y, cb, cr) -> torch.Tensor:
@@ -906,20 +1006,26 @@ def _to_rgb8(y, cb, cr) -> torch.Tensor:
 
 
 def fvc_mc_decode_chunk(ry, rcb, rcr, mvs, itypes, qy, qc,
-                        search_range: int = 7, planar: bool = False):
+                        search_range: int = 7, subpel: bool = False,
+                        planar: bool = False):
     """The encoder's in-loop reconstruction, frame by frame.
 
     ry/rcb/rcr: (F, BH, BW, 64) zigzagged residual coefficients; mvs
-    (F, H/16, W/16, 2) integer vectors; itypes (F,) — nonzero where the
-    frame is intra (flat-128 prediction; frame 0 always is). ``planar``
-    is header flags bit 3. Returns the (F, H, W), (F, H/2, W/2) x 2
-    float32 planes. ``search_range`` is accepted for the reference's
-    signature."""
+    (F, H/16, W/16, 2) vectors, integer or (``subpel``, header flags bit
+    2) half-pel; itypes (F,) — nonzero where the frame is intra
+    (flat-128 prediction; frame 0 always is). ``planar`` is header flags
+    bit 3. Returns the (F, H, W), (F, H/2, W/2) x 2 float32 planes.
+    ``search_range`` is accepted for the reference's signature."""
     out = []
     rec = None
     for i in range(ry.shape[0]):
         if i == 0 or int(itypes[i]):
             pred = (128.0, 128.0, 128.0)
+        elif subpel:
+            m = mvs[i]
+            pred = (motion_compensate_subpel(rec[0], m),
+                    motion_compensate_subpel(rec[1], m, mb=8),
+                    motion_compensate_subpel(rec[2], m, mb=8))
         else:
             m = mvs[i]
             pred = (motion_compensate(rec[0], m),
@@ -930,6 +1036,42 @@ def fvc_mc_decode_chunk(ry, rcb, rcr, mvs, itypes, qy, qc,
             for p, q, t in zip(pred, (ry, rcb, rcr), (qy, qc, qc)))
         out.append(rec)
     return tuple(torch.stack(p) for p in zip(*out))
+
+
+def fvc_mc_decode_chunk_b(a_ry, a_rcb, a_rcr, a_mvs, a_itypes,
+                          b_ry, b_rcb, b_rcr, b_fwd, b_bwd, b_modes,
+                          prev_map, next_map, qy, qc,
+                          search_range: int = 7, planar: bool = False,
+                          qy_b=None, qc_b=None):
+    """Decode of a B-frame chunk: the anchors through
+    ``fvc_mc_decode_chunk``, then all B frames in ONE pass, batched over
+    a leading B-frame axis: each B frame's forward and backward
+    predictions from its anchor pair (``prev_map``/``next_map`` index the
+    anchor arrays), per macroblock the average, forward, backward or flat
+    128 of its mode, plus its residual at the ``bquality`` tables
+    (``qy_b``/``qc_b``; default the anchor tables). Returns the anchor
+    planes and the B planes (the caller interleaves display order)."""
+    qy_b = qy if qy_b is None else qy_b
+    qc_b = qc if qc_b is None else qc_b
+    ay, acb, acr = fvc_mc_decode_chunk(a_ry, a_rcb, a_rcr, a_mvs, a_itypes,
+                                       qy, qc, planar=planar)
+    dev = ay.device
+    pm = torch.as_tensor(prev_map, dtype=torch.long, device=dev)
+    nm = torch.as_tensor(next_map, dtype=torch.long, device=dev)
+    fwd, bwd = b_fwd.to(torch.int64), b_bwd.to(torch.int64)
+    mode = b_modes.to(torch.int64)
+    mode_y, mode_c = _repeat_blocks(mode, MB), _repeat_blocks(mode, 8)
+    pf, pb = motion_compensate(ay[pm], fwd), motion_compensate(ay[nm], bwd)
+    preds = [_select_mode(mode_y, (pf + pb) * 0.5, pf, pb)]
+    for a in (acb, acr):
+        fc = motion_compensate(a[pm], fwd, mb=8)
+        bc = motion_compensate(a[nm], bwd, mb=8)
+        preds.append(_select_mode(mode_c, (fc + bc) * 0.5, fc, bc))
+    b_out = tuple(
+        (pred + _residual_plane(q, t, planar)).clamp(0.0, 255.0)
+        for pred, q, t in zip(preds, (b_ry, b_rcb, b_rcr),
+                              (qy_b, qc_b, qc_b)))
+    return (ay, acb, acr), b_out
 
 
 # ----------------------------------------------------------------------------
@@ -964,7 +1106,8 @@ class CudaFvcEnc(VideoEncoder):
                                        "runs on the device here"),
         PropertySpec("search", "full", "full | hier motion estimation "
                                        "(hier = coarse-to-fine)"),
-        PropertySpec("subpel", False, "half-pel motion (not ported yet)"),
+        PropertySpec("subpel", False, "half-pel motion refinement + "
+                     "bilinear compensation (motion mode, no bframes)"),
         PropertySpec("bframes", 0, "B frames between anchors (motion mode "
                                    "only): bidirectional per-macroblock "
                                    "prediction from the surrounding "

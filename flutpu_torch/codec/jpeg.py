@@ -1,10 +1,13 @@
 """Baseline JPEG / MJPEG encoder on the GPU (port of flutpu/codec/jpeg.py).
 
-A GOP of frames runs on the device as: edge pad to a multiple of 16 →
-the front-end kernel (optional burn-in of a BGRA subtitle overlay →
-RGB→YCbCr → 4:2:0 → DCT → quantize → zigzag) → MCU
-order and DC prediction → the entropy stage in one of two bitstream
-layouts, which give the same bytes:
+A 4:2:0 GOP of frames runs on the device as: edge pad to a multiple of
+16 → the front-end kernel (optional burn-in of a BGRA subtitle overlay →
+RGB→YCbCr → 4:2:0 → DCT → quantize → zigzag) → MCU order and DC
+prediction → the entropy stage in one of two bitstream layouts, which
+give the same bytes. A 4:4:4 GOP (``subsample=False``) pads to a
+multiple of 8 and runs the plain PyTorch front end ``front_end_444`` in
+the kernel's place (flutpu runs that arm as XLA, not as a Pallas
+kernel), then the same entropy stage over one-block MCUs. The layouts:
 
 - segments (the default): the segment Huffman pack kernel (K2), then
   word-aligned segment placement; the host compacts the segments into
@@ -42,7 +45,7 @@ from . import jpeg_tables as T
 from .convert import encoder_state_from_numpy
 from .ops.entropy import (compact_segments_finalize, encode_gop_scans_layout,
                           mcu_layout, stuff_and_finalize)
-from .ops.frontend import front_end
+from .ops.frontend import front_end, front_end_444
 from .ops.quant import CHROMA_QTABLE, LUMA_QTABLE, scale_qtable, zigzag_order
 
 
@@ -66,18 +69,24 @@ def _edge_pad(p: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
 
 
 def _planes_front_end(r, g, b, qy, qc, pad_h: int, pad_w: int,
-                      overlay=None):
+                      overlay=None, subsample: bool = True):
     """(r, g, b) uint8 planes (F, H, W) → (y, cb, cr) int16 zigzagged
-    quantized coefficients of the frames edge-padded to (pad_h, pad_w),
-    both multiples of 16. ``overlay``: an (oh, ow, 4) uint8 BGRA window
-    no larger than the padded frames, burned into every frame inside the
-    front-end kernel. The frames are padded first and blended second, on
-    every device (the order of flutpu's kernel path; its CPU path blends
-    an overlay of exactly the frames' size first and pads second)."""
-    if pad_h % 16 or pad_w % 16:
+    quantized coefficients of the frames edge-padded to (pad_h, pad_w).
+    4:2:0 (``subsample``): both multiples of 16, the front-end kernel
+    (K1; a CUDA tensor launches it or raises). 4:4:4: multiples of 8, the
+    plain PyTorch ``front_end_444`` on the planes' device, as flutpu runs
+    its XLA arm there. ``overlay``: an (oh, ow, 4) uint8 BGRA window no
+    larger than the padded frames, burned into every frame. The frames
+    are padded first and blended second, on every device (the order of
+    flutpu's kernel path; its CPU path blends an overlay of exactly the
+    frames' size first and pads second)."""
+    mult = 16 if subsample else 8
+    if pad_h % mult or pad_w % mult:
         raise ValueError(f"padded size {(pad_h, pad_w)} is not a multiple "
-                         "of 16")
+                         f"of {mult}")
     r, g, b = (_edge_pad(p, pad_h, pad_w) for p in (r, g, b))
+    if not subsample:
+        return front_end_444(r, g, b, qy, qc, overlay)
     return front_end(r, g, b, qy, qc, overlay)
 
 
@@ -188,10 +197,12 @@ class _Handle(NamedTuple):
 
 
 class JpegEncoder:
-    """GOP JPEG encoder on one device (4:2:0).
+    """GOP JPEG encoder on one device, 4:2:0 or (``subsample=False``)
+    4:4:4.
 
     ``device`` is where the encode runs: a CUDA device launches the
-    front-end and pack kernels; ``"cpu"`` runs their plain PyTorch
+    front-end kernel (4:2:0; 4:4:4 runs the plain ``front_end_444``
+    there) and the pack kernels; ``"cpu"`` runs their plain PyTorch
     versions (tests, hosts without a card). ``segmented`` picks the
     bitstream layout of the device stage (``resolve_segmented``); the
     JFIF bytes are the same in both."""
@@ -210,12 +221,9 @@ class JpegEncoder:
 
     def __init__(self, quality: int = 85, subsample: bool = True, *,
                  segmented: Optional[bool] = None, device="cuda"):
-        if not subsample:
-            raise NotImplementedError(
-                "the port encodes 4:2:0 only; 4:4:4 is not ported yet")
         self.device = torch.device(device)
         self.quality = quality
-        self.subsample = True
+        self.subsample = bool(subsample)
         self.segmented = resolve_segmented(segmented)
         self._seg_words = self.SEG_WORDS0
         self._seg_used_words = 0
@@ -233,11 +241,12 @@ class JpegEncoder:
     def from_numpy_state(cls, qy, qc, *, seg_words: Optional[int] = None,
                          prefix_window: Optional[int] = None,
                          segmented: Optional[bool] = None,
+                         subsample: bool = True,
                          device="cuda") -> "JpegEncoder":
         """An encoder running with given quantization tables and adaptive
         sizes (e.g. the JAX encoder's ``qy``, ``qc``, ``_seg_words``,
         ``_prefix_window``)."""
-        enc = cls(segmented=segmented, device=device)
+        enc = cls(subsample=subsample, segmented=segmented, device=device)
         enc.quality = None
         enc._set_state(encoder_state_from_numpy(
             qy, qc, seg_words=seg_words, prefix_window=prefix_window,
@@ -353,6 +362,17 @@ class JpegEncoder:
             return new_prefix, self._seg_words
 
     # -- dispatch / finalize ------------------------------------------------
+    @property
+    def mult(self) -> int:
+        """The coded size's multiple: a 4:2:0 MCU is 16 pixels, 4:4:4's 8."""
+        return 16 if self.subsample else 8
+
+    def layout(self, ph: int, pw: int):
+        """The MCU layout of a coded (ph, pw) frame."""
+        if self.subsample:
+            return mcu_layout(pw // 8, ph // 8, pw // 16, ph // 16, True)
+        return mcu_layout(pw // 8, ph // 8, pw // 8, ph // 8, False)
+
     def _run_sized(self, program, ph: int, pw: int):
         """Enqueue ``program(layout, prefix_words, seg_words)`` — a GOP's
         device work, returning its combined array (see
@@ -361,7 +381,7 @@ class JpegEncoder:
         memory. Returns the handle fields (combined, prefix, prefix_bound,
         n_segs, seg_words, build); ``build(prefix_words, seg_words)``
         reruns the same work at other sizes."""
-        layout = mcu_layout(pw // 8, ph // 8, pw // 16, ph // 16, True)
+        layout = self.layout(ph, pw)
         cap = self._prefix_cap(layout)
         bound = self._prefix_bound(layout)
 
@@ -432,7 +452,7 @@ class JpegEncoder:
 
     def _dispatch(self, planes_fn, h: int, w: int, ph: int, pw: int,
                   overlay=None):
-        ph, pw = _pad_to(ph, 16), _pad_to(pw, 16)
+        ph, pw = _pad_to(ph, self.mult), _pad_to(pw, self.mult)
         if overlay is not None:
             overlay = torch.as_tensor(overlay).to(self.device)
 
@@ -441,7 +461,8 @@ class JpegEncoder:
         def program(layout, prefix_words, seg_words):
             r, g, b = planes_fn()
             yq, cbq, crq = _planes_front_end(r, g, b, self._qy_dev,
-                                             self._qc_dev, ph, pw, overlay)
+                                             self._qc_dev, ph, pw, overlay,
+                                             self.subsample)
             return encode_gop_scans_layout(yq, cbq, crq, layout,
                                            prefix_words, self.SEG_G,
                                            seg_words)
@@ -451,9 +472,9 @@ class JpegEncoder:
     def encode_gop_dispatch(self, frames_dev: torch.Tensor, h: int, w: int,
                             overlay=None):
         """Enqueue the device encode of a GOP resident on the encoder's
-        device ((F, PH, PW, 3) uint8; edge-padded here to multiples of 16
-        if it is not already). Non-blocking; returns a handle for
-        ``encode_gop_finalize``. ``h``, ``w`` are the frame size written
+        device ((F, PH, PW, 3) uint8; edge-padded here to multiples of 16,
+        of 8 for 4:4:4, if it is not already). Non-blocking; returns a
+        handle for ``encode_gop_finalize``. ``h``, ``w`` are the frame size written
         in the headers. ``overlay``: an (oh, ow, 4) uint8 BGRA window
         (tensor or numpy, no larger than the padded frames) burned into
         every frame by the front-end kernel — subtitle burn-in and encode
@@ -482,9 +503,29 @@ class JpegEncoder:
         aligned words, [1..S] = segment bits, [S+1..] = word-aligned
         stream; blocks [0] = bits, [1..] = the stream."""
         arr, handle = self._fetch(handle)
-        hdr = jpeg_headers(handle.h, handle.w, self.qy, self.qc, True)
+        hdr = jpeg_headers(handle.h, handle.w, self.qy, self.qc,
+                           self.subsample)
         return [hdr + self._scan_bytes(row, handle.n_segs, handle.prefix)
                 + b"\xff\xd9" for row in arr]
 
     def encode_frame(self, frame: np.ndarray) -> bytes:
         return self.encode_gop(frame[None])[0]
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """Decode with an independent decoder (Pillow), for the checks (a
+    copy of flutpu.codec.jpeg.decode_jpeg)."""
+    import io
+    from PIL import Image
+    img = Image.open(io.BytesIO(data))
+    return np.asarray(img.convert("RGB"))
+
+
+def psnr(a: np.ndarray, b: np.ndarray) -> float:
+    """PSNR in dB of two uint8 images (a copy of flutpu.codec.jpeg.psnr)."""
+    a = a.astype(np.float64)
+    b = b.astype(np.float64)
+    mse = np.mean((a - b) ** 2)
+    if mse == 0:
+        return float("inf")
+    return 10.0 * np.log10(255.0 ** 2 / mse)

@@ -18,6 +18,10 @@ itself has no ties (its value before the u8 round lies at least 1/510
 from an integer), so the kernel with an overlay equals the kernel
 without one on planes blended beforehand, bit for bit.
 
+``front_end_444`` is the 4:4:4 front end (no subsampling), plain
+PyTorch on every device: flutpu runs it as an XLA program, not a Pallas
+kernel.
+
 Output layout is the one the entropy stage reads (the JAX package's
 ``encode_gop_planes_to_coefs``): y (F, H/8, W/8, 64), cb/cr
 (F, H/16, W/16, 64), int16, zigzag order.
@@ -33,7 +37,7 @@ import numpy as np
 import torch
 
 from ... import _build
-from .colorspace import _RGB2YCBCR, planes_to_i420
+from .colorspace import _RGB2YCBCR, planes_to_i420, ycbcr_from_channels
 from .dct import dct_matrix, plane_dct
 from .quant import quantize, zigzag_flatten, zigzag_order
 
@@ -81,20 +85,49 @@ def front_end_plain(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
     blend of ``overlay`` (``overlay_on_planes``; rows and columns past
     the overlay's size keep their value, as under alpha 0)."""
     _check_args(r, g, b, qy, qc)
-    if overlay is not None:
-        from ...ttml.render.composite import overlay_on_planes
-        overlay = _check_overlay(overlay, r)
-        oh, ow = overlay.shape[:2]
-        full = overlay.new_zeros((r.shape[1], r.shape[2], 4))
-        full[:oh, :ow] = overlay
-        r, g, b = overlay_on_planes(r, g, b, full)
-    y, cb, cr = planes_to_i420(r, g, b)
+    y, cb, cr = planes_to_i420(*_blend(r, g, b, overlay))
+    return _coefs(y, qy), _coefs(cb, qc), _coefs(cr, qc)
 
-    def coefs(plane, q):
-        return zigzag_flatten(quantize(plane_dct(plane - 128.0), q)) \
-            .to(torch.int16)
 
-    return coefs(y, qy), coefs(cb, qc), coefs(cr, qc)
+def _blend(r, g, b, overlay):
+    """The planes with ``overlay`` burned in (``overlay_on_planes``; rows
+    and columns past the overlay's size keep their value, as under alpha
+    0), or as they are without one."""
+    if overlay is None:
+        return r, g, b
+    from ...ttml.render.composite import overlay_on_planes
+    overlay = _check_overlay(overlay, r)
+    oh, ow = overlay.shape[:2]
+    full = overlay.new_zeros((r.shape[1], r.shape[2], 4))
+    full[:oh, :ow] = overlay
+    return overlay_on_planes(r, g, b, full)
+
+
+def _coefs(plane, q):
+    """Level shift, 8x8 DCT, quantize, zigzag: int16 (F, H/8, W/8, 64)."""
+    return zigzag_flatten(quantize(plane_dct(plane - 128.0), q)) \
+        .to(torch.int16)
+
+
+def front_end_444(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor,
+                  qy: torch.Tensor, qc: torch.Tensor, overlay=None):
+    """The 4:4:4 front end in plain PyTorch on the planes' device (flutpu's
+    XLA arm, ``encode_gop_planes_to_coefs(subsample=False)``: the TPU
+    kernel runs 4:2:0 only, so this program ports no Pallas kernel):
+    optional overlay blend, RGB→YCbCr without subsampling, level shift,
+    8x8 DCT, quantize, zigzag. (r, g, b) uint8 planes (F, H, W), H and W
+    multiples of 8 → (y, cb, cr) int16 (F, H/8, W/8, 64) each."""
+    for p in (r, g, b):
+        if p.dtype != torch.uint8 or p.dim() != 3 or p.shape != r.shape \
+                or p.device != r.device:
+            raise ValueError("r, g, b must be uint8 planes of one (F, H, W) "
+                             f"shape and device, got {p.dtype} "
+                             f"{tuple(p.shape)}")
+    if r.shape[1] % 8 or r.shape[2] % 8:
+        raise ValueError(f"plane size {tuple(r.shape[1:])} is not a "
+                         "multiple of 8")
+    y, cb, cr = ycbcr_from_channels(*_blend(r, g, b, overlay))
+    return _coefs(y, qy), _coefs(cb, qc), _coefs(cr, qc)
 
 
 def _init_device(lib, device: torch.device) -> None:

@@ -135,3 +135,113 @@ def motion_search_hier(cur_y: torch.Tensor, prev_y: torch.Tensor,
             best_cost = torch.where(better, cost, best_cost)
             best_mv = torch.where(better[..., None], cand, best_mv)
     return best_mv
+
+
+def _gather_shifted(prev: torch.Tensor, dy_full: torch.Tensor,
+                    dx_full: torch.Tensor) -> torch.Tensor:
+    """``out[..., i, j] = prev[..., (i - dy) mod H, (j - dx) mod W]`` for
+    per-pixel shifts ``dy_full``/``dx_full`` of ``prev``'s shape (a leading
+    chunk axis included): one flat gather inside each chunk's plane."""
+    *lead, h, w = prev.shape
+    yy = torch.arange(h, device=prev.device)[:, None]
+    xx = torch.arange(w, device=prev.device)[None, :]
+    idx = torch.remainder(yy - dy_full, h) * w + torch.remainder(
+        xx - dx_full, w)
+    flat = prev.reshape(-1, h * w)
+    return torch.gather(flat, 1, idx.reshape(flat.shape[0], h * w)) \
+        .reshape(*lead, h, w)
+
+
+def motion_compensate_subpel(prev: torch.Tensor, mv_hp: torch.Tensor,
+                             mb: int = MB) -> torch.Tensor:
+    """Half-pel motion compensation (flutpu's
+    ``motion_compensate_subpel``): ``mv_hp`` ([C,] H/16, W/16, 2) is in
+    HALF-PIXEL units on the luma grid (chroma: pass mb=8, the vectors are
+    floor-halved onto the chroma grid, still in half-pel units). Each
+    output pixel is the bilinear mix of the four integer-shift samples
+    around its half-pel displacement, wrap-around, weighted and summed in
+    the original's expression order. The weights are 0, 1/2 or 1 per
+    axis, so every product is exact and the result depends on that order
+    alone."""
+    d = mv_hp.to(torch.int64)
+    if mb != MB:
+        d = torch.div(d, 2, rounding_mode="floor")
+    dyf = d[..., 0].repeat_interleave(mb, -2).repeat_interleave(mb, -1)
+    dxf = d[..., 1].repeat_interleave(mb, -2).repeat_interleave(mb, -1)
+    iy = torch.div(dyf, 2, rounding_mode="floor")
+    ix = torch.div(dxf, 2, rounding_mode="floor")
+    fy = (dyf - 2 * iy).to(prev.dtype) * 0.5     # 0 or .5
+    fx = (dxf - 2 * ix).to(prev.dtype) * 0.5
+    p00 = _gather_shifted(prev, iy, ix)
+    p10 = _gather_shifted(prev, iy + 1, ix)
+    p01 = _gather_shifted(prev, iy, ix + 1)
+    p11 = _gather_shifted(prev, iy + 1, ix + 1)
+    return ((1 - fy) * (1 - fx) * p00 + fy * (1 - fx) * p10
+            + (1 - fy) * fx * p01 + fy * fx * p11)
+
+
+def _block_sums(diff: torch.Tensor) -> torch.Tensor:
+    """(..., MB, MB) → (...): each column summed down its rows in order,
+    then the column sums in order (``_mb_sums``' order, on blocks)."""
+    col = diff[..., 0, :]
+    for i in range(1, diff.shape[-2]):
+        col = col + diff[..., i, :]
+    s = col[..., 0]
+    for j in range(1, col.shape[-1]):
+        s = s + col[..., j]
+    return s
+
+
+def subpel_refine(cur_y: torch.Tensor, prev_y: torch.Tensor,
+                  int_mv: torch.Tensor) -> torch.Tensor:
+    """±half-pel refinement around integer vectors (flutpu's
+    ``subpel_refine``) over ([C,] H, W) luma planes and ([C,] H/16, W/16,
+    2) integer vectors. One (MB+2)x(MB+2) window per macroblock is
+    gathered at the integer vector; the nine half-pel candidates are
+    averages of its shifted slices; per macroblock the least SAD wins,
+    the first in (oy, ox) row-major order on a tie. The SAD is summed in
+    ``_mb_sums``' fixed order, so the CPU and the card agree. Returns
+    vectors in HALF-PIXEL units: 2 * int_mv + offset, offset in
+    {-1, 0, 1}^2."""
+    *lead, h, w = cur_y.shape
+    mbh, mbw = h // MB, w // MB
+    dev = cur_y.device
+    base = int_mv.to(torch.int64)
+    by = (torch.arange(mbh, device=dev) * MB)[:, None, None, None]
+    bx = (torch.arange(mbw, device=dev) * MB)[None, :, None, None]
+    wy = (torch.arange(MB + 2, device=dev) - 1)[None, None, :, None]
+    wx = (torch.arange(MB + 2, device=dev) - 1)[None, None, None, :]
+    sy = torch.remainder(by + wy - base[..., 0][..., None, None], h)
+    sx = torch.remainder(bx + wx - base[..., 1][..., None, None], w)
+    flat = prev_y.reshape(-1, h * w)
+    idx = (sy * w + sx).reshape(flat.shape[0], -1)
+    win = torch.gather(flat, 1, idx).reshape(*lead, mbh, mbw, MB + 2, MB + 2)
+    cur_b = cur_y.reshape(*lead, mbh, MB, mbw, MB).transpose(-3, -2)
+
+    def rows(a):
+        # source row j = i + 1 - a/2 for half-offset a in {-1, 0, 1}
+        if a == 0:
+            return win[..., 1:1 + MB, :]
+        if a == 1:
+            return 0.5 * (win[..., 0:MB, :] + win[..., 1:1 + MB, :])
+        return 0.5 * (win[..., 1:1 + MB, :] + win[..., 2:2 + MB, :])
+
+    def cols(x, a):
+        if a == 0:
+            return x[..., 1:1 + MB]
+        if a == 1:
+            return 0.5 * (x[..., 0:MB] + x[..., 1:1 + MB])
+        return 0.5 * (x[..., 1:1 + MB] + x[..., 2:2 + MB])
+
+    best_cost = torch.full(base.shape[:-1], float("inf"),
+                           dtype=cur_y.dtype, device=dev)
+    best_mv = torch.zeros_like(base)
+    for ay in (-1, 0, 1):
+        r = rows(ay)
+        for ax in (-1, 0, 1):
+            cost = _block_sums((cur_b - cols(r, ax)).abs())
+            off = torch.tensor([ay, ax], dtype=torch.int64, device=dev)
+            better = cost < best_cost
+            best_cost = torch.where(better, cost, best_cost)
+            best_mv = torch.where(better[..., None], 2 * base + off, best_mv)
+    return best_mv.to(torch.int32)

@@ -60,7 +60,8 @@ class CudaHype(VideoEncoder):
                                       "(one container buffer per chunk)"),
         PropertySpec("search-range", 7, "fvc-motion search window (±px)"),
         PropertySpec("search", "full", "full | hier fvc-motion estimation"),
-        PropertySpec("subpel", False, "half-pel fvc-motion (not ported yet)"),
+        PropertySpec("subpel", False, "half-pel fvc-motion refinement "
+                     "(not with bframes)"),
         PropertySpec("bframes", 0, "fvc-motion B frames between anchors"),
         PropertySpec("device", "cuda", "torch device the encode runs on "
                      "(cuda, cuda:N, or cpu for the plain versions)"),
@@ -85,11 +86,6 @@ class CudaHype(VideoEncoder):
                 "cudahype spatial > 1: spatial striping (row stripes with "
                 "halo exchange, FVC header flags bit 4) is not ported yet "
                 "(ROADMAP queue 1, item 5)")
-        if name == "subpel" and value and str(value).lower() not in (
-                "0", "false", "no"):
-            raise NotImplementedError(
-                "cudahype subpel=true: half-pel motion is not ported yet "
-                "(ROADMAP queue 1, item 6a)")
         if name == "codec":
             codec = str(value)
             if codec not in ("jpeg", "fvc", "fvc-motion"):
@@ -127,6 +123,7 @@ class CudaHype(VideoEncoder):
         return dict(motion=motion,
                     search_range=int(self.get_property("search-range")),
                     hier=str(self.get_property("search")) == "hier",
+                    subpel=motion and bool(self.get_property("subpel")),
                     bframes=int(self.get_property("bframes")) if motion
                     else 0)
 

@@ -9,10 +9,13 @@ chunks are a batch axis of the same kind:
 - ``encode_chunks``: the front-end kernel (K1) over (C, F, H, W) planes,
   C x F folded into its frame axis;
 - ``fvc_chunks``: the FVC chunk codec over C chunks at once. Version 1 is
-  K1 and one residual chain per chunk; version 2 runs each frame step of
-  all C chunks together: one search launch (K3, or K5 with ``hier``), one
-  chroma launch (K4), the I/P decision per chunk, one batched in-loop
-  transform, and with ``bframes`` the B pass likewise.
+  K1 (the plain 4:4:4 front end without ``subsample``) and one residual
+  chain per chunk; version 2 runs each frame step of all C chunks
+  together: one search launch (K3, or K5 with ``hier``), one chroma
+  launch (K4; with ``subpel`` instead the half-pel refine and bilinear
+  compensation over the (C, ...) planes), the I/P decision per chunk,
+  one batched in-loop transform, and with ``bframes`` the B pass
+  likewise.
 
 Each chunk is independent (frame 0 of every chunk is an I frame: the
 forced-keyframe contract of the hype bin), so a chunk's output is what a
@@ -64,18 +67,22 @@ def _on_mesh(planes, mesh: Optional[ChunkMesh]):
 
 
 def encode_chunks(frames, qy: torch.Tensor, qc: torch.Tensor,
-                  mesh: Optional[ChunkMesh] = None, spatial: bool = False):
+                  mesh: Optional[ChunkMesh] = None, spatial: bool = False,
+                  subsample: bool = True):
     """(C, F, H, W, 3) uint8 — or a channel-planar (r, g, b) tuple of
     (C, F, H, W) planes — → (y, cb, cr) int16 (C, F, BH, BW, 64)
     zigzagged quantized coefficients of the frames edge-padded to
-    multiples of 16: one launch of K1 over the C x F frames."""
+    multiples of 16: one launch of K1 over the C x F frames (without
+    ``subsample``: multiples of 8 through the plain 4:4:4 front end)."""
     if spatial:
         raise _striping_not_ported()
     r, g, b = _on_mesh(_chunk_planes(frames), mesh)
     c, f, h, w = r.shape
+    mult = 16 if subsample else 8
     coefs = _planes_front_end(*(p.flatten(0, 1) for p in (r, g, b)),
                               qy.to(r.device), qc.to(r.device),
-                              _pad_to(h, 16), _pad_to(w, 16))
+                              _pad_to(h, mult), _pad_to(w, mult),
+                              subsample=subsample)
     return tuple(x.reshape(c, f, *x.shape[1:]) for x in coefs)
 
 
@@ -92,7 +99,8 @@ def fvc_chunks(frames, qy: torch.Tensor, qc: torch.Tensor,
                mesh: Optional[ChunkMesh] = None, motion: bool = False,
                search_range: int = 7, hier: bool = False,
                subpel: bool = False, spatial: bool = False,
-               bframes: int = 0, qy_b=None, qc_b=None):
+               bframes: int = 0, qy_b=None, qc_b=None,
+               subsample: bool = True):
     """The FVC chunk codec over C chunks in one dispatch (the counterpart
     of flutpu's ``fvc_chunks_sharded``): (C, F, H, W, 3) uint8 frames, or
     an (r, g, b) tuple of (C, F, H, W) planes, edge-padded to multiples of
@@ -101,22 +109,24 @@ def fvc_chunks(frames, qy: torch.Tensor, qc: torch.Tensor,
     Returns (ry, rcb, rcr) int16 (C, F, BH, BW, 64) residual planes; with
     ``motion`` also mvs (C, F, H/16, W/16, 2) int8 and itypes (C, F) int8;
     with ``bframes`` > 0 (motion only) instead (ry, rcb, rcr, fwd, bwd,
-    modes, ftypes), as flutpu's."""
-    if bframes and not motion:
+    modes, ftypes), as flutpu's. ``subpel`` (motion, no ``bframes``):
+    half-pel vectors. ``subsample=False`` (version 1 only): 4:4:4."""
+    if bframes and (not motion or subpel):
         raise ValueError("bframes needs motion=True and does not "
                          "support subpel")
     if spatial:
         raise _striping_not_ported()
-    if subpel:
-        raise NotImplementedError("half-pel motion is not ported yet "
-                                  "(ROADMAP queue 1, item 6a)")
+    if motion and not subsample:
+        raise ValueError("motion mode requires 4:2:0")
     planes = _on_mesh(_chunk_planes(frames), mesh)
     qy, qc = qy.to(planes[0].device), qc.to(planes[0].device)
     h, w = planes[0].shape[-2:]
     ph, pw = _pad_to(h, 16), _pad_to(w, 16)
     if not motion:
-        return fvc_residuals_chunks(*encode_chunks(planes, qy, qc))
+        return fvc_residuals_chunks(*encode_chunks(planes, qy, qc,
+                                                   subsample=subsample))
     if bframes:
         return fvc_mc_encode_chunk_b(planes, qy, qc, ph, pw, search_range,
                                      bframes, hier, qy_b=qy_b, qc_b=qc_b)
-    return fvc_mc_encode_chunk(planes, qy, qc, ph, pw, search_range, hier)
+    return fvc_mc_encode_chunk(planes, qy, qc, ph, pw, search_range, hier,
+                               subpel)

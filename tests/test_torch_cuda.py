@@ -606,7 +606,8 @@ def test_kernel_state_initialises_once_under_threads(cuda_device):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("codec", ["jpeg", "fvc", "fvc-motion",
-                                   "fvc-motion search=hier bframes=1"])
+                                   "fvc-motion search=hier bframes=1",
+                                   "fvc-motion subpel=true"])
 def test_cudahype_on_card(cuda_device, codec):
     """cudahype on the card, 3 chunks per dispatch, 14 frames of unlike
     chunks (a truncated last batch): JPEG bytes equal a plain encode of
@@ -635,7 +636,8 @@ def test_cudahype_on_card(cuda_device, codec):
         return
     assert [o.pts for o in outs] == [i * gop * MSECOND for i in range(4)]
     kw = dict(motion=codec.startswith("fvc-motion"),
-              hier="hier" in codec, bframes=int("bframes" in codec))
+              hier="hier" in codec, bframes=int("bframes" in codec),
+              subpel="subpel" in codec)
     enc = FvcEncoder(85, device=cuda_device, **kw)
     dec = FvcDecoder(cuda_device)
     for ci, o in enumerate(outs):
@@ -722,6 +724,149 @@ def test_fvc_hier_b_on_card_matches_cpu(cuda_device, hier, bframes):
     b, info_cpu = FvcDecoder("cpu").decode_chunk(got)
     assert info == info_cpu and (2 in info["types"]) == bool(bframes)
     assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 1
+
+
+# -- the decode side, half-pel and 4:4:4 ------------------------------------
+
+def _clip8(w=160, h=96):
+    """Four ball frames, then four noise frames (a mid-chunk cut)."""
+    return np.concatenate([
+        np.stack([make_test_frame("ball", w, h, i) for i in range(4)]),
+        np.stack([make_test_frame("noise", w, h, i) for i in range(4)])])
+
+
+def _same_or_tie(a: bytes, b: bytes, frames, dev):
+    """Two encodes of one chunk: byte-identical, or (a float tie split
+    them) the same frame types and each frame's PSNR within 0.05 dB."""
+    if a == b:
+        return True
+    dec = FvcDecoder(dev)
+    (x, ix), (y, iy) = dec.decode_chunk(a), dec.decode_chunk(b)
+    assert ix["types"] == iy["types"]
+    assert max(abs(_psnr8(u, s) - _psnr8(v, s))
+               for u, v, s in zip(x, y, frames)) <= 0.05
+    return False
+
+
+def _with_coded_size(chunk: bytes, h: int) -> bytes:
+    """The chunk's header rewritten to frame height ``h`` with the
+    coded-size extension (header flags bit 4) after the search range."""
+    import struct
+    ver, flags, w, ph = struct.unpack(">BBHH", chunk[4:10])
+    off = 13 if ver >= 2 else 12
+    return (chunk[:4] + struct.pack(">BBHH", ver, flags | 16, w, h)
+            + chunk[10:off] + struct.pack(">HH", w, ph) + chunk[off:])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["v1", "v1-444", "P", "hier-B", "half-pel",
+                                  "coded-size"])
+def test_fvc_decoders_on_card_match_cpu(cuda_device, kind):
+    """``FvcDecoder`` and ``cudafvcdec`` on the card against the CPU on
+    every chunk kind (encoded on the CPU): the same frame types, RGB
+    within one level."""
+    from flutpu_torch.core import Buffer, Harness
+    kw = {"v1": {}, "v1-444": {"subsample": False}, "P": {"motion": True},
+          "hier-B": {"motion": True, "hier": True, "bframes": 1},
+          "half-pel": {"motion": True, "subpel": True},
+          "coded-size": {"motion": True}}[kind]
+    data = FvcEncoder(device="cpu", **kw).encode_chunk(_clip8())
+    if kind == "coded-size":
+        data = _with_coded_size(data, 80)
+    a, ia = FvcDecoder(cuda_device).decode_chunk(data)
+    b, ib = FvcDecoder("cpu").decode_chunk(data)
+    assert ia == ib and a.shape == b.shape
+    assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 1
+    h = Harness(f"cudafvcdec device={cuda_device}")
+    h.set_src_caps("video/x-fvc")
+    h.push(Buffer(data, pts=0, duration=8))
+    h.push_eos()
+    got = [np.asarray(h.pull(timeout=60).data) for _ in range(8)]
+    h.teardown()
+    np.testing.assert_array_equal(np.stack(got), a)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subsample", [True, False])
+def test_cudajpegdec_on_card_matches_cpu(cuda_device, subsample):
+    """``cudajpegdec`` on the card against ``device=cpu`` on the same JFIF
+    bytes, 4:2:0 and 4:4:4: RGB within one level."""
+    from flutpu_torch.core import make
+    frames = _clip8(72, 40)
+    payloads = JpegEncoder(85, subsample=subsample,
+                           device="cpu").encode_gop(frames)
+    card = make("cudajpegdec", device=str(cuda_device))
+    cpu = make("cudajpegdec", device="cpu")
+    for p in payloads:
+        a, b = card.decode(p), cpu.decode(p)
+        assert a.shape == b.shape == (40, 72, 3)
+        assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hier", [False, True])
+def test_subpel_chunk_on_card_matches_cpu(cuda_device, hier):
+    """A half-pel chunk on the card and on the CPU, at the ties contract:
+    the search kernel (K3, or K5 with hier) runs, the chroma kernel K4
+    does not (its contract is integer vectors)."""
+    frames = _clip8()
+    before = (M.motion_search_mc.launches, M.motion_search_mc_hier.launches,
+              M.chroma_mc.launches)
+    got = FvcEncoder(motion=True, subpel=True, hier=hier,
+                     device=cuda_device).encode_chunk(frames)
+    after = (M.motion_search_mc.launches, M.motion_search_mc_hier.launches,
+             M.chroma_mc.launches)
+    assert after[1 if hier else 0] > before[1 if hier else 0]
+    assert after[2] == before[2]
+    assert got[5] & 4
+    want = FvcEncoder(motion=True, subpel=True, hier=hier,
+                      device="cpu").encode_chunk(frames)
+    _same_or_tie(got, want, frames, cuda_device)
+
+
+@pytest.mark.cuda
+def test_444_jpeg_gop_on_card(cuda_device):
+    """A 4:4:4 GOP on the card: the pack kernel (K2) runs, the 4:2:0
+    front-end kernel (K1) does not; the plain front end's coefficients on
+    the card meet the CPU's under K1's tie contract; the frames decode at
+    more than 30 dB."""
+    from flutpu_torch.codec.ops.frontend import front_end_444
+    frames = np.stack([make_test_frame("ball", 160, 96, i) for i in range(4)])
+    enc = JpegEncoder(85, subsample=False, device=cuda_device)
+    before = (F.front_end.launches, K.pack_segments.launches)
+    payloads = enc.encode_gop(frames)
+    assert F.front_end.launches == before[0]
+    assert K.pack_segments.launches > before[1]
+    planes = [torch.from_numpy(np.ascontiguousarray(frames[..., c]))
+              for c in range(3)]
+    q = [torch.from_numpy(QY), torch.from_numpy(QC)]
+    got = front_end_444(*(p.to(cuda_device) for p in planes),
+                        *(t.to(cuda_device) for t in q))
+    for a, b in zip(got, front_end_444(*planes, *q)):
+        tie_contract(a.cpu().numpy(), b.numpy(), 1e-4)
+    from flutpu_torch.core import make
+    dec = make("cudajpegdec", device=str(cuda_device))
+    assert min(_psnr8(dec.decode(p), f)
+               for p, f in zip(payloads, frames)) > 30
+
+
+@pytest.mark.cuda
+def test_decode_stream_on_card(cuda_device):
+    """Concatenated chunks (v1, P, hier+B, half-pel, 4:4:4) through
+    ``decode_stream`` on the card: equal to per-chunk ``decode_chunk`` on
+    the card, in order, and within one level of the CPU's."""
+    frames = _clip8()
+    kws = [{}, {"motion": True}, {"motion": True, "hier": True,
+                                  "bframes": 1},
+           {"motion": True, "subpel": True}, {"subsample": False}]
+    chunks = [FvcEncoder(device="cpu", **kw).encode_chunk(frames)
+              for kw in kws]
+    dec = FvcDecoder(cuda_device)
+    got = dec.decode_stream(b"".join(chunks))
+    want = np.concatenate([dec.decode_chunk(c)[0] for c in chunks])
+    np.testing.assert_array_equal(got, want)
+    cpu = FvcDecoder("cpu").decode_stream(b"".join(chunks), parallel=False)
+    assert np.abs(got.astype(np.int32) - cpu.astype(np.int32)).max() <= 1
 
 
 # -- subtitle burn-in -------------------------------------------------------------

@@ -15,6 +15,8 @@ order); there the tie contract of ``_tie_contract`` holds instead. The
 port's ``FvcDecoder`` reads flutpu's chunks within one RGB level of
 flutpu's decoder, with the same frame types."""
 
+import struct
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -28,6 +30,7 @@ from flutpu.core.elements import make_test_frame
 from flutpu_torch.codec import fvc as tf
 from flutpu_torch.codec.fvc import FvcDecoder, FvcEncoder
 from flutpu_torch.codec.ops.colorspace import planes_to_i420
+from flutpu_torch.codec.ops.motion import motion_compensate_subpel
 from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
 from torch_helpers import pull_all
 
@@ -310,21 +313,29 @@ def test_from_numpy_state_needs_a_quality_table():
         FvcEncoder.from_numpy_state(je.qy + 1, je.qc, device="cpu")
 
 
-#: options the port runs since search=hier and B frames were ported; the
-#: others still raise
-PORTED = ({"hier": True}, {"bframes": 1}, "search=hier", "bframes=1")
+#: options the port runs; the others raise
+PORTED = ({"hier": True}, {"bframes": 1}, {"subpel": True},
+          "search=hier", "bframes=1", "subpel=true")
 
 
 @pytest.mark.parametrize("kwargs", [
     {"subpel": True}, {"hier": True}, {"bframes": 1}, {"subsample": False},
     {"engine": "host"}, {"search_range": 40}])
 def test_unported_encoder_options_raise(kwargs):
-    """Unported options raise; hier and bframes build an encoder that
-    carries them."""
+    """Unported options (the host engine, ranges above 32) raise
+    NotImplementedError; hier, bframes and subpel build a motion encoder
+    that carries them; 4:4:4 builds a version 1 encoder and, with motion,
+    raises flutpu's ValueError."""
     if kwargs in PORTED:
         enc = FvcEncoder(85, motion=True, device="cpu", **kwargs)
-        assert (enc.hier, enc.bframes) == (kwargs.get("hier", False),
-                                           kwargs.get("bframes", 0))
+        assert (enc.hier, enc.bframes, enc.subpel) == (
+            kwargs.get("hier", False), kwargs.get("bframes", 0),
+            kwargs.get("subpel", False))
+        return
+    if kwargs == {"subsample": False}:
+        assert FvcEncoder(85, device="cpu", **kwargs).subsample is False
+        with pytest.raises(ValueError, match="4:2:0"):
+            FvcEncoder(85, motion=True, device="cpu", **kwargs)
         return
     with pytest.raises(NotImplementedError):
         FvcEncoder(85, motion=True, device="cpu", **kwargs)
@@ -332,41 +343,56 @@ def test_unported_encoder_options_raise(kwargs):
 
 @pytest.mark.parametrize("bit", [4, 16, 32])
 def test_unported_stream_features_raise(jax_chunks, bit):
-    """Bits 2 (half-pel) and 4 (coded size) raise. Bit 5 (B frames) is
-    read: with its bquality byte after the search range, a P-only chunk
-    flagged for B frames decodes to the same frames."""
+    """Every header flag is read. Bit 2 (half-pel): a P chunk's integer
+    vectors read as half-pel decode as flutpu's decoder reads them. Bit 4
+    (coded size): the extension after the search range gives the same
+    frames as the minimum padding. Bit 5 (B frames): with its bquality
+    byte after the search range, a P-only chunk flagged for B frames
+    decodes to the same frames."""
     data = bytearray(jax_chunks[(True, "ball")])
     data[5] |= bit
-    if bit == 32:
-        data[13:13] = bytes([77])
+    plain = FvcDecoder(device="cpu").decode_chunk(jax_chunks[(True, "ball")])
+    if bit == 4:
         got, info = FvcDecoder(device="cpu").decode_chunk(bytes(data))
-        want, j_info = FvcDecoder(device="cpu").decode_chunk(
-            jax_chunks[(True, "ball")])
-        assert FvcDecoder.parse_chunk(bytes(data))[0]["bquality"] == 77
-        assert info == j_info
-        np.testing.assert_array_equal(got, want)
+        want, j_info = jf.FvcDecoder().decode_chunk(bytes(data))
+        assert info == j_info and got.shape == want.shape
+        assert np.abs(got.astype(int) - want.astype(int)).max() <= 1
+        assert not np.array_equal(got, plain[0])
         return
-    with pytest.raises(NotImplementedError):
-        FvcDecoder(device="cpu").decode_chunk(bytes(data))
+    data[13:13] = struct.pack(">HH", W, H) if bit == 16 else bytes([77])
+    got, info = FvcDecoder(device="cpu").decode_chunk(bytes(data))
+    if bit == 32:
+        assert FvcDecoder.parse_chunk(bytes(data))[0]["bquality"] == 77
+    assert info == plain[1]
+    np.testing.assert_array_equal(got, plain[0])
+    np.testing.assert_array_equal(
+        got, FvcDecoder(device="cpu").decode_chunk(
+            jf.FvcEncoder(85, motion=True).encode_chunk(CLIPS["ball"]))[0])
 
 
 def test_unported_program_options_raise():
-    """subpel and the planar DCT raise; hier runs the coarse-to-fine
-    search."""
+    """The planar DCT raises; hier runs the coarse-to-fine search; subpel
+    runs the half-pel loop, equal to flutpu's program on these frames."""
     frames = torch.from_numpy(CLIPS["ball"][:2])
     q = torch.ones((8, 8), dtype=torch.int32)
     ry, _, _, mvs, itypes = tf.fvc_mc_encode_chunk(frames, q, q, H, W, 7,
                                                    hier=True)
     assert ry.shape[0] == mvs.shape[0] == 2 and itypes.tolist() == [1, 0]
-    for kw in ({"subpel": True}, {"planar": True}):
-        with pytest.raises(NotImplementedError):
-            tf.fvc_mc_encode_chunk(frames, q, q, H, W, 7, **kw)
+    with pytest.raises(NotImplementedError):
+        tf.fvc_mc_encode_chunk(frames, q, q, H, W, 7, planar=True)
+    got = tf.fvc_mc_encode_chunk(frames, q, q, H, W, 7, subpel=True)
+    want = jf.fvc_mc_encode_chunk(jnp.asarray(frames.numpy()),
+                                  jnp.asarray(q.numpy()),
+                                  jnp.asarray(q.numpy()), pad_h=H, pad_w=W,
+                                  search_range=7, subpel=True, planar=False)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
 
 
 @pytest.mark.parametrize("prop", ["bitrate=100000", "search=hier",
                                   "subpel=true", "bframes=1"])
 def test_cudafvcenc_unported_properties_raise(prop):
-    """bitrate and subpel raise; search=hier and bframes reach the
+    """bitrate raises; search=hier, subpel and bframes reach the
     encoder."""
     name, value = prop.split("=")
     el = flutpu_torch.core.make("cudafvcenc", device="cpu", motion=True)
@@ -375,11 +401,129 @@ def test_cudafvcenc_unported_properties_raise(prop):
                                               else int(value)))
     if prop in PORTED:
         enc = el._enc()
-        assert (enc.hier, enc.bframes) == (prop == "search=hier",
-                                           int(prop == "bframes=1"))
+        assert (enc.hier, enc.bframes, enc.subpel) == (
+            prop == "search=hier", int(prop == "bframes=1"),
+            prop == "subpel=true")
         return
     with pytest.raises(NotImplementedError):
         el._enc()
+
+
+def _subpel_cost(cur, ref, mb, v):
+    """float64 SAD of macroblock ``mb`` of ``cur`` against the bilinear
+    half-pel prediction of ``ref`` at vector ``v`` (half-pel units)."""
+    by, bx = mb
+    mv = np.zeros((ref.shape[0] // 16, ref.shape[1] // 16, 2), np.int64)
+    mv[by, bx] = v
+    pred = motion_compensate_subpel(torch.from_numpy(ref.astype(np.float64)),
+                                    torch.from_numpy(mv)).numpy()
+    sl = (slice(16 * by, 16 * by + 16), slice(16 * bx, 16 * bx + 16))
+    return float(np.abs(cur[sl].astype(np.float64) - pred[sl]).sum())
+
+
+def _subpel_near_tie(cur, refs, mb, vecs):
+    """Two half-pel vectors the packages chose for one macroblock, each on
+    its own in-loop reference: in float64 each costs no more than the
+    other on its own reference, up to one fp32 rounding of a sample below
+    256 per pixel (the references differ by such roundings)."""
+    tol = 256 * 2.0 ** -16
+    for ref, mine, other in ((refs[0], vecs[0], vecs[1]),
+                             (refs[1], vecs[1], vecs[0])):
+        assert _subpel_cost(cur, ref, mb, mine) <= \
+            _subpel_cost(cur, ref, mb, other) + tol, (mb, vecs)
+
+
+def _subpel_tie_contract(frames, je, te):
+    """``_tie_contract`` for half-pel chunks: equal frame types; vectors
+    equal except at float64-verified near-ties of the half-pel cost;
+    coefficients within ±1 on at most 1e-4 of them; flutpu's decoder
+    reads the port's chunk within 0.05 dB of flutpu's own. Returns the
+    count of split vectors."""
+    r, hier = je.search_range, je.hier
+    j_parts = jf.fvc_mc_encode_chunk(jnp.asarray(frames), je._qy_dev,
+                                     je._qc_dev, pad_h=H, pad_w=W,
+                                     search_range=r, hier=hier, subpel=True,
+                                     planar=False)
+    j_rec = np.asarray(jf.fvc_mc_decode_chunk(
+        *j_parts, je._qy_dev, je._qc_dev, search_range=r, subpel=True,
+        planar=False)[0])
+    qy, qc = te._scan_coder._qy_dev, te._scan_coder._qc_dev
+    t_parts = tf.fvc_mc_encode_chunk(torch.from_numpy(frames), qy, qc, H, W,
+                                     r, hier=hier, subpel=True)
+    t_rec = tf.fvc_mc_decode_chunk(*t_parts, qy, qc, subpel=True)[0].numpy()
+    j_parts = [np.asarray(p) for p in j_parts]
+    t_parts = [p.numpy() for p in t_parts]
+    np.testing.assert_array_equal(t_parts[4], j_parts[4])      # frame types
+    cur = planes_to_i420(*(torch.from_numpy(frames[..., c])
+                           for c in range(3)))[0].numpy()
+    split = list(zip(*np.nonzero((t_parts[3] != j_parts[3]).any(-1))))
+    for f, by, bx in split:
+        _subpel_near_tie(cur[f], (t_rec[f - 1], j_rec[f - 1]), (by, bx),
+                         (t_parts[3][f, by, bx], j_parts[3][f, by, bx]))
+    d = np.concatenate([np.abs(a.astype(np.int32) - b.astype(np.int32))
+                        .ravel() for a, b in zip(t_parts[:3], j_parts[:3])])
+    assert d.max() <= 1 and (d > 0).mean() <= 1e-4
+    dec = jf.FvcDecoder()
+    psnr = []
+    for chunk in (te.encode_chunk(frames), je.encode_chunk(frames)):
+        rgb = dec.decode_chunk(chunk)[0].astype(np.float64)
+        mse = ((rgb - frames) ** 2).mean(axis=(1, 2, 3))
+        psnr.append(10 * np.log10(255.0 ** 2 / np.maximum(mse, 1e-12)))
+    assert np.abs(psnr[0] - psnr[1]).max() <= 0.05
+    return len(split)
+
+
+@pytest.mark.parametrize("clip", list(CLIPS))
+@pytest.mark.parametrize("hier", [False, True], ids=["full", "hier"])
+def test_subpel_chunk_matches_flutpu(hier, clip):
+    """``FvcEncoder(subpel=True)`` (the search's integer vectors, the
+    half-pel refine, bilinear predictions; header flags bit 2) against
+    flutpu's on the CPU: byte-identical, or split only where the two
+    in-loop references, which differ by fp32 roundings, rank two half-pel
+    candidates of one macroblock apart at a float64 near-tie (on the
+    ball clip, one vector of frame 2, costs equal to 1e-15)."""
+    je = jf.FvcEncoder(85, motion=True, subpel=True, hier=hier)
+    te = FvcEncoder.from_numpy_state(je.qy, je.qc, je.search_range,
+                                     motion=True, hier=hier, subpel=True,
+                                     device="cpu")
+    frames = CLIPS[clip]
+    got = te.encode_chunk(frames)
+    assert got[:6] == b"FVC1\x02\x07"
+    n_split = _subpel_tie_contract(frames, je, te)
+    assert (got == je.encode_chunk(frames)) == (n_split == 0)
+    assert n_split <= 1
+
+
+def test_subpel_refusals_match_flutpu():
+    """Half-pel vectors stay int8: ranges above 62 raise ValueError (the
+    port's own limit of 32 raises NotImplementedError first); B frames
+    with subpel raise ValueError, as flutpu's encoder does."""
+    for kw in ({"search_range": 63}, {"bframes": 1}):
+        with pytest.raises(ValueError):
+            jf.FvcEncoder(85, motion=True, subpel=True, **kw)
+        with pytest.raises(ValueError):
+            FvcEncoder(85, motion=True, subpel=True, device="cpu", **kw)
+    with pytest.raises(NotImplementedError):
+        FvcEncoder(85, motion=True, subpel=True, search_range=62,
+                   device="cpu")
+
+
+@pytest.mark.parametrize("w,h", [(W, H), (76, 44)])
+@pytest.mark.parametrize("segmented", [True, False])
+def test_444_v1_chunk_byte_identical(w, h, segmented):
+    """``FvcEncoder(subsample=False)``: version 1 in 4:4:4 (flags bit 0
+    clear, frames padded to multiples of 8) equals flutpu's chunk byte
+    for byte, in either layout of the entropy stage."""
+    frames = np.concatenate([_clip("ball", 3, w=w, h=h),
+                             _clip("noise", 2, 3, w=w, h=h)])
+    je = jf.FvcEncoder(85, subsample=False)
+    te = FvcEncoder.from_numpy_state(je.qy, je.qc, subsample=False,
+                                     segmented=segmented, device="cpu")
+    got = te.encode_chunk(frames)
+    assert got == je.encode_chunk(frames)
+    assert got[5] == 0
+    assert FvcDecoder(device="cpu").decode_chunk(got)[0].shape == \
+        frames.shape
 
 
 def _element_pair(opts: str, port_opts: str = ""):

@@ -295,8 +295,12 @@ def _unlike_clip(n, w=48, h=32):
     ("codec=fvc-motion search=hier", dict(motion=True, hier=True)),
     ("codec=fvc-motion bframes=1", dict(motion=True, bframes=1)),
     ("codec=fvc-motion search=hier bframes=1",
-     dict(motion=True, hier=True, bframes=1, segmented=False))],
-    ids=["fvc", "full", "hier", "full-B", "hier-B-blocks"])
+     dict(motion=True, hier=True, bframes=1, segmented=False)),
+    ("codec=fvc-motion subpel=true", dict(motion=True, subpel=True)),
+    ("codec=fvc-motion search=hier subpel=true",
+     dict(motion=True, hier=True, subpel=True))],
+    ids=["fvc", "full", "hier", "full-B", "hier-B-blocks", "subpel",
+         "hier-subpel"])
 def test_cudahype_fvc_equals_per_chunk_encodes(props, kw, monkeypatch):
     """C = 3 chunks of 4 frames per dispatch, 14 frames (a static chunk,
     a chunk with a scene cut, and a truncated last batch: with B frames
@@ -322,9 +326,12 @@ def test_cudahype_raises_on_what_is_not_ported():
     core = flutpu_torch.core
     with pytest.raises(NotImplementedError, match="item 5"):
         core.make("cudahype", spatial=2)
-    with pytest.raises(NotImplementedError, match="item 6a"):
-        core.parse_launch("cudahype codec=fvc-motion subpel=true "
-                          "! fakesink")
+    el = core.parse_launch("cudahype codec=fvc-motion subpel=true device=cpu "
+                           "name=h ! fakesink").get_by_name("h")
+    assert el._fvc().subpel is True
+    el.set_property("bframes", 1)
+    with pytest.raises(ValueError, match="subpel"):
+        el._fvc()
     with pytest.raises(ValueError):
         core.make("cudahype", codec="h264")
     el = core.make("cudahype", device="cpu")

@@ -137,8 +137,107 @@ def test_encoder_state_from_numpy():
 
 
 def test_444_is_not_ported():
-    with pytest.raises(NotImplementedError):
-        JpegEncoder(subsample=False, device="cpu")
+    """4:4:4 is ported: ``JpegEncoder(subsample=False)`` writes SOF0
+    sampling 0x11 for every component and flutpu's bytes."""
+    frames = _frames("ball", 64, 48, n=2)
+    te = JpegEncoder(subsample=False, device="cpu")
+    got = te.encode_gop(frames)
+    assert got == JaxEncoder(quality=85, subsample=False,
+                             use_pallas=False).encode_gop(frames)
+    assert parse_jfif(got[0])["subsample"] is False
+    assert b"\x01\x11\x00\x02\x11\x01\x03\x11\x01" in got[0]
+
+
+@pytest.mark.parametrize("segmented", [True, False])
+@pytest.mark.parametrize("pattern,w,h", [("gradient", 64, 48),
+                                         ("smpte", 72, 40),
+                                         ("noise", 44, 30)])
+def test_444_gop_byte_identical(pattern, w, h, segmented):
+    """4:4:4 GOPs (frames padded to multiples of 8, one-block MCUs) in
+    either layout of the entropy stage: flutpu's JFIF bytes; dispatch
+    from a tensor on the device gives the same."""
+    frames = _frames(pattern, w, h)
+    want = JaxEncoder(quality=85, subsample=False,
+                      use_pallas=False).encode_gop(frames)
+    je = JaxEncoder(quality=85, use_pallas=False)
+    te = JpegEncoder.from_numpy_state(je.qy, je.qc, subsample=False,
+                                      segmented=segmented, device="cpu")
+    assert te.encode_gop(frames) == want
+    assert te.encode_gop_finalize(te.encode_gop_dispatch(
+        torch.from_numpy(frames), h, w)) == want
+
+
+def test_444_front_end_is_flutpus_xla_arm():
+    """The plain 4:4:4 front end against flutpu's
+    ``encode_gop_planes_to_coefs(subsample=False)``: the same
+    coefficients; ``_planes_front_end`` takes it on ``subsample`` alone
+    and refuses sizes that are no multiple of 8."""
+    from flutpu.codec.jpeg import encode_gop_planes_to_coefs
+    from flutpu_torch.codec.ops.frontend import front_end_444
+    rng = np.random.default_rng(11)
+    planes = [rng.integers(0, 256, (2, 40, 56), np.uint8) for _ in range(3)]
+    je = JaxEncoder(quality=85, use_pallas=False)
+    want = encode_gop_planes_to_coefs(*map(jnp.asarray, planes), je._qy_dev,
+                                      je._qc_dev, pad_h=40, pad_w=56,
+                                      subsample=False)
+    qy, qc = torch.from_numpy(je.qy), torch.from_numpy(je.qc)
+    t = [torch.from_numpy(p) for p in planes]
+    got = front_end_444(*t, qy, qc)
+    for a, b, c_ in zip(got, want, _planes_front_end(*t, qy, qc, 40, 56,
+                                                     subsample=False)):
+        assert a.shape == (2, 5, 7, 64) and a.dtype == torch.int16
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert torch.equal(a, c_)
+    with pytest.raises(ValueError):
+        front_end_444(*(p[:, :36] for p in t), qy, qc)
+
+
+def test_444_with_an_overlay_byte_identical():
+    """4:4:4 burn-in at a size that needs no padding (the port pads, then
+    blends; flutpu's CPU path blends, then pads, the same where nothing
+    is padded): flutpu's bytes."""
+    h, w = 48, 64
+    frames = _frames("gradient", w, h, n=2)
+    rng = np.random.default_rng(2)
+    ov = rng.integers(0, 256, (h, w, 4), np.uint8)
+    ov[: h // 2, :, 3] = 255
+    ov[h // 2:, :, 3] = 0
+    je = JaxEncoder(quality=85, subsample=False, use_pallas=False)
+    want = je.encode_gop_finalize(je.encode_gop_dispatch(
+        jnp.asarray(frames), h, w, overlay=jnp.asarray(ov)))
+    te = JpegEncoder(quality=85, subsample=False, device="cpu")
+    got = te.encode_gop_finalize(te.encode_gop_dispatch(
+        torch.from_numpy(frames), h, w, overlay=torch.from_numpy(ov)))
+    assert got == want and got != te.encode_gop(frames)
+
+
+def test_cudajpegenc_444_matches_tpujpegenc():
+    """``cudajpegenc subsample=false device=cpu`` against flutpu's
+    ``tpujpegenc subsample=false`` in one launch string each: the same
+    buffers."""
+    import flutpu.core
+    src = "videotestsrc num-buffers=6 pattern=ball width=72 height=40"
+    a = pull_all(flutpu.core.parse_launch, f"{src} ! tpujpegenc "
+                 "subsample=false batch-frames=4 ! appsink name=out")
+    b = pull_all(parse_launch, f"{src} ! cudajpegenc subsample=false "
+                 "batch-frames=4 device=cpu ! appsink name=out")
+    assert len(b) == 6
+    assert [bytes(x.data) for x in b] == [bytes(x.data) for x in a]
+
+
+def test_decode_jpeg_and_psnr_are_flutpus():
+    """The check helpers: ``decode_jpeg`` (Pillow, an independent
+    decoder) and ``psnr`` give flutpu's values."""
+    from flutpu.codec.jpeg import decode_jpeg as j_decode_jpeg
+    from flutpu.codec.jpeg import psnr as j_psnr
+    from flutpu_torch.codec.jpeg import decode_jpeg, psnr
+    frames = _frames("ball", 64, 48, n=2)
+    for sub in (True, False):
+        data = JpegEncoder(subsample=sub, device="cpu").encode_gop(frames)[0]
+        img = decode_jpeg(data)
+        np.testing.assert_array_equal(img, j_decode_jpeg(data))
+        assert psnr(frames[0], img) == j_psnr(frames[0], img) > 30
+    assert psnr(frames[0], frames[0]) == float("inf")
 
 
 def test_decode_helpers_match_flutpu():

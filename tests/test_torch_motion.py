@@ -216,3 +216,72 @@ def test_argument_checks(bad):
         else:
             K.chroma_mc(z[:16, :24], z[:16, :24],
                         torch.zeros((2, 2, 2), dtype=torch.int32), 7)
+
+
+HALF_PEL_CASES = [(64, 96, 7, True), (96, 160, 5, True), (48, 80, 3, False)]
+
+
+@pytest.mark.parametrize("h,w,r,integer", HALF_PEL_CASES)
+def test_subpel_refine_matches_flutpu(h, w, r, integer):
+    """``subpel_refine`` against flutpu's on the integer vectors of the
+    full search: exact on integer-valued planes (every half-pel sample
+    and SAD is exact in fp32, so no summation order can move a choice),
+    and equal here on continuous-valued planes too. The refined vectors
+    stay within one half-pel step of twice the integer ones."""
+    cur, prev = _pair(h, w, r, seed=h + w + r)
+    if integer:
+        cur, prev = np.round(cur), np.round(prev)
+    mv = tm.motion_search(torch.from_numpy(cur), torch.from_numpy(prev), r)
+    got = tm.subpel_refine(torch.from_numpy(cur), torch.from_numpy(prev), mv)
+    want = jm.subpel_refine(jnp.asarray(cur), jnp.asarray(prev),
+                            jnp.asarray(mv.numpy()))
+    assert got.dtype == torch.int32
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    assert (got - 2 * mv).abs().max() <= 1
+
+
+@pytest.mark.parametrize("mb", [16, 8])
+@pytest.mark.parametrize("integer", [True, False])
+def test_subpel_compensate_matches_flutpu(mb, integer):
+    """``motion_compensate_subpel`` for luma (mb 16) and chroma (mb 8:
+    vectors floor-halved onto the chroma grid, odd negative ones among
+    them) against flutpu's: bit-identical (the bilinear weights are 0,
+    1/2 and 1, so each product is exact and the sum order is the
+    original's)."""
+    rng = np.random.default_rng(mb)
+    h, w = (96, 160) if mb == 16 else (48, 80)
+    prev = rng.uniform(0, 255, (h, w)).astype(np.float32)
+    if integer:
+        prev = np.round(prev)
+    mv = rng.integers(-15, 16, (6, 10, 2)).astype(np.int32)
+    got = tm.motion_compensate_subpel(torch.from_numpy(prev),
+                                      torch.from_numpy(mv), mb=mb)
+    want = jm.motion_compensate_subpel(jnp.asarray(prev), jnp.asarray(mv),
+                                       mb=mb)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    if mb == 16:   # even half-pel vectors are the integer compensation
+        np.testing.assert_array_equal(
+            tm.motion_compensate_subpel(torch.from_numpy(prev),
+                                        torch.from_numpy(mv * 2)).numpy(),
+            tm.motion_compensate(torch.from_numpy(prev),
+                                 torch.from_numpy(mv)).numpy())
+
+
+def test_subpel_ops_take_a_chunk_axis():
+    """Both take (C, H, W) planes and (C, H/16, W/16, 2) vectors, each
+    chunk inside its own plane, as a loop of single calls."""
+    rng = np.random.default_rng(5)
+    cur = torch.from_numpy(rng.uniform(0, 255, (3, 32, 48))
+                           .astype(np.float32))
+    prev = torch.from_numpy(rng.uniform(0, 255, (3, 32, 48))
+                            .astype(np.float32))
+    mv = torch.from_numpy(rng.integers(-5, 6, (3, 2, 3, 2)).astype(np.int32))
+    ref = tm.subpel_refine(cur, prev, mv)
+    luma = tm.motion_compensate_subpel(prev, ref)
+    chroma = tm.motion_compensate_subpel(prev[:, :16, :24], ref, mb=8)
+    for k in range(3):
+        assert torch.equal(ref[k], tm.subpel_refine(cur[k], prev[k], mv[k]))
+        assert torch.equal(luma[k],
+                           tm.motion_compensate_subpel(prev[k], ref[k]))
+        assert torch.equal(chroma[k], tm.motion_compensate_subpel(
+            prev[k, :16, :24], ref[k], mb=8))

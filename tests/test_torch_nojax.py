@@ -174,6 +174,53 @@ assert not bad, bad
 print("hype", len(out), "cudahype ok", "parallel", gop.__name__)
 """
 
+_NO_JAX_DECODE = """
+import sys
+sys.modules["jax"] = None
+sys.modules["flutpu"] = None
+import numpy as np
+from flutpu_torch.codec.avimux import parse_avi
+from flutpu_torch.codec.fvc import FvcDecoder, FvcEncoder
+from flutpu_torch.codec.jpeg import psnr
+from flutpu_torch.core import Buffer, Harness, parse_launch
+from flutpu_torch.core.elements import make_test_frame
+p = parse_launch("videotestsrc num-buffers=4 width=48 height=32 "
+                 "pattern=ball ! cudajpegenc device=cpu subsample=false "
+                 "! avimux ! appsink name=out")
+sink = p.get_by_name("out")
+p.play()
+avi = b""
+while (buf := sink.try_pull_buffer(timeout=60)) is not None:
+    avi += bytes(buf.data)
+p.stop()
+assert len(parse_avi(avi)["frames"]) == 4
+h = Harness("avidemux ! cudajpegdec device=cpu")
+h.set_src_caps("video/x-msvideo")
+h.push(Buffer(avi, pts=0))
+h.push_eos()
+frames = [np.asarray(h.pull(timeout=60).data) for _ in range(4)]
+h.teardown()
+assert min(psnr(make_test_frame("ball", 48, 32, i), f)
+           for i, f in enumerate(frames)) > 30
+clip = np.stack([make_test_frame("ball", 48, 32, i) for i in range(4)])
+data = (FvcEncoder(device="cpu", motion=True, subpel=True).encode_chunk(clip)
+        + FvcEncoder(device="cpu", subsample=False).encode_chunk(clip))
+out = FvcDecoder(device="cpu").decode_stream(data)
+h = Harness("cudafvcdec device=cpu")
+h.set_src_caps("video/x-fvc")
+for off in range(0, len(data), 100):
+    h.push(Buffer(data[off:off + 100], pts=0))
+h.push_eos()
+n = 0
+while h.pull(timeout=60) is not None:
+    n += 1
+h.teardown()
+assert sys.modules["jax"] is None and sys.modules["flutpu"] is None
+bad = sorted(m for m in sys.modules if m.startswith(("jax.", "flutpu.")))
+assert not bad, bad
+print("decoded", out.shape[0], n)
+"""
+
 _NO_JAX_IMPORTS = """
 import importlib, pkgutil, sys
 sys.modules["jax"] = None
@@ -184,6 +231,9 @@ for m in pkgutil.walk_packages(flutpu_torch.__path__, "flutpu_torch."):
 flutpu_torch.core.make("cudajpegenc", device="cpu")   # loads the plugins
 bad = sorted(m for m in sys.modules if m.startswith(("jax.", "flutpu.")))
 assert not bad, bad
+for m in ("codec.avimux", "codec.decoders", "hype.cuda", "inject.injectbin",
+          "parallel.gop"):
+    assert "flutpu_torch." + m in sys.modules, m
 print("modules", sum(m.startswith("flutpu_torch") for m in sys.modules),
       "ttml", sum(m.startswith("flutpu_torch.ttml.") for m in sys.modules))
 """
@@ -215,6 +265,13 @@ def test_hype_cudahype_and_injectbin_run_with_jax_blocked():
     injectbin, and flutpu_torch.parallel, with jax and flutpu blocked."""
     assert "hype 6 cudahype ok parallel flutpu_torch.parallel.gop" in \
         _run(_NO_JAX_HYPE)
+
+
+def test_decode_side_runs_with_jax_blocked():
+    """AVI mux and demux, ``cudajpegdec`` on 4:4:4 frames, a half-pel and
+    a 4:4:4 FVC chunk through ``decode_stream`` and ``cudafvcdec`` in
+    100-byte blocks, with jax and flutpu blocked."""
+    assert "decoded 8 8" in _run(_NO_JAX_DECODE)
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
@@ -358,6 +415,29 @@ def test_fvc_chunk_layout_equal(motion, bframes, bquality):
     assert te._build_chunk(*args) == je._build_chunk(*args)
     if bframes:
         assert te.bquality == (bquality or 52)
+
+
+@pytest.mark.parametrize("kw", [{"motion": True, "subpel": True},
+                                {"subsample": False}],
+                         ids=["subpel", "444"])
+def test_fvc_header_flags_equal(kw):
+    """Half-pel (flags bit 2) and 4:4:4 (bit 0 clear) headers and records
+    as flutpu's writer gives them."""
+    rng = np.random.default_rng(2)
+    payloads = [rng.integers(0, 256, n, np.uint8).tobytes()
+                for n in (40, 7, 30)]
+    mvs = [rng.integers(-15, 16, (6, 10, 2)).astype(np.int8)
+           for _ in range(3)]
+    te = t_fvc.FvcEncoder(60, search_range=5, device="cpu", **kw)
+    je = j_fvc.FvcEncoder.__new__(j_fvc.FvcEncoder)
+    je.quality, je.search_range = 60, 5
+    je.subsample = kw.get("subsample", True)
+    je.motion = je.subpel = kw.get("motion", False)
+    je.planar, je.bframes, je.bquality = False, 0, None
+    motion = je.motion
+    args = (payloads, mvs if motion else None,
+            np.array([1, 0, 0]) if motion else None, 3, 90, 160)
+    assert te._build_chunk(*args) == je._build_chunk(*args)
 
 
 @pytest.mark.parametrize("bframes", range(1, 8))
@@ -522,7 +602,8 @@ def test_no_port_source_names_jax_or_the_jax_package():
                 for name in names:
                     assert name.split(".")[0] not in ("jax", "jaxlib",
                                                       "flutpu"), (path, name)
-    for must in ("hype/cuda.py", "hype/hypebin.py", "parallel/gop.py",
+    for must in ("codec/avimux.py", "codec/decoders.py",
+                 "hype/cuda.py", "hype/hypebin.py", "parallel/gop.py",
                  "parallel/mesh.py", "parallel/multihost.py",
                  "inject/injectbin.py", "ttml/base.py", "ttml/render/device.py",
                  "ttml/render/atlas.py", "ttml/render/render_el.py",
@@ -543,8 +624,8 @@ def test_chip_smoke_imports_only_the_port():
     assert "flutpu_torch" in tops
     assert not tops & {"jax", "jaxlib", "flutpu"}
     assert tops <= {"flutpu_torch", "numpy", "torch", "__future__", "ctypes",
-                    "hashlib", "json", "os", "subprocess", "sys",
-                    "time"}, tops
+                    "hashlib", "json", "os", "struct", "subprocess", "sys",
+                    "threading", "time"}, tops
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -40,7 +40,9 @@ C, F_, H, W = 4, 3, 32, 48
 R = 3
 MODES = {"v1": dict(), "full": dict(motion=True),
          "hier": dict(motion=True, hier=True),
-         "B": dict(motion=True, bframes=1)}
+         "B": dict(motion=True, bframes=1),
+         "subpel": dict(motion=True, subpel=True),
+         "hier-subpel": dict(motion=True, hier=True, subpel=True)}
 
 
 def _clip():
@@ -101,9 +103,10 @@ def test_encode_chunks_equal_flutpus_sharded(flutpu_refs):
 @pytest.mark.parametrize("mode", list(MODES))
 def test_fvc_chunks_equal_flutpus_sharded(flutpu_refs, mode):
     """``fvc_chunks`` against ``fvc_chunks_sharded`` for v1, P with the
-    full and the hier search, and B frames: the same tuples (residuals,
-    vectors, B modes, frame types), equal value for value; the static
-    chunk is P throughout, the cut chunk turns intra at the noise."""
+    full and the hier search, B frames, and half-pel P (full and hier):
+    the same tuples (residuals, vectors, B modes, frame types), equal
+    value for value; the static chunk is P throughout, the cut chunk
+    turns intra at the noise."""
     kw = MODES[mode]
     qy, qc, extra = _port_tables(kw)
     got = fvc_chunks(_t(CLIP), qy, qc, search_range=R, **kw, **extra)
@@ -112,12 +115,12 @@ def test_fvc_chunks_equal_flutpus_sharded(flutpu_refs, mode):
     for a, b in zip(got, want):
         assert tuple(a.shape) == b.shape
         np.testing.assert_array_equal(a.numpy(), b)
-    if mode in ("full", "hier"):
+    if mode in ("full", "hier", "subpel", "hier-subpel"):
         itypes = got[4].numpy()
         assert itypes[1].tolist() == [1, 0, 0] and itypes[2, 2] == 1
 
 
-@pytest.mark.parametrize("mode", ["full", "hier", "B"])
+@pytest.mark.parametrize("mode", ["full", "hier", "B", "subpel"])
 def test_fvc_chunks_batch_equals_single_chunks(mode):
     """C chunks in one call equal the same chunks one at a time (C = 1
     through the same code): decisions and modes are per chunk."""
@@ -166,15 +169,20 @@ def test_plain_chroma_takes_a_chunk_axis():
 
 
 def test_what_is_not_ported_raises():
-    """Chunks on several cards, spatial striping and half-pel motion raise
-    NotImplementedError naming their ROADMAP item; nothing falls back."""
+    """Chunks on several cards and spatial striping raise
+    NotImplementedError naming their ROADMAP item; nothing falls back.
+    Half-pel with B frames and motion with 4:4:4 raise flutpu's
+    ValueErrors."""
     two = make_chunk_mesh(2, ["cpu", "cpu"])
     with pytest.raises(NotImplementedError, match="item 5"):
         encode_chunks(_t(CLIP), _t(QY), _t(QC), mesh=two)
     with pytest.raises(NotImplementedError, match="item 5"):
         fvc_chunks(_t(CLIP), _t(QY), _t(QC), spatial=True)
-    with pytest.raises(NotImplementedError, match="item 6a"):
-        fvc_chunks(_t(CLIP), _t(QY), _t(QC), motion=True, subpel=True)
+    with pytest.raises(ValueError, match="subpel"):
+        fvc_chunks(_t(CLIP), _t(QY), _t(QC), motion=True, subpel=True,
+                   bframes=1)
+    with pytest.raises(ValueError, match="4:2:0"):
+        fvc_chunks(_t(CLIP), _t(QY), _t(QC), motion=True, subsample=False)
     with pytest.raises(NotImplementedError, match="item 5"):
         make_chunk_spatial_mesh(2, 2)
     with pytest.raises(ValueError):
