@@ -168,7 +168,39 @@ Drives the port's main paths through the entry points a user calls, at
       plain 4:4:4 front end, decoded through ``cudajpegdec`` /
       ``cudafvcdec`` at >= 30 dB;
    d. header flags bit 4: a 1088-row chunk rewritten to 1080 rows plus
-      the coded-size extension decodes to the 1088-row decode's crop.
+      the coded-size extension decodes to the 1088-row decode's crop;
+15. the FVC encoder's remaining options:
+   a. search ranges above 32: K3 at r = 33, 48, 64 and 126 on two of
+      phase 5's 1080p pairs, K6a (8x8) at 64 on their pooled planes, K5
+      at 40, 64 and 126 (also on a flat pair and a pair with NaN; one
+      launch per call), held as in phase 5 and timed beside their
+      bounds; K4 on vectors to ±126; K3 at C = 8 and r = 64, each chunk
+      equal to its own launch, timed beside 8 single launches;
+   b. ``cudafvcenc motion=true search-range=64 gop-size=8`` (full and
+      ``search=hier``) on 16 frames of a seeded 1080p pan of 48 columns
+      and 8 rows per frame: every chunk through ``cudafvcdec`` at >= 30
+      dB, the CPU decode within 0.05 dB, vectors beyond ±32, and a
+      smaller stream than at ±32;
+   c. ``cudafvcenc motion=true bitrate=6000000 gop-size=8`` on 120
+      frames of 1080p gradient-ball at 30 frames/s: each chunk's quality
+      is flutpu's controller's for the sizes before it (replayed on the
+      host), every chunk decoded on the card and the CPU;
+   d. the slice's main path: 48 frames of 1080p ``videotestsrc
+      pattern=ball ! cudafvcladderenc rungs=...@85,...@80,...@75
+      motion=true bframes=1 gop-size=8 adaptive=true`` into four
+      appsinks: each rung's chunk equals a card ``FvcEncoder``'s on the
+      same scaled frames, the card's scaled frames lie within one level
+      of the CPU's, every rung decodes at >= 30 dB, and a meter fed a
+      fast, a slow and a fast link moves ``src_active`` to the lowest
+      rung and back; frames/s, device busy and launches per chunk and
+      rung;
+   e. ``encode_chunk_batch_dispatch_src`` of 4 chunks: one device-to-host
+      copy; each chunk equal to its own ``encode_chunk_dispatch_src`` or
+      split only at float64-verified ties;
+   f. the downloader on a ``file://`` file and a loopback HTTP URL (the
+      bandwidth meter counts their bytes), and a loopback-URL background
+      image rendered through ``cudattmlrender`` on the card
+      pixel-identical to the same image embedded as ``#id``.
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not
@@ -361,9 +393,12 @@ def main() -> int:
     if "flutpu" in sys.modules:
         return _fail("flutpu_torch imported the JAX package flutpu")
 
-    print(_smi(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if sys.argv[1:] == [TRACE_CHECKS]:
+        print(json.dumps(_trace_checks(torch.device("cuda", 0))))
+        return 0
+    print(_smi(), flush=True)
     kernels = run(torch.device("cuda", 0))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
@@ -572,6 +607,9 @@ def run(dev):
     add(run_hype(dev, lib, lap, {k: results[k]["ms"] for k in (
         "motion_search_mc", "motion_search_mc_hier", "chroma_mc")}))
     add(run_decode(dev, lib, lap))
+    counts, wide = run_wide(dev, lib, lap)
+    add(counts)
+    results.update(wide)
     for name, key, was in EARLIER_MS:
         r_ = results[name]
         print(f"{key}: {was:.4f} ms before the redesign (PERF.md, same card "
@@ -620,6 +658,21 @@ def run(dev):
              replaces="flutpu/codec/ops/motion_pallas.py:615",
              launches=launches["motion_search_mc_dygrid"],
              **results["motion_search_mc_dygrid"]),
+        dict(name="motion_search_mc_wide", route="cuda",
+             source="flutpu_torch/csrc/motion.cu",
+             replaces="flutpu/codec/ops/motion_pallas.py:288",
+             launches=launches["motion_search_mc_wide"],
+             **results["motion_search_mc_wide"]),
+        dict(name="motion_search_mc_hier_wide", route="cuda",
+             source="flutpu_torch/csrc/motion.cu",
+             replaces="flutpu/codec/ops/motion_pallas.py:444",
+             launches=launches["motion_search_mc_hier_wide"],
+             **results["motion_search_mc_hier_wide"]),
+        dict(name="motion_search_mc_blocks_wide", route="cuda",
+             source="flutpu_torch/csrc/motion.cu",
+             replaces="flutpu/codec/ops/motion_pallas.py:122",
+             launches=launches["motion_search_mc_blocks_wide"],
+             **results["motion_search_mc_blocks_wide"]),
         dict(name="pack_block_bits_fused", route="cuda",
              source="flutpu_torch/csrc/entropy_pack.cu",
              replaces="flutpu/codec/ops/entropy_pallas.py:245",
@@ -911,25 +964,40 @@ def _device_busy(fn, n: int):
                              for k, (t, c) in top], len(spans) / n)
 
 
-def _call_launches(fn, dev):
+def _call_launches(fn, dev, reps: int = 3):
     """Names of the device kernels and copies of one call of ``fn``
-    (torch.profiler). Fills queued before and after the call bracket it
-    and are left out: the profiler has been seen to miss the first launch
-    of a window."""
+    (torch.profiler). The window holds three marks (fills of a complex
+    tensor: no code of the port launches that kernel), then ``reps``
+    calls, each followed by a mark; the launches between the last call's
+    bracketing marks are the call's. The profiler has been seen to miss
+    the first launch of a window, and to trace no device activity at all
+    in some windows: a window that lacks any of its marks failed and is
+    traced again, up to five times."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    mark = torch.empty(1, device=dev)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(3):
-            mark.fill_(0)
+    mark = torch.empty(1, dtype=torch.complex64, device=dev)
+    for _ in range(5):
         torch.cuda.synchronize()
-        fn()
-        mark.fill_(0)
-        torch.cuda.synchronize()
-    return [e.name[:48] for e in prof.events()
-            if e.device_type == DeviceType.CUDA and "Fill" not in e.name]
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                mark.fill_(1)
+            torch.cuda.synchronize()
+            for _ in range(reps):
+                fn()
+                mark.fill_(1)
+                torch.cuda.synchronize()
+        events = sorted((e for e in prof.events()
+                         if e.device_type == DeviceType.CUDA),
+                        key=lambda e: e.time_range.start)
+        marks = [i for i, e in enumerate(events)
+                 if "Fill" in e.name and "complex" in e.name]
+        if len(marks) == 3 + reps:
+            return [e.name[:48] for e in events[marks[-2] + 1:marks[-1]]]
+        print(f"torch.profiler traced {len(marks)} of the window's "
+              f"{3 + reps} marks; tracing the call again", flush=True)
+    raise RuntimeError("chip_smoke: torch.profiler lost device activity in "
+                       "five windows")
 
 
 def _pipeline(parse_launch, desc: str):
@@ -1482,14 +1550,21 @@ def _count_launches(fn):
                 "motion_search_mc_hier": M.motion_search_mc_hier,
                 "motion_search_mc_blocks": M.motion_search_mc_blocks,
                 "motion_search_mc_dygrid": M.motion_search_mc_dygrid}
+    wide = (M.motion_search_mc, M.motion_search_mc_hier,
+            M.motion_search_mc_blocks)
     torch.cuda.synchronize()
     for w_ in wrappers.values():
         w_.launches = 0
     F.front_end.overlay_launches = 0
+    for w_ in wide:
+        w_.wide_launches = 0
     out = fn()
     counts = {k: w_.launches for k, w_ in wrappers.items()}
     # K1's launches that ran its overlay branch (a share of front_end's)
     counts["front_end_overlay"] = F.front_end.overlay_launches
+    # the searches' launches above r = 32 (a share of each one's)
+    for w_ in wide:
+        counts[w_.__name__ + "_wide"] = w_.wide_launches
     return out, counts
 
 
@@ -3138,6 +3213,664 @@ def _run_coded_size(dev):
           f"and cudafvcdec) to the {H}-row crop of its {PH}-row decode",
           flush=True)
     return n
+
+
+# -- 15. the FVC encoder's remaining options: search ranges 33-126, rate
+# control, the ABR ladder, batched chunks from the on-device source, io ----
+
+WIDE_RANGES = (33, 48, 64, 126)   # K3 against its plain version
+WIDE_HIER_RANGES = (40, 64, 126)  # K5 likewise
+WIDE_R = 64                # the encoder's range in 15b; K6a's and C = 8's
+PAN_FRAMES, PAN_STEP = 16, (8, 48)   # 15b: rows, columns per frame
+RC_FRAMES, RC_BITRATE = 120, 6_000_000
+RC_MIN_Q, RC_MAX_Q = 10, 97        # the qualities the controller may pick
+LADDER_FRAMES = 48
+LADDER_RUNGS = "1920x1080@85,1280x720@80,640x360@75"
+BATCH = 4
+
+
+def run_wide(dev, lib, lap):
+    """Phase 15. Returns (the kernels' launch counts over its paths, the
+    wide-range kernels' results)."""
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    traces = _fresh_traces()
+    results = _wide_kernels(dev, traces["hier"])
+    lap("15a wide-range kernels")
+    add(_wide_encoder(dev, lib))
+    lap("15b wide search in the encoder")
+    add(_rate_control(dev))
+    lap("15c rate control")
+    add(_ladder(dev))
+    lap("15d ABR ladder")
+    add(_batched_src(dev, traces["batch"]))
+    lap("15e batched source")
+    _io(dev)
+    lap("15f io")
+    return total, results
+
+
+#: the argument that runs only ``_trace_checks`` (in a child process)
+TRACE_CHECKS = "--trace-checks"
+
+
+def _trace_checks(dev):
+    """The device launches of one call each, traced in a process of their
+    own: K5 at every range of WIDE_HIER_RANGES on a 1080p pair, and one
+    batched-source dispatch and finalize of BATCH chunks (after a warm
+    one). Late in a long run torch.profiler was seen to lose whole windows
+    of device activity, in a fresh process none."""
+    import numpy as np
+    import torch
+    from flutpu_torch.codec.fvc import FvcEncoder
+    from flutpu_torch.codec.ops import motion_kernels as M
+    rng = np.random.default_rng(3)
+    prev = torch.from_numpy(rng.uniform(0, 255, (PH, PW)).astype(np.float32)
+                            ).to(dev)
+    cur = torch.roll(prev, (5, -40), (0, 1))
+    hier = {str(r): _call_launches(
+        lambda: M.motion_search_mc_hier(cur, prev, r), dev)
+        for r in WIDE_HIER_RANGES}
+    enc = FvcEncoder(QUALITY, motion=True, device=dev)
+    batch = _batch_fn(enc, dev)
+    batch()
+    return {"hier": hier, "batch": _call_launches(batch, dev)}
+
+
+def _fresh_traces():
+    """``_trace_checks`` in a child process on the same card → its
+    result."""
+    res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                          TRACE_CHECKS], capture_output=True, text=True,
+                         timeout=600)
+    _require(res.returncode == 0, f"the trace process failed: "
+             f"{res.stderr[-2000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def _batch_fn(enc, dev):
+    """15e's call: BATCH chunks of CHUNK gradient-ball frames from the
+    on-device source through one dispatch and finalize."""
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
+
+    def src(ph, pw, n, start):
+        return gradient_ball_planes(ph, pw, n, start, device=dev)
+
+    def batch():
+        return enc.encode_chunk_batch_finalize(
+            enc.encode_chunk_batch_dispatch_src(src, 0, CHUNK, H, W,
+                                                batch=BATCH))
+    return batch
+
+
+def _once_ms(fn):
+    """(fn's result, device ms of that one call: CUDA events, synchronised;
+    a plain version's launches pace with the host)."""
+    import torch
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    out = fn()
+    b.record()
+    b.synchronize()
+    return out, a.elapsed_time(b)
+
+
+def _wide_kernels(dev, hier_traces):
+    """Phase 15a: K3 at r = 33, 48, 64 and 126, K6a (8x8) at 64 on the
+    pooled planes, K5 at 40, 64 and 126 (one launch per call) against
+    their plain versions on two of phase 5's 1080p pairs (K5 also on a
+    flat pair and a pair with NaN); K4 on vectors up to ±126; K3 with a
+    chunk axis at C = 8 and r = 64. Each timed beside its bound. Returns
+    the wide-range kernels' results (at r = 64)."""
+    import numpy as np
+    import torch
+    from flutpu_torch.codec.ops import motion_kernels as M
+    from flutpu_torch.codec.ops.colorspace import planes_to_i420, \
+        subsample_420
+    from flutpu_torch.codec.ops.motion import compensate_blocks
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
+
+    pairs = _motion_pairs(dev, np.random.default_rng(1))
+    two = [pairs[1], pairs[2]]   # rolled plane + noise; in-loop reference
+    rows = {}
+
+    def line(name, r, k_ms, p_ms, bound, shape):
+        rows[(name, r)] = (k_ms, p_ms, bound)
+        print(f"{name} r={r}: kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms "
+              f"per {shape}; bound {bound['bound_ms']:.4f} ms "
+              f"({bound['bound_by']}; {k_ms / bound['bound_ms']:.2f}x)",
+              flush=True)
+
+    for r in WIDE_RANGES:
+        for label, cur, prev in two:
+            plain, p_ms = _once_ms(
+                lambda: M.motion_search_mc_plain(cur, prev, r))
+            _hold_search(f"{label}, r={r}", "motion_search_mc",
+                         M.motion_search_mc(cur, prev, r), plain, cur, prev,
+                         r, 16, True,
+                         lambda p, m: M.motion_compensate(p, m, r))
+        k_ms = _time_ms(lambda: M.motion_search_mc(cur, prev, r), 10)
+        line("motion_search_mc", r, k_ms, p_ms,
+             _search_bound(PH, PW, 16, r), "1088x1920 luma frame")
+
+    for label, cur, prev in two:
+        pc, pp = subsample_420(cur), subsample_420(prev)
+        plain, p_ms = _once_ms(
+            lambda: M.motion_search_mc_blocks_plain(pc, pp, WIDE_R, 8))
+        _hold_search(f"{label}, pooled 544x960, 8x8, r={WIDE_R}",
+                     "motion_search_mc_blocks",
+                     M.motion_search_mc_blocks(pc, pp, WIDE_R, 8), plain,
+                     pc, pp, WIDE_R, 8, True,
+                     lambda p, m: compensate_blocks(p, m, 8))
+    k_ms = _time_ms(lambda: M.motion_search_mc_blocks(pc, pp, WIDE_R, 8), 10)
+    line("motion_search_mc_blocks (8x8)", WIDE_R, k_ms, p_ms,
+         _search_bound(PH // 2, PW // 2, 8, WIDE_R), "pooled 544x960 plane")
+
+    for r in WIDE_HIER_RANGES:
+        for label, cur, prev in _hier_pairs(two, dev):
+            plain, p_ms = _once_ms(
+                lambda: M.motion_search_mc_hier_plain(cur, prev, r))
+            _hold_search(f"{label}, r={r}", "motion_search_mc_hier",
+                         M.motion_search_mc_hier(cur, prev, r), plain, cur,
+                         prev, r, 16, False,
+                         lambda p, m: M.motion_compensate(p, m, r))
+        cur, prev = two[1][1:]
+        _, p_ms = _once_ms(lambda: M.motion_search_mc_hier_plain(cur, prev,
+                                                                 r))
+        k_ms = _time_ms(lambda: M.motion_search_mc_hier(cur, prev, r), 10)
+        rc = max(1, r // 2)
+        line("motion_search_mc_hier", r, k_ms, p_ms, _search_bound(
+            PH, PW, 16, 1, (PH // 2) * (PW // 2) * (2 * rc + 1) ** 2 * 3
+            + 2 * PH * PW), "1088x1920 luma frame")
+        names = hier_traces[str(r)]
+        _require(len(names) == 1 and "motion_search_hier_wide" in names[0],
+                 f"a call of K5 at r={r} is not one launch: {names}")
+    print(f"motion_search_mc_hier above r=32, one call (torch.profiler, in "
+          f"a process of its own): {names}", flush=True)
+
+    rng = np.random.default_rng(126)
+    cb, cr = (torch.from_numpy(rng.normal(128, 30, (PH // 2, PW // 2))
+                               .astype(np.float32)).to(dev)
+              for _ in range(2))
+    mv = torch.from_numpy(rng.integers(-126, 127, (PH // 16, PW // 16, 2))
+                          .astype(np.int32)).to(dev)
+    _require(all(torch.equal(a, b) for a, b in zip(
+        M.chroma_mc(cb, cr, mv, 126), M.chroma_mc_plain(cb, cr, mv, 126))),
+        "chroma_mc differs from its plain version on vectors to ±126")
+    print(f"chroma_mc vs plain (random vectors to ±126, "
+          f"{int(((mv < 0) & (mv % 2 == 1)).sum())} odd negative "
+          "components): bit-identical", flush=True)
+
+    c = HYPE_CHUNKS
+    y = planes_to_i420(*gradient_ball_planes(PH, PW, 2 * c, 0,
+                                             device=dev))[0]
+    cur, prev = y[1::2].contiguous(), y[0::2].contiguous()
+    mv, pred = M.motion_search_mc(cur, prev, WIDE_R)
+    for k in range(c):
+        one = M.motion_search_mc(cur[k], prev[k], WIDE_R)
+        _require(torch.equal(mv[k], one[0]) and torch.equal(pred[k], one[1]),
+                 f"motion_search_mc r={WIDE_R}: chunk {k} of a batched "
+                 "launch differs from its own launch")
+    _time_batched(f"motion_search_mc r={WIDE_R}",
+                  lambda: M.motion_search_mc(cur, prev, WIDE_R),
+                  [lambda k=k: M.motion_search_mc(cur[k], prev[k], WIDE_R)
+                   for k in range(c)], c,
+                  rows[("motion_search_mc", WIDE_R)][0])
+    torch.cuda.synchronize()
+
+    def record(name):
+        k_ms, p_ms, bound = rows[(name, WIDE_R)]
+        return dict(max_abs_err=0.0, ms=k_ms, plain_ms=p_ms, **bound)
+
+    return {"motion_search_mc_wide": record("motion_search_mc"),
+            "motion_search_mc_hier_wide": record("motion_search_mc_hier"),
+            "motion_search_mc_blocks_wide":
+                record("motion_search_mc_blocks (8x8)")}
+
+
+def _pan_frames():
+    """15b's content: a seeded 1080p texture (uniform noise smoothed by six
+    passes of a 3x3 box, wrapping: benches/rd_sweep.py's ``pan`` smooths
+    once, which leaves detail no q85 chunk codes at 30 dB) panned
+    PAN_STEP pixels per frame, wrapping."""
+    import numpy as np
+    rng = np.random.default_rng(15)
+    tex = rng.integers(0, 256, (H, W, 3)).astype(np.float32)
+    for _ in range(6):
+        pad = np.pad(tex, ((1, 1), (1, 1), (0, 0)), mode="wrap")
+        tex = sum(pad[i:i + H, j:j + W] for i in range(3)
+                  for j in range(3)) / 9.0
+    tex = tex.astype(np.uint8)
+    return np.stack([np.roll(tex, (PAN_STEP[0] * i, PAN_STEP[1] * i),
+                             axis=(0, 1)) for i in range(PAN_FRAMES)])
+
+
+def _decode_checks(dev, chunks, sources, label, min_q=None):
+    """Every chunk through ``cudafvcdec`` on the card (>= 30 dB against
+    its (F, H', W', 3) numpy source, but where the chunk's quality is
+    ``min_q``) and through ``FvcDecoder`` on the CPU (within 0.05 dB of
+    the card's) → (lowest PSNR per chunk, largest card/CPU difference,
+    dB)."""
+    from flutpu_torch.codec.fvc import FvcDecoder
+    card = _element_frames(f"cudafvcdec device={dev}", chunks)
+    cpu = FvcDecoder("cpu")
+    worst, d_psnr, f0 = [], 0.0, 0
+    for data in chunks:
+        n = data[11]
+        src = sources[f0:f0 + n]
+        a, b = card[f0:f0 + n], cpu.decode_chunk(data)[0]
+        p = [_psnr(x, s) for x, s in zip(a, src)]
+        d_psnr = max([d_psnr] + [abs(q - _psnr(y, s))
+                                 for q, y, s in zip(p, b, src)])
+        worst.append(min(p))
+        _require(min(p) >= MIN_PSNR or data[10] == min_q,
+                 f"{label}: a chunk at {min(p):.2f} dB (quality {data[10]})")
+        f0 += n
+    _require(f0 == len(sources), f"{label}: {f0} frames decoded")
+    _require(d_psnr <= MAX_DPSNR, f"{label}: card vs CPU decode differ by "
+             f"{d_psnr:.4f} dB")
+    return worst, d_psnr
+
+
+def _wide_encoder(dev, lib):
+    """Phase 15b: ``cudafvcenc motion=true search-range=64 gop-size=8`` on
+    16 frames of a 1080p pan of 48 columns and 8 rows per frame, full and
+    ``search=hier``: K3 (K5) launched above r = 32, every chunk decoded on
+    the card and the CPU, vectors past ±32, and a smaller stream than at
+    ±32. Returns the launch counts (of the ±64 encodes)."""
+    import numpy as np
+    from flutpu_torch.codec.fvc import FvcDecoder
+    frames = _pan_frames()
+    caps = f"video/x-raw, format=RGB, width={W}, height={H}, framerate=30/1"
+    total = {}
+    for search, wrapper in (("full", "motion_search_mc"),
+                            ("hier", "motion_search_mc_hier")):
+        sizes = {}
+        for r in (WIDE_R, 32):
+            desc = (f"cudafvcenc motion=true search-range={r} gop-size="
+                    f"{CHUNK} search={search} device={dev}")
+            (bufs, wall, _), counts = _count_launches(
+                lambda: _harness_run(desc, frames, caps))
+            chunks = [bytes(b.data) for b in bufs]
+            sizes[r] = sum(map(len, chunks))
+            if r != WIDE_R:
+                continue
+            for k in (wrapper, "chroma_mc", "pack_segments"):
+                _require(counts[k] > 0, f"15b {search}: {k} not launched")
+            _require(counts[wrapper + "_wide"] == counts[wrapper],
+                     f"15b {search}: {wrapper} ran below r=33")
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            worst, d_psnr = _decode_checks(dev, chunks, frames,
+                                           f"15b {search}")
+            vecs = np.concatenate([np.abs(v).reshape(-1, 2) for c in chunks
+                                   for _, v, _ in FvcDecoder.parse_chunk(c)[1]
+                                   if v is not None])
+            share = float((vecs.max(axis=1) > 32).mean())
+            _require(share > 0, f"15b {search}: no vector beyond ±32")
+            print(f"15b {search} search, r={WIDE_R}: {len(chunks)} chunks of "
+                  f"a {PAN_STEP[1]}-column pan in {wall:.3f} s, "
+                  f"{counts[wrapper + '_wide']} launches of {wrapper} above "
+                  f"r=32; {share:.3f} of the P vectors beyond ±32; PSNR "
+                  f"through cudafvcdec >= {min(worst):.2f} dB, CPU decode "
+                  f"within {d_psnr:.4f} dB", flush=True)
+        _require(sizes[WIDE_R] < sizes[32], f"15b {search}: ±{WIDE_R} is not "
+                 f"smaller than ±32 ({sizes})")
+        print(f"15b {search} search: stream {sizes[WIDE_R]} bytes at "
+              f"±{WIDE_R}, {sizes[32]} at ±32", flush=True)
+    return total
+
+
+def _controller(chunks, frames, dev, target):
+    """flutpu's fvcenc controller replayed on the host over the chunk
+    sizes: each chunk's quality must be round(q_est), or, where the first
+    encode at that quality (made again here on the card) came out over
+    1.3 times the budget, the retry's max(10, q - round(12 log2(size /
+    budget))); then q_est = clip(q - 12 log2(size / budget), 10, 97).
+    Returns the qualities."""
+    import numpy as np
+    from flutpu_torch.codec.fvc import FvcEncoder
+    est, qs = float(QUALITY), []
+    for ci, data in enumerate(chunks):
+        q, got = int(round(est)), data[10]
+        if got != q:
+            first = len(FvcEncoder(q, motion=True, device=dev).encode_chunk(
+                frames[ci * CHUNK:(ci + 1) * CHUNK]))
+            q2 = max(RC_MIN_Q, q - int(round(12 * np.log2(first / target))))
+            _require(first > target * 1.3 and q2 < q and got == q2,
+                     f"15c chunk {ci}: quality {got}, the controller gives "
+                     f"{q} (first encode {first} bytes, retry {q2})")
+        else:
+            n = len(data)
+            _require(n <= target * 1.3 or max(RC_MIN_Q, q - int(round(
+                12 * np.log2(n / target)))) >= q,
+                f"15c chunk {ci}: {n} bytes at quality {q} owed a retry")
+        est = float(np.clip(got - 12 * np.log2(max(len(data) / target,
+                                                   1e-6)),
+                            RC_MIN_Q, RC_MAX_Q))
+        qs.append(got)
+    return qs
+
+
+def _rate_control(dev):
+    """Phase 15c: ``cudafvcenc motion=true bitrate=6000000 gop-size=8`` on
+    120 frames of 1080p gradient-ball at 30 frames/s: each chunk's
+    quality is the controller's for the sizes before it, each chunk
+    decodes (card and CPU). Returns the launch counts."""
+    import numpy as np
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_frames
+    frames = np.concatenate([
+        gradient_ball_frames(H, W, CHUNK, i, device=dev).cpu().numpy()
+        for i in range(0, RC_FRAMES, CHUNK)])
+    desc = (f"cudafvcenc motion=true bitrate={RC_BITRATE} gop-size={CHUNK} "
+            f"device={dev}")
+    caps = f"video/x-raw, format=RGB, width={W}, height={H}, framerate=30/1"
+    (bufs, wall, _), counts = _count_launches(
+        lambda: _harness_run(desc, frames, caps))
+    chunks = [bytes(b.data) for b in bufs]
+    _require(len(chunks) == RC_FRAMES // CHUNK, f"15c: {len(chunks)} chunks")
+    for k in ("motion_search_mc", "chroma_mc", "pack_segments"):
+        _require(counts[k] > 0, f"15c: {k} not launched")
+    # the element's budget: the chunk's duration at the bitrate
+    target = max(1, int(RC_BITRATE / 8 * (CHUNK * FRAME_NS) / 1e9))
+    qs = _controller(chunks, frames, dev, target)
+    worst, d_psnr = _decode_checks(dev, chunks, frames, "15c", RC_MIN_Q)
+    sizes = [len(c) for c in chunks]
+    tail = sum(sizes[-5:]) * 8 / (5 * CHUNK * FRAME_NS / 1e9)
+    print(f"15c rate control: {len(chunks)} chunks in {wall:.3f} s, budget "
+          f"{target} bytes per chunk; sizes {sizes}; qualities {qs} (the "
+          f"controller's, replayed on the host); last 5 chunks "
+          f"{tail / 1e6:.3f} Mbit/s against {RC_BITRATE / 1e6:.3f}; PSNR per "
+          f"chunk >= {[round(p, 2) for p in worst]} dB, CPU decode within "
+          f"{d_psnr:.4f} dB", flush=True)
+    return counts
+
+
+class _MeterSchedule:
+    """The port's BwMeter, fed one window of ``rates`` bytes in turn each
+    time the ladder asks for its estimate (a window closes after 0.6 s of
+    its clock: a forced window)."""
+
+    def __init__(self, rates):
+        from flutpu_torch.fluc.bwmeter import BwMeter
+        self.meter = BwMeter()
+        self.meter.session_start()
+        self.meter.data(0, _now=0.0)
+        self.now, self.rates, self.seen = 0.0, list(rates), []
+
+    def stats(self):
+        self.now += 0.6
+        self.meter.data(self.rates.pop(0), _now=self.now)
+        self.seen.append(self.meter.stats()[1])
+        return self.meter.stats()
+
+
+def _ladder(dev):
+    """Phase 15d, the slice's main path: 48 frames of 1080p ``videotestsrc
+    pattern=ball ! cudafvcladderenc`` (three rungs, motion, B frames,
+    adaptive) into four appsinks; each rung's chunk equal to a card
+    FvcEncoder's on the same scaled frames, the card's scaled frames within
+    one level of the CPU's, every rung decoded at >= 30 dB, and the active
+    rung following the meter down to the lowest rung and back. Returns the
+    launch counts."""
+    import numpy as np
+    import torch
+    from flutpu_torch.codec import ladder as L
+    from flutpu_torch.codec.fvc import FvcEncoder
+    from flutpu_torch.core import parse_launch
+    from flutpu_torch.core.elements import make_test_frame
+    rungs = L.parse_rungs(LADDER_RUNGS)
+    n_chunks = LADDER_FRAMES // CHUNK
+    fast, slow = 10 ** 9, 100      # bytes per 0.6 s window
+    meter = _MeterSchedule([fast, fast, slow, fast, fast, fast])
+    p = parse_launch(
+        f"videotestsrc num-buffers={LADDER_FRAMES} pattern=ball width={W} "
+        f"height={H} ! cudafvcladderenc name=lad rungs='{LADDER_RUNGS}' "
+        f"motion=true bframes=1 gop-size={CHUNK} adaptive=true device={dev} "
+        + " ".join(f"lad.src_{i} ! appsink name=s{i}"
+                   for i in range(len(rungs)))
+        + " lad.src_active ! appsink name=act")
+    p.get_by_name("lad")._meter = meter
+
+    def run():
+        t0 = time.perf_counter()
+        p.play()
+        out = {}
+        try:
+            for i in range(len(rungs)):
+                s = p.get_by_name(f"s{i}")
+                out[i] = []
+                while (b := s.try_pull_buffer(timeout=120)) is not None:
+                    out[i].append(bytes(b.data))
+            # src_active carries no EOS: one buffer per chunk
+            act = [p.get_by_name("act").try_pull_buffer(timeout=120)
+                   for _ in range(n_chunks)]
+        finally:
+            p.stop()
+        return out, act, time.perf_counter() - t0
+
+    (out, act, wall), counts = _count_launches(run)
+    for k in ("motion_search_mc", "chroma_mc", "pack_segments"):
+        _require(counts[k] > 0, f"15d: {k} not launched")
+    _require(all(len(c) == n_chunks for c in out.values()),
+             f"15d: chunks per rung {[len(c) for c in out.values()]}")
+    picked = [b.meta["rung"] for b in act]
+    _require(picked == [0, 0, 2, 0, 0, 0],
+             f"15d: src_active rungs {picked} for a fast, slow, fast meter")
+    _require(all(bytes(b.data) == out[r][ci]
+                 for ci, (b, r) in enumerate(zip(act, picked))),
+             "15d: src_active differs from its rung's chunk")
+    frames = np.stack([make_test_frame("ball", W, H, i)
+                       for i in range(LADDER_FRAMES)])
+    worst = {}
+    for i, rung in enumerate(rungs):
+        enc = FvcEncoder(rung.quality, motion=True, bframes=1, device=dev)
+        scaled = []
+        for ci in range(n_chunks):
+            dev_frames = torch.from_numpy(
+                frames[ci * CHUNK:(ci + 1) * CHUNK]).to(dev)
+            s_ = L.scale_rung(dev_frames, rung)
+            _require(enc.encode_chunk(s_) == out[i][ci],
+                     f"15d rung {i} chunk {ci}: differs from a card "
+                     "FvcEncoder's on the same scaled frames")
+            scaled.append(s_.cpu().numpy())
+            if ci == 0:
+                cpu = L.scale_rung(dev_frames.cpu(), rung).numpy()
+                d = int(np.abs(scaled[0].astype(int) - cpu).max())
+                _require(d <= 1, f"15d rung {i}: card and CPU scaling "
+                         f"differ by {d} levels")
+        w_, _ = _decode_checks(dev, out[i], np.concatenate(scaled),
+                               f"15d rung {i}")
+        worst[f"{rung.width}x{rung.height}"] = round(min(w_), 2)
+    # device busy and launches: two chunks through the element's encoders
+    el = p.get_by_name("lad")
+    _, busy, launches = _traced(lambda: [L.encode_ladder_chunk(
+        frames[ci * CHUNK:(ci + 1) * CHUNK], rungs, motion=True,
+        encoders=el._encoders, bframes=1, device=dev) for ci in range(2)])
+    print(f"15d ladder (rungs {LADDER_RUNGS}, motion, bframes=1, adaptive): "
+          f"{LADDER_FRAMES} frames in {wall:.3f} s = "
+          f"{LADDER_FRAMES / wall:.2f} frames/s through videotestsrc; each "
+          f"rung's chunks = a card FvcEncoder's on the same scaled frames; "
+          f"PSNR per rung >= {worst} dB; src_active rungs {picked} for "
+          f"estimates {[round(x / 1e6, 3) for x in meter.seen]} Mbit/s; "
+          "kernel launches per chunk per rung "
+          + str({k: round(v / n_chunks / len(rungs), 2)
+                 for k, v in counts.items() if v}) + "; "
+          + _busy_line(2 * len(rungs), busy, launches, "chunk and rung"),
+          flush=True)
+    return counts
+
+
+def _batched_src(dev, names):
+    """Phase 15e: ``encode_chunk_batch_dispatch_src`` of 4 chunks of 8
+    gradient-ball frames at 1080p: one device-to-host copy (``names``: the
+    device launches of one such call, traced in a process of its own),
+    each chunk equal to its own ``encode_chunk_dispatch_src`` or split
+    only at float64-verified ties. Returns the launch counts."""
+    from flutpu_torch.codec.fvc import FvcEncoder
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_frames, \
+        gradient_ball_planes
+    enc = FvcEncoder(QUALITY, motion=True, device=dev)
+
+    def src(ph, pw, n, start):
+        return gradient_ball_planes(ph, pw, n, start, device=dev)
+
+    batch = _batch_fn(enc, dev)
+    batch()   # a fresh encoder learns its sizes on its first dispatch
+    chunks, counts = _count_launches(batch)
+    for k in ("motion_search_mc", "chroma_mc", "pack_segments"):
+        _require(counts[k] > 0, f"15e: {k} not launched")
+    copies = sum("DtoH" in n for n in names)
+    _require(copies == 1, f"15e: {copies} device-to-host copies")
+    same, splits = 0, []
+    for b, chunk in enumerate(chunks):
+        one = enc.encode_chunk_finalize(enc.encode_chunk_dispatch_src(
+            src, b * CHUNK, CHUNK, H, W))
+        if one == chunk:
+            same += 1
+            continue
+        # the source renders the coded size: its frames, not 1080 rows
+        # edge-padded, are what both encodes coded
+        frames = gradient_ball_frames(PH, PW, CHUNK, b * CHUNK,
+                                      device=dev).cpu().numpy()
+        splits.append(_verify_split(chunk, one, frames, SEARCH_RANGE, False,
+                                    dev, f"15e chunk {b}"))
+    print(f"15e batched source: {BATCH} chunks of {CHUNK} frames in one "
+          f"dispatch, {copies} device-to-host copy, {len(names) / BATCH:g} "
+          f"device launches per chunk (torch.profiler, in a process of its "
+          f"own); kernel launches "
+          f"{ {k: v for k, v in counts.items() if v} }; {same} of {BATCH} "
+          f"byte-identical to single dispatches, the rest split at "
+          f"{splits}", flush=True)
+    return counts
+
+
+def _png(rgba) -> bytes:
+    """A minimal PNG (8-bit RGBA, no filter) of an (h, w, 4) uint8 array."""
+    import struct
+    import zlib
+    h, w, _ = rgba.shape
+    raw = b"".join(b"\x00" + rgba[y].tobytes() for y in range(h))
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+
+
+def _image_doc(ref, png) -> bytes:
+    import base64
+    return f"""<?xml version="1.0"?>
+<tt xmlns="http://www.w3.org/ns/ttml" xmlns:tts="http://www.w3.org/ns/ttml#styling"
+    xmlns:smpte="http://www.smpte-ra.org/schemas/2052-1/2010/smpte-tt">
+  <head>
+    <metadata>
+      <smpte:image xml:id="img1" imagetype="PNG" encoding="Base64">{
+          base64.b64encode(png).decode()}</smpte:image>
+    </metadata>
+    <layout>
+      <region xml:id="r1" tts:origin="5% 5%" tts:extent="60% 60%"
+              smpte:backgroundImage="{ref}"/>
+    </layout>
+  </head>
+  <body><div>
+    <p begin="0s" end="1s" region="r1" tts:color="white">on image</p>
+  </div></body>
+</tt>""".encode()
+
+
+def _io(dev):
+    """Phase 15f: the port's downloader fetches a file:// file and a
+    loopback HTTP URL served here, the process-global bandwidth meter
+    counts their bytes, and a TTML document whose background image is that
+    loopback URL renders through ``cudattmlrender`` on the card
+    pixel-identical to the document with the image embedded as ``#id``."""
+    import http.server
+    import tempfile
+    import threading
+    import numpy as np
+    from flutpu_torch.core import Buffer, Harness
+    from flutpu_torch.fluc import bwmeter
+    from flutpu_torch.io import DownloadHelper, TaskOutcome
+    rng = np.random.default_rng(7)
+    payload = rng.integers(0, 256, 300 * 1024, np.uint8).tobytes()
+    img = np.zeros((16, 24, 4), np.uint8)
+    img[..., 1], img[..., 3] = 200, 255
+    png = _png(img)
+    files = {"/payload.bin": payload, "/img.png": png}
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_GET(self):
+            body = files.get(self.path)
+            if body is None:
+                self.send_error(404)
+                return
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *a):
+            pass
+
+    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    try:
+        with tempfile.TemporaryDirectory() as d:
+            path = os.path.join(d, "payload.bin")
+            with open(path, "wb") as fh:
+                fh.write(payload)
+            total0 = bwmeter.stats()[2]
+            with DownloadHelper() as h:
+                got_file = h.download(f"file://{path}")
+                got_http = h.download(f"{base}/payload.bin")
+            counted = bwmeter.stats()[2] - total0
+        for label, (data, outcome, _) in (("file://", got_file),
+                                          ("http", got_http)):
+            _require(outcome == TaskOutcome.OK and data == payload,
+                     f"15f: the {label} download differs ({outcome})")
+        _require(counted >= 2 * len(payload), f"15f: the meter counted "
+                 f"{counted} bytes of {2 * len(payload)}")
+
+        def render(doc):
+            h = Harness(f"cudattmlrender window-width=640 "
+                        f"window-height=368 device={dev}")
+            h.set_src_caps("application/ttml+xml")
+            h.push(Buffer(doc, pts=0))
+            h.push_eos()
+            out = []
+            while (b := h.pull(timeout=60)) is not None:
+                out.append(np.asarray(b.data))
+            h.teardown()
+            return out
+
+        url_w = render(_image_doc(f"{base}/img.png", png))
+        id_w = render(_image_doc("#img1", png))
+    finally:
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=10)
+    _require(len(url_w) == len(id_w) > 0 and all(
+        np.array_equal(a, b) for a, b in zip(url_w, id_w)),
+        "15f: the URL image's window differs from the #id image's")
+    green = int(((url_w[0][..., 1] == 200) & (url_w[0][..., 3] > 0)).sum())
+    _require(green > 0, "15f: the background image is not in the window")
+    print(f"15f io: file:// and loopback HTTP downloads of {len(payload)} "
+          f"bytes equal the file, the meter counted {counted} bytes; a "
+          f"loopback-URL background image renders through cudattmlrender on "
+          f"the card pixel-identical to the #id image ({green} image "
+          "pixels)", flush=True)
+
 
 if __name__ == "__main__":
     sys.exit(main())

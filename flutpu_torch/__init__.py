@@ -19,9 +19,11 @@ B frames (``codec.fvc.FvcEncoder``, ``FvcDecoder``) and its element
 ``cudafvcenc``; subtitle burn-in (``ttml``); GOP-chunk parallelism
 (``hype``: the ``hype`` bin with the port's encoders in its branches,
 and ``cudahype``, C chunks per dispatch; ``parallel``; ``inject``:
-``injectbin``). ``import flutpu_torch`` registers the encoders in the
-port's registry (``flutpu_torch.core``), which loads the other plugins
-on first use.
+``injectbin``); the decoders ``cudajpegdec`` and ``cudafvcdec``; the ABR
+ladder ``cudafvcladderenc`` (``codec.ladder``) with copies of flutpu's
+``fluc`` (the bandwidth meter) and ``io`` (the downloader). ``import
+flutpu_torch`` registers the encoders in the port's registry
+(``flutpu_torch.core``), which loads the other plugins on first use.
 """
 
 __version__ = "0.1.0"

@@ -8,9 +8,11 @@ byte-stuffs the device-joined stream, and wraps JFIF headers. FVC
 chunks add temporal prediction on top: version 1 accumulates coefficient
 residuals, version 2 runs the motion search and chroma compensation
 kernels in the hybrid loop. The decode side reconstructs in plain
-PyTorch on the device after the host's entropy decode. Importing this
-package registers ``cudajpegenc``, ``cudafvcenc``, ``cudajpegdec``,
-``cudafvcdec`` and the host-only ``avimux`` and ``avidemux``.
+PyTorch on the device after the host's entropy decode. The ABR ladder
+scales each chunk on the device per rung and encodes every rung. Importing
+this package registers ``cudajpegenc``, ``cudafvcenc``,
+``cudafvcladderenc``, ``cudajpegdec``, ``cudafvcdec`` and the host-only
+``avimux`` and ``avidemux``.
 """
 
 from .avimux import AviDemux, AviMux
@@ -19,7 +21,9 @@ from .decoders import CudaFvcDec, CudaJpegDec
 from .encoder import CudaJpegEnc
 from .fvc import CudaFvcEnc, FvcDecoder, FvcEncoder
 from .jpeg import JpegEncoder
+from .ladder import CudaFvcLadderEnc, Rung, encode_ladder_chunk, parse_rungs
 
 __all__ = ["AviDemux", "AviMux", "VideoEncoder", "CudaFvcDec", "CudaJpegDec",
-           "CudaJpegEnc", "CudaFvcEnc", "FvcDecoder", "FvcEncoder",
-           "JpegEncoder"]
+           "CudaJpegEnc", "CudaFvcEnc", "CudaFvcLadderEnc", "FvcDecoder",
+           "FvcEncoder", "JpegEncoder", "Rung", "encode_ladder_chunk",
+           "parse_rungs"]

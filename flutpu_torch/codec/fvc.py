@@ -45,10 +45,13 @@ clear) through the plain 4:4:4 front end. ``FvcDecoder`` reads every
 chunk kind flutpu writes, and ``split_stream``/``decode_stream`` read
 concatenated chunks.
 
-Not ported (each raises ``NotImplementedError``): rate control
-(``bitrate``), spatial striping; flutpu's batched dispatch from the
-on-device source (``encode_chunk_batch_dispatch_src``) has no
-counterpart yet.
+Search ranges run to flutpu's limit, 126 (62 with ``subpel``): above 32
+the search kernels stage their windows in bands (csrc/motion.cu).
+``encode_chunk_batch_dispatch_src`` / ``encode_chunk_batch_finalize``
+run ``batch`` chunks from the on-device source as one dispatch of the
+chunk axis and one copy back. ``cudafvcenc bitrate=`` runs flutpu's
+per-chunk quality controller. Spatial striping is not ported (it raises
+``NotImplementedError``).
 """
 
 from __future__ import annotations
@@ -74,8 +77,8 @@ from .ops.dct import dct_matrix, plane_dct, plane_idct, unblockize
 from .ops.entropy import encode_gop_scans_layout
 from .ops.motion import (MB, _mb_sums, motion_compensate,
                          motion_compensate_subpel, subpel_refine)
-from .ops.motion_kernels import MAX_SEARCH_RANGE, chroma_mc, \
-    motion_search_mc, motion_search_mc_dygrid, motion_search_mc_hier
+from .ops.motion_kernels import chroma_mc, motion_search_mc, \
+    motion_search_mc_dygrid, motion_search_mc_hier
 from .ops.quant import (CHROMA_QTABLE, LUMA_QTABLE, dequantize, quant_map,
                         quantize, scale_qtable, zigzag_flatten,
                         zigzag_unflatten)
@@ -507,9 +510,6 @@ class FvcEncoder:
             raise ValueError(
                 f"search_range must be in 1..{limit} "
                 f"(subpel={subpel}; vectors are int8 in the bitstream)")
-        if search_range > MAX_SEARCH_RANGE:
-            raise NotImplementedError(
-                f"search ranges above {MAX_SEARCH_RANGE} are not ported")
         self.quality = quality
         self.subsample = bool(subsample)
         self.motion = bool(motion)
@@ -606,6 +606,35 @@ class FvcEncoder:
         mult = self._scan_coder.mult
         ph, pw = _pad_to(h, mult), _pad_to(w, mult)
         return self._dispatch(lambda: src_fn(ph, pw, n, start), n, h, w)
+
+    def encode_chunk_batch_dispatch_src(self, src_fn, start, n: int, h: int,
+                                        w: int, batch: int = 2
+                                        ) -> _ChunkHandle:
+        """``batch`` chunks of ``n`` frames from the on-device source as ONE
+        dispatch and ONE copy back: chunk b's frames are ``src_fn(ph, pw,
+        n, start + b * n)`` (as flutpu's
+        ``_fvc_gop_program_batched_src``), stacked on the chunk axis of
+        ``encode_chunks_dispatch``. Each chunk is independent (frame 0
+        intra): on the CPU its bytes are those of its own
+        ``encode_chunk_dispatch_src``; on the card a float tie in the
+        batched in-loop transform may split them. Finalize with
+        ``encode_chunk_batch_finalize``."""
+        mult = self._scan_coder.mult
+        ph, pw = _pad_to(h, mult), _pad_to(w, mult)
+
+        def frames():
+            outs = [src_fn(ph, pw, n, start + b * n) for b in range(batch)]
+            if isinstance(outs[0], (tuple, list)):
+                return tuple(torch.stack(p) for p in zip(*outs))
+            return torch.stack(outs)
+
+        return self._dispatch(frames, n, h, w)
+
+    def encode_chunk_batch_finalize(self, handle: _ChunkHandle
+                                    ) -> List[bytes]:
+        """Blocking half of ``encode_chunk_batch_dispatch_src``: the one
+        copy, then each chunk's container, in chunk order."""
+        return self.encode_chunks_finalize(handle)
 
     def encode_chunk_finalize(self, handle: _ChunkHandle) -> bytes:
         """Blocking half: wait for the copy, check the sizes (redispatch
@@ -1112,8 +1141,11 @@ class CudaFvcEnc(VideoEncoder):
                                    "only): bidirectional per-macroblock "
                                    "prediction from the surrounding "
                                    "reconstructed anchors"),
-        PropertySpec("bitrate", 0, "target bits/sec; 0 = constant quality "
-                                   "(rate control is not ported yet)"),
+        PropertySpec("bitrate", 0, "target bits/sec; 0 = constant quality. "
+                                   "Per-chunk log-proportional quality "
+                                   "controller (flutpu's fvcenc), one "
+                                   "re-encode when a chunk is far over "
+                                   "budget"),
         PropertySpec("segmented", "auto", "bitstream layout of the device "
                      "stage: auto (FLUTPU_SEGMENTED, else segments) | true "
                      "| false (per-block pack); the bytes are the same"),
@@ -1121,19 +1153,24 @@ class CudaFvcEnc(VideoEncoder):
                      "(cuda, cuda:N, or cpu for the plain versions)"),
     ]
 
+    # flutpu's rate controller: qualities it may pick
+    _RC_MIN_Q, _RC_MAX_Q = 10, 97
+
     def __init__(self, name=None, **props):
         super().__init__(name, **props)
-        self._encoder: Optional[FvcEncoder] = None
+        self._encoders: dict = {}
         self._pending: List[Buffer] = []
         self._chunk_gop: Optional[int] = None
+        self._rc_quality: Optional[float] = None
 
-    def _enc(self) -> FvcEncoder:
-        if self._encoder is None:
-            if int(self.get_property("bitrate")) > 0:
-                raise NotImplementedError("cudafvcenc: bitrate (rate control) "
-                                          "is not ported yet")
-            self._encoder = FvcEncoder(
-                int(self.get_property("quality")),
+    def _enc(self, quality: Optional[int] = None) -> FvcEncoder:
+        """The encoder at ``quality`` (default: the property), one per
+        quality the rate controller has picked."""
+        q = int(self.get_property("quality")) if quality is None else quality
+        enc = self._encoders.get(q)
+        if enc is None:
+            enc = self._encoders[q] = FvcEncoder(
+                q,
                 motion=bool(self.get_property("motion")),
                 search_range=int(self.get_property("search-range")),
                 engine=str(self.get_property("engine")),
@@ -1142,10 +1179,10 @@ class CudaFvcEnc(VideoEncoder):
                 segmented=segmented_property(self.get_property("segmented")),
                 bframes=int(self.get_property("bframes")),
                 device=str(self.get_property("device")))
-        return self._encoder
+        return enc
 
     def do_set_property(self, name, value):
-        self._encoder = None  # rebuild with the new settings
+        self._encoders = {}  # rebuild with the new settings
 
     def set_format(self, caps: Caps):
         fields = {k: v for k, v in caps.fields.items()
@@ -1188,13 +1225,46 @@ class CudaFvcEnc(VideoEncoder):
         self._flush_chunk()
         return []
 
+    def _chunk_target_bytes(self, batch: List[Buffer]) -> Optional[int]:
+        bitrate = int(self.get_property("bitrate"))
+        if bitrate <= 0:
+            return None
+        dur_ns = sum((b.duration or 0) for b in batch)
+        if dur_ns <= 0 and self.input_caps is not None:
+            fr = self.input_caps.get("framerate")
+            if fr:
+                dur_ns = int(len(batch) * 1e9 * fr.denominator / fr.numerator)
+        if dur_ns <= 0:
+            dur_ns = int(len(batch) * 1e9 / 30)
+        return max(1, int(bitrate / 8 * dur_ns / 1e9))
+
     def _flush_chunk(self) -> None:
         if not self._pending:
             return
         batch, self._pending = self._pending, []
         frames = np.stack([np.asarray(b.data) for b in batch])
-        chunk = self._enc().encode_chunk(frames)
-        first, last = batch[0], batch[-1]
+        target = self._chunk_target_bytes(batch)
+        if target is None:
+            chunk = self._enc().encode_chunk(frames)
+        else:
+            # rate control: log-proportional per-chunk quality adaptation,
+            # one in-chunk retry when far over budget
+            if self._rc_quality is None:
+                self._rc_quality = float(self.get_property("quality"))
+            q = int(round(self._rc_quality))
+            chunk = self._enc(q).encode_chunk(frames)
+            if len(chunk) > target * 1.3:
+                q2 = max(self._RC_MIN_Q,
+                         q - int(round(12 * np.log2(len(chunk) / target))))
+                if q2 < q:
+                    chunk = self._enc(q2).encode_chunk(frames)
+                    q = q2
+            ratio = len(chunk) / target
+            self._rc_quality = float(np.clip(
+                q - 12 * np.log2(max(ratio, 1e-6)),
+                self._RC_MIN_Q, self._RC_MAX_Q))
+        first = batch[0]
+        last = batch[-1]
         duration = None
         if first.pts is not None and last.pts is not None:
             duration = last.pts - first.pts + (last.duration or 0)

@@ -45,6 +45,10 @@ def _mb_sums(diff: torch.Tensor, mb: int) -> torch.Tensor:
     return s
 
 
+#: elements of one batch of shifted planes in the plain full search
+_CANDIDATE_ELEMS = 1 << 26
+
+
 def motion_search(cur_y: torch.Tensor, prev_y: torch.Tensor,
                   search_range: int = 7, mb: int = MB) -> torch.Tensor:
     """Full-search motion estimation.
@@ -54,25 +58,45 @@ def motion_search(cur_y: torch.Tensor, prev_y: torch.Tensor,
     least cost
     ``sad * 64 + |dy| + |dx|`` over the ±search_range window, candidates
     scanned dy-major and the first scanned winning ties. The integer
-    center bias is exact in fp32 (SAD ≤ 65280: SAD*64 + 14 < 2^24)."""
+    center bias is exact in fp32 (SAD ≤ 65280: SAD*64 + 252 < 2^24 at
+    r = 126).
+
+    The candidates of one dy are taken a batch of adjacent dx at a time
+    (the batch bounded to ``_CANDIDATE_ELEMS`` values): each candidate's
+    SAD is the same elementwise sum as one at a time, and within a batch
+    the first least cost wins (a NaN cost counts as +inf, which never
+    wins), so the vectors are those of the one-at-a-time scan, in a few
+    launches per batch instead of per candidate."""
     *lead, h, w = cur_y.shape
-    n = 2 * search_range + 1
+    r = search_range
+    n = 2 * r + 1
     cur = cur_y.to(torch.float32)
     prev = prev_y.to(torch.float32)
+    dev = cur.device
     best_cost = torch.full((*lead, h // mb, w // mb), float("inf"),
-                           dtype=torch.float32, device=cur.device)
+                           dtype=torch.float32, device=dev)
     best_mv = torch.zeros((*lead, h // mb, w // mb, 2), dtype=torch.int32,
-                          device=cur.device)
-    for c in range(n * n):
-        dy = c // n - search_range
-        dx = c % n - search_range
-        shifted = torch.roll(prev, (dy, dx), dims=(-2, -1))
-        sad = _mb_sums((cur - shifted).abs(), mb)
-        cost = sad * 64 + (abs(dy) + abs(dx))
-        better = cost < best_cost
-        best_cost = torch.where(better, cost, best_cost)
-        cand = torch.tensor([dy, dx], dtype=torch.int32, device=cur.device)
-        best_mv = torch.where(better[..., None], cand, best_mv)
+                          device=dev)
+    g = max(1, min(n, _CANDIDATE_ELEMS // max(1, cur.numel())))
+    xx = torch.arange(w, device=dev)
+    for dy in range(-r, r + 1):
+        rows = torch.roll(prev, dy, dims=-2)
+        for dx0 in range(-r, r + 1, g):
+            dxs = torch.arange(dx0, min(dx0 + g, r + 1), device=dev)
+            # shifted[..., k, i, j] = rows[..., i, (j - dxs[k]) mod W]
+            idx = torch.remainder(xx[None, :] - dxs[:, None], w)
+            shifted = rows[..., idx].movedim(-2, -3)
+            sad = _mb_sums((cur[..., None, :, :] - shifted).abs(), mb)
+            bias = (abs(dy) + dxs.abs()).to(torch.float32)[:, None, None]
+            cost = sad * 64 + bias
+            cost = torch.where(cost.isnan(), float("inf"), cost)
+            k = cost.argmin(dim=-3, keepdim=True)
+            low = cost.gather(-3, k).squeeze(-3)
+            better = low < best_cost
+            best_cost = torch.where(better, low, best_cost)
+            cand = torch.stack([torch.full_like(k, dy), dxs[k]], dim=-1) \
+                .squeeze(-4).to(torch.int32)
+            best_mv = torch.where(better[..., None], cand, best_mv)
     return best_mv
 
 

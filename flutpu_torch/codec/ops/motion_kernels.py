@@ -8,7 +8,8 @@ Each wrapper replaces one Pallas TPU kernel with a CUDA kernel of
   full search per 16x16 macroblock with wrap-around edges, plus the luma
   prediction from the winning vectors (a thread block takes a row of
   macroblocks under one shared window; a thread sums 4 adjacent dx by 8
-  columns from registers);
+  columns from registers; above r = 32 the window is staged in bands of
+  16 candidate rows and the prediction read from device memory);
 - ``motion_search_mc_blocks`` (K6a, ``motion_search_mc_pallas``): the
   same contract at any block size ``mb`` (8 or 16); the prediction shifts
   each mb×mb block by its full vector (the TPU kernel's, not
@@ -21,7 +22,8 @@ Each wrapper replaces one Pallas TPU kernel with a CUDA kernel of
   full-resolution window of ``prev``, pools it and its current rows in
   shared memory, runs K6a's 8x8 search at ±max(1, r // 2) there (K3's
   device routine), clips the base and refines ±1 from the same window,
-  then writes the prediction;
+  then writes the prediction (above r = 32 the block pools straight from
+  device memory and stages an 18x18 refine window per macroblock);
 - ``chroma_mc`` (K4, ``chroma_mc_pallas``): 4:2:0 compensation of both
   chroma planes from the floor-halved luma vectors, a thread per 8-wide
   row of a block in both planes.
@@ -35,8 +37,10 @@ counts one launch whatever C is.
 
 ``*_plain`` are the same functions in plain PyTorch (the reference's
 XLA arm: ops/motion.py). The wrappers take them for CPU tensors only; a
-CUDA tensor launches the kernel or raises. The kernels sum each SAD in
-the plain versions' order (ops/motion.py:_mb_sums), so vectors and
+CUDA tensor launches the kernel or raises. Each search wrapper counts its
+launches (``launches``) and, of them, those above ``WHOLE_RANGE``
+(``wide_launches``). The kernels sum each SAD in the plain versions'
+order (ops/motion.py:_mb_sums), so vectors and
 predictions are bit-identical to them; chroma compensation is pure
 selection and bit-identical by construction.
 """
@@ -49,8 +53,13 @@ from ... import _build
 from .motion import (MB, compensate_blocks, motion_compensate, motion_search,
                      motion_search_hier)
 
-#: largest search range the search kernel stages in shared memory
-MAX_SEARCH_RANGE = 32
+#: largest search range the search kernels take: the FVC encoder's limit
+#: (vectors are int8 in the bitstream). Above 32 K3 and K6a stage their
+#: window in bands of candidate rows, and K5 pools its window straight
+#: from device memory (csrc/motion.cu).
+MAX_SEARCH_RANGE = 126
+#: the widest range whose whole window a search kernel stages at once
+WHOLE_RANGE = 32
 
 
 def _check_search_args(cur, prev, search_range, mb: int = MB) -> None:
@@ -174,6 +183,8 @@ def _launch_search(wrapper, entry: str, cur, prev, search_range, mb,
             nc, h, w, search_range, *extra, stream), f"{entry} launch")
     if nc and h and w:
         _build.count_launch(wrapper)
+        if search_range > WHOLE_RANGE:   # the banded / pooled arm ran
+            _build.count_launch(wrapper, "wide_launches")
     return mv, pred
 
 
@@ -279,9 +290,14 @@ def _launch_chroma(wrapper, entry: str, prev_cb, prev_cr, mv):
     return pcb, pcr
 
 
-#: kernel launches since the count was last set to 0
+#: kernel launches since the count was last set to 0, and of them those
+#: at ranges above WHOLE_RANGE
 motion_search_mc.launches = 0
 motion_search_mc_blocks.launches = 0
 motion_search_mc_dygrid.launches = 0
 motion_search_mc_hier.launches = 0
 chroma_mc.launches = 0
+motion_search_mc.wide_launches = 0
+motion_search_mc_blocks.wide_launches = 0
+motion_search_mc_dygrid.wide_launches = 0
+motion_search_mc_hier.wide_launches = 0

@@ -160,7 +160,9 @@ constexpr int kMB = 16;  // luma macroblock (K3, K5)
 constexpr int kSearchThreads = 256;  // K3, K6a
 constexpr int kHierThreads = 128;    // K5: each of its stages keeps most of them busy
 constexpr int kHierBlocksPerSM = 6;  // what its shared memory allows at r <= 8
-constexpr int kMaxRange = 32;
+constexpr int kMaxRange = 126;     // the widest range the FVC encoder takes
+constexpr int kWholeRange = 32;    // up to here a block stages its whole window
+constexpr int kBand = 16;          // candidate rows per staged band above it
 constexpr int kMaxChunks = 65535;  // the grid's z extent: one chunk per z
 constexpr size_t kMaxSmem = 232448;  // what one block may ask for on Hopper
 
@@ -212,6 +214,17 @@ __host__ __device__ inline SearchShape search_shape(int mb, int r, int nb) {
 // K3's and K6a's: a row of 128 columns of blocks (64 at r > 8)
 __host__ __device__ inline SearchShape search_shape(int mb, int r) {
   return search_shape(mb, r, (r <= 8 ? 128 : 64) / mb);
+}
+
+// K3's and K6a's above kWholeRange: the same row and columns, but the
+// window holds one band of kBand candidate rows (mb + kBand - 1 rows) at
+// a time. 44.3 KB at mb = 16 and r = 126, against 343 KB for the whole
+// window, which is more than a Hopper block may have.
+__host__ __device__ inline SearchShape band_shape(int mb, int r) {
+  SearchShape s = search_shape(mb, r);
+  s.smem = sizeof(float) * ((size_t)(mb + kBand - 1) * s.stride + (size_t)mb * s.nb * mb) +
+           sizeof(unsigned long long) * s.nb + sizeof(int) * 2 * s.nb;
+  return s;
 }
 
 // floor(a / d) from inv = 1 / d rounded to nearest, for 0 <= a < 2^20 and
@@ -276,15 +289,18 @@ __device__ __forceinline__ void sad_row(float (&acc)[kShifts][kCols], const floa
       acc[s][c] = __fadd_rn(acc[s][c], fabsf(__fsub_rn(cv[c], wv[c + s])));
 }
 
-// The search of nbv blocks of MB x MB staged under one window (win: MB +
-// 2r rows of shape.stride; blk: MB rows of shape.nb * MB, the current
-// blocks): each block's least (cost, c) folded into best[] (kNoWinner
-// beforehand) with a 64-bit atomicMin by the block's NT threads; the
-// caller synchronises before it reads best[].
+// The search of nbv blocks of MB x MB over the candidate rows ey0 ..
+// ey0 + ney - 1 (dy = r - ey) staged under one window (win: MB + ney - 1
+// rows of shape.stride, its row 0 the window row of candidate row ey0;
+// blk: MB rows of shape.nb * MB, the current blocks): each block's least
+// (cost, c) folded into best[] (kNoWinner beforehand) with a 64-bit
+// atomicMin by the block's NT threads. The key carries the candidate's
+// global index c, so bands searched one after the other keep the
+// first-wins order. The caller synchronises before it reads best[].
 template <int MB, int NT>
 __device__ __forceinline__ void search_blocks(const float* win, const float* blk,
-                                              const SearchShape& shape, int nbv, int r,
-                                              unsigned long long* best) {
+                                              const SearchShape& shape, int nbv, int r, int ey0,
+                                              int ney, unsigned long long* best) {
   static_assert(MB % kCols == 0 && 32 % (MB / kCols) == 0,
                 "the items of one candidate's columns share a warp");
   constexpr int JG = MB / kCols;  // items per candidate group
@@ -292,18 +308,18 @@ __device__ __forceinline__ void search_blocks(const float* win, const float* blk
   const int cstride = shape.nb * MB;
   const int t = threadIdx.x;
 
-  // item = ((macroblock * n + ey) * groups + eg) * JG + jg, where candidate
-  // row dy = r - ey reads window rows ey + i, and dx = r - e, e = 4 eg + s - off,
-  // reads window columns mb * MB + j + off + e
+  // item = ((macroblock * ney + el) * groups + eg) * JG + jg, where candidate
+  // row ey = ey0 + el (dy = r - ey) reads window rows el + i, and dx = r - e,
+  // e = 4 eg + s - off, reads window columns mb * MB + j + off + e
   const int n = 2 * r + 1;
-  const int total = nbv * n * groups * JG;
-  const float inv_groups = __frcp_rn((float)groups), inv_n = __frcp_rn((float)n);
+  const int total = nbv * ney * groups * JG;
+  const float inv_groups = __frcp_rn((float)groups), inv_ney = __frcp_rn((float)ney);
   for (int base = 0; base < total; base += NT) {
     const int item = base + t;
     const bool valid = item < total;
     const int jg = item % JG;
     const int q = div_by(item / JG, inv_groups), eg = item / JG - q * groups;
-    const int mbk = div_by(q, inv_n), ey = q - mbk * n;
+    const int mbk = div_by(q, inv_ney), el = q - mbk * ney, ey = ey0 + el;
 
     // column sums: shift s, column c; 0 + x is x, so the sums start as
     // the contract's do, at the first difference
@@ -313,7 +329,7 @@ __device__ __forceinline__ void search_blocks(const float* win, const float* blk
 #pragma unroll
       for (int c = 0; c < kCols; c++) acc[s][c] = 0.f;
     if (valid) {
-      const float* wp = win + ey * stride + mbk * MB + jg * kCols + eg * kShifts;
+      const float* wp = win + el * stride + mbk * MB + jg * kCols + eg * kShifts;
       const float* cp = blk + mbk * MB + jg * kCols;
       // unrolled by 4, not fully: the 16-row body outgrows the instruction
       // cache nearest the schedulers and was measured 11% slower
@@ -374,7 +390,25 @@ __device__ __forceinline__ int2 winner(unsigned long long key, int r) {
   return make_int2(c / n - r, c - (c / n) * n - r);
 }
 
-template <int MB>
+// dst[4 k + q] = src[row, (col + q) mod w], q < 4: one 16-byte store of a
+// prediction read from device memory (row already wrapped)
+__device__ __forceinline__ float4 wrapped_quad(const float* __restrict__ src, int w, int col) {
+  float o[4];
+#pragma unroll
+  for (int q = 0; q < 4; q++) {
+    int c = col + q;
+    if (c < 0 || c >= w) c = wrap(c, w);
+    o[q] = __ldg(src + c);
+  }
+  return make_float4(o[0], o[1], o[2], o[3]);
+}
+
+// BANDED = false (r <= kWholeRange): one window of MB + 2r rows, and the
+// prediction from it. BANDED = true: bands of kBand candidate rows staged
+// in turn into a window of MB + kBand - 1 rows, best[] carried across
+// them, and the prediction read from device memory after the search (the
+// winner's rows are in no band that is still staged).
+template <int MB, bool BANDED>
 __global__ void __launch_bounds__(kSearchThreads, 4)
 motion_search_mc_kernel(const float* __restrict__ cur, const float* __restrict__ prev,
                         int32_t* __restrict__ mv, float* __restrict__ pred, int h, int w,
@@ -387,10 +421,11 @@ motion_search_mc_kernel(const float* __restrict__ cur, const float* __restrict__
   prev += plane;
   pred += plane;
   mv += (size_t)blockIdx.z * (h / MB) * (w / MB) * 2;
-  const SearchShape shape = search_shape(MB, r);
+  const SearchShape shape = BANDED ? band_shape(MB, r) : search_shape(MB, r);
   const int stride = shape.stride, off = shape.off;
   const int cstride = shape.nb * MB;
-  const int span = MB + 2 * r;
+  const int n = 2 * r + 1;
+  const int span = BANDED ? MB + kBand - 1 : MB + 2 * r;
   float* win = smem;                  // span x stride
   float* blk = win + span * stride;   // MB x cstride: the current blocks
   unsigned long long* best = reinterpret_cast<unsigned long long*>(blk + MB * cstride);
@@ -403,12 +438,23 @@ motion_search_mc_kernel(const float* __restrict__ cur, const float* __restrict__
   const int nbv = min(shape.nb, w / MB - mb0);  // macroblocks of this block
 
   // window element (a, b) = prev[(y0 - r + a) mod h, (x0 - r - off + b) mod w]
-  stage_window<kSearchThreads>(win, prev, h, w, y0 - r, x0 - r - off, span, stride);
+  if (!BANDED) stage_window<kSearchThreads>(win, prev, h, w, y0 - r, x0 - r - off, span, stride);
   stage_rows<kSearchThreads>(blk, cur, w, y0, x0, MB, nbv * MB, cstride);
   if (t < shape.nb) best[t] = kNoWinner;
-  __syncthreads();
-
-  search_blocks<MB, kSearchThreads>(win, blk, shape, nbv, r, best);
+  if (BANDED) {
+    for (int ey0 = 0; ey0 < n; ey0 += kBand) {
+      const int ney = min(kBand, n - ey0);
+      __syncthreads();  // the previous band's items are done with the window
+      // band element (a, b) = prev[(y0 - r + ey0 + a) mod h, (x0 - r - off + b) mod w]
+      stage_window<kSearchThreads>(win, prev, h, w, y0 - r + ey0, x0 - r - off, MB + ney - 1,
+                                   stride);
+      __syncthreads();
+      search_blocks<MB, kSearchThreads>(win, blk, shape, nbv, r, ey0, ney, best);
+    }
+  } else {
+    __syncthreads();
+    search_blocks<MB, kSearchThreads>(win, blk, shape, nbv, r, 0, n, best);
+  }
   __syncthreads();
 
   if (t < nbv) {
@@ -425,9 +471,16 @@ motion_search_mc_kernel(const float* __restrict__ cur, const float* __restrict__
   for (int k = t; k < MB * c4; k += kSearchThreads) {
     const int i = div_by(k, inv_c4), b = 4 * (k - i * c4);
     const int m = b / MB;
-    const float* src = win + (i + r - vec[2 * m]) * stride + b + r + off - vec[2 * m + 1];
-    *reinterpret_cast<float4*>(pred + (size_t)(y0 + i) * w + x0 + b) =
-        make_float4(src[0], src[1], src[2], src[3]);
+    float4 o;
+    if (BANDED) {
+      int row = y0 + i - vec[2 * m];
+      if (row < 0 || row >= h) row = wrap(row, h);
+      o = wrapped_quad(prev + (size_t)row * w, w, x0 + b - vec[2 * m + 1]);
+    } else {
+      const float* src = win + (i + r - vec[2 * m]) * stride + b + r + off - vec[2 * m + 1];
+      o = make_float4(src[0], src[1], src[2], src[3]);
+    }
+    *reinterpret_cast<float4*>(pred + (size_t)(y0 + i) * w + x0 + b) = o;
   }
 }
 
@@ -472,6 +525,77 @@ __device__ __forceinline__ void load3(float (&x)[3], const float* p) {
   x[0] = p[1];
   x[1] = p[0];
   x[2] = p[-1];
+}
+
+// K5's refine, thread (m, j): column j of macroblock m (cp: its first
+// current value, rows bstride apart) summed down its 16 rows for the nine
+// candidates base + (oy, ox), c = 3 (oy + 1) + ox + 1, into cols[(m * 9 +
+// c) * kColStride + j]. wp: the window value that candidate (0, 0) reads
+// at row 0; candidate (oy, ox) reads row i - oy and column - ox from it,
+// so each row of the walk loads one new window row of three values (a
+// sliding 3-row register window, 4 shared loads per 9 differences).
+__device__ __forceinline__ void refine_column(float* cols, const float* cp, int bstride,
+                                              const float* wp, int stride, int m, int j) {
+  float acc[9];
+#pragma unroll
+  for (int c = 0; c < 9; c++) acc[c] = 0.f;
+  float up[3], mid[3], down[3];
+  load3(up, wp - stride);
+  load3(mid, wp);
+#pragma unroll
+  for (int i = 0; i < kMB; i++) {
+    const float cv = cp[i * bstride];
+    load3(down, wp + (i + 1) * stride);
+#pragma unroll
+    for (int q = 0; q < 3; q++) {
+      acc[q] = __fadd_rn(acc[q], fabsf(__fsub_rn(cv, down[q])));        // oy = -1
+      acc[3 + q] = __fadd_rn(acc[3 + q], fabsf(__fsub_rn(cv, mid[q])));  // oy = 0
+      acc[6 + q] = __fadd_rn(acc[6 + q], fabsf(__fsub_rn(cv, up[q])));   // oy = 1
+      up[q] = mid[q];
+      mid[q] = down[q];
+    }
+  }
+#pragma unroll
+  for (int c = 0; c < 9; c++) cols[(m * 9 + c) * kColStride + j] = acc[c];
+}
+
+// K5's pick: lanes (m, c), 16 to a macroblock: candidate c < 9 adds its 16
+// column sums left to right; the least (cost, c) key of the 16 lanes wins
+// (the first in row-major order among equal costs, as a strict < scan
+// keeps it; NaN and +inf never win). vec[2m], vec[2m + 1]: the base in,
+// the vector out, also stored to mvrow[2m], mvrow[2m + 1]. nb * 16
+// threads are whole warps.
+__device__ __forceinline__ void pick_refined(const float* cols, int* vec, int32_t* mvrow, int nb,
+                                             int nbv) {
+  const int t = threadIdx.x;
+  if (t < nb * kMB) {
+    const int m = t >> 4, c = t & 15;
+    unsigned long long key = kNoWinner;
+    if (m < nbv && c < 9) {
+      const float* cp = cols + (m * 9 + c) * kColStride;
+      float sad = cp[0];
+#pragma unroll
+      for (int j = 1; j < kMB; j++) sad = __fadd_rn(sad, cp[j]);
+      // SADs are >= +0, so their bit patterns order as they do
+      if (sad < INFINITY) key = ((unsigned long long)__float_as_uint(sad) << 32) | (unsigned)c;
+    }
+#pragma unroll
+    for (int s = 8; s; s >>= 1) {
+      const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, s);
+      key = other < key ? other : key;
+    }
+    if (c == 0 && m < nbv) {
+      int vy = 0, vx = 0;  // every cost NaN: the plain version keeps (0, 0)
+      if (key != kNoWinner) {
+        const int b = (int)(key & 0xffffffffu);
+        vy = vec[2 * m] + b / 3 - 1;
+        vx = vec[2 * m + 1] + b % 3 - 1;
+      }
+      vec[2 * m] = vy;
+      vec[2 * m + 1] = vx;
+      *reinterpret_cast<int2*>(mvrow + 2 * m) = make_int2(vy, vx);
+    }
+  }
 }
 
 __global__ void __launch_bounds__(kHierThreads, kHierBlocksPerSM)
@@ -533,7 +657,7 @@ motion_search_hier_kernel(const float* __restrict__ cur, const float* __restrict
   __syncthreads();
 
   // the coarse search, K6a's contract at 8x8 and rc
-  search_blocks<8, kHierThreads>(cwin, cblk, cs, nbv, rc, best);
+  search_blocks<8, kHierThreads>(cwin, cblk, cs, nbv, rc, 0, 2 * rc + 1, best);
   __syncthreads();
 
   // the base: the coarse vector doubled, clipped to +-(r - 1)
@@ -544,72 +668,16 @@ motion_search_hier_kernel(const float* __restrict__ cur, const float* __restrict
   }
   __syncthreads();
 
-  // the refine: thread (m, j) sums column j of macroblock m down its 16
-  // rows for the nine candidates base + (oy, ox), c = 3 (oy + 1) + ox + 1.
-  // Candidate (oy, ox) reads window row i + rim - by - oy, column
-  // m * 16 + j + rim + off - bx - ox: rows i - 1, i, i + 1 around wp's, so
-  // each row of the walk loads one new window row of three values.
+  // the refine: thread (m, j) sums column j of macroblock m for the nine
+  // candidates around its base
   if (t < nbv * kMB) {
     const int m = t >> 4, j = t & 15;
-    const float* cp = blk + m * kMB + j;
-    const float* wp = win + (rim - vec[2 * m]) * stride + m * kMB + j + rim + off - vec[2 * m + 1];
-    float acc[9];
-#pragma unroll
-    for (int c = 0; c < 9; c++) acc[c] = 0.f;
-    float up[3], mid[3], down[3];
-    load3(up, wp - stride);
-    load3(mid, wp);
-#pragma unroll
-    for (int i = 0; i < kMB; i++) {
-      const float cv = cp[i * bstride];
-      load3(down, wp + (i + 1) * stride);
-#pragma unroll
-      for (int q = 0; q < 3; q++) {
-        acc[q] = __fadd_rn(acc[q], fabsf(__fsub_rn(cv, down[q])));        // oy = -1
-        acc[3 + q] = __fadd_rn(acc[3 + q], fabsf(__fsub_rn(cv, mid[q])));  // oy = 0
-        acc[6 + q] = __fadd_rn(acc[6 + q], fabsf(__fsub_rn(cv, up[q])));   // oy = 1
-        up[q] = mid[q];
-        mid[q] = down[q];
-      }
-    }
-#pragma unroll
-    for (int c = 0; c < 9; c++) cols[(m * 9 + c) * kColStride + j] = acc[c];
+    refine_column(cols, blk + m * kMB + j, bstride,
+                  win + (rim - vec[2 * m]) * stride + m * kMB + j + rim + off - vec[2 * m + 1],
+                  stride, m, j);
   }
   __syncthreads();
-
-  // lanes (m, c), 16 to a macroblock: candidate c < 9 adds its 16 column
-  // sums left to right; the least (cost, c) key of the 16 lanes wins (the
-  // first in row-major order among equal costs, as a strict < scan keeps
-  // it; NaN and +inf never win). nb * 16 threads are whole warps.
-  if (t < nb * kMB) {
-    const int m = t >> 4, c = t & 15;
-    unsigned long long key = kNoWinner;
-    if (m < nbv && c < 9) {
-      const float* cp = cols + (m * 9 + c) * kColStride;
-      float sad = cp[0];
-#pragma unroll
-      for (int j = 1; j < kMB; j++) sad = __fadd_rn(sad, cp[j]);
-      // SADs are >= +0, so their bit patterns order as they do
-      if (sad < INFINITY) key = ((unsigned long long)__float_as_uint(sad) << 32) | (unsigned)c;
-    }
-#pragma unroll
-    for (int s = 8; s; s >>= 1) {
-      const unsigned long long other = __shfl_xor_sync(0xffffffffu, key, s);
-      key = other < key ? other : key;
-    }
-    if (c == 0 && m < nbv) {
-      int vy = 0, vx = 0;  // every cost NaN: the plain version keeps (0, 0)
-      if (key != kNoWinner) {
-        const int b = (int)(key & 0xffffffffu);
-        vy = vec[2 * m] + b / 3 - 1;
-        vx = vec[2 * m + 1] + b % 3 - 1;
-      }
-      vec[2 * m] = vy;
-      vec[2 * m + 1] = vx;
-      *reinterpret_cast<int2*>(mv + ((size_t)blockIdx.y * (w / kMB) + mb0 + m) * 2) =
-          make_int2(vy, vx);
-    }
-  }
+  pick_refined(cols, vec, mv + ((size_t)blockIdx.y * (w / kMB) + mb0) * 2, nb, nbv);
   __syncthreads();
 
   // the prediction from the window, 16 bytes per store
@@ -621,6 +689,151 @@ motion_search_hier_kernel(const float* __restrict__ cur, const float* __restrict
     const float* src = win + (i + rim - vec[2 * m]) * stride + b + rim + off - vec[2 * m + 1];
     *reinterpret_cast<float4*>(pred + (size_t)(y0 + i) * w + x0 + b) =
         make_float4(src[0], src[1], src[2], src[3]);
+  }
+}
+
+constexpr int kLocRows = kMB + 2;    // K5 above kWholeRange: a macroblock's refine window
+constexpr int kLocStride = kMB + 4;  // its row: 18 values, 20 words apart
+
+// what the host sizes for a launch of K5 above kWholeRange and the kernel
+// lays out the same way
+struct HierWideShape {
+  int nb;              // macroblocks per thread block (K3's count at r)
+  int rc;              // the coarse range, max(1, r / 2)
+  SearchShape coarse;  // the pooled window and blocks: K6a's layout at 8x8, rc and nb
+  size_t smem;         // bytes
+};
+
+__host__ __device__ inline HierWideShape hier_wide_shape(int r) {
+  HierWideShape s;
+  s.nb = search_shape(kMB, r).nb;
+  s.rc = r / 2 > 1 ? r / 2 : 1;
+  s.coarse = search_shape(8, s.rc, s.nb);
+  const size_t floats = (size_t)(8 + 2 * s.rc) * s.coarse.stride + (size_t)kMB * s.nb * kMB +
+                        (size_t)8 * s.nb * 8 + (size_t)s.nb * 9 * kColStride +
+                        (size_t)s.nb * kLocRows * kLocStride;
+  s.smem = sizeof(float) * floats + sizeof(unsigned long long) * s.nb + sizeof(int) * 4 * s.nb;
+  return s;
+}
+
+// K5 above kWholeRange (r = 33 .. 126). The full-resolution window of
+// motion_search_hier_kernel (rim r: (16 + 2r)^2 floats, 281 KB at r = 126)
+// outgrows a block's 227 KB, and neither stage needs it: the coarse search
+// reads the pooled plane, and the refine a +-1 neighbourhood of each
+// macroblock's base. So the block pools the window straight from device
+// memory into shared memory (two 8-byte loads per pooled value, in
+// subsample_420's order, wrap-around on the pooled plane), runs the same
+// coarse search on it, then stages one (16 + 2) x (16 + 2) window per
+// macroblock around its base, from which the same refine, pick and
+// prediction run. One launch per call, as below kWholeRange.
+__global__ void __launch_bounds__(kHierThreads)
+motion_search_hier_wide_kernel(const float* __restrict__ cur, const float* __restrict__ prev,
+                               int32_t* __restrict__ mv, float* __restrict__ pred, int h, int w,
+                               int r) {
+  extern __shared__ __align__(16) float smem[];
+  // chunk blockIdx.z, as in motion_search_mc_kernel
+  const size_t plane = (size_t)blockIdx.z * h * w;
+  cur += plane;
+  prev += plane;
+  pred += plane;
+  mv += (size_t)blockIdx.z * (h / kMB) * (w / kMB) * 2;
+  const HierWideShape shape = hier_wide_shape(r);
+  const SearchShape& cs = shape.coarse;
+  const int nb = shape.nb, rc = shape.rc;
+  const int bstride = nb * kMB, cspan = 8 + 2 * rc, cbstride = nb * 8;
+  float* cwin = smem;                      // cspan x cs.stride: the pooled window
+  float* blk = cwin + cspan * cs.stride;   // 16 x bstride: the current rows
+  float* cblk = blk + kMB * bstride;       // 8 x cbstride: the pooled current rows
+  unsigned long long* best = reinterpret_cast<unsigned long long*>(cblk + 8 * cbstride);
+  float* cols = reinterpret_cast<float*>(best + nb);  // nb x 9 x kColStride
+  float* loc = cols + nb * 9 * kColStride;            // nb x kLocRows x kLocStride
+  int* vec = reinterpret_cast<int*>(loc + nb * kLocRows * kLocStride);  // (dy, dx)
+  int* base = vec + 2 * nb;  // the refine's base per macroblock
+
+  const int t = threadIdx.x;
+  const int y0 = blockIdx.y * kMB;
+  const int mb0 = blockIdx.x * nb;
+  const int x0 = mb0 * kMB;
+  const int nbv = min(nb, w / kMB - mb0);  // macroblocks of this block
+  const int hh = h / 2, hw = w / 2;
+
+  stage_rows<kHierThreads>(blk, cur, w, y0, x0, kMB, nbv * kMB, bstride);
+  if (t < nb) best[t] = kNoWinner;
+
+  // pooled window element (a, b) = pooled prev[(y0/2 - rc + a) mod h/2,
+  // (x0/2 - rc - cs.off + b) mod w/2], the mean of full-resolution rows
+  // 2pa, 2pa + 1 and columns 2pb, 2pb + 1. The columns no kept shift reads
+  // (the groups' spare ones) are 0.
+  const int used = cs.off + nbv * 8 + 2 * rc;
+  const float inv_cstride = __frcp_rn((float)cs.stride);
+  for (int k = t; k < cspan * cs.stride; k += kHierThreads) {
+    const int a = div_by(k, inv_cstride), b = k - a * cs.stride;
+    float v = 0.f;
+    if (b >= cs.off && b < used) {
+      int pa = y0 / 2 - rc + a, pb = x0 / 2 - rc - cs.off + b;
+      if (pa < 0 || pa >= hh) pa = wrap(pa, hh);
+      if (pb < 0 || pb >= hw) pb = wrap(pb, hw);
+      const float* p = prev + (size_t)(2 * pa) * w + 2 * pb;
+      const float2 p0 = __ldg(reinterpret_cast<const float2*>(p));
+      const float2 p1 = __ldg(reinterpret_cast<const float2*>(p + w));
+      v = __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(p0.x, p0.y), p1.x), p1.y), 0.25f);
+    }
+    cwin[k] = v;
+  }
+  __syncthreads();
+  const int cw = nbv * 8;
+  const float inv_cw = __frcp_rn((float)cw);
+  for (int k = t; k < 8 * cw; k += kHierThreads) {
+    const int i = div_by(k, inv_cw), j = k - i * cw;
+    cblk[i * cbstride + j] = pool4(blk + 2 * i * bstride + 2 * j, bstride);
+  }
+  __syncthreads();
+
+  // the coarse search, K6a's contract at 8x8 and rc
+  search_blocks<8, kHierThreads>(cwin, cblk, cs, nbv, rc, 0, 2 * rc + 1, best);
+  __syncthreads();
+
+  // the base: the coarse vector doubled, clipped to +-(r - 1)
+  if (t < nbv) {
+    const int2 c = winner(best[t], rc);
+    vec[2 * t] = base[2 * t] = max(-(r - 1), min(r - 1, 2 * c.x));
+    vec[2 * t + 1] = base[2 * t + 1] = max(-(r - 1), min(r - 1, 2 * c.y));
+  }
+  __syncthreads();
+
+  // macroblock m's refine window: loc element (a, b) = prev[(y0 - by - 1 +
+  // a) mod h, (x0 + 16 m - bx - 1 + b) mod w], a, b < 18
+  constexpr int kLoc = kLocRows * kLocRows;
+  const float inv_loc = __frcp_rn((float)kLoc), inv_rows = __frcp_rn((float)kLocRows);
+  for (int k = t; k < nbv * kLoc; k += kHierThreads) {
+    const int m = div_by(k, inv_loc), e = k - m * kLoc;
+    const int a = div_by(e, inv_rows), b = e - a * kLocRows;
+    int row = y0 - base[2 * m] - 1 + a, col = x0 + m * kMB - base[2 * m + 1] - 1 + b;
+    if (row < 0 || row >= h) row = wrap(row, h);
+    if (col < 0 || col >= w) col = wrap(col, w);
+    loc[(m * kLocRows + a) * kLocStride + b] = __ldg(prev + (size_t)row * w + col);
+  }
+  __syncthreads();
+
+  // the refine and the pick, as motion_search_hier_kernel's
+  if (t < nbv * kMB) {
+    const int m = t >> 4, j = t & 15;
+    refine_column(cols, blk + m * kMB + j, bstride, loc + (m * kLocRows + 1) * kLocStride + 1 + j,
+                  kLocStride, m, j);
+  }
+  __syncthreads();
+  pick_refined(cols, vec, mv + ((size_t)blockIdx.y * (w / kMB) + mb0) * 2, nb, nbv);
+  __syncthreads();
+
+  // the prediction from each macroblock's refine window: vector base +
+  // (oy, ox) reads its row i + 1 - oy, column j + 1 - ox
+  const float inv_cols = __frcp_rn((float)(nbv * kMB));
+  for (int k = t; k < kMB * nbv * kMB; k += kHierThreads) {
+    const int i = div_by(k, inv_cols), j = k - i * nbv * kMB;
+    const int m = j >> 4;
+    const int oy = vec[2 * m] - base[2 * m], ox = vec[2 * m + 1] - base[2 * m + 1];
+    pred[(size_t)(y0 + i) * w + x0 + j] =
+        loc[(m * kLocRows + i + 1 - oy) * kLocStride + (j & 15) + 1 - ox];
   }
 }
 
@@ -691,14 +904,20 @@ int launch_search(const void* cur, const void* prev, void* mv, void* pred, int n
   if (nc < 0 || nc > kMaxChunks) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)cur | (uintptr_t)prev | (uintptr_t)pred) % 16) return (int)cudaErrorInvalidValue;
   if (nc == 0 || h == 0 || w == 0) return (int)cudaSuccess;
-  const SearchShape shape = search_shape(MB, r);
-  // the largest, MB = 16 at r = 32, is 45.3 KB: within what a launch may
-  // ask for without cudaFuncSetAttribute
+  const bool banded = r > kWholeRange;
+  const SearchShape shape = banded ? band_shape(MB, r) : search_shape(MB, r);
+  // the largest, MB = 16 at r = 32 (whole) and r = 126 (banded), are 45.3
+  // and 44.3 KB: within what a launch may ask for without
+  // cudaFuncSetAttribute
   if (shape.smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   const int mbw = w / MB;
   const dim3 grid((mbw + shape.nb - 1) / shape.nb, h / MB, nc);
-  motion_search_mc_kernel<MB><<<grid, kSearchThreads, shape.smem, (cudaStream_t)stream>>>(
-      (const float*)cur, (const float*)prev, (int32_t*)mv, (float*)pred, h, w, r);
+  if (banded)
+    motion_search_mc_kernel<MB, true><<<grid, kSearchThreads, shape.smem, (cudaStream_t)stream>>>(
+        (const float*)cur, (const float*)prev, (int32_t*)mv, (float*)pred, h, w, r);
+  else
+    motion_search_mc_kernel<MB, false><<<grid, kSearchThreads, shape.smem, (cudaStream_t)stream>>>(
+        (const float*)cur, (const float*)prev, (int32_t*)mv, (float*)pred, h, w, r);
   return (int)cudaGetLastError();
 }
 
@@ -735,8 +954,8 @@ extern "C" {
 // nc GOP chunks) and serves them in one launch; nc = 1 is one plane pair.
 //
 // cur, prev: (nc, h, w) float32, h and w multiples of 16; mv: (nc, h/16,
-// w/16, 2) int32 out; pred: (nc, h, w) float32 out; 0 <= r <= 32;
-// 0 <= nc <= 65535.
+// w/16, 2) int32 out; pred: (nc, h, w) float32 out; 0 <= r <= 126 (above
+// 32 the window is staged in bands of candidate rows); 0 <= nc <= 65535.
 int flu_motion_search_mc(const void* cur, const void* prev, void* mv, void* pred, int nc, int h,
                          int w, int r, void* stream) {
   return launch_search<kMB>(cur, prev, mv, pred, nc, h, w, r, stream);
@@ -753,25 +972,34 @@ int flu_motion_search_mc_blocks(const void* cur, const void* prev, void* mv, voi
 
 // K5, the whole hier search: cur, prev (nc, h, w) float32, multiples of 16,
 // 16-byte aligned; mv (nc, h/16, w/16, 2) int32 out; pred (nc, h, w)
-// float32 out; 1 <= r <= 32. Above 48 KB of shared memory (r >= 24) the
-// launch asks for more; a shape past the 227 KB a block may have is
-// refused.
+// float32 out; 1 <= r <= 126 (above 32 motion_search_hier_wide_kernel).
+// Above 48 KB of shared memory (r >= 24) the launch asks for more; a
+// shape past the 227 KB a block may have is refused.
 int flu_motion_search_hier(const void* cur, const void* prev, void* mv, void* pred, int nc, int h,
                            int w, int r, void* stream) {
   if (h % kMB || w % kMB || r < 1 || r > kMaxRange) return (int)cudaErrorInvalidValue;
   if (nc < 0 || nc > kMaxChunks) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)cur | (uintptr_t)prev | (uintptr_t)pred) % 16) return (int)cudaErrorInvalidValue;
   if (nc == 0 || h == 0 || w == 0) return (int)cudaSuccess;
-  const HierShape shape = hier_shape(r);
-  if (shape.smem > kMaxSmem) return (int)cudaErrorInvalidValue;
-  if (shape.smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        motion_search_hier_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)shape.smem);
+  const bool wide = r > kWholeRange;
+  const size_t smem = wide ? hier_wide_shape(r).smem : hier_shape(r).smem;
+  const int nb = wide ? hier_wide_shape(r).nb : hier_shape(r).nb;
+  if (smem > kMaxSmem) return (int)cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        wide ? cudaFuncSetAttribute(motion_search_hier_wide_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem)
+             : cudaFuncSetAttribute(motion_search_hier_kernel,
+                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return (int)err;
   }
-  const dim3 grid((w / kMB + shape.nb - 1) / shape.nb, h / kMB, nc);
-  motion_search_hier_kernel<<<grid, kHierThreads, shape.smem, (cudaStream_t)stream>>>(
-      (const float*)cur, (const float*)prev, (int32_t*)mv, (float*)pred, h, w, r);
+  const dim3 grid((w / kMB + nb - 1) / nb, h / kMB, nc);
+  if (wide)
+    motion_search_hier_wide_kernel<<<grid, kHierThreads, smem, (cudaStream_t)stream>>>(
+        (const float*)cur, (const float*)prev, (int32_t*)mv, (float*)pred, h, w, r);
+  else
+    motion_search_hier_kernel<<<grid, kHierThreads, smem, (cudaStream_t)stream>>>(
+        (const float*)cur, (const float*)prev, (int32_t*)mv, (float*)pred, h, w, r);
   return (int)cudaGetLastError();
 }
 

@@ -10,10 +10,15 @@ at import time. The Makefile itself writes into the JAX package's
 directory, so it is not used here.
 
 Bound entries: the baseline-JPEG scan coder ``flu_jpeg_encode_scan``,
-the scan decoder ``flu_jpeg_decode_scan`` and the segment-layout host
-compaction ``flu_compact_segments_finalize``. ``get_lib()`` returns None
-where the library cannot be built (no C++ toolchain) or when
-``FLUTPU_NO_NATIVE`` is set; callers then take their numpy versions.
+the scan decoder ``flu_jpeg_decode_scan``, the segment-layout host
+compaction ``flu_compact_segments_finalize``, and the entries that
+``flutpu.native`` binds for the port's copies of ``fluc`` and ``io``: the
+mutex, monitor and barrier (``flu_mutex_*``, ``flu_monitor_*``,
+``flu_barrier_*``), the bandwidth meter and its per-connection variant
+(``flu_bwmeter_*``) and the downloader (``flu_dl_*``, with the callback
+types ``DATA_CB`` and ``DONE_CB``). ``get_lib()`` returns None where the
+library cannot be built (no C++ toolchain) or when ``FLUTPU_NO_NATIVE``
+is set; callers then take their numpy or pure-Python versions.
 """
 
 from __future__ import annotations
@@ -143,6 +148,14 @@ def get_lib() -> Optional[ctypes.CDLL]:
         return _lib
 
 
+# Python-side callback ABI for the downloader (flutpu.native's)
+DATA_CB = ctypes.CFUNCTYPE(ctypes.c_int, ctypes.c_void_p, ctypes.c_size_t,
+                           ctypes.c_void_p, ctypes.c_void_p)
+DONE_CB = ctypes.CFUNCTYPE(None, ctypes.c_int, ctypes.c_int, ctypes.c_size_t,
+                           ctypes.c_void_p, ctypes.c_void_p,
+                           ctypes.POINTER(ctypes.c_int))
+
+
 def _configure(lib) -> None:
     c = ctypes
     i16p = c.POINTER(c.c_int16)
@@ -169,3 +182,91 @@ def _configure(lib) -> None:
         u8p, u8p, c.c_int, u8p, u8p, c.c_int,
         u8p, u8p, c.c_int, u8p, u8p, c.c_int,
     ]
+    # fluc primitives
+    for name in ("flu_mutex_new", "flu_monitor_new"):
+        getattr(lib, name).restype = c.c_void_p
+    lib.flu_barrier_new.restype = c.c_void_p
+    lib.flu_barrier_new.argtypes = [c.c_int]
+    for name in ("flu_mutex_lock", "flu_mutex_unlock", "flu_mutex_free",
+                 "flu_monitor_lock", "flu_monitor_unlock", "flu_monitor_wait",
+                 "flu_monitor_signal", "flu_monitor_broadcast",
+                 "flu_monitor_free", "flu_barrier_pass", "flu_barrier_free"):
+        getattr(lib, name).argtypes = [c.c_void_p]
+    lib.flu_mutex_trylock.argtypes = [c.c_void_p]
+    lib.flu_mutex_trylock.restype = c.c_int
+    lib.flu_monitor_wait_ms.argtypes = [c.c_void_p, c.c_long]
+    lib.flu_monitor_wait_ms.restype = c.c_int
+    lib.flu_barrier_set_open.argtypes = [c.c_void_p, c.c_int]
+    lib.flu_barrier_is_open.argtypes = [c.c_void_p]
+    lib.flu_barrier_is_open.restype = c.c_int
+    lib.flu_barrier_trypass_ms.argtypes = [c.c_void_p, c.c_long]
+    lib.flu_barrier_trypass_ms.restype = c.c_int
+    # bwmeter
+    lib.flu_bwmeter_data.argtypes = [c.c_uint64]
+    lib.flu_bwmeter_get.argtypes = [c.POINTER(c.c_double),
+                                    c.POINTER(c.c_double),
+                                    c.POINTER(c.c_uint64)]
+    # bwmeter sock variant (per-connection instance meters); hasattr-gated
+    # in bwmeter.py so a stale .so degrades to the Python meter
+    if hasattr(lib, "flu_bwmeter_sock_new"):
+        lib.flu_bwmeter_sock_new.restype = c.c_void_p
+        for name in ("flu_bwmeter_sock_free", "flu_bwmeter_sock_start",
+                     "flu_bwmeter_sock_end"):
+            getattr(lib, name).argtypes = [c.c_void_p]
+        lib.flu_bwmeter_sock_data.argtypes = [c.c_void_p, c.c_uint64]
+        lib.flu_bwmeter_sock_get.argtypes = [c.c_void_p,
+                                             c.POINTER(c.c_double),
+                                             c.POINTER(c.c_double),
+                                             c.POINTER(c.c_uint64)]
+    # downloader
+    lib.flu_dl_new.restype = c.c_void_p
+    lib.flu_dl_new.argtypes = [DATA_CB, DONE_CB]
+    lib.flu_dl_destroy.argtypes = [c.c_void_p]
+    lib.flu_dl_new_task.restype = c.c_void_p
+    lib.flu_dl_new_task.argtypes = [c.c_void_p, c.c_char_p, c.c_char_p,
+                                    c.c_void_p]
+    lib.flu_dl_abort_task.argtypes = [c.c_void_p]
+    lib.flu_dl_abort_all.argtypes = [c.c_void_p, c.c_int]
+    lib.flu_dl_pause.argtypes = [c.c_void_p]
+    lib.flu_dl_resume.argtypes = [c.c_void_p]
+    lib.flu_dl_task_get_url.restype = c.c_char_p
+    lib.flu_dl_task_get_url.argtypes = [c.c_void_p]
+    lib.flu_dl_task_get_length.restype = c.c_size_t
+    lib.flu_dl_task_get_length.argtypes = [c.c_void_p]
+    lib.flu_dl_task_get_http_status.restype = c.c_int
+    lib.flu_dl_task_get_http_status.argtypes = [c.c_void_p]
+    lib.flu_dl_task_get_date.restype = c.c_char_p
+    lib.flu_dl_task_get_date.argtypes = [c.c_void_p]
+    lib.flu_dl_task_get_header.restype = c.c_char_p
+    lib.flu_dl_task_get_header.argtypes = [c.c_void_p]
+    lib.flu_dl_task_get_outcome.restype = c.c_int
+    lib.flu_dl_task_get_outcome.argtypes = [c.c_void_p]
+    lib.flu_dl_task_set_outcome.argtypes = [c.c_void_p, c.c_int]
+    lib.flu_dl_outcome_string.restype = c.c_char_p
+    lib.flu_dl_outcome_string.argtypes = [c.c_int]
+    lib.flu_dl_set_polling_period.argtypes = [c.c_void_p, c.c_long]
+    lib.flu_dl_get_polling_period.restype = c.c_long
+    lib.flu_dl_get_polling_period.argtypes = [c.c_void_p]
+    lib.flu_dl_set_timeouts.argtypes = [c.c_void_p, c.c_long, c.c_long]
+    lib.flu_dl_set_user_agent.argtypes = [c.c_void_p, c.c_char_p]
+    lib.flu_dl_set_cookies.argtypes = [c.c_void_p, c.c_char_p]
+    lib.flu_dl_set_proxy.argtypes = [c.c_void_p, c.c_char_p]
+    lib.flu_dl_set_ssl.argtypes = [c.c_void_p, c.c_int, c.c_char_p]
+    lib.flu_dl_ssl_available.restype = c.c_int
+    lib.flu_dl_task_get_ssl_status.restype = c.c_int
+    lib.flu_dl_task_get_ssl_status.argtypes = [c.c_void_p]
+    lib.flu_dl_get_tasks_count.restype = c.c_int
+    lib.flu_dl_get_tasks_count.argtypes = [c.c_void_p]
+    # reference-parity surface (fludownloader.h:94-185); hasattr-gated:
+    # these landed in round 4, and a stale pre-round-4 .so (no make
+    # toolchain to rebuild) must degrade per the module contract, not
+    # AttributeError out of the first get_lib() caller
+    if hasattr(lib, "flu_dl_lock"):
+        lib.flu_dl_lock.argtypes = [c.c_void_p]
+        lib.flu_dl_unlock.argtypes = [c.c_void_p]
+        lib.flu_dl_task_get_abort.restype = c.c_int
+        lib.flu_dl_task_get_abort.argtypes = [c.c_void_p]
+        lib.flu_dl_ssl_status_string.restype = c.c_char_p
+        lib.flu_dl_ssl_status_string.argtypes = [c.c_int]
+        lib.flu_dl_getdate.restype = c.c_longlong
+        lib.flu_dl_getdate.argtypes = [c.c_char_p]

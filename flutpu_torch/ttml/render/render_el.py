@@ -208,15 +208,17 @@ class TTMLRender(TTMLBase):
                             layer, p.opacity)
 
     def _fetch_image(self, ref: str) -> Optional[np.ndarray]:
-        """Embedded '#id' images from saved_data (reference
-        gstttmlrender.c:344-419). URL references need the downloader,
-        which the port does not have yet: they raise rather than drop the
-        image."""
-        if not ref.startswith("#"):
-            raise NotImplementedError(
-                f"background image {ref!r}: only embedded '#id' images are "
-                "ported; URL images need the downloader")
-        data: Optional[bytes] = self.parse_state.restore_data(ref[1:])
+        """Embedded '#id' images from saved_data; URLs via the downloader
+        (reference gstttmlrender.c:344-419)."""
+        data: Optional[bytes] = None
+        if ref.startswith("#"):
+            data = self.parse_state.restore_data(ref[1:])
+        else:
+            try:
+                from ...io.helper import download_sync
+                data = download_sync(ref)
+            except Exception:
+                data = None
         if not data:
             return None
         try:

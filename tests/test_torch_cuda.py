@@ -998,3 +998,144 @@ def test_render_on_card_matches_cpu(cuda_device):
         A.atlas_from_numpy(list(tiles), device=d).device_array(), ints, cols,
         100, 200) for d in (cuda_device, "cpu")]
     assert wins[0].is_cuda and torch.equal(wins[0].cpu(), wins[1])
+
+
+# -- search ranges 33-126: K3 and K6a in bands, K5 pooled from device memory
+
+WIDE = {"K3": (lambda c, p, r: M.motion_search_mc(c, p, r),
+               lambda c, p, r: M.motion_search_mc_plain(c, p, r),
+               "motion_search_mc"),
+        "K6a-16": (lambda c, p, r: M.motion_search_mc_blocks(c, p, r, 16),
+                   lambda c, p, r: M.motion_search_mc_blocks_plain(
+                       c, p, r, 16), "motion_search_mc_blocks"),
+        "K6a-8": SEARCHES["K6a-8"], "K5": SEARCHES["K5"]}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(WIDE))
+@pytest.mark.parametrize("h,w,r", [(96, 160, 33), (96, 176, 48),
+                                   (96, 160, 64), (64, 96, 126),
+                                   (160, 272, 126)])
+def test_wide_search_kernels_match_plain(cuda_device, name, h, w, r):
+    """Above r = 32 (K3 and K6a stage bands of 16 candidate rows, K5
+    pools its window from device memory and refines from an 18x18 window
+    per macroblock): one launch, vectors and predictions bit-identical to
+    the plain version on a rolled pair with one divergent macroblock, on
+    integer-valued planes (ties abound), on a flat plane and on NaN in
+    one macroblock of cur and one pixel of prev. At r = 126 the window
+    wraps a 64x96 plane several times; 96x176 leaves a partial row of
+    macroblocks."""
+    kernel, plain, wrapper = WIDE[name]
+    count = getattr(M, wrapper)
+    rng = np.random.default_rng(h + w + r)
+    cur, prev = _rolled_pair(h, w, h + r, (r // 3, -(r // 2)))
+    cur[16:32, 32:48] = rng.uniform(0, 255, (16, 16))
+    ints = rng.integers(0, 4, (h, w)).astype(np.float32)
+    flat = np.full((h, w), 100.0, np.float32)
+    part_c, part_p = cur.copy(), prev.copy()
+    part_c[16:32, 16:32] = np.nan
+    part_p[h // 2, w // 3] = np.nan
+    for a, b in ((cur, prev), (np.roll(ints, (1, 40), (0, 1)), ints),
+                 (flat, flat), (part_c, part_p)):
+        c, p = (torch.from_numpy(x).to(cuda_device) for x in (a, b))
+        before = count.launches
+        mv, pred = kernel(c, p, r)
+        torch.cuda.synchronize()
+        assert count.launches == before + 1
+        mv_p, pred_p = plain(c, p, r)
+        assert torch.equal(mv, mv_p), name
+        assert _same_bits(pred, pred_p), name
+        assert int(mv.abs().max()) <= r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(SEARCHES))
+def test_wide_batched_search_kernels(cuda_device, name):
+    """The chunk axis at r = 64: three unlike chunks in one launch, each
+    equal to the plain version and to its own launch."""
+    kernel, plain, wrapper = SEARCHES[name]
+    cur, prev = (torch.from_numpy(a).to(cuda_device)
+                 for a in chunk_pairs(3, 96, 160, seed=64))
+    mv, pred = kernel(cur, prev, 64)
+    mv_p, pred_p = plain(cur, prev, 64)
+    assert torch.equal(mv, mv_p) and _same_bits(pred, pred_p)
+    for k in range(3):
+        one_mv, one_pred = kernel(cur[k], prev[k], 64)
+        assert torch.equal(mv[k], one_mv) and _same_bits(pred[k], one_pred)
+
+
+@pytest.mark.cuda
+def test_wide_ranges_launch_and_refuse(cuda_device):
+    """Every range to 126 launches at both block sizes (the shapes of
+    each band class); 127 is refused by the wrapper."""
+    c, p = (torch.from_numpy(a).to(cuda_device)
+            for a in _rolled_pair(32, 48, 5))
+    for r in (33, 34, 35, 36, 95, 125, 126):
+        for mb in (8, 16):
+            for a, b in zip(M.motion_search_mc_blocks(c, p, r, mb),
+                            M.motion_search_mc_blocks_plain(c, p, r, mb)):
+                assert torch.equal(a, b), (r, mb)
+        for a, b in zip(M.motion_search_mc_hier(c, p, r),
+                        M.motion_search_mc_hier_plain(c, p, r)):
+            assert _same_bits(a, b) if a.is_floating_point() \
+                else torch.equal(a, b)
+    with pytest.raises(ValueError):
+        M.motion_search_mc(c, p, 127)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hc,wc", [(544, 960), (24, 40)])
+def test_chroma_kernel_takes_vectors_to_126(cuda_device, hc, wc):
+    """K4 on luma vectors up to ±126 (chroma ±63, past a 24x40 plane's
+    size), odd negative ones floor-halved: bit-identical to the plain
+    version."""
+    rng = np.random.default_rng(hc)
+    cb, cr = (torch.from_numpy(rng.normal(128, 30, (hc, wc))
+                               .astype(np.float32)).to(cuda_device)
+              for _ in range(2))
+    mv = rng.integers(-126, 127, (hc // 8, wc // 8, 2)).astype(np.int32)
+    mv[0, 0] = (-125, 126)
+    mv = torch.from_numpy(mv).to(cuda_device)
+    for a, b in zip(M.chroma_mc(cb, cr, mv, 126),
+                    M.chroma_mc_plain(cb, cr, mv, 126)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hier", [False, True])
+def test_wide_range_chunk_on_card_matches_cpu(cuda_device, hier):
+    """An FVC chunk at search range 64 of a pan of 40 columns per frame:
+    the card's bytes equal the CPU's, and the vectors pass ±32."""
+    rng = np.random.default_rng(3)
+    base = rng.integers(0, 256, (96, 160, 3)).astype(np.float32)
+    pad = np.pad(base, ((1, 1), (1, 1), (0, 0)), mode="wrap")
+    base = (sum(pad[i:i + 96, j:j + 160] for i in range(3)
+                for j in range(3)) / 9.0).astype(np.uint8)
+    frames = np.stack([np.roll(base, (2 * i, 40 * i), (0, 1))
+                       for i in range(6)])
+    card = FvcEncoder(85, motion=True, search_range=64, hier=hier,
+                      device=cuda_device).encode_chunk(frames)
+    cpu = FvcEncoder(85, motion=True, search_range=64, hier=hier,
+                     device="cpu").encode_chunk(frames)
+    assert card == cpu
+    _, records = FvcDecoder.parse_chunk(card)
+    assert max(np.abs(v).max() for _, v, _ in records if v is not None) > 32
+
+
+@pytest.mark.cuda
+def test_ladder_on_card(cuda_device):
+    """cudafvcladderenc on the card: each rung's chunk equals a card
+    FvcEncoder's on the card's scaled frames, which lie within one level
+    of the CPU's."""
+    from flutpu_torch.codec import ladder as L
+    frames = np.stack([make_test_frame("ball", 128, 96, i) for i in range(4)])
+    rungs = L.parse_rungs("128x96@85,64x48@75")
+    enc = {}
+    chunks = L.encode_ladder_chunk(frames, rungs, motion=True, encoders=enc,
+                                   device=cuda_device)
+    for rung, chunk in zip(rungs, chunks):
+        scaled = L.scale_rung(torch.from_numpy(frames).to(cuda_device), rung)
+        cpu = L.scale_rung(torch.from_numpy(frames), rung)
+        assert (scaled.cpu().int() - cpu.int()).abs().max() <= 1
+        assert chunk == FvcEncoder(rung.quality, motion=True,
+                                   device=cuda_device).encode_chunk(scaled)

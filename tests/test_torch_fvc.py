@@ -315,22 +315,24 @@ def test_from_numpy_state_needs_a_quality_table():
 
 #: options the port runs; the others raise
 PORTED = ({"hier": True}, {"bframes": 1}, {"subpel": True},
-          "search=hier", "bframes=1", "subpel=true")
+          {"search_range": 40}, "search=hier", "bframes=1", "subpel=true",
+          "bitrate=100000")
 
 
 @pytest.mark.parametrize("kwargs", [
     {"subpel": True}, {"hier": True}, {"bframes": 1}, {"subsample": False},
     {"engine": "host"}, {"search_range": 40}])
 def test_unported_encoder_options_raise(kwargs):
-    """Unported options (the host engine, ranges above 32) raise
-    NotImplementedError; hier, bframes and subpel build a motion encoder
-    that carries them; 4:4:4 builds a version 1 encoder and, with motion,
+    """The host engine raises NotImplementedError (by design); hier,
+    bframes, subpel and a range above 32 build a motion encoder that
+    carries them (``test_torch_wide_search.py`` holds range 40 to
+    flutpu's bytes); 4:4:4 builds a version 1 encoder and, with motion,
     raises flutpu's ValueError."""
     if kwargs in PORTED:
         enc = FvcEncoder(85, motion=True, device="cpu", **kwargs)
-        assert (enc.hier, enc.bframes, enc.subpel) == (
+        assert (enc.hier, enc.bframes, enc.subpel, enc.search_range) == (
             kwargs.get("hier", False), kwargs.get("bframes", 0),
-            kwargs.get("subpel", False))
+            kwargs.get("subpel", False), kwargs.get("search_range", 7))
         return
     if kwargs == {"subsample": False}:
         assert FvcEncoder(85, device="cpu", **kwargs).subsample is False
@@ -392,21 +394,27 @@ def test_unported_program_options_raise():
 @pytest.mark.parametrize("prop", ["bitrate=100000", "search=hier",
                                   "subpel=true", "bframes=1"])
 def test_cudafvcenc_unported_properties_raise(prop):
-    """bitrate raises; search=hier, subpel and bframes reach the
-    encoder."""
+    """Every one now reaches the encoder: search=hier, subpel and bframes
+    its settings; bitrate the rate controller, whose first chunk is
+    encoded at the quality property (``test_torch_ratecontrol.py`` holds
+    its chunks to fvcenc's)."""
     name, value = prop.split("=")
     el = flutpu_torch.core.make("cudafvcenc", device="cpu", motion=True)
     el.set_property(name, {"true": True}.get(value, value if not
                                               value.isdigit()
                                               else int(value)))
-    if prop in PORTED:
-        enc = el._enc()
-        assert (enc.hier, enc.bframes, enc.subpel) == (
-            prop == "search=hier", int(prop == "bframes=1"),
-            prop == "subpel=true")
-        return
-    with pytest.raises(NotImplementedError):
-        el._enc()
+    assert prop in PORTED
+    enc = el._enc()
+    assert (enc.hier, enc.bframes, enc.subpel, enc.quality) == (
+        prop == "search=hier", int(prop == "bframes=1"),
+        prop == "subpel=true", 85)
+    if prop == "bitrate=100000":
+        j = flutpu.core.make("fvcenc", bitrate=100000)
+        dur = 33 * flutpu_torch.core.MSECOND
+        assert el._chunk_target_bytes(
+            [flutpu_torch.core.Buffer(None, duration=dur)] * 8) == \
+            j._chunk_target_bytes([flutpu.core.Buffer(None, duration=dur)]
+                                  * 8) > 0
 
 
 def _subpel_cost(cur, ref, mb, v):
@@ -495,17 +503,19 @@ def test_subpel_chunk_matches_flutpu(hier, clip):
 
 
 def test_subpel_refusals_match_flutpu():
-    """Half-pel vectors stay int8: ranges above 62 raise ValueError (the
-    port's own limit of 32 raises NotImplementedError first); B frames
-    with subpel raise ValueError, as flutpu's encoder does."""
+    """Half-pel vectors stay int8: ranges above 62 raise ValueError; B
+    frames with subpel raise ValueError, as flutpu's encoder does; range
+    62 with subpel builds, as in flutpu."""
     for kw in ({"search_range": 63}, {"bframes": 1}):
         with pytest.raises(ValueError):
             jf.FvcEncoder(85, motion=True, subpel=True, **kw)
         with pytest.raises(ValueError):
             FvcEncoder(85, motion=True, subpel=True, device="cpu", **kw)
-    with pytest.raises(NotImplementedError):
-        FvcEncoder(85, motion=True, subpel=True, search_range=62,
-                   device="cpu")
+    enc = FvcEncoder(85, motion=True, subpel=True, search_range=62,
+                     device="cpu")
+    assert (enc.subpel, enc.search_range) == (True, 62) == (
+        jf.FvcEncoder(85, motion=True, subpel=True, search_range=62).subpel,
+        62)
 
 
 @pytest.mark.parametrize("w,h", [(W, H), (76, 44)])

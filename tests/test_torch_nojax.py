@@ -231,11 +231,66 @@ for m in pkgutil.walk_packages(flutpu_torch.__path__, "flutpu_torch."):
 flutpu_torch.core.make("cudajpegenc", device="cpu")   # loads the plugins
 bad = sorted(m for m in sys.modules if m.startswith(("jax.", "flutpu.")))
 assert not bad, bad
-for m in ("codec.avimux", "codec.decoders", "hype.cuda", "inject.injectbin",
-          "parallel.gop"):
+for m in ("codec.avimux", "codec.decoders", "codec.ladder", "fluc.bwmeter",
+          "fluc.threads", "hype.cuda", "inject.injectbin", "io.downloader",
+          "io.helper", "parallel.gop"):
     assert "flutpu_torch." + m in sys.modules, m
 print("modules", sum(m.startswith("flutpu_torch") for m in sys.modules),
       "ttml", sum(m.startswith("flutpu_torch.ttml.") for m in sys.modules))
+"""
+
+
+_NO_JAX_SLICE = """
+import sys, tempfile, os
+sys.modules["jax"] = None
+sys.modules["flutpu"] = None
+import numpy as np
+from flutpu_torch.core import Buffer, Harness, MSECOND, parse_launch
+from flutpu_torch.core.elements import make_test_frame
+from flutpu_torch.codec.fvc import FvcEncoder
+from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
+from flutpu_torch.io import download_sync
+from flutpu_torch.fluc import bwmeter
+# the harness pulls the first rung's pad: one chunk per 2 frames
+h = Harness("cudafvcladderenc device=cpu rungs=48x32@85,24x16@70 "
+            "gop-size=2 motion=true")
+h.set_src_caps("video/x-raw, format=RGB, width=48, height=32, "
+               "framerate=30/1")
+for i in range(4):
+    h.push(Buffer(make_test_frame("ball", 48, 32, i), pts=i * MSECOND,
+                  duration=MSECOND))
+h.push_eos()
+n = 0
+while h.pull(timeout=60) is not None:
+    n += 1
+h.teardown()
+h = Harness("cudafvcenc device=cpu gop-size=2 bitrate=20000 "
+            "search-range=40 motion=true")
+h.set_src_caps("video/x-raw, format=RGB, width=48, height=32, "
+               "framerate=30/1")
+for i in range(4):
+    h.push(Buffer(make_test_frame("ball", 48, 32, i), pts=i * MSECOND,
+                  duration=33 * MSECOND))
+h.push_eos()
+q = []
+while (b := h.pull(timeout=60)) is not None:
+    q.append(bytes(b.data)[10])
+h.teardown()
+enc = FvcEncoder(device="cpu", motion=True)
+src = lambda ph, pw, k, s: gradient_ball_planes(ph, pw, k, s, device="cpu")
+chunks = enc.encode_chunk_batch_finalize(
+    enc.encode_chunk_batch_dispatch_src(src, 0, 2, 32, 48, batch=2))
+with tempfile.TemporaryDirectory() as d:
+    path = os.path.join(d, "x.bin")
+    with open(path, "wb") as fh:
+        fh.write(b"y" * 5000)
+    total = bwmeter.stats()[2]
+    assert download_sync("file://" + path) == b"y" * 5000
+    assert bwmeter.stats()[2] - total >= 5000
+assert sys.modules["jax"] is None and sys.modules["flutpu"] is None
+bad = sorted(m for m in sys.modules if m.startswith(("jax.", "flutpu.")))
+assert not bad, bad
+print("ladder", n, "rc", len(q), "batch", len(chunks))
 """
 
 
@@ -272,6 +327,13 @@ def test_decode_side_runs_with_jax_blocked():
     a 4:4:4 FVC chunk through ``decode_stream`` and ``cudafvcdec`` in
     100-byte blocks, with jax and flutpu blocked."""
     assert "decoded 8 8" in _run(_NO_JAX_DECODE)
+
+
+def test_ladder_rate_control_batch_and_io_run_with_jax_blocked():
+    """``cudafvcladderenc``, ``cudafvcenc bitrate=`` at range 40, the
+    batched on-device source and a ``file://`` download, with jax and
+    flutpu blocked."""
+    assert "ladder 2 rc 2 batch 2" in _run(_NO_JAX_SLICE)
 
 
 def test_every_module_imports_without_jax_or_the_jax_package():
@@ -440,6 +502,62 @@ def test_fvc_header_flags_equal(kw):
     assert te._build_chunk(*args) == je._build_chunk(*args)
 
 
+@pytest.mark.parametrize("path", ["fluc/__init__.py", "fluc/threads.py",
+                                  "fluc/bwmeter.py", "io/__init__.py",
+                                  "io/downloader.py", "io/helper.py"])
+def test_fluc_and_io_are_copies(path):
+    """The port's fluc and io are flutpu's files as they are: their
+    relative imports (``from .. import native``) reach the port's native
+    loader and meter."""
+    assert _read(os.path.join(ROOT, "flutpu_torch", path)) == \
+        _read(os.path.join(ROOT, "flutpu", path))
+
+
+def test_native_bindings_copy_flutpus():
+    """The fluc and downloader bindings of the port's native loader are
+    flutpu's, text for text, and so are its callback types."""
+    mine, theirs = (_read(os.path.join(ROOT, pkg, "native.py"))
+                    for pkg in ("flutpu_torch", "flutpu"))
+    mark = "    # fluc primitives\n"
+    assert mine[mine.index(mark):] == theirs[theirs.index(mark):]
+    for name in ("DATA_CB", "DONE_CB"):
+        start = theirs.index(f"{name} = ")
+        text = theirs[start:theirs.index(")\n", start) + 2]
+        assert text in mine
+
+
+def _method_sources(a, b, names):
+    for n in names:
+        assert inspect.getsource(getattr(a, n)) == \
+            inspect.getsource(getattr(b, n)), n
+
+
+def test_rate_controller_copies_flutpus():
+    from flutpu_torch.codec.fvc import CudaFvcEnc
+    _method_sources(CudaFvcEnc, j_fvc.FvcEnc,
+                    ["_chunk_target_bytes", "_flush_chunk"])
+    assert (CudaFvcEnc._RC_MIN_Q, CudaFvcEnc._RC_MAX_Q) == \
+        (j_fvc.FvcEnc._RC_MIN_Q, j_fvc.FvcEnc._RC_MAX_Q)
+
+
+def test_ladder_copies_flutpus():
+    from flutpu.codec import ladder as j_ladder
+    from flutpu_torch.codec import ladder as t_ladder
+    for name in ("Rung", "parse_rungs"):
+        assert inspect.getsource(getattr(t_ladder, name)) == \
+            inspect.getsource(getattr(j_ladder, name))
+    _method_sources(t_ladder.CudaFvcLadderEnc, j_ladder.FvcLadderEnc,
+                    ["_rebuild_pads", "_emit_caps", "_chain",
+                     "_select_rung", "_sink_event"])
+
+
+def test_url_image_fetch_copies_flutpus():
+    from flutpu.ttml.render import render_el as j_render
+    from flutpu_torch.ttml.render import render_el as t_render
+    _method_sources(t_render.TTMLRender, j_render.TTMLRender,
+                    ["_fetch_image"])
+
+
 @pytest.mark.parametrize("bframes", range(1, 8))
 def test_bframe_structure_equal(bframes):
     for f in range(1, 13):
@@ -602,7 +720,9 @@ def test_no_port_source_names_jax_or_the_jax_package():
                 for name in names:
                     assert name.split(".")[0] not in ("jax", "jaxlib",
                                                       "flutpu"), (path, name)
-    for must in ("codec/avimux.py", "codec/decoders.py",
+    for must in ("codec/avimux.py", "codec/decoders.py", "codec/ladder.py",
+                 "fluc/__init__.py", "fluc/threads.py", "fluc/bwmeter.py",
+                 "io/__init__.py", "io/downloader.py", "io/helper.py",
                  "hype/cuda.py", "hype/hypebin.py", "parallel/gop.py",
                  "parallel/mesh.py", "parallel/multihost.py",
                  "inject/injectbin.py", "ttml/base.py", "ttml/render/device.py",
@@ -613,7 +733,8 @@ def test_no_port_source_names_jax_or_the_jax_package():
 
 def test_chip_smoke_imports_only_the_port():
     """Every import in chip_smoke.py, at any depth, is the standard
-    library, numpy, torch or flutpu_torch."""
+    library, numpy, torch or flutpu_torch (phase 15f serves loopback HTTP
+    and writes a PNG with the standard library)."""
     import ast
     tree = ast.parse(_read(os.path.join(ROOT, "chip_smoke.py")))
     names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
@@ -625,7 +746,8 @@ def test_chip_smoke_imports_only_the_port():
     assert not tops & {"jax", "jaxlib", "flutpu"}
     assert tops <= {"flutpu_torch", "numpy", "torch", "__future__", "ctypes",
                     "hashlib", "json", "os", "struct", "subprocess", "sys",
-                    "threading", "time"}, tops
+                    "threading", "time", "base64", "http", "tempfile",
+                    "zlib"}, tops
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -33,7 +33,7 @@ from flutpu_torch.ttml.render import atlas as t_atlas
 from flutpu_torch.ttml.render import composite as t_comp
 from flutpu_torch.ttml.render import device as t_dev
 from flutpu_torch.ttml.render import fonts as t_fonts
-from torch_helpers import corpus_docs, run_element
+from torch_helpers import LoopbackServer, corpus_docs, run_element
 
 torch.set_num_threads(1)
 
@@ -469,10 +469,24 @@ def test_device_out_hands_over_tensors():
 
 
 def test_url_background_image_raises():
+    """A URL background image no longer raises: it is fetched through the
+    port's downloader (here from a loopback server), and the window
+    equals the same document with the image embedded as ``#img1`` and
+    flutpu's ``ttmlrender`` of the URL document, pixel for pixel. A URL
+    that cannot be fetched, and a missing ``#id``, draw no image."""
     from flutpu_torch.ttml.render.render_el import TTMLRender
-    el = TTMLRender(device="cpu")
-    with pytest.raises(NotImplementedError):
-        el._fetch_image("http://localhost/x.png")
+    png = base64.b64decode(_doc_image().split('encoding="Base64">')[1]
+                           .split("<")[0])
+    with LoopbackServer({"/img.png": png}) as srv:
+        doc = _doc_image(srv.url("/img.png"))
+        got = _port(doc)
+        _assert_same_windows(got, _port(_doc_image()), "url vs #id")
+        _assert_same_windows(got, _render(j_core, "ttmlrender", doc),
+                             "url vs flutpu")
+        el = TTMLRender(device="cpu")
+        img = el._fetch_image(srv.url("/img.png"))
+        assert img.shape == (16, 24, 4) and (img[..., 1] == 200).all()
+        assert el._fetch_image(srv.url("/missing.png")) is None
     assert el._fetch_image("#missing") is None
 
 
