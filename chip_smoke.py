@@ -200,7 +200,34 @@ Drives the port's main paths through the entry points a user calls, at
    f. the downloader on a ``file://`` file and a loopback HTTP URL (the
       bandwidth meter counts their bytes), and a loopback-URL background
       image rendered through ``cudattmlrender`` on the card
-      pixel-identical to the same image embedded as ``#id``.
+      pixel-identical to the same image embedded as ``#id``;
+16. several shards and row stripes (BASELINE config 4), in a process of
+   its own:
+   a. config 4: 240 4K (2160x3840) gradient-ball frames from host memory
+      through ``cudahype codec=jpeg spatial=2 gop-size=30 chunks=8``
+      (chunks=4 where the peak device memory passes 70 GiB; the peak and
+      the choice printed): K1 per stripe, the planes cropped to the
+      standard MCU rows, every JFIF byte-identical to ``spatial=1`` and
+      under phase 4's checks; busy ms and launches per chunk of both
+      (torch.profiler), then frames/s of both in turns;
+   b. a seeded 4K pan of 4 rows and 6 columns per frame, 32 frames,
+      through ``cudahype codec=fvc-motion spatial=2 chunks=2 gop-size=8
+      search-range=7``, P only and ``bframes=1``: header flags bit 4
+      (coded 2176 rows), >= 30 dB through ``FvcDecoder``, vectors with
+      dy != 0 on the macroblock rows at the stripe edge, K3 and K4
+      launched and K5 not, each chunk's frame records equal to
+      ``spatial=1``'s on the frames padded to 2176 rows or split at
+      float64-verified ties; busy ms and launches per chunk beside
+      ``spatial=1``'s;
+   c. ``encode_chunks`` and ``FvcEncoder.encode_chunks_dispatch`` on
+      meshes of 2 and 4 shards and a (2, 2) grid of the card (and of
+      distinct cards where there are two or more): K1's coefficients
+      equal one shard's, FVC chunks equal or split at float64 ties;
+   d. two ``tests/torch_multihost_worker.py`` processes on the card over
+      a gloo group: the stitched chunks equal one process's;
+   e. ``composite_instances_batch_vmap`` on 4 intervals of seeded tiles
+      equal to ``composite_instances_batch``; launches and busy ms per
+      call of both.
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not
@@ -397,6 +424,11 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     if sys.argv[1:] == [TRACE_CHECKS]:
         print(json.dumps(_trace_checks(torch.device("cuda", 0))))
+        return 0
+    if sys.argv[1:2] == [PHASE16]:
+        counts = _phase16(torch.device("cuda", 0))
+        with open(sys.argv[2], "w") as f:
+            json.dump(counts, f)
         return 0
     print(_smi(), flush=True)
     kernels = run(torch.device("cuda", 0))
@@ -610,6 +642,7 @@ def run(dev):
     counts, wide = run_wide(dev, lib, lap)
     add(counts)
     results.update(wide)
+    add(run_striped(dev, lib, lap))
     for name, key, was in EARLIER_MS:
         r_ = results[name]
         print(f"{key}: {was:.4f} ms before the redesign (PERF.md, same card "
@@ -1493,12 +1526,15 @@ def _psnr(a, b) -> float:
     return float(10 * np.log10(255.0 ** 2 / max(mse, 1e-12)))
 
 
-def _check_chunks(lib, chunks, sources, label):
+def _check_chunks(lib, chunks, sources, label, size=(H, W),
+                  cpu_decode=True):
     """Phase 7 for a list of chunks and their (F, H, W, 3) uint8 source
     frames (numpy): decode on the card, PSNR, scans against the native
-    encoder, and the first chunk's decode on the CPU against the card's
-    (a 1080p chunk's CPU decode takes about a second). Returns (lowest
-    PSNR, max |dRGB|, max dPSNR)."""
+    encoder (at the coded size the header gives), and with
+    ``cpu_decode`` the first chunk's decode on the CPU against the
+    card's (a 1080p chunk's CPU decode takes about a second). ``size``:
+    the frame size the headers must give. Returns (lowest PSNR, max
+    |dRGB|, max dPSNR)."""
     import numpy as np
     from flutpu_torch.codec.decode import decode_scan_to_coefs
     from flutpu_torch.codec.fvc import FvcDecoder
@@ -1506,11 +1542,12 @@ def _check_chunks(lib, chunks, sources, label):
     worst, d_rgb, d_psnr = float("inf"), 0, 0.0
     for ci, (data, src) in enumerate(zip(chunks, sources)):
         hdr, frames = FvcDecoder.parse_chunk(data)
-        _require((hdr["height"], hdr["width"]) == (H, W),
+        _require((hdr["height"], hdr["width"]) == tuple(size),
                  f"{label} chunk {ci}: header size")
+        ph, pw = hdr["coded_height"], hdr["coded_width"]
         for fi, (_, _, payload) in enumerate(frames):
-            coefs = decode_scan_to_coefs(payload, PW // 8, PH // 8, PW // 16,
-                                         PH // 16, True)
+            coefs = decode_scan_to_coefs(payload, pw // 8, ph // 8, pw // 16,
+                                         ph // 16, True)
             _require(coefs is not None,
                      f"{label} chunk {ci} frame {fi}: scan does not decode")
             _require(_native_scan(lib, *coefs) == payload,
@@ -1520,7 +1557,7 @@ def _check_chunks(lib, chunks, sources, label):
         _require(rgb.shape == src.shape, f"{label}: decoded shape "
                  f"{rgb.shape}")
         worst = min([worst] + [_psnr(a, s) for a, s in zip(rgb, src)])
-        if ci:
+        if ci or not cpu_decode:
             continue
         rgb_cpu, info_cpu = cpu.decode_chunk(data)
         _require(info["types"] == info_cpu["types"], f"{label}: types")
@@ -2521,7 +2558,8 @@ def _idct64(coefs):
 
 def _verify_split(a: bytes, b: bytes, src, r: int, hier: bool, dev, label,
                   subpel: bool = False):
-    """Two encodes of one chunk that differ: a float tie split them. At the
+    """Two encodes of one chunk that differ: a float tie split them (their
+    frame records are compared; the coded size is ``a``'s). At the
     first frame (in coding order: anchors, then B frames) whose record
     differs, everything before is the same in both, so the reference is
     rebuilt in float64 from the decoded frames; there the two must differ
@@ -2544,6 +2582,7 @@ def _verify_split(a: bytes, b: bytes, src, r: int, hier: bool, dev, label,
                                               scale_qtable,
                                               zigzag_unflatten)
     (ha, fa), (_, fb) = FvcDecoder.parse_chunk(a), FvcDecoder.parse_chunk(b)
+    ph, pw = ha["coded_height"], ha["coded_width"]
     types = [f[0] for f in fa]
     _require(types == [f[0] for f in fb], f"{label}: frame types differ")
 
@@ -2566,13 +2605,13 @@ def _verify_split(a: bytes, b: bytes, src, r: int, hier: bool, dev, label,
 
     def coefs(rec):
         return [torch.as_tensor(c.astype(np.int64), device=dev)
-                for c in decode_scan_to_coefs(rec[2], PW // 8, PH // 8,
-                                              PW // 16, PH // 16, True)]
+                for c in decode_scan_to_coefs(rec[2], pw // 8, ph // 8,
+                                              pw // 16, ph // 16, True)]
 
     q = tables(ha["quality"])
     frames = torch.as_tensor(src, device=dev)
     cur = [p.double() for p in planes_to_i420(*(
-        _edge_pad(frames[..., c], PH, PW) for c in range(3)))]
+        _edge_pad(frames[..., c], ph, pw) for c in range(3)))]
 
     def predict(ref, mv):
         mv = torch.as_tensor(mv.astype(np.int64), device=dev)
@@ -3870,6 +3909,476 @@ def _io(dev):
           f"loopback-URL background image renders through cudattmlrender on "
           f"the card pixel-identical to the #id image ({green} image "
           "pixels)", flush=True)
+
+
+# -- 16. several shards and row stripes: BASELINE config 4 --------------------
+
+#: the argument that runs phase 16 alone (in a child process); the path
+#: after it receives the phase's launch counts as JSON
+PHASE16 = "--phase16"
+K4_H, K4_W = 2160, 3840        # BASELINE config 4: hype 4K30
+CONFIG4_GOP = 30
+CONFIG4_CHUNKS = (8, 4)        # C tried first, and C where 8 does not fit
+CONFIG4_PEAK_GIB = 70          # of the card's 80
+STRIPES = 2
+PAN4K_FRAMES = 32
+PAN4K_STEP = (4, 6)            # rows, columns per frame
+STRIPE_CHUNKS = 2
+
+
+def run_striped(dev, lib, lap):
+    """Phase 16 in a process of its own (a fresh allocator for 16a's peak,
+    fresh profiler windows for its traces). Returns its launch counts."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "phase16.json")
+        res = subprocess.run([sys.executable, os.path.abspath(__file__),
+                              PHASE16, out], timeout=600)
+        _require(res.returncode == 0, f"phase 16 failed (exit "
+                 f"{res.returncode}; its output is above)")
+        with open(out) as f:
+            counts = json.load(f)
+    lap("16 several shards and stripes (child process)")
+    return counts
+
+
+def _phase16(dev):
+    """16a-16e on ``dev`` → the launch counts of their paths."""
+    from flutpu_torch import _build, native
+    lib = native.get_lib()
+    _require(lib is not None, "the native library did not build")
+    _build.load()
+    lap = _Laps()
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    add(_config4_jpeg(dev, lib))
+    lap("16a config 4 JPEG")
+    add(_config4_fvc(dev, lib))
+    lap("16b config 4 FVC")
+    add(_shards_on_cards(dev))
+    lap("16c several shards")
+    _two_processes(dev)
+    lap("16d two processes")
+    _compositor_vmap(dev)
+    lap("16e compositor, batched intervals")
+    print(f"phase 16 wall times (s): {json.dumps(lap.secs)}", flush=True)
+    return total
+
+
+def _config4_jpeg(dev, lib):
+    """16a: 4K gradient-ball frames from host memory through ``cudahype
+    codec=jpeg spatial=2 gop-size=30 chunks=C``: C = 8 where its peak
+    device memory stays under CONFIG4_PEAK_GIB, else 4. The first
+    (probe) run and one ``spatial=1`` run are traced (busy and launches
+    per chunk); then ``spatial=1`` and ``spatial=2`` run in turns (1, 2,
+    2, 1) for frames/s. Every JFIF byte-identical across the runs and
+    under phase 4's checks."""
+    import numpy as np
+    import torch
+    from flutpu_torch.codec.jpeg import JpegEncoder, _edge_pad
+    from flutpu_torch.codec.ops import frontend as F
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_frames
+    caps = (f"video/x-raw, format=RGB, width={K4_W}, height={K4_H}, "
+            "framerate=30/1")
+    n_max = CONFIG4_CHUNKS[0] * CONFIG4_GOP
+    frames = np.concatenate([gradient_ball_frames(
+        K4_H, K4_W, CONFIG4_GOP, s, device=dev).cpu().numpy()
+        for s in range(0, n_max, CONFIG4_GOP)])
+
+    def run(c, spatial, trace):
+        desc = (f"cudahype codec=jpeg chunks={c} gop-size={CONFIG4_GOP} "
+                f"spatial={spatial} device={dev}")
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ooms = torch.cuda.memory_stats().get("num_ooms", 0)
+        n = c * CONFIG4_GOP
+        (out, wall, traced), counts = _count_launches(
+            lambda: _harness_run(desc, frames[:n], caps,
+                                 trace=n if trace else 0))
+        oom = torch.cuda.memory_stats().get("num_ooms", 0) > ooms
+        return dict(desc=desc, out=[bytes(b.data) for b in out],
+                    pts=[b.pts for b in out], wall=wall, traced=traced,
+                    counts=counts, peak=torch.cuda.max_memory_allocated(),
+                    oom=oom)
+
+    c = CONFIG4_CHUNKS[0]
+    probe = run(c, STRIPES, True)
+    fits = not probe["oom"] and len(probe["out"]) == c * CONFIG4_GOP \
+        and probe["peak"] < CONFIG4_PEAK_GIB * 2 ** 30
+    print(f"16a C={c}: peak device memory {probe['peak'] / 2 ** 30:.2f} GiB"
+          + (" (out of device memory)" if probe["oom"] else "") + "; "
+          + (f"under {CONFIG4_PEAK_GIB} GiB: C={c}" if fits else
+             f"not under {CONFIG4_PEAK_GIB} GiB of the 80: C="
+             f"{CONFIG4_CHUNKS[1]}"), flush=True)
+    if not fits:
+        c = CONFIG4_CHUNKS[1]
+        probe = run(c, STRIPES, True)
+        _require(not probe["oom"], f"16a: C={c} ran out of device memory")
+    n = c * CONFIG4_GOP
+    _require(len(probe["out"]) == n, f"16a: {len(probe['out'])} of {n} "
+             "frames")
+    _require(probe["pts"] == [i * FRAME_NS for i in range(n)],
+             "16a: frames out of order")
+    flat = run(c, 1, True)
+    for r_, what in ((probe, "the first run (traced; the process's first "
+                      "4K dispatch)"), (flat, "traced")):
+        busy, launches, busy_wall = r_["traced"]
+        _report(f"16a {r_['desc']} ({what})", n, r_["wall"], busy, launches,
+                c, r_["peak"], busy_wall)
+        print(f"16a kernel launches {r_['counts']}", flush=True)
+    for k in ("front_end", "pack_segments"):
+        _require(probe["counts"][k] > 0, f"16a: {k} was not launched")
+    walls = {1: [], STRIPES: []}
+    for spatial in (1, STRIPES, STRIPES, 1):
+        r_ = run(c, spatial, False)
+        _require(r_["out"] == probe["out"], f"16a: {r_['desc']} gave other "
+                 "JFIF")
+        walls[spatial].append(r_["wall"])
+    print("16a in turns (1, 2, 2, 1), 4K from host memory, one dispatch of "
+          f"{c} chunks: " + "; ".join(
+              f"spatial={k} {', '.join(f'{n / w:.1f}' for w in v)} frames/s"
+              for k, v in walls.items()), flush=True)
+    _require(flat["out"] == probe["out"],
+             "16a: striped JFIF differ from spatial=1's")
+    enc = JpegEncoder(quality=QUALITY, device=dev)
+    worst = float("inf")
+    for g in range(0, n, GOP):
+        src = torch.from_numpy(frames[g:g + GOP]).to(dev)
+        planes = [_edge_pad(src[..., k], K4_H, K4_W) for k in range(3)]
+        worst = min(worst, _check_frames(
+            lib, probe["out"][g:g + GOP],
+            F.front_end(*planes, enc._qy_dev, enc._qc_dev), src, enc,
+            f"16a frames {g}-{g + GOP - 1}", size=(K4_H, K4_W, K4_H, K4_W)))
+    print(f"16a checks: {n} 4K frames through {STRIPES} stripes "
+          f"byte-identical to spatial=1, each decoding to K1's "
+          f"coefficients and equal to flu_jpeg_encode_scan; lowest PSNR "
+          f"{worst:.2f} dB", flush=True)
+    return dict(probe["counts"])
+
+
+def _pan4k(dev):
+    """16b's content: a seeded 4K texture (uniform noise smoothed by six
+    wrapping 3x3 box passes on the card) panned PAN4K_STEP per frame,
+    wrapping, as numpy frames."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(16)
+    tex = torch.rand((1, 3, K4_H, K4_W), generator=g, device=dev) * 255
+    for _ in range(6):
+        tex = torch.nn.functional.avg_pool2d(torch.nn.functional.pad(
+            tex, (1, 1, 1, 1), mode="circular"), 3, stride=1)
+    tex = tex[0].permute(1, 2, 0).round().to(torch.uint8)
+    return torch.stack([torch.roll(tex, (PAN4K_STEP[0] * i,
+                                         PAN4K_STEP[1] * i), (0, 1))
+                        for i in range(PAN4K_FRAMES)]).cpu().numpy()
+
+
+def _records_equal(a: bytes, b: bytes) -> bool:
+    """Two chunks hold the same frame records (types, vectors, payloads);
+    their headers may differ in the coded-size fields."""
+    import numpy as np
+    from flutpu_torch.codec.fvc import FvcDecoder
+    (_, fa), (_, fb) = FvcDecoder.parse_chunk(a), FvcDecoder.parse_chunk(b)
+
+    def same(u, v):
+        if u is None or v is None:
+            return u is None and v is None
+        if isinstance(u, tuple):
+            return all(np.array_equal(x, y) for x, y in zip(u, v))
+        return np.array_equal(u, v)
+
+    return len(fa) == len(fb) and all(
+        x[0] == y[0] and x[2] == y[2] and same(x[1], y[1])
+        for x, y in zip(fa, fb))
+
+
+def _hold_striped(dev, padded):
+    """16b's kernels against their plain versions at 16b's shapes: one
+    frame step of the pan's STRIPE_CHUNKS chunks (frames 1 on 0 of each)
+    cut into STRIPES stripes, through the rounded-halo route with K3 and
+    K4 (luma stripes of 1088 + 2 x 16 rows, chroma 544 + 2 x 8) and with
+    their plain versions. The vectors equal but at float64-verified
+    near-ties, each prediction exactly the whole-frame compensation of
+    its vectors; K4's and the plain chroma route's equal bit for bit."""
+    import torch
+    from flutpu_torch.codec.ops import motion_kernels as M
+    from flutpu_torch.codec.ops.colorspace import planes_to_i420
+    r = SEARCH_RANGE
+    idx = [ci * CHUNK + k for ci in range(STRIPE_CHUNKS) for k in (0, 1)]
+    src = torch.from_numpy(padded[idx]).to(dev)
+    y, cb, cr = (p.reshape(STRIPE_CHUNKS, 2, *p.shape[1:])
+                 for p in planes_to_i420(*(src[..., k] for k in range(3))))
+
+    def cut(p):
+        hs = p.shape[-2] // STRIPES
+        return [p[:, s * hs:(s + 1) * hs].contiguous()
+                for s in range(STRIPES)]
+
+    cur, prev = y[:, 1].contiguous(), y[:, 0].contiguous()
+    mv_k, pred_k = M.motion_search_mc_striped(cut(cur), cut(prev), r)
+    mv_p, pred_p = M.motion_search_mc_striped(
+        cut(cur), cut(prev), r, search=M.motion_search_mc_plain)
+    mv, pred = torch.cat(mv_k, 1), torch.cat(pred_k, 1)
+    mvp, predp = torch.cat(mv_p, 1), torch.cat(pred_p, 1)
+    for k in range(STRIPE_CHUNKS):
+        _hold_search(f"16b stripes, chunk {k}", "motion_search_mc",
+                     (mv[k], pred[k]), (mvp[k], None), cur[k], prev[k], r,
+                     16, True, lambda p_, m: M.motion_compensate(p_, m, r))
+        _require(torch.equal(predp[k].view(torch.int32),
+                             M.motion_compensate(prev[k], mvp[k], r)
+                             .view(torch.int32)),
+                 f"16b stripes, chunk {k}: the plain route's prediction "
+                 "differs from the compensation of its vectors")
+    pcb, pcr = cb[:, 0].contiguous(), cr[:, 0].contiguous()
+    got = M.chroma_mc_striped(cut(pcb), cut(pcr), mv_k, r)
+    plain = M.chroma_mc_striped(cut(pcb), cut(pcr), mv_k, r,
+                                chroma=M.chroma_mc_plain)
+    whole = M.chroma_mc_plain(pcb, pcr, mv, r)
+    for a, b, c in zip(got, plain, whole):
+        _require(all(torch.equal(x, z) for x, z in zip(a, b))
+                 and torch.equal(torch.cat(a, 1), c),
+                 "chroma_mc (16b stripes) differs from its plain version")
+    print(f"chroma_mc vs plain (16b stripes: {STRIPE_CHUNKS} chunks x "
+          f"{STRIPES} stripes of {tuple(got[0][0].shape[-2:])} + "
+          f"{M.halo_rows(r, cur.shape[-2] // STRIPES) // 2}-row halos): "
+          "equal bit for bit, and to the unstriped compensation",
+          flush=True)
+
+
+def _config4_fvc(dev, lib):
+    """16b: a 4K pan (PAN4K_STEP per frame) through ``cudahype
+    codec=fvc-motion spatial=2 chunks=2 gop-size=8 search-range=7``, P
+    only and with ``bframes=1``: header flags bit 4 (2160 rows coded as
+    2176), >= 30 dB through FvcDecoder, vectors with dy != 0 on the
+    macroblock rows at the stripe edge, K3 and K4 launched and K5 not;
+    each chunk's frame records equal the ``spatial=1`` chunk's of the
+    same frames padded to 2176 rows, or split only at float64-verified
+    ties."""
+    import numpy as np
+    import torch
+    from flutpu_torch.codec.fvc import FvcDecoder
+    frames = _pan4k(dev)
+    ph = -(-K4_H // (16 * STRIPES)) * 16 * STRIPES
+    padded = np.concatenate([frames, np.repeat(frames[:, -1:], ph - K4_H,
+                                               axis=1)], axis=1)
+    _hold_striped(dev, padded)
+    per = STRIPE_CHUNKS * CHUNK
+    total = {}
+    for props, bframes in (("", 0), (" bframes=1", 1)):
+        outs = {}
+        for spatial, src in ((1, padded), (STRIPES, frames)):
+            h = src.shape[1]
+            caps = (f"video/x-raw, format=RGB, width={K4_W}, height={h}, "
+                    "framerate=30/1")
+            desc = (f"cudahype codec=fvc-motion chunks={STRIPE_CHUNKS} "
+                    f"gop-size={CHUNK} search-range={SEARCH_RANGE} "
+                    f"spatial={spatial} device={dev}{props}")
+            torch.cuda.reset_peak_memory_stats()
+            (out, wall, (busy, launches, busy_wall)), counts = \
+                _count_launches(lambda: _harness_run(
+                    desc, src, caps, warm=src[:per], trace=per))
+            _report(f"16b {desc} ({PAN4K_FRAMES} frames of a {K4_H}-row pan"
+                    + ("" if spatial > 1 else f" padded to {h} rows")
+                    + f" after one warm dispatch; the trace over the first "
+                    f"{STRIPE_CHUNKS}-chunk dispatch)", PAN4K_FRAMES, wall,
+                    busy, launches, STRIPE_CHUNKS,
+                    torch.cuda.max_memory_allocated(), busy_wall)
+            print(f"16b kernel launches (warm dispatch included) {counts}",
+                  flush=True)
+            outs[spatial] = [bytes(b.data) for b in out]
+            if spatial > 1:
+                for k in ("motion_search_mc", "chroma_mc", "pack_segments"):
+                    _require(counts[k] > 0, f"16b{props}: {k} not launched")
+                _require(counts["motion_search_mc_hier"] == 0,
+                         f"16b{props}: K5 launched")
+                for k, v in counts.items():
+                    total[k] = total.get(k, 0) + v
+        striped, flat = outs[STRIPES], outs[1]
+        n_chunks = PAN4K_FRAMES // CHUNK
+        _require(len(striped) == len(flat) == n_chunks,
+                 f"16b{props}: {len(striped)} and {len(flat)} chunks")
+        edge, moved, same = (ph // STRIPES) // 16, [], 0
+        for ci, (a, b) in enumerate(zip(striped, flat)):
+            hdr, recs = FvcDecoder.parse_chunk(a)
+            _require(hdr["flags"] & 16 and (hdr["coded_height"],
+                                            hdr["coded_width"])
+                     == (ph, K4_W) and hdr["height"] == K4_H,
+                     f"16b{props} chunk {ci}: header {hdr}")
+            _require(bool(hdr["flags"] & 32) == bool(bframes),
+                     f"16b{props} chunk {ci}: flags bit 5")
+            for t, mv, _ in recs:
+                if t == 1:
+                    moved.append(mv[edge - 1:edge + 1, :, 0] != 0)
+            if _records_equal(a, b):
+                same += 1
+                continue
+            src = padded[ci * CHUNK:(ci + 1) * CHUNK]
+            label = f"16b{props} chunk {ci}"
+            fd, what = _verify_split(a, b, src, SEARCH_RANGE, False, dev,
+                                     label)
+            print(f"{label}: differs from spatial=1 from frame {fd} on "
+                  f"(coding order), there at {what}", flush=True)
+        share = float(np.mean(np.concatenate([m.ravel() for m in moved])))
+        _require(share > 0.5, f"16b{props}: only {share:.3f} of the "
+                 "stripe-edge macroblocks moved vertically")
+        worst, _, _ = _check_chunks(
+            lib, striped, [frames[ci * CHUNK:(ci + 1) * CHUNK]
+                           for ci in range(n_chunks)], f"16b{props}",
+            size=(K4_H, K4_W), cpu_decode=False)
+        print(f"16b checks{props}: {n_chunks} chunks with flags bit 4 "
+              f"(coded {ph}x{K4_W}); {same} of {n_chunks} with the frame "
+              f"records of spatial=1, the others split at float64-verified "
+              f"ties; {share:.3f} of the P macroblocks on rows {edge - 1} "
+              f"and {edge} (the stripe edge) with dy != 0; decode on the "
+              f"card >= {worst:.2f} dB; scans equal flu_jpeg_encode_scan",
+              flush=True)
+    return total
+
+
+def _shard_meshes(devices):
+    """16c's meshes over ``devices`` (repeated where there are fewer)."""
+    from flutpu_torch.parallel.mesh import ChunkSpatialMesh, deal_devices
+    from flutpu_torch.parallel.mesh import make_chunk_mesh
+    return (("2 shards", make_chunk_mesh(2, deal_devices(2, devices))),
+            ("4 shards", make_chunk_mesh(4, deal_devices(4, devices))),
+            ("ChunkSpatialMesh(2, 2)",
+             ChunkSpatialMesh(2, 2, deal_devices(4, devices))))
+
+
+def _shards_on_cards(dev):
+    """16c: ``encode_chunks`` and ``FvcEncoder.encode_chunks_dispatch`` on
+    meshes of 2 and 4 shards and a (2, 2) grid of one card (and of
+    distinct cards where there are two or more) against one shard: K1's
+    coefficients equal, FVC chunks equal or split at float64-verified
+    ties."""
+    import torch
+    from flutpu_torch.codec.fvc import FvcEncoder
+    from flutpu_torch.codec.jpeg import JpegEncoder
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_frames
+    from flutpu_torch.parallel.gop import encode_chunks
+    from flutpu_torch.parallel.mesh import visible_devices
+    c = 4
+    frames = gradient_ball_frames(PH, PW, c * CHUNK, 0, device=dev)[
+        :, :H, :W].reshape(c, CHUNK, H, W, 3)
+    jenc = JpegEncoder(QUALITY, device=dev)
+    enc = FvcEncoder(QUALITY, motion=True, device=dev)
+    coefs = encode_chunks(frames, jenc._qy_dev, jenc._qc_dev)
+    ref = enc.encode_chunks_finalize(enc.encode_chunks_dispatch(frames))
+    sets = [("one card", [dev])]
+    cards = visible_devices()
+    if len(cards) >= 2:
+        sets.append((f"{len(cards)} cards", list(cards)))
+    print(f"16c runs on {' and on '.join(n for n, _ in sets)} "
+          f"({len(cards)} visible)", flush=True)
+    total = {}
+    for set_name, devices in sets:
+        for name, mesh in _shard_meshes(devices):
+            spatial = mesh.spatial > 1
+            got = encode_chunks(frames, jenc._qy_dev, jenc._qc_dev,
+                                mesh=mesh, spatial=spatial)
+            _require(all(torch.equal(a, b.to(a.device)) for a, b in
+                         zip(coefs, got)),
+                     f"16c {set_name} {name}: K1's coefficients differ")
+            out, counts = _count_launches(lambda: enc.encode_chunks_finalize(
+                enc.encode_chunks_dispatch(frames, mesh)))
+            for k, v in counts.items():
+                total[k] = total.get(k, 0) + v
+            same = 0
+            for ci, (a, b) in enumerate(zip(out, ref)):
+                if a == b:
+                    same += 1
+                    continue
+                label = f"16c {set_name} {name} chunk {ci}"
+                fd, what = _verify_split(a, b, frames[ci].cpu().numpy(),
+                                         SEARCH_RANGE, False, dev, label)
+                print(f"{label}: split from frame {fd} on at {what}",
+                      flush=True)
+            print(f"16c {set_name}, {name}: K1 equal; {same} of {c} FVC "
+                  f"chunks byte-identical to one shard, the others at "
+                  f"float64-verified ties; launches {counts}", flush=True)
+    return total
+
+
+def _two_processes(dev):
+    """16d: two ``tests/torch_multihost_worker.py`` processes on the card
+    over a gloo group, each encoding its 4 of the 8 chunks in one
+    dispatch: the stitched stream equals this process's encode of the same
+    chunks at 4 per dispatch."""
+    import importlib.util
+    from flutpu_torch.parallel.multihost import ChunkAssignment, stitch_order
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "torch_multihost_worker.py")
+    spec = importlib.util.spec_from_file_location("torch_multihost_worker",
+                                                  path)
+    worker = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(worker)
+    args = ("--motion", "--size", "544x960")
+    t0 = time.perf_counter()
+    pieces = worker.run_processes(str(dev), *args,
+                                  timeout=300)
+    wall = time.perf_counter() - t0
+    _require(sorted(pieces) == list(range(worker.CHUNKS)),
+             f"16d: chunks {sorted(pieces)}")
+    stitched = stitch_order(list(pieces.items()))
+    frames = worker.batch(544, 960)
+    enc = worker.encoder(str(dev), motion=True)
+    single = b"".join(b"".join(enc.encode_chunks_finalize(
+        enc.encode_chunks_dispatch(frames[ChunkAssignment(
+            p, 2, worker.CHUNKS).local_chunks()]))) for p in range(2))
+    _require(stitched == single, "16d: the two processes' stitched stream "
+             "differs from one process's")
+    print(f"16d two worker processes on {dev} over gloo: {worker.CHUNKS} "
+          f"chunks ({len(stitched)} bytes) stitched byte-identical to one "
+          f"process at {worker.CHUNKS // 2} chunks per dispatch; {wall:.2f} "
+          "s with the processes' start", flush=True)
+
+
+def _compositor_vmap(dev):
+    """16e: ``composite_instances_batch_vmap`` on 4 intervals of phase
+    10b's kind of seeded tiles and tables (640x368, 16-instance cap)
+    equal to ``composite_instances_batch``; launches and busy ms per call
+    of each."""
+    import numpy as np
+    import torch
+    from flutpu_torch.ttml.render import atlas as A
+    from flutpu_torch.ttml.render.device import (
+        composite_instances_batch, composite_instances_batch_vmap)
+    rng = np.random.default_rng(10)
+    tiles = [np.full((A.TILE_H, A.TILE_W), 255, np.uint8)] + [
+        rng.integers(0, 256, (A.TILE_H, A.TILE_W), np.uint8)
+        for _ in range(3)]
+    k = 4
+    ints = np.zeros((k, 16, 9), np.int32)
+    cols = np.zeros((k, 16, 4), np.float32)
+    for j in range(k):
+        for i in range(12):
+            ints[j, i] = (rng.integers(0, 4), rng.integers(-400, 640),
+                          rng.integers(-100, 368),
+                          rng.integers(1, A.TILE_W + 1),
+                          rng.integers(1, A.TILE_H + 1),
+                          rng.integers(-20, 320), rng.integers(-20, 184),
+                          rng.integers(320, 670), rng.integers(184, 400))
+            cols[j, i] = (*rng.random(3), rng.choice([1.0, 0.5,
+                                                      rng.random()]))
+    atlas = A.atlas_from_numpy(tiles, device=dev).device_array()
+    res = {}
+    for name, fn in (("batch_vmap", composite_instances_batch_vmap),
+                     ("batch", composite_instances_batch)):
+        fn(atlas, ints, cols, 368, 640)
+        out, busy, launches = _traced(lambda: fn(atlas, ints, cols, 368, 640))
+        res[name] = out
+        print(f"16e composite_instances_{name}, {k} intervals of 16 "
+              f"instances: {launches} device launches, "
+              + ("busy not measured" if busy is None else
+                 f"{busy[0]:.3f} ms busy") + " per call", flush=True)
+    _require(torch.equal(res["batch_vmap"], res["batch"]),
+             "16e: the batched-interval compositor differs")
+    print(f"16e: pixel-identical ({int((res['batch'][..., 3] > 0).sum())} "
+          "lit pixels)", flush=True)
 
 
 if __name__ == "__main__":

@@ -50,8 +50,17 @@ the search kernels stage their windows in bands (csrc/motion.cu).
 ``encode_chunk_batch_dispatch_src`` / ``encode_chunk_batch_finalize``
 run ``batch`` chunks from the on-device source as one dispatch of the
 chunk axis and one copy back. ``cudafvcenc bitrate=`` runs flutpu's
-per-chunk quality controller. Spatial striping is not ported (it raises
-``NotImplementedError``).
+per-chunk quality controller.
+
+Several shards and row stripes (``encode_chunks_dispatch(frames,
+mesh)``, ``cudahype``): each chunk shard's block of chunks is one
+dispatch on its device; with a ``ChunkSpatialMesh`` each frame is cut
+into row stripes on the shard's stripe devices, which search from their
+ring neighbours' halo rows (the anchor loop and the B pass), and a
+chunk's I/P decision sums its stripes' SADs. The stripes' residuals are
+gathered onto the shard's first device for the pack kernel and the one
+copy back. A coded size beyond the minimum macroblock padding (the
+frame padded to 16 x stripes rows) travels in header flags bit 4.
 """
 
 from __future__ import annotations
@@ -77,8 +86,10 @@ from .ops.dct import dct_matrix, plane_dct, plane_idct, unblockize
 from .ops.entropy import encode_gop_scans_layout
 from .ops.motion import (MB, _mb_sums, motion_compensate,
                          motion_compensate_subpel, subpel_refine)
-from .ops.motion_kernels import chroma_mc, motion_search_mc, \
-    motion_search_mc_dygrid, motion_search_mc_hier
+from .ops.motion_kernels import (chroma_mc, chroma_mc_striped,
+                                motion_search_mc, motion_search_mc_dygrid,
+                                motion_search_mc_hier,
+                                motion_search_mc_striped)
 from .ops.quant import (CHROMA_QTABLE, LUMA_QTABLE, dequantize, quant_map,
                         quantize, scale_qtable, zigzag_flatten,
                         zigzag_unflatten)
@@ -184,6 +195,42 @@ def _search_fn(hier: bool, dygrid: bool = False):
     return motion_search_mc_dygrid if dygrid else motion_search_mc
 
 
+def _stripe_search(search, cur, ref, r: int):
+    """The search over a frame's stripe lists: one stripe searches alone,
+    several through the rounded-halo route (``motion_search_mc_striped``)."""
+    if len(cur) == 1:
+        mv, pred = search(cur[0], ref[0], r)
+        return [mv], [pred]
+    return motion_search_mc_striped(cur, ref, r, search)
+
+
+def _stripe_chroma(cb, cr, mv, r: int):
+    """K4 over a frame's stripe lists (``chroma_mc_striped`` for
+    several)."""
+    if len(cb) == 1:
+        pcb, pcr = chroma_mc(cb[0], cr[0], mv[0], r)
+        return [pcb], [pcr]
+    return chroma_mc_striped(cb, cr, mv, r)
+
+
+def _stripe_total(parts):
+    """Per-stripe (C,) float64 sums → their sum over the frame, added in
+    stripe order on the first stripe's device (flutpu's ``psum``)."""
+    total = parts[0]
+    for p in parts[1:]:
+        total = total + p.to(total.device)
+    return total
+
+
+def _gather_rows(parts, dim: int):
+    """Per-stripe (or per-shard) outputs → one tensor on the first part's
+    device, concatenated along ``dim`` in order."""
+    if len(parts) == 1:
+        return parts[0]
+    dev = parts[0].device
+    return torch.cat([p.to(dev) for p in parts], dim=dim)
+
+
 def _anchor_loop(y, cb, cr, qy, qc, search, search_range: int,
                  subpel: bool = False):
     """The hybrid loop over (C, F, ...) planes: C GOP chunks side by side,
@@ -196,65 +243,107 @@ def _anchor_loop(y, cb, cr, qy, qc, search, search_range: int,
     planes) and both predictions are bilinear
     (``motion_compensate_subpel``): the search's own prediction is
     discarded and the chroma kernel, whose contract is integer vectors,
-    is not launched. Returns (ry, rcb, rcr) (C, F, BH, BW, 64) int16
-    zigzagged residual coefficients, mvs (C, F, H/16, W/16, 2) int8
-    (half-pel units with ``subpel``), itypes (C, F) int8 (1 = intra) and
-    each frame's reconstructed (C, ...) planes."""
-    c, f = y.shape[:2]
-    dev = y.device
-    mbh, mbw = y.shape[2] // MB, y.shape[3] // MB
+    is not launched.
+
+    ``y``, ``cb``, ``cr`` are lists of row stripes of the frames, in ring
+    order, each on its shard's device (one stripe: the whole frame).
+    Several stripes search and compensate through the rounded-halo route
+    from their ring neighbours' reconstructed rows, and each chunk's I/P
+    decision sums the stripes' float64 SADs in stripe order, so every
+    stripe decides alike. Returns per stripe (ry, rcb, rcr) (C, F, BH,
+    BW, 64) int16 zigzagged residual coefficients and mvs (C, F, H/16,
+    W/16, 2) int8 (half-pel units with ``subpel``), the itypes (C, F) int8
+    (1 = intra) on the first stripe's device, and each frame's
+    reconstructed per-stripe (C, ...) planes."""
+    c, f = y[0].shape[:2]
+    devs = [p.device for p in y]
     # frame-major: a frame step of all chunks is one contiguous (C, H, W)
     # block, as the kernels read it (no copy where C is 1)
-    y, cb, cr = (p.transpose(0, 1).contiguous() for p in (y, cb, cr))
-    no_mv = torch.zeros((c, mbh, mbw, 2), dtype=torch.int32, device=dev)
+    y, cb, cr = ([p.transpose(0, 1).contiguous() for p in planes]
+                 for planes in (y, cb, cr))
+    qys, qcs = [qy.to(d) for d in devs], [qc.to(d) for d in devs]
+    no_mv = [torch.zeros((c, p.shape[-2] // MB, p.shape[-1] // MB, 2),
+                         dtype=torch.int32, device=p.device) for p in y]
     outs, mvs, itypes, recs = [], [], [], []
     rec_y = rec_cb = rec_cr = None
     for i in range(f):
-        cy, ccb, ccr = y[i], cb[i], cr[i]
+        cy, ccb, ccr = ([p[i] for p in planes] for planes in (y, cb, cr))
         if i == 0:   # each chunk starts on an I frame: no search to run
-            is_i = torch.ones((c,), dtype=torch.bool, device=dev)
+            is_i = [torch.ones((c,), dtype=torch.bool, device=d)
+                    for d in devs]
             mv = no_mv
-            pred_y = pred_cb = pred_cr = 128.0
+            pred_y = pred_cb = pred_cr = [128.0] * len(devs)
         else:
-            mv, pred_p_y = search(cy, rec_y, search_range)
+            mv, pred_p_y = _stripe_search(search, cy, rec_y, search_range)
             if subpel:
-                mv = subpel_refine(cy, rec_y, mv)
-                pred_p_y = motion_compensate_subpel(rec_y, mv)
+                mv = [subpel_refine(cy[0], rec_y[0], mv[0])]
+                pred_p_y = [motion_compensate_subpel(rec_y[0], mv[0])]
             # the in-codec scene-cut detector, per chunk: intra when flat
             # 128 leaves less luma residual than the motion prediction
             # (sums in float64, so the CPU and the card decide alike)
-            sad_p = (cy - pred_p_y).abs().sum(dim=(1, 2), dtype=torch.float64)
-            sad_i = (cy - 128.0).abs().sum(dim=(1, 2), dtype=torch.float64)
-            is_i = sad_i < sad_p
-            intra = is_i[:, None, None]
-            mv = torch.where(intra[..., None], no_mv, mv)
+            sad_p = _stripe_total([
+                (a - b).abs().sum(dim=(1, 2), dtype=torch.float64)
+                for a, b in zip(cy, pred_p_y)])
+            sad_i = _stripe_total([
+                (a - 128.0).abs().sum(dim=(1, 2), dtype=torch.float64)
+                for a in cy])
+            is_i = [(sad_i < sad_p).to(d) for d in devs]
+            intra = [t[:, None, None] for t in is_i]
+            mv = [torch.where(t[..., None], z, m)
+                  for t, z, m in zip(intra, no_mv, mv)]
             if subpel:
-                pcb = motion_compensate_subpel(rec_cb, mv, mb=8)
-                pcr = motion_compensate_subpel(rec_cr, mv, mb=8)
+                pcb = [motion_compensate_subpel(rec_cb[0], mv[0], mb=8)]
+                pcr = [motion_compensate_subpel(rec_cr[0], mv[0], mb=8)]
             else:
-                pcb, pcr = chroma_mc(rec_cb, rec_cr, mv, search_range)
-            pred_y = torch.where(intra, 128.0, pred_p_y)
-            pred_cb = torch.where(intra, 128.0, pcb)
-            pred_cr = torch.where(intra, 128.0, pcr)
-        oy, ry_rec = _code_plane(cy - pred_y, qy)
-        ocb, rcb_rec = _code_plane(ccb - pred_cb, qc)
-        ocr, rcr_rec = _code_plane(ccr - pred_cr, qc)
-        rec_y = (pred_y + ry_rec).clamp(0.0, 255.0)
-        rec_cb = (pred_cb + rcb_rec).clamp(0.0, 255.0)
-        rec_cr = (pred_cr + rcr_rec).clamp(0.0, 255.0)
-        outs.append((oy, ocb, ocr))
-        mvs.append(mv.to(torch.int8))
-        itypes.append(is_i.to(torch.int8))
+                pcb, pcr = _stripe_chroma(rec_cb, rec_cr, mv, search_range)
+            pred_y = [torch.where(t, 128.0, p) for t, p in zip(intra,
+                                                               pred_p_y)]
+            pred_cb = [torch.where(t, 128.0, p) for t, p in zip(intra, pcb)]
+            pred_cr = [torch.where(t, 128.0, p) for t, p in zip(intra, pcr)]
+        step_out, rec_y, rec_cb, rec_cr = [], [], [], []
+        for s in range(len(devs)):
+            oy, ry_rec = _code_plane(cy[s] - pred_y[s], qys[s])
+            ocb, rcb_rec = _code_plane(ccb[s] - pred_cb[s], qcs[s])
+            ocr, rcr_rec = _code_plane(ccr[s] - pred_cr[s], qcs[s])
+            rec_y.append((pred_y[s] + ry_rec).clamp(0.0, 255.0))
+            rec_cb.append((pred_cb[s] + rcb_rec).clamp(0.0, 255.0))
+            rec_cr.append((pred_cr[s] + rcr_rec).clamp(0.0, 255.0))
+            step_out.append((oy, ocb, ocr, mv[s].to(torch.int8)))
+        outs.append(step_out)
+        itypes.append(is_i[0].to(torch.int8))
         recs.append((rec_y, rec_cb, rec_cr))
-    ry, rcb, rcr = (torch.stack(p, dim=1) for p in zip(*outs))
-    return (ry, rcb, rcr, torch.stack(mvs, dim=1), torch.stack(itypes, dim=1),
-            recs)
+    per_stripe = [tuple(torch.stack(p, dim=1) for p in zip(*(o[s]
+                                                           for o in outs)))
+                  for s in range(len(devs))]
+    return per_stripe, torch.stack(itypes, dim=1), recs
+
+
+def _stripes_in(frames, pad_h: int, pad_w: int, striped: bool):
+    """The codec's input → (per-stripe float32 (Y, Cb, Cr) planes with a
+    chunk axis, whether the chunk axis was added). ``striped``: ``frames``
+    is a list of row stripes' frames, each on its shard's device."""
+    parts = list(frames) if striped else [frames]
+    ys, cbs, crs, added = [], [], [], False
+    for part in parts:
+        part, added = _chunked(part)
+        y, cb, cr = _i420_planes(part, pad_h, pad_w)
+        ys.append(y)
+        cbs.append(cb)
+        crs.append(cr)
+    return ys, cbs, crs, added
+
+
+def _check_striped(striped: bool, hier: bool, subpel: bool = False) -> None:
+    if striped and (hier or subpel):
+        raise ValueError("spatial sharding supports full-search "
+                         "integer-pel motion only")
 
 
 def fvc_mc_encode_chunk(frames, qy: torch.Tensor, qc: torch.Tensor,
                         pad_h: int, pad_w: int, search_range: int = 7,
                         hier: bool = False, subpel: bool = False,
-                        planar: Optional[bool] = None):
+                        planar: Optional[bool] = None,
+                        striped: bool = False):
     """Motion-compensated chunk encode (FVC v2, P frames only): the hybrid
     loop (``_anchor_loop``) over every frame, with the full search (K3;
     K6b under ``FLUTPU_SEARCH_DYGRID=1``, as flutpu selects it) or, with
@@ -262,7 +351,12 @@ def fvc_mc_encode_chunk(frames, qy: torch.Tensor, qc: torch.Tensor,
     search's vectors refined to half-pel and bilinear predictions.
     ``frames``: (r, g, b) uint8 planes (F, H, W) or interleaved (F, H, W,
     3), edge-padded here to (pad_h, pad_w); or C chunks' ((C, F, H, W)
-    planes, (C, F, H, W, 3)), encoded side by side.
+    planes, (C, F, H, W, 3)), encoded side by side. ``striped``:
+    ``frames`` is a list of the frames' row stripes in ring order, each
+    on its shard's device and (pad_h, pad_w) the stripe's coded size
+    (flutpu's ``spatial_axis``); the outputs are gathered onto the first
+    stripe's device, equal to the unstriped encode's. Not with ``hier``
+    or ``subpel`` (flutpu's ValueError).
 
     Returns (ry, rcb, rcr) int16 zigzagged residual coefficients,
     mvs ([C,] F, H/16, W/16, 2) int8 (half-pel units with ``subpel``) and
@@ -270,11 +364,13 @@ def fvc_mc_encode_chunk(frames, qy: torch.Tensor, qc: torch.Tensor,
     if planar:
         raise NotImplementedError("the port reconstructs with the per-block "
                                   "DCT (header flags bit 3 = 0)")
-    frames, added = _chunked(frames)
-    y, cb, cr = _i420_planes(frames, pad_h, pad_w)
+    _check_striped(striped, hier, subpel)
+    y, cb, cr, added = _stripes_in(frames, pad_h, pad_w, striped)
     search = _search_fn(hier, env_flag("FLUTPU_SEARCH_DYGRID", False))
-    return _unchunked(_anchor_loop(y, cb, cr, qy, qc, search,
-                                   search_range, subpel)[:5], added)
+    per_stripe, itypes, _ = _anchor_loop(y, cb, cr, qy, qc, search,
+                                         search_range, subpel)
+    parts = [_gather_rows(p, 2) for p in zip(*per_stripe)]
+    return _unchunked((*parts, itypes), added)
 
 
 def _bframe_structure(f: int, bframes: int):
@@ -316,7 +412,8 @@ def fvc_mc_encode_chunk_b(frames, qy: torch.Tensor, qc: torch.Tensor,
                           bframes: int = 1, hier: bool = False,
                           planar: Optional[bool] = None,
                           qy_b: Optional[torch.Tensor] = None,
-                          qc_b: Optional[torch.Tensor] = None):
+                          qc_b: Optional[torch.Tensor] = None,
+                          striped: bool = False):
     """Bidirectional chunk encode (FVC v2 + flags bit 5). The anchor
     frames (every ``bframes + 1``-th, plus the last) run the hybrid loop;
     then each B frame runs the search (K3, or K5 with ``hier``) against
@@ -329,7 +426,11 @@ def fvc_mc_encode_chunk_b(frames, qy: torch.Tensor, qc: torch.Tensor,
 
     ``frames``: one chunk's, or C chunks' with a leading chunk axis (as
     ``fvc_mc_encode_chunk``): every step below then covers all C chunks
-    at once, each chunk's searches, costs and modes its own.
+    at once, each chunk's searches, costs and modes its own. ``striped``
+    (as ``fvc_mc_encode_chunk``; not with ``hier``): the anchor loop and
+    the B pass run on row stripes with halos from their ring neighbours;
+    a B macroblock's mode stays stripe-local (stripes are whole
+    macroblock rows), as in flutpu.
 
     Returns, in display order: (ry, rcb, rcr) int16 zigzagged residual
     coefficients; fwd and bwd ([C,] F, H/16, W/16, 2) int8 (anchor P
@@ -339,63 +440,76 @@ def fvc_mc_encode_chunk_b(frames, qy: torch.Tensor, qc: torch.Tensor,
     if planar:
         raise NotImplementedError("the port reconstructs with the per-block "
                                   "DCT (header flags bit 3 = 0)")
+    _check_striped(striped, hier)
     qy_b = qy if qy_b is None else qy_b
     qc_b = qc if qc_b is None else qc_b
-    frames, added = _chunked(frames)
-    y, cb, cr = _i420_planes(frames, pad_h, pad_w)
+    y, cb, cr, added = _stripes_in(frames, pad_h, pad_w, striped)
     search = _search_fn(hier)
     r = search_range
-    anchor_idx, b_idx, prev_map, next_map = _bframe_structure(y.shape[1],
+    anchor_idx, b_idx, prev_map, next_map = _bframe_structure(y[0].shape[1],
                                                               bframes)
-    ary, arcb, arcr, amv, ais_i, recs = _anchor_loop(
-        y[:, anchor_idx], cb[:, anchor_idx], cr[:, anchor_idx], qy, qc,
-        search, r)
-    zero_mv = torch.zeros_like(amv)
-    zero_mode = torch.zeros_like(amv[..., 0])
+    a_stripes, ais_i, recs = _anchor_loop(
+        [p[:, anchor_idx] for p in y], [p[:, anchor_idx] for p in cb],
+        [p[:, anchor_idx] for p in cr], qy, qc, search, r)
     if not b_idx:
-        return _unchunked((ary, arcb, arcr, amv, zero_mv, zero_mode, ais_i),
-                          added)
+        parts = [_gather_rows(p, 2) for p in zip(*a_stripes)]
+        return _unchunked((*parts, torch.zeros_like(parts[3]),
+                           torch.zeros_like(parts[3][..., 0]), ais_i), added)
 
+    qybs = [qy_b.to(p.device) for p in y]
+    qcbs = [qc_b.to(p.device) for p in y]
     outs = []
     for j, p, n in zip(b_idx, prev_map, next_map):
-        cy, ccb, ccr = y[:, j], cb[:, j], cr[:, j]
+        cy, ccb, ccr = ([q[:, j] for q in planes] for planes in (y, cb, cr))
         (py, pcb, pcr), (ny, ncb, ncr) = recs[p], recs[n]
-        fwd, pred_f = search(cy, py, r)
-        bwd, pred_b = search(cy, ny, r)
-        pred_bi = (pred_f + pred_b) * 0.5
-        # first minimum on the CPU and on CUDA alike: ties go to mode 0
-        mode = torch.argmin(torch.stack([
-            _mb_sums((cy - pred_bi).abs(), MB),
-            _mb_sums((cy - pred_f).abs(), MB),
-            _mb_sums((cy - pred_b).abs(), MB),
-            _mb_sums((cy - 128.0).abs(), MB)]), dim=0)
-        fcb, fcr = chroma_mc(pcb, pcr, fwd, r)
-        bcb, bcr = chroma_mc(ncb, ncr, bwd, r)
-        mode_y, mode_c = _repeat_blocks(mode, MB), _repeat_blocks(mode, 8)
-        pred_y = _select_mode(mode_y, pred_bi, pred_f, pred_b)
-        pred_cb = _select_mode(mode_c, (fcb + bcb) * 0.5, fcb, bcb)
-        pred_cr = _select_mode(mode_c, (fcr + bcr) * 0.5, fcr, bcr)
-        coefs = [zigzag_flatten(_quant_plane(c - pr, q)).to(torch.int16)
-                 for c, pr, q in ((cy, pred_y, qy_b), (ccb, pred_cb, qc_b),
-                                  (ccr, pred_cr, qc_b))]
-        # zero unused vectors: smaller zlib'd fields, and the decode never
-        # reads them
-        use_f = ((mode == 0) | (mode == 1))[..., None]
-        use_b = ((mode == 0) | (mode == 2))[..., None]
-        outs.append((*coefs, torch.where(use_f, fwd, 0).to(torch.int8),
-                     torch.where(use_b, bwd, 0).to(torch.int8),
-                     mode.to(torch.int8)))
-    boy, bocb, bocr, bfwd, bbwd, bmode = (torch.stack(p, dim=1)
-                                          for p in zip(*outs))
+        fwd, pred_f = _stripe_search(search, cy, py, r)
+        bwd, pred_b = _stripe_search(search, cy, ny, r)
+        fcb, fcr = _stripe_chroma(pcb, pcr, fwd, r)
+        bcb, bcr = _stripe_chroma(ncb, ncr, bwd, r)
+        step = []
+        for s in range(len(y)):
+            pred_bi = (pred_f[s] + pred_b[s]) * 0.5
+            # first minimum on the CPU and on CUDA alike: ties go to mode 0
+            mode = torch.argmin(torch.stack([
+                _mb_sums((cy[s] - pred_bi).abs(), MB),
+                _mb_sums((cy[s] - pred_f[s]).abs(), MB),
+                _mb_sums((cy[s] - pred_b[s]).abs(), MB),
+                _mb_sums((cy[s] - 128.0).abs(), MB)]), dim=0)
+            mode_y, mode_c = _repeat_blocks(mode, MB), _repeat_blocks(mode, 8)
+            pred_y = _select_mode(mode_y, pred_bi, pred_f[s], pred_b[s])
+            pred_cb = _select_mode(mode_c, (fcb[s] + bcb[s]) * 0.5, fcb[s],
+                                   bcb[s])
+            pred_cr = _select_mode(mode_c, (fcr[s] + bcr[s]) * 0.5, fcr[s],
+                                   bcr[s])
+            coefs = [zigzag_flatten(_quant_plane(c - pr, q)).to(torch.int16)
+                     for c, pr, q in ((cy[s], pred_y, qybs[s]),
+                                      (ccb[s], pred_cb, qcbs[s]),
+                                      (ccr[s], pred_cr, qcbs[s]))]
+            # zero unused vectors: smaller zlib'd fields, and the decode
+            # never reads them
+            use_f = ((mode == 0) | (mode == 1))[..., None]
+            use_b = ((mode == 0) | (mode == 2))[..., None]
+            step.append((*coefs, torch.where(use_f, fwd[s], 0).to(torch.int8),
+                         torch.where(use_b, bwd[s], 0).to(torch.int8),
+                         mode.to(torch.int8)))
+        outs.append(step)
+    # per field: the stripes gathered onto the first stripe's device
+    ary, arcb, arcr, amv = (_gather_rows(p, 2) for p in zip(*a_stripes))
+    boy, bocb, bocr, bfwd, bbwd, bmode = (
+        _gather_rows([torch.stack([o[s][k] for o in outs], dim=1)
+                      for s in range(len(y))], 2) for k in range(6))
+    zero_mv = torch.zeros_like(amv)
+    zero_mode = torch.zeros_like(amv[..., 0])
     # interleave back to display order
+    dev = ary.device
     perm = torch.as_tensor(np.argsort(np.asarray(anchor_idx + b_idx)),
-                           device=y.device)
+                           device=dev)
 
     def cat(a, b):
         return torch.cat([a, b], dim=1)[:, perm]
 
-    btypes = torch.full((y.shape[0], len(b_idx)), 2, dtype=torch.int8,
-                        device=y.device)
+    btypes = torch.full((ary.shape[0], len(b_idx)), 2, dtype=torch.int8,
+                        device=dev)
     return _unchunked((cat(ary, boy), cat(arcb, bocb), cat(arcr, bocr),
                        cat(amv, bfwd), cat(zero_mv, bbwd),
                        cat(zero_mode, bmode), cat(ais_i, btypes)), added)
@@ -554,21 +668,31 @@ class FvcEncoder:
         return enc
 
     # -- dispatch / finalize ------------------------------------------------
-    def _dispatch(self, frames_fn, f: int, h: int, w: int) -> _ChunkHandle:
+    def _dispatch(self, frames_fn, f: int, h: int, w: int,
+                  shard=None) -> _ChunkHandle:
         """Enqueue ``frames_fn()``'s chunks (one chunk's frames, or C
         chunks' with a leading chunk axis) through ``fvc_chunks`` and the
-        entropy stage, one row per frame in chunk order."""
+        entropy stage, one row per frame in chunk order. ``shard``: the
+        devices of one chunk shard's row stripes (None: the frames'
+        device, unstriped); the pack and the copy run on the first."""
         from ..parallel.gop import fvc_chunks
+        from ..parallel.mesh import ChunkMesh, ChunkSpatialMesh
         sc = self._scan_coder
-        ph, pw = _pad_to(h, sc.mult), _pad_to(w, sc.mult)
+        n_sp = 1 if shard is None else len(shard)
+        ph, pw = _pad_to(h, sc.mult * n_sp), _pad_to(w, sc.mult)
         qy, qc = sc._qy_dev, sc._qc_dev
+        mesh = None
+        if shard is not None:
+            mesh = ChunkSpatialMesh(1, n_sp, shard) if n_sp > 1 \
+                else ChunkMesh(shard)
 
         def program(layout, prefix_words, seg_words):
             parts = fvc_chunks(
-                _chunked(frames_fn())[0], qy, qc, motion=self.motion,
-                search_range=self.search_range, hier=self.hier,
-                subpel=self.subpel, bframes=self.bframes, qy_b=self._qyb_dev,
-                qc_b=self._qcb_dev, subsample=self.subsample)
+                _chunked(frames_fn())[0], qy, qc, mesh=mesh,
+                motion=self.motion, search_range=self.search_range,
+                hier=self.hier, subpel=self.subpel, spatial=n_sp > 1,
+                bframes=self.bframes, qy_b=self._qyb_dev, qc_b=self._qcb_dev,
+                subsample=self.subsample)
             return _combined_rows(parts, layout, prefix_words, sc.SEG_G,
                                   seg_words)
 
@@ -585,17 +709,28 @@ class FvcEncoder:
         f, h, w, _ = t.shape
         return self._dispatch(lambda: t, f, h, w)
 
-    def encode_chunks_dispatch(self, frames) -> _ChunkHandle:
+    def encode_chunks_dispatch(self, frames, mesh=None):
         """Enqueue C GOP chunks of (C, F, H, W, 3) uint8 RGB frames (numpy
         or tensor) as ONE dispatch: each chunk an independent chunk
         (frame 0 intra), every frame step of the motion loop one launch
         per kernel for all C, one entropy pack over the C * F frames and
-        one copy back. Returns a handle for ``encode_chunks_finalize``."""
+        one copy back. Returns a handle for ``encode_chunks_finalize``.
+
+        ``mesh`` (a ``ChunkMesh`` or ``ChunkSpatialMesh``; None: the
+        encoder's device): shard m takes the m-th contiguous block of C /
+        M chunks as one dispatch on its devices (M does not divide C:
+        ValueError), its frames cut into the mesh's row stripes; the
+        handle is the list of the blocks' handles."""
         t = torch.as_tensor(np.ascontiguousarray(frames)
                             if isinstance(frames, np.ndarray) else frames)
-        t = t.to(self.device)
-        _, f, h, w, _ = t.shape
-        return self._dispatch(lambda: t, f, h, w)
+        c, f, h, w, _ = t.shape
+        if mesh is None:
+            t = t.to(self.device)
+            return self._dispatch(lambda: t, f, h, w)
+        from ..parallel.gop import chunk_blocks
+        return [self._dispatch(lambda b=t[sl].to(shard[0]): b, f, h, w,
+                               shard)
+                for sl, shard in chunk_blocks(c, mesh, spatial=True)]
 
     def encode_chunk_dispatch_src(self, src_fn, start, n: int, h: int,
                                   w: int) -> _ChunkHandle:
@@ -647,7 +782,16 @@ class FvcEncoder:
         containers in chunk order. ``counts[i]`` keeps the first frames of
         chunk i alone (default: all F); the P chain is causal, so they
         are the bytes of an encode of those frames alone (a truncated B
-        structure is not: re-encode such a tail)."""
+        structure is not: re-encode such a tail). A mesh dispatch's list
+        of handles finalizes block by block, in chunk order."""
+        if isinstance(handle, list):
+            out = []
+            for hd in handle:
+                n = hd.combined.buf.shape[0] // hd.f
+                out += self.encode_chunks_finalize(
+                    hd, None if counts is None else counts[len(out):
+                                                           len(out) + n])
+            return out
         payloads, mvs, itypes = self._finalize(handle)
         f = handle.f
         out = []
@@ -657,7 +801,7 @@ class FvcEncoder:
             out.append(self._build_chunk(
                 payloads[rows], None if mvs is None else mvs[rows],
                 None if itypes is None else itypes[rows], n, handle.h,
-                handle.w))
+                handle.w, handle.ph, handle.pw))
         return out
 
     def encode_chunk(self, frames) -> bytes:
@@ -694,23 +838,35 @@ class FvcEncoder:
         return payloads, mvs, itypes
 
     def _build_chunk(self, payloads, mvs, itypes, f: int, h: int,
-                     w: int) -> bytes:
+                     w: int, ph: Optional[int] = None,
+                     pw: Optional[int] = None) -> bytes:
         """Container assembly (flutpu's ``_build_chunk`` for streams with
-        the per-block in-loop DCT)."""
+        the per-block in-loop DCT, and ``tpuhype``'s coded-size extension:
+        header flags bit 4 and ``>HH`` (pw, ph) after the search-range
+        byte where the coded size (ph, pw) exceeds the minimum macroblock
+        padding; None: that padding)."""
         version = 2 if self.motion else VERSION
+        mult = self._scan_coder.mult
+        ph = _pad_to(h, mult) if ph is None else ph
+        pw = _pad_to(w, mult) if pw is None else pw
+        coded_ext = (ph, pw) != (_pad_to(h, mult), _pad_to(w, mult))
         flags = 1 if self.subsample else 0
         if self.motion:
             flags |= 2                 # vectors are zlib-compressed
             if self.subpel:
                 flags |= 4             # vectors are in half-pel units
-            if self.bframes:
-                flags |= 32            # the chunk may hold B frames
+        if coded_ext:
+            flags |= 16                # the coded size follows
+        if self.bframes:
+            flags |= 32                # the chunk may hold B frames
         out = [MAGIC, struct.pack(">BBHHBB", version, flags, w, h,
                                   self.quality, f)]
         if self.motion:
             out.append(struct.pack(">B", self.search_range))
-            if self.bframes:
-                out.append(struct.pack(">B", self.bquality))
+        if coded_ext:
+            out.append(struct.pack(">HH", pw, ph))
+        if self.bframes:
+            out.append(struct.pack(">B", self.bquality))
         for i in range(f):
             payload = payloads[i]
             if self.motion:

@@ -508,6 +508,36 @@ class JpegEncoder:
         return [hdr + self._scan_bytes(row, handle.n_segs, handle.prefix)
                 + b"\xff\xd9" for row in arr]
 
+    def scan_planes_dispatch(self, coefs) -> _Handle:
+        """Enqueue the entropy stage alone on already-quantized (F, BH,
+        BW, 64) int16 zigzagged coefficient planes (y, cb, cr), on their
+        device: MCU order, the pack kernel of the encoder's layout (K2, or
+        K7 / K8a), one copy back, at the adaptive sizes with the overflow
+        redispatch. Returns a handle for ``scan_planes_finalize``."""
+        yq, cbq, crq = coefs
+        bh, bw = yq.shape[1], yq.shape[2]
+
+        def program(layout, prefix_words, seg_words):
+            return encode_gop_scans_layout(yq, cbq, crq, layout,
+                                           prefix_words, self.SEG_G,
+                                           seg_words)
+
+        return _Handle(*self._run_sized(program, bh * 8, bw * 8), bh * 8,
+                       bw * 8)
+
+    def scan_planes_finalize(self, handle: _Handle) -> List[bytes]:
+        """Blocking half of ``scan_planes_dispatch``: one byte-stuffed
+        baseline scan per frame (no JFIF wrapper)."""
+        arr, handle = self._fetch(handle)
+        return [self._scan_bytes(row, handle.n_segs, handle.prefix)
+                for row in arr]
+
+    def scan_planes(self, coefs) -> List[bytes]:
+        """Entropy-code already-quantized (F, BH, BW, 64) int16 zigzag
+        coefficient planes to baseline scans, no JFIF wrapper (flutpu's
+        ``JpegEncoder.scan_planes``)."""
+        return self.scan_planes_finalize(self.scan_planes_dispatch(coefs))
+
     def encode_frame(self, frame: np.ndarray) -> bytes:
         return self.encode_gop(frame[None])[0]
 

@@ -19,6 +19,14 @@ Every function also takes a leading chunk axis: (C, H, W) planes and
 (C, H/16, W/16, 2) vectors, one plane per GOP chunk, each chunk searched
 and compensated inside its own plane exactly as it would be alone (the
 counterpart of flutpu's ``vmap`` over its per-chunk codec).
+
+Row stripes (flutpu's sequence-parallel formulations): a frame cut into
+row stripes, each on its shard's device, searches and compensates its
+own rows from a reference carrying its ring neighbours' edge rows
+(``exchange_row_halos``); the ring's wrap reproduces ``torch.roll``'s
+whole-frame wrap, so ``motion_search_striped`` and
+``motion_compensate_striped`` give the unstriped vectors and
+predictions of the stripe's rows.
 """
 
 from __future__ import annotations
@@ -129,6 +137,80 @@ def motion_compensate(prev: torch.Tensor, mv: torch.Tensor,
     if mb != MB:
         mv = torch.div(mv.to(torch.int64), 2, rounding_mode="floor")
     return compensate_blocks(prev, mv, mb)
+
+
+def exchange_row_halos(stripes, r: int):
+    """A frame's row stripes ([C,] Hs, W), in ring order, each on its
+    shard's device → each stripe with ``r`` halo rows on either side
+    ([C,] Hs + 2r, W): stripe s's last r rows above stripe s + 1 and its
+    first r rows below stripe s - 1, ring-wrapped (flutpu's two ring
+    ppermutes). Only the halo rows cross devices."""
+    n = len(stripes)
+    out = []
+    for s, p in enumerate(stripes):
+        above, below = stripes[(s - 1) % n], stripes[(s + 1) % n]
+        if r > above.shape[-2] or r > below.shape[-2]:
+            raise ValueError(f"a halo of {r} rows exceeds a stripe of "
+                             f"{min(above.shape[-2], below.shape[-2])} rows")
+        hs = above.shape[-2]
+        out.append(torch.cat([above[..., hs - r:, :].to(p.device), p,
+                              below[..., :r, :].to(p.device)], dim=-2))
+    return out
+
+
+def motion_search_striped(cur_s: torch.Tensor, prev_haloed: torch.Tensor,
+                          search_range: int = 7, mb: int = MB
+                          ) -> torch.Tensor:
+    """``motion_search`` on a row stripe ([C,] Hs, W): ``prev_haloed``
+    carries ±search_range halo rows (``exchange_row_halos``). Same
+    candidate order, cost and tie rule as ``motion_search`` (the SAD in
+    ``_mb_sums``' order), so the vectors of the stripe's macroblocks are
+    the unstriped ones (flutpu's ``motion_search_striped``)."""
+    *lead, hs, w = cur_s.shape
+    r = search_range
+    cur = cur_s.to(torch.float32)
+    prev = prev_haloed.to(torch.float32)
+    dev = cur.device
+    best_cost = torch.full((*lead, hs // mb, w // mb), float("inf"),
+                           dtype=torch.float32, device=dev)
+    best_mv = torch.zeros((*lead, hs // mb, w // mb, 2), dtype=torch.int32,
+                          device=dev)
+    for dy in range(-r, r + 1):
+        rows = prev[..., r - dy:r - dy + hs, :]
+        for dx in range(-r, r + 1):
+            shifted = torch.roll(rows, dx, dims=-1)   # x wrap: stripe-local
+            cost = _mb_sums((cur - shifted).abs(), mb) * 64 + (abs(dy)
+                                                               + abs(dx))
+            better = cost < best_cost
+            best_cost = torch.where(better, cost, best_cost)
+            cand = torch.tensor([dy, dx], dtype=torch.int32, device=dev)
+            best_mv = torch.where(better[..., None], cand, best_mv)
+    return best_mv
+
+
+def motion_compensate_striped(prev_haloed: torch.Tensor, mv: torch.Tensor,
+                              halo: int, search_range: int = 7,
+                              mb: int = MB) -> torch.Tensor:
+    """``motion_compensate`` on a row stripe: ``prev_haloed`` ([C,] Hs +
+    2 halo, W) carries ±``halo`` rows; ``mv`` are the stripe's LUMA-grid
+    vectors (for chroma pass mb=8, the chroma-haloed plane with halo =
+    (search_range + 1) // 2; the vectors are floor-halved here). The
+    prediction of the stripe's rows, as the unstriped one (flutpu's
+    ``motion_compensate_striped``)."""
+    *lead, hh, w = prev_haloed.shape
+    hs = hh - 2 * halo
+    mv = mv.to(torch.int64)
+    if mb != MB:
+        mv = torch.div(mv, 2, rounding_mode="floor")
+    dy = mv[..., 0].repeat_interleave(mb, -2).repeat_interleave(mb, -1)
+    dx = mv[..., 1].repeat_interleave(mb, -2).repeat_interleave(mb, -1)
+    yy = torch.arange(hs, device=prev_haloed.device)[:, None]
+    xx = torch.arange(w, device=prev_haloed.device)[None, :]
+    # out[i, j] = haloed[halo + i - dy, (j - dx) mod W]
+    idx = (halo + yy - dy) * w + torch.remainder(xx - dx, w)
+    flat = prev_haloed.reshape(-1, hh * w)
+    return torch.gather(flat, 1, idx.reshape(flat.shape[0], hs * w)) \
+        .reshape(*lead, hs, w)
 
 
 def motion_search_hier(cur_y: torch.Tensor, prev_y: torch.Tensor,

@@ -35,6 +35,17 @@ it alone would (``cudahype`` runs one frame step of all its chunks so;
 on the TPU, ``vmap`` gives the Pallas kernel a batch grid axis). A call
 counts one launch whatever C is.
 
+Row stripes (``motion_search_mc_striped``, ``chroma_mc_striped``) run
+K3 (or K6b) and K4 unchanged on each stripe with a halo rounded up to
+whole macroblocks (``halo_rows``): ``hr = 16 * ceil(r / 16)`` luma rows
+and hr / 2 chroma rows from the ring neighbours. The kernel searches
+the (Hs + 2 hr)-row plane with its usual wrap; a macroblock of the
+stripe's own rows never reaches the wrap (|dy| <= r <= hr), so its
+vector, cost, tie order and prediction are those of flutpu's
+``motion_search_striped`` with an r-row halo, and the stripe keeps its
+middle Hs / 16 macroblock rows. The halo's macroblocks are the extra
+work: 2 hr / Hs of a stripe's search.
+
 ``*_plain`` are the same functions in plain PyTorch (the reference's
 XLA arm: ops/motion.py). The wrappers take them for CPU tensors only; a
 CUDA tensor launches the kernel or raises. Each search wrapper counts its
@@ -50,8 +61,8 @@ from __future__ import annotations
 import torch
 
 from ... import _build
-from .motion import (MB, compensate_blocks, motion_compensate, motion_search,
-                     motion_search_hier)
+from .motion import (MB, compensate_blocks, exchange_row_halos,
+                     motion_compensate, motion_search, motion_search_hier)
 
 #: largest search range the search kernels take: the FVC encoder's limit
 #: (vectors are int8 in the bitstream). Above 32 K3 and K6a stage their
@@ -288,6 +299,61 @@ def _launch_chroma(wrapper, entry: str, prev_cb, prev_cr, mv):
     if nc and hc and wc:
         _build.count_launch(wrapper)
     return pcb, pcr
+
+
+def halo_rows(search_range: int, stripe_h: int) -> int:
+    """The luma halo of the striped route: ``search_range`` rounded up to
+    whole macroblocks. ValueError where it exceeds the stripe height."""
+    hr = MB * -(-search_range // MB)
+    if hr > stripe_h:
+        raise ValueError(
+            f"a stripe of {stripe_h} rows is thinner than its {hr}-row halo "
+            f"(search range {search_range}): use fewer stripes")
+    return hr
+
+
+def motion_search_mc_striped(cur, prev, search_range: int = 7,
+                             search=motion_search_mc):
+    """One frame's row stripes: ``cur`` and ``prev`` lists of ([C,] Hs, W)
+    float32 planes in ring order, each pair on its shard's device →
+    (mv list ([C,] Hs/16, W/16, 2) int32, pred list ([C,] Hs, W)): the
+    unstriped search's vectors and prediction of each stripe's rows.
+    ``search`` (K3 ``motion_search_mc``, K6b, or a plain version) runs on
+    each stripe padded by the rounded halo (``halo_rows``): ``prev``'s
+    rows from the ring neighbours, ``cur`` zero rows whose macroblocks
+    are dropped."""
+    hs = cur[0].shape[-2]
+    hr = halo_rows(search_range, hs)
+    k = hr // MB
+    mvs, preds = [], []
+    for c, p in zip(cur, exchange_row_halos(prev, hr)):
+        mv, pred = search(torch.nn.functional.pad(c, (0, 0, hr, hr)), p,
+                          search_range)
+        mvs.append(mv[..., k:k + hs // MB, :, :])
+        preds.append(pred[..., hr:hr + hs, :])
+    return mvs, preds
+
+
+def chroma_mc_striped(prev_cb, prev_cr, mv, search_range: int = 7,
+                      chroma=chroma_mc):
+    """Chroma compensation of one frame's row stripes: ``prev_cb``,
+    ``prev_cr`` lists of ([C,] Hs/2, W/2) planes in ring order, ``mv`` the
+    stripes' luma-grid vectors → (pred_cb list, pred_cr list). ``chroma``
+    (K4 ``chroma_mc`` by default, or its plain version) runs on each
+    stripe with hr / 2 halo rows (hr: ``halo_rows``), the halo's vectors
+    zero; the floor-halved vectors of the stripe's rows stay inside it
+    and its halo."""
+    hcs = prev_cb[0].shape[-2]
+    hc = halo_rows(search_range, 2 * hcs) // 2
+    k = hc // 8
+    out_cb, out_cr = [], []
+    for cb, cr, m in zip(exchange_row_halos(prev_cb, hc),
+                         exchange_row_halos(prev_cr, hc), mv):
+        m = torch.nn.functional.pad(m, (0, 0, 0, 0, k, k))
+        pcb, pcr = chroma(cb, cr, m, search_range)
+        out_cb.append(pcb[..., hc:hc + hcs, :])
+        out_cr.append(pcr[..., hc:hc + hcs, :])
+    return out_cb, out_cr
 
 
 #: kernel launches since the count was last set to 0, and of them those

@@ -10,20 +10,33 @@ frames at once, and one copy brings every chunk back. Output leaves in
 strict chunk order, the ordered-gather role of the reference's
 scenecollector.
 
-- ``codec=jpeg``: the C x F frames through ``JpegEncoder``'s dispatch
-  (K1, then K2 on the segment layout, or K7 under
-  ``FLUTPU_SEGMENTED=0``; one pinned copy, the native finalize); one JFIF buffer per frame,
-  byte for byte a plain ``JpegEncoder`` encode of the same frames.
+- ``codec=jpeg``: K1 over the C x F frames (``encode_chunks``), then
+  ``JpegEncoder.scan_planes_dispatch`` (K2 on the segment layout, or K7
+  under ``FLUTPU_SEGMENTED=0``; one pinned copy, the native finalize);
+  one JFIF buffer per frame, byte for byte a plain ``JpegEncoder``
+  encode of the same frames.
 - ``codec=fvc`` / ``fvc-motion``: the FVC chunk codec over the C chunks
   (``FvcEncoder.encode_chunks_dispatch`` → ``fvc_chunks``); one
   container buffer per chunk, as flutpu writes it. A truncated last
   batch is padded with its last frame; with ``bframes`` a truncated chunk
   is re-encoded alone with the B structure of its real frame count.
 
+Several cards and row stripes (flutpu's chunk x spatial mesh): with
+``device=cuda`` the element deals a mesh of M chunk shards x ``spatial``
+stripes round the visible cards (``deal_devices``; M the largest divisor
+of C not above cards // spatial); with ``device=cuda:N`` or ``cpu``
+every slot lies on that device, one chunk shard. Each shard's block of
+chunks is one dispatch on its devices. ``spatial>1`` pads H to 16 x
+stripes on the device; JPEG crops the coefficient planes back to the
+standard MCU rows before the pack (``JpegEncoder.scan_planes_dispatch``),
+so its JFIF are byte-identical to an unstriped encode; FVC writes the
+coded size (header flags bit 4) where the padding exceeds the standard
+one. On one card with ``spatial=1`` the mesh is one shard: C chunks in
+one dispatch, as without a mesh.
+
 Latency: batching C chunks trades latency for throughput as the
 reference's round-robin over C branches does — output stalls at most
-C * gop-size frames behind input. Chunks on several cards and spatial
-striping are not ported yet (ROADMAP queue 1, item 5).
+C * gop-size frames behind input.
 """
 
 from __future__ import annotations
@@ -35,9 +48,11 @@ import torch
 
 from ..codec.base import VideoEncoder
 from ..codec.fvc import FvcEncoder
-from ..codec.jpeg import JpegEncoder
+from ..codec.jpeg import JpegEncoder, _pad_to, jpeg_headers
 from ..core import Buffer, Caps, PropertySpec, register
-from ..parallel.mesh import visible_devices
+from ..parallel.gop import chunk_blocks, encode_chunks
+from ..parallel.mesh import (ChunkMesh, ChunkSpatialMesh, deal_devices,
+                             visible_devices)
 
 
 @register
@@ -53,8 +68,14 @@ class CudaHype(VideoEncoder):
         PropertySpec("quality", 85),
         PropertySpec("chunks", 0, "GOP chunks per dispatch (0 = one per "
                                    "visible card)"),
-        PropertySpec("spatial", 1, "row stripes per frame: 1 (striping is "
-                                   "not ported yet)"),
+        PropertySpec("spatial", 1, "row-stripe each frame across this many "
+                                   "shards (chunk x spatial mesh, for frame "
+                                   "sizes too heavy for one card, e.g. 4K); "
+                                   "fvc-motion exchanges halo rows between "
+                                   "stripes and decides the frame type over "
+                                   "all of them (integer-pel full search); "
+                                   "FVC streams carry the coded size "
+                                   "(header flags bit 4)"),
         PropertySpec("codec", "jpeg", "jpeg | fvc | fvc-motion: MJPEG "
                                       "per-frame buffers, or FVC GOP chunks "
                                       "(one container buffer per chunk)"),
@@ -81,11 +102,6 @@ class CudaHype(VideoEncoder):
             "video/x-fvc" if fvc else self.SRC_CAPS)
 
     def do_set_property(self, name, value):
-        if name == "spatial" and int(value) > 1:
-            raise NotImplementedError(
-                "cudahype spatial > 1: spatial striping (row stripes with "
-                "halo exchange, FVC header flags bit 4) is not ported yet "
-                "(ROADMAP queue 1, item 5)")
         if name == "codec":
             codec = str(value)
             if codec not in ("jpeg", "fvc", "fvc-motion"):
@@ -104,15 +120,43 @@ class CudaHype(VideoEncoder):
 
     # -- sizing --------------------------------------------------------------
     @property
+    def _spatial(self) -> int:
+        return max(1, int(self.get_property("spatial")))
+
+    def _cards(self):
+        """The visible cards with ``device=cuda``; else None (one
+        device)."""
+        dev = str(self.get_property("device"))
+        return visible_devices() if dev == "cuda" else None
+
+    @property
     def n_chunks(self) -> int:
-        """C, the chunks of one dispatch: ``chunks``, or one per visible
-        card (one on the CPU)."""
+        """C, the chunks of one dispatch: ``chunks``, or one per chunk
+        shard the visible cards hold (cards // spatial; one on the
+        CPU)."""
         n = int(self.get_property("chunks"))
         if n:
             return n
-        if torch.device(str(self.get_property("device"))).type == "cuda":
-            return max(1, len(visible_devices()))
+        cards = self._cards()
+        if cards is not None:
+            return max(1, len(cards) // self._spatial)
         return 1
+
+    def mesh(self) -> ChunkMesh:
+        """The chunk x spatial mesh of one dispatch: with ``device=cuda``
+        M chunk shards x ``spatial`` stripes dealt round the visible cards
+        (M the largest divisor of C not above cards // spatial); else
+        one shard whose stripes all lie on ``device``."""
+        sp, c = self._spatial, self.n_chunks
+        cards = self._cards()
+        if cards is None:
+            slots = [torch.device(str(self.get_property("device")))] * sp
+            m = 1
+        else:
+            m = max(k for k in range(1, max(1, len(cards) // sp) + 1)
+                    if c % k == 0)
+            slots = deal_devices(m * sp, cards)
+        return ChunkSpatialMesh(m, sp, slots)
 
     @property
     def _batch_target(self) -> int:
@@ -127,17 +171,29 @@ class CudaHype(VideoEncoder):
                     bframes=int(self.get_property("bframes")) if motion
                     else 0)
 
+    def _encoder_device(self) -> torch.device:
+        """Where the encoders keep their tables: ``device``, or with
+        ``device=cuda`` the first visible card (the mesh's first slot)."""
+        cards = self._cards()
+        if cards:
+            return cards[0]
+        return torch.device(str(self.get_property("device")))
+
     def _jpeg(self) -> JpegEncoder:
         if self._jenc is None:
             self._jenc = JpegEncoder(int(self.get_property("quality")),
-                                     device=str(self.get_property("device")))
+                                     device=self._encoder_device())
         return self._jenc
 
     def _fvc(self) -> FvcEncoder:
         if self._fenc is None:
+            args = self._motion_args()
+            if self._spatial > 1 and args["motion"] and (args["hier"]
+                                                         or args["subpel"]):
+                raise ValueError("codec=fvc spatial striping supports "
+                                 "full-search integer-pel motion (and v1)")
             self._fenc = FvcEncoder(int(self.get_property("quality")),
-                                    device=str(self.get_property("device")),
-                                    **self._motion_args())
+                                    device=self._encoder_device(), **args)
         return self._fenc
 
     # -- the element contract ---------------------------------------------------
@@ -160,8 +216,9 @@ class CudaHype(VideoEncoder):
     def _flush(self) -> None:
         """Stack the held frames, pad a short batch by repeating its last
         frame (outputs past the real frames are dropped), and encode the
-        C chunks in one dispatch; pad to the coded size happens on the
-        device."""
+        C chunks over the mesh: one dispatch per chunk shard (one shard on
+        one card: C chunks in one dispatch); pad to the coded size happens
+        on the device."""
         if not self._frames:
             return
         batch, self._frames = self._frames, []
@@ -173,25 +230,49 @@ class CudaHype(VideoEncoder):
         if n < total:
             frames = np.concatenate(
                 [frames, np.repeat(frames[-1:], total - n, axis=0)], axis=0)
-        dev = torch.device(str(self.get_property("device")))
-        t = torch.from_numpy(frames).to(dev)
+        mesh = self.mesh()
+        t = torch.from_numpy(frames)
+        if len(set(mesh.devices)) == 1:
+            t = t.to(mesh.devices[0])   # one copy up for every shard
+        chunks = t.reshape(n_chunks, gop, h, w, 3)
         if str(self.get_property("codec")).startswith("fvc"):
-            self._flush_fvc(batch, t.reshape(n_chunks, gop, h, w, 3), n)
+            self._flush_fvc(batch, chunks, n, mesh)
             return
-        jenc = self._jpeg()
-        payloads = jenc.encode_gop_finalize(jenc.encode_gop_dispatch(t, h, w))
+        payloads = self._jpeg_mesh(self._jpeg(), chunks, h, w, mesh)
         for src, data in zip(batch, payloads):
             self.srcpad.push(Buffer(data, pts=src.pts, dts=src.dts,
                                     duration=src.duration, offset=src.offset))
 
-    def _flush_fvc(self, batch, chunks: torch.Tensor, n: int) -> None:
+    def _jpeg_mesh(self, jenc: JpegEncoder, chunks: torch.Tensor, h: int,
+                   w: int, mesh: ChunkMesh) -> List[bytes]:
+        """JPEG over a mesh: per chunk shard, K1 on each of its stripes,
+        the coefficient planes gathered on its first device and cropped to
+        the standard MCU rows (the stripes' padding is not the scan's),
+        then the pack and one copy (``scan_planes_dispatch``); JFIF in
+        chunk order."""
+        mh = _pad_to(h, 16)
+        handles = []
+        for sl, shard in chunk_blocks(chunks.shape[0], mesh, spatial=True):
+            sub = ChunkSpatialMesh(1, len(shard), shard)
+            yq, cbq, crq = (x.flatten(0, 1) for x in encode_chunks(
+                chunks[sl], jenc._qy_dev, jenc._qc_dev, mesh=sub,
+                spatial=True))
+            handles.append(jenc.scan_planes_dispatch(
+                (yq[:, :mh // 8], cbq[:, :mh // 16], crq[:, :mh // 16])))
+        hdr = jpeg_headers(h, w, jenc.qy, jenc.qc, True)
+        return [hdr + scan + b"\xff\xd9" for hd in handles
+                for scan in jenc.scan_planes_finalize(hd)]
+
+    def _flush_fvc(self, batch, chunks: torch.Tensor, n: int,
+                   mesh: ChunkMesh) -> None:
         """One container per chunk that holds real frames, in chunk order;
-        flutpu's pts/dts/duration arithmetic."""
+        flutpu's pts/dts/duration arithmetic. One dispatch per chunk shard
+        of ``mesh``, striped as the mesh says."""
         c, gop = chunks.shape[:2]
         enc = self._fvc()
         counts = [max(0, min(gop, n - ci * gop)) for ci in range(c)]
-        datas = enc.encode_chunks_finalize(enc.encode_chunks_dispatch(chunks),
-                                           counts)
+        datas = enc.encode_chunks_finalize(
+            enc.encode_chunks_dispatch(chunks, mesh), counts)
         for ci, (real, data) in enumerate(zip(counts, datas)):
             if not real:
                 break   # wholly padding

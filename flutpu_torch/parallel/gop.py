@@ -1,10 +1,10 @@
-"""GOP-chunk encode of C chunks in one dispatch (port of
+"""GOP-chunk encode of C chunks in one dispatch per shard (port of
 flutpu/parallel/gop.py).
 
 flutpu runs its per-chunk codec under ``shard_map`` over the ``chunk``
 mesh axis and ``vmap``s it over the chunks of a shard, so every Pallas
-kernel there runs with a batch grid axis. On one CUDA device the C
-chunks are a batch axis of the same kind:
+kernel there runs with a batch grid axis. Here each shard's block of
+chunks is a batch axis of the same kind on the shard's device:
 
 - ``encode_chunks``: the front-end kernel (K1) over (C, F, H, W) planes,
   C x F folded into its frame axis;
@@ -17,28 +17,32 @@ chunks are a batch axis of the same kind:
   one batched in-loop transform, and with ``bframes`` the B pass
   likewise.
 
+A mesh of M chunk shards (``ChunkMesh``; devices may repeat) splits the
+C chunks into M contiguous blocks of C / M, one dispatch per block on
+its shard's device (``chunk_blocks``). With ``spatial`` and a
+``ChunkSpatialMesh`` each shard also cuts its frames, edge-padded to
+16 x stripes rows, into row stripes on its stripe devices: K1 runs per
+stripe with no halo (v1, JPEG), and the motion loop searches each stripe
+through the rounded-halo route (K3 and K4 on the stripe plus whole
+macroblock rows of its ring neighbours) with one I/P decision per chunk
+over all its stripes. Outputs come back in chunk order on the first
+shard's device, equal to a one-shard call (the stripes' rows gathered).
+
 Each chunk is independent (frame 0 of every chunk is an I frame: the
 forced-keyframe contract of the hype bin), so a chunk's output is what a
-dispatch of it alone gives. Chunks on several cards and spatial striping
-raise ``NotImplementedError`` (ROADMAP queue 1, item 5).
+dispatch of it alone gives.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..codec.fvc import (fvc_mc_encode_chunk, fvc_mc_encode_chunk_b,
-                         fvc_residuals_chunks)
-from ..codec.jpeg import _pad_to, _planes_front_end
+from ..codec.fvc import (_check_striped, _gather_rows, fvc_mc_encode_chunk,
+                         fvc_mc_encode_chunk_b, fvc_residuals_chunks)
+from ..codec.jpeg import _edge_pad, _pad_to, _planes_front_end
 from .mesh import ChunkMesh
-
-
-def _striping_not_ported():
-    return NotImplementedError(
-        "spatial striping (row stripes with halo exchange, FVC header "
-        "flags bit 4) is not ported yet (ROADMAP queue 1, item 5)")
 
 
 def _chunk_planes(frames):
@@ -57,13 +61,48 @@ def _chunk_planes(frames):
     return planes
 
 
-def _on_mesh(planes, mesh: Optional[ChunkMesh]):
-    """The planes on the mesh's device (a one-device mesh; None: where
-    they lie)."""
-    if mesh is None:
-        return planes
-    dev = mesh.single_device()
-    return tuple(p.to(dev) for p in planes)
+def chunk_blocks(c: int, mesh: Optional[ChunkMesh], spatial: bool
+                 ) -> List[Tuple[slice, Tuple[torch.device, ...]]]:
+    """The chunk axis over a mesh: per chunk shard, (its contiguous slice
+    of the C chunks, its stripes' devices). Without ``spatial`` a shard
+    has one stripe (its first device). ValueError where the shards do not
+    divide C (``shard_map`` refuses it)."""
+    shards = mesh.shards()
+    if not spatial:
+        shards = tuple(s[:1] for s in shards)
+    m = len(shards)
+    if c % m:
+        raise ValueError(f"{c} chunks do not split evenly over the {m} "
+                         f"chunk shards of {mesh!r}")
+    cb = c // m
+    return [(slice(i * cb, (i + 1) * cb), shard)
+            for i, shard in enumerate(shards)]
+
+
+def _stripes(planes, shard: Sequence[torch.device], mult: int):
+    """One block's (C, F, H, W) planes → per stripe of ``shard`` its
+    (r, g, b) planes on its device: the frames edge-padded to (16 x
+    stripes, 16) multiples (``mult`` for 4:4:4) on the shard's first
+    device, then cut into equal row stripes (one stripe: the padded
+    frames)."""
+    n = len(shard)
+    planes = tuple(p.to(shard[0]) for p in planes)
+    h, w = planes[0].shape[-2:]
+    ph, pw = _pad_to(h, mult * n), _pad_to(w, mult)
+    planes = tuple(_edge_pad(p, ph, pw) for p in planes)
+    hs = ph // n
+    return [tuple(p[..., s * hs:(s + 1) * hs, :].to(d) for p in planes)
+            for s, d in enumerate(shard)]
+
+
+def _blocks(planes, mesh: Optional[ChunkMesh], spatial: bool, mult: int):
+    """Per chunk shard (one shard on the planes' device without a mesh),
+    its stripes' planes (``_stripes``)."""
+    c = planes[0].shape[0]
+    blocks = [(slice(0, c), (planes[0].device,))] if mesh is None \
+        else chunk_blocks(c, mesh, spatial)
+    return [_stripes(tuple(p[sl] for p in planes), shard, mult)
+            for sl, shard in blocks]
 
 
 def encode_chunks(frames, qy: torch.Tensor, qc: torch.Tensor,
@@ -73,17 +112,25 @@ def encode_chunks(frames, qy: torch.Tensor, qc: torch.Tensor,
     (C, F, H, W) planes — → (y, cb, cr) int16 (C, F, BH, BW, 64)
     zigzagged quantized coefficients of the frames edge-padded to
     multiples of 16: one launch of K1 over the C x F frames (without
-    ``subsample``: multiples of 8 through the plain 4:4:4 front end)."""
-    if spatial:
-        raise _striping_not_ported()
-    r, g, b = _on_mesh(_chunk_planes(frames), mesh)
-    c, f, h, w = r.shape
-    mult = 16 if subsample else 8
-    coefs = _planes_front_end(*(p.flatten(0, 1) for p in (r, g, b)),
-                              qy.to(r.device), qc.to(r.device),
-                              _pad_to(h, mult), _pad_to(w, mult),
-                              subsample=subsample)
-    return tuple(x.reshape(c, f, *x.shape[1:]) for x in coefs)
+    ``subsample``: multiples of 8 through the plain 4:4:4 front end).
+
+    ``mesh``: one launch per chunk shard on its block of C / M chunks;
+    with ``spatial`` one per row stripe of a ``ChunkSpatialMesh`` (the
+    frames padded to 16 x stripes rows, every MCU inside its stripe, no
+    halo). The coefficients come back gathered on the first shard's
+    device (None: where the frames lie)."""
+    out = []
+    for stripes in _blocks(_chunk_planes(frames), mesh, spatial,
+                           16 if subsample else 8):
+        coefs = []
+        for r, g, b in stripes:
+            c, f, ph, pw = r.shape
+            cs = _planes_front_end(*(p.flatten(0, 1) for p in (r, g, b)),
+                                   qy.to(r.device), qc.to(r.device), ph, pw,
+                                   subsample=subsample)
+            coefs.append(tuple(x.reshape(c, f, *x.shape[1:]) for x in cs))
+        out.append(tuple(_gather_rows(p, 2) for p in zip(*coefs)))
+    return tuple(_gather_rows(p, 0) for p in zip(*out))
 
 
 def encode_chunks_single(frames, qy: torch.Tensor, qc: torch.Tensor):
@@ -101,32 +148,44 @@ def fvc_chunks(frames, qy: torch.Tensor, qc: torch.Tensor,
                subpel: bool = False, spatial: bool = False,
                bframes: int = 0, qy_b=None, qc_b=None,
                subsample: bool = True):
-    """The FVC chunk codec over C chunks in one dispatch (the counterpart
-    of flutpu's ``fvc_chunks_sharded``): (C, F, H, W, 3) uint8 frames, or
-    an (r, g, b) tuple of (C, F, H, W) planes, edge-padded to multiples of
-    16. Each chunk is coded independently (frame 0 intra).
+    """The FVC chunk codec over C chunks, one dispatch per chunk shard
+    (the counterpart of flutpu's ``fvc_chunks_sharded``): (C, F, H, W, 3)
+    uint8 frames, or an (r, g, b) tuple of (C, F, H, W) planes,
+    edge-padded to multiples of 16 (16 x stripes rows with ``spatial``).
+    Each chunk is coded independently (frame 0 intra).
 
     Returns (ry, rcb, rcr) int16 (C, F, BH, BW, 64) residual planes; with
     ``motion`` also mvs (C, F, H/16, W/16, 2) int8 and itypes (C, F) int8;
     with ``bframes`` > 0 (motion only) instead (ry, rcb, rcr, fwd, bwd,
     modes, ftypes), as flutpu's. ``subpel`` (motion, no ``bframes``):
-    half-pel vectors. ``subsample=False`` (version 1 only): 4:4:4."""
+    half-pel vectors. ``subsample=False`` (version 1 only): 4:4:4.
+    ``mesh``/``spatial``: as ``encode_chunks``; striped motion is the
+    full integer search only (``hier``/``subpel``: flutpu's ValueError),
+    its rows searched across stripes from halos, each chunk's frame type
+    decided over all its stripes."""
     if bframes and (not motion or subpel):
         raise ValueError("bframes needs motion=True and does not "
                          "support subpel")
-    if spatial:
-        raise _striping_not_ported()
+    _check_striped(spatial and motion, hier, subpel)
     if motion and not subsample:
         raise ValueError("motion mode requires 4:2:0")
-    planes = _on_mesh(_chunk_planes(frames), mesh)
-    qy, qc = qy.to(planes[0].device), qc.to(planes[0].device)
-    h, w = planes[0].shape[-2:]
-    ph, pw = _pad_to(h, 16), _pad_to(w, 16)
     if not motion:
-        return fvc_residuals_chunks(*encode_chunks(planes, qy, qc,
-                                                   subsample=subsample))
-    if bframes:
-        return fvc_mc_encode_chunk_b(planes, qy, qc, ph, pw, search_range,
-                                     bframes, hier, qy_b=qy_b, qc_b=qc_b)
-    return fvc_mc_encode_chunk(planes, qy, qc, ph, pw, search_range, hier,
-                               subpel)
+        return fvc_residuals_chunks(*encode_chunks(
+            frames, qy, qc, mesh=mesh, spatial=spatial, subsample=subsample))
+    out = []
+    for stripes in _blocks(_chunk_planes(frames), mesh, spatial, 16):
+        dev = stripes[0][0].device
+        ph, pw = stripes[0][0].shape[-2:]
+        striped = len(stripes) > 1
+        block = stripes if striped else stripes[0]
+        tabs = dict(qy=qy.to(dev), qc=qc.to(dev))
+        if bframes:
+            out.append(fvc_mc_encode_chunk_b(
+                block, **tabs, pad_h=ph, pad_w=pw, search_range=search_range,
+                bframes=bframes, hier=hier, qy_b=qy_b, qc_b=qc_b,
+                striped=striped))
+        else:
+            out.append(fvc_mc_encode_chunk(
+                block, **tabs, pad_h=ph, pad_w=pw, search_range=search_range,
+                hier=hier, subpel=subpel, striped=striped))
+    return tuple(_gather_rows(p, 0) for p in zip(*out))

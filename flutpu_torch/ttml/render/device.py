@@ -112,6 +112,58 @@ def composite_instances_batch(atlas, ints, cols, window_h: int,
     return out if unstack else torch.stack(out)
 
 
+def composite_instances_batch_vmap(atlas, ints, cols, window_h: int,
+                                   window_w: int, unstack: bool = False):
+    """``composite_instances_batch`` across intervals at once (flutpu's
+    ``composite_instances_batch_vmap``): one loop over the instance cap,
+    each step blending instance i of every interval together with
+    batched gathers and scatters, so the chain is N steps long, not K x
+    N. ints: (K, N, 9) int32, cols: (K, N, 4) float32, host arrays; a
+    tile index clamps into the atlas (no image atlas, as in flutpu).
+    Returns (K, window_h, window_w, 4) uint8 BGRA on the atlas's device,
+    or with ``unstack`` a K-tuple; pixel for pixel
+    ``composite_instances_batch``'s."""
+    dev = atlas.device
+    ints = np.asarray(ints, np.int64)
+    k, n = ints.shape[:2]
+    cols_t = torch.as_tensor(np.asarray(cols, np.float32), device=dev)
+    ph, pw = window_h + 2 * TILE_H, window_w + 2 * TILE_W
+    frames = torch.zeros((k, ph, pw, 4), dtype=torch.float32, device=dev)
+    # per (interval, instance), in padded coordinates: the tile, the
+    # extent and clip rect, and the clamped slice's rows and columns
+    tile = np.clip(ints[..., 0], 0, atlas.shape[0] - 1)
+    x, y = ints[..., 1] + TILE_W, ints[..., 2] + TILE_H
+    geo = np.stack([x, y, ints[..., 3], ints[..., 4],
+                    ints[..., 5] + TILE_W, ints[..., 6] + TILE_H,
+                    ints[..., 7] + TILE_W, ints[..., 8] + TILE_H], axis=-1)
+    sy = np.clip(y, 0, ph - TILE_H)[..., None] + np.arange(TILE_H)
+    sx = np.clip(x, 0, pw - TILE_W)[..., None] + np.arange(TILE_W)
+    tile_t = torch.as_tensor(tile, device=dev)
+    geo_t = torch.as_tensor(geo, device=dev)[..., None, None]
+    rows_t = torch.as_tensor(sy, device=dev)[..., :, None]
+    cols_ix = torch.as_tensor(sx, device=dev)[..., None, :]
+    kk = torch.arange(k, device=dev)[:, None, None]
+    yy = torch.arange(TILE_H, device=dev)[:, None]
+    xx = torch.arange(TILE_W, device=dev)[None, :]
+    for i in range(n):
+        g = geo_t[:, i]
+        gx, gy = xx + g[:, 0], yy + g[:, 1]
+        mask = ((xx < g[:, 2]) & (yy < g[:, 3]) & (gx >= g[:, 4])
+                & (gx < g[:, 6]) & (gy >= g[:, 5]) & (gy < g[:, 7]))
+        sa = _unit(atlas[tile_t[:, i]]) * cols_t[:, i, 3, None, None]
+        sa = torch.where(mask, sa, 0.0)[..., None]
+        at = (kk, rows_t[:, i], cols_ix[:, i])
+        dst = frames[at]
+        da = dst[..., 3:]
+        out_a = sa + da * (1 - sa)
+        rgb = (cols_t[:, i, None, None, :3] * sa
+               + dst[..., :3] * da * (1 - sa)) / out_a.clamp(min=1e-6)
+        frames[at] = torch.cat([rgb, out_a], dim=-1)
+    out = _to_bgra_u8(frames[:, TILE_H:TILE_H + window_h,
+                             TILE_W:TILE_W + window_w])
+    return tuple(out[i] for i in range(k)) if unstack else out
+
+
 def composite_instances_over(atlas, ints, cols, base_bgra, window_h: int,
                              window_w: int, imgatlas=None) -> torch.Tensor:
     """Like composite_instances but blending OVER an existing BGRA window

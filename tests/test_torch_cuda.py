@@ -1139,3 +1139,135 @@ def test_ladder_on_card(cuda_device):
         assert (scaled.cpu().int() - cpu.int()).abs().max() <= 1
         assert chunk == FvcEncoder(rung.quality, motion=True,
                                    device=cuda_device).encode_chunk(scaled)
+
+
+# -- row stripes and several shards (ROADMAP item 5) --------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r,hs,n", [(3, 16, 3), (7, 32, 2), (16, 16, 4),
+                                    (17, 32, 2), (7, 1088, 2)])
+def test_striped_route_kernels_match_plain(cuda_device, r, hs, n):
+    """K3 and K4 on stripes padded by whole macroblock rows of their ring
+    neighbours: vectors, luma and chroma predictions bit-identical to the
+    route on the plain versions (the kernels sum in their order), one K3
+    and one K4 launch per stripe, two chunks per launch."""
+    from flutpu_torch.codec.ops.motion_kernels import (
+        chroma_mc_plain, chroma_mc_striped, motion_search_mc_plain,
+        motion_search_mc_striped)
+    rng = np.random.default_rng(r * hs)
+    w = 96
+
+    def stripes(rows, cols):
+        a = rng.uniform(0, 255, (2, n * rows, cols)).astype(np.float32)
+        return [torch.from_numpy(np.ascontiguousarray(p)).to(cuda_device)
+                for p in np.split(a, n, axis=1)]
+
+    cur, prev = stripes(hs, w), stripes(hs, w)
+    cb, cr = stripes(hs // 2, w // 2), stripes(hs // 2, w // 2)
+    k3, k4 = M.motion_search_mc.launches, M.chroma_mc.launches
+    mvs, preds = motion_search_mc_striped(cur, prev, r)
+    pcb, pcr = chroma_mc_striped(cb, cr, mvs, r)
+    torch.cuda.synchronize()
+    assert M.motion_search_mc.launches == k3 + n
+    assert M.chroma_mc.launches == k4 + n
+    mvs_p, preds_p = motion_search_mc_striped(cur, prev, r,
+                                              motion_search_mc_plain)
+    pcb_p, pcr_p = chroma_mc_striped(cb, cr, mvs_p, r, chroma_mc_plain)
+    for got, want in ((mvs, mvs_p), (preds, preds_p), (pcb, pcb_p),
+                      (pcr, pcr_p)):
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+
+
+def _stripe_clip(c, f, h, w):
+    """C chunks of F frames: a pan by (4, 6) pixels per frame on a smooth
+    seeded texture, so stripe-edge rows predict from the halo."""
+    rng = np.random.default_rng(c * f + h)
+    base = rng.integers(0, 256, (h + 8 * f * c, w + 12 * f * c, 3))
+    base = ((base + np.roll(base, 1, 0) + np.roll(base, 1, 1)) // 3) \
+        .astype(np.uint8)
+    return np.stack([np.stack([base[4 * (k * f + i):4 * (k * f + i) + h,
+                                    6 * (k * f + i):6 * (k * f + i) + w]
+                               for i in range(f)]) for k in range(c)])
+
+
+@pytest.mark.cuda
+def test_two_shards_on_one_card_match_one(cuda_device):
+    """A 2-shard mesh of cuda:0: each shard's block of chunks is its own
+    dispatch, equal to that block alone; K1's outputs (JPEG, v1) equal
+    one shard over all chunks, and so do the striped ones on a (2, 2)
+    mesh of cuda:0."""
+    from flutpu_torch.parallel.gop import encode_chunks, fvc_chunks
+    from flutpu_torch.parallel.mesh import ChunkSpatialMesh, make_chunk_mesh
+    frames = torch.from_numpy(_stripe_clip(4, 3, 96, 160)).to(cuda_device)
+    qy, qc = (torch.from_numpy(t).to(cuda_device) for t in (QY, QC))
+    two = make_chunk_mesh(2, [cuda_device] * 2)
+    grid = ChunkSpatialMesh(2, 2, [cuda_device] * 4)
+    for mesh, spatial in ((two, False), (grid, True)):
+        for a, b in zip(encode_chunks(frames, qy, qc, mesh=mesh,
+                                      spatial=spatial),
+                        encode_chunks(frames, qy, qc)):
+            assert torch.equal(a, b)
+        for a, b in zip(fvc_chunks(frames, qy, qc, mesh=mesh,
+                                   spatial=spatial),
+                        fvc_chunks(frames, qy, qc)):
+            assert torch.equal(a, b)
+        for kw in (dict(motion=True), dict(motion=True, bframes=1)):
+            got = fvc_chunks(frames, qy, qc, mesh=mesh, spatial=spatial,
+                             **kw)
+            for k, sl in enumerate((slice(0, 2), slice(2, 4))):
+                block = fvc_chunks(frames[sl], qy, qc, mesh=ChunkSpatialMesh(
+                    1, 2, [cuda_device] * 2) if spatial else None,
+                    spatial=spatial, **kw)
+                for a, b in zip(got, block):
+                    assert torch.equal(a[sl], b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,spatial", [(80, 2), (1080, 3)])
+def test_striped_jpeg_on_card_equals_unstriped(cuda_device, h, spatial):
+    """``cudahype spatial>1`` on the card: K1 per stripe, the planes
+    cropped back to the standard MCU rows, JFIF byte-identical to
+    ``spatial=1``."""
+    import flutpu_torch.core as core
+    frames = [make_test_frame("gradient", 192, h, i) for i in range(4)]
+
+    def run(sp):
+        hn = core.Harness(f"cudahype gop-size=2 chunks=2 spatial={sp}")
+        hn.set_src_caps(f"video/x-raw, format=RGB, width=192, height={h}, "
+                        "framerate=30/1")
+        for i, f in enumerate(frames):
+            hn.push(core.Buffer(f, pts=i, duration=1, offset=i))
+        hn.push_eos()
+        out = []
+        while (o := hn.pull(timeout=60)) is not None:
+            out.append(bytes(o.data))
+        hn.teardown()
+        return out
+
+    assert run(spatial) == run(1)
+
+
+@pytest.mark.cuda
+def test_compositor_batch_vmap_on_card(cuda_device):
+    """Item 8 on the card: every interval's instance i in one step, pixel
+    for pixel ``composite_instances_batch``."""
+    from flutpu_torch.ttml.render import device as D
+    from flutpu_torch.ttml.render.atlas import TILE_H, TILE_W
+    rng = np.random.default_rng(7)
+    atlas = torch.from_numpy(rng.integers(0, 255, (8, TILE_H, TILE_W))
+                             .astype(np.uint8)).to(cuda_device)
+    k, n, w, h = 4, 12, 320, 192
+    ints = np.zeros((k, n, 9), np.int32)
+    cols = np.zeros((k, n, 4), np.float32)
+    for kk in range(k):
+        for i in range(n):
+            x, y = int(rng.integers(-16, w - 10)), int(rng.integers(-16, h - 10))
+            iw, ih = int(rng.integers(4, TILE_W)), int(rng.integers(4, TILE_H))
+            ints[kk, i] = (int(rng.integers(0, 8)), x, y, iw, ih, x, y,
+                           x + iw, y + ih)
+            cols[kk, i] = (*rng.random(3), float(rng.random()))
+    got = D.composite_instances_batch_vmap(atlas, ints, cols, h, w)
+    assert got.is_cuda
+    assert torch.equal(got, D.composite_instances_batch(atlas, ints, cols, h,
+                                                        w))

@@ -137,11 +137,12 @@ def test_bframes_2_tie_is_a_half_step():
     y, cb, cr = tf._i420_planes(torch.from_numpy(frames), H, W)
     qy = te._scan_coder._qy_dev
     anchors = [0, 3, 6, 7]
-    _, _, _, mv, itypes, recs = tf._anchor_loop(
-        y[None, anchors], cb[None, anchors], cr[None, anchors], qy,
+    (stripe,), itypes, recs = tf._anchor_loop(
+        [y[None, anchors]], [cb[None, anchors]], [cr[None, anchors]], qy,
         te._scan_coder._qc_dev, tf._search_fn(False), 7)
+    mv = stripe[3]
     assert itypes.tolist() == [[1, 0, 0, 0]] and (mv[0, 1, 5, 7] == 0).all()
-    resid = (y[3] - recs[0][0][0])[80:88, 120:128].double()
+    resid = (y[3] - recs[0][0][0][0])[80:88, 120:128].double()
     assert float(resid.sum() / 8 / float(qy[0, 0])) == 127.5
     j_ry = np.asarray(jf.fvc_mc_encode_chunk_b(
         jnp.asarray(frames), je._qy_dev, je._qc_dev, pad_h=H, pad_w=W,

@@ -29,7 +29,7 @@ from flutpu_torch.hype import (cuda as t_cuda, hypebin as t_hypebin,
                                outputselector as t_outputselector,
                                scenecollector as t_scenecollector,
                                scenedetector as t_scenedetector)
-from torch_helpers import code_of, pull_all
+from torch_helpers import code_of, pull_all, tie_contract
 
 torch.set_num_threads(1)
 
@@ -323,9 +323,21 @@ def test_cudahype_fvc_equals_per_chunk_encodes(props, kw, monkeypatch):
 
 
 def test_cudahype_raises_on_what_is_not_ported():
+    """flutpu's refusals: the hier search or half-pel with stripes
+    (``tpu.py``'s ValueError, at the first flush), half-pel with B
+    frames, an unknown codec, fewer than one stripe."""
     core = flutpu_torch.core
-    with pytest.raises(NotImplementedError, match="item 5"):
-        core.make("cudahype", spatial=2)
+    frames = [make_test_frame("ball", 48, 32, i) for i in range(2)]
+    for props in ("search=hier", "subpel=true"):
+        with pytest.raises(ValueError, match="full-search integer-pel"):
+            core.parse_launch(
+                f"cudahype codec=fvc-motion spatial=2 {props} device=cpu "
+                "name=h ! fakesink").get_by_name("h")._fvc()
+    assert core.make("cudahype", spatial=2, device="cpu").mesh().shape == \
+        (1, 2)
+    # flutpu reads spatial as max(1, spatial)
+    assert core.make("cudahype", spatial=0, device="cpu").mesh().shape == \
+        (1, 1)
     el = core.parse_launch("cudahype codec=fvc-motion subpel=true device=cpu "
                            "name=h ! fakesink").get_by_name("h")
     assert el._fvc().subpel is True
@@ -339,3 +351,94 @@ def test_cudahype_raises_on_what_is_not_ported():
     assert core.make("cudahype").get_property("device") == "cuda"
     assert core.make("cudahype", codec="fvc").srcpad.template_caps \
         .media_type == "video/x-fvc"
+
+
+# -- cudahype over several shards and row stripes ----------------------------
+
+def _striped_pair(props, frames, n_chunks=2):
+    """The same frames through flutpu's ``tpuhype chunks=2 spatial=2`` (a
+    2 x 2 mesh of CPU devices) and the port's ``cudahype device=cpu
+    spatial=2`` (one shard, two stripes on the CPU)."""
+    want = _push_frames(flutpu.core, f"tpuhype chunks={n_chunks} spatial=2 "
+                        f"{props}", frames)
+    got = _push_frames(flutpu_torch.core, f"cudahype chunks={n_chunks} "
+                       f"spatial=2 device=cpu {props}", frames)
+    return want, got
+
+
+def test_striped_cudahype_jpeg_equals_tpuhype_and_unstriped():
+    """h = 80 (``test_parallel.py``'s crop case): two stripes pad the
+    frames to 96 rows, the coefficient planes are cropped back to the
+    80 standard MCU rows before the pack: byte-identical to flutpu's
+    striped ``tpuhype`` and to the port's unstriped ``cudahype``."""
+    frames = [make_test_frame("gradient", 64, 80, i) for i in range(4)]
+    want, got = _striped_pair("gop-size=2 quality=90", frames)
+    flat = _push_frames(flutpu_torch.core, "cudahype gop-size=2 chunks=2 "
+                        "quality=90 device=cpu", frames)
+    assert [bytes(o.data) for o in got] == [bytes(o.data) for o in want] \
+        == [bytes(o.data) for o in flat]
+    assert [o.pts for o in got] == [o.pts for o in want]
+
+
+def _v1_coefficients(data: bytes):
+    """A version-1 chunk → its frames' absolute (y, cb, cr) coefficients
+    (the decoded residuals accumulated) and its header."""
+    from flutpu_torch.codec.decode import decode_scan_to_coefs
+    from flutpu_torch.codec.fvc import FvcDecoder
+    hdr, frames = FvcDecoder.parse_chunk(data)
+    ph, pw = hdr["coded_height"], hdr["coded_width"]
+    scans = [decode_scan_to_coefs(p, pw // 8, ph // 8, pw // 16, ph // 16,
+                                  True) for _, _, p in frames]
+    return hdr, [np.cumsum(np.stack([s[k] for s in scans]).astype(np.int64),
+                           axis=0) for k in range(3)]
+
+
+@pytest.mark.parametrize("props", [
+    "codec=fvc", "codec=fvc-motion search-range=3",
+    "codec=fvc-motion search-range=3 bframes=1"],
+    ids=["fvc", "fvc-motion", "fvc-motion-B"])
+def test_striped_cudahype_fvc_equals_tpuhype(props):
+    """``cudahype spatial=2`` on 64 x 80 frames (padded to 96 rows: FVC
+    header flags bit 4 and the coded size (64, 96)) = flutpu's striped
+    ``tpuhype``, chunk for chunk, with the same pts and durations; 10
+    frames in chunks of 4, so the last chunk is cut short (with B frames
+    re-encoded unstriped, as flutpu does). Motion chunks are
+    byte-identical; version 1 codes K1's coefficients, which may move by
+    ±1 at a rounding tie (the front end's contract: here 1 luma
+    coefficient of 24,576 in two chunks, ROADMAP queue 3)."""
+    from flutpu_torch.codec.fvc import FvcDecoder
+    frames = [make_test_frame("ball", 64, 80, i) for i in range(10)]
+    want, got = _striped_pair(f"gop-size=4 {props}", frames)
+    assert [(o.pts, o.duration) for o in got] == \
+        [(o.pts, o.duration) for o in want]
+    for a, b in zip(got, want):
+        a, b = bytes(a.data), bytes(b.data)
+        if "motion" in props:
+            assert a == b
+            continue
+        (ha, ca), (hb, cb) = _v1_coefficients(a), _v1_coefficients(b)
+        assert ha == hb
+        for x, y in zip(ca, cb):
+            tie_contract(x, y, 1e-4)
+    hdr, _ = FvcDecoder.parse_chunk(bytes(got[0].data))
+    assert hdr["flags"] & 16
+    assert (hdr["coded_height"], hdr["coded_width"]) == (96, 64)
+
+
+@pytest.mark.parametrize("cards,spatial", [(2, 1), (4, 2), (4, 1)])
+def test_cudahype_over_visible_cards(monkeypatch, cards, spatial):
+    """``device=cuda`` deals its mesh round the visible cards (two and
+    four "cpu" devices stand in): M chunk shards x ``spatial`` stripes,
+    one dispatch per shard; the output equals one shard on the CPU, for
+    JPEG and FVC with motion."""
+    monkeypatch.setattr(t_cuda, "visible_devices",
+                        lambda: (torch.device("cpu"),) * cards)
+    frames = _unlike_clip(16)
+    for props in ("codec=jpeg", "codec=fvc-motion bframes=1"):
+        desc = f"cudahype gop-size=4 chunks=4 spatial={spatial} {props}"
+        el = flutpu_torch.core.make("cudahype", chunks=4, spatial=spatial)
+        assert el.mesh().shape == (cards // spatial, spatial)
+        got = _push_frames(flutpu_torch.core, desc, frames)
+        one = _push_frames(flutpu_torch.core, f"cudahype gop-size=4 "
+                           f"chunks=4 device=cpu {props}", frames)
+        assert [bytes(o.data) for o in got] == [bytes(o.data) for o in one]

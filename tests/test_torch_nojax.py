@@ -734,7 +734,8 @@ def test_no_port_source_names_jax_or_the_jax_package():
 def test_chip_smoke_imports_only_the_port():
     """Every import in chip_smoke.py, at any depth, is the standard
     library, numpy, torch or flutpu_torch (phase 15f serves loopback HTTP
-    and writes a PNG with the standard library)."""
+    and writes a PNG with the standard library; phase 16d loads the
+    two-process worker of ``tests/`` by its path)."""
     import ast
     tree = ast.parse(_read(os.path.join(ROOT, "chip_smoke.py")))
     names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
@@ -747,7 +748,7 @@ def test_chip_smoke_imports_only_the_port():
     assert tops <= {"flutpu_torch", "numpy", "torch", "__future__", "ctypes",
                     "hashlib", "json", "os", "struct", "subprocess", "sys",
                     "threading", "time", "base64", "http", "tempfile",
-                    "zlib"}, tops
+                    "zlib", "importlib"}, tops
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -19,12 +19,15 @@ from flutpu.codec.ops.quant import (CHROMA_QTABLE, LUMA_QTABLE,
 from flutpu.parallel import multihost as j_multihost
 from flutpu.parallel.gop import encode_chunks_sharded, fvc_chunks_sharded
 from flutpu.parallel.mesh import make_chunk_mesh as j_make_chunk_mesh
+from flutpu.parallel.mesh import \
+    make_chunk_spatial_mesh as j_make_chunk_spatial_mesh
 from flutpu_torch.codec.ops import motion_kernels as M
 from flutpu_torch.core.elements import make_test_frame
 from flutpu_torch.parallel import multihost as t_multihost
 from flutpu_torch.parallel.gop import (encode_chunks, encode_chunks_single,
                                        fvc_chunks)
-from flutpu_torch.parallel.mesh import (ChunkMesh, make_chunk_mesh,
+from flutpu_torch.parallel.mesh import (ChunkMesh, ChunkSpatialMesh,
+                                        deal_devices, make_chunk_mesh,
                                         make_chunk_spatial_mesh)
 from torch_helpers import chunk_pairs, tie_contract
 
@@ -169,22 +172,28 @@ def test_plain_chroma_takes_a_chunk_axis():
 
 
 def test_what_is_not_ported_raises():
-    """Chunks on several cards and spatial striping raise
-    NotImplementedError naming their ROADMAP item; nothing falls back.
-    Half-pel with B frames and motion with 4:4:4 raise flutpu's
-    ValueErrors."""
+    """What flutpu refuses, the port refuses with flutpu's ValueErrors:
+    the hier search and half-pel with stripes, a mesh whose chunk shards
+    do not divide C, a spatial mesh short of devices, half-pel with B
+    frames, motion with 4:4:4; nothing falls back."""
     two = make_chunk_mesh(2, ["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="item 5"):
-        encode_chunks(_t(CLIP), _t(QY), _t(QC), mesh=two)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        fvc_chunks(_t(CLIP), _t(QY), _t(QC), spatial=True)
+    with pytest.raises(ValueError, match="split evenly"):
+        encode_chunks(_t(CLIP[:3]), _t(QY), _t(QC), mesh=two)
+    with pytest.raises(ValueError, match="split evenly"):
+        fvc_chunks(_t(CLIP[:3]), _t(QY), _t(QC), mesh=two, motion=True)
+    grid = ChunkSpatialMesh(2, 2, ["cpu"] * 4)
+    for kw in (dict(hier=True), dict(subpel=True),
+               dict(hier=True, bframes=1)):
+        with pytest.raises(ValueError, match="full-search integer-pel"):
+            fvc_chunks(_t(CLIP), _t(QY), _t(QC), mesh=grid, motion=True,
+                       spatial=True, **kw)
     with pytest.raises(ValueError, match="subpel"):
         fvc_chunks(_t(CLIP), _t(QY), _t(QC), motion=True, subpel=True,
                    bframes=1)
     with pytest.raises(ValueError, match="4:2:0"):
         fvc_chunks(_t(CLIP), _t(QY), _t(QC), motion=True, subsample=False)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        make_chunk_spatial_mesh(2, 2)
+    with pytest.raises(ValueError, match="need 4 devices"):
+        make_chunk_spatial_mesh(2, 2, ["cpu"] * 3)
     with pytest.raises(ValueError):
         fvc_chunks(_t(CLIP), _t(QY), _t(QC), bframes=1)
     with pytest.raises(ValueError):
@@ -225,3 +234,92 @@ def test_single_process_initialize_and_assignment():
         (0, 1, list(range(8)))
     assert t_multihost.assignment().chunks_per_batch == max(
         1, torch.cuda.device_count())
+
+
+# -- several shards and row stripes ------------------------------------------
+
+def _moving(c=2, f=3, h=64, w=32):
+    """flutpu's striped clip (``test_parallel.py``'s ``_moving``): C
+    chunks of a moving ball at 64 x 32."""
+    return np.stack([np.stack([make_test_frame("ball", w, h, ci * 7 + i)
+                               for i in range(f)]) for ci in range(c)])
+
+
+STRIPED = {"v1": (dict(), 2), "P": (dict(motion=True), 3),
+           "B": (dict(motion=True, bframes=1), 4)}
+
+
+@pytest.mark.parametrize("mode", list(STRIPED))
+def test_striped_fvc_chunks_equal_flutpus_sharded(mode):
+    """``fvc_chunks(spatial=True)`` on a ``ChunkSpatialMesh(2, 4)`` of
+    "cpu" = ``fvc_chunks_sharded(spatial=True)`` on flutpu's 2 x 4 mesh of
+    CPU devices (stripes of 16 rows, r = 3, halos across every stripe
+    edge), and = the port's unstriped one-shard call, field for field."""
+    kw, f = STRIPED[mode]
+    frames = _moving(f=f)
+    want = fvc_chunks_sharded(jnp.asarray(frames), jnp.asarray(QY),
+                              jnp.asarray(QC), j_make_chunk_spatial_mesh(2, 4),
+                              search_range=R, spatial=True, **kw)
+    got = fvc_chunks(_t(frames), _t(QY), _t(QC),
+                     mesh=ChunkSpatialMesh(2, 4, ["cpu"] * 8),
+                     search_range=R, spatial=True, **kw)
+    one = fvc_chunks(_t(frames), _t(QY), _t(QC), search_range=R, **kw)
+    assert len(got) == len(want) == len(one)
+    for a, b, c_ in zip(got, want, one):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert torch.equal(a, c_)
+
+
+def test_striped_encode_chunks_equal_flutpus_sharded():
+    """K1 per stripe (no halo) on a ``ChunkSpatialMesh(2, 4)`` = flutpu's
+    striped ``encode_chunks_sharded`` and the unstriped call."""
+    frames = _moving()
+    want = encode_chunks_sharded(
+        tuple(jnp.asarray(np.ascontiguousarray(frames[..., c]))
+              for c in range(3)), jnp.asarray(QY), jnp.asarray(QC),
+        mesh=j_make_chunk_spatial_mesh(2, 4), spatial=True)
+    got = encode_chunks(_t(frames), _t(QY), _t(QC),
+                        mesh=ChunkSpatialMesh(2, 4, ["cpu"] * 8),
+                        spatial=True)
+    one = encode_chunks(_t(frames), _t(QY), _t(QC))
+    for a, b, c_ in zip(got, want, one):
+        assert tie_contract(a.numpy(), np.asarray(b), 1e-4) == 0.0
+        assert torch.equal(a, c_)
+
+
+@pytest.mark.parametrize("shards", [2, 4])
+@pytest.mark.parametrize("mode", ["v1", "full", "B"])
+def test_several_shards_equal_one(shards, mode):
+    """Meshes of 2 and 4 "cpu" shards: each shard's block of C / M chunks
+    is its own dispatch, and the outputs in chunk order equal one
+    shard's; ``encode_chunks`` likewise."""
+    kw = MODES[mode]
+    qy, qc, extra = _port_tables(kw)
+    mesh = make_chunk_mesh(shards, ["cpu"] * shards)
+    got = fvc_chunks(_t(CLIP), qy, qc, mesh=mesh, search_range=R, **kw,
+                     **extra)
+    one = fvc_chunks(_t(CLIP), qy, qc, search_range=R, **kw, **extra)
+    assert all(torch.equal(a, b) for a, b in zip(got, one))
+    assert all(torch.equal(a, b) for a, b in zip(
+        encode_chunks(_t(CLIP), qy, qc, mesh=mesh),
+        encode_chunks(_t(CLIP), qy, qc)))
+
+
+def test_spatial_mesh_layout_and_dealing():
+    """A (chunk, spatial) grid filled row by row from the device list,
+    its shards' stripe devices, and slots dealt round the cards in
+    order (slot k on device k mod n)."""
+    grid = make_chunk_spatial_mesh(2, 3, ["cpu"] * 7)
+    assert grid.axis_names == ("chunk", "spatial")
+    assert grid.shape == (2, 3) and grid.size == 2 and grid.spatial == 3
+    assert all(len(s) == 3 for s in grid.shards())
+    assert grid.single_device() == torch.device("cpu")
+    assert deal_devices(5, ["cuda:0", "cuda:1"]) == tuple(
+        torch.device(d) for d in ("cuda:0", "cuda:1", "cuda:0", "cuda:1",
+                                  "cuda:0"))
+    assert make_chunk_mesh(2, ["cpu", "cuda:0"]).shards() == (
+        (torch.device("cpu"),), (torch.device("cuda:0"),))
+    with pytest.raises(ValueError):
+        make_chunk_mesh(2, ["cpu", "cuda:0"]).single_device()
+    with pytest.raises(ValueError):
+        deal_devices(2, [])

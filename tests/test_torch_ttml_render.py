@@ -139,6 +139,64 @@ def test_composite_instances_batch_pixel_identical(unstack):
     assert not got[2].any()              # the all-padding interval is blank
 
 
+def _vmap_case():
+    """``test_ttml_render.py``'s case for flutpu's vmap variant: 8 seeded
+    tiles, 5 intervals of 6 instances at clamped and partial placements,
+    fractional colours and opacities, a 200 x 120 window."""
+    rng = np.random.default_rng(7)
+    atlas = rng.integers(0, 255, (8, TILE_H, TILE_W)).astype(np.uint8)
+    k, n, w, h = 5, 6, 200, 120
+    ints = np.zeros((k, n, 9), np.int32)
+    cols = np.zeros((k, n, 4), np.float32)
+    for kk in range(k):
+        for i in range(n):
+            x = int(rng.integers(-16, w - 10))
+            y = int(rng.integers(-16, h - 10))
+            iw = int(rng.integers(4, TILE_W))
+            ih = int(rng.integers(4, TILE_H))
+            ints[kk, i] = (int(rng.integers(0, 8)), x, y, iw, ih,
+                           x, y, x + iw, y + ih)
+            cols[kk, i] = (*rng.random(3), float(rng.random()))
+    return atlas, ints, cols, h, w
+
+
+def _solid_case():
+    """``test_ttml_render.py``'s unstack case: a solid tile at three
+    placements of 3 intervals, a padding instance each."""
+    atlas = np.full((2, TILE_H, TILE_W), 255, np.uint8)
+    ints = np.zeros((3, 2, 9), np.int32)
+    cols = np.zeros((3, 2, 4), np.float32)
+    for kk in range(3):
+        ints[kk, 0] = (1, 10 * kk, 5, 40, 20, 0, 0, 200, 100)
+        cols[kk, 0] = (1.0, 0.5, 0.25, 1.0)
+    return atlas, ints, cols, 100, 200
+
+
+@pytest.mark.parametrize("case", [_vmap_case, _solid_case],
+                         ids=["seeded", "solid"])
+@pytest.mark.parametrize("unstack", [False, True])
+def test_composite_instances_batch_vmap_pixel_identical(case, unstack):
+    """The batched-interval variant (item 8): every interval's instance
+    i blended in one step. Its windows = flutpu's
+    ``composite_instances_batch_vmap`` and the port's
+    ``composite_instances_batch``, pixel for pixel; ``unstack`` hands
+    back a K-tuple of the same windows."""
+    atlas, ints, cols, h, w = case()
+    want = np.asarray(j_dev.composite_instances_batch_vmap(
+        jnp.asarray(atlas), jnp.asarray(ints), jnp.asarray(cols),
+        window_h=h, window_w=w))
+    got = t_dev.composite_instances_batch_vmap(
+        torch.from_numpy(atlas), ints, cols, h, w, unstack=unstack)
+    seq = t_dev.composite_instances_batch(torch.from_numpy(atlas), ints,
+                                          cols, h, w)
+    if unstack:
+        assert isinstance(got, tuple) and len(got) == len(ints)
+        got = torch.stack(got)
+    assert got.dtype == torch.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(got, seq)
+
+
 def test_composite_instances_over_pixel_identical():
     rng = np.random.default_rng(5)
     tiles, _ = _tiles(rng, 4)
