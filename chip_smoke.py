@@ -181,7 +181,7 @@ Drives the port's main paths through the entry points a user calls, at
       and 8 rows per frame: every chunk through ``cudafvcdec`` at >= 30
       dB, the CPU decode within 0.05 dB, vectors beyond ±32, and a
       smaller stream than at ±32;
-   c. ``cudafvcenc motion=true bitrate=6000000 gop-size=8`` on 120
+   c. ``cudafvcenc motion=true bitrate=6000000 gop-size=8`` on 64
       frames of 1080p gradient-ball at 30 frames/s: each chunk's quality
       is flutpu's controller's for the sizes before it (replayed on the
       host), every chunk decoded on the card and the CPU;
@@ -210,7 +210,7 @@ Drives the port's main paths through the entry points a user calls, at
       standard MCU rows, every JFIF byte-identical to ``spatial=1`` and
       under phase 4's checks; busy ms and launches per chunk of both
       (torch.profiler), then frames/s of both in turns;
-   b. a seeded 4K pan of 4 rows and 6 columns per frame, 32 frames,
+   b. a seeded 4K pan of 4 rows and 6 columns per frame, 16 frames,
       through ``cudahype codec=fvc-motion spatial=2 chunks=2 gop-size=8
       search-range=7``, P only and ``bframes=1``: header flags bit 4
       (coded 2176 rows), >= 30 dB through ``FvcDecoder``, vectors with
@@ -228,6 +228,30 @@ Drives the port's main paths through the entry points a user calls, at
    e. ``composite_instances_batch_vmap`` on 4 intervals of seeded tiles
       equal to ``composite_instances_batch``; launches and busy ms per
       call of both.
+17. the command-line tools and the examples, at 1080p:
+   a. ``flutpu_torch.launch.main`` in this process: 64 frames of
+      ``videotestsrc pattern=ball ! cudajpegenc batch-frames=16 !
+      filesink``, 64 JFIF byte-identical to the same line through
+      ``appsink`` and under phase 4's checks (K1, K2); 32 frames through
+      ``cudafvcenc motion=true gop-size=8 ! filesink``, read back by
+      ``FvcDecoder.decode_stream`` at >= 30 dB and under phase 7's checks
+      (K3, K4, K2; not K1); BASELINE config 3 from a launch line, 240
+      frames through ``cudahype codec=jpeg chunks=8 gop-size=30 ! avimux
+      ! filesink``, 240 frames back from ``avidemux`` in order, each GOP
+      equal to a ``JpegEncoder`` encode; frames/s of each;
+   b. child processes: ``python -m flutpu_torch.launch`` on 32 frames of
+      the JPEG line writes the in-process bytes; naming a card past the
+      last exits 1 within 30 s with the error printed (no CPU fallback);
+      ``python -m flutpu_torch.inspect`` lists 28 factories and
+      ``--markdown`` equals docs/ELEMENTS_TORCH.md; a process that
+      builds the reference leaves ``torch.cuda.is_initialized()`` false;
+   c. the seven ``examples/torch/*.py`` at their defaults on the card,
+      side by side in child processes (``mesh_encode`` as ``jpeg`` and
+      ``fvc-motion 2``, ``multidl`` on a ``file://`` URL and a loopback
+      server): each exits 0, ``encode_parallel`` >= 30 dB,
+      ``inject_swap`` JPEG after the swap, ``fvc_batched`` equal or
+      within 0.01 dB, ``subtitle_burnin`` a PNG whose subtitle region
+      differs from the source frame.
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not
@@ -643,6 +667,7 @@ def run(dev):
     add(counts)
     results.update(wide)
     add(run_striped(dev, lib, lap))
+    add(run_cli(dev, lib, lap))
     for name, key, was in EARLIER_MS:
         r_ = results[name]
         print(f"{key}: {was:.4f} ms before the redesign (PERF.md, same card "
@@ -3261,7 +3286,7 @@ WIDE_RANGES = (33, 48, 64, 126)   # K3 against its plain version
 WIDE_HIER_RANGES = (40, 64, 126)  # K5 likewise
 WIDE_R = 64                # the encoder's range in 15b; K6a's and C = 8's
 PAN_FRAMES, PAN_STEP = 16, (8, 48)   # 15b: rows, columns per frame
-RC_FRAMES, RC_BITRATE = 120, 6_000_000
+RC_FRAMES, RC_BITRATE = 64, 6_000_000
 RC_MIN_Q, RC_MAX_Q = 10, 97        # the qualities the controller may pick
 LADDER_FRAMES = 48
 LADDER_RUNGS = "1920x1080@85,1280x720@80,640x360@75"
@@ -3599,7 +3624,7 @@ def _controller(chunks, frames, dev, target):
 
 def _rate_control(dev):
     """Phase 15c: ``cudafvcenc motion=true bitrate=6000000 gop-size=8`` on
-    120 frames of 1080p gradient-ball at 30 frames/s: each chunk's
+    64 frames of 1080p gradient-ball at 30 frames/s: each chunk's
     quality is the controller's for the sizes before it, each chunk
     decodes (card and CPU). Returns the launch counts."""
     import numpy as np
@@ -3790,19 +3815,16 @@ def _batched_src(dev, names):
     return counts
 
 
-def _png(rgba) -> bytes:
-    """A minimal PNG (8-bit RGBA, no filter) of an (h, w, 4) uint8 array."""
-    import struct
-    import zlib
-    h, w, _ = rgba.shape
-    raw = b"".join(b"\x00" + rgba[y].tobytes() for y in range(h))
-
-    def chunk(tag, data):
-        return (struct.pack(">I", len(data)) + tag + data
-                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
-    return (b"\x89PNG\r\n\x1a\n"
-            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
-            + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
+def _png(pixels) -> bytes:
+    """A PNG of an (h, w, 3 or 4) uint8 array, by the writer of
+    examples/torch/subtitle_burnin.py."""
+    import importlib.util
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "examples", "torch", "subtitle_burnin.py")
+    spec = importlib.util.spec_from_file_location("subtitle_burnin", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.png_bytes(pixels)
 
 
 def _image_doc(ref, png) -> bytes:
@@ -3826,15 +3848,54 @@ def _image_doc(ref, png) -> bytes:
 </tt>""".encode()
 
 
+class Loopback:
+    """An HTTP server on 127.0.0.1 for the duration of a ``with`` block,
+    serving ``files`` ({path: bytes}); anything else is 404. ``url(path)``
+    names a file. (The tests use it too.)"""
+
+    def __init__(self, files):
+        import http.server
+        import threading
+
+        class Handler(http.server.BaseHTTPRequestHandler):
+            def do_GET(self):
+                body = files.get(self.path)
+                if body is None:
+                    self.send_error(404)
+                    return
+                self.send_response(200)
+                self.send_header("Content-Length", str(len(body)))
+                self.end_headers()
+                self.wfile.write(body)
+
+            def log_message(self, *a):
+                pass
+
+        self._srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
+                                                    Handler)
+        self._thread = threading.Thread(target=self._srv.serve_forever,
+                                        daemon=True)
+
+    def url(self, path: str) -> str:
+        return f"http://127.0.0.1:{self._srv.server_address[1]}{path}"
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._srv.shutdown()
+        self._srv.server_close()
+        self._thread.join(timeout=10)
+
+
 def _io(dev):
     """Phase 15f: the port's downloader fetches a file:// file and a
     loopback HTTP URL served here, the process-global bandwidth meter
     counts their bytes, and a TTML document whose background image is that
     loopback URL renders through ``cudattmlrender`` on the card
     pixel-identical to the document with the image embedded as ``#id``."""
-    import http.server
     import tempfile
-    import threading
     import numpy as np
     from flutpu_torch.core import Buffer, Harness
     from flutpu_torch.fluc import bwmeter
@@ -3845,26 +3906,7 @@ def _io(dev):
     img[..., 1], img[..., 3] = 200, 255
     png = _png(img)
     files = {"/payload.bin": payload, "/img.png": png}
-
-    class Handler(http.server.BaseHTTPRequestHandler):
-        def do_GET(self):
-            body = files.get(self.path)
-            if body is None:
-                self.send_error(404)
-                return
-            self.send_response(200)
-            self.send_header("Content-Length", str(len(body)))
-            self.end_headers()
-            self.wfile.write(body)
-
-        def log_message(self, *a):
-            pass
-
-    srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Handler)
-    thread = threading.Thread(target=srv.serve_forever, daemon=True)
-    thread.start()
-    base = f"http://127.0.0.1:{srv.server_address[1]}"
-    try:
+    with Loopback(files) as srv:
         with tempfile.TemporaryDirectory() as d:
             path = os.path.join(d, "payload.bin")
             with open(path, "wb") as fh:
@@ -3872,7 +3914,7 @@ def _io(dev):
             total0 = bwmeter.stats()[2]
             with DownloadHelper() as h:
                 got_file = h.download(f"file://{path}")
-                got_http = h.download(f"{base}/payload.bin")
+                got_http = h.download(srv.url("/payload.bin"))
             counted = bwmeter.stats()[2] - total0
         for label, (data, outcome, _) in (("file://", got_file),
                                           ("http", got_http)):
@@ -3893,12 +3935,8 @@ def _io(dev):
             h.teardown()
             return out
 
-        url_w = render(_image_doc(f"{base}/img.png", png))
+        url_w = render(_image_doc(srv.url("/img.png"), png))
         id_w = render(_image_doc("#img1", png))
-    finally:
-        srv.shutdown()
-        srv.server_close()
-        thread.join(timeout=10)
     _require(len(url_w) == len(id_w) > 0 and all(
         np.array_equal(a, b) for a, b in zip(url_w, id_w)),
         "15f: the URL image's window differs from the #id image's")
@@ -3921,7 +3959,7 @@ CONFIG4_GOP = 30
 CONFIG4_CHUNKS = (8, 4)        # C tried first, and C where 8 does not fit
 CONFIG4_PEAK_GIB = 70          # of the card's 80
 STRIPES = 2
-PAN4K_FRAMES = 32
+PAN4K_FRAMES = 16
 PAN4K_STEP = (4, 6)            # rows, columns per frame
 STRIPE_CHUNKS = 2
 
@@ -4379,6 +4417,359 @@ def _compositor_vmap(dev):
              "16e: the batched-interval compositor differs")
     print(f"16e: pixel-identical ({int((res['batch'][..., 3] > 0).sum())} "
           "lit pixels)", flush=True)
+
+
+# -- 17. the command-line tools and the examples ----------------------------
+
+CLI_JPEG_FRAMES = 64
+CLI_FVC_FRAMES = 32
+CLI_CHILD_FRAMES = 32          # the child launch: the first 32 of 17a's 64
+CLI_CONFIG3_FRAMES = 240
+CLI_ERROR_SECS = 30            # a failing launch must exit within this
+MAX_BATCH_DPSNR = 0.01         # fvc_batched: batched vs separate, dB
+CHILD_TIMEOUT = 300
+
+
+def _jpeg_line(n: int) -> str:
+    return (f"videotestsrc num-buffers={n} pattern=ball width={W} "
+            f"height={H} ! cudajpegenc batch-frames={GOP}")
+
+
+def split_jfif(data: bytes):
+    """The JFIF of an MJPEG file (each from its SOI to its EOI). (The
+    tests use it too.)"""
+    out = [b"\xff\xd8" + p for p in data.split(b"\xff\xd8")[1:]]
+    _require(all(f.endswith(b"\xff\xd9") for f in out),
+             "an MJPEG frame does not end in EOI")
+    return out
+
+
+def run_cli(dev, lib, lap):
+    """Phase 17. Returns 17a's launch counts (the in-process entry point;
+    17b and 17c run in child processes, whose counts stay there)."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        counts, jfif = _cli_in_process(dev, lib, tmp, lap)
+        _cli_children(tmp, jfif)
+        lap("17b the module entry points (child processes)")
+        _examples(tmp)
+        lap("17c the seven examples (child processes)")
+    print("17 kernel launches (17a, in process): "
+          + ", ".join(f"{k} {counts[k]}" for k in (
+              "front_end", "pack_segments", "motion_search_mc",
+              "chroma_mc")), flush=True)
+    return counts
+
+
+def _launch(line: str):
+    """``flutpu_torch.launch.main`` on one line in this process → wall
+    seconds and the kernels' launch counts; a nonzero exit fails."""
+    from flutpu_torch.launch import main as launch
+
+    def run():
+        t0 = time.perf_counter()
+        rc = launch([line])
+        _require(rc == 0, f"17a: launch exited {rc} on {line!r}")
+        return time.perf_counter() - t0
+
+    return _count_launches(run)
+
+
+def _cli_in_process(dev, lib, tmp, lap):
+    """17a → (the launch counts of its three lines, the 64 JFIF)."""
+    import numpy as np
+    import torch
+    from flutpu_torch.codec.fvc import FvcDecoder
+    from flutpu_torch.codec.jpeg import JpegEncoder, _edge_pad
+    from flutpu_torch.codec.ops import frontend as F
+    from flutpu_torch.core import Buffer, Harness, parse_launch
+    from flutpu_torch.core.elements import make_test_frame
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    # JPEG: the launch line against the same line through appsink
+    n = CLI_JPEG_FRAMES
+    path = os.path.join(tmp, "a.mjpeg")
+    wall, counts = _launch(f"{_jpeg_line(n)} ! filesink location={path}")
+    add(counts)
+    with open(path, "rb") as fh:
+        jfif = split_jfif(fh.read())
+    _require(len(jfif) == n, f"17a: the MJPEG file holds {len(jfif)} JFIF")
+    _require(counts["front_end"] > 0 and counts["pack_segments"] > 0,
+             f"17a JPEG: K1 and K2 must launch ({counts})")
+    bufs, pipe_wall = _pipeline(parse_launch,
+                                f"{_jpeg_line(n)} ! appsink name=out")
+    _require([bytes(b.data) for b in bufs] == jfif,
+             "17a: launch's JFIF differ from the element's through appsink")
+    enc = JpegEncoder(quality=QUALITY, device=dev)
+    worst = float("inf")
+    for g0 in range(0, n, GOP):
+        frames = torch.from_numpy(np.stack([
+            make_test_frame("ball", W, H, i)
+            for i in range(g0, g0 + GOP)])).to(dev)
+        planes = [_edge_pad(frames[..., c], PH, PW) for c in range(3)]
+        worst = min(worst, _check_frames(
+            lib, jfif[g0:g0 + GOP], F.front_end(*planes, enc._qy_dev,
+                                                enc._qc_dev),
+            frames, enc, f"17a launch JPEG frames {g0}-{g0 + GOP - 1}"))
+    print(f"17a launch {_jpeg_line(n)} ! filesink: {n} frames in "
+          f"{wall:.3f} s = {n / wall:.1f} frames/s (the same line through "
+          f"appsink: {pipe_wall:.3f} s = {n / pipe_wall:.1f}); {n} JFIF "
+          f"byte-identical to appsink's, decoding to K1's coefficients, "
+          f"lowest PSNR {worst:.2f} dB; launches {counts}", flush=True)
+
+    # FVC motion through the launch line, read back by decode_stream
+    n = CLI_FVC_FRAMES
+    path = os.path.join(tmp, "b.fvc")
+    wall, counts = _launch(
+        f"videotestsrc num-buffers={n} pattern=ball width={W} height={H} "
+        f"! cudafvcenc motion=true gop-size={CHUNK} ! filesink "
+        f"location={path}")
+    add(counts)
+    for k in ("motion_search_mc", "chroma_mc", "pack_segments"):
+        _require(counts[k] > 0, f"17a FVC: {k} was not launched")
+    _require(counts["front_end"] == 0, "17a FVC: K1 launched")
+    with open(path, "rb") as fh:
+        stream = fh.read()
+    src = np.stack([make_test_frame("ball", W, H, i) for i in range(n)])
+    out = FvcDecoder(dev).decode_stream(stream)
+    _require(out.shape == src.shape, f"17a FVC: decoded {out.shape}")
+    low = min(_psnr(a, b) for a, b in zip(out, src))
+    _require(low >= MIN_PSNR, f"17a FVC: PSNR {low:.2f} dB")
+    chunks = FvcDecoder.split_stream(stream)
+    _check_chunks(lib, chunks, [src[i:i + CHUNK]
+                                for i in range(0, n, CHUNK)], "17a FVC")
+    print(f"17a launch cudafvcenc motion=true gop-size={CHUNK} ! filesink: "
+          f"{n} frames in {wall:.3f} s = {n / wall:.1f} frames/s, "
+          f"{len(chunks)} chunks ({len(stream)} bytes); decode_stream "
+          f"{out.shape[0]} frames, lowest PSNR {low:.2f} dB; launches "
+          f"{counts}", flush=True)
+    lap("17a launch JPEG, FVC")
+
+    # BASELINE config 3 from a launch line, through avimux into a file
+    n = CLI_CONFIG3_FRAMES
+    path = os.path.join(tmp, "c.avi")
+    wall, counts = _launch(
+        f"videotestsrc num-buffers={n} pattern=gradient width={W} "
+        f"height={H} ! cudahype codec=jpeg chunks={HYPE_CHUNKS} "
+        f"gop-size={HYPE_GOP} ! avimux ! filesink location={path}")
+    add(counts)
+    _require(counts["front_end"] > 0 and counts["pack_segments"] > 0,
+             f"17a config 3: K1 and K2 must launch ({counts})")
+    with open(path, "rb") as fh:
+        avi = fh.read()
+    h = Harness("avidemux")
+    h.set_src_caps("video/x-msvideo")
+    h.push(Buffer(avi, pts=0))
+    h.push_eos()
+    back = []
+    while (b := h.pull(timeout=60)) is not None:
+        back.append(bytes(b.data))
+    h.teardown()
+    _require(len(back) == n, f"17a config 3: avidemux gave {len(back)} "
+             f"of {n} frames")
+    for g in range(n // HYPE_GOP):
+        _require(back[g * HYPE_GOP:(g + 1) * HYPE_GOP] == enc.encode_gop(
+            _gradient_frames(dev, g * HYPE_GOP, HYPE_GOP)),
+            f"17a config 3: GOP {g} out of order or differs from a "
+            "JpegEncoder encode")
+    print(f"17a launch cudahype codec=jpeg chunks={HYPE_CHUNKS} "
+          f"gop-size={HYPE_GOP} ! avimux ! filesink (config 3): {n} frames "
+          f"in {wall:.3f} s = {n / wall:.1f} frames/s, {len(avi)} bytes; "
+          f"avidemux gives back {n} frames in order, each GOP equal to a "
+          f"JpegEncoder encode; launches {counts}", flush=True)
+    lap("17a launch config 3")
+    return total, jfif
+
+
+def _children(tmp, cmds):
+    """Run the python commands (argument lists) side by side from the
+    repository root, output to files under ``tmp`` → [(exit code, stdout,
+    stderr, seconds)]; a command past CHILD_TIMEOUT fails the run, and
+    every process still running on the way out is killed."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=root)
+    procs = []
+    try:
+        for k, cmd in enumerate(cmds):
+            out = open(os.path.join(tmp, f"child{k}.out"), "w+")
+            err = open(os.path.join(tmp, f"child{k}.err"), "w+")
+            procs.append([subprocess.Popen([sys.executable, *cmd], cwd=root,
+                                           env=env, stdout=out, stderr=err),
+                          out, err, time.perf_counter(), None])
+        t0 = time.perf_counter()
+        while any(p[4] is None for p in procs):
+            _require(time.perf_counter() - t0 < CHILD_TIMEOUT,
+                     f"a child process ran past {CHILD_TIMEOUT} s: "
+                     f"{[c for c, p in zip(cmds, procs) if p[4] is None]}")
+            for p in procs:
+                if p[4] is None and p[0].poll() is not None:
+                    p[4] = time.perf_counter() - p[3]
+            time.sleep(0.05)
+        res = []
+        for proc, out, err, _, secs in procs:
+            out.seek(0)
+            err.seek(0)
+            res.append((proc.returncode, out.read(), err.read(), secs))
+        return res
+    finally:
+        for proc, out, err, _, _ in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+            err.close()
+
+
+def _cli_children(tmp, jfif):
+    """17b: the module entry points, each in a child process."""
+    import torch
+    from flutpu_torch.core import factories
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(tmp, "child.mjpeg")
+    count = torch.cuda.device_count()
+    missing = (f"videotestsrc num-buffers=8 ! cudajpegenc "
+               f"device=cuda:{count} ! fakesink")
+    cmds = [["-m", "flutpu_torch.launch",
+             f"{_jpeg_line(CLI_CHILD_FRAMES)} ! filesink location={path}"],
+            ["-m", "flutpu_torch.launch", missing],
+            ["-m", "flutpu_torch.inspect"],
+            ["-m", "flutpu_torch.inspect", "--markdown"],
+            ["-c", "import torch\n"
+                   "from flutpu_torch.core import factories\n"
+                   "from flutpu_torch.inspect import _markdown\n"
+                   "_markdown(factories())\n"
+                   "print(torch.cuda.is_initialized())"]]
+    (rc_l, _, err_l, s_l), (rc_m, _, err_m, s_m), (rc_i, out_i, _, s_i), \
+        (rc_md, out_md, _, s_md), (rc_c, out_c, err_c, s_c) = \
+        _children(tmp, cmds)
+    _require(rc_l == 0, f"17b: python -m flutpu_torch.launch exited {rc_l}: "
+             f"{err_l[-2000:]}")
+    with open(path, "rb") as fh:
+        _require(fh.read() == b"".join(jfif[:CLI_CHILD_FRAMES]),
+                 "17b: the child launch's bytes differ from 17a's")
+    _require(rc_m == 1 and s_m < CLI_ERROR_SECS and "ERROR from" in err_m,
+             f"17b: launch on cuda:{count} (no such card) exited {rc_m} "
+             f"after {s_m:.1f} s: {err_m[-2000:]}")
+    error = [ln for ln in err_m.splitlines() if ln.startswith("ERROR from")]
+    names = [ln.split()[0] for ln in out_i.splitlines()]
+    _require(rc_i == 0 and names == sorted(factories()) and len(names) == 28,
+             f"17b: inspect listed {names}")
+    with open(os.path.join(root, "docs", "ELEMENTS_TORCH.md")) as fh:
+        _require(rc_md == 0 and out_md == fh.read(),
+                 "17b: inspect --markdown differs from docs/ELEMENTS_TORCH.md")
+    _require(rc_c == 0 and out_c.split() == ["False"],
+             f"17b: building the reference initialised CUDA ({out_c!r}, "
+             f"{err_c[-1000:]})")
+    print(f"17b python -m flutpu_torch.launch, {CLI_CHILD_FRAMES} frames: "
+          f"exit 0 in {s_l:.2f} s, the in-process bytes; on cuda:{count} (no "
+          f"such card): exit 1 in {s_m:.2f} s, {error[0]!r}; "
+          f"python -m flutpu_torch.inspect: 28 factories in {s_i:.2f} s; "
+          f"--markdown equal to docs/ELEMENTS_TORCH.md in {s_md:.2f} s; the "
+          f"reference built without a CUDA context "
+          f"(torch.cuda.is_initialized() False) in {s_c:.2f} s", flush=True)
+
+
+def png_rgb(data: bytes):
+    """The (h, w, 3) uint8 pixels of an 8-bit RGB PNG with filter 0 on
+    every row (what examples/torch/subtitle_burnin.py writes). (The
+    tests use it too.)"""
+    import struct
+    import zlib
+    import numpy as np
+    _require(data[:8] == b"\x89PNG\r\n\x1a\n", "not a PNG signature")
+    pos, idat, ihdr = 8, b"", None
+    while pos < len(data):
+        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
+        body = data[pos + 8:pos + 8 + n]
+        _require(struct.unpack(">I", data[pos + 8 + n:pos + 12 + n])[0]
+                 == zlib.crc32(tag + body) & 0xFFFFFFFF, f"PNG {tag} CRC")
+        if tag == b"IHDR":
+            ihdr = struct.unpack(">IIBBBBB", body)
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + n
+    w, h = ihdr[:2]
+    _require(ihdr[2:4] == (8, 2), f"PNG header {ihdr}")
+    rows = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, -1)
+    _require(not rows[:, 0].any(), "PNG row filters")
+    return rows[:, 1:].reshape(h, w, 3)
+
+
+def _examples(tmp):
+    """17c: the seven examples at their defaults on the card, side by
+    side in child processes."""
+    import numpy as np
+    import torch
+    from flutpu_torch.core.elements import make_test_frame
+
+    def ex(name, *args):
+        return [os.path.join("examples", "torch", f"{name}.py"), *args]
+
+    payload = bytes(range(256)) * 400
+    local = os.path.join(tmp, "local.bin")
+    with open(local, "wb") as fh:
+        fh.write(payload)
+    png = os.path.join(tmp, "burnin.png")
+    names = ["encode_parallel", "fvc_batched", "fvc_motion", "inject_swap",
+             "mesh_encode jpeg", "mesh_encode fvc-motion 2", "multidl",
+             "subtitle_burnin"]
+    with Loopback({"/remote.bin": payload}) as srv:
+        res = dict(zip(names, _children(tmp, [
+            ex("encode_parallel"), ex("fvc_batched"), ex("fvc_motion"),
+            ex("inject_swap"),
+            ex("mesh_encode", "jpeg", "--out", os.path.join(tmp, "m.avi")),
+            ex("mesh_encode", "fvc-motion", "2", "--out",
+               os.path.join(tmp, "m.fvc")),
+            ex("multidl", f"file://{local}", srv.url("/remote.bin")),
+            ex("subtitle_burnin", png)])))
+    for name, (rc, out, err, secs) in res.items():
+        _require(rc == 0, f"17c {name} exited {rc}: {err[-3000:]}")
+        print(f"17c {name}: exit 0 in {secs:.2f} s; "
+              + " | ".join(out.strip().splitlines()), flush=True)
+    out = res["encode_parallel"][1]
+    low = float(out.split("PSNR min/mean = ")[1].split("/")[0])
+    _require(low >= MIN_PSNR, f"17c encode_parallel: PSNR {low} dB")
+    out = res["inject_swap"][1]
+    jpeg = int(out.split(" JPEG after the swap")[0].rsplit(" ", 1)[1])
+    _require(jpeg > 0, "17c inject_swap: no JPEG after the swap")
+    out = res["fvc_batched"][1]
+    diffs = [float(ln.split("(difference ")[1].split(" dB")[0])
+             for ln in out.splitlines() if "(difference " in ln]
+    _require("byte-identical to separate dispatches: True" in out
+             or (diffs and max(diffs) <= MAX_BATCH_DPSNR),
+             f"17c fvc_batched: {out!r}")
+    for name in ("mesh_encode jpeg", "mesh_encode fvc-motion 2"):
+        out = res[name][1]
+        _require("1-chunk encode of 2 frames" in out and float(
+            out.split("last-frame psnr ")[1].split(" dB")[0]) >= MIN_PSNR,
+            f"17c {name}: {out!r}")
+    out = res["multidl"][1]
+    _require(f"file://{local}: OK http=0 {len(payload)} bytes" in out
+             and f"{srv.url('/remote.bin')}: OK http=200 {len(payload)} bytes"
+             in out, f"17c multidl: {out!r}")
+    with open(png, "rb") as fh:
+        got = png_rgb(fh.read())
+    src = make_test_frame("gradient", 640, 360, 0)
+    _require(got.shape == src.shape, f"17c subtitle_burnin: {got.shape}")
+    rows, cols = slice(int(360 * 0.78), int(360 * 0.96)), slice(64, 576)
+    changed = int((got[rows, cols] != src[rows, cols]).any(-1).sum())
+    top = slice(0, 180)
+    _require(changed > 0 and np.array_equal(got[top], src[top]),
+             "17c subtitle_burnin: the subtitle region is unchanged or "
+             "the frame's top half differs")
+    print(f"17c checks: encode_parallel lowest PSNR {low} dB, inject_swap "
+          f"{jpeg} JPEG after the swap, fvc_batched "
+          + ("byte-identical" if not diffs else
+             f"within {max(diffs):.4f} dB") + f", mesh_encode fvc-motion 2 "
+          f"on {torch.cuda.device_count()} card(s), multidl file:// and "
+          f"loopback, the PNG's subtitle region changed at {changed} "
+          "pixels",
+          flush=True)
+
 
 
 if __name__ == "__main__":

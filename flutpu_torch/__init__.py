@@ -12,7 +12,7 @@ CUDA kernel under ``csrc/``, built with nvcc at first use
 (``_build.py``); tensors on the CPU take each kernel's plain PyTorch
 version.
 
-Ported so far: the 4:2:0 baseline-JPEG GOP encoder
+Ported: the baseline-JPEG GOP encoder
 (``codec.jpeg.JpegEncoder``, both bitstream layouts) and its element
 ``cudajpegenc``; the FVC chunk codec, version 1 and version 2 with P and
 B frames (``codec.fvc.FvcEncoder``, ``FvcDecoder``) and its element
@@ -21,9 +21,11 @@ B frames (``codec.fvc.FvcEncoder``, ``FvcDecoder``) and its element
 and ``cudahype``, C chunks per dispatch; ``parallel``; ``inject``:
 ``injectbin``); the decoders ``cudajpegdec`` and ``cudafvcdec``; the ABR
 ladder ``cudafvcladderenc`` (``codec.ladder``) with copies of flutpu's
-``fluc`` (the bandwidth meter) and ``io`` (the downloader). ``import
-flutpu_torch`` registers the encoders in the port's registry
-(``flutpu_torch.core``), which loads the other plugins on first use.
+``fluc`` (the bandwidth meter) and ``io`` (the downloader); the
+command-line tools ``python -m flutpu_torch.launch`` and ``python -m
+flutpu_torch.inspect``. ``import flutpu_torch`` registers the encoders
+in the port's registry (``flutpu_torch.core``), which loads the other
+plugins on first use.
 """
 
 __version__ = "0.1.0"

@@ -45,8 +45,8 @@ class CudaJpegEnc(VideoEncoder):
     PROPERTIES = [
         PropertySpec("quality", 85),
         PropertySpec("batch-frames", 8, "max frames batched per device dispatch"),
-        PropertySpec("subsample", True, "4:2:0 chroma subsampling (only "
-                     "4:2:0 is ported)"),
+        PropertySpec("subsample", True, "4:2:0 chroma subsampling; false "
+                     "encodes 4:4:4"),
         PropertySpec("engine", "auto", "auto | device: entropy coding always "
                      "runs on the device here"),
         PropertySpec("segmented", "auto", "bitstream layout of the device "

@@ -71,3 +71,7 @@ class Bus:
     def add_watch(self, cb: Callable[[Message], None]) -> None:
         with self._lock:
             self._watchers.append(cb)
+
+    def remove_watch(self, cb: Callable[[Message], None]) -> None:
+        with self._lock:
+            self._watchers.remove(cb)

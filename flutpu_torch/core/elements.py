@@ -166,6 +166,12 @@ class AppSink(Element):
             if isinstance(item, Event) and item.type == EventType.EOS:
                 return None
 
+    def interrupt(self) -> None:
+        """End the pull as EOS would: a waiting ``try_pull_buffer`` returns
+        None (for an application that saw an error, after which no EOS
+        comes)."""
+        self.samples.put(EosEvent())
+
 
 @register
 class AppSrc(Element):

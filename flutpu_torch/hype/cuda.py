@@ -57,8 +57,9 @@ from ..parallel.mesh import (ChunkMesh, ChunkSpatialMesh, deal_devices,
 
 @register
 class CudaHype(VideoEncoder):
-    """GOP-parallel MJPEG / FVC encoder: C chunks per dispatch on one CUDA
-    device."""
+    """GOP-parallel MJPEG / FVC encoder: C chunks per dispatch, dealt
+    round the visible CUDA cards (all on one device with ``device=cuda:N``
+    or ``cpu``)."""
 
     FACTORY = "cudahype"
     SINK_CAPS = "video/x-raw, format=RGB"
@@ -67,7 +68,8 @@ class CudaHype(VideoEncoder):
         PropertySpec("gop-size", 8),
         PropertySpec("quality", 85),
         PropertySpec("chunks", 0, "GOP chunks per dispatch (0 = one per "
-                                   "visible card)"),
+                                   "chunk shard: visible cards // spatial, "
+                                   "at least 1)"),
         PropertySpec("spatial", 1, "row-stripe each frame across this many "
                                    "shards (chunk x spatial mesh, for frame "
                                    "sizes too heavy for one card, e.g. 4K); "

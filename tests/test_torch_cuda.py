@@ -1271,3 +1271,69 @@ def test_compositor_batch_vmap_on_card(cuda_device):
     assert got.is_cuda
     assert torch.equal(got, D.composite_instances_batch(atlas, ints, cols, h,
                                                         w))
+
+
+# -- the command-line tools -------------------------------------------------
+
+_ROOT = __file__.rsplit("/", 2)[0]
+
+
+def _child(args, timeout):
+    import os
+    import subprocess
+    import sys
+    return subprocess.run([sys.executable, *args], cwd=_ROOT,
+                          env=dict(os.environ, PYTHONPATH=_ROOT),
+                          capture_output=True, text=True, timeout=timeout)
+
+
+@pytest.mark.cuda
+def test_launch_writes_the_elements_jfif_at_1080p(cuda_device, tmp_path):
+    """``flutpu_torch.launch.main`` on a 1080p ``cudajpegenc`` line writes
+    the JFIF the same launch string gives through ``appsink``, launching
+    K1 and K2."""
+    from flutpu_torch.core import parse_launch
+    from flutpu_torch.launch import main
+    out = tmp_path / "a.mjpeg"
+    line = ("videotestsrc num-buffers=16 pattern=ball width=1920 "
+            "height=1080 ! cudajpegenc batch-frames=16")
+    k1, k2 = F.front_end.launches, K.pack_segments.launches
+    assert main([f"{line} ! filesink location={out}"]) == 0
+    assert F.front_end.launches > k1 and K.pack_segments.launches > k2
+    p = parse_launch(f"{line} ! appsink name=out")
+    sink = p.get_by_name("out")
+    p.play()
+    want = []
+    while (b := sink.try_pull_buffer(timeout=60)) is not None:
+        want.append(bytes(b.data))
+    p.stop()
+    assert len(want) == 16 and out.read_bytes() == b"".join(want)
+
+
+@pytest.mark.cuda
+def test_inspect_initialises_no_cuda_context(cuda_device):
+    """The element reference constructs all 28 elements in a fresh process
+    without initialising CUDA, and equals docs/ELEMENTS_TORCH.md."""
+    import json
+    res = _child(["-c", "import json, torch\n"
+                  "from flutpu_torch.core import factories\n"
+                  "from flutpu_torch.inspect import _markdown\n"
+                  "md = _markdown(factories())\n"
+                  "print(json.dumps([md, len(factories()), "
+                  "torch.cuda.is_initialized()]))"], timeout=120)
+    assert res.returncode == 0, res.stderr[-2000:]
+    md, n, initialised = json.loads(res.stdout)
+    assert (n, initialised) == (28, False)
+    with open(f"{_ROOT}/docs/ELEMENTS_TORCH.md") as fh:
+        assert md == fh.read()
+
+
+@pytest.mark.cuda
+def test_launch_on_a_missing_card_exits_1(cuda_device):
+    """``cudajpegenc device=cuda:N`` past the last card: the encoder fails,
+    launch prints the error and exits 1; nothing runs on the CPU."""
+    n = torch.cuda.device_count()
+    res = _child(["-m", "flutpu_torch.launch", "videotestsrc num-buffers=8 "
+                  f"! cudajpegenc device=cuda:{n} ! fakesink"], timeout=60)
+    assert res.returncode == 1
+    assert "ERROR from" in res.stderr and "Pipeline is PLAYING" in res.stderr

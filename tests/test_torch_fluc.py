@@ -20,7 +20,7 @@ from flutpu_torch.fluc import Barrier, Monitor, Mutex
 from flutpu_torch.fluc.bwmeter import BwMeter, SockBwMeter, bwmeter
 from flutpu_torch.io import (DownloadHelper, Downloader, TaskOutcome,
                              download_sync, outcome_string)
-from torch_helpers import LoopbackServer
+from chip_smoke import Loopback
 
 torch.set_num_threads(1)
 
@@ -30,7 +30,7 @@ BIG = os.urandom(300 * 1024)
 
 @pytest.fixture(scope="module")
 def server():
-    with LoopbackServer({"/hello.txt": HELLO, "/big.bin": BIG}) as srv:
+    with Loopback({"/hello.txt": HELLO, "/big.bin": BIG}) as srv:
         yield srv
 
 

@@ -233,7 +233,7 @@ bad = sorted(m for m in sys.modules if m.startswith(("jax.", "flutpu.")))
 assert not bad, bad
 for m in ("codec.avimux", "codec.decoders", "codec.ladder", "fluc.bwmeter",
           "fluc.threads", "hype.cuda", "inject.injectbin", "io.downloader",
-          "io.helper", "parallel.gop"):
+          "io.helper", "parallel.gop", "launch", "inspect"):
     assert "flutpu_torch." + m in sys.modules, m
 print("modules", sum(m.startswith("flutpu_torch") for m in sys.modules),
       "ttml", sum(m.startswith("flutpu_torch.ttml.") for m in sys.modules))
@@ -698,11 +698,13 @@ def test_native_build_is_ignored_by_git():
 
 def test_no_port_source_names_jax_or_the_jax_package():
     """The import scan, file by file: no module under flutpu_torch/ (the
-    ttml tree included) has an import statement of jax or of flutpu."""
+    ttml tree included) and no example under examples/torch/ has an
+    import statement of jax or of flutpu."""
     import ast
     pkg = os.path.join(ROOT, "flutpu_torch")
     seen = set()
-    for d, _, files in os.walk(pkg):
+    for d, _, files in [*os.walk(pkg),
+                        *os.walk(os.path.join(ROOT, "examples", "torch"))]:
         for f in files:
             if not f.endswith(".py"):
                 continue
@@ -727,8 +729,34 @@ def test_no_port_source_names_jax_or_the_jax_package():
                  "parallel/mesh.py", "parallel/multihost.py",
                  "inject/injectbin.py", "ttml/base.py", "ttml/render/device.py",
                  "ttml/render/atlas.py", "ttml/render/render_el.py",
-                 "ttml/render/overlay_el.py", "ttml/render/fonts.py"):
+                 "ttml/render/overlay_el.py", "ttml/render/fonts.py",
+                 "launch.py", "inspect.py"):
         assert must in seen
+    for name in ("encode_parallel", "fvc_batched", "fvc_motion",
+                 "inject_swap", "mesh_encode", "multidl", "subtitle_burnin"):
+        assert f"../examples/torch/{name}.py" in seen
+
+
+def test_torch_examples_import_only_the_port():
+    """Each example under examples/torch/ imports the standard library,
+    numpy, torch and flutpu_torch, nothing else (no Pillow: the burn-in
+    example writes its PNG with zlib and struct)."""
+    import ast
+    import glob
+    paths = sorted(glob.glob(os.path.join(ROOT, "examples", "torch",
+                                          "*.py")))
+    assert len(paths) == 7
+    for path in paths:
+        tree = ast.parse(_read(path))
+        names = {a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                 for a in n.names}
+        names |= {n.module for n in ast.walk(tree)
+                  if isinstance(n, ast.ImportFrom) and n.module}
+        tops = {n.split(".")[0] for n in names}
+        assert "flutpu_torch" in tops, path
+        assert tops <= {"flutpu_torch", "numpy", "torch", "argparse", "os",
+                        "sys", "tempfile", "threading", "time", "struct",
+                        "zlib"}, (path, tops)
 
 
 def test_chip_smoke_imports_only_the_port():

@@ -33,7 +33,8 @@ from flutpu_torch.ttml.render import atlas as t_atlas
 from flutpu_torch.ttml.render import composite as t_comp
 from flutpu_torch.ttml.render import device as t_dev
 from flutpu_torch.ttml.render import fonts as t_fonts
-from torch_helpers import LoopbackServer, corpus_docs, run_element
+from chip_smoke import Loopback
+from torch_helpers import corpus_docs, run_element
 
 torch.set_num_threads(1)
 
@@ -535,7 +536,7 @@ def test_url_background_image_raises():
     from flutpu_torch.ttml.render.render_el import TTMLRender
     png = base64.b64decode(_doc_image().split('encoding="Base64">')[1]
                            .split("<")[0])
-    with LoopbackServer({"/img.png": png}) as srv:
+    with Loopback({"/img.png": png}) as srv:
         doc = _doc_image(srv.url("/img.png"))
         got = _port(doc)
         _assert_same_windows(got, _port(_doc_image()), "url vs #id")

@@ -243,44 +243,3 @@ def code_of(module):
             body[0].value, ast.Constant):
         body = body[1:]
     return [ast.dump(n) for n in body]
-
-
-class LoopbackServer:
-    """An HTTP server on 127.0.0.1 for the duration of a ``with`` block,
-    serving ``files`` ({path: bytes}); anything else is 404. ``url(path)``
-    names a file."""
-
-    def __init__(self, files):
-        import http.server
-        import threading
-
-        class Handler(http.server.BaseHTTPRequestHandler):
-            def do_GET(self):
-                body = files.get(self.path)
-                if body is None:
-                    self.send_error(404)
-                    return
-                self.send_response(200)
-                self.send_header("Content-Length", str(len(body)))
-                self.end_headers()
-                self.wfile.write(body)
-
-            def log_message(self, *a):
-                pass
-
-        self._srv = http.server.ThreadingHTTPServer(("127.0.0.1", 0),
-                                                    Handler)
-        self._thread = threading.Thread(target=self._srv.serve_forever,
-                                        daemon=True)
-
-    def url(self, path: str) -> str:
-        return f"http://127.0.0.1:{self._srv.server_address[1]}{path}"
-
-    def __enter__(self):
-        self._thread.start()
-        return self
-
-    def __exit__(self, *exc):
-        self._srv.shutdown()
-        self._srv.server_close()
-        self._thread.join(timeout=10)
