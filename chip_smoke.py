@@ -235,10 +235,8 @@ Drives the port's main paths through the entry points a user calls, at
       ``appsink`` and under phase 4's checks (K1, K2); 32 frames through
       ``cudafvcenc motion=true gop-size=8 ! filesink``, read back by
       ``FvcDecoder.decode_stream`` at >= 30 dB and under phase 7's checks
-      (K3, K4, K2; not K1); BASELINE config 3 from a launch line, 240
-      frames through ``cudahype codec=jpeg chunks=8 gop-size=30 ! avimux
-      ! filesink``, 240 frames back from ``avidemux`` in order, each GOP
-      equal to a ``JpegEncoder`` encode; frames/s of each;
+      (K3, K4, K2; not K1); frames/s of each (config 3 through
+      ``cudahype ! avimux`` runs in phase 14b);
    b. child processes: ``python -m flutpu_torch.launch`` on 32 frames of
       the JPEG line writes the in-process bytes; naming a card past the
       last exits 1 within 30 s with the error printed (no CPU fallback);
@@ -252,6 +250,30 @@ Drives the port's main paths through the entry points a user calls, at
       ``inject_swap`` JPEG after the swap, ``fvc_batched`` equal or
       within 0.01 dB, ``subtitle_burnin`` a PNG whose subtitle region
       differs from the source frame.
+18. the host entropy engine, the coefficient-level API and the planar
+   in-loop DCT, at 1080p:
+   a. 4 GOPs of 16 gradient-ball frames, two in flight, through
+      ``JpegEncoder(engine="host")`` and ``engine="device"``: the JFIF
+      byte-identical, K1 launched and no pack kernel in the host arm,
+      the native library loaded, the first GOP under phase 4's checks;
+      frames/s, device ms (CUDA events) and host ms per GOP of each arm;
+      ``videotestsrc ! cudajpegenc engine=host ! appsink`` byte-identical
+      to ``engine=device``;
+   b. 2 chunks of 8 frames, motion P (full search) and motion + B with
+      ``hier``, through ``FvcEncoder(engine="host")`` and
+      ``engine="device"``: chunks byte-identical or split at
+      float64-verified ties (13c's check), K3 or K5 and K4 launched and
+      no pack kernel in the host arm, the host chunks under phase 7's
+      checks; frames/s, device and host ms per chunk of each arm;
+   c. one motion chunk with ``planar = True``, unstriped and on 2 and 4
+      row stripes of the card: header flags bit 3, the chunk's coefficients
+      the loop's, the decoder's planes equal to the encoder's in-loop
+      planes in every frame, PSNR within 0.1 dB of the per-block chunk,
+      the planar products the CPU's bits with TF32 matmuls on and off;
+      ``encode_gop_scans`` on K1's coefficients of those 8 frames, fused
+      (K7) and not (K8a), equal to its plain version on the card (the
+      same stages with each pack's plain PyTorch version) in every
+      frame's whole scan.
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not
@@ -273,7 +295,6 @@ Usage: ``python3 chip_smoke.py`` from the repository root (one GPU).
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import subprocess
@@ -367,26 +388,11 @@ def _native_scan(lib, y, cb, cr, subsample: bool = True) -> bytes:
     """flu_jpeg_encode_scan of one frame's (BH, BW, 64) int16 planes
     (4:2:0, or 4:4:4 without ``subsample``)."""
     import numpy as np
-    from flutpu_torch.codec import jpeg_tables as T
-    c = ctypes
-    arrs = T.code_arrays()
-    y, cb, cr = (np.ascontiguousarray(a, np.int16) for a in (y, cb, cr))
-    cap = y.nbytes + cb.nbytes + cr.nbytes + (1 << 16)
-    out = np.empty(cap, np.uint8)
-    i16p = lambda a: a.ctypes.data_as(c.POINTER(c.c_int16))  # noqa: E731
-    tabs = []
-    for name in ("dc_luma", "ac_luma", "dc_chroma", "ac_chroma"):
-        codes = np.ascontiguousarray(arrs[name][0])
-        lens = np.ascontiguousarray(arrs[name][1])
-        tabs += [codes.ctypes.data_as(c.POINTER(c.c_uint32)),
-                 lens.ctypes.data_as(c.POINTER(c.c_uint8))]
-    n = lib.flu_jpeg_encode_scan(
-        i16p(y), y.shape[1], y.shape[0], i16p(cb), i16p(cr), cb.shape[1],
-        cb.shape[0], 1 if subsample else 0, 3, *tabs,
-        out.ctypes.data_as(c.POINTER(c.c_uint8)),
-        cap)
-    _require(n >= 0, f"flu_jpeg_encode_scan failed ({n})")
-    return out[:n].tobytes()
+    from flutpu_torch.codec.jpeg import _encode_scan_native
+    out = _encode_scan_native(lib, *(np.ascontiguousarray(a, np.int16)
+                                     for a in (y, cb, cr)), subsample)
+    _require(out is not None, "flu_jpeg_encode_scan failed")
+    return out
 
 
 def _check_frames(lib, payloads, coefs, sources, enc, label,
@@ -668,6 +674,7 @@ def run(dev):
     results.update(wide)
     add(run_striped(dev, lib, lap))
     add(run_cli(dev, lib, lap))
+    add(run_host_engine(dev, lib, lap))
     for name, key, was in EARLIER_MS:
         r_ = results[name]
         print(f"{key}: {was:.4f} ms before the redesign (PERF.md, same card "
@@ -4424,7 +4431,6 @@ def _compositor_vmap(dev):
 CLI_JPEG_FRAMES = 64
 CLI_FVC_FRAMES = 32
 CLI_CHILD_FRAMES = 32          # the child launch: the first 32 of 17a's 64
-CLI_CONFIG3_FRAMES = 240
 CLI_ERROR_SECS = 30            # a failing launch must exit within this
 MAX_BATCH_DPSNR = 0.01         # fvc_batched: batched vs separate, dB
 CHILD_TIMEOUT = 300
@@ -4476,13 +4482,13 @@ def _launch(line: str):
 
 
 def _cli_in_process(dev, lib, tmp, lap):
-    """17a → (the launch counts of its three lines, the 64 JFIF)."""
+    """17a → (the launch counts of its two lines, the 64 JFIF)."""
     import numpy as np
     import torch
     from flutpu_torch.codec.fvc import FvcDecoder
     from flutpu_torch.codec.jpeg import JpegEncoder, _edge_pad
     from flutpu_torch.codec.ops import frontend as F
-    from flutpu_torch.core import Buffer, Harness, parse_launch
+    from flutpu_torch.core import parse_launch
     from flutpu_torch.core.elements import make_test_frame
     total = {}
 
@@ -4548,40 +4554,6 @@ def _cli_in_process(dev, lib, tmp, lap):
           f"{out.shape[0]} frames, lowest PSNR {low:.2f} dB; launches "
           f"{counts}", flush=True)
     lap("17a launch JPEG, FVC")
-
-    # BASELINE config 3 from a launch line, through avimux into a file
-    n = CLI_CONFIG3_FRAMES
-    path = os.path.join(tmp, "c.avi")
-    wall, counts = _launch(
-        f"videotestsrc num-buffers={n} pattern=gradient width={W} "
-        f"height={H} ! cudahype codec=jpeg chunks={HYPE_CHUNKS} "
-        f"gop-size={HYPE_GOP} ! avimux ! filesink location={path}")
-    add(counts)
-    _require(counts["front_end"] > 0 and counts["pack_segments"] > 0,
-             f"17a config 3: K1 and K2 must launch ({counts})")
-    with open(path, "rb") as fh:
-        avi = fh.read()
-    h = Harness("avidemux")
-    h.set_src_caps("video/x-msvideo")
-    h.push(Buffer(avi, pts=0))
-    h.push_eos()
-    back = []
-    while (b := h.pull(timeout=60)) is not None:
-        back.append(bytes(b.data))
-    h.teardown()
-    _require(len(back) == n, f"17a config 3: avidemux gave {len(back)} "
-             f"of {n} frames")
-    for g in range(n // HYPE_GOP):
-        _require(back[g * HYPE_GOP:(g + 1) * HYPE_GOP] == enc.encode_gop(
-            _gradient_frames(dev, g * HYPE_GOP, HYPE_GOP)),
-            f"17a config 3: GOP {g} out of order or differs from a "
-            "JpegEncoder encode")
-    print(f"17a launch cudahype codec=jpeg chunks={HYPE_CHUNKS} "
-          f"gop-size={HYPE_GOP} ! avimux ! filesink (config 3): {n} frames "
-          f"in {wall:.3f} s = {n / wall:.1f} frames/s, {len(avi)} bytes; "
-          f"avidemux gives back {n} frames in order, each GOP equal to a "
-          f"JpegEncoder encode; launches {counts}", flush=True)
-    lap("17a launch config 3")
     return total, jfif
 
 
@@ -4770,6 +4742,328 @@ def _examples(tmp):
           "pixels",
           flush=True)
 
+
+HOST_GOPS = 4                  # 18a: GOPs per arm, two in flight
+HOST_CHUNKS = 2                # 18b: chunks per arm and configuration
+MAX_PLANAR_DPSNR = 0.1         # 18c: planar vs per-block chunk, dB
+PLANAR_STRIPES = (2, 4)        # 18c: row stripes of the striped chunks
+
+
+def run_host_engine(dev, lib, lap):
+    """Phase 18. Returns the launch counts of its main paths: the host
+    arms of 18a and 18b, and 18c's planar chunk and ``encode_gop_scans``
+    calls."""
+    total = {}
+
+    def add(counts):
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+
+    add(_host_jpeg(dev, lib))
+    lap("18a JPEG host engine")
+    counts, per_block = _host_fvc(dev, lib)
+    add(counts)
+    lap("18b FVC host engine")
+    add(_planar_and_pack(dev, lib, per_block))
+    lap("18c planar, encode_gop_scans")
+    return total
+
+
+def _engines_in_flight(enc, items, dispatch, finalize):
+    """``dispatch(item)`` of every item with two in flight, each finalized
+    in order by ``finalize(handle)`` → (outputs, device ms per dispatch
+    (CUDA events around it: the device's part, the coefficient planes'
+    copy included on the host engine), ms per finalize after its copy
+    landed (the host's part: the scan coder on the host engine, the
+    segments' compaction on the device engine), wall seconds)."""
+    host_ms = []
+
+    def timed(handle):
+        copy = handle[0]
+        copy.arrays()                  # waits for this handle's copy only
+        t0 = time.perf_counter()
+        out = finalize(handle)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    outs, dev_ms, wall = _in_flight(lambda i: dispatch(items[i]), timed,
+                                    len(items))
+    return outs, dev_ms, sum(host_ms) / len(host_ms), wall
+
+
+def _host_jpeg(dev, lib):
+    """18a: a 16-frame 1080p gradient-ball GOP stream through
+    ``JpegEncoder(engine="host")`` and ``engine="device"``, then
+    ``cudajpegenc engine=host`` through a pipeline. Returns the host
+    arms' launch counts."""
+    from flutpu_torch import native
+    from flutpu_torch.codec.jpeg import JpegEncoder
+    from flutpu_torch.codec.ops import frontend as F
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_frames
+    from flutpu_torch.core import parse_launch
+    _require(native.get_lib() is not None, "18a: the native scan coder "
+             "did not load")
+    gops = [gradient_ball_frames(PH, PW, GOP, g * GOP, device=dev)[:, :H, :W]
+            for g in range(HOST_GOPS)]
+    arms = {e: JpegEncoder(QUALITY, engine=e, device=dev)
+            for e in ("host", "device")}
+    res, counts = {}, {}
+    for name, enc in arms.items():
+        enc.encode_gop(gops[0])        # warm: sizes, coder, thread pool
+        res[name], counts[name] = _count_launches(lambda: _engines_in_flight(
+            enc, gops, lambda g: enc.encode_gop_dispatch(g, H, W),
+            enc.encode_gop_finalize))
+    host, dev_arm = counts["host"], counts["device"]
+    _require(host["front_end"] > 0, f"18a: K1 was not launched ({host})")
+    for k in ("pack_segments", "pack_block_bits_fused", "pack_block_bits64"):
+        _require(host[k] == 0, f"18a: {k} launched in the host arm ({host})")
+    _require(dev_arm["pack_segments"] > 0, f"18a device arm: K2 ({dev_arm})")
+    _require(res["host"][0] == res["device"][0], "18a: the host engine's "
+             "JFIF differ from the device engine's")
+    qy, qc = arms["host"]._qy_dev, arms["host"]._qc_dev
+    low = _check_frames(lib, res["host"][0][0], F.front_end(
+        *_edge_pad_planes(gops[0]), qy, qc), gops[0], arms["host"],
+        "18a host GOP 0")
+    for name in arms:
+        _, dev_ms, host_ms, wall = res[name]
+        print(f"18a JpegEncoder(engine={name!r}): {HOST_GOPS} GOPs x {GOP} "
+              f"1080p frames, two in flight: "
+              f"{HOST_GOPS * GOP / wall:.1f} frames/s, device "
+              f"{dev_ms:.3f} ms per GOP (CUDA events), host "
+              f"{host_ms:.3f} ms per GOP after the copy "
+              f"({'native scan coder, 8 threads' if name == 'host' else 'segment compaction'}); "
+              f"launches {counts[name]}", flush=True)
+    desc = (f"videotestsrc num-buffers={GOP} pattern=ball width={W} "
+            f"height={H} ! cudajpegenc batch-frames={GOP} engine={{}} ! "
+            f"appsink name=out")
+    (bufs, wall), pipe_counts = _count_launches(
+        lambda: _pipeline(parse_launch, desc.format("host")))
+    ref, _ = _pipeline(parse_launch, desc.format("device"))
+    _require(len(bufs) == GOP and [bytes(b.data) for b in bufs]
+             == [bytes(b.data) for b in ref], "18a: cudajpegenc engine=host "
+             "differs from engine=device")
+    _require(pipe_counts["front_end"] > 0 and pipe_counts["pack_segments"]
+             == 0, f"18a pipeline launches {pipe_counts}")
+    print(f"18a {desc.format('host')}: {GOP} frames in {wall:.3f} s, JFIF "
+          f"byte-identical to engine=device, lowest PSNR {low:.2f} dB; "
+          f"launches {pipe_counts}", flush=True)
+    for k, v in pipe_counts.items():
+        host[k] = host.get(k, 0) + v
+    return host
+
+
+def _edge_pad_planes(frames):
+    """(F, H, W, 3) frames → their (r, g, b) planes edge-padded to the
+    coded size."""
+    from flutpu_torch.codec.jpeg import _edge_pad
+    return [_edge_pad(frames[..., c], PH, PW) for c in range(3)]
+
+
+def _host_fvc(dev, lib):
+    """18b: 8-frame 1080p gradient-ball chunks, motion P (full search) and
+    motion + B with hier, through ``FvcEncoder(engine="host")`` and
+    ``engine="device"``. Returns (the host arms' launch counts, the P
+    device arm's chunks with their sources)."""
+    from flutpu_torch.codec.fvc import FvcEncoder
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_frames
+    chunks_in = [gradient_ball_frames(PH, PW, CHUNK, c * CHUNK,
+                                      device=dev)[:, :H, :W]
+                 for c in range(HOST_CHUNKS)]
+    total, per_block = {}, None
+    for label, kw, search in (("P", {}, "motion_search_mc"),
+                              ("hier+B", {"hier": True, "bframes": 1},
+                               "motion_search_mc_hier")):
+        res, counts = {}, {}
+        for engine in ("host", "device"):
+            enc = FvcEncoder(QUALITY, motion=True, search_range=SEARCH_RANGE,
+                             engine=engine, device=dev, **kw)
+            enc.encode_chunk(chunks_in[0])     # warm
+            res[engine], counts[engine] = _count_launches(
+                lambda: _engines_in_flight(enc, chunks_in,
+                                           enc.encode_chunk_dispatch,
+                                           enc.encode_chunk_finalize))
+        host = counts["host"]
+        for k in (search, "chroma_mc"):
+            _require(host[k] > 0, f"18b {label}: {k} was not launched "
+                     f"({host})")
+        for k in ("pack_segments", "pack_block_bits_fused",
+                  "pack_block_bits64", "front_end"):
+            _require(host[k] == 0, f"18b {label}: {k} launched in the host "
+                     f"arm ({host})")
+        _require(counts["device"]["pack_segments"] > 0,
+                 f"18b {label} device arm: K2 ({counts['device']})")
+        srcs = [c.cpu().numpy() for c in chunks_in]
+        splits = []
+        for ci, (a, b) in enumerate(zip(res["host"][0], res["device"][0])):
+            if a != b:
+                splits.append((ci, *_verify_split(
+                    a, b, srcs[ci], SEARCH_RANGE, bool(kw), dev,
+                    f"18b {label} chunk {ci}")))
+        worst, _, _ = _check_chunks(lib, res["host"][0], srcs,
+                                    f"18b {label} host", cpu_decode=False)
+        for engine in ("host", "device"):
+            _, dev_ms, host_ms, wall = res[engine]
+            print(f"18b FvcEncoder({label}, engine={engine!r}): "
+                  f"{HOST_CHUNKS} chunks x {CHUNK} 1080p frames, two in "
+                  f"flight: {HOST_CHUNKS * CHUNK / wall:.1f} frames/s, "
+                  f"device {dev_ms:.3f} ms per chunk (CUDA events), host "
+                  f"{host_ms:.3f} ms per chunk after the copy; launches "
+                  f"{counts[engine]}", flush=True)
+        print(f"18b {label}: {HOST_CHUNKS - len(splits)} of {HOST_CHUNKS} "
+              f"chunks byte-identical across the engines"
+              + "".join(f"; chunk {ci} split at frame {fd}: {what}"
+                        for ci, fd, what in splits)
+              + f"; host chunks decode at >= {worst:.2f} dB", flush=True)
+        for k, v in host.items():
+            total[k] = total.get(k, 0) + v
+        if label == "P":
+            per_block = (res["device"][0][0], srcs[0])
+    return total, per_block
+
+
+def _planar_in_loop(enc, frames, chunk, stripes: int, dev, label: str):
+    """18c: ``chunk``, ``enc``'s planar encode of the 1080p ``frames`` on
+    ``stripes`` row stripes of the card, against the in-loop planes of
+    the motion loop run on those stripes: the chunk's coefficients must
+    be the loop's, and the decoder's reconstruction over the whole frame
+    (full-height block-diagonal products) must equal the stripes' planes
+    (stripe-height products) in every frame."""
+    import numpy as np
+    import torch
+    from flutpu_torch.codec import fvc as FV
+    from flutpu_torch.codec.decode import decode_scan_to_coefs
+    qy, qc = enc._scan_coder._qy_dev, enc._scan_coder._qc_dev
+    hs = PH // stripes
+    parts = [tuple(p[:, s * hs:(s + 1) * hs] for p in _edge_pad_planes(
+        frames)) for s in range(stripes)]
+    y, cb, cr, _ = FV._stripes_in(parts if stripes > 1 else parts[0], hs,
+                                  PW, stripes > 1)
+    out, itypes, recs = FV._anchor_loop(y, cb, cr, qy, qc,
+                                        FV._search_fn(False), SEARCH_RANGE,
+                                        planar=True)
+    loop = [FV._gather_rows(p, 2)[0].cpu().numpy() for p in zip(*out)]
+    _, recs_in = FV.FvcDecoder.parse_chunk(chunk)
+    coefs = [np.stack(c) for c in zip(*(
+        decode_scan_to_coefs(p, PW // 8, PH // 8, PW // 16, PH // 16, True)
+        for _, _, p in recs_in))]
+    for k in range(3):
+        _require(np.array_equal(coefs[k], loop[k]), f"18c {label}: the "
+                 "chunk's coefficients are not the loop's")
+    planes = FV.FvcDecoder._reconstruct_mc(
+        *(torch.as_tensor(c, device=dev) for c in coefs),
+        [m for _, m, _ in recs_in], qy, qc, planar=True)
+    drift = max(float((torch.cat(rec, dim=-2)[0] - p[i]).abs().max())
+                for i, frame in enumerate(recs)
+                for rec, p in zip(frame, planes))
+    _require(drift == 0.0, f"18c {label}: the decoder's planes differ from "
+             f"the encoder's in-loop planes by up to {drift}")
+
+
+def _planar_and_pack(dev, lib, per_block):
+    """18c: an 8-frame 1080p motion chunk with ``planar = True`` (flags
+    bit 3; the decoder rebuilds the encoder's in-loop planes exactly,
+    also for a chunk coded on two row stripes; PSNR beside the per-block
+    chunk ``per_block`` = (chunk, source)), and ``encode_gop_scans`` on
+    the card, fused (K7) and not (K8a), against its plain version on all
+    frames and whole scans. Returns the launch counts of both."""
+    import torch
+    from flutpu_torch.codec import fvc as FV
+    from flutpu_torch.codec.jpeg import encode_gop_to_coefs
+    from flutpu_torch.codec.ops import entropy_kernels as K
+    from flutpu_torch.codec.ops.dct import plane_dct_planar
+    from flutpu_torch.codec.ops.entropy import (_concat_blocks_v3,
+                                                _mcu_blocks,
+                                                _slot_tables_merged,
+                                                encode_gop_scans, mcu_layout)
+    from flutpu_torch.parallel.mesh import ChunkSpatialMesh
+    chunk_pb, src = per_block
+    frames = torch.from_numpy(src).to(dev)
+    enc = FV.FvcEncoder(QUALITY, motion=True, search_range=SEARCH_RANGE,
+                        device=dev)
+    enc.planar = True
+    chunk, counts = _count_launches(lambda: enc.encode_chunk(frames))
+    for k in ("motion_search_mc", "chroma_mc", "pack_segments"):
+        _require(counts[k] > 0, f"18c planar: {k} was not launched")
+    _require(chunk[5] == 0x0b, f"18c planar: header flags {chunk[5]:#x}")
+    _planar_in_loop(enc, frames, chunk, 1, dev, "planar")
+    striped = {}
+    for n in PLANAR_STRIPES:
+        striped[n] = enc.encode_chunks_finalize(enc.encode_chunks_dispatch(
+            frames[None], mesh=ChunkSpatialMesh(1, n, [dev] * n)))[0]
+        _require(striped[n][5] == 0x0b, f"18c planar on {n} stripes: "
+                 f"header flags {striped[n][5]:#x}")
+        _planar_in_loop(enc, frames, striped[n], n, dev,
+                        f"planar on {n} stripes")
+    dec = FV.FvcDecoder(dev)
+    p_planar = [_psnr(a, b) for a, b in zip(dec.decode_chunk(chunk)[0], src)]
+    p_block = [_psnr(a, b) for a, b in zip(dec.decode_chunk(chunk_pb)[0],
+                                           src)]
+    d_psnr = max(abs(a - b) for a, b in zip(p_planar, p_block))
+    _require(d_psnr <= MAX_PLANAR_DPSNR and min(p_planar) >= MIN_PSNR,
+             f"18c planar: PSNR {min(p_planar):.2f} dB, {d_psnr:.4f} dB "
+             "from the per-block chunk")
+    # full fp32 whatever the TF32 setting, and the CPU's bits
+    plane = frames[0, ..., 0].float()
+    want = plane_dct_planar(plane.cpu())
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            _require(torch.equal(plane_dct_planar(plane).cpu(), want),
+                     f"18c: the planar products on the card (TF32 {tf32}) "
+                     "differ from the CPU's")
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    print(f"18c planar chunk: flags {chunk[5]:#04x}, {len(chunk)} bytes "
+          f"(per-block {len(chunk_pb)}; "
+          + "; ".join(f"on {n} row stripes {len(c)}, "
+                      + ("byte-identical" if c == chunk else "other bytes")
+                      for n, c in striped.items())
+          + "); FvcDecoder rebuilds the encoder's in-loop planes exactly "
+          "in every frame, unstriped and striped; PSNR "
+          f"{min(p_planar):.3f}-{max(p_planar):.3f} dB, at most "
+          f"{d_psnr:.4f} dB from the per-block chunk's; the planar products "
+          f"the CPU's bits with TF32 on and off; launches {counts}",
+          flush=True)
+
+    qy, qc = enc._scan_coder._qy_dev, enc._scan_coder._qc_dev
+    coefs = encode_gop_to_coefs(frames, qy, qc, PH, PW)
+    layout = mcu_layout(PW // 8, PH // 8, PW // 16, PH // 16, True)
+    # the plain version, on the card: encode_gop_scans's stages with each
+    # pack's plain PyTorch version, over every frame; the window holds
+    # the longest scan whole
+    mcu, comp = _mcu_blocks(*coefs, layout)
+    f, b = mcu.shape[:2]
+    flat, comp_flat = mcu.reshape(f * b, 64), comp.repeat(f)
+    packs = {True: K.pack_block_bits_fused_plain(flat, comp_flat),
+             False: K.pack_block_bits64_plain(*_slot_tables_merged(
+                 flat, comp_flat))}
+    words = -(-int(packs[True][1].view(f, b).to(torch.int64).sum(1).max())
+              // 32)
+    for fused, name in ((True, "pack_block_bits_fused"),
+                        (False, "pack_block_bits64")):
+        buf, nbits = packs[fused]
+        want, want_bits = _concat_blocks_v3(buf.view(f, b, K.BLOCK_WORDS),
+                                            nbits.view(f, b), words)
+        (packed, bits), n = _count_launches(
+            lambda: encode_gop_scans(*coefs, layout, words, fused=fused))
+        _require(n[name] > 0, f"18c encode_gop_scans(fused={fused}): {name} "
+                 f"was not launched ({n})")
+        _require(int(bits.max()) <= words * 32, f"18c encode_gop_scans("
+                 f"fused={fused}): a scan of {int(bits.max())} bits exceeds "
+                 f"the {words}-word window")
+        same = torch.equal(packed, want) and torch.equal(
+            bits, want_bits.to(torch.int32))
+        _require(same, f"18c encode_gop_scans(fused={fused}) differs from "
+                 "its plain version")
+        ms = _time_ms(lambda: encode_gop_scans(*coefs, layout, words,
+                                               fused=fused), 5)
+        print(f"18c encode_gop_scans(fused={fused}) on {CHUNK} 1080p "
+              f"frames: words and bits of all {f} whole scans (up to "
+              f"{int(bits.max())} bits, {words} words) equal to the plain "
+              f"version, {ms:.3f} ms per call; launches {n}", flush=True)
+        for k, v in n.items():
+            counts[k] = counts.get(k, 0) + v
+    return counts
 
 
 if __name__ == "__main__":

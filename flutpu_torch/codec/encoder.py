@@ -5,8 +5,10 @@ Frames accumulate into GOP batches on the host; each batch is one device
 dispatch of the flutpu_torch.codec.jpeg path (front-end kernel, then the
 segment pack kernel and word-aligned segments, or with
 ``segmented=false`` the per-block pack kernel and the block concat) and
-one copy back of the compressed bits. Every frame is a sync point. Batch
-sizes are bucketed to powers of two, as in the original.
+one copy back of the compressed bits; with ``engine=host`` the front end
+and one copy back of the coefficient planes, which the native scan coder
+codes on the host. Every frame is a sync point. Batch sizes are bucketed
+to powers of two, as in the original.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ def _bucket(n: int) -> int:
 @register
 class CudaJpegEnc(VideoEncoder):
     """MJPEG encoder: whole-GOP device transforms and on-device Huffman
-    packing on a CUDA device; every frame a sync point."""
+    packing on a CUDA device (host Huffman coding with ``engine=host``);
+    every frame a sync point."""
 
     FACTORY = "cudajpegenc"
     SINK_CAPS = "video/x-raw, format=RGB"
@@ -47,8 +50,8 @@ class CudaJpegEnc(VideoEncoder):
         PropertySpec("batch-frames", 8, "max frames batched per device dispatch"),
         PropertySpec("subsample", True, "4:2:0 chroma subsampling; false "
                      "encodes 4:4:4"),
-        PropertySpec("engine", "auto", "auto | device: entropy coding always "
-                     "runs on the device here"),
+        PropertySpec("engine", "auto", "auto | device | host entropy "
+                     "coding; auto never leaves the device here"),
         PropertySpec("segmented", "auto", "bitstream layout of the device "
                      "stage: auto (FLUTPU_SEGMENTED, else segments) | true "
                      "| false (per-block pack); the bytes are the same"),
@@ -65,13 +68,10 @@ class CudaJpegEnc(VideoEncoder):
 
     def _get_encoder(self) -> JpegEncoder:
         if self._encoder is None:
-            engine = str(self.get_property("engine"))
-            if engine not in ("auto", "device"):
-                raise ValueError(f"cudajpegenc: engine={engine!r} is not "
-                                 "supported (auto | device)")
             self._encoder = JpegEncoder(
                 quality=int(self.get_property("quality")),
                 subsample=bool(self.get_property("subsample")),
+                engine=str(self.get_property("engine")),
                 segmented=segmented_property(self.get_property("segmented")),
                 device=str(self.get_property("device")))
         return self._encoder

@@ -28,9 +28,22 @@ The chunk's compressed words, its vectors (and B modes) and its
 frame-type word come back in one copy into pinned memory.
 
 Bitstream: byte-compatible with flutpu's (``MAGIC``, the header layout
-and the per-frame records are copies). The port writes header flags
-bit 3 = 0: its in-loop reconstruction uses the per-block DCT, which is
-what flutpu's decoder on the CPU expects for such streams.
+and the per-frame records are copies). The in-loop DCT/IDCT is codec
+state and its formulation travels in header flags bit 3: per 8x8 block
+(bit clear, the port's default on every device) or, with the encoder's
+``planar`` attribute, as products of whole planes with block-diagonal
+DCT matrices (``ops/dct.plane_dct_planar``, flutpu's default on its
+accelerator; here in a fixed order of fp32 operations, so a plane's
+planar products do not depend on the device, the plane's height or the
+batch). The decoder reconstructs through the one the header names, and
+rebuilds a planar encoder's in-loop planes bit for bit, also where the
+encoder ran on row stripes.
+
+``engine="host"`` (flutpu's host entropy engine) runs the same codec on
+the device, copies the residual coefficient planes (and the vectors and
+frame types) back once, and codes the scans on the host with the native
+coder; the bytes are the device engine's. ``"auto"`` never leaves the
+device.
 
 C GOP chunks in one dispatch: ``encode_chunks_dispatch`` /
 ``encode_chunks_finalize`` (``cudahype``) run the same code with a
@@ -65,7 +78,6 @@ frame padded to 16 x stripes rows) travels in header flags bit 4.
 
 from __future__ import annotations
 
-import functools
 import struct
 import zlib
 from typing import List, NamedTuple, Optional, Tuple
@@ -82,7 +94,8 @@ from .encoder import SCENE_NEW_EVENT_NAME
 from .jpeg import JpegEncoder, _edge_pad, _HostCopy, _pad_to, \
     segmented_property
 from .ops.colorspace import i420_to_rgb, planes_to_i420
-from .ops.dct import dct_matrix, plane_dct, plane_idct, unblockize
+from .ops.dct import (blockize, check_full_fp32, plane_dct, plane_dct_planar,
+                      plane_idct, plane_idct_planar, unblockize)
 from .ops.entropy import encode_gop_scans_layout
 from .ops.motion import (MB, _mb_sums, motion_compensate,
                          motion_compensate_subpel, subpel_refine)
@@ -90,26 +103,14 @@ from .ops.motion_kernels import (chroma_mc, chroma_mc_striped,
                                 motion_search_mc, motion_search_mc_dygrid,
                                 motion_search_mc_hier,
                                 motion_search_mc_striped)
-from .ops.quant import (CHROMA_QTABLE, LUMA_QTABLE, dequantize, quant_map,
-                        quantize, scale_qtable, zigzag_flatten,
-                        zigzag_unflatten)
+from .ops.quant import (CHROMA_QTABLE, LUMA_QTABLE, dequantize,
+                        dequantize_planar, quantize, quantize_planar,
+                        scale_qtable, zigzag_flatten, zigzag_unflatten)
 
 # copies of flutpu.codec.fvc's constants
 MAGIC = b"FVC1"
 VERSION = 1
 _CLAMP = 1023  # keeps every residual within standard-table magnitude range
-
-
-def _check_full_fp32(device: torch.device) -> None:
-    """The in-loop DCT/IDCT is codec state: the decoder reconstructs in
-    full fp32, so a TF32 matmul on the card would drift the P chain."""
-    if device.type == "cuda" and (
-            torch.backends.cuda.matmul.allow_tf32
-            or torch.get_float32_matmul_precision() != "highest"):
-        raise RuntimeError(
-            "FVC motion mode needs full-fp32 matmuls on the card: set "
-            "torch.backends.cuda.matmul.allow_tf32 = False and "
-            "torch.set_float32_matmul_precision('highest')")
 
 
 # ----------------------------------------------------------------------------
@@ -140,18 +141,34 @@ def fvc_accumulate(ry: torch.Tensor, rcb: torch.Tensor, rcr: torch.Tensor):
                  for r in (ry, rcb, rcr))
 
 
-def _quant_plane(resid: torch.Tensor, qtab: torch.Tensor) -> torch.Tensor:
-    """Pixel residual plane → clamped quantized (BH, BW, 8, 8) coefficients,
-    per-block DCT (header flags bit 3 = 0)."""
-    return quantize(plane_dct(resid), qtab).clamp(-_CLAMP, _CLAMP)
+def _quant_plane(resid: torch.Tensor, qtab: torch.Tensor,
+                 planar: bool = False) -> torch.Tensor:
+    """Pixel residual plane → clamped quantized coefficients: (BH, BW, 8,
+    8) by the per-block DCT, or with ``planar`` (header flags bit 3) in
+    plane layout (H, W) by the block-diagonal products."""
+    if planar:
+        coefs = quantize_planar(plane_dct_planar(resid), qtab)
+    else:
+        coefs = quantize(plane_dct(resid), qtab)
+    return coefs.clamp(-_CLAMP, _CLAMP)
 
 
-def _code_plane(resid: torch.Tensor, qtab: torch.Tensor):
+def _zigzagged(coefs: torch.Tensor, planar: bool = False) -> torch.Tensor:
+    """``_quant_plane``'s coefficients → (BH, BW, 64) int16 zigzag."""
+    return zigzag_flatten(blockize(coefs) if planar else coefs) \
+        .to(torch.int16)
+
+
+def _code_plane(resid: torch.Tensor, qtab: torch.Tensor,
+                planar: bool = False):
     """Pixel residual plane → (zigzagged int16 coefficients, the
-    reconstructed residual)."""
-    coefs = _quant_plane(resid, qtab)
-    rec = plane_idct(dequantize(coefs, qtab))
-    return zigzag_flatten(coefs).to(torch.int16), rec
+    reconstructed residual), through either formulation."""
+    coefs = _quant_plane(resid, qtab, planar)
+    if planar:
+        rec = plane_idct_planar(dequantize_planar(coefs, qtab))
+    else:
+        rec = plane_idct(dequantize(coefs, qtab))
+    return _zigzagged(coefs, planar), rec
 
 
 def _planes(frames):
@@ -183,7 +200,7 @@ def _i420_planes(frames, pad_h: int, pad_w: int):
     """(r, g, b) uint8 planes (..., H, W) or interleaved (..., H, W, 3)
     frames, edge-padded to (pad_h, pad_w) → float32 (Y, Cb, Cr) planes."""
     r, g, b = (_edge_pad(p, pad_h, pad_w) for p in _planes(frames))
-    _check_full_fp32(r.device)
+    check_full_fp32(r.device)
     return planes_to_i420(r, g, b)
 
 
@@ -232,7 +249,7 @@ def _gather_rows(parts, dim: int):
 
 
 def _anchor_loop(y, cb, cr, qy, qc, search, search_range: int,
-                 subpel: bool = False):
+                 subpel: bool = False, planar: bool = False):
     """The hybrid loop over (C, F, ...) planes: C GOP chunks side by side,
     frame 0 of each intra. Per frame step, for every chunk at once: the
     search against its reconstructed reference (one launch for all C),
@@ -243,7 +260,8 @@ def _anchor_loop(y, cb, cr, qy, qc, search, search_range: int,
     planes) and both predictions are bilinear
     (``motion_compensate_subpel``): the search's own prediction is
     discarded and the chroma kernel, whose contract is integer vectors,
-    is not launched.
+    is not launched. ``planar``: the in-loop DCT/IDCT of header flags bit
+    3 (``_code_plane``).
 
     ``y``, ``cb``, ``cr`` are lists of row stripes of the frames, in ring
     order, each on its shard's device (one stripe: the whole frame).
@@ -302,9 +320,9 @@ def _anchor_loop(y, cb, cr, qy, qc, search, search_range: int,
             pred_cr = [torch.where(t, 128.0, p) for t, p in zip(intra, pcr)]
         step_out, rec_y, rec_cb, rec_cr = [], [], [], []
         for s in range(len(devs)):
-            oy, ry_rec = _code_plane(cy[s] - pred_y[s], qys[s])
-            ocb, rcb_rec = _code_plane(ccb[s] - pred_cb[s], qcs[s])
-            ocr, rcr_rec = _code_plane(ccr[s] - pred_cr[s], qcs[s])
+            oy, ry_rec = _code_plane(cy[s] - pred_y[s], qys[s], planar)
+            ocb, rcb_rec = _code_plane(ccb[s] - pred_cb[s], qcs[s], planar)
+            ocr, rcr_rec = _code_plane(ccr[s] - pred_cr[s], qcs[s], planar)
             rec_y.append((pred_y[s] + ry_rec).clamp(0.0, 255.0))
             rec_cb.append((pred_cb[s] + rcb_rec).clamp(0.0, 255.0))
             rec_cr.append((pred_cr[s] + rcr_rec).clamp(0.0, 255.0))
@@ -342,7 +360,7 @@ def _check_striped(striped: bool, hier: bool, subpel: bool = False) -> None:
 def fvc_mc_encode_chunk(frames, qy: torch.Tensor, qc: torch.Tensor,
                         pad_h: int, pad_w: int, search_range: int = 7,
                         hier: bool = False, subpel: bool = False,
-                        planar: Optional[bool] = None,
+                        planar: Optional[bool] = False,
                         striped: bool = False):
     """Motion-compensated chunk encode (FVC v2, P frames only): the hybrid
     loop (``_anchor_loop``) over every frame, with the full search (K3;
@@ -356,19 +374,18 @@ def fvc_mc_encode_chunk(frames, qy: torch.Tensor, qc: torch.Tensor,
     on its shard's device and (pad_h, pad_w) the stripe's coded size
     (flutpu's ``spatial_axis``); the outputs are gathered onto the first
     stripe's device, equal to the unstriped encode's. Not with ``hier``
-    or ``subpel`` (flutpu's ValueError).
+    or ``subpel`` (flutpu's ValueError). ``planar``: the in-loop DCT/IDCT
+    as block-diagonal products (header flags bit 3; None takes the
+    port's per-block default, which flutpu's is on its CPU).
 
     Returns (ry, rcb, rcr) int16 zigzagged residual coefficients,
     mvs ([C,] F, H/16, W/16, 2) int8 (half-pel units with ``subpel``) and
     itypes ([C,] F) int8 (1 = intra)."""
-    if planar:
-        raise NotImplementedError("the port reconstructs with the per-block "
-                                  "DCT (header flags bit 3 = 0)")
     _check_striped(striped, hier, subpel)
     y, cb, cr, added = _stripes_in(frames, pad_h, pad_w, striped)
     search = _search_fn(hier, env_flag("FLUTPU_SEARCH_DYGRID", False))
     per_stripe, itypes, _ = _anchor_loop(y, cb, cr, qy, qc, search,
-                                         search_range, subpel)
+                                         search_range, subpel, bool(planar))
     parts = [_gather_rows(p, 2) for p in zip(*per_stripe)]
     return _unchunked((*parts, itypes), added)
 
@@ -410,7 +427,7 @@ def _repeat_blocks(a: torch.Tensor, n: int) -> torch.Tensor:
 def fvc_mc_encode_chunk_b(frames, qy: torch.Tensor, qc: torch.Tensor,
                           pad_h: int, pad_w: int, search_range: int = 7,
                           bframes: int = 1, hier: bool = False,
-                          planar: Optional[bool] = None,
+                          planar: Optional[bool] = False,
                           qy_b: Optional[torch.Tensor] = None,
                           qc_b: Optional[torch.Tensor] = None,
                           striped: bool = False):
@@ -430,17 +447,16 @@ def fvc_mc_encode_chunk_b(frames, qy: torch.Tensor, qc: torch.Tensor,
     (as ``fvc_mc_encode_chunk``; not with ``hier``): the anchor loop and
     the B pass run on row stripes with halos from their ring neighbours;
     a B macroblock's mode stays stripe-local (stripes are whole
-    macroblock rows), as in flutpu.
+    macroblock rows), as in flutpu. ``planar``: as
+    ``fvc_mc_encode_chunk``'s, for the anchors and the B residuals.
 
     Returns, in display order: (ry, rcb, rcr) int16 zigzagged residual
     coefficients; fwd and bwd ([C,] F, H/16, W/16, 2) int8 (anchor P
     vectors in fwd; zero where a B macroblock does not use them); modes
     ([C,] F, H/16, W/16) int8 (zero for anchors); ftypes ([C,] F) int8 (0
     = P anchor, 1 = I anchor, 2 = B)."""
-    if planar:
-        raise NotImplementedError("the port reconstructs with the per-block "
-                                  "DCT (header flags bit 3 = 0)")
     _check_striped(striped, hier)
+    planar = bool(planar)
     qy_b = qy if qy_b is None else qy_b
     qc_b = qc if qc_b is None else qc_b
     y, cb, cr, added = _stripes_in(frames, pad_h, pad_w, striped)
@@ -450,7 +466,7 @@ def fvc_mc_encode_chunk_b(frames, qy: torch.Tensor, qc: torch.Tensor,
                                                               bframes)
     a_stripes, ais_i, recs = _anchor_loop(
         [p[:, anchor_idx] for p in y], [p[:, anchor_idx] for p in cb],
-        [p[:, anchor_idx] for p in cr], qy, qc, search, r)
+        [p[:, anchor_idx] for p in cr], qy, qc, search, r, planar=planar)
     if not b_idx:
         parts = [_gather_rows(p, 2) for p in zip(*a_stripes)]
         return _unchunked((*parts, torch.zeros_like(parts[3]),
@@ -481,7 +497,7 @@ def fvc_mc_encode_chunk_b(frames, qy: torch.Tensor, qc: torch.Tensor,
                                    bcb[s])
             pred_cr = _select_mode(mode_c, (fcr[s] + bcr[s]) * 0.5, fcr[s],
                                    bcr[s])
-            coefs = [zigzag_flatten(_quant_plane(c - pr, q)).to(torch.int16)
+            coefs = [_zigzagged(_quant_plane(c - pr, q, planar), planar)
                      for c, pr, q in ((cy[s], pred_y, qybs[s]),
                                       (ccb[s], pred_cb, qcbs[s]),
                                       (ccr[s], pred_cr, qcbs[s]))]
@@ -563,6 +579,18 @@ def _table_quality(qy, qc) -> int:
     raise ValueError("the quant tables are not those of any quality 1..100")
 
 
+class _HostChunkHandle(NamedTuple):
+    """A dispatch of the host engine: the codec's outputs (residual planes,
+    and with motion the vectors or fwd, bwd and modes, and the frame
+    types) on their way into pinned memory."""
+    parts: _HostCopy
+    f: int
+    h: int
+    w: int
+    ph: int
+    pw: int
+
+
 class _ChunkHandle(NamedTuple):
     combined: _HostCopy
     prefix: int
@@ -589,7 +617,17 @@ class FvcEncoder:
     CUDA device launches the kernels; ``"cpu"`` runs their plain PyTorch
     versions. The bitstream layout of the entropy stage (``segmented``)
     and its sizing (compressed-prefix window, segment staging, overflow
-    redispatch) are the port's JpegEncoder's, as in flutpu."""
+    redispatch) are the port's JpegEncoder's, as in flutpu. ``engine``:
+    ``"auto"`` or ``"device"`` code the scans on the device; ``"host"``
+    runs the codec on the device and the native scan coder on the host
+    (``encode_chunk`` and ``encode_chunk_dispatch`` only, as flutpu's
+    host route; the source-fed, batched and multi-chunk dispatches raise
+    ValueError). The attribute ``planar`` (default False, on every
+    device) selects the in-loop DCT of header flags bit 3."""
+
+    #: the in-loop DCT/IDCT as block-diagonal products (header flags bit
+    #: 3); the per-block formulation where False
+    planar = False
 
     def __init__(self, quality: int = 85, subsample: bool = True,
                  motion: bool = False, search_range: int = 7, *,
@@ -614,9 +652,6 @@ class FvcEncoder:
                 raise ValueError("bquality must be in 1..100")
         if motion and not subsample:
             raise ValueError("motion mode requires 4:2:0")
-        if engine not in ("auto", "device"):
-            raise NotImplementedError(f"engine={engine!r}: the port codes on "
-                                      "the device only (auto | device)")
         # half-pel vectors reach ±(2 * search_range + 1): int8 bounds the
         # range at 62 (flutpu's limit)
         limit = 62 if subpel else 126
@@ -631,10 +666,12 @@ class FvcEncoder:
         self.subpel = bool(subpel)
         self.search_range = int(search_range)
         self.device = torch.device(device)
-        # shared scan coder: its tables, sizing policy and overflow bounds
+        # shared scan coder: its tables, engine, sizing policy and
+        # overflow bounds (it refuses an unknown engine)
         self._scan_coder = JpegEncoder(quality, subsample=subsample,
-                                       segmented=segmented,
+                                       engine=engine, segmented=segmented,
                                        device=self.device)
+        self.engine = engine
         self.qy, self.qc = self._scan_coder.qy, self._scan_coder.qc
         self._qyb_dev = self._qcb_dev = None
         if self.bquality is not None:
@@ -651,6 +688,7 @@ class FvcEncoder:
                          seg_words: Optional[int] = None,
                          prefix_window: Optional[int] = None,
                          segmented: Optional[bool] = None,
+                         engine: str = "auto",
                          device="cuda") -> "FvcEncoder":
         """An encoder with given quantization tables and adaptive sizes
         (e.g. flutpu's ``qy``, ``qc``, ``search_range``, ``hier``,
@@ -661,13 +699,27 @@ class FvcEncoder:
         enc = cls(_table_quality(qy, qc), subsample=subsample, motion=motion,
                   search_range=search_range, hier=hier, subpel=subpel,
                   segmented=segmented, bframes=bframes, bquality=bquality,
-                  device=device)
+                  engine=engine, device=device)
         enc._scan_coder._set_state(encoder_state_from_numpy(
             qy, qc, seg_words=seg_words, prefix_window=prefix_window,
             device=enc.device))
         return enc
 
     # -- dispatch / finalize ------------------------------------------------
+    def _codec(self, frames, mesh=None, spatial: bool = False):
+        """The chunk codec of either engine (``fvc_chunks``) over C chunks'
+        frames: the residual planes, and with motion the vectors (or fwd,
+        bwd and modes) and the frame types, each with a leading chunk
+        axis."""
+        from ..parallel.gop import fvc_chunks
+        sc = self._scan_coder
+        return fvc_chunks(
+            frames, sc._qy_dev, sc._qc_dev, mesh=mesh, motion=self.motion,
+            search_range=self.search_range, hier=self.hier,
+            subpel=self.subpel, spatial=spatial, bframes=self.bframes,
+            qy_b=self._qyb_dev, qc_b=self._qcb_dev, subsample=self.subsample,
+            planar=self.planar)
+
     def _dispatch(self, frames_fn, f: int, h: int, w: int,
                   shard=None) -> _ChunkHandle:
         """Enqueue ``frames_fn()``'s chunks (one chunk's frames, or C
@@ -675,38 +727,67 @@ class FvcEncoder:
         entropy stage, one row per frame in chunk order. ``shard``: the
         devices of one chunk shard's row stripes (None: the frames'
         device, unstriped); the pack and the copy run on the first."""
-        from ..parallel.gop import fvc_chunks
         from ..parallel.mesh import ChunkMesh, ChunkSpatialMesh
         sc = self._scan_coder
         n_sp = 1 if shard is None else len(shard)
         ph, pw = _pad_to(h, sc.mult * n_sp), _pad_to(w, sc.mult)
-        qy, qc = sc._qy_dev, sc._qc_dev
         mesh = None
         if shard is not None:
             mesh = ChunkSpatialMesh(1, n_sp, shard) if n_sp > 1 \
                 else ChunkMesh(shard)
 
         def program(layout, prefix_words, seg_words):
-            parts = fvc_chunks(
-                _chunked(frames_fn())[0], qy, qc, mesh=mesh,
-                motion=self.motion, search_range=self.search_range,
-                hier=self.hier, subpel=self.subpel, spatial=n_sp > 1,
-                bframes=self.bframes, qy_b=self._qyb_dev, qc_b=self._qcb_dev,
-                subsample=self.subsample)
+            parts = self._codec(_chunked(frames_fn())[0], mesh, n_sp > 1)
             return _combined_rows(parts, layout, prefix_words, sc.SEG_G,
                                   seg_words)
 
         return _ChunkHandle(*sc._run_sized(program, ph, pw), f, h, w, ph,
                             pw)
 
-    def encode_chunk_dispatch(self, frames) -> _ChunkHandle:
-        """Enqueue the device encode of (F, H, W, 3) uint8 RGB frames
-        (numpy or tensor). Non-blocking on a CUDA device; returns a handle
-        for ``encode_chunk_finalize``."""
+    def _host_dispatch(self, frames, f: int, h: int, w: int):
+        """The host engine's device half (flutpu's ``_encode_host`` up to
+        its fetch): the device engine's codec on the frames' device, then
+        one copy of its outputs into pinned memory in place of the
+        entropy stage."""
+        mult = self._scan_coder.mult
+        parts = self._codec(_chunked(frames)[0])
+        return _HostChunkHandle(_HostCopy(*(p[0] for p in parts)), f, h, w,
+                                _pad_to(h, mult), _pad_to(w, mult))
+
+    def _finalize_host(self, handle: _HostChunkHandle) -> bytes:
+        """The host engine's host half: the scans by the native coder across
+        frames (``JpegEncoder._scans_host``), then the container."""
+        arrs = handle.parts.arrays()
+        payloads = self._scan_coder._scans_host(arrs[:3])
+        mvs = itypes = None
+        if self.motion and self.bframes:
+            fwd, bwd, modes, ftypes = arrs[3:]
+            mvs = list(zip(fwd, bwd, modes))
+            itypes = ftypes.astype(np.int64)
+        elif self.motion:
+            mvs, itypes = list(arrs[3]), arrs[4].astype(np.int64)
+        return self._build_chunk(payloads, mvs, itypes, handle.f, handle.h,
+                                 handle.w, handle.ph, handle.pw)
+
+    def _device_only(self, entry: str) -> None:
+        """Raise for an entry point without a host route (flutpu's codes on
+        the device whatever its engine); never code such a call on the
+        device for an encoder asked for the host."""
+        if self.engine == "host":
+            raise ValueError(f"FvcEncoder.{entry}: engine='host' has no "
+                             "route here; use encode_chunk or "
+                             "encode_chunk_dispatch, or engine='device'")
+
+    def encode_chunk_dispatch(self, frames):
+        """Enqueue the encode of (F, H, W, 3) uint8 RGB frames (numpy or
+        tensor) on the encoder's device. Non-blocking on a CUDA device;
+        returns a handle for ``encode_chunk_finalize``."""
         t = torch.as_tensor(np.ascontiguousarray(frames)
                             if isinstance(frames, np.ndarray) else frames)
         t = t.to(self.device)
         f, h, w, _ = t.shape
+        if self.engine == "host":
+            return self._host_dispatch(t, f, h, w)
         return self._dispatch(lambda: t, f, h, w)
 
     def encode_chunks_dispatch(self, frames, mesh=None):
@@ -721,6 +802,7 @@ class FvcEncoder:
         M chunks as one dispatch on its devices (M does not divide C:
         ValueError), its frames cut into the mesh's row stripes; the
         handle is the list of the blocks' handles."""
+        self._device_only("encode_chunks_dispatch")
         t = torch.as_tensor(np.ascontiguousarray(frames)
                             if isinstance(frames, np.ndarray) else frames)
         c, f, h, w, _ = t.shape
@@ -738,6 +820,7 @@ class FvcEncoder:
         ``src_fn(ph, pw, n, start)`` returns (r, g, b) uint8 planes, each
         (n, ph, pw), or interleaved (n, ph, pw, 3) frames, at the coded
         size (h, w rounded up to 16, or to 8 for 4:4:4)."""
+        self._device_only("encode_chunk_dispatch_src")
         mult = self._scan_coder.mult
         ph, pw = _pad_to(h, mult), _pad_to(w, mult)
         return self._dispatch(lambda: src_fn(ph, pw, n, start), n, h, w)
@@ -754,6 +837,7 @@ class FvcEncoder:
         ``encode_chunk_dispatch_src``; on the card a float tie in the
         batched in-loop transform may split them. Finalize with
         ``encode_chunk_batch_finalize``."""
+        self._device_only("encode_chunk_batch_dispatch_src")
         mult = self._scan_coder.mult
         ph, pw = _pad_to(h, mult), _pad_to(w, mult)
 
@@ -771,9 +855,12 @@ class FvcEncoder:
         copy, then each chunk's container, in chunk order."""
         return self.encode_chunks_finalize(handle)
 
-    def encode_chunk_finalize(self, handle: _ChunkHandle) -> bytes:
+    def encode_chunk_finalize(self, handle) -> bytes:
         """Blocking half: wait for the copy, check the sizes (redispatch
-        once on overflow), compact the scans, assemble the chunk."""
+        once on overflow), compact the scans, assemble the chunk; for the
+        host engine, code the scans on the host."""
+        if isinstance(handle, _HostChunkHandle):
+            return self._finalize_host(handle)
         return self.encode_chunks_finalize(handle)[0]
 
     def encode_chunks_finalize(self, handle: _ChunkHandle,
@@ -787,7 +874,7 @@ class FvcEncoder:
         if isinstance(handle, list):
             out = []
             for hd in handle:
-                n = hd.combined.buf.shape[0] // hd.f
+                n = hd.combined.bufs[0].shape[0] // hd.f
                 out += self.encode_chunks_finalize(
                     hd, None if counts is None else counts[len(out):
                                                            len(out) + n])
@@ -840,11 +927,10 @@ class FvcEncoder:
     def _build_chunk(self, payloads, mvs, itypes, f: int, h: int,
                      w: int, ph: Optional[int] = None,
                      pw: Optional[int] = None) -> bytes:
-        """Container assembly (flutpu's ``_build_chunk`` for streams with
-        the per-block in-loop DCT, and ``tpuhype``'s coded-size extension:
-        header flags bit 4 and ``>HH`` (pw, ph) after the search-range
-        byte where the coded size (ph, pw) exceeds the minimum macroblock
-        padding; None: that padding)."""
+        """Container assembly (flutpu's ``_build_chunk``, and ``tpuhype``'s
+        coded-size extension: header flags bit 4 and ``>HH`` (pw, ph)
+        after the search-range byte where the coded size (ph, pw) exceeds
+        the minimum macroblock padding; None: that padding)."""
         version = 2 if self.motion else VERSION
         mult = self._scan_coder.mult
         ph = _pad_to(h, mult) if ph is None else ph
@@ -855,6 +941,8 @@ class FvcEncoder:
             flags |= 2                 # vectors are zlib-compressed
             if self.subpel:
                 flags |= 4             # vectors are in half-pel units
+            if self.planar:
+                flags |= 8             # in-loop DCT by block-diagonal products
         if coded_ext:
             flags |= 16                # the coded size follows
         if self.bframes:
@@ -895,30 +983,16 @@ class FvcEncoder:
 # decoder
 # ----------------------------------------------------------------------------
 
-@functools.lru_cache()
-def _bd_dct_matrix(dim: int) -> np.ndarray:
-    """(dim, dim) block-diagonal matrix with the 8x8 DCT on the diagonal
-    (copy of flutpu.codec.ops.dct._bd_dct_matrix)."""
-    c = dct_matrix(8)
-    m = np.zeros((dim, dim), np.float32)
-    for b in range(dim // 8):
-        m[b * 8:(b + 1) * 8, b * 8:(b + 1) * 8] = c
-    return m
-
-
 def _residual_plane(q: torch.Tensor, qtab: torch.Tensor,
                     planar: bool) -> torch.Tensor:
     """Zigzagged quantized (BH, BW, 64) coefficients → the residual plane,
-    through the formulation the encoder used (header flags bit 3)."""
+    through the formulation the encoder used (header flags bit 3): the
+    inverse of ``_code_plane``'s reconstruction."""
     if not planar:
         return plane_idct(dequantize(zigzag_unflatten(q.to(torch.float32)),
                                      qtab))
     cp = unblockize(zigzag_unflatten(q.to(torch.int32)))
-    h, w = cp.shape[-2:]
-    x = cp.to(torch.float32) * quant_map(qtab, h, w)
-    bh = torch.as_tensor(_bd_dct_matrix(h), device=q.device)
-    bw = torch.as_tensor(_bd_dct_matrix(w), device=q.device)
-    return bh.T @ x @ bw
+    return plane_idct_planar(dequantize_planar(cp, qtab))
 
 
 class FvcDecoder:
@@ -1287,8 +1361,8 @@ class CudaFvcEnc(VideoEncoder):
         PropertySpec("motion", False, "v2 hybrid codec: motion-compensated "
                                       "prediction with in-loop recon"),
         PropertySpec("search-range", 7, "motion full-search window (±px)"),
-        PropertySpec("engine", "auto", "auto | device: entropy coding always "
-                                       "runs on the device here"),
+        PropertySpec("engine", "auto", "auto | device | host entropy coding; "
+                                       "auto never leaves the device here"),
         PropertySpec("search", "full", "full | hier motion estimation "
                                        "(hier = coarse-to-fine)"),
         PropertySpec("subpel", False, "half-pel motion refinement + "

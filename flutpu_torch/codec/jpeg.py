@@ -29,17 +29,33 @@ per-segment staging capacity follow the largest usage seen so far. The
 kernels report the true bit counts past their buffers, so an overflow is
 redispatched once at the reported need, up to the theoretical bounds;
 nothing is ever truncated.
+
+``engine="host"`` (flutpu's host entropy engine) keeps the front end on
+the device and copies the three int16 coefficient planes back once
+instead of the packed bits; the native scan coder
+(``flu_jpeg_encode_scan``, ``encode_scan``) then codes the frames on the
+host, in a thread pool across frames. The bytes are the device engine's.
+``"auto"`` and ``"device"`` code on the device; ``"auto"`` never leaves
+it (flutpu's fallback to the host coder past its capacity ladder is not
+ported: the port redispatches at the reported size).
+
+``encode_gop_to_coefs`` and ``encode_gop_planes_to_coefs`` are the front
+end alone (K1 on CUDA tensors), as flutpu's coefficient-level API.
 """
 
 from __future__ import annotations
 
+import ctypes
+import functools
 import struct
 import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import List, NamedTuple, Optional
 
 import numpy as np
 import torch
 
+from .. import native
 from ..core.env import env_flag
 from . import jpeg_tables as T
 from .convert import encoder_state_from_numpy
@@ -88,6 +104,39 @@ def _planes_front_end(r, g, b, qy, qc, pad_h: int, pad_w: int,
     if not subsample:
         return front_end_444(r, g, b, qy, qc, overlay)
     return front_end(r, g, b, qy, qc, overlay)
+
+
+def encode_gop_planes_to_coefs(r, g, b, qy, qc, pad_h: int, pad_w: int,
+                               subsample: bool = True):
+    """(r, g, b) uint8 planes, each (F, H, W), edge-padded to (pad_h,
+    pad_w) → (y, cb, cr) int16 zigzagged quantized coefficients (F, BH,
+    BW, 64) (flutpu's ``encode_gop_planes_to_coefs``): 4:2:0 through the
+    front-end kernel K1 (CUDA tensors launch it, CPU tensors take its
+    plain version), 4:4:4 (``subsample=False``) through the plain
+    ``front_end_444`` on the planes' device. Equal to flutpu's but for ±1
+    at a rounding tie. ``qy``, ``qc``: (8, 8) tables (tensors or arrays)
+    with entries 1..255. flutpu also takes float planes; the kernel reads
+    u8, so other types raise ValueError."""
+    planes = [torch.as_tensor(p) for p in (r, g, b)]
+    for p in planes:
+        if p.dtype != torch.uint8:
+            raise ValueError(f"encode_gop_planes_to_coefs takes uint8 "
+                             f"planes, got {p.dtype}")
+    dev = planes[0].device
+    return _planes_front_end(*planes, torch.as_tensor(qy, device=dev),
+                             torch.as_tensor(qc, device=dev), pad_h, pad_w,
+                             subsample=subsample)
+
+
+def encode_gop_to_coefs(frames, qy, qc, pad_h: int, pad_w: int,
+                        subsample: bool = True):
+    """(F, H, W, 3) uint8 RGB → (y, cb, cr) int16 zigzagged quantized
+    coefficients (F, BH, BW, 64) of the frames edge-padded to (pad_h,
+    pad_w): ``encode_gop_planes_to_coefs`` of the three channels
+    (flutpu's ``encode_gop_to_coefs``)."""
+    t = torch.as_tensor(frames)
+    return encode_gop_planes_to_coefs(t[..., 0], t[..., 1], t[..., 2], qy,
+                                      qc, pad_h, pad_w, subsample)
 
 
 # ----------------------------------------------------------------------------
@@ -141,6 +190,136 @@ def jpeg_headers(h: int, w: int, qy: np.ndarray, qc: np.ndarray,
 
 
 # ----------------------------------------------------------------------------
+# host: entropy coding (copies of flutpu.codec.jpeg's scan coders)
+# ----------------------------------------------------------------------------
+
+def _encode_scan_python(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                        subsample: bool) -> bytes:
+    """Pure-Python scan encoder (MCU-interleaved, DC-predicted): the plain
+    version the native coder is held against, and ``encode_scan``'s
+    fallback where the native library is absent."""
+    tabs = T.code_tables()
+    dcl, acl = tabs["dc_luma"], tabs["ac_luma"]
+    dcc, acc = tabs["dc_chroma"], tabs["ac_chroma"]
+    out = bytearray()
+    acc_bits = 0
+    nbits = 0
+
+    def put(code: int, length: int):
+        nonlocal acc_bits, nbits
+        acc_bits = (acc_bits << length) | (code & ((1 << length) - 1))
+        nbits += length
+        while nbits >= 8:
+            nbits -= 8
+            b = (acc_bits >> nbits) & 0xFF
+            out.append(b)
+            if b == 0xFF:
+                out.append(0x00)
+        acc_bits &= (1 << nbits) - 1
+
+    def block(z: np.ndarray, pred: int, dct_tab, act_tab) -> int:
+        dc = int(z[0])
+        diff = dc - pred
+        s = abs(diff).bit_length()
+        c, l = dct_tab[s]
+        put(c, l)
+        if s:
+            put(diff if diff >= 0 else diff + (1 << s) - 1, s)
+        run = 0
+        for k in range(1, 64):
+            v = int(z[k])
+            if v == 0:
+                run += 1
+                continue
+            while run > 15:
+                c, l = act_tab[0xF0]
+                put(c, l)
+                run -= 16
+            sz = abs(v).bit_length()
+            c, l = act_tab[(run << 4) | sz]
+            put(c, l)
+            put(v if v >= 0 else v + (1 << sz) - 1, sz)
+            run = 0
+        if run:
+            c, l = act_tab[0x00]
+            put(c, l)
+        return dc
+
+    py = pcb = pcr = 0
+    ybh, ybw = y.shape[:2]
+    if subsample:
+        for my in range(ybh // 2):
+            for mx in range(ybw // 2):
+                for sy in range(2):
+                    for sx in range(2):
+                        py = block(y[2 * my + sy, 2 * mx + sx], py, dcl, acl)
+                pcb = block(cb[my, mx], pcb, dcc, acc)
+                pcr = block(cr[my, mx], pcr, dcc, acc)
+    else:
+        for by in range(ybh):
+            for bx in range(ybw):
+                py = block(y[by, bx], py, dcl, acl)
+                pcb = block(cb[by, bx], pcb, dcc, acc)
+                pcr = block(cr[by, bx], pcr, dcc, acc)
+    if nbits:
+        put((1 << (8 - nbits)) - 1, 8 - nbits)
+    return bytes(out)
+
+
+@functools.lru_cache()
+def _native_tables():
+    """The four code tables as contiguous (codes uint32, lengths uint8)
+    arrays for the native coder."""
+    return {name: (np.ascontiguousarray(codes), np.ascontiguousarray(lengths))
+            for name, (codes, lengths) in T.code_arrays().items()}
+
+
+def _encode_scan_native(lib, y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                        subsample: bool) -> Optional[bytes]:
+    """``flu_jpeg_encode_scan`` of one frame's contiguous int16 planes;
+    None where the coder refuses them."""
+    tabs = _native_tables()
+    ybh, ybw = y.shape[:2]
+    cbh, cbw = cb.shape[:2]
+    cap = y.nbytes + cb.nbytes + cr.nbytes + (1 << 16)
+    out = np.empty(cap, dtype=np.uint8)
+    c = ctypes
+
+    def i16p(a):
+        return a.ctypes.data_as(c.POINTER(c.c_int16))
+
+    def tp(name):
+        codes, lengths = tabs[name]
+        return (codes.ctypes.data_as(c.POINTER(c.c_uint32)),
+                lengths.ctypes.data_as(c.POINTER(c.c_uint8)))
+
+    dcl, acl = tp("dc_luma"), tp("ac_luma")
+    dcc, acc = tp("dc_chroma"), tp("ac_chroma")
+    n = lib.flu_jpeg_encode_scan(
+        i16p(y), ybw, ybh, i16p(cb), i16p(cr), cbw, cbh,
+        1 if subsample else 0, 3,
+        dcl[0], dcl[1], acl[0], acl[1], dcc[0], dcc[1], acc[0], acc[1],
+        out.ctypes.data_as(c.POINTER(c.c_uint8)), cap)
+    if n < 0:
+        return None
+    return out[:n].tobytes()
+
+
+def encode_scan(y: np.ndarray, cb: np.ndarray, cr: np.ndarray,
+                subsample: bool) -> bytes:
+    """Entropy-code one frame's coefficient planes ((BH, BW, 64) int16
+    each) on the host: the native coder, else the Python one (the same
+    bytes)."""
+    y, cb, cr = (np.ascontiguousarray(a, dtype=np.int16) for a in (y, cb, cr))
+    lib = native.get_lib()
+    if lib is not None:
+        data = _encode_scan_native(lib, y, cb, cr, subsample)
+        if data is not None:
+            return data
+    return _encode_scan_python(y, cb, cr, subsample)
+
+
+# ----------------------------------------------------------------------------
 # public encoder
 # ----------------------------------------------------------------------------
 
@@ -167,22 +346,29 @@ def segmented_property(value) -> Optional[bool]:
 
 
 class _HostCopy:
-    """A device tensor's copy into pinned host memory, enqueued on the
-    current stream; ``numpy()`` waits for it (CPU tensors pass through)."""
+    """Device tensors' copies into pinned host memory, enqueued on the
+    current stream and followed by one event; ``arrays()`` waits for it
+    (CPU tensors pass through)."""
 
-    def __init__(self, t: torch.Tensor):
-        if t.is_cuda:
-            self.buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            self.buf.copy_(t, non_blocking=True)
+    def __init__(self, *ts: torch.Tensor):
+        if ts[0].is_cuda:
+            self.bufs = [torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                         for t in ts]
+            for buf, t in zip(self.bufs, ts):
+                buf.copy_(t, non_blocking=True)
             self.event = torch.cuda.Event()
-            self.event.record(torch.cuda.current_stream(t.device))
+            self.event.record(torch.cuda.current_stream(ts[0].device))
         else:
-            self.buf, self.event = t, None
+            self.bufs, self.event = list(ts), None
 
-    def numpy(self) -> np.ndarray:
+    def arrays(self) -> List[np.ndarray]:
         if self.event is not None:
             self.event.synchronize()
-        return self.buf.numpy().view(np.uint32)
+        return [b.numpy() for b in self.bufs]
+
+    def numpy(self) -> np.ndarray:
+        """The first tensor's words as uint32."""
+        return self.arrays()[0].view(np.uint32)
 
 
 class _Handle(NamedTuple):
@@ -196,6 +382,17 @@ class _Handle(NamedTuple):
     w: int
 
 
+class _HostHandle(NamedTuple):
+    """A dispatch of the host engine: the (y, cb, cr) int16 coefficient
+    planes on their way into pinned memory, and the frame size."""
+    coefs: _HostCopy
+    h: int
+    w: int
+
+
+ENGINES = ("auto", "device", "host")
+
+
 class JpegEncoder:
     """GOP JPEG encoder on one device, 4:2:0 or (``subsample=False``)
     4:4:4.
@@ -205,7 +402,10 @@ class JpegEncoder:
     there) and the pack kernels; ``"cpu"`` runs their plain PyTorch
     versions (tests, hosts without a card). ``segmented`` picks the
     bitstream layout of the device stage (``resolve_segmented``); the
-    JFIF bytes are the same in both."""
+    JFIF bytes are the same in both. ``engine``: ``"auto"`` or
+    ``"device"`` code the scans on the device; ``"host"`` runs the front
+    end there and the native scan coder on the host (``_scans_host``),
+    with the same bytes."""
 
     #: bits one baseline block can need at most, rounded up to whole
     #: words (the JAX encoder's CAP_LADDER[-1])
@@ -220,7 +420,12 @@ class JpegEncoder:
     _PREFIX_BUCKET = 2048
 
     def __init__(self, quality: int = 85, subsample: bool = True, *,
-                 segmented: Optional[bool] = None, device="cuda"):
+                 engine: str = "auto", segmented: Optional[bool] = None,
+                 device="cuda"):
+        if engine not in ENGINES:
+            raise ValueError(f"engine must be auto | device | host, got "
+                             f"{engine!r}")
+        self.engine = engine
         self.device = torch.device(device)
         self.quality = quality
         self.subsample = bool(subsample)
@@ -241,12 +446,13 @@ class JpegEncoder:
     def from_numpy_state(cls, qy, qc, *, seg_words: Optional[int] = None,
                          prefix_window: Optional[int] = None,
                          segmented: Optional[bool] = None,
-                         subsample: bool = True,
+                         subsample: bool = True, engine: str = "auto",
                          device="cuda") -> "JpegEncoder":
         """An encoder running with given quantization tables and adaptive
         sizes (e.g. the JAX encoder's ``qy``, ``qc``, ``_seg_words``,
         ``_prefix_window``)."""
-        enc = cls(subsample=subsample, segmented=segmented, device=device)
+        enc = cls(subsample=subsample, engine=engine, segmented=segmented,
+                  device=device)
         enc.quality = None
         enc._set_state(encoder_state_from_numpy(
             qy, qc, seg_words=seg_words, prefix_window=prefix_window,
@@ -455,6 +661,11 @@ class JpegEncoder:
         ph, pw = _pad_to(ph, self.mult), _pad_to(pw, self.mult)
         if overlay is not None:
             overlay = torch.as_tensor(overlay).to(self.device)
+        if self.engine == "host":
+            coefs = _planes_front_end(*planes_fn(), self._qy_dev,
+                                      self._qc_dev, ph, pw, overlay,
+                                      self.subsample)
+            return _HostHandle(_HostCopy(*coefs), h, w)
 
         # the overlay rides in the closure, so an overflow redispatch
         # blends it again
@@ -478,7 +689,9 @@ class JpegEncoder:
         in the headers. ``overlay``: an (oh, ow, 4) uint8 BGRA window
         (tensor or numpy, no larger than the padded frames) burned into
         every frame by the front-end kernel — subtitle burn-in and encode
-        are one pass over the frames."""
+        are one pass over the frames. With ``engine="host"`` the dispatch
+        is the front end and the coefficient planes' copy into pinned
+        memory; finalize codes the scans on the host."""
         ph, pw = frames_dev.shape[1], frames_dev.shape[2]
         return self._dispatch(
             lambda: (frames_dev[..., 0], frames_dev[..., 1],
@@ -497,25 +710,44 @@ class JpegEncoder:
 
         return self._dispatch(planes, h, w, ph, pw, overlay)
 
-    def encode_gop_finalize(self, handle: _Handle) -> List[bytes]:
-        """Blocking half: wait for the copy, check the sizes, compact,
-        stuff, wrap headers. Combined layout per frame: segments [0] =
-        aligned words, [1..S] = segment bits, [S+1..] = word-aligned
-        stream; blocks [0] = bits, [1..] = the stream."""
-        arr, handle = self._fetch(handle)
+    def encode_gop_finalize(self, handle) -> List[bytes]:
+        """Blocking half: wait for the copy, then the scans
+        (``scan_planes_finalize``), wrapped in the JFIF headers."""
         hdr = jpeg_headers(handle.h, handle.w, self.qy, self.qc,
                            self.subsample)
-        return [hdr + self._scan_bytes(row, handle.n_segs, handle.prefix)
-                + b"\xff\xd9" for row in arr]
+        return [hdr + scan + b"\xff\xd9"
+                for scan in self.scan_planes_finalize(handle)]
 
-    def scan_planes_dispatch(self, coefs) -> _Handle:
+    def _scans_host(self, coefs) -> List[bytes]:
+        """flutpu's host engine: (y, cb, cr) (F, BH, BW, 64) int16
+        coefficient planes (host arrays or tensors) → one scan per frame
+        by ``encode_scan``, threaded across ``min(F, 8)`` workers where the
+        native coder is there (it releases the GIL)."""
+        yq, cbq, crq = (c.cpu().numpy() if isinstance(c, torch.Tensor)
+                        else np.asarray(c) for c in coefs)
+        f = yq.shape[0]
+        if f > 1 and native.get_lib() is not None:
+            with ThreadPoolExecutor(max_workers=min(f, 8)) as pool:
+                return list(pool.map(
+                    lambda i: encode_scan(yq[i], cbq[i], crq[i],
+                                          self.subsample), range(f)))
+        return [encode_scan(yq[i], cbq[i], crq[i], self.subsample)
+                for i in range(f)]
+
+    def scan_planes_dispatch(self, coefs):
         """Enqueue the entropy stage alone on already-quantized (F, BH,
         BW, 64) int16 zigzagged coefficient planes (y, cb, cr), on their
         device: MCU order, the pack kernel of the encoder's layout (K2, or
         K7 / K8a), one copy back, at the adaptive sizes with the overflow
-        redispatch. Returns a handle for ``scan_planes_finalize``."""
+        redispatch; with ``engine="host"`` the planes' copy into pinned
+        memory. Returns a handle for ``scan_planes_finalize``."""
         yq, cbq, crq = coefs
         bh, bw = yq.shape[1], yq.shape[2]
+        if self.engine == "host":
+            return _HostHandle(_HostCopy(*(
+                c if isinstance(c, torch.Tensor)
+                else torch.from_numpy(np.array(c, np.int16))
+                for c in coefs)), bh * 8, bw * 8)
 
         def program(layout, prefix_words, seg_words):
             return encode_gop_scans_layout(yq, cbq, crq, layout,
@@ -525,9 +757,15 @@ class JpegEncoder:
         return _Handle(*self._run_sized(program, bh * 8, bw * 8), bh * 8,
                        bw * 8)
 
-    def scan_planes_finalize(self, handle: _Handle) -> List[bytes]:
-        """Blocking half of ``scan_planes_dispatch``: one byte-stuffed
-        baseline scan per frame (no JFIF wrapper)."""
+    def scan_planes_finalize(self, handle) -> List[bytes]:
+        """Blocking half of ``scan_planes_dispatch`` (and of the GOP
+        dispatches): one byte-stuffed baseline scan per frame, no JFIF
+        wrapper. The device engine's combined layout per frame: segments
+        [0] = aligned words, [1..S] = segment bits, [S+1..] = word-aligned
+        stream; blocks [0] = bits, [1..] = the stream. The host engine's
+        handle: the coefficient planes, coded by ``_scans_host``."""
+        if isinstance(handle, _HostHandle):
+            return self._scans_host(handle.coefs.arrays())
         arr, handle = self._fetch(handle)
         return [self._scan_bytes(row, handle.n_segs, handle.prefix)
                 for row in arr]
@@ -535,7 +773,7 @@ class JpegEncoder:
     def scan_planes(self, coefs) -> List[bytes]:
         """Entropy-code already-quantized (F, BH, BW, 64) int16 zigzag
         coefficient planes to baseline scans, no JFIF wrapper (flutpu's
-        ``JpegEncoder.scan_planes``)."""
+        ``JpegEncoder.scan_planes``), on the encoder's engine."""
         return self.scan_planes_finalize(self.scan_planes_dispatch(coefs))
 
     def encode_frame(self, frame: np.ndarray) -> bytes:

@@ -34,6 +34,19 @@ def ycbcr_from_channels(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
     return y, cb, cr
 
 
+def rgb_to_ycbcr_planes(rgb: torch.Tensor):
+    """[..., H, W, 3] uint8/float RGB → (y, cb, cr) float32 planes, by
+    ``ycbcr_from_channels`` on the three channels."""
+    x = rgb.to(torch.float32)
+    return ycbcr_from_channels(x[..., 0], x[..., 1], x[..., 2])
+
+
+def rgb_to_ycbcr(rgb: torch.Tensor) -> torch.Tensor:
+    """[..., H, W, 3] uint8/float RGB → float32 YCbCr (Y in [0,255],
+    Cb/Cr centred at 128)."""
+    return torch.stack(rgb_to_ycbcr_planes(rgb), dim=-1)
+
+
 def subsample_420(plane: torch.Tensor) -> torch.Tensor:
     """[..., H, W] → [..., H/2, W/2] by 2x2 box mean. H and W even.
     The four samples are summed in row-major order, left to right, as

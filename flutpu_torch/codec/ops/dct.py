@@ -3,9 +3,14 @@
 The 2-D DCT-II of an 8x8 block X is C @ X @ C^T with the orthonormal DCT
 matrix C, batched over all blocks of all frames. These are the plain
 versions; the product path runs the DCT inside the front-end kernel
-(ops/frontend.py). Float32 matrix products on the card must run in full
-fp32: callers that compare against a reference set
-``torch.backends.cuda.matmul.allow_tf32 = False``.
+(ops/frontend.py). The planar formulation (``plane_dct_planar``,
+``plane_idct_planar``; FVC header flags bit 3) keeps the coefficients in
+plane layout through flutpu's two products with block-diagonal DCT
+matrices, which it computes outside any Pallas kernel; here over their
+nonzero terms in a fixed order, so that every device and every plane
+height gives the same bits. Float32 matrix products on the card must run
+in full fp32: callers that compare against a reference set
+``torch.backends.cuda.matmul.allow_tf32 = False`` (``check_full_fp32``).
 """
 
 from __future__ import annotations
@@ -65,3 +70,69 @@ def plane_dct(plane: torch.Tensor, block: int = 8) -> torch.Tensor:
 def plane_idct(coefs: torch.Tensor) -> torch.Tensor:
     """[..., BH, BW, 8, 8] coefficients → [..., H, W] plane."""
     return unblockize(idct2(coefs))
+
+
+# ----------------------------------------------------------------------------
+# the planar formulation (FVC header flags bit 3)
+# ----------------------------------------------------------------------------
+
+def check_full_fp32(device: torch.device) -> None:
+    """The in-loop DCT/IDCT is codec state: the decoder reconstructs in
+    full fp32, so a TF32 matmul on the card (the per-block ``dct2`` and
+    ``idct2``) would drift the P chain."""
+    if device.type == "cuda" and (
+            torch.backends.cuda.matmul.allow_tf32
+            or torch.get_float32_matmul_precision() != "highest"):
+        raise RuntimeError(
+            "FVC motion mode needs full-fp32 matmuls on the card: set "
+            "torch.backends.cuda.matmul.allow_tf32 = False and "
+            "torch.set_float32_matmul_precision('highest')")
+
+
+@functools.lru_cache(maxsize=32)
+def _dct_on(device: torch.device) -> torch.Tensor:
+    """The 8x8 DCT matrix on ``device``, uploaded once."""
+    return torch.as_tensor(dct_matrix(8), device=device)
+
+
+def _planar_products(x: torch.Tensor, inverse: bool) -> torch.Tensor:
+    """``bh @ x @ bw.T`` (``bh.T @ x @ bw`` for the inverse) over the
+    trailing (H, W) of ``x``, ``bh`` and ``bw`` being flutpu's
+    block-diagonal DCT matrices (``_bd_dct_matrix``), over their nonzero
+    terms alone: the product with ``bh``, then with ``bw.T``, each
+    coefficient's eight terms multiplied and then added in ascending
+    order, every multiply and add its own fp32 operation. A matrix
+    product's summation order depends on its shapes (the card's, at 32
+    rows against 96, differs), so this fixes it: a sample depends on its
+    own eight inputs alone, equal on every device, at every plane height
+    and in every batch, and the decoder rebuilds the planes of an
+    encoder that ran on row stripes, or on another device, bit for
+    bit."""
+    m = _dct_on(x.device)
+    if inverse:
+        m = m.T
+    h, w = x.shape[-2:]
+    rows = x.to(torch.float32).reshape(*x.shape[:-2], h // 8, 8, w)
+    left = m[:, 0, None] * rows[..., 0:1, :]
+    for k in range(1, 8):
+        left = left + m[:, k, None] * rows[..., k:k + 1, :]
+    cols = left.reshape(*x.shape[:-2], h, w // 8, 8)
+    out = cols[..., 0:1] * m[:, 0]
+    for k in range(1, 8):
+        out = out + cols[..., k:k + 1] * m[:, k]
+    return out.reshape(x.shape)
+
+
+def plane_dct_planar(plane: torch.Tensor) -> torch.Tensor:
+    """[..., H, W] plane → [..., H, W] plane-layout DCT coefficients:
+    block (by, bx)'s coefficient (u, v) sits at (8*by + u, 8*bx + v).
+    Equals unblockize(plane_dct(plane)) but for the order of each
+    coefficient's eight terms. The products with the block-diagonal DCT
+    matrices (``_planar_products``), in full fp32 whatever the TF32
+    setting."""
+    return _planar_products(plane, inverse=False)
+
+
+def plane_idct_planar(coefs: torch.Tensor) -> torch.Tensor:
+    """Inverse of plane_dct_planar: plane-layout coefficients → plane."""
+    return _planar_products(coefs, inverse=True)

@@ -15,7 +15,8 @@ array per frame; the host half (``compact_segments_finalize``) merges the
 word-aligned segments into the exact bitstream and byte-stuffs it with
 the native library.
 
-Non-segment layout (``encode_gop_scans_combined``): after
+Non-segment layout (``encode_gop_scans``, and
+``encode_gop_scans_combined`` for the encoders' one copy): after
 ``_mcu_blocks``, each block is Huffman-coded into its own 64-word buffer
 (``pack_block_bits_fused``, K7; or, under ``FLUTPU_NO_FUSED_PACK=1``,
 ``_slot_tables_merged`` and ``pack_block_bits64``, K8a), and
@@ -403,28 +404,46 @@ def _resolve_pack_variant() -> bool:
     return not env_flag("FLUTPU_NO_FUSED_PACK", False)
 
 
-def encode_gop_scans_combined(yq: torch.Tensor, cbq: torch.Tensor,
-                              crq: torch.Tensor, layout: McuLayout,
-                              prefix_words: int) -> torch.Tensor:
-    """Non-segment scan encode of (F, BH, BW, 64) int16 coefficient
-    planes: MCU order and DC prediction, the per-block pack (K7, or the
-    merged slot tables and K8a), the block concat. Returns one array for
-    one copy: combined (F, 1 + prefix_words) int32 per frame, [0] = the
-    frame's bit count, [1:] = the first ``prefix_words`` words of its
-    bit-contiguous scan (a count above ``prefix_words * 32`` is an
-    overflow: the caller redispatches at the reported size)."""
+def encode_gop_scans(yq: torch.Tensor, cbq: torch.Tensor, crq: torch.Tensor,
+                     layout: McuLayout, out_words: int,
+                     fused: Optional[bool] = None):
+    """(F, BH, BW, 64) int16 coefficient planes → packed scan bits:
+    MCU order and DC prediction, the per-block pack (``fused``: K7; else
+    the merged slot tables and K8a; None: ``_resolve_pack_variant``), the
+    block concat. Returns (packed (F, out_words) int32 holding uint32 bit
+    patterns, the first ``out_words`` words of each frame's
+    bit-contiguous scan; bits (F,) int32, every bit counted, also past
+    ``out_words * 32``). CUDA tensors launch the kernels, CPU tensors
+    take their plain versions. flutpu's ``use_pallas``, ``interpret``
+    and ``concat`` choose among its TPU formulations and are not ported:
+    the port has one of each."""
+    if fused is None:
+        fused = _resolve_pack_variant()
     f = yq.shape[0]
     mcu, comp = _mcu_blocks(yq, cbq, crq, layout)
     b = mcu.shape[1]
     flat = mcu.reshape(f * b, 64)
     comp_flat = comp.repeat(f)
-    if _resolve_pack_variant():
+    if fused:
         buf, nbits = pack_block_bits_fused(flat, comp_flat)
     else:
         buf, nbits = pack_block_bits64(*_slot_tables_merged(flat, comp_flat))
     packed, bits = _concat_blocks_v3(buf.view(f, b, BLOCK_WORDS),
-                                     nbits.view(f, b), prefix_words)
-    return torch.cat([bits.to(torch.int32)[:, None], packed], dim=1)
+                                     nbits.view(f, b), out_words)
+    return packed, bits.to(torch.int32)
+
+
+def encode_gop_scans_combined(yq: torch.Tensor, cbq: torch.Tensor,
+                              crq: torch.Tensor, layout: McuLayout,
+                              prefix_words: int) -> torch.Tensor:
+    """Non-segment scan encode of (F, BH, BW, 64) int16 coefficient
+    planes (``encode_gop_scans``) as one array for one copy: combined
+    (F, 1 + prefix_words) int32 per frame, [0] = the frame's bit count,
+    [1:] = the first ``prefix_words`` words of its bit-contiguous scan (a
+    count above ``prefix_words * 32`` is an overflow: the caller
+    redispatches at the reported size)."""
+    packed, bits = encode_gop_scans(yq, cbq, crq, layout, prefix_words)
+    return torch.cat([bits[:, None], packed], dim=1)
 
 
 def encode_gop_scans_layout(yq: torch.Tensor, cbq: torch.Tensor,

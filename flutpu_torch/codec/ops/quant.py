@@ -91,3 +91,16 @@ def zigzag_unflatten(flat: torch.Tensor, n: int = 8) -> torch.Tensor:
 def quant_map(qtable: torch.Tensor, h: int, w: int) -> torch.Tensor:
     """(8, 8) quant table tiled to a plane-layout (h, w) divisor map."""
     return qtable.to(torch.float32).tile(h // 8, w // 8)
+
+
+def quantize_planar(coefs: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
+    """Round-half-to-even quantization of plane-layout [..., H, W] DCT
+    coefficients (see dct.plane_dct_planar)."""
+    h, w = coefs.shape[-2:]
+    return torch.round(coefs / quant_map(qtable, h, w)).to(torch.int32)
+
+
+def dequantize_planar(qcoefs: torch.Tensor,
+                      qtable: torch.Tensor) -> torch.Tensor:
+    h, w = qcoefs.shape[-2:]
+    return qcoefs.to(torch.float32) * quant_map(qtable, h, w)

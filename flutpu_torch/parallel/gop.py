@@ -147,7 +147,7 @@ def fvc_chunks(frames, qy: torch.Tensor, qc: torch.Tensor,
                search_range: int = 7, hier: bool = False,
                subpel: bool = False, spatial: bool = False,
                bframes: int = 0, qy_b=None, qc_b=None,
-               subsample: bool = True):
+               subsample: bool = True, planar: bool = False):
     """The FVC chunk codec over C chunks, one dispatch per chunk shard
     (the counterpart of flutpu's ``fvc_chunks_sharded``): (C, F, H, W, 3)
     uint8 frames, or an (r, g, b) tuple of (C, F, H, W) planes,
@@ -162,7 +162,8 @@ def fvc_chunks(frames, qy: torch.Tensor, qc: torch.Tensor,
     ``mesh``/``spatial``: as ``encode_chunks``; striped motion is the
     full integer search only (``hier``/``subpel``: flutpu's ValueError),
     its rows searched across stripes from halos, each chunk's frame type
-    decided over all its stripes."""
+    decided over all its stripes. ``planar`` (motion): the in-loop DCT of
+    header flags bit 3 (``fvc_mc_encode_chunk``)."""
     if bframes and (not motion or subpel):
         raise ValueError("bframes needs motion=True and does not "
                          "support subpel")
@@ -182,10 +183,10 @@ def fvc_chunks(frames, qy: torch.Tensor, qc: torch.Tensor,
         if bframes:
             out.append(fvc_mc_encode_chunk_b(
                 block, **tabs, pad_h=ph, pad_w=pw, search_range=search_range,
-                bframes=bframes, hier=hier, qy_b=qy_b, qc_b=qc_b,
-                striped=striped))
+                bframes=bframes, hier=hier, planar=planar, qy_b=qy_b,
+                qc_b=qc_b, striped=striped))
         else:
             out.append(fvc_mc_encode_chunk(
                 block, **tabs, pad_h=ph, pad_w=pw, search_range=search_range,
-                hier=hier, subpel=subpel, striped=striped))
+                hier=hier, subpel=subpel, planar=planar, striped=striped))
     return tuple(_gather_rows(p, 0) for p in zip(*out))

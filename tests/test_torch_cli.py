@@ -2,10 +2,12 @@
 ``python -m flutpu_torch.launch`` against flutpu's ``launch`` (same
 JFIF, same FVC chunks or a stated tie), its exit on the first ERROR,
 ``python -m flutpu_torch.inspect`` and the element reference it
-generates, and the seven ``examples/torch/*.py`` at small sizes with
-``--device cpu``, each beside flutpu's example logic where the two can
-run side by side."""
+generates, the scan that every public name and element property of
+flutpu has its counterpart in the port, and the seven
+``examples/torch/*.py`` at small sizes with ``--device cpu``, each beside
+flutpu's example logic where the two can run side by side."""
 
+import ast
 import importlib.util
 import os
 import re
@@ -257,6 +259,95 @@ def test_every_flutpu_factory_has_a_counterpart():
     assert {RENAMED.get(n, n) for n in j_factories()} == mine
 
 
+#: public top-level names of flutpu that are TPU tooling, with the reason
+#: the port has none
+TPU_ONLY = {
+    "CPU_BUSY_PATH": "benchlock.py: lock files of the TPU bench host",
+    "LOCK_PATH": "benchlock.py: lock files of the TPU bench host",
+    "hold_cpu_busy": "benchlock.py: lock files of the TPU bench host",
+    "hold_tpu_lock": "benchlock.py: lock files of the TPU bench host",
+    "warm_device": "core/devwarm.py: the TPU's first execution on the main "
+                   "thread",
+    "skip_warmup": "core/devwarm.py: the TPU's first execution on the main "
+                   "thread",
+    "TILE_N": "entropy_pallas.py: lanes per Pallas grid step",
+    "TILE_SEG": "entropy_pallas.py: lanes per Pallas grid step",
+    "front_end_fits": "frontend_pallas.py: the kernel's VMEM-fit gate; K1 "
+                      "takes every size",
+    "chroma_mc_fits": "motion_pallas.py: the kernel's VMEM-fit gate; K4 "
+                      "takes every size",
+    "motion_search_ssd_mxu": "motion.py: an MXU (systolic array) form of "
+                             "the search that no encoder path runs",
+    "chunk_sharding": "parallel/mesh.py: a JAX NamedSharding",
+}
+
+#: flutpu's public names → the port's names for the same thing
+RENAMED_NAMES = {
+    "TpuJpegEnc": "CudaJpegEnc", "FvcEnc": "CudaFvcEnc",
+    "FvcLadderEnc": "CudaFvcLadderEnc", "TpuHype": "CudaHype",
+    "JpegDec": "CudaJpegDec", "FvcDec": "CudaFvcDec",
+    "front_end_pallas": "front_end", "front_end_reference": "front_end_plain",
+    "pack_segments_fused": "pack_segments",
+    "pack_block_bits_pallas64": "pack_block_bits64",
+    "pack_block_bits_pallas": "pack_block_bits",
+    "motion_search_mc_dxmajor_pallas": "motion_search_mc",
+    "motion_search_mc_pallas": "motion_search_mc_blocks",
+    "motion_search_mc_dygrid_pallas": "motion_search_mc_dygrid",
+    "motion_search_mc_hier_pallas": "motion_search_mc_hier",
+    "chroma_mc_pallas": "chroma_mc",
+    "encode_chunks_sharded": "encode_chunks",
+    "fvc_chunks_sharded": "fvc_chunks",
+}
+
+
+def _public_names(package: str) -> set:
+    """Public (no leading underscore) top-level functions, classes and
+    assigned names of every module under ``package``."""
+    names = set()
+    for dirpath, _, files in os.walk(os.path.join(ROOT, package)):
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            with open(os.path.join(dirpath, name)) as fh:
+                tree = ast.parse(fh.read())
+            for node in tree.body:
+                if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                     ast.ClassDef)):
+                    names.add(node.name)
+                elif isinstance(node, ast.Assign):
+                    names.update(t.id for t in node.targets
+                                 if isinstance(t, ast.Name))
+                elif isinstance(node, ast.AnnAssign) and \
+                        isinstance(node.target, ast.Name):
+                    names.add(node.target.id)
+    return {n for n in names if not n.startswith("_")}
+
+
+def test_every_public_name_of_flutpu_has_a_counterpart():
+    """The port does all that flutpu does but its TPU tooling: every
+    public top-level name of ``flutpu/**.py`` is one of the port's, or a
+    rename of it, or on the reasoned TPU-only list; neither list holds a
+    name it need not."""
+    flutpu, port = _public_names("flutpu"), _public_names("flutpu_torch")
+    missing = flutpu - port - set(TPU_ONLY) - set(RENAMED_NAMES)
+    assert not missing, sorted(missing)
+    assert set(TPU_ONLY) <= flutpu - port
+    assert set(RENAMED_NAMES) <= flutpu - port
+    assert set(RENAMED_NAMES.values()) <= port
+
+
+def test_every_element_property_has_its_counterpart():
+    """Each flutpu element's properties are its counterpart's, in order,
+    less the port's ``device``."""
+    from flutpu.core import factories as j_factories
+    mine = factories()
+    for name, cls in j_factories().items():
+        theirs = [p.name for p in cls._all_prop_specs()]
+        port = [p.name for p in mine[RENAMED.get(name, name)]
+                ._all_prop_specs() if p.name != "device"]
+        assert port == theirs, name
+
+
 def test_inspect_details_and_listing(capsys):
     assert t_inspect.main(["cudajpegenc"]) == 0
     out = capsys.readouterr().out
@@ -276,12 +367,15 @@ def test_inspect_details_and_listing(capsys):
 
 def test_reference_states_what_the_port_does():
     """The repaired property docs: cudajpegenc encodes 4:4:4, cudahype
-    deals its chunks round the cards; every device property defaults to
-    the card."""
+    deals its chunks round the cards, both encoders take the host entropy
+    engine; every device property defaults to the card."""
     md = t_inspect._markdown(factories())
     assert "only 4:2:0 is ported" not in md
     assert "false encodes 4:4:4" in md
     assert "visible cards // spatial" in md
+    assert "always runs on the device" not in md
+    assert md.count(r"auto \| device \| host entropy coding; auto never "
+                    "leaves the device here") == 2
     devices = re.findall(r"^\| `device` \| `([^`]*)` \|", md, re.M)
     assert devices == ["'cuda'"] * 8
 

@@ -22,8 +22,8 @@ from flutpu_torch.codec.ops.quant import (CHROMA_QTABLE, LUMA_QTABLE,
                                           scale_qtable)
 from flutpu_torch.core.elements import make_test_frame
 from torch_helpers import (chunk_pairs, cuda_device,  # noqa: F401
-                           pack_edge_blocks, rand_planes, slot_tables,
-                           tie_contract)
+                           pack_edge_blocks, planar_drift, rand_planes,
+                           slot_tables, tie_contract)
 
 torch.set_num_threads(1)
 
@@ -1337,3 +1337,115 @@ def test_launch_on_a_missing_card_exits_1(cuda_device):
                   f"! cudajpegenc device=cuda:{n} ! fakesink"], timeout=60)
     assert res.returncode == 1
     assert "ERROR from" in res.stderr and "Pipeline is PLAYING" in res.stderr
+
+
+# -- the host entropy engine, encode_gop_scans and the planar DCT ------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subsample", [True, False], ids=["420", "444"])
+def test_jpeg_host_engine_on_card(cuda_device, subsample):
+    """``engine="host"`` on the card: K1 (4:2:0; 4:4:4 the plain front
+    end), one copy of the coefficient planes and the native scan coder;
+    the device engine's JFIF, and no pack kernel launched."""
+    frames = _clip8()
+    packs = (K.pack_segments, K.pack_block_bits_fused, K.pack_block_bits64)
+    before = [F.front_end.launches] + [k.launches for k in packs]
+    got = JpegEncoder(85, subsample=subsample, engine="host",
+                      device=cuda_device).encode_gop(frames)
+    after = [F.front_end.launches] + [k.launches for k in packs]
+    assert after[1:] == before[1:]
+    assert (after[0] > before[0]) == subsample
+    assert got == JpegEncoder(85, subsample=subsample,
+                              device=cuda_device).encode_gop(frames)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"motion": True},
+                                {"motion": True, "hier": True, "bframes": 1},
+                                {"motion": True, "subpel": True}],
+                         ids=["v1", "P", "hier+B", "half-pel"])
+def test_fvc_host_engine_on_card(cuda_device, kw):
+    """The host engine's chunk on the card equals the device engine's; no
+    pack kernel runs."""
+    frames = _clip8()
+    before = K.pack_segments.launches
+    got = FvcEncoder(engine="host", device=cuda_device,
+                     **kw).encode_chunk(frames)
+    assert K.pack_segments.launches == before
+    assert got == FvcEncoder(device=cuda_device, **kw).encode_chunk(frames)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("fused", [True, False], ids=["K7", "K8a"])
+def test_encode_gop_scans_on_card_matches_plain(cuda_device, fused):
+    """``encode_gop_scans`` on K1's coefficients of the clip launches K7
+    (fused) or K8a once and equals its plain version, words and bits,
+    with a window the noise frames overflow."""
+    from flutpu_torch.codec.jpeg import encode_gop_to_coefs
+    from flutpu_torch.codec.ops.entropy import encode_gop_scans, mcu_layout
+    coefs = encode_gop_to_coefs(torch.from_numpy(_clip8()).to(cuda_device),
+                                QY, QC, 96, 160)
+    layout = mcu_layout(20, 12, 10, 6, True)
+    kernel = K.pack_block_bits_fused if fused else K.pack_block_bits64
+    before = kernel.launches
+    packed, bits = encode_gop_scans(*coefs, layout, 256, fused=fused)
+    assert kernel.launches == before + 1
+    p_cpu, b_cpu = encode_gop_scans(*(c.cpu() for c in coefs), layout, 256,
+                                    fused=fused)
+    assert torch.equal(packed.cpu(), p_cpu) and torch.equal(bits.cpu(), b_cpu)
+    assert int(bits.max()) > 256 * 32
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"bframes": 1}, {"subpel": True}],
+                         ids=["P", "B", "half-pel"])
+def test_planar_chunk_on_card(cuda_device, kw):
+    """``planar = True`` on the card: header flags bit 3, and the card's
+    and the CPU's decoders read the chunk within one level."""
+    enc = FvcEncoder(motion=True, device=cuda_device, **kw)
+    enc.planar = True
+    chunk = enc.encode_chunk(_clip8())
+    assert chunk[5] & 8
+    a, info = FvcDecoder(cuda_device).decode_chunk(chunk)
+    b, info_cpu = FvcDecoder("cpu").decode_chunk(chunk)
+    assert info == info_cpu
+    assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 1
+
+
+@pytest.mark.cuda
+def test_planar_decoder_has_no_drift_on_card(cuda_device):
+    """The card's decoder rebuilds the encoder's in-loop planes exactly
+    through the planar inverse, frame by frame."""
+    frames = torch.from_numpy(_clip8()).to(cuda_device)
+    qy, qc = (torch.from_numpy(t).to(cuda_device) for t in (QY, QC))
+    assert planar_drift(frames, qy, qc) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stripes", [2, 3])
+def test_planar_stripes_decode_without_drift_on_card(cuda_device, stripes):
+    """A planar chunk coded on row stripes of the card (stripe-height
+    products in cuBLAS) is rebuilt exactly by the decoder's full-height
+    products, every frame."""
+    frames = torch.from_numpy(_clip8()).to(cuda_device)
+    qy, qc = (torch.from_numpy(t).to(cuda_device) for t in (QY, QC))
+    assert planar_drift(frames, qy, qc, stripes) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["plane_dct_planar", "plane_idct_planar"])
+def test_planar_products_on_card_equal_the_cpus(cuda_device, op):
+    """The planar products give the CPU's bits on the card, with TF32
+    matmuls allowed or not: each sample is its own eight fp32 multiplies
+    and adds in a fixed order."""
+    from flutpu_torch.codec.ops import dct
+    fn = getattr(dct, op)
+    x = torch.from_numpy(np.random.default_rng(9).uniform(
+        -300, 300, (3, 1088, 1920)).astype(np.float32))
+    want = fn(x)
+    try:
+        for tf32 in (False, True):
+            torch.backends.cuda.matmul.allow_tf32 = tf32
+            assert torch.equal(fn(x.to(cuda_device)).cpu(), want)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False

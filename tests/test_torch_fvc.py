@@ -32,7 +32,7 @@ from flutpu_torch.codec.fvc import FvcDecoder, FvcEncoder
 from flutpu_torch.codec.ops.colorspace import planes_to_i420
 from flutpu_torch.codec.ops.motion import motion_compensate_subpel
 from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
-from torch_helpers import pull_all
+from torch_helpers import pull_all, split_at_ties
 
 torch.set_num_threads(1)
 
@@ -323,11 +323,12 @@ PORTED = ({"hier": True}, {"bframes": 1}, {"subpel": True},
     {"subpel": True}, {"hier": True}, {"bframes": 1}, {"subsample": False},
     {"engine": "host"}, {"search_range": 40}])
 def test_unported_encoder_options_raise(kwargs):
-    """The host engine raises NotImplementedError (by design); hier,
-    bframes, subpel and a range above 32 build a motion encoder that
-    carries them (``test_torch_wide_search.py`` holds range 40 to
-    flutpu's bytes); 4:4:4 builds a version 1 encoder and, with motion,
-    raises flutpu's ValueError."""
+    """Every option builds: the host engine a motion encoder whose chunk
+    equals the device engine's (``test_torch_host_engine.py`` holds it to
+    flutpu's); hier, bframes, subpel and a range above 32 a motion
+    encoder that carries them (``test_torch_wide_search.py`` holds range
+    40 to flutpu's bytes); 4:4:4 builds a version 1 encoder and, with
+    motion, raises flutpu's ValueError."""
     if kwargs in PORTED:
         enc = FvcEncoder(85, motion=True, device="cpu", **kwargs)
         assert (enc.hier, enc.bframes, enc.subpel, enc.search_range) == (
@@ -339,8 +340,12 @@ def test_unported_encoder_options_raise(kwargs):
         with pytest.raises(ValueError, match="4:2:0"):
             FvcEncoder(85, motion=True, device="cpu", **kwargs)
         return
-    with pytest.raises(NotImplementedError):
-        FvcEncoder(85, motion=True, device="cpu", **kwargs)
+    assert kwargs == {"engine": "host"}
+    enc = FvcEncoder(85, motion=True, device="cpu", **kwargs)
+    assert enc.engine == "host"
+    frames = CLIPS["ball"][:3]
+    assert enc.encode_chunk(frames) == FvcEncoder(
+        85, motion=True, device="cpu").encode_chunk(frames)
 
 
 @pytest.mark.parametrize("bit", [4, 16, 32])
@@ -373,15 +378,14 @@ def test_unported_stream_features_raise(jax_chunks, bit):
 
 
 def test_unported_program_options_raise():
-    """The planar DCT raises; hier runs the coarse-to-fine search; subpel
-    runs the half-pel loop, equal to flutpu's program on these frames."""
+    """Every option runs: hier the coarse-to-fine search; subpel the
+    half-pel loop and planar the block-diagonal in-loop DCT, each equal
+    to flutpu's program on these frames."""
     frames = torch.from_numpy(CLIPS["ball"][:2])
     q = torch.ones((8, 8), dtype=torch.int32)
     ry, _, _, mvs, itypes = tf.fvc_mc_encode_chunk(frames, q, q, H, W, 7,
                                                    hier=True)
     assert ry.shape[0] == mvs.shape[0] == 2 and itypes.tolist() == [1, 0]
-    with pytest.raises(NotImplementedError):
-        tf.fvc_mc_encode_chunk(frames, q, q, H, W, 7, planar=True)
     got = tf.fvc_mc_encode_chunk(frames, q, q, H, W, 7, subpel=True)
     want = jf.fvc_mc_encode_chunk(jnp.asarray(frames.numpy()),
                                   jnp.asarray(q.numpy()),
@@ -389,6 +393,15 @@ def test_unported_program_options_raise():
                                   search_range=7, subpel=True, planar=False)
     for g, w_ in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w_))
+    # unit tables put many quotients near a rounding boundary: the two
+    # packages' products may split a coefficient there at a float tie
+    got = tf.fvc_mc_encode_chunk(frames, q, q, H, W, 7, planar=True)
+    want = jf.fvc_mc_encode_chunk(jnp.asarray(frames.numpy()),
+                                  jnp.asarray(q.numpy()),
+                                  jnp.asarray(q.numpy()), pad_h=H, pad_w=W,
+                                  search_range=7, planar=True)
+    split_at_ties(frames.numpy(), [g.numpy() for g in got],
+                  [np.asarray(w_) for w_ in want], q, q)
 
 
 @pytest.mark.parametrize("prop", ["bitrate=100000", "search=hier",

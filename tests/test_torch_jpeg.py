@@ -287,9 +287,17 @@ def test_cudajpegenc_element_byte_identical():
 
 
 def test_cudajpegenc_rejects_host_engine():
+    """``engine=host`` builds the host entropy engine, whose GOP equals
+    the device engine's byte for byte; an engine that is none of auto |
+    device | host is refused."""
     el = make("cudajpegenc", device="cpu", engine="host")
-    with pytest.raises(ValueError):
-        el._get_encoder()
+    enc = el._get_encoder()
+    assert enc.engine == "host"
+    frames = _frames("ball", 64, 48, n=4)
+    assert enc.encode_gop(frames) == JpegEncoder(device="cpu").encode_gop(
+        frames)
+    with pytest.raises(ValueError, match="engine"):
+        make("cudajpegenc", device="cpu", engine="cpu")._get_encoder()
 
 
 # -- the non-segment layout (segmented=False) ---------------------------------

@@ -437,9 +437,13 @@ def test_scene_event_parse_copy():
 def test_fvc_constants_equal():
     assert (t_fvc.MAGIC, t_fvc.VERSION, t_fvc._CLAMP) == \
         (j_fvc.MAGIC, j_fvc.VERSION, j_fvc._CLAMP)
+    # the planar products' factors: flutpu's block-diagonal matrices, the
+    # port's 8x8 DCT on the diagonal and zeros elsewhere
+    c = t_dct._dct_on(torch.device("cpu")).numpy()
     for dim in (8, 96, 160):
-        np.testing.assert_array_equal(t_fvc._bd_dct_matrix(dim),
-                                      j_dct._bd_dct_matrix(dim))
+        np.testing.assert_array_equal(
+            np.kron(np.eye(dim // 8, dtype=np.float32), c),
+            j_dct._bd_dct_matrix(dim))
 
 
 @pytest.mark.parametrize("motion,bframes,bquality", [

@@ -243,3 +243,142 @@ def code_of(module):
             body[0].value, ast.Constant):
         body = body[1:]
     return [ast.dump(n) for n in body]
+
+
+def split_at_ties(frames, got, want, qy, qc, subpel=False, bframes=0,
+                  qy_b=None, qc_b=None):
+    """Two outputs of one chunk program (numpy, display order: P-only
+    ``(ry, rcb, rcr, mvs, itypes)``; with ``bframes`` ``(ry, rcb, rcr,
+    fwd, bwd, modes, ftypes)``) for (F, H, W, 3) uint8 ``frames`` at their
+    coded size, which may differ where a float tie split them. At the
+    first frame in coding order (anchors, then B frames) whose outputs
+    differ, everything before is the same in both, so its prediction is
+    rebuilt in float64 from ``want``'s coefficients. There the modes and
+    frame types must be equal; half-pel vectors may differ where the two
+    candidates' float64 costs on that reference lie within one fp32
+    rounding of a sample per pixel (256 * 2^-16, ``test_torch_fvc``'s
+    half-pel near-tie), integer vectors not at all; with the same
+    vectors the coefficients may differ only by 1, where the float64
+    quotient lies within 2e-3 of a rounding boundary (each output's
+    coefficients being its quotients rounded and clamped). Returns the
+    number of split vectors or coefficients, 0 where the outputs are
+    equal."""
+    from flutpu_torch.codec.fvc import (_CLAMP, _bframe_structure,
+                                        _repeat_blocks, _select_mode)
+    from flutpu_torch.codec.ops.colorspace import planes_to_i420
+    from flutpu_torch.codec.ops.dct import blockize, dct_matrix, unblockize
+    from flutpu_torch.codec.ops.motion import (motion_compensate,
+                                               motion_compensate_subpel)
+    from flutpu_torch.codec.ops.quant import zigzag_unflatten
+    f = frames.shape[0]
+    types = np.asarray(want[-1])
+    np.testing.assert_array_equal(got[-1], types)
+    anchors, b_idx = list(range(f)), []
+    if bframes:
+        anchors, b_idx = _bframe_structure(f, bframes)[:2]
+
+    def same(i):
+        return all(np.array_equal(g[i], w[i]) for g, w in zip(got, want))
+
+    diff = [i for i in anchors + b_idx if not same(i)]
+    if not diff:
+        return 0
+    fd = diff[0]
+    c = torch.as_tensor(dct_matrix(8)).double()
+
+    def block64(zz):
+        return zigzag_unflatten(torch.as_tensor(zz.astype(np.int64))).double()
+
+    def tables(y, ch):
+        return [torch.as_tensor(np.asarray(t)).double() for t in (y, ch, ch)]
+
+    mc = motion_compensate_subpel if subpel else motion_compensate
+
+    def predict(ref, mv):
+        mv = torch.as_tensor(np.asarray(mv).astype(np.int64))
+        return [mc(ref[0], mv)] + [mc(p, mv, mb=8) for p in ref[1:]]
+
+    def intra(i):
+        return i == 0 or types[i] == 1
+
+    cur = [p.double() for p in planes_to_i420(*(
+        torch.from_numpy(np.ascontiguousarray(frames[..., k]))
+        for k in range(3)))]
+    qs = tables(qy, qc)
+    recs, prev = {}, None
+    for i in anchors:
+        if i == fd:
+            break
+        pred = [128.0] * 3 if intra(i) else predict(recs[prev], want[3][i])
+        recs[i] = [(p + unblockize(c.T @ (block64(want[k][i]) * q) @ c))
+                   .clamp(0.0, 255.0)
+                   for k, (p, q) in enumerate(zip(pred, qs))]
+        prev = i
+    for k in range(4, len(want) - 1):
+        np.testing.assert_array_equal(got[k][fd], want[k][fd])
+    split = np.argwhere((got[3][fd] != want[3][fd]).any(-1))
+    if len(split):
+        assert subpel and not intra(fd), split
+        for by, bx in split:
+            sl = (slice(16 * by, 16 * by + 16), slice(16 * bx, 16 * bx + 16))
+            sads = []
+            for mv in (got[3][fd], want[3][fd]):
+                one = np.zeros_like(mv)
+                one[by, bx] = mv[by, bx]
+                pred = mc(recs[prev][0], torch.as_tensor(one.astype(np.int64)))
+                sads.append(float((cur[0][fd][sl] - pred[sl]).abs().sum()))
+            assert abs(sads[0] - sads[1]) <= 256 * 2.0 ** -16, (by, bx, sads)
+        return len(split)
+    if fd in b_idx:
+        p0 = max(a for a in anchors if a < fd)
+        p1 = min(a for a in anchors if a > fd)
+        pf, pb = predict(recs[p0], want[3][fd]), predict(recs[p1],
+                                                         want[4][fd])
+        mode = torch.as_tensor(want[5][fd].astype(np.int64))
+        pred = [_select_mode(_repeat_blocks(mode, m), (x + y) * 0.5, x, y)
+                for m, x, y in zip((16, 8, 8), pf, pb)]
+        qs = tables(qy_b, qc_b)
+    elif intra(fd):
+        pred = [128.0] * 3
+    else:
+        pred = predict(recs[prev], want[3][fd])
+    n = 0
+    for k, (x, p, q) in enumerate(zip(cur, pred, qs)):
+        v = (c @ blockize(x[fd] - p) @ c.T) / q
+        a, b = block64(got[k][fd]), block64(want[k][fd])
+        for o in (a, b):
+            assert float((v.clamp(-_CLAMP, _CLAMP) - o).abs().max()) \
+                <= 0.5 + 2e-3
+        d = (a - b).abs()
+        if not bool(d.any()):
+            continue
+        assert float(d.max()) == 1.0
+        off = (v - (torch.minimum(a, b) + 0.5)).abs()[d > 0]
+        assert float(off.max()) <= 2e-3, float(off.max())
+        n += int((d > 0).sum())
+    assert n > 0
+    return n
+
+
+def planar_drift(frames, qy, qc, stripes: int = 1, **kw):
+    """The planar motion loop over (F, H, W, 3) uint8 ``frames`` (a tensor
+    on the device to run on) cut into ``stripes`` row stripes of H /
+    stripes rows, each coded with stripe-height block-diagonal products,
+    against the decoder's reconstruction of its output over the whole
+    frame (``fvc_mc_decode_chunk``, full-height products). Returns the
+    number of in-loop samples, over every frame and plane, that the
+    decoder does not rebuild bit for bit."""
+    from flutpu_torch.codec import fvc as tf
+    h, w = frames.shape[1:3]
+    hs = h // stripes
+    parts = [frames[:, s * hs:(s + 1) * hs] for s in range(stripes)]
+    y, cb, cr, _ = tf._stripes_in(parts if stripes > 1 else frames, hs, w,
+                                  stripes > 1)
+    out, itypes, recs = tf._anchor_loop(y, cb, cr, qy, qc,
+                                        tf._search_fn(False), 7,
+                                        planar=True, **kw)
+    ry, rcb, rcr, mvs = (tf._gather_rows(p, 2)[0] for p in zip(*out))
+    dec = tf.fvc_mc_decode_chunk(ry, rcb, rcr, mvs, itypes[0], qy, qc,
+                                 planar=True, **kw)
+    return sum(int((torch.cat(want, dim=-2)[0] != got[i]).sum())
+               for i, rec in enumerate(recs) for want, got in zip(rec, dec))
