@@ -56,8 +56,8 @@ Drives the port's main paths through the entry points a user calls, at
 7. FVC checks: every chunk decodes through the port's ``FvcDecoder`` on
    the card at >= 30 dB, every payload's scan equals the native
    ``flu_jpeg_encode_scan`` of its decoded coefficients, and the CPU
-   decode (plain PyTorch) of each path's first chunk lies within 0.05 dB
-   of the card's;
+   decode (plain PyTorch) of each path's first chunk equals the card's
+   frames bit for bit;
 8. FVC hier+B main path: ``FvcEncoder(motion=True, hier=True,
    bframes=1)``, 6 chunks of 8 frames with two in flight (K5, K4, K2
    launched), then one chunk each of its neighbours (``bframes=1``
@@ -125,9 +125,7 @@ Drives the port's main paths through the entry points a user calls, at
       then ``search=hier bframes=1`` on 70 (a truncated tail): every
       chunk decodes through ``FvcDecoder`` on the card at >= 30 dB, with
       B frames where expected; each chunk against a per-chunk
-      ``FvcEncoder`` on the card: byte-identical, or (counted) the same
-      frame types, coefficients within ±1 on at most 1e-4 of them and
-      PSNR within 0.05 dB;
+      ``FvcEncoder`` on the card: byte-identical (``_require_same``);
    d. ``injectbin`` swaps a prewarmed ``cudajpegenc`` into a running
       720p ``videotestsrc ! injectbin ! appsink`` stream: no buffer lost
       or reordered, the largest gap between outputs printed (BASELINE
@@ -159,10 +157,10 @@ Drives the port's main paths through the entry points a user calls, at
       the same frames;
    c. half-pel: ``FvcEncoder(motion=True, subpel=True)``, 2 chunks of 8
       at 1080p, full and hier search (K3, K5 launched, K4 not), each
-      through ``cudafvcdec`` >= 30 dB and the CPU decode within 0.05 dB;
+      through ``cudafvcdec`` >= 30 dB and the CPU decode equal to it;
       ``cudahype codec=fvc-motion subpel=true chunks=8`` on 64 frames,
-      each chunk byte-identical to a per-chunk encode or split at
-      float64-verified ties; 4:4:4: one 16-frame ``JpegEncoder
+      each chunk byte-identical to a per-chunk encode; 4:4:4: one
+      16-frame ``JpegEncoder
       (subsample=False)`` GOP and one ``FvcEncoder(subsample=False)``
       chunk (K2 launched, K1 not) under phase 4's checks against the
       plain 4:4:4 front end, decoded through ``cudajpegdec`` /
@@ -179,7 +177,7 @@ Drives the port's main paths through the entry points a user calls, at
    b. ``cudafvcenc motion=true search-range=64 gop-size=8`` (full and
       ``search=hier``) on 16 frames of a seeded 1080p pan of 48 columns
       and 8 rows per frame: every chunk through ``cudafvcdec`` at >= 30
-      dB, the CPU decode within 0.05 dB, vectors beyond ±32, and a
+      dB, the CPU decode equal to it, vectors beyond ±32, and a
       smaller stream than at ±32;
    c. ``cudafvcenc motion=true bitrate=6000000 gop-size=8`` on 64
       frames of 1080p gradient-ball at 30 frames/s: each chunk's quality
@@ -195,8 +193,8 @@ Drives the port's main paths through the entry points a user calls, at
       rung and back; frames/s, device busy and launches per chunk and
       rung;
    e. ``encode_chunk_batch_dispatch_src`` of 4 chunks: one device-to-host
-      copy; each chunk equal to its own ``encode_chunk_dispatch_src`` or
-      split only at float64-verified ties;
+      copy; each chunk byte-identical to its own
+      ``encode_chunk_dispatch_src``;
    f. the downloader on a ``file://`` file and a loopback HTTP URL (the
       bandwidth meter counts their bytes), and a loopback-URL background
       image rendered through ``cudattmlrender`` on the card
@@ -216,13 +214,12 @@ Drives the port's main paths through the entry points a user calls, at
       (coded 2176 rows), >= 30 dB through ``FvcDecoder``, vectors with
       dy != 0 on the macroblock rows at the stripe edge, K3 and K4
       launched and K5 not, each chunk's frame records equal to
-      ``spatial=1``'s on the frames padded to 2176 rows or split at
-      float64-verified ties; busy ms and launches per chunk beside
-      ``spatial=1``'s;
+      ``spatial=1``'s on the frames padded to 2176 rows; busy ms and
+      launches per chunk beside ``spatial=1``'s;
    c. ``encode_chunks`` and ``FvcEncoder.encode_chunks_dispatch`` on
       meshes of 2 and 4 shards and a (2, 2) grid of the card (and of
       distinct cards where there are two or more): K1's coefficients
-      equal one shard's, FVC chunks equal or split at float64 ties;
+      equal one shard's, FVC chunks byte-identical to one shard's;
    d. two ``tests/torch_multihost_worker.py`` processes on the card over
       a gloo group: the stitched chunks equal one process's;
    e. ``composite_instances_batch_vmap`` on 4 intervals of seeded tiles
@@ -261,10 +258,11 @@ Drives the port's main paths through the entry points a user calls, at
       to ``engine=device``;
    b. 2 chunks of 8 frames, motion P (full search) and motion + B with
       ``hier``, through ``FvcEncoder(engine="host")`` and
-      ``engine="device"``: chunks byte-identical or split at
-      float64-verified ties (13c's check), K3 or K5 and K4 launched and
-      no pack kernel in the host arm, the host chunks under phase 7's
-      checks; frames/s, device and host ms per chunk of each arm;
+      ``engine="device"``: chunks byte-identical, K3 or K5 and K4
+      launched and no pack kernel in the host arm, the host chunks under
+      phase 7's checks; frames/s, device and host ms per chunk of each
+      arm; the host engine's ``encode_chunk_batch_dispatch_src`` of the
+      same 2 chunks byte-identical to the device engine's;
    c. one motion chunk with ``planar = True``, unstriped and on 2 and 4
       row stripes of the card: header flags bit 3, the chunk's coefficients
       the loop's, the decoder's planes equal to the encoder's in-loop
@@ -274,6 +272,17 @@ Drives the port's main paths through the entry points a user calls, at
       (K7) and not (K8a), equal to its plain version on the card (the
       same stages with each pack's plain PyTorch version) in every
       frame's whole scan.
+19. the in-loop transform kernels (K9: ``block_dct``, ``block_idct``,
+   which ``plane_dct`` / ``plane_idct`` launch on the card) against their
+   plain versions run on the CPU, bit for bit (the float32 words
+   compared), on 1088x1920 luma at C = 1 and C = 8, a 544x960 chroma
+   pair, a 1120-row 4K stripe, a non-contiguous view and the decoder's
+   ``dequantize(zigzag_unflatten(q))`` coefficients, inputs with -0 among
+   them; each timed (CUDA events) beside the cuBLAS route it replaced
+   (the plain version on the card), the plain CPU time and its byte
+   bound; phases 6 and 8's traces of the 8-frame 1080p FVC P and hier+B
+   chunks read back: busy ms and device launches per chunk beside those
+   before K9, K9 in them and no GEMM kernel.
 
 Each main path runs with every kernel's launch count set to 0 just
 before it and read just after; a kernel of the path that was not
@@ -314,7 +323,6 @@ N_CHUNKS = 6               # FVC motion chunks on the timed main path
 N_V1_CHUNKS = 2
 FVC_PIPE_FRAMES = 16
 SEARCH_RANGE = 7
-MAX_DPSNR = 0.05           # card vs CPU decode of one stream, dB
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet, at its 700 W limit
 FP32_OPS_PER_S = 67e12     # the same, fp32 outside the tensor cores
 _T_START = time.perf_counter()
@@ -675,6 +683,8 @@ def run(dev):
     add(run_striped(dev, lib, lap))
     add(run_cli(dev, lib, lap))
     add(run_host_engine(dev, lib, lap))
+    results.update(run_transform(dev))
+    lap("19 K9 transform")
     for name, key, was in EARLIER_MS:
         r_ = results[name]
         print(f"{key}: {was:.4f} ms before the redesign (PERF.md, same card "
@@ -753,9 +763,20 @@ def run(dev):
              replaces="flutpu/codec/ops/entropy_pallas.py:541",
              launches=launches["pack_block_bits"],
              **results["pack_block_bits"]),
+        # K9 has no Pallas original: it replaces flutpu's XLA products
+        # (plane_dct, plane_idct), which the port ran on cuBLAS
+        dict(name="block_dct", route="cuda",
+             source="flutpu_torch/csrc/transform.cu",
+             replaces="flutpu/codec/ops/dct.py:62",
+             launches=launches["block_dct"], **results["block_dct"]),
+        dict(name="block_idct", route="cuda",
+             source="flutpu_torch/csrc/transform.cu",
+             replaces="flutpu/codec/ops/dct.py:67",
+             launches=launches["block_idct"], **results["block_idct"]),
     ]
     for k in kernels:
-        k.setdefault("library_ms", None)   # no single torch call computes any
+        # no single torch call computes K1-K8b; K9 carries the cuBLAS route
+        k.setdefault("library_ms", None)
     jax_side = sorted(m for m in sys.modules if m in ("jax", "flutpu")
                       or m.startswith(("jax.", "flutpu.")))
     _require(not jax_side, f"imported from the JAX side: {jax_side}")
@@ -996,8 +1017,8 @@ def _device_busy(fn, n: int):
     kernels and copies; the five largest kernels, and K1 and the search
     kernel wherever they rank, as (name, ms per dispatch, launches per
     dispatch); device launches per dispatch,
-    kernels and copies), or None where the profiler traced no device
-    activity."""
+    kernels and copies; every traced name with its launches per
+    dispatch), or None where the profiler traced no device activity."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1026,7 +1047,8 @@ def _device_busy(fn, n: int):
                         or "motion_search_hier_kernel" in kv[0]
                         or "chroma_mc_kernel" in kv[0]]
     return (busy / 1e3 / n, [(k[:48], t / 1e3 / n, c / n)
-                             for k, (t, c) in top], len(spans) / n)
+                             for k, (t, c) in top], len(spans) / n,
+            {k: c / n for k, (_, c) in per_name.items()})
 
 
 def _call_launches(fn, dev, reps: int = 3):
@@ -1109,63 +1131,6 @@ def _near_tie_check(cur, prev, mv_k, mv_p, r, mb=16, bias=True):
                  f"mb ({by}, {bx}): vectors {mv_k[by, bx].tolist()} vs "
                  f"{mv_p[by, bx].tolist()} are no near-tie (float64 costs "
                  f"{cost_k} vs {cost_p})")
-    return len(diff)
-
-
-def _subpel_tie_check(cur, ref, mv_a, mv_b, r, bias=True):
-    """Macroblocks where two half-pel vector fields differ must be
-    near-ties, in float64 on ``ref``: either of the half-pel cost (the
-    SADs of the two bilinear predictions agree within one fp32 rounding
-    of a sample below 256 per pixel: the encoders' references differ
-    from this float64 one by such roundings), or of the integer search
-    that fed the refine (two integer vectors consistent with them whose
-    costs agree as ``_near_tie_check`` requires). Returns the count."""
-    import torch
-    from flutpu_torch.codec.ops.motion import motion_compensate_subpel
-    c64, r64 = cur.double(), ref.double()
-    h, w = cur.shape
-    diff = (mv_a != mv_b).any(-1).nonzero().tolist()
-
-    def block(a, by, bx):
-        return a[16 * by:16 * by + 16, 16 * bx:16 * bx + 16]
-
-    def half_cost(by, bx, v):
-        mv = torch.zeros((h // 16, w // 16, 2), dtype=torch.int64,
-                         device=cur.device)
-        mv[by, bx] = v.to(torch.int64)
-        pred = motion_compensate_subpel(r64, mv)
-        return float((block(c64, by, bx) - block(pred, by, bx)).abs().sum())
-
-    def int_cost(by, bx, dy, dx):
-        rows = (torch.arange(16, device=cur.device) + 16 * by - dy) % h
-        cols = (torch.arange(16, device=cur.device) + 16 * bx - dx) % w
-        sad = float((block(c64, by, bx) - r64[rows][:, cols]).abs().sum())
-        return sad, sad * (64 if bias else 1) + (abs(dy) + abs(dx)
-                                                  if bias else 0)
-
-    def bases(v):
-        return [((int(v[0]) - oy) // 2, (int(v[1]) - ox) // 2)
-                for oy in (-1, 0, 1) for ox in (-1, 0, 1)
-                if (int(v[0]) - oy) % 2 == 0 and (int(v[1]) - ox) % 2 == 0]
-
-    for by, bx in diff:
-        ca, cb = half_cost(by, bx, mv_a[by, bx]), half_cost(by, bx,
-                                                             mv_b[by, bx])
-        if abs(ca - cb) <= 256 * 2.0 ** -16:
-            continue
-        tie = False
-        for ba in bases(mv_a[by, bx]):
-            for bb in bases(mv_b[by, bx]):
-                if ba == bb or max(map(abs, ba + bb)) > r:
-                    continue
-                (sa, ka), (sb, kb) = int_cost(by, bx, *ba), int_cost(by, bx,
-                                                                     *bb)
-                tol = (64 if bias else 1) * 256 * 2.0 ** -23 * max(sa, sb,
-                                                                   1.0)
-                tie = tie or abs(ka - kb) <= tol
-        _require(tie, f"mb ({by}, {bx}): half-pel vectors "
-                 f"{mv_a[by, bx].tolist()} vs {mv_b[by, bx].tolist()} are no "
-                 f"near-tie (float64 half-pel costs {ca} vs {cb})")
     return len(diff)
 
 
@@ -1325,7 +1290,7 @@ def run_jpeg_blocks(dev, lib, seg_enc, seg_payloads, seg_fps, seg_pipe):
             print(f"device busy ({label}): not measured (the profiler "
                   "traced no device activity)", flush=True)
             continue
-        busy, top, _ = got
+        busy, top = got[:2]
         print(f"device busy ({label} layout, torch.profiler, 4 GOPs, "
               f"{time.perf_counter() - t0:.2f} s with the trace): "
               f"{busy:.3f} ms per GOP; largest kernels per GOP: "
@@ -1598,8 +1563,9 @@ def _check_chunks(lib, chunks, sources, label, size=(H, W),
         d_psnr = max(abs(_psnr(a, s) - _psnr(b, s))
                      for a, b, s in zip(rgb, rgb_cpu, src))
     _require(worst >= MIN_PSNR, f"{label}: PSNR {worst:.2f} dB")
-    _require(d_psnr <= MAX_DPSNR, f"{label}: card vs CPU decode differ by "
-             f"{d_psnr:.4f} dB")
+    # K9 rebuilds the planes in the CPU's order: the frames are the CPU's
+    _require(d_rgb == 0, f"{label}: the card's decode differs from the "
+             f"CPU's by up to {d_rgb} levels ({d_psnr:.4f} dB)")
     return worst, d_rgb, d_psnr
 
 
@@ -1610,6 +1576,7 @@ def _count_launches(fn):
     from flutpu_torch.codec.ops import entropy_kernels as K
     from flutpu_torch.codec.ops import frontend as F
     from flutpu_torch.codec.ops import motion_kernels as M
+    from flutpu_torch.codec.ops import transform_kernels as T
     wrappers = {"front_end": F.front_end, "pack_segments": K.pack_segments,
                 "pack_block_bits_fused": K.pack_block_bits_fused,
                 "pack_block_bits64": K.pack_block_bits64,
@@ -1618,7 +1585,8 @@ def _count_launches(fn):
                 "chroma_mc": M.chroma_mc,
                 "motion_search_mc_hier": M.motion_search_mc_hier,
                 "motion_search_mc_blocks": M.motion_search_mc_blocks,
-                "motion_search_mc_dygrid": M.motion_search_mc_dygrid}
+                "motion_search_mc_dygrid": M.motion_search_mc_dygrid,
+                "block_dct": T.block_dct, "block_idct": T.block_idct}
     wide = (M.motion_search_mc, M.motion_search_mc_hier,
             M.motion_search_mc_blocks)
     torch.cuda.synchronize()
@@ -1670,7 +1638,8 @@ def run_fvc(dev, lib):
           f"span {span:.3f} ms per chunk (CUDA events); "
           f"mean {np.mean(sizes):.0f} bytes per chunk; kernel launches "
           f"{n_motion}", flush=True)
-    for name in ("pack_segments", "motion_search_mc", "chroma_mc"):
+    for name in ("pack_segments", "motion_search_mc", "chroma_mc",
+                 "block_dct", "block_idct"):
         _require(n_motion[name] > 0, f"{name} was not launched on the FVC "
                  "motion path")
 
@@ -1772,7 +1741,8 @@ def run_fvc_hier_b(dev, lib):
           f"mean {np.mean([len(c) for c in chunks]):.0f} bytes per chunk; "
           f"kernel launches {n}", flush=True)
     # K5 is one launch: K6a no longer runs on this path
-    for name in ("motion_search_mc_hier", "chroma_mc", "pack_segments"):
+    for name in ("motion_search_mc_hier", "chroma_mc", "pack_segments",
+                 "block_dct", "block_idct"):
         _require(n[name] > 0, f"{name} was not launched on the hier+B path")
     for k, v in n.items():
         total[k] = total.get(k, 0) + v
@@ -1825,8 +1795,9 @@ def run_fvc_hier_b(dev, lib):
     return total, first
 
 
-#: the per-chunk encoder's device busy ms and launches per chunk, by
-#: label (phases 6 and 8), for phase 13's cudahype lines
+#: the per-chunk encoder's device busy ms, launches per chunk and every
+#: traced name's launches per chunk, by label (phases 6 and 8), for
+#: phase 13's cudahype lines and phase 19
 PER_CHUNK_BUSY = {}
 
 
@@ -1835,7 +1806,7 @@ def _print_busy(label, enc, src):
     the on-device source (torch.profiler)."""
     got = _device_busy(lambda: _chunks_in_flight(enc, src, 4), 4)
     if got is not None:
-        PER_CHUNK_BUSY[label] = (got[0], got[2])
+        PER_CHUNK_BUSY[label] = (got[0], got[2], got[3])
     if got is None:
         print(f"device busy ({label}): not measured (the profiler traced no "
               "device activity)", flush=True)
@@ -2494,7 +2465,6 @@ def _run_hype_fvc(dev, lib, caps):
     from flutpu_torch.codec.ops.testsrc import gradient_ball_frames
 
     total = {}
-    card = FvcDecoder(dev)
     for props, kw, n_frames, kernel in (
             ("", {}, FVC_HYPE_FRAMES[0], "motion_search_mc"),
             (" search=hier bframes=1", dict(hier=True, bframes=1),
@@ -2536,7 +2506,7 @@ def _run_hype_fvc(dev, lib, caps):
                  f"{desc}: chunks out of order")
         ref = FvcEncoder(QUALITY, motion=True, search_range=SEARCH_RANGE,
                          device=dev, **kw)
-        sources, same = [], 0
+        sources = []
         for ci, b in enumerate(out):
             src = frames[ci * CHUNK:(ci + 1) * CHUNK]
             sources.append(src)
@@ -2545,169 +2515,16 @@ def _run_hype_fvc(dev, lib, caps):
             # a B frame needs an anchor on each side: 3 frames or more
             _require((2 in types) == bool(kw.get("bframes") and len(src) > 2),
                      f"{desc} chunk {ci}: frame types {types}")
-            if bytes(b.data) == want:
-                same += 1
-                continue
-            label = f"{desc} chunk {ci}"
-            fd, what = _verify_split(bytes(b.data), want, src, SEARCH_RANGE,
-                                     bool(kw.get("hier")), dev, label)
-            da, db = card.decode_chunk(bytes(b.data))[0], \
-                card.decode_chunk(want)[0]
-            dp = max(abs(_psnr(x, s_) - _psnr(y, s_))
-                     for x, y, s_ in zip(da, db, src))
-            _require(dp <= MAX_DPSNR, f"{label}: PSNR differs by {dp:.4f} "
-                     "dB from the per-chunk encode")
-            print(f"{label}: differs from the per-chunk encode from frame "
-                  f"{fd} on (coding order), there at {what}; max dPSNR "
-                  f"{dp:.4f} dB", flush=True)
+            _require_same(bytes(b.data), want, f"{desc} chunk {ci}")
         HYPE_FVC_STREAMS[desc] = ([bytes(b.data) for b in out], frames)
         worst, d_rgb, d_psnr = _check_chunks(lib, [bytes(b.data) for b in out],
                                              sources, f"13c {desc}")
-        print(f"13c checks ({desc}): {len(out)} chunks in order; {same} of "
-              f"{len(out)} byte-identical to a per-chunk FvcEncoder on the "
-              f"card, the others within the tie contract; decode on the "
-              f"card at >= {worst:.2f} dB; scans equal flu_jpeg_encode_scan; "
-              f"CPU decode max |dRGB| {d_rgb}, max dPSNR {d_psnr:.4f} dB",
-              flush=True)
+        print(f"13c checks ({desc}): {len(out)} chunks in order, each "
+              f"byte-identical to a per-chunk FvcEncoder on the card; decode "
+              f"on the card at >= {worst:.2f} dB; scans equal "
+              f"flu_jpeg_encode_scan; CPU decode max |dRGB| {d_rgb}, max "
+              f"dPSNR {d_psnr:.4f} dB", flush=True)
     return total
-
-
-def _dct64(x):
-    """(..., H, W) float64 → (..., H/8, W/8, 8, 8) 8x8 DCT in float64 with
-    the codec's (float32) DCT matrix."""
-    import torch
-    from flutpu_torch.codec.ops.dct import blockize, dct_matrix
-    c = torch.as_tensor(dct_matrix(8), device=x.device).double()
-    return c @ blockize(x) @ c.T
-
-
-def _idct64(coefs):
-    import torch
-    from flutpu_torch.codec.ops.dct import dct_matrix, unblockize
-    c = torch.as_tensor(dct_matrix(8), device=coefs.device).double()
-    return unblockize(c.T @ coefs @ c)
-
-
-def _verify_split(a: bytes, b: bytes, src, r: int, hier: bool, dev, label,
-                  subpel: bool = False):
-    """Two encodes of one chunk that differ: a float tie split them (their
-    frame records are compared; the coded size is ``a``'s). At the
-    first frame (in coding order: anchors, then B frames) whose record
-    differs, everything before is the same in both, so the reference is
-    rebuilt in float64 from the decoded frames; there the two must differ
-    only where float64 shows a tie: vectors whose costs are equal within
-    fp32 rounding (``_near_tie_check``; half-pel vectors
-    ``_subpel_tie_check``), or, with the same vectors and modes,
-    coefficients that differ by 1 where the float64 quotient lies within
-    2e-3 of a rounding boundary. Returns (the first differing frame, its
-    differing coefficients)."""
-    import numpy as np
-    import torch
-    from flutpu_torch.codec.decode import decode_scan_to_coefs
-    from flutpu_torch.codec.fvc import FvcDecoder, _select_mode, \
-        _repeat_blocks
-    from flutpu_torch.codec.jpeg import _edge_pad
-    from flutpu_torch.codec.ops.colorspace import planes_to_i420
-    from flutpu_torch.codec.ops.motion import (motion_compensate,
-                                               motion_compensate_subpel)
-    from flutpu_torch.codec.ops.quant import (CHROMA_QTABLE, LUMA_QTABLE,
-                                              scale_qtable,
-                                              zigzag_unflatten)
-    (ha, fa), (_, fb) = FvcDecoder.parse_chunk(a), FvcDecoder.parse_chunk(b)
-    ph, pw = ha["coded_height"], ha["coded_width"]
-    types = [f[0] for f in fa]
-    _require(types == [f[0] for f in fb], f"{label}: frame types differ")
-
-    def same(x, y):
-        if x[1] is None or y[1] is None:
-            mv_same = x[1] is None and y[1] is None
-        elif isinstance(x[1], tuple):
-            mv_same = all(np.array_equal(u, v) for u, v in zip(x[1], y[1]))
-        else:
-            mv_same = np.array_equal(x[1], y[1])
-        return mv_same and x[2] == y[2]
-
-    anchors = [i for i, t in enumerate(types) if t != 2]
-    order = anchors + [i for i, t in enumerate(types) if t == 2]
-    fd = next(i for i in order if not same(fa[i], fb[i]))
-
-    def tables(q):
-        return [torch.as_tensor(scale_qtable(t, q), device=dev).double()
-                for t in (LUMA_QTABLE, CHROMA_QTABLE, CHROMA_QTABLE)]
-
-    def coefs(rec):
-        return [torch.as_tensor(c.astype(np.int64), device=dev)
-                for c in decode_scan_to_coefs(rec[2], pw // 8, ph // 8,
-                                              pw // 16, ph // 16, True)]
-
-    q = tables(ha["quality"])
-    frames = torch.as_tensor(src, device=dev)
-    cur = [p.double() for p in planes_to_i420(*(
-        _edge_pad(frames[..., c], ph, pw) for c in range(3)))]
-
-    def predict(ref, mv):
-        mv = torch.as_tensor(mv.astype(np.int64), device=dev)
-        mc = motion_compensate_subpel if subpel else motion_compensate
-        return [mc(ref[0], mv)] + [mc(p, mv, mb=8) for p in ref[1:]]
-
-    recs = {}
-    for i in anchors:
-        if i == fd:
-            break
-        pred = [128.0] * 3 if types[i] == 0 else predict(recs[prev], fa[i][1])
-        recs[i] = [(p + _idct64(zigzag_unflatten(c).double() * t))
-                   .clamp(0.0, 255.0)
-                   for p, c, t in zip(pred, coefs(fa[i]), q)]
-        prev = i
-    if types[fd] == 2:
-        p0 = max(i for i in anchors if i < fd)
-        p1 = min(i for i in anchors if i > fd)
-        fwd, bwd, mode = fa[fd][1]
-        _require(all(np.array_equal(u, v) for u, v in zip(fa[fd][1],
-                                                          fb[fd][1])),
-                 f"{label}: B frame {fd} differs in its vectors or modes")
-        pf, pb = predict(recs[p0], fwd), predict(recs[p1], bwd)
-        mode = torch.as_tensor(mode.astype(np.int64), device=dev)
-        pred = [_select_mode(_repeat_blocks(mode, m), (x + y) * 0.5, x, y)
-                for m, x, y in zip((16, 8, 8), pf, pb)]
-        q = tables(ha["bquality"])
-    elif types[fd] == 0:
-        pred = [128.0] * 3
-    else:
-        ref = recs[prev]
-        mv_a, mv_b = (torch.as_tensor(f[1].astype(np.int32), device=dev)
-                      for f in (fa[fd], fb[fd]))
-        if not torch.equal(mv_a, mv_b):
-            if subpel:
-                n = _subpel_tie_check(cur[0][fd], ref[0], mv_a, mv_b, r,
-                                      not hier)
-            else:
-                n = _near_tie_check(cur[0][fd].float(), ref[0].float(),
-                                    mv_a, mv_b, r, 16, not hier)
-            return fd, f"{n} vectors, each a float64-verified near-tie"
-        pred = predict(ref, fa[fd][1])
-    n_diff = 0
-    for c, ca, cb_, t, pr in zip(cur, coefs(fa[fd]), coefs(fb[fd]), q, pred):
-        v = _dct64(c[fd] - pr) / t
-        # the float64 model holds: each stream's coefficients are its
-        # quotients rounded (a split could not be told from a model error)
-        for x in (ca, cb_):
-            miss = float((v - zigzag_unflatten(x)).abs().max())
-            _require(miss <= 0.5 + 2e-3, f"{label}: frame {fd}: the float64 "
-                     f"quotients miss the coefficients by {miss:.4f}")
-        d = (ca - cb_).abs()
-        if not bool(d.any()):
-            continue
-        _require(int(d.max()) == 1, f"{label}: frame {fd}: a coefficient "
-                 f"moved by {int(d.max())}")
-        lo = torch.minimum(zigzag_unflatten(ca), zigzag_unflatten(cb_))
-        where = zigzag_unflatten(d) > 0
-        off = (v - (lo.double() + 0.5)).abs()[where]
-        _require(float(off.max()) <= 2e-3, f"{label}: frame {fd}: a "
-                 f"coefficient differs {float(off.max()):.2e} away from a "
-                 "rounding tie")
-        n_diff += int(where.sum())
-    return fd, f"{n_diff} coefficients, each within 2e-3 of a float64 tie"
 
 
 def _run_swap(dev):
@@ -3167,32 +2984,19 @@ def _run_subpel_444(dev, lib):
     _require(len(out) == n_chunks, f"{desc}: {len(out)} chunks")
     ref = FvcEncoder(QUALITY, motion=True, subpel=True,
                      search_range=SEARCH_RANGE, device=dev)
-    same, srcs = 0, []
+    srcs = []
     for ci, b in enumerate(out):
         s_ = clip[ci * CHUNK:(ci + 1) * CHUNK]
         srcs.append(s_)
-        want = ref.encode_chunk(s_)
-        if bytes(b.data) == want:
-            same += 1
-            continue
-        label = f"{desc} chunk {ci}"
-        fd, what = _verify_split(bytes(b.data), want, s_, SEARCH_RANGE,
-                                 False, dev, label, subpel=True)
-        da, db = card.decode_chunk(bytes(b.data))[0], card.decode_chunk(
-            want)[0]
-        dp = max(abs(_psnr(x, t) - _psnr(y, t)) for x, y, t in zip(da, db,
-                                                                  s_))
-        _require(dp <= MAX_DPSNR, f"{label}: PSNR differs by {dp:.4f} dB")
-        print(f"{label}: differs from the per-chunk encode from frame {fd} "
-              f"on, there at {what}; max dPSNR {dp:.4f} dB", flush=True)
+        _require_same(bytes(b.data), ref.encode_chunk(s_),
+                      f"{desc} chunk {ci}")
     worst, d_rgb, d_psnr = _check_chunks(lib, [bytes(b.data) for b in out],
                                          srcs, f"14c {desc}")
     print(f"14c {desc}: {len(out)} chunks in order in {wall:.2f} s "
           f"({FVC_HYPE_FRAMES[0] / wall:.1f} frames/s from host memory); "
-          f"{same} of {len(out)} byte-identical to a per-chunk encode on "
-          f"the card, the others within the tie contract; >= {worst:.2f} "
-          f"dB; CPU decode max |dRGB| {d_rgb}, max dPSNR {d_psnr:.4f} dB; "
-          f"launches {n}", flush=True)
+          f"each byte-identical to a per-chunk encode on the card; >= "
+          f"{worst:.2f} dB; CPU decode max |dRGB| {d_rgb}, max dPSNR "
+          f"{d_psnr:.4f} dB; launches {n}", flush=True)
     # 4:4:4: 1080 rows are a multiple of 8, so the coded size is the frame's
     gop = frames[:GOP]
     jenc = JpegEncoder(QUALITY, subsample=False, device=dev)
@@ -3525,9 +3329,10 @@ def _pan_frames():
 def _decode_checks(dev, chunks, sources, label, min_q=None):
     """Every chunk through ``cudafvcdec`` on the card (>= 30 dB against
     its (F, H', W', 3) numpy source, but where the chunk's quality is
-    ``min_q``) and through ``FvcDecoder`` on the CPU (within 0.05 dB of
-    the card's) → (lowest PSNR per chunk, largest card/CPU difference,
+    ``min_q``) and through ``FvcDecoder`` on the CPU (the card's frames
+    bit for bit) → (lowest PSNR per chunk, largest card/CPU difference,
     dB)."""
+    import numpy as np
     from flutpu_torch.codec.fvc import FvcDecoder
     card = _element_frames(f"cudafvcdec device={dev}", chunks)
     cpu = FvcDecoder("cpu")
@@ -3536,6 +3341,8 @@ def _decode_checks(dev, chunks, sources, label, min_q=None):
         n = data[11]
         src = sources[f0:f0 + n]
         a, b = card[f0:f0 + n], cpu.decode_chunk(data)[0]
+        _require(np.array_equal(a, b), f"{label}: the card's decode differs "
+                 "from the CPU's")
         p = [_psnr(x, s) for x, s in zip(a, src)]
         d_psnr = max([d_psnr] + [abs(q - _psnr(y, s))
                                  for q, y, s in zip(p, b, src)])
@@ -3544,8 +3351,6 @@ def _decode_checks(dev, chunks, sources, label, min_q=None):
                  f"{label}: a chunk at {min(p):.2f} dB (quality {data[10]})")
         f0 += n
     _require(f0 == len(sources), f"{label}: {f0} frames decoded")
-    _require(d_psnr <= MAX_DPSNR, f"{label}: card vs CPU decode differ by "
-             f"{d_psnr:.4f} dB")
     return worst, d_psnr
 
 
@@ -3782,11 +3587,10 @@ def _batched_src(dev, names):
     """Phase 15e: ``encode_chunk_batch_dispatch_src`` of 4 chunks of 8
     gradient-ball frames at 1080p: one device-to-host copy (``names``: the
     device launches of one such call, traced in a process of its own),
-    each chunk equal to its own ``encode_chunk_dispatch_src`` or split
-    only at float64-verified ties. Returns the launch counts."""
+    each chunk byte-identical to its own ``encode_chunk_dispatch_src``.
+    Returns the launch counts."""
     from flutpu_torch.codec.fvc import FvcEncoder
-    from flutpu_torch.codec.ops.testsrc import gradient_ball_frames, \
-        gradient_ball_planes
+    from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
     enc = FvcEncoder(QUALITY, motion=True, device=dev)
 
     def src(ph, pw, n, start):
@@ -3799,26 +3603,16 @@ def _batched_src(dev, names):
         _require(counts[k] > 0, f"15e: {k} not launched")
     copies = sum("DtoH" in n for n in names)
     _require(copies == 1, f"15e: {copies} device-to-host copies")
-    same, splits = 0, []
     for b, chunk in enumerate(chunks):
         one = enc.encode_chunk_finalize(enc.encode_chunk_dispatch_src(
             src, b * CHUNK, CHUNK, H, W))
-        if one == chunk:
-            same += 1
-            continue
-        # the source renders the coded size: its frames, not 1080 rows
-        # edge-padded, are what both encodes coded
-        frames = gradient_ball_frames(PH, PW, CHUNK, b * CHUNK,
-                                      device=dev).cpu().numpy()
-        splits.append(_verify_split(chunk, one, frames, SEARCH_RANGE, False,
-                                    dev, f"15e chunk {b}"))
+        _require_same(chunk, one, f"15e chunk {b}")
     print(f"15e batched source: {BATCH} chunks of {CHUNK} frames in one "
           f"dispatch, {copies} device-to-host copy, {len(names) / BATCH:g} "
           f"device launches per chunk (torch.profiler, in a process of its "
           f"own); kernel launches "
-          f"{ {k: v for k, v in counts.items() if v} }; {same} of {BATCH} "
-          f"byte-identical to single dispatches, the rest split at "
-          f"{splits}", flush=True)
+          f"{ {k: v for k, v in counts.items() if v} }; {BATCH} of {BATCH} "
+          f"byte-identical to single dispatches", flush=True)
     return counts
 
 
@@ -4122,23 +3916,53 @@ def _pan4k(dev):
                         for i in range(PAN4K_FRAMES)]).cpu().numpy()
 
 
+def _same_side(u, v) -> bool:
+    """Two frame records' vectors (or fwd, bwd and modes) are equal."""
+    import numpy as np
+    if u is None or v is None:
+        return u is None and v is None
+    if isinstance(u, tuple):
+        return all(np.array_equal(x, y) for x, y in zip(u, v))
+    return np.array_equal(u, v)
+
+
 def _records_equal(a: bytes, b: bytes) -> bool:
     """Two chunks hold the same frame records (types, vectors, payloads);
     their headers may differ in the coded-size fields."""
-    import numpy as np
     from flutpu_torch.codec.fvc import FvcDecoder
     (_, fa), (_, fb) = FvcDecoder.parse_chunk(a), FvcDecoder.parse_chunk(b)
-
-    def same(u, v):
-        if u is None or v is None:
-            return u is None and v is None
-        if isinstance(u, tuple):
-            return all(np.array_equal(x, y) for x, y in zip(u, v))
-        return np.array_equal(u, v)
-
     return len(fa) == len(fb) and all(
-        x[0] == y[0] and x[2] == y[2] and same(x[1], y[1])
+        x[0] == y[0] and x[2] == y[2] and _same_side(x[1], y[1])
         for x, y in zip(fa, fb))
+
+
+def _require_same(a: bytes, b: bytes, label: str,
+                  records: bool = False) -> None:
+    """Two encodes of one chunk on the card: byte-identical (``records``:
+    the same frame records, the headers may differ in the coded-size
+    fields). The in-loop transform (K9) sums every block alone in the
+    CPU's order, so batch, shard, stripe and engine change no bit. On a
+    split, fails naming the first differing frame in coding order and
+    what differs there."""
+    from flutpu_torch.codec.fvc import FvcDecoder
+    if _records_equal(a, b) if records else a == b:
+        return
+    (_, fa), (_, fb) = FvcDecoder.parse_chunk(a), FvcDecoder.parse_chunk(b)
+    where = f"{len(fa)} against {len(fb)} frames, or the header"
+    if len(fa) == len(fb):
+        types = [f[0] for f in fa]
+        order = ([i for i, t in enumerate(types) if t != 2]
+                 + [i for i, t in enumerate(types) if t == 2])
+        for i in order:
+            x, y = fa[i], fb[i]
+            what = ("its type" if x[0] != y[0] else
+                    "its vectors or modes" if not _same_side(x[1], y[1])
+                    else "its payload" if x[2] != y[2] else None)
+            if what:
+                where = f"frame {i} (coding order), in {what}"
+                break
+    _require(False, f"{label}: differs from the reference encode at "
+             f"{where}")
 
 
 def _hold_striped(dev, padded):
@@ -4201,8 +4025,7 @@ def _config4_fvc(dev, lib):
     2176), >= 30 dB through FvcDecoder, vectors with dy != 0 on the
     macroblock rows at the stripe edge, K3 and K4 launched and K5 not;
     each chunk's frame records equal the ``spatial=1`` chunk's of the
-    same frames padded to 2176 rows, or split only at float64-verified
-    ties."""
+    same frames padded to 2176 rows."""
     import numpy as np
     import torch
     from flutpu_torch.codec.fvc import FvcDecoder
@@ -4246,7 +4069,7 @@ def _config4_fvc(dev, lib):
         n_chunks = PAN4K_FRAMES // CHUNK
         _require(len(striped) == len(flat) == n_chunks,
                  f"16b{props}: {len(striped)} and {len(flat)} chunks")
-        edge, moved, same = (ph // STRIPES) // 16, [], 0
+        edge, moved = (ph // STRIPES) // 16, []
         for ci, (a, b) in enumerate(zip(striped, flat)):
             hdr, recs = FvcDecoder.parse_chunk(a)
             _require(hdr["flags"] & 16 and (hdr["coded_height"],
@@ -4258,15 +4081,7 @@ def _config4_fvc(dev, lib):
             for t, mv, _ in recs:
                 if t == 1:
                     moved.append(mv[edge - 1:edge + 1, :, 0] != 0)
-            if _records_equal(a, b):
-                same += 1
-                continue
-            src = padded[ci * CHUNK:(ci + 1) * CHUNK]
-            label = f"16b{props} chunk {ci}"
-            fd, what = _verify_split(a, b, src, SEARCH_RANGE, False, dev,
-                                     label)
-            print(f"{label}: differs from spatial=1 from frame {fd} on "
-                  f"(coding order), there at {what}", flush=True)
+            _require_same(a, b, f"16b{props} chunk {ci}", records=True)
         share = float(np.mean(np.concatenate([m.ravel() for m in moved])))
         _require(share > 0.5, f"16b{props}: only {share:.3f} of the "
                  "stripe-edge macroblocks moved vertically")
@@ -4275,10 +4090,10 @@ def _config4_fvc(dev, lib):
                            for ci in range(n_chunks)], f"16b{props}",
             size=(K4_H, K4_W), cpu_decode=False)
         print(f"16b checks{props}: {n_chunks} chunks with flags bit 4 "
-              f"(coded {ph}x{K4_W}); {same} of {n_chunks} with the frame "
-              f"records of spatial=1, the others split at float64-verified "
-              f"ties; {share:.3f} of the P macroblocks on rows {edge - 1} "
-              f"and {edge} (the stripe edge) with dy != 0; decode on the "
+              f"(coded {ph}x{K4_W}), each with the frame records of "
+              f"spatial=1; {share:.3f} of the P macroblocks on rows "
+              f"{edge - 1} and {edge} (the stripe edge) with dy != 0; "
+              f"decode on the "
               f"card >= {worst:.2f} dB; scans equal flu_jpeg_encode_scan",
               flush=True)
     return total
@@ -4298,8 +4113,7 @@ def _shards_on_cards(dev):
     """16c: ``encode_chunks`` and ``FvcEncoder.encode_chunks_dispatch`` on
     meshes of 2 and 4 shards and a (2, 2) grid of one card (and of
     distinct cards where there are two or more) against one shard: K1's
-    coefficients equal, FVC chunks equal or split at float64-verified
-    ties."""
+    coefficients equal, FVC chunks byte-identical."""
     import torch
     from flutpu_torch.codec.fvc import FvcEncoder
     from flutpu_torch.codec.jpeg import JpegEncoder
@@ -4332,19 +4146,11 @@ def _shards_on_cards(dev):
                 enc.encode_chunks_dispatch(frames, mesh)))
             for k, v in counts.items():
                 total[k] = total.get(k, 0) + v
-            same = 0
             for ci, (a, b) in enumerate(zip(out, ref)):
-                if a == b:
-                    same += 1
-                    continue
-                label = f"16c {set_name} {name} chunk {ci}"
-                fd, what = _verify_split(a, b, frames[ci].cpu().numpy(),
-                                         SEARCH_RANGE, False, dev, label)
-                print(f"{label}: split from frame {fd} on at {what}",
-                      flush=True)
-            print(f"16c {set_name}, {name}: K1 equal; {same} of {c} FVC "
-                  f"chunks byte-identical to one shard, the others at "
-                  f"float64-verified ties; launches {counts}", flush=True)
+                _require_same(a, b, f"16c {set_name} {name} chunk {ci}")
+            print(f"16c {set_name}, {name}: K1 equal; {c} of {c} FVC "
+                  f"chunks byte-identical to one shard; launches {counts}",
+                  flush=True)
     return total
 
 
@@ -4865,7 +4671,12 @@ def _host_fvc(dev, lib):
     ``engine="device"``. Returns (the host arms' launch counts, the P
     device arm's chunks with their sources)."""
     from flutpu_torch.codec.fvc import FvcEncoder
-    from flutpu_torch.codec.ops.testsrc import gradient_ball_frames
+    from flutpu_torch.codec.ops.testsrc import (gradient_ball_frames,
+                                                gradient_ball_planes)
+
+    def src(ph, pw, n, start):
+        return gradient_ball_planes(ph, pw, n, start, device=dev)
+
     chunks_in = [gradient_ball_frames(PH, PW, CHUNK, c * CHUNK,
                                       device=dev)[:, :H, :W]
                  for c in range(HOST_CHUNKS)]
@@ -4893,12 +4704,23 @@ def _host_fvc(dev, lib):
         _require(counts["device"]["pack_segments"] > 0,
                  f"18b {label} device arm: K2 ({counts['device']})")
         srcs = [c.cpu().numpy() for c in chunks_in]
-        splits = []
         for ci, (a, b) in enumerate(zip(res["host"][0], res["device"][0])):
-            if a != b:
-                splits.append((ci, *_verify_split(
-                    a, b, srcs[ci], SEARCH_RANGE, bool(kw), dev,
-                    f"18b {label} chunk {ci}")))
+            _require_same(a, b, f"18b {label} chunk {ci}")
+        # the source-fed batch: the host engine's one codec call and copy
+        batched = {}
+        for engine in ("host", "device"):
+            enc = FvcEncoder(QUALITY, motion=True, search_range=SEARCH_RANGE,
+                             engine=engine, device=dev, **kw)
+            batched[engine], n = _count_launches(
+                lambda: enc.encode_chunk_batch_finalize(
+                    enc.encode_chunk_batch_dispatch_src(
+                        src, 0, CHUNK, H, W, batch=HOST_CHUNKS)))
+            if engine == "host":
+                _require(n["pack_segments"] == 0 and n[search] > 0,
+                         f"18b {label} host batch: launches {n}")
+                host = {k: v + n[k] for k, v in host.items()}
+        for ci, (a, b) in enumerate(zip(batched["host"], batched["device"])):
+            _require_same(a, b, f"18b {label} host batch chunk {ci}")
         worst, _, _ = _check_chunks(lib, res["host"][0], srcs,
                                     f"18b {label} host", cpu_decode=False)
         for engine in ("host", "device"):
@@ -4909,11 +4731,10 @@ def _host_fvc(dev, lib):
                   f"device {dev_ms:.3f} ms per chunk (CUDA events), host "
                   f"{host_ms:.3f} ms per chunk after the copy; launches "
                   f"{counts[engine]}", flush=True)
-        print(f"18b {label}: {HOST_CHUNKS - len(splits)} of {HOST_CHUNKS} "
-              f"chunks byte-identical across the engines"
-              + "".join(f"; chunk {ci} split at frame {fd}: {what}"
-                        for ci, fd, what in splits)
-              + f"; host chunks decode at >= {worst:.2f} dB", flush=True)
+        print(f"18b {label}: {HOST_CHUNKS} of {HOST_CHUNKS} chunks "
+              f"byte-identical across the engines, also through "
+              f"encode_chunk_batch_dispatch_src of {HOST_CHUNKS} chunks; "
+              f"host chunks decode at >= {worst:.2f} dB", flush=True)
         for k, v in host.items():
             total[k] = total.get(k, 0) + v
         if label == "P":
@@ -5064,6 +4885,143 @@ def _planar_and_pack(dev, lib, per_block):
         for k, v in n.items():
             counts[k] = counts.get(k, 0) + v
     return counts
+
+
+#: phase 19: K9 against its plain version on the CPU, at the shapes the
+#: in-loop transform meets
+TRANSFORM_SHAPES = (
+    ("1088x1920 luma, C = 1", (1, PH, PW)),
+    ("1088x1920 luma, C = 8", (8, PH, PW)),
+    ("544x960 chroma pair", (2, PH // 2, PW // 2)),
+    # a 4K row stripe of config 4: 1088 rows and two 16-row halos
+    ("1120-row stripe", (1120, 3840)),
+    ("non-contiguous view", (PH, PW)),
+    ("zigzag_unflatten coefficients", (1, PH, PW)),
+)
+#: device launches per 8-frame 1080p chunk before K9 (PERF.md §3)
+LAUNCHES_BEFORE_K9 = {"P": 790, "hier+B": 1210}
+GEMM_NAMES = ("gemm", "gemv", "cublas", "xmma", "cutlass")
+
+
+def _bits_equal(a, b) -> bool:
+    """Two float32 tensors (any devices) hold the same bits."""
+    import torch
+    return a.shape == b.shape and torch.equal(
+        a.contiguous().view(torch.int32).cpu(),
+        b.contiguous().view(torch.int32).cpu())
+
+
+def _transform_inputs(shape, label, seed, qy, dev):
+    """Phase 19's inputs on the CPU and the card: a plane of samples in
+    -255..255 with -0 among them (for the non-contiguous case a view of
+    the middle columns of a wider plane), and the coefficients the IDCT
+    takes (the DCT's with -0 among them, or the decoder's
+    ``dequantize(zigzag_unflatten(q))``)."""
+    import numpy as np
+    import torch
+    from flutpu_torch.codec.ops.quant import (dequantize, quantize,
+                                              zigzag_flatten,
+                                              zigzag_unflatten)
+    from flutpu_torch.codec.ops.transform_kernels import block_dct_plain
+    rng = np.random.default_rng(seed)
+    wide = label.startswith("non-contiguous")
+    full = (*shape[:-1], shape[-1] + 16) if wide else shape
+    x = rng.uniform(-255, 255, full).astype(np.float32)
+    x[rng.random(full) < 0.02] = -0.0
+    x_cpu = torch.from_numpy(x)
+    x_dev = x_cpu.to(dev)
+    if wide:
+        x_cpu, x_dev = x_cpu[..., 8:8 + shape[-1]], x_dev[..., 8:8 + shape[-1]]
+    coefs = block_dct_plain(x_cpu)
+    if label.startswith("zigzag"):
+        q = zigzag_flatten(quantize(coefs, qy.cpu())).to(torch.int16)
+        d_cpu, d_dev = (dequantize(zigzag_unflatten(t.to(torch.float32)), tab)
+                        for t, tab in ((q, qy.cpu()), (q.to(dev), qy)))
+    else:
+        d_cpu = coefs.clone()
+        d_cpu[torch.from_numpy(rng.random(tuple(coefs.shape)) < 0.02)] = -0.0
+        d_dev = d_cpu.to(dev)
+    return x_cpu, x_dev, d_cpu, d_dev
+
+
+def run_transform(dev):
+    """Phase 19: K9 (``block_dct``, ``block_idct``) against its plain
+    version run on the CPU, bit for bit, at TRANSFORM_SHAPES, each timed
+    beside the cuBLAS route it replaced (the plain version on the card),
+    the plain CPU time and its byte bound; then phases 6 and 8's traces
+    of 8-frame 1080p FVC P and hier+B chunks (``_print_busy``, 4 chunks
+    in flight): busy ms and device launches per chunk beside those
+    before K9, K9 in the trace and no GEMM. Returns the kernels-line
+    records of K9 at the C = 1 luma shape."""
+    import torch
+    from flutpu_torch.codec.jpeg import JpegEncoder
+    from flutpu_torch.codec.ops import transform_kernels as T
+    from flutpu_torch.codec.ops.dct import _dct_on, blockize
+    qy = JpegEncoder(QUALITY, device=dev)._qy_dev
+    results = {}
+    for i, (label, shape) in enumerate(TRANSFORM_SHAPES):
+        x_cpu, x_dev, d_cpu, d_dev = _transform_inputs(shape, label, 19 + i,
+                                                       qy, dev)
+        n = x_cpu.numel()
+        line = []
+        for name, fn, plain, a_cpu, a_dev in (
+                ("block_dct", T.block_dct, T.block_dct_plain, x_cpu, x_dev),
+                ("block_idct", T.block_idct, T.block_idct_plain, d_cpu,
+                 d_dev)):
+            got = fn(a_dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want = plain(a_cpu)
+            cpu_ms = (time.perf_counter() - t0) * 1e3
+            _require(got.is_cuda and _bits_equal(got, want),
+                     f"19 {label}: {name} differs from its plain version on "
+                     "the CPU")
+            ms = _time_ms(lambda: fn(a_dev), 20)
+            route_ms = _time_ms(lambda: plain(a_dev), 10)
+            # each sample read and written once, 4 bytes each; 2 products
+            # of 8 multiply-adds per sample
+            bound = _bound(8 * n, 32 * n)
+            line.append(f"{name} {ms:.4f} ms (cuBLAS route {route_ms:.4f}, "
+                        f"CPU plain {cpu_ms:.1f}, bound "
+                        f"{bound['bound_ms']:.4f})")
+            if i == 0:
+                c = _dct_on(a_dev.device)
+                blocks = blockize(a_dev).contiguous() if name == "block_dct" \
+                    else a_dev.contiguous()
+                lib_fn = ((lambda: c @ blocks @ c.T) if name == "block_dct"
+                          else (lambda: c.T @ blocks @ c))
+                results[name] = dict(max_abs_err=0, ms=ms, plain_ms=route_ms,
+                                     library_ms=_time_ms(lib_fn, 10),
+                                     **bound)
+        print(f"19 {label} {tuple(shape)}: bit-identical to the plain version "
+              f"on the CPU ({n} samples each way); " + "; ".join(line),
+              flush=True)
+    for name in ("block_dct", "block_idct"):
+        r_ = results[name]
+        print(f"19 {name} at 1088x1920 (the kernels line): kernel "
+              f"{r_['ms']:.4f} ms, cuBLAS route (plain version on the card) "
+              f"{r_['plain_ms']:.4f} ms, the two cuBLAS products alone "
+              f"{r_['library_ms']:.4f} ms, bound {r_['bound_ms']:.4f} ms",
+              flush=True)
+    for label, key, phase in (("P", "FVC full-search P chunk", 6),
+                              ("hier+B", "FVC hier+B chunk", 8)):
+        _require(key in PER_CHUNK_BUSY, f"19 FVC {label}: phase {phase} "
+                 "traced no device activity")
+        busy, launches, names = PER_CHUNK_BUSY[key]
+        gemm = sorted(k for k in names
+                      if any(g in k.lower() for g in GEMM_NAMES))
+        _require(not gemm, f"19 FVC {label}: GEMM kernels in the loop {gemm}")
+        k9 = [sum(c for k, c in names.items() if kernel in k)
+              for kernel in ("block_dct_kernel", "block_idct_kernel")]
+        _require(min(k9) > 0, f"19 FVC {label}: K9 is not in phase {phase}'s "
+                 "trace")
+        print(f"19 FVC {label} chunk (8 frames, 1080p; phase {phase}'s trace "
+              f"of 4 chunks in flight): {busy:.3f} ms busy and {launches:g} "
+              f"device launches per chunk (before K9: ~"
+              f"{LAUNCHES_BEFORE_K9[label]}); "
+              f"K9 {k9[0]:g} + {k9[1]:g} launches per chunk; no GEMM in the "
+              "chunk", flush=True)
+    return results
 
 
 if __name__ == "__main__":

@@ -24,7 +24,7 @@ from typing import List, Optional
 _PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 CSRC_DIR = os.path.join(_PKG_DIR, "csrc")
 BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-SOURCES = ("frontend.cu", "entropy_pack.cu", "motion.cu")
+SOURCES = ("frontend.cu", "entropy_pack.cu", "motion.cu", "transform.cu")
 HEADERS = ("device.cuh",)  # included by the sources: part of the hash
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -145,6 +145,11 @@ def _configure(lib: ctypes.CDLL) -> None:
     lib.flu_motion_search_hier.restype = i
     lib.flu_chroma_mc.argtypes = [p, p, p, p, p, i, i, i, p]
     lib.flu_chroma_mc.restype = i
+    # the in-loop transform: n planes of (h, w) and the device DCT matrix
+    lib.flu_block_dct.argtypes = [p, p, p, i, i, i, p]
+    lib.flu_block_dct.restype = i
+    lib.flu_block_idct.argtypes = [p, p, p, i, i, i, p]
+    lib.flu_block_idct.restype = i
 
 
 def load() -> ctypes.CDLL:

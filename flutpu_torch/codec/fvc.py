@@ -18,8 +18,10 @@ average or flat 128, and quantized at the ``bquality`` tables.
 On a CUDA device version 1 runs the front-end kernel, an integer scan
 and the Huffman pack kernel; version 2 runs a search kernel per frame
 and reference (the full search, or the hier search's coarse-level and
-refine kernels), the chroma compensation kernel, the in-loop DCT/IDCT in
-plain PyTorch (per 8x8 block, full fp32), and the pack kernel once per
+refine kernels), the chroma compensation kernel, the in-loop DCT/IDCT
+kernel (K9, ``ops/transform_kernels.py``: per 8x8 block, in the CPU's
+summation order, so a block's coefficients and samples are the CPU's
+bits whatever the batch, shard or stripe), and the pack kernel once per
 chunk: the segment pack (K2), or with ``segmented=False`` the per-block
 pack (K7, or K8a under ``FLUTPU_NO_FUSED_PACK=1``) and the block concat,
 as the JPEG encoder's layouts; the chunk's bytes are the same. The
@@ -42,13 +44,15 @@ encoder ran on row stripes.
 ``engine="host"`` (flutpu's host entropy engine) runs the same codec on
 the device, copies the residual coefficient planes (and the vectors and
 frame types) back once, and codes the scans on the host with the native
-coder; the bytes are the device engine's. ``"auto"`` never leaves the
-device.
+coder; the bytes are the device engine's. It takes the array and the
+source-fed entries (``encode_chunk_dispatch_src``, and the batch of
+``encode_chunk_batch_dispatch_src`` in one codec call and one copy);
+``encode_chunks_dispatch`` stays device-only. ``"auto"`` never leaves
+the device.
 
 C GOP chunks in one dispatch: ``encode_chunks_dispatch`` /
 ``encode_chunks_finalize`` (``cudahype``) run the same code with a
-leading chunk axis; a chunk's bytes are those of its own dispatch but
-where a float tie in the batched in-loop transform splits them.
+leading chunk axis; a chunk's bytes are those of its own dispatch.
 
 Half-pel motion (``subpel``, header flags bit 2) refines K3's (K5's)
 integer vectors with ``subpel_refine`` and predicts luma and chroma with
@@ -746,18 +750,20 @@ class FvcEncoder:
 
     def _host_dispatch(self, frames, f: int, h: int, w: int):
         """The host engine's device half (flutpu's ``_encode_host`` up to
-        its fetch): the device engine's codec on the frames' device, then
-        one copy of its outputs into pinned memory in place of the
-        entropy stage."""
+        its fetch): the device engine's codec on the frames' device (one
+        chunk's frames, or C chunks' with a leading chunk axis), then one
+        copy of its outputs into pinned memory in place of the entropy
+        stage."""
         mult = self._scan_coder.mult
         parts = self._codec(_chunked(frames)[0])
-        return _HostChunkHandle(_HostCopy(*(p[0] for p in parts)), f, h, w,
+        return _HostChunkHandle(_HostCopy(*parts), f, h, w,
                                 _pad_to(h, mult), _pad_to(w, mult))
 
-    def _finalize_host(self, handle: _HostChunkHandle) -> bytes:
-        """The host engine's host half: the scans by the native coder across
-        frames (``JpegEncoder._scans_host``), then the container."""
-        arrs = handle.parts.arrays()
+    def _finalize_host(self, handle: _HostChunkHandle) -> List[bytes]:
+        """The host engine's host half: the scans of every chunk's frames
+        by the native coder (``JpegEncoder._scans_host``), then each
+        chunk's container, in chunk order."""
+        arrs = [a.reshape(-1, *a.shape[2:]) for a in handle.parts.arrays()]
         payloads = self._scan_coder._scans_host(arrs[:3])
         mvs = itypes = None
         if self.motion and self.bframes:
@@ -766,17 +772,23 @@ class FvcEncoder:
             itypes = ftypes.astype(np.int64)
         elif self.motion:
             mvs, itypes = list(arrs[3]), arrs[4].astype(np.int64)
-        return self._build_chunk(payloads, mvs, itypes, handle.f, handle.h,
-                                 handle.w, handle.ph, handle.pw)
+        f = handle.f
+        return [self._build_chunk(
+            payloads[i:i + f], None if mvs is None else mvs[i:i + f],
+            None if itypes is None else itypes[i:i + f], f, handle.h,
+            handle.w, handle.ph, handle.pw)
+            for i in range(0, len(payloads), f)]
 
     def _device_only(self, entry: str) -> None:
-        """Raise for an entry point without a host route (flutpu's codes on
-        the device whatever its engine); never code such a call on the
-        device for an encoder asked for the host."""
+        """Raise for an entry point without a host route: the multi-chunk
+        dispatch, which exists only in the port (flutpu's
+        ``fvc_chunks_sharded`` takes no engine); never code such a call on
+        the device for an encoder asked for the host."""
         if self.engine == "host":
             raise ValueError(f"FvcEncoder.{entry}: engine='host' has no "
-                             "route here; use encode_chunk or "
-                             "encode_chunk_dispatch, or engine='device'")
+                             "route here; use encode_chunk,"
+                             " encode_chunk_dispatch or the source-fed "
+                             "entries, or engine='device'")
 
     def encode_chunk_dispatch(self, frames):
         """Enqueue the encode of (F, H, W, 3) uint8 RGB frames (numpy or
@@ -819,10 +831,13 @@ class FvcEncoder:
         """encode_chunk_dispatch with an on-device frame source:
         ``src_fn(ph, pw, n, start)`` returns (r, g, b) uint8 planes, each
         (n, ph, pw), or interleaved (n, ph, pw, 3) frames, at the coded
-        size (h, w rounded up to 16, or to 8 for 4:4:4)."""
-        self._device_only("encode_chunk_dispatch_src")
+        size (h, w rounded up to 16, or to 8 for 4:4:4). The host engine
+        codes the source's frames through its own route, with the device
+        engine's bytes (flutpu's gives them too)."""
         mult = self._scan_coder.mult
         ph, pw = _pad_to(h, mult), _pad_to(w, mult)
+        if self.engine == "host":
+            return self._host_dispatch(src_fn(ph, pw, n, start), n, h, w)
         return self._dispatch(lambda: src_fn(ph, pw, n, start), n, h, w)
 
     def encode_chunk_batch_dispatch_src(self, src_fn, start, n: int, h: int,
@@ -833,11 +848,11 @@ class FvcEncoder:
         n, start + b * n)`` (as flutpu's
         ``_fvc_gop_program_batched_src``), stacked on the chunk axis of
         ``encode_chunks_dispatch``. Each chunk is independent (frame 0
-        intra): on the CPU its bytes are those of its own
-        ``encode_chunk_dispatch_src``; on the card a float tie in the
-        batched in-loop transform may split them. Finalize with
+        intra): its bytes are those of its own
+        ``encode_chunk_dispatch_src``, on the CPU and on the card. The
+        host engine runs the batch as one codec call and one copy, and
+        codes the scans on the host. Finalize with
         ``encode_chunk_batch_finalize``."""
-        self._device_only("encode_chunk_batch_dispatch_src")
         mult = self._scan_coder.mult
         ph, pw = _pad_to(h, mult), _pad_to(w, mult)
 
@@ -847,12 +862,16 @@ class FvcEncoder:
                 return tuple(torch.stack(p) for p in zip(*outs))
             return torch.stack(outs)
 
+        if self.engine == "host":
+            return self._host_dispatch(frames(), n, h, w)
         return self._dispatch(frames, n, h, w)
 
-    def encode_chunk_batch_finalize(self, handle: _ChunkHandle
-                                    ) -> List[bytes]:
+    def encode_chunk_batch_finalize(self, handle) -> List[bytes]:
         """Blocking half of ``encode_chunk_batch_dispatch_src``: the one
-        copy, then each chunk's container, in chunk order."""
+        copy, then each chunk's container, in chunk order (for the host
+        engine, after its scans are coded on the host)."""
+        if isinstance(handle, _HostChunkHandle):
+            return self._finalize_host(handle)
         return self.encode_chunks_finalize(handle)
 
     def encode_chunk_finalize(self, handle) -> bytes:
@@ -860,7 +879,7 @@ class FvcEncoder:
         once on overflow), compact the scans, assemble the chunk; for the
         host engine, code the scans on the host."""
         if isinstance(handle, _HostChunkHandle):
-            return self._finalize_host(handle)
+            return self._finalize_host(handle)[0]
         return self.encode_chunks_finalize(handle)[0]
 
     def encode_chunks_finalize(self, handle: _ChunkHandle,

@@ -1,16 +1,17 @@
 """8x8 block DCT ops (port of flutpu/codec/ops/dct.py).
 
 The 2-D DCT-II of an 8x8 block X is C @ X @ C^T with the orthonormal DCT
-matrix C, batched over all blocks of all frames. These are the plain
-versions; the product path runs the DCT inside the front-end kernel
+matrix C, batched over all blocks of all frames. ``dct2`` and ``idct2``
+are the plain versions; ``plane_dct`` and ``plane_idct`` run the
+transform kernel (K9, ops/transform_kernels.py) on the card, and the
+JPEG product path runs the DCT inside the front-end kernel
 (ops/frontend.py). The planar formulation (``plane_dct_planar``,
 ``plane_idct_planar``; FVC header flags bit 3) keeps the coefficients in
 plane layout through flutpu's two products with block-diagonal DCT
 matrices, which it computes outside any Pallas kernel; here over their
 nonzero terms in a fixed order, so that every device and every plane
-height gives the same bits. Float32 matrix products on the card must run
-in full fp32: callers that compare against a reference set
-``torch.backends.cuda.matmul.allow_tf32 = False`` (``check_full_fp32``).
+height gives the same bits. Neither formulation runs a matrix product
+on the card, so neither depends on the TF32 setting.
 """
 
 from __future__ import annotations
@@ -63,13 +64,21 @@ def idct2(coefs: torch.Tensor) -> torch.Tensor:
 
 
 def plane_dct(plane: torch.Tensor, block: int = 8) -> torch.Tensor:
-    """Whole-plane blockized DCT: [..., H, W] → [..., H/8, W/8, 8, 8]."""
-    return dct2(blockize(plane, block))
+    """Whole-plane blockized DCT: [..., H, W] → [..., H/8, W/8, 8, 8].
+    On the card the transform kernel (K9, ``transform_kernels.block_dct``),
+    on the CPU its plain version ``dct2(blockize(plane))``: the same bits
+    at every batch shape. Only 8x8 blocks."""
+    if block != 8:
+        raise ValueError(f"plane_dct takes 8x8 blocks, got {block}")
+    from .transform_kernels import block_dct
+    return block_dct(plane)
 
 
 def plane_idct(coefs: torch.Tensor) -> torch.Tensor:
-    """[..., BH, BW, 8, 8] coefficients → [..., H, W] plane."""
-    return unblockize(idct2(coefs))
+    """[..., BH, BW, 8, 8] coefficients → [..., H, W] plane (K9's
+    ``block_idct``; on the CPU ``unblockize(idct2(coefs))``)."""
+    from .transform_kernels import block_idct
+    return block_idct(coefs)
 
 
 # ----------------------------------------------------------------------------
@@ -77,9 +86,11 @@ def plane_idct(coefs: torch.Tensor) -> torch.Tensor:
 # ----------------------------------------------------------------------------
 
 def check_full_fp32(device: torch.device) -> None:
-    """The in-loop DCT/IDCT is codec state: the decoder reconstructs in
-    full fp32, so a TF32 matmul on the card (the per-block ``dct2`` and
-    ``idct2``) would drift the P chain."""
+    """The in-loop DCT/IDCT is codec state, which the decoder rebuilds in
+    full fp32: the FVC encoder refuses TF32 matmuls on the card. Since K9
+    the loop runs no matmul (nor do the planar products), so the setting
+    cannot change its bits; the refusal only keeps the encoder's stated
+    contract."""
     if device.type == "cuda" and (
             torch.backends.cuda.matmul.allow_tf32
             or torch.get_float32_matmul_precision() != "highest"):

@@ -611,9 +611,8 @@ def test_kernel_state_initialises_once_under_threads(cuda_device):
 def test_cudahype_on_card(cuda_device, codec):
     """cudahype on the card, 3 chunks per dispatch, 14 frames of unlike
     chunks (a truncated last batch): JPEG bytes equal a plain encode of
-    the same frames; FVC chunks decode like per-chunk encodes on the card
-    (byte-identical, or where a float tie split them, the same frame
-    types within 0.05 dB)."""
+    the same frames; FVC chunks equal per-chunk encodes on the card byte
+    for byte (the in-loop transform, K9, sums each block alone)."""
     from flutpu_torch.core import Buffer, Harness, MSECOND
     w, h, gop = 96, 64, 4
     frames = [make_test_frame("ball" if i < 6 else "noise", w, h, i)
@@ -639,18 +638,9 @@ def test_cudahype_on_card(cuda_device, codec):
               hier="hier" in codec, bframes=int("bframes" in codec),
               subpel="subpel" in codec)
     enc = FvcEncoder(85, device=cuda_device, **kw)
-    dec = FvcDecoder(cuda_device)
     for ci, o in enumerate(outs):
         clip = np.stack(frames[ci * gop:(ci + 1) * gop])
-        want = enc.encode_chunk(clip)
-        if bytes(o.data) == want:
-            continue
-        a, ia = dec.decode_chunk(bytes(o.data))
-        b, ib = dec.decode_chunk(want)
-        assert ia["types"] == ib["types"]
-        pa = [_psnr8(x, s) for x, s in zip(a, clip)]
-        pb = [_psnr8(x, s) for x, s in zip(b, clip)]
-        assert max(abs(x - y) for x, y in zip(pa, pb)) <= 0.05
+        assert bytes(o.data) == enc.encode_chunk(clip)
 
 
 def _psnr8(a, b):
@@ -763,8 +753,8 @@ def _with_coded_size(chunk: bytes, h: int) -> bytes:
                                   "coded-size"])
 def test_fvc_decoders_on_card_match_cpu(cuda_device, kind):
     """``FvcDecoder`` and ``cudafvcdec`` on the card against the CPU on
-    every chunk kind (encoded on the CPU): the same frame types, RGB
-    within one level."""
+    every chunk kind (encoded on the CPU): the same frame types, the same
+    RGB bit for bit (the IDCT runs K9, in the CPU's summation order)."""
     from flutpu_torch.core import Buffer, Harness
     kw = {"v1": {}, "v1-444": {"subsample": False}, "P": {"motion": True},
           "hier-B": {"motion": True, "hier": True, "bframes": 1},
@@ -775,8 +765,8 @@ def test_fvc_decoders_on_card_match_cpu(cuda_device, kind):
         data = _with_coded_size(data, 80)
     a, ia = FvcDecoder(cuda_device).decode_chunk(data)
     b, ib = FvcDecoder("cpu").decode_chunk(data)
-    assert ia == ib and a.shape == b.shape
-    assert np.abs(a.astype(np.int32) - b.astype(np.int32)).max() <= 1
+    assert ia == ib
+    np.testing.assert_array_equal(a, b)
     h = Harness(f"cudafvcdec device={cuda_device}")
     h.set_src_caps("video/x-fvc")
     h.push(Buffer(data, pts=0, duration=8))
@@ -1449,3 +1439,92 @@ def test_planar_products_on_card_equal_the_cpus(cuda_device, op):
             assert torch.equal(fn(x.to(cuda_device)).cpu(), want)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+
+
+# -- the in-loop transform kernels (K9) ---------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(1088, 1920), (3, 1088, 1920),
+                                   (5, 56, 264)],
+                         ids=["1080p", "C=3", "odd-blocks"])
+def test_transform_kernels_match_plain_on_cpu(cuda_device, shape):
+    """K9's DCT and IDCT on the card against their plain versions on the
+    CPU, bit for bit (-0 among the inputs); one launch each, whatever the
+    leading axes. (5, 56, 264): 7 x 33 blocks per plane, so a thread
+    block's last 31 blocks are past the row's end."""
+    from flutpu_torch.codec.ops import transform_kernels as T
+    rng = np.random.default_rng(len(shape) * shape[-1])
+    x = rng.uniform(-255, 255, shape).astype(np.float32)
+    x[rng.random(shape) < 0.02] = -0.0
+    x = torch.from_numpy(x)
+    before = (T.block_dct.launches, T.block_idct.launches)
+    coefs = T.block_dct(x.to(cuda_device))
+    back = T.block_idct(coefs)
+    torch.cuda.synchronize()
+    assert (T.block_dct.launches, T.block_idct.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = T.block_dct_plain(x)
+    assert torch.equal(coefs.cpu().view(torch.int32), want.view(torch.int32))
+    assert torch.equal(back.cpu().view(torch.int32),
+                       T.block_idct_plain(want).view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_transform_kernels_refuse_odd_sizes(cuda_device):
+    from flutpu_torch.codec.ops import transform_kernels as T
+    with pytest.raises(ValueError, match="multiples of 8"):
+        T.block_dct(torch.zeros((12, 16), device=cuda_device))
+    with pytest.raises(ValueError, match="8, 8"):
+        T.block_idct(torch.zeros((2, 2, 4, 4), device=cuda_device))
+
+
+def _k9_chunks(enc, frames, c: int, mesh=None):
+    """(N, F, H, W, 3) frames as dispatches of ``c`` chunks each (or one
+    dispatch on ``mesh``) → the N chunks in order."""
+    if mesh is not None:
+        return enc.encode_chunks_finalize(enc.encode_chunks_dispatch(frames,
+                                                                     mesh))
+    return [chunk for k in range(0, len(frames), c)
+            for chunk in enc.encode_chunks_finalize(
+                enc.encode_chunks_dispatch(frames[k:k + c]))]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"hier": True, "bframes": 1},
+                                {"subpel": True}, {"bframes": 1}],
+                         ids=["P", "hier+B", "half-pel", "B"])
+def test_fvc_chunks_independent_of_batch_and_stripes_on_card(cuda_device,
+                                                             kw):
+    """8 chunks encoded on the card at C = 1, 2 and 8, and (full search:
+    hier and half-pel take no stripes) on 2 row stripes of the card:
+    byte-identical. Before K9 the batched cuBLAS transform split them."""
+    from flutpu_torch.parallel.mesh import ChunkSpatialMesh
+    frames = _stripe_clip(8, 4, 96, 160)
+    enc = FvcEncoder(85, motion=True, device=cuda_device, **kw)
+    one = _k9_chunks(enc, frames, 1)
+    assert _k9_chunks(enc, frames, 2) == one
+    assert _k9_chunks(enc, frames, 8) == one
+    if not (kw.get("hier") or kw.get("subpel")):
+        striped = _k9_chunks(enc, frames, 8, ChunkSpatialMesh(
+            1, 2, [cuda_device] * 2))
+        assert striped == one
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kw", [{}, {"bframes": 1}], ids=["P", "B"])
+def test_fvc_decoder_on_card_rebuilds_the_encoders_references(cuda_device,
+                                                              kw):
+    """The card's decoder rebuilds the card encoder's in-loop planes bit
+    for bit (per-block transform, every frame and plane), and its frames
+    equal the CPU decoder's bit for bit."""
+    frames = _clip8()
+    qy, qc = (torch.from_numpy(t).to(cuda_device) for t in (QY, QC))
+    if not kw:
+        assert planar_drift(torch.from_numpy(frames).to(cuda_device), qy, qc,
+                            planar=False) == 0
+    chunk = FvcEncoder(85, motion=True, device=cuda_device,
+                       **kw).encode_chunk(frames)
+    a, ia = FvcDecoder(cuda_device).decode_chunk(chunk)
+    b, ib = FvcDecoder("cpu").decode_chunk(chunk)
+    assert ia == ib
+    np.testing.assert_array_equal(a, b)

@@ -251,23 +251,69 @@ def test_fvc_host_dispatch_keeps_chunks_in_flight():
     assert got == [dev.encode_chunk(frames[:4]), dev.encode_chunk(frames[4:])]
 
 
-@pytest.mark.parametrize("entry", ["src", "batch", "chunks"])
-def test_fvc_host_engine_refuses_device_only_entries(entry):
-    """The source-fed, batched and multi-chunk dispatches have no host
-    route in flutpu; for a host-engine encoder they raise instead of
-    coding on the device."""
-    enc = FvcEncoder(85, motion=True, engine="host", device="cpu")
+SRC_CONFIGS = {"v1": {}, "P": {"motion": True}}
 
-    def src(ph, pw, n, start):
-        return torch.zeros((n, ph, pw, 3), dtype=torch.uint8)
 
-    calls = {"src": lambda: enc.encode_chunk_dispatch_src(src, 0, 4, 48, 64),
-             "batch": lambda: enc.encode_chunk_batch_dispatch_src(
-                 src, 0, 4, 48, 64),
-             "chunks": lambda: enc.encode_chunks_dispatch(
-                 np.zeros((2, 4, 48, 64, 3), np.uint8))}
-    with pytest.raises(ValueError, match="engine='host'"):
-        calls[entry]()
+@pytest.mark.parametrize("config", list(SRC_CONFIGS))
+@pytest.mark.parametrize("entry", ["src", "batch", "element", "chunks"])
+def test_fvc_host_engine_codes_source_fed_entries_refuses_chunks(entry,
+                                                                 config):
+    """The source-fed entries, alone and batched, code through the host
+    engine: flutpu's ``engine="host"`` bytes on the same entry (flutpu
+    codes them on the device) and the port's device engine's; so does
+    ``cudafvcenc engine=host`` from ``videotestsrc`` against ``fvcenc``.
+    The multi-chunk dispatch, which flutpu has no engine for, raises
+    instead of coding on the device."""
+    import jax
+    kw = SRC_CONFIGS[config]
+    enc = FvcEncoder(85, engine="host", device="cpu", **kw)
+    if entry == "chunks":
+        with pytest.raises(ValueError, match="engine='host'"):
+            enc.encode_chunks_dispatch(np.zeros((2, 4, 48, 64, 3), np.uint8))
+        return
+    if entry == "element":
+        opts = "motion=true" if kw else ""
+        line = ("videotestsrc num-buffers=4 pattern=ball width=64 height=48 "
+                "! {} gop-size=4 engine=host " + opts + " ! appsink name=out")
+        want = pull_all(flutpu.core.parse_launch, line.format("fvcenc"))
+        got = pull_all(flutpu_torch.core.parse_launch,
+                       line.format("cudafvcenc device=cpu"))
+        assert len(got) == 1
+        assert [bytes(b.data) for b in got] == [bytes(b.data) for b in want]
+        return
+    frames = _frames("ball", 48, 64, n=8)
+    jframes = jnp.asarray(frames)
+
+    def j_src(ph, pw, n, start):
+        # flutpu's batched program hands the start as a float32 scalar
+        return jax.lax.dynamic_slice_in_dim(
+            jframes, jnp.asarray(start).astype(jnp.int32), n)
+
+    def t_src(ph, pw, n, start):
+        return torch.from_numpy(frames[start:start + n])
+
+    je = jf.FvcEncoder(85, engine="host", **kw)
+    dev = FvcEncoder(85, device="cpu", **kw)
+    if entry == "src":
+        want = [je.encode_chunk_finalize(je.encode_chunk_dispatch_src(
+            j_src, 4, 4, 48, 64))]
+        got = [enc.encode_chunk_finalize(enc.encode_chunk_dispatch_src(
+            t_src, 4, 4, 48, 64))]
+        same = [dev.encode_chunk_finalize(dev.encode_chunk_dispatch_src(
+            t_src, 4, 4, 48, 64))]
+    else:
+        want = je.encode_chunk_batch_finalize(
+            je.encode_chunk_batch_dispatch_src(j_src, 0, 4, 48, 64, batch=2))
+        got = enc.encode_chunk_batch_finalize(
+            enc.encode_chunk_batch_dispatch_src(t_src, 0, 4, 48, 64,
+                                                batch=2))
+        same = dev.encode_chunk_batch_finalize(
+            dev.encode_chunk_batch_dispatch_src(t_src, 0, 4, 48, 64,
+                                                batch=2))
+        assert got == [enc.encode_chunk(frames[:4]),
+                       enc.encode_chunk(frames[4:])]
+    assert len(got) == len(want) and got == want
+    assert got == same
 
 
 @pytest.mark.parametrize("opts", ["", "motion=true", "motion=true bframes=1"])

@@ -576,7 +576,7 @@ def test_build_finds_sources_and_composes_sm90a_command():
     then one link into the shared library."""
     paths = _build.source_paths()
     assert [os.path.basename(p) for p in paths] == [
-        "frontend.cu", "entropy_pack.cu", "motion.cu"]
+        "frontend.cu", "entropy_pack.cu", "motion.cu", "transform.cu"]
     assert all(os.path.isfile(p) for p in paths)
     out = _build.library_path()
     assert os.path.dirname(out) == _build.BUILD_DIR
@@ -617,7 +617,8 @@ def test_c_entries_match_the_sources():
                        "flu_pack_blocks", "flu_pack_slots64",
                        "flu_pack_slots32",
                        "flu_motion_search_mc", "flu_motion_search_mc_blocks",
-                       "flu_motion_search_hier", "flu_chroma_mc"}
+                       "flu_motion_search_hier", "flu_chroma_mc",
+                       "flu_block_dct", "flu_block_idct"}
 
     class Lib:
         def __getattr__(self, name):

@@ -360,14 +360,16 @@ def split_at_ties(frames, got, want, qy, qc, subpel=False, bframes=0,
     return n
 
 
-def planar_drift(frames, qy, qc, stripes: int = 1, **kw):
+def planar_drift(frames, qy, qc, stripes: int = 1, planar: bool = True,
+                 **kw):
     """The planar motion loop over (F, H, W, 3) uint8 ``frames`` (a tensor
     on the device to run on) cut into ``stripes`` row stripes of H /
     stripes rows, each coded with stripe-height block-diagonal products,
     against the decoder's reconstruction of its output over the whole
-    frame (``fvc_mc_decode_chunk``, full-height products). Returns the
-    number of in-loop samples, over every frame and plane, that the
-    decoder does not rebuild bit for bit."""
+    frame (``fvc_mc_decode_chunk``, full-height products). With
+    ``planar=False`` the loop and the decoder run the per-block transform
+    instead. Returns the number of in-loop samples, over every frame and
+    plane, that the decoder does not rebuild bit for bit."""
     from flutpu_torch.codec import fvc as tf
     h, w = frames.shape[1:3]
     hs = h // stripes
@@ -376,9 +378,9 @@ def planar_drift(frames, qy, qc, stripes: int = 1, **kw):
                                   stripes > 1)
     out, itypes, recs = tf._anchor_loop(y, cb, cr, qy, qc,
                                         tf._search_fn(False), 7,
-                                        planar=True, **kw)
+                                        planar=planar, **kw)
     ry, rcb, rcr, mvs = (tf._gather_rows(p, 2)[0] for p in zip(*out))
     dec = tf.fvc_mc_decode_chunk(ry, rcb, rcr, mvs, itypes[0], qy, qc,
-                                 planar=True, **kw)
+                                 planar=planar, **kw)
     return sum(int((torch.cat(want, dim=-2)[0] != got[i]).sum())
                for i, rec in enumerate(recs) for want, got in zip(rec, dec))
