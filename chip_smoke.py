@@ -172,7 +172,9 @@ Drives the port's main paths through the entry points a user calls, at
       phase 5's 1080p pairs, K6a (8x8) at 64 on their pooled planes, K5
       at 40, 64 and 126 (also on a flat pair and a pair with NaN; one
       launch per call), held as in phase 5 and timed beside their
-      bounds; K4 on vectors to ±126; K3 at C = 8 and r = 64, each chunk
+      bounds and their fp32 issue floors (2 instructions per absolute
+      difference), the SM clock sampled by ``nvidia-smi`` meanwhile;
+      K4 on vectors to ±126; K3 at C = 8 and r = 64, each chunk
       equal to its own launch, timed beside 8 single launches;
    b. ``cudafvcenc motion=true search-range=64 gop-size=8`` (full and
       ``search=hier``) on 16 frames of a seeded 1080p pan of 48 columns
@@ -846,7 +848,10 @@ EARLIER_MS = (("front_end", "K1 front_end", 0.435),
               ("motion_search_mc_hier", "K5 motion_search_mc_hier", 0.0680),
               ("chroma_mc", "K4 chroma_mc", 0.0075),
               ("pack_block_bits64", "K8a pack_block_bits64", 1.2077),
-              ("pack_block_bits", "K8b pack_block_bits", 1.6292))
+              ("pack_block_bits", "K8b pack_block_bits", 1.6292),
+              ("motion_search_mc_wide", "K3 r=64 banded", 3.3744),
+              ("motion_search_mc_blocks_wide", "K6a 8x8 r=64 banded", 1.0185),
+              ("motion_search_mc_hier_wide", "K5 r=64 wide", 0.3396))
 
 
 def run_source_check(dev):
@@ -3196,13 +3201,63 @@ def _once_ms(fn):
     return out, a.elapsed_time(b)
 
 
+def _issue_floor_ms(diffs: float, sms: int, mhz: float) -> float:
+    """The least time for ``diffs`` absolute differences at the fp32
+    issue rate: each is two instructions (a subtract, an add taking |.|
+    of its operands), and an SM issues 128 lanes' fp32 instructions per
+    clock."""
+    return diffs * 2 / (sms * 128 * mhz * 1e6) * 1e3
+
+
+class _ClockSampler:
+    """``nvidia-smi``'s SM clock sampled every 100 ms while a ``with``
+    block runs (read once at its end where the block ended before the
+    first sample); ``max_mhz``: the card's maximum SM clock."""
+
+    QUERY = ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm",
+             "--format=csv,noheader,nounits"]
+
+    def __init__(self):
+        out = subprocess.run(self.QUERY, capture_output=True, text=True,
+                             timeout=60).stdout.splitlines()[0]
+        self.max_mhz = int(out.split(",")[1])
+        self.seen = []
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(self.QUERY + ["-lms", "100"],
+                                     stdout=subprocess.PIPE,
+                                     stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        rows = out.splitlines()
+        if not rows:   # a window shorter than the sampler's start: one read
+            rows = subprocess.run(self.QUERY, capture_output=True, text=True,
+                                  timeout=60).stdout.splitlines()
+        for row in rows:
+            vals = [v.strip() for v in row.split(",")]
+            if len(vals) == 2 and vals[0].isdigit():
+                self.seen.append(int(vals[0]))
+        return False
+
+    def __str__(self):
+        if not self.seen:
+            return f"not sampled (max {self.max_mhz} MHz)"
+        return (f"{min(self.seen)}-{max(self.seen)} MHz in {len(self.seen)} "
+                f"samples (max {self.max_mhz} MHz)")
+
+
 def _wide_kernels(dev, hier_traces):
     """Phase 15a: K3 at r = 33, 48, 64 and 126, K6a (8x8) at 64 on the
     pooled planes, K5 at 40, 64 and 126 (one launch per call) against
     their plain versions on two of phase 5's 1080p pairs (K5 also on a
     flat pair and a pair with NaN); K4 on vectors up to ±126; K3 with a
-    chunk axis at C = 8 and r = 64. Each timed beside its bound. Returns
-    the wide-range kernels' results (at r = 64)."""
+    chunk axis at C = 8 and r = 64. Each timed beside its bound and its
+    issue floor (``_issue_floor_ms`` at the card's maximum SM clock, the
+    clock sampled during the timing), with the kernel's share of each.
+    Returns the wide-range kernels' results (at r = 64)."""
     import numpy as np
     import torch
     from flutpu_torch.codec.ops import motion_kernels as M
@@ -3214,13 +3269,19 @@ def _wide_kernels(dev, hier_traces):
     pairs = _motion_pairs(dev, np.random.default_rng(1))
     two = [pairs[1], pairs[2]]   # rolled plane + noise; in-loop reference
     rows = {}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    clocks = _ClockSampler()
 
-    def line(name, r, k_ms, p_ms, bound, shape):
+    def line(name, r, k_ms, p_ms, bound, shape, diffs):
         rows[(name, r)] = (k_ms, p_ms, bound)
+        floor = _issue_floor_ms(diffs, sms, clocks.max_mhz)
         print(f"{name} r={r}: kernel {k_ms:.4f} ms, plain {p_ms:.1f} ms "
               f"per {shape}; bound {bound['bound_ms']:.4f} ms "
-              f"({bound['bound_by']}; {k_ms / bound['bound_ms']:.2f}x)",
-              flush=True)
+              f"({bound['bound_by']}; {k_ms / bound['bound_ms']:.2f}x, "
+              f"share {bound['bound_ms'] / k_ms:.2f}); issue floor "
+              f"{floor:.4f} ms ({diffs:.4g} differences x 2 fp32 "
+              f"instructions at {sms} SMs x 128 lanes x {clocks.max_mhz} "
+              f"MHz; share {floor / k_ms:.2f})", flush=True)
 
     for r in WIDE_RANGES:
         for label, cur, prev in two:
@@ -3230,9 +3291,11 @@ def _wide_kernels(dev, hier_traces):
                          M.motion_search_mc(cur, prev, r), plain, cur, prev,
                          r, 16, True,
                          lambda p, m: M.motion_compensate(p, m, r))
-        k_ms = _time_ms(lambda: M.motion_search_mc(cur, prev, r), 10)
+        with clocks:
+            k_ms = _time_ms(lambda: M.motion_search_mc(cur, prev, r), 10)
         line("motion_search_mc", r, k_ms, p_ms,
-             _search_bound(PH, PW, 16, r), "1088x1920 luma frame")
+             _search_bound(PH, PW, 16, r), "1088x1920 luma frame",
+             PH * PW * (2 * r + 1) ** 2)
 
     for label, cur, prev in two:
         pc, pp = subsample_420(cur), subsample_420(prev)
@@ -3243,9 +3306,12 @@ def _wide_kernels(dev, hier_traces):
                      M.motion_search_mc_blocks(pc, pp, WIDE_R, 8), plain,
                      pc, pp, WIDE_R, 8, True,
                      lambda p, m: compensate_blocks(p, m, 8))
-    k_ms = _time_ms(lambda: M.motion_search_mc_blocks(pc, pp, WIDE_R, 8), 10)
+    with clocks:
+        k_ms = _time_ms(lambda: M.motion_search_mc_blocks(pc, pp, WIDE_R, 8),
+                        10)
     line("motion_search_mc_blocks (8x8)", WIDE_R, k_ms, p_ms,
-         _search_bound(PH // 2, PW // 2, 8, WIDE_R), "pooled 544x960 plane")
+         _search_bound(PH // 2, PW // 2, 8, WIDE_R), "pooled 544x960 plane",
+         (PH // 2) * (PW // 2) * (2 * WIDE_R + 1) ** 2)
 
     for r in WIDE_HIER_RANGES:
         for label, cur, prev in _hier_pairs(two, dev):
@@ -3258,16 +3324,20 @@ def _wide_kernels(dev, hier_traces):
         cur, prev = two[1][1:]
         _, p_ms = _once_ms(lambda: M.motion_search_mc_hier_plain(cur, prev,
                                                                  r))
-        k_ms = _time_ms(lambda: M.motion_search_mc_hier(cur, prev, r), 10)
+        with clocks:
+            k_ms = _time_ms(lambda: M.motion_search_mc_hier(cur, prev, r),
+                            10)
         rc = max(1, r // 2)
         line("motion_search_mc_hier", r, k_ms, p_ms, _search_bound(
             PH, PW, 16, 1, (PH // 2) * (PW // 2) * (2 * rc + 1) ** 2 * 3
-            + 2 * PH * PW), "1088x1920 luma frame")
+            + 2 * PH * PW), "1088x1920 luma frame",
+            (PH // 2) * (PW // 2) * (2 * rc + 1) ** 2 + 9 * PH * PW)
         names = hier_traces[str(r)]
         _require(len(names) == 1 and "motion_search_hier_wide" in names[0],
                  f"a call of K5 at r={r} is not one launch: {names}")
     print(f"motion_search_mc_hier above r=32, one call (torch.profiler, in "
           f"a process of its own): {names}", flush=True)
+    print(f"SM clock during the wide kernels' timing: {clocks}", flush=True)
 
     rng = np.random.default_rng(126)
     cb, cr = (torch.from_numpy(rng.normal(128, 30, (PH // 2, PW // 2))

@@ -8,8 +8,10 @@ Each wrapper replaces one Pallas TPU kernel with a CUDA kernel of
   full search per 16x16 macroblock with wrap-around edges, plus the luma
   prediction from the winning vectors (a thread block takes a row of
   macroblocks under one shared window; a thread sums 4 adjacent dx by 8
-  columns from registers; above r = 32 the window is staged in bands of
-  16 candidate rows and the prediction read from device memory);
+  columns from registers; above r = 32 a thread sums two adjacent
+  candidate rows by 4 dx over all the block's columns, the window is
+  staged in bands of candidate-row pairs, the next band loading during
+  the search, and the prediction read from device memory);
 - ``motion_search_mc_blocks`` (K6a, ``motion_search_mc_pallas``): the
   same contract at any block size ``mb`` (8 or 16); the prediction shifts
   each mb×mb block by its full vector (the TPU kernel's, not
@@ -22,8 +24,10 @@ Each wrapper replaces one Pallas TPU kernel with a CUDA kernel of
   full-resolution window of ``prev``, pools it and its current rows in
   shared memory, runs K6a's 8x8 search at ±max(1, r // 2) there (K3's
   device routine), clips the base and refines ±1 from the same window,
-  then writes the prediction (above r = 32 the block pools straight from
-  device memory and stages an 18x18 refine window per macroblock);
+  then writes the prediction (above r = 32 a block of 8 macroblocks
+  pools straight from device memory, runs the banded search of K3's
+  wide arm on the pooled window and stages an 18-row refine window per
+  macroblock as aligned 16-byte words);
 - ``chroma_mc`` (K4, ``chroma_mc_pallas``): 4:2:0 compensation of both
   chroma planes from the floor-halved luma vectors, a thread per 8-wide
   row of a block in both planes.

@@ -1007,8 +1007,8 @@ WIDE = {"K3": (lambda c, p, r: M.motion_search_mc(c, p, r),
                                    (96, 160, 64), (64, 96, 126),
                                    (160, 272, 126)])
 def test_wide_search_kernels_match_plain(cuda_device, name, h, w, r):
-    """Above r = 32 (K3 and K6a stage bands of 16 candidate rows, K5
-    pools its window from device memory and refines from an 18x18 window
+    """Above r = 32 (K3 and K6a stage bands of candidate-row pairs, K5
+    pools its window from device memory and refines from an 18-row window
     per macroblock): one launch, vectors and predictions bit-identical to
     the plain version on a rolled pair with one divergent macroblock, on
     integer-valued planes (ties abound), on a flat plane and on NaN in
@@ -1039,19 +1039,103 @@ def test_wide_search_kernels_match_plain(cuda_device, name, h, w, r):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(SEARCHES))
-def test_wide_batched_search_kernels(cuda_device, name):
+@pytest.mark.parametrize("name", list(SEARCHES) + ["K6a-16"])
+@pytest.mark.parametrize("h,w", [(96, 160), (64, 272)])
+def test_wide_batched_search_kernels(cuda_device, name, h, w):
     """The chunk axis at r = 64: three unlike chunks in one launch, each
-    equal to the plain version and to its own launch."""
-    kernel, plain, wrapper = SEARCHES[name]
+    equal to the plain version and to its own launch; 272 columns take
+    several thread blocks of each kernel and a partial one."""
+    kernel, plain, wrapper = {**SEARCHES, **WIDE}[name]
     cur, prev = (torch.from_numpy(a).to(cuda_device)
-                 for a in chunk_pairs(3, 96, 160, seed=64))
+                 for a in chunk_pairs(3, h, w, seed=64))
     mv, pred = kernel(cur, prev, 64)
     mv_p, pred_p = plain(cur, prev, 64)
     assert torch.equal(mv, mv_p) and _same_bits(pred, pred_p)
     for k in range(3):
         one_mv, one_pred = kernel(cur[k], prev[k], 64)
         assert torch.equal(mv[k], one_mv) and _same_bits(pred[k], one_pred)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(WIDE))
+@pytest.mark.parametrize("shift", [(8, 8), (0, 8), (8, 0)])
+@pytest.mark.parametrize("r", [33, 64, 126])
+def test_wide_search_exact_ties_keep_the_first(cuda_device, name, shift, r):
+    """A plane periodic in 16 rows and columns, cur the plane rolled by
+    ``shift``: every candidate congruent to the shift mod 16 has SAD 0,
+    so two or four of them tie exactly at the least cost (|dy| + |dx| =
+    8 or 16), in different items, warps and bands; the first in dy-major
+    order must win, as in the plain version (K5: through its coarse
+    stage's ties)."""
+    kernel, plain, _ = WIDE[name]
+    rng = np.random.default_rng(16)
+    prev = np.tile(rng.uniform(0, 255, (16, 16)).astype(np.float32), (6, 10))
+    cur = np.roll(prev, shift, axis=(0, 1))
+    c, p = (torch.from_numpy(x).to(cuda_device) for x in (cur, prev))
+    mv, pred = kernel(c, p, r)
+    mv_p, pred_p = plain(c, p, r)
+    assert torch.equal(mv, mv_p) and _same_bits(pred, pred_p)
+    if name != "K5":
+        want = [-s for s in shift]
+        assert (mv.reshape(-1, 2).cpu() == torch.tensor(want)).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(WIDE))
+@pytest.mark.parametrize("r", [33, 64, 65, 96, 126])
+def test_wide_search_band_splits(cuda_device, name, r):
+    """Every band split of the pairs of candidate rows (one band at r =
+    33, three at 64 and 65, several above): vectors and predictions
+    bit-identical to the plain version on a rolled pair with a divergent
+    macroblock and on an integer-valued pair (ties abound)."""
+    kernel, plain, _ = WIDE[name]
+    rng = np.random.default_rng(r)
+    cur, prev = _rolled_pair(64, 96, r, (r // 4, -(r // 3)))
+    cur[16:32, 48:64] = rng.uniform(0, 255, (16, 16))
+    ints = rng.integers(0, 4, (64, 96)).astype(np.float32)
+    for a, b in ((cur, prev), (np.roll(ints, (2, 33), (0, 1)), ints)):
+        c, p = (torch.from_numpy(x).to(cuda_device) for x in (a, b))
+        mv, pred = kernel(c, p, r)
+        mv_p, pred_p = plain(c, p, r)
+        assert torch.equal(mv, mv_p) and _same_bits(pred, pred_p), (a is cur)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(WIDE))
+@pytest.mark.parametrize("w", [48, 112])
+def test_wide_search_rows_narrower_than_a_block(cuda_device, name, w):
+    """A row of 3 or 7 macroblocks: fewer than one thread block of K3 (4)
+    at 112 columns partly, of K5 (8) wholly; the pooled and full windows
+    wrap the narrow plane several times."""
+    kernel, plain, _ = WIDE[name]
+    cur, prev = _rolled_pair(48, w, w, (5, -9))
+    for r in (33, 64):
+        c, p = (torch.from_numpy(x).to(cuda_device) for x in (cur, prev))
+        mv, pred = kernel(c, p, r)
+        mv_p, pred_p = plain(c, p, r)
+        assert torch.equal(mv, mv_p) and _same_bits(pred, pred_p), r
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("r", [40, 64, 126])
+def test_wide_hier_search_is_one_launch(cuda_device, r):
+    """K5 above r = 32: one call is one device kernel, the wide one
+    (torch.profiler; a window that traced nothing is taken again, as the
+    profiler has been seen to miss a window's activity)."""
+    from torch.profiler import ProfilerActivity, profile
+    c, p = (torch.from_numpy(x).to(cuda_device)
+            for x in _rolled_pair(96, 160, r, (5, -9)))
+    M.motion_search_mc_hier(c, p, r)
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            M.motion_search_mc_hier(c, p, r)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        if names:
+            break
+    assert len(names) == 1 and "motion_search_hier_wide" in names[0], names
 
 
 @pytest.mark.cuda
