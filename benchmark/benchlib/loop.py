@@ -1,0 +1,119 @@
+"""The closed loop that drives the program: dispatches of C chunks from
+the pool, ``in_flight`` of them enqueued at once, each finalized in order
+once the oldest is due, with the benchmark's host spans around every call
+into the program."""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from collections import deque
+
+from torch.profiler import record_function
+
+from .trace import SPAN
+
+#: the program's entries per traffic ``entry``: (dispatch, finalize)
+ENTRIES = {
+    "chunks": ("encode_chunks_dispatch", "encode_chunks_finalize"),
+    "chunk": ("encode_chunk_dispatch", "encode_chunk_finalize"),
+}
+
+
+class ClosedLoop:
+    """``enc``'s dispatch/finalize over ``pool`` (P, F, H, W, 3), C chunks
+    a dispatch (dispatch d takes pool chunks d*C .. d*C + C - 1, modulo
+    P, a multiple of C). The outputs of the pool chunks in ``keep`` are kept for the check.
+    Per dispatch it records its spans in ns: ``source`` (slicing the
+    pool), ``dispatch``, ``wait`` (until an event recorded when the
+    dispatch returned has completed: its device work and its copy back),
+    ``finalize``; and per chunk its latency, from the dispatch call to
+    the return of its finalize."""
+
+    def __init__(self, enc, pool, batch: int, in_flight: int, entry: str,
+                 keep=()):
+        self.enc, self.pool, self.batch = enc, pool, batch
+        self.in_flight = in_flight
+        self.single = entry == "chunk"
+        if self.single and batch != 1:
+            raise ValueError("entry 'chunk' dispatches one chunk at a time")
+        names = ENTRIES[entry]
+        self.dispatch_fn = getattr(enc, names[0])
+        self.finalize_fn = getattr(enc, names[1])
+        self.keep = set(keep)
+        self.n = 0
+        self.traced = False
+
+    @contextlib.contextmanager
+    def _span(self, name: str, rec: dict):
+        """``rec[name]``: the block's host ns; traced, also a profiler
+        annotation ``bench.<name>``."""
+        with (record_function(SPAN + name) if self.traced
+              else contextlib.nullcontext()):
+            t0 = time.perf_counter_ns()
+            yield
+            rec[name] = time.perf_counter_ns() - t0
+
+    def _event(self):
+        import torch
+        dev = self.pool.device
+        if dev.type != "cuda":
+            return None
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(dev))
+        return ev
+
+    def run(self, seconds: float = None, dispatches: int = None) -> dict:
+        """Dispatch until ``seconds`` have passed and every pool chunk was
+        dispatched once (or until ``dispatches`` were made), then drain. Returns the window's records: ``t0``/``t1`` ns
+        (the first dispatch call, the last finalize's return),
+        ``dispatches`` [span dict], ``latency_ns`` per chunk, ``chunks``,
+        ``frames``, ``kept`` {pool index: [chunk bytes]}."""
+        p = self.pool.shape[0]
+        f = self.pool.shape[1]
+        pending = deque()
+        out = dict(dispatches=[], latency_ns=[], chunks=0, frames=0,
+                   kept={})
+
+        def drain():
+            idx, handle, ev, start, rec = pending.popleft()
+            with self._span("wait", rec):
+                if ev is not None:
+                    ev.synchronize()
+            with self._span("finalize", rec):
+                chunks = self.finalize_fn(handle)
+            done = time.perf_counter_ns()
+            if self.single:
+                chunks = [chunks]
+            for i, data in zip(idx, chunks):
+                out["latency_ns"].append(done - start)
+                if i in self.keep:
+                    out["kept"].setdefault(i, []).append(data)
+            out["chunks"] += len(chunks)
+            out["frames"] += len(chunks) * f
+            out["dispatches"].append(rec)
+            out["t1"] = done
+
+        out["t0"] = t_end = time.perf_counter_ns()
+        if seconds is not None:
+            t_end += int(seconds * 1e9)
+        made = 0
+        while (time.perf_counter_ns() < t_end or made * self.batch < p
+               if dispatches is None else made < dispatches):
+            start = time.perf_counter_ns()
+            rec = {}
+            first = (self.n * self.batch) % p
+            idx = [(first + b) % p for b in range(self.batch)]
+            with self._span("source", rec):
+                frames = self.pool[first] if self.single else \
+                    self.pool[first:first + self.batch]
+            with self._span("dispatch", rec):
+                handle = self.dispatch_fn(frames)
+            pending.append((idx, handle, self._event(), start, rec))
+            self.n += 1
+            made += 1
+            if len(pending) == self.in_flight:
+                drain()
+        while pending:
+            drain()
+        return out

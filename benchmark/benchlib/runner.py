@@ -1,0 +1,245 @@
+"""One run of one cell: set-up (the program, the pool, a warm pass), the
+measured window (optionally traced), the check against the plain
+reference once the window has closed, and the result line."""
+
+from __future__ import annotations
+
+import random
+import sys
+import time
+
+from . import readers, ref_fvc, trace
+from .loop import ClosedLoop
+from .source import SOURCES
+
+#: top-level module names a run may not hold once its window has closed
+FORBIDDEN = ("jax", "jaxlib", "flax", "flutpu")
+
+
+class Run:
+    """What a metric's reader reads: the cell, its configuration and
+    traffic, the window's records (``records``: see ``ClosedLoop.run``),
+    ``setup_s``, ``window_s``, ``batch``, and in a traced run ``trace``
+    ({"device", "spans"}: see ``trace.profiled``) with ``window_ns``."""
+
+    def __init__(self, cell, config, traffic, batch):
+        self.cell, self.config, self.traffic = cell, config, traffic
+        self.batch = batch
+        self.records = None
+        self.setup_s = self.window_s = None
+        self.trace = None
+        self.window_ns = None
+
+    @property
+    def coded(self):
+        """The coded (rows, columns): whole 16x16 macroblocks."""
+        return (ref_fvc.pad16(self.config["height"]),
+                ref_fvc.pad16(self.config["width"]))
+
+
+def loaded_forbidden():
+    """Loaded modules whose top-level name is JAX's or the JAX package's,
+    compared whole (``flutpu_torch`` is not ``flutpu``)."""
+    return sorted({m.split(".")[0] for m in list(sys.modules)}
+                  & set(FORBIDDEN))
+
+
+#: keys a configuration file may hold: what the run reads, and the
+#: description beside it
+CONFIG_KEYS = {"name", "source", "deployment", "system", "width", "height",
+               "chroma", "codec", "version", "quality", "motion", "search",
+               "search_range", "subpel", "bframes", "chunk_frames",
+               "chunks_per_dispatch", "pool_chunks", "engine", "segmented",
+               "precision", "guarantees", "documented", "assumed"}
+#: the one value of each codec key that the loop and the reference code
+CONFIG_FIXED = {"codec": "fvc", "version": 2, "chroma": "4:2:0",
+                "motion": True, "subpel": False, "bframes": 0}
+TRAFFIC_KEYS = {"name", "frames", "content", "texture_box_passes",
+                "pan_per_1080_rows", "object_size_per_1080_rows",
+                "object_speeds_per_1080_rows", "noise_sigma", "entry",
+                "chunks_per_dispatch", "in_flight", "sample_chunks",
+                "assumed", "about"}
+
+
+def validate(config: dict, traffic: dict, batch: int):
+    """Refuse a configuration or traffic that states what this harness
+    would not run: an unknown key, or a codec setting that neither the
+    program's call nor the reference takes."""
+    for what, d, keys in (("configuration", config, CONFIG_KEYS),
+                          ("traffic", traffic, TRAFFIC_KEYS)):
+        unknown = sorted(set(d) - keys)
+        if unknown:
+            raise ValueError(f"{what} {d.get('name')!r}: keys {unknown} "
+                             "are not read by the harness")
+    for k, v in CONFIG_FIXED.items():
+        if config.get(k) != v:
+            raise ValueError(f"configuration {config['name']!r}: {k} = "
+                             f"{config.get(k)!r}; the harness codes {v!r}")
+    if config["search"] not in ("full", "hier"):
+        raise ValueError(f"search {config['search']!r}")
+    if config["pool_chunks"] % batch:
+        raise ValueError("pool_chunks must be a multiple of the chunks a "
+                         "dispatch, so each pool chunk keeps its position")
+
+
+def batch_of(config: dict, traffic: dict) -> int:
+    """Chunks a dispatch: the traffic's, else the configuration's."""
+    return traffic["chunks_per_dispatch"] or config["chunks_per_dispatch"]
+
+
+def sample(seed: int, pool: int, n: int, batch: int = 1):
+    """The pool chunks whose outputs the reference checks, drawn from the
+    seed: one from each of ``n`` strata of positions in a dispatch (pool
+    chunk i sits at position i % batch), so a fault confined to part of
+    the batch falls on one of them."""
+    rng = random.Random(seed)
+    strata = [[i for i in range(pool) if (i % batch) * n // batch == k]
+              for k in range(n)]
+    strata = [s for s in strata if s]
+    keep = []
+    for k in range(min(n, pool)):
+        keep.append(rng.choice([i for i in strata[k % len(strata)]
+                                if i not in keep]))
+    return sorted(keep)
+
+
+def make_encoder(config: dict, device):
+    from flutpu_torch.codec.fvc import FvcEncoder
+    return FvcEncoder(config["quality"], motion=config["motion"],
+                      search_range=config["search_range"],
+                      hier=config["search"] == "hier",
+                      engine=config["engine"],
+                      segmented=config["segmented"], device=device)
+
+
+def make_pool(config: dict, traffic: dict, seed: int, device):
+    h, w = config["height"], config["width"]
+
+    def scale(v):
+        return [s * h // 1080 for s in v]
+    return SOURCES[traffic["frames"]](
+        config["pool_chunks"], config["chunk_frames"], h, w,
+        scale(traffic["pan_per_1080_rows"]), traffic["texture_box_passes"],
+        seed, device, scale(traffic["object_size_per_1080_rows"]),
+        [scale(v) for v in traffic["object_speeds_per_1080_rows"]],
+        traffic["noise_sigma"])
+
+
+def reference(config: dict, frames, dtype=None) -> bytes:
+    import torch
+    return ref_fvc.encode_chunk(frames, config["quality"],
+                                config["search_range"],
+                                config["search"] == "hier",
+                                dtype or torch.float32)
+
+
+def run_cell(manifest, name: str, seed: int, seconds: float, traced: bool,
+             device="cuda", t_start: float = None):
+    """Run cell ``name`` → the result dict (``correct``, ``attempted``,
+    ``failed``, ``metrics``, ``device``, [``breakdown``], ``checks``)."""
+    import torch
+    t_start = time.perf_counter() if t_start is None else t_start
+    cell = manifest.cell(name)
+    config = manifest.config(cell["config"])
+    traffic = manifest.traffic(cell["traffic"])
+    batch = batch_of(config, traffic)
+    validate(config, traffic, batch)
+    dev = torch.device(device)
+    run = Run(cell, config, traffic, batch)
+
+    marks = [("start to here", time.perf_counter())]
+    pool = make_pool(config, traffic, seed, dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    marks.append(("pool", time.perf_counter()))
+    enc = make_encoder(config, dev)
+    marks.append(("encoder", time.perf_counter()))
+    keep = sample(seed, config["pool_chunks"], traffic["sample_chunks"],
+                  batch)
+    loop = ClosedLoop(enc, pool, batch, traffic["in_flight"],
+                      traffic["entry"], keep)
+    # warm: every pool chunk once, in the window's loop shape (the
+    # encoder's buffer sizes adapt to them)
+    loop.run(dispatches=max(-(-config["pool_chunks"] // batch),
+                            traffic["in_flight"] + 1))
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    run.setup_s = time.perf_counter() - t_start
+    marks.append(("warm pass", time.perf_counter()))
+    print("set-up s: " + ", ".join(
+        f"{k} {b - a:.3f}" for (k, b), (_, a)
+        in zip(marks, [("", t_start)] + marks[:-1])), file=sys.stderr)
+
+    if traced:
+        loop.traced = True
+        got = {}
+        with trace.profiled(got):
+            from torch.profiler import record_function
+            with record_function(trace.SPAN + "window"):
+                records = loop.run(seconds=seconds)
+            t_read = time.perf_counter()
+        print(f"trace: {len(got['device'])} device operations, read in "
+              f"{time.perf_counter() - t_read:.1f} s", file=sys.stderr)
+        run.trace = got
+        win = [s for s in got["spans"] if s[0] == "window"]
+        run.window_ns = (win[0][1], win[0][2]) if win else None
+    else:
+        records = loop.run(seconds=seconds)
+    run.records = records
+    run.window_s = (records["t1"] - records["t0"]) / 1e9
+    spans = {k: sum(d.get(k, 0) for d in records["dispatches"])
+             / len(records["dispatches"]) / 1e6
+             for k in ("source", "dispatch", "wait", "finalize")}
+    print("host ms per dispatch: " + ", ".join(
+        f"{k} {v:.3f}" for k, v in spans.items())
+        + f"; {records['chunks']} chunks in {run.window_s:.3f} s"
+        + (f"; other CUDA activities {run.trace['other']}" if traced else ""),
+        file=sys.stderr)
+    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+
+    # the check: the program's state freed, the reference on the kept
+    # pool chunks' frames
+    frames = {i: pool[i].clone() for i in keep}
+    del loop, enc, pool
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    t_ref = time.perf_counter()
+    want = {i: reference(config, frames[i]) for i in keep}
+    print(f"reference: {len(keep)} chunk(s) in "
+          f"{time.perf_counter() - t_ref:.2f} s", file=sys.stderr)
+    compared = differing = 0
+    for i, outs in records["kept"].items():
+        for data in outs:
+            compared += 1
+            differing += data != want[i]
+    print("reference chunk bytes: " + ", ".join(
+        f"pool {i}: {len(want[i])}" for i in keep), file=sys.stderr)
+    checks = {"chunks_differing": {"value": differing, "limit": 0},
+              "chunks_compared": {"value": compared, "limit": 1}}
+    correct = differing == 0 and compared >= 1
+
+    metrics = {}
+    for m in manifest.metrics(name, traced):
+        value = manifest.reader(m["name"])(run)
+        if value is not None:
+            metrics[m["name"]] = {"value": value, "unit": m["unit"]}
+    info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
+            "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
+                     else "cpu"),
+            "count": cell["chips"], "memory_peak_bytes": peak}
+    result = {"correct": bool(correct), "attempted": records["chunks"],
+              "failed": differing, "metrics": metrics, "device": info}
+    if traced and run.window_ns is not None:
+        lo, hi = run.window_ns
+        dev_ev = readers.window_device(run)
+        info["busy_s"] = trace.union_ns([(a, b) for _, a, b in dev_ev]) / 1e9
+        info["window_s"] = (hi - lo) / 1e9
+        ops = sorted(trace.device_ops(dev_ev).items(), key=lambda kv: -kv[1])
+        gaps = sorted(trace.idle_gaps(dev_ev, run.trace["spans"],
+                                      run.window_ns).items(),
+                      key=lambda kv: -kv[1])
+        result["breakdown"] = {
+            "device_ops": [[k, v / 1e9] for k, v in ops[:10]],
+            "idle_gaps": [[k, v / 1e9] for k, v in gaps[:10]]}
+    result["checks"] = checks
+    return result

@@ -1,0 +1,100 @@
+"""The traced run: torch.profiler over the window, read into device
+intervals and the benchmark's host spans, and the reductions the
+per-layer readers and the breakdown share (interval union, idle gaps by
+the host span that was open)."""
+
+from __future__ import annotations
+
+import bisect
+import contextlib
+from collections import defaultdict
+
+#: prefix of the benchmark's own host spans (torch.profiler annotations)
+SPAN = "bench."
+#: CUDA-typed profiler activities that are no device work: the
+#: synchronizations (a host's wait, Kineto's names) and the annotations'
+#: shadows on the device (named as the host span)
+NOT_WORK = ("Event Sync", "Stream Sync", "Context Sync", "Stream Wait Event",
+            "Unknown Sync")
+
+
+@contextlib.contextmanager
+def profiled(out: dict):
+    """Trace CPU and CUDA activity in the block; on exit ``out`` holds
+    ``device`` [(name, start_ns, end_ns)] (kernels, copies, sets) and
+    ``spans`` [(name, start_ns, end_ns)] of the ``bench.*`` annotations,
+    on the profiler's one clock, and ``other`` {name: count} of the
+    CUDA-typed activities left out."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        yield
+    device, spans, other = [], [], defaultdict(int)
+    for e in prof.profiler.kineto_results.events():
+        name, on_card = e.name(), e.device_type() == DeviceType.CUDA
+        if on_card and (name.startswith(SPAN) or name in NOT_WORK):
+            other[name] += 1
+        elif on_card:
+            device.append((name, e.start_ns(), e.end_ns()))
+        elif name.startswith(SPAN):
+            spans.append((name[len(SPAN):], e.start_ns(), e.end_ns()))
+    out.update(device=device, spans=spans, other=dict(other))
+
+
+def union_ns(intervals) -> int:
+    """Length of the union of (start, end) intervals."""
+    return sum(b - a for a, b in merged(intervals))
+
+
+def merged(intervals):
+    """The union as sorted disjoint (start, end) intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def idle_gaps(device, spans, window):
+    """Idle time of the device inside ``window`` (start, end), summed by
+    the benchmark's host span open at each gap's middle (the host's
+    spans follow one another) → {span name: ns}."""
+    lo, hi = window
+    busy = [(max(a, lo), min(b, hi)) for _, a, b in device
+            if b > lo and a < hi]
+    inner = sorted((s for s in spans if s[0] != "window"),
+                   key=lambda s: s[1])
+    starts = [s[1] for s in inner]
+    out, t = defaultdict(int), lo
+    for a, b in merged(busy) + [[hi, hi]]:
+        if a > t:
+            mid = (t + a) // 2
+            k = bisect.bisect_right(starts, mid) - 1
+            name = inner[k][0] if k >= 0 and inner[k][2] >= mid \
+                else "no span"
+            out[name] += a - t
+        t = max(t, b)
+    return dict(out)
+
+
+def short_name(name: str) -> str:
+    """A kernel's name without its parameter list and return type."""
+    if name.endswith(")"):
+        depth = 0
+        for i in range(len(name) - 1, -1, -1):
+            depth += {")": 1, "(": -1}.get(name[i], 0)
+            if depth == 0:
+                name = name[:i] if i else name
+                break
+    return name.removeprefix("void ")[:120]
+
+
+def device_ops(device):
+    """Device time by operation (short) name → {name: ns}."""
+    out = defaultdict(int)
+    for name, a, b in device:
+        out[short_name(name)] += b - a
+    return dict(out)

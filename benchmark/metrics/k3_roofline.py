@@ -1,0 +1,8 @@
+"""K3's (the full search's) share of its roofline, %: the benchmark's count
+over the traced kernel time."""
+
+from benchlib import readers
+
+
+def read(run):
+    return readers.search_roofline_pct(run, "k3")

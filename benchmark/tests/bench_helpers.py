@@ -1,0 +1,38 @@
+"""Tiny cells for the CPU: the benchmark's own configurations and
+traffic with small frames, a short range and a small pool."""
+
+import json
+import os
+
+from benchlib.manifest import BENCH_DIR, ROOT, Manifest
+
+TINY = {"width": 80, "height": 40, "chunk_frames": 4, "pool_chunks": 4,
+        "chunks_per_dispatch": 2}
+RANGE = {"full": 6, "hier": 10}
+
+
+def tiny_manifest(tmp_path, **config) -> Manifest:
+    """BENCHMARK.json's cells over shrunken copies of their files, the
+    benchmark's readers beside them; ``config`` keys replace the tiny
+    ones."""
+    with open(os.path.join(ROOT, "BENCHMARK.json")) as fh:
+        data = json.load(fh)
+    for kind in ("configs", "traffic"):
+        (tmp_path / kind).mkdir()
+        for name in os.listdir(os.path.join(BENCH_DIR, kind)):
+            with open(os.path.join(BENCH_DIR, kind, name)) as fh:
+                d = json.load(fh)
+            if kind == "configs":
+                d.update(TINY, search_range=RANGE[d["search"]])
+                d.update(config)
+            else:
+                d["pan_per_1080_rows"] = [27, 108]   # (1, 4) at 40 rows
+                d["object_size_per_1080_rows"] = [432, 432]   # 16 x 16
+                d["object_speeds_per_1080_rows"] = [[27, 108], [54, 27]]
+            (tmp_path / kind / name).write_text(json.dumps(d))
+    os.symlink(os.path.join(BENCH_DIR, "metrics"), tmp_path / "metrics")
+    return Manifest(data, str(tmp_path))
+
+
+CELLS = ["fvc1080_full64.pan-vod", "fvc2160_hier126.pan-vod",
+         "fvc1080_full64.pan-stream", "fvc2160_hier126.pan-stream"]
