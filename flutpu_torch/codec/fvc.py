@@ -91,6 +91,7 @@ import torch
 
 from ..core import Buffer, Caps, PropertySpec, register
 from ..core.env import env_flag
+from ..core.log import SPAN_PREFIX, trace_span
 from .base import VideoEncoder
 from .convert import encoder_state_from_numpy
 from .decode import coefs_to_rgb, decode_scan_to_coefs
@@ -741,9 +742,11 @@ class FvcEncoder:
                 else ChunkMesh(shard)
 
         def program(layout, prefix_words, seg_words):
-            parts = self._codec(_chunked(frames_fn())[0], mesh, n_sp > 1)
-            return _combined_rows(parts, layout, prefix_words, sc.SEG_G,
-                                  seg_words)
+            with trace_span(SPAN_PREFIX + "fvc.codec"):
+                parts = self._codec(_chunked(frames_fn())[0], mesh, n_sp > 1)
+            with trace_span(SPAN_PREFIX + "jpeg.pack"):
+                return _combined_rows(parts, layout, prefix_words, sc.SEG_G,
+                                      seg_words)
 
         return _ChunkHandle(*sc._run_sized(program, ph, pw), f, h, w, ph,
                             pw)
@@ -901,13 +904,14 @@ class FvcEncoder:
         payloads, mvs, itypes = self._finalize(handle)
         f = handle.f
         out = []
-        for ci in range(len(payloads) // f):
-            n = f if counts is None else int(counts[ci])
-            rows = slice(ci * f, ci * f + n)
-            out.append(self._build_chunk(
-                payloads[rows], None if mvs is None else mvs[rows],
-                None if itypes is None else itypes[rows], n, handle.h,
-                handle.w, handle.ph, handle.pw))
+        with trace_span(SPAN_PREFIX + "fvc.container"):
+            for ci in range(len(payloads) // f):
+                n = f if counts is None else int(counts[ci])
+                rows = slice(ci * f, ci * f + n)
+                out.append(self._build_chunk(
+                    payloads[rows], None if mvs is None else mvs[rows],
+                    None if itypes is None else itypes[rows], n, handle.h,
+                    handle.w, handle.ph, handle.pw))
         return out
 
     def encode_chunk(self, frames) -> bytes:
@@ -923,25 +927,32 @@ class FvcEncoder:
         arr, handle = self._scan_coder._fetch(handle)
         n = handle.n_segs
         scan_end = 1 + n + handle.prefix
-        payloads = [JpegEncoder._scan_bytes(row, n, handle.prefix)
-                    for row in arr]
+        with trace_span(SPAN_PREFIX + "jpeg.compact"):
+            payloads = [JpegEncoder._scan_bytes(row, n, handle.prefix)
+                        for row in arr]
         mvs = itypes = None
         if self.motion:
-            mbh, mbw = handle.ph // 16, handle.pw // 16
-            mv_len = mbh * mbw * 2
-            mvs = []
-            for i in range(arr.shape[0]):
-                raw = np.frombuffer(arr[i, scan_end:-1].tobytes(), np.int8)
-                fwd = raw[:mv_len].reshape(mbh, mbw, 2)
-                if self.bframes:   # side columns: fwd | bwd | modes
-                    mvs.append((fwd,
-                                raw[mv_len:2 * mv_len].reshape(mbh, mbw, 2),
-                                raw[2 * mv_len:2 * mv_len + mbh * mbw]
-                                .reshape(mbh, mbw)))
-                else:
-                    mvs.append(fwd)
-            itypes = arr[:, -1].astype(np.int64)   # 1 = I frame, 2 = B
+            with trace_span(SPAN_PREFIX + "fvc.vectors"):
+                mvs, itypes = self._side_words(arr, scan_end, handle)
         return payloads, mvs, itypes
+
+    def _side_words(self, arr, scan_end: int, handle: _ChunkHandle):
+        """Each frame's vectors (fwd, or with B frames (fwd, bwd, modes))
+        and the frame-type words from the combined rows' side columns."""
+        mbh, mbw = handle.ph // 16, handle.pw // 16
+        mv_len = mbh * mbw * 2
+        mvs = []
+        for i in range(arr.shape[0]):
+            raw = np.frombuffer(arr[i, scan_end:-1].tobytes(), np.int8)
+            fwd = raw[:mv_len].reshape(mbh, mbw, 2)
+            if self.bframes:   # side columns: fwd | bwd | modes
+                mvs.append((fwd,
+                            raw[mv_len:2 * mv_len].reshape(mbh, mbw, 2),
+                            raw[2 * mv_len:2 * mv_len + mbh * mbw]
+                            .reshape(mbh, mbw)))
+            else:
+                mvs.append(fwd)
+        return mvs, arr[:, -1].astype(np.int64)   # 1 = I frame, 2 = B
 
     def _build_chunk(self, payloads, mvs, itypes, f: int, h: int,
                      w: int, ph: Optional[int] = None,

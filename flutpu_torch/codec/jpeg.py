@@ -57,6 +57,7 @@ import torch
 
 from .. import native
 from ..core.env import env_flag
+from ..core.log import SPAN_PREFIX, trace_span
 from . import jpeg_tables as T
 from .convert import encoder_state_from_numpy
 from .ops.entropy import (compact_segments_finalize, encode_gop_scans_layout,
@@ -593,7 +594,9 @@ class JpegEncoder:
 
         def build(prefix_w, sw):
             p = min(bound, prefix_w or cap)
-            return _HostCopy(program(layout, p, sw)), p, sw
+            combined = program(layout, p, sw)
+            with trace_span(SPAN_PREFIX + "jpeg.copy"):
+                return _HostCopy(combined), p, sw
 
         win, sw = self._sizes()
         n_segs = 0
@@ -613,7 +616,8 @@ class JpegEncoder:
         reported the true usage, so the same work is redispatched once at
         sizes that cover it, up to the theoretical bounds; nothing is ever
         truncated."""
-        arr = handle.combined.numpy()
+        with trace_span(SPAN_PREFIX + "jpeg.fetch_wait"):
+            arr = handle.combined.numpy()
         n = handle.n_segs
         if n:
             used = arr[:, 0].astype(np.int64)
@@ -636,8 +640,9 @@ class JpegEncoder:
                     f"entropy output beyond the theoretical bounds: {w_need} "
                     f"words/frame, {seg_need} words/segment")
             new_prefix, new_sw = self._overflow_sizes(w_need, seg_need)
-            combined, p, sw = handle.build(max(new_prefix or 0, w_need),
-                                           new_sw if n else None)
+            with trace_span(SPAN_PREFIX + "jpeg.redispatch"):
+                combined, p, sw = handle.build(max(new_prefix or 0, w_need),
+                                               new_sw if n else None)
             return self._fetch(handle._replace(
                 combined=combined, prefix=p, seg_words=sw, build=None))
         self._note_prefix_usage(int(used.max()))

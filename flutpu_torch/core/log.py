@@ -8,9 +8,21 @@ via the ``FLUTPU_DEBUG`` env var using the familiar syntax::
 
 Levels mirror GStreamer: 0=none 1=error 2=warning 3=info 4=debug 5=log
 6=trace 7=memdump. ``memdump`` renders buffer hexdumps like
-gstttmlutils.c:350-367. ``trace_span`` wraps a block in a
-``torch.profiler.record_function`` range when a torch profiler is
-recording, so device timelines carry pipeline-stage names.
+gstttmlutils.c:350-367.
+
+``trace_span(name)`` marks a phase of the program on the profiler's
+timeline. With no torch profiler recording it costs one flag check
+(``torch._C._autograd._profiler_enabled()``) and opens nothing; with one
+recording it opens a record function of that name, unchanged, in the same
+kineto record as the device's kernels, so spans and kernels share one
+clock. Its parent is the span that encloses it on the same thread. The
+record is the profiler's function scope, not ``record_function``'s user
+scope: kineto mirrors a user-scope range onto the device as a
+``gpu_user_annotation`` over its kernels, which a reader of the device's
+operations would count as device work; a function-scope one stays on the
+host. Every span of the program is named ``SPAN_PREFIX`` + its layer and
+phase (``flu.jpeg.fetch_wait``), one span per phase of a dispatch or a
+finalize, never one per kernel launch or per frame step.
 """
 
 from __future__ import annotations
@@ -18,8 +30,13 @@ from __future__ import annotations
 import logging
 import os
 import sys
-from contextlib import contextmanager
+from contextlib import contextmanager, nullcontext
 from typing import Dict, Optional
+
+import torch
+
+#: the first characters of every span the program records
+SPAN_PREFIX = "flu."
 
 _LEVELS = {
     0: logging.CRITICAL + 10,
@@ -119,14 +136,15 @@ def category(name: str, description: str = "") -> Category:
     return _categories[name]
 
 
-@contextmanager
+_profiling = torch._C._autograd._profiler_enabled
+_record = torch._C._profiler._RecordFunctionFast
+_NO_SPAN = nullcontext()
+
+
 def trace_span(name: str):
-    """Annotate a host-side span onto the profile timeline when a torch
-    profiler is recording (``record_function`` records nothing
-    otherwise)."""
-    import torch.profiler
-    with torch.profiler.record_function(name):
-        yield
+    """A context manager that records the block as span ``name`` when a
+    torch profiler is recording, and does nothing otherwise."""
+    return _record(name) if _profiling() else _NO_SPAN
 
 
 @contextmanager

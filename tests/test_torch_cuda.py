@@ -1612,3 +1612,38 @@ def test_fvc_decoder_on_card_rebuilds_the_encoders_references(cuda_device,
     b, ib = FvcDecoder("cpu").decode_chunk(chunk)
     assert ia == ib
     np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("span,state", [
+    ("flu.fvc.codec", {}), ("flu.jpeg.redispatch", {"prefix_window": 16})])
+def test_program_spans_and_kernels_share_one_clock(cuda_device, span, state):
+    """Each kernel whose launch (the runtime's call, matched to the
+    kernel by correlation id) lies inside a program span starts on the
+    device no earlier than the span; no span is mirrored onto the
+    device."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    frames = _clip8()
+    enc = FvcEncoder(85, motion=True, device=cuda_device)
+    enc.encode_chunk(frames)   # the kernels built, the sizes adapted
+    if state:   # a new encoder whose window overflows
+        enc = FvcEncoder.from_numpy_state(QY, QC, 7, motion=True,
+                                          device=cuda_device, **state)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        enc.encode_chunk(frames)
+    events = list(prof.profiler.kineto_results.events())
+    on_card = [e for e in events if e.device_type() == DeviceType.CUDA]
+    assert not [e.name() for e in on_card if e.name().startswith("flu.")]
+    kernel_start = {e.correlation_id(): e.start_ns() for e in on_card}
+    spans = [(e.start_ns(), e.end_ns()) for e in events
+             if e.name() == span and e.device_type() == DeviceType.CPU]
+    assert len(spans) == 1
+    lo, hi = spans[0]
+    launched = [kernel_start[e.correlation_id()] for e in events
+                if e.device_type() == DeviceType.CPU
+                and "Launch" in e.name() and lo <= e.start_ns() <= hi
+                and e.correlation_id() in kernel_start]
+    assert len(launched) > 10
+    assert min(launched) >= lo
