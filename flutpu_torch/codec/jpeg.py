@@ -436,6 +436,9 @@ class JpegEncoder:
         self._seg_gops = 0
         self._prefix_used_words: Optional[int] = None
         self._prefix_window: Optional[int] = None
+        #: the frames that usage was recorded at, by their prefix bound
+        #: (one per block count)
+        self._prefix_geometry: Optional[int] = None
         # adaptive state is read-modify-written by dispatch and by
         # finalize, which a caller may run on worker threads
         self._adapt_lock = threading.RLock()
@@ -502,9 +505,17 @@ class JpegEncoder:
             self._prefix_window = est
         return est
 
-    def _note_prefix_usage(self, used_words: int) -> None:
-        """Record actual usage as a running max."""
+    def _note_prefix_usage(self, used_words: int, geometry: int) -> None:
+        """Record actual usage as a running max over frames of one
+        geometry (``geometry``: their prefix bound). Frames of another
+        geometry start the record anew and drop the window learned at the
+        last one."""
         with self._adapt_lock:
+            if geometry != self._prefix_geometry:
+                if self._prefix_geometry is not None:
+                    self._prefix_window = None
+                self._prefix_geometry = geometry
+                self._prefix_used_words = None
             prev = self._prefix_used_words or 0
             self._prefix_used_words = max(prev, int(used_words))
 
@@ -535,8 +546,9 @@ class JpegEncoder:
         return _pad_to(self.SEG_G * self.BLOCK_BITS_BOUND // 32, 8)
 
     def _prefix_cap(self, layout) -> int:
-        """Geometry-scaled prefix window for ordinary dispatches: ~1 word
-        per block, and never above the theoretical bound."""
+        """Geometry-scaled prefix window for a dispatch at a geometry whose
+        usage is not known yet: ~1 word per block, and never above the
+        theoretical bound."""
         geo = _pad_to(max(self.PREFIX_WORDS, layout.n_blocks),
                       self._WORD_BUCKET)
         return min(geo, self._prefix_bound(layout))
@@ -548,19 +560,26 @@ class JpegEncoder:
         segment of 16 blocks stay inside the 4 bits per block left over."""
         return _pad_to(layout.n_blocks * self.BLOCK_BITS_BOUND // 32, 8)
 
-    def _sizes(self):
+    def _sizes(self, cap: int, bound: int):
+        """The prefix window and segment capacity a dispatch starts at.
+        The window is the one learned from the usage at this geometry
+        (prefix bound ``bound``); at another geometry, or before any
+        usage is known, it is at most ``cap``."""
         with self._adapt_lock:
             tgt = self._prefix_target()
             if tgt is not None:
                 self._prefix_window = tgt
             self._seg_words = self._seg_target()
-            return self._prefix_window, self._seg_words
+            win = self._prefix_window
+            if self._prefix_geometry != bound:
+                win = min(win or cap, cap)
+            return win, self._seg_words
 
     def _overflow_sizes(self, used_words: int,
-                        seg_need_words: Optional[int]):
+                        seg_need_words: Optional[int], geometry: int):
         """Grown sizes covering a device-reported need."""
         with self._adapt_lock:
-            self._note_prefix_usage(int(used_words))
+            self._note_prefix_usage(int(used_words), geometry)
             if seg_need_words:
                 self._seg_used_words = max(self._seg_used_words,
                                            int(seg_need_words))
@@ -584,10 +603,10 @@ class JpegEncoder:
         """Enqueue ``program(layout, prefix_words, seg_words)`` — a GOP's
         device work, returning its combined array (see
         encode_gop_scans_layout; ``seg_words`` None selects the
-        non-segment layout) — at the adaptive sizes, copied into pinned
-        memory. Returns the handle fields (combined, prefix, prefix_bound,
-        n_segs, seg_words, build); ``build(prefix_words, seg_words)``
-        reruns the same work at other sizes."""
+        non-segment layout) — at the adaptive sizes (``_sizes``), copied
+        into pinned memory. Returns the handle fields (combined, prefix,
+        prefix_bound, n_segs, seg_words, build); ``build(prefix_words,
+        seg_words)`` reruns the same work at other sizes."""
         layout = self.layout(ph, pw)
         cap = self._prefix_cap(layout)
         bound = self._prefix_bound(layout)
@@ -598,13 +617,13 @@ class JpegEncoder:
             with trace_span(SPAN_PREFIX + "jpeg.copy"):
                 return _HostCopy(combined), p, sw
 
-        win, sw = self._sizes()
+        win, sw = self._sizes(cap, bound)
         n_segs = 0
         if self.segmented:
             n_segs = (layout.n_blocks + self.SEG_G - 1) // self.SEG_G
         else:
             sw = None
-        combined, prefix, sw = build(min(win, cap) if win else cap, sw)
+        combined, prefix, sw = build(win, sw)
         return combined, prefix, bound, n_segs, sw, build
 
     def _fetch(self, handle):
@@ -639,13 +658,14 @@ class JpegEncoder:
                 raise OverflowError(
                     f"entropy output beyond the theoretical bounds: {w_need} "
                     f"words/frame, {seg_need} words/segment")
-            new_prefix, new_sw = self._overflow_sizes(w_need, seg_need)
+            new_prefix, new_sw = self._overflow_sizes(
+                w_need, seg_need, handle.prefix_bound)
             with trace_span(SPAN_PREFIX + "jpeg.redispatch"):
                 combined, p, sw = handle.build(max(new_prefix or 0, w_need),
                                                new_sw if n else None)
             return self._fetch(handle._replace(
                 combined=combined, prefix=p, seg_words=sw, build=None))
-        self._note_prefix_usage(int(used.max()))
+        self._note_prefix_usage(int(used.max()), handle.prefix_bound)
         if n:
             self._note_seg_usage(int(segbits.max()))
         return arr, handle

@@ -1647,3 +1647,51 @@ def test_program_spans_and_kernels_share_one_clock(cuda_device, span, state):
                 and e.correlation_id() in kernel_start]
     assert len(launched) > 10
     assert min(launched) >= lo
+
+
+def _pan_chunk(dev, h=1080, w=1920, step=(8, 48), frames=8, seed=5):
+    """One chunk of the benchmark's pan content on ``dev``: a texture of
+    uniform noise smoothed by six 3x3 box passes, cropped along a pan of
+    ``step`` px a frame, and grain of 1 level in every frame."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    tex = torch.randint(0, 256, (h + step[0] * (frames - 1),
+                                 w + step[1] * (frames - 1), 3),
+                        generator=g, device=dev,
+                        dtype=torch.uint8).to(torch.float32)
+    for _ in range(6):
+        tex = sum(torch.roll(tex, (dy, dx), dims=(0, 1))
+                  for dy in (-1, 0, 1) for dx in (-1, 0, 1)) / 9.0
+    clip = torch.stack([tex[step[0] * i:step[0] * i + h,
+                            step[1] * i:step[1] * i + w]
+                        for i in range(frames)])
+    clip += torch.randn(clip.shape, generator=g, device=dev)
+    return clip.round_().clamp_(0, 255).to(torch.uint8)
+
+
+@pytest.mark.cuda
+def test_a_1080p_chunk_codes_once_at_the_learned_window(cuda_device):
+    """A 1080p chunk of panned, grainy content, full search ±64: its I
+    frame needs more than the prefix cap, so the first dispatch (no usage
+    known) is coded twice; the two after it start at the learned window,
+    record no redispatch, launch half the first one's kernels and give
+    its bytes."""
+    from torch.profiler import ProfilerActivity, profile
+    from flutpu_torch.codec.ops import transform_kernels as T
+    wrappers = (M.motion_search_mc, M.chroma_mc, T.block_dct, T.block_idct,
+                K.pack_segments)
+    frames = _pan_chunk(cuda_device)
+    enc = FvcEncoder(85, motion=True, search_range=64, device=cuda_device)
+    coded = []
+    for _ in range(3):
+        before = sum(k.launches for k in wrappers)
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            chunk = enc.encode_chunk(frames)
+        redispatches = sum(e.name() == "flu.jpeg.redispatch"
+                           for e in prof.profiler.kineto_results.events())
+        coded.append((chunk, redispatches,
+                      sum(k.launches for k in wrappers) - before))
+    (warm, r0, n0), (a, r1, n1), (b, r2, n2) = coded
+    assert (r0, r1, r2) == (1, 0, 0)
+    assert a == b == warm
+    assert n0 == 2 * n1 == 2 * n2 > 0

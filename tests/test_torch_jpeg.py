@@ -23,7 +23,7 @@ from flutpu_torch.codec.decode import (coefs_to_rgb, decode_scan_to_coefs,
 from flutpu_torch.codec.jpeg import JpegEncoder, _planes_front_end
 from flutpu_torch.codec.ops.testsrc import gradient_ball_planes
 from flutpu_torch.core import make, parse_launch
-from torch_helpers import pull_all
+from torch_helpers import capped_prefix, profiled_spans, pull_all
 
 torch.set_num_threads(1)
 
@@ -99,6 +99,22 @@ def test_prefix_overflow_redispatches_at_reported_size():
     frames = _frames("noise", 48, 32, n=2)
     assert te.encode_gop(frames) == je.encode_gop(frames)
     assert te._prefix_window > 16
+
+
+def test_encode_gop_starts_at_the_learned_window(monkeypatch):
+    """With the prefix cap below the GOP's usage only the first dispatch
+    overflows; the next starts at the learned window and codes once."""
+    je, te = _pair()
+    starts = capped_prefix(monkeypatch, te, 64)
+    frames = _frames("noise", 48, 32, n=2)
+    first, spans = profiled_spans(lambda: te.encode_gop(frames))
+    assert [s[0] for s in spans] == ["jpeg.copy", "jpeg.fetch_wait",
+                                     "jpeg.redispatch", "jpeg.copy",
+                                     "jpeg.fetch_wait"]
+    again, spans = profiled_spans(lambda: te.encode_gop(frames))
+    assert [s[0] for s in spans] == ["jpeg.copy", "jpeg.fetch_wait"]
+    assert starts[0] == 64 < starts[1]
+    assert first == again == je.encode_gop(frames)
 
 
 def test_beyond_theoretical_bound_raises():

@@ -384,3 +384,36 @@ def planar_drift(frames, qy, qc, stripes: int = 1, planar: bool = True,
                                  planar=planar, **kw)
     return sum(int((torch.cat(want, dim=-2)[0] != got[i]).sum())
                for i, rec in enumerate(recs) for want, got in zip(rec, dec))
+
+
+def capped_prefix(monkeypatch, coder, cap: int) -> list:
+    """Patch ``coder``'s (a ``JpegEncoder``) prefix cap to ``cap`` words a
+    frame → the list that collects the window each dispatch starts at
+    (an overflow's redispatch is not a start)."""
+    starts = []
+    run = coder._run_sized
+
+    def spy(*args):
+        out = run(*args)
+        starts.append(out[1])
+        return out
+
+    monkeypatch.setattr(coder, "_prefix_cap", lambda layout: cap)
+    monkeypatch.setattr(coder, "_run_sized", spy)
+    return starts
+
+
+def profiled_spans(fn):
+    """``fn()`` under a CPU profiler → (its result, [(program span name
+    less the prefix, start ns, end ns)] by start, an enclosing span
+    first)."""
+    from torch.profiler import ProfilerActivity, profile
+    from flutpu_torch.core import log
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        out = fn()
+    spans = sorted(((e.name()[len(log.SPAN_PREFIX):], e.start_ns(),
+                     e.end_ns())
+                    for e in prof.profiler.kineto_results.events()
+                    if e.name().startswith(log.SPAN_PREFIX)),
+                   key=lambda s: (s[1], -s[2]))
+    return out, spans
