@@ -6,6 +6,7 @@ into the program."""
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from collections import deque
 
@@ -23,15 +24,17 @@ ENTRIES = {
 class ClosedLoop:
     """``enc``'s dispatch/finalize over ``pool`` (P, F, H, W, 3), C chunks
     a dispatch (dispatch d takes pool chunks d*C .. d*C + C - 1, modulo
-    P, a multiple of C). The outputs of the pool chunks in ``keep`` are kept for the check.
+    P, a multiple of C), with ``mesh`` (a ``ChunkMesh``; the entry
+    ``chunks`` only) passed to each dispatch where one is given. The
+    outputs of the pool chunks in ``keep`` are kept for the check.
     Per dispatch it records its spans in ns: ``source`` (slicing the
-    pool), ``dispatch``, ``wait`` (until an event recorded when the
-    dispatch returned has completed: its device work and its copy back),
-    ``finalize``; and per chunk its latency, from the dispatch call to
-    the return of its finalize."""
+    pool), ``dispatch``, ``wait`` (until the events recorded on every
+    card when the dispatch returned have completed: its device work and
+    its copies back), ``finalize``; and per chunk its latency, from the
+    dispatch call to the return of its finalize."""
 
     def __init__(self, enc, pool, batch: int, in_flight: int, entry: str,
-                 keep=()):
+                 keep=(), mesh=None):
         self.enc, self.pool, self.batch = enc, pool, batch
         self.in_flight = in_flight
         self.single = entry == "chunk"
@@ -40,6 +43,13 @@ class ClosedLoop:
         names = ENTRIES[entry]
         self.dispatch_fn = getattr(enc, names[0])
         self.finalize_fn = getattr(enc, names[1])
+        self.cards = [pool.device]
+        if mesh is not None:
+            if self.single:
+                raise ValueError("entry 'chunk' takes no mesh")
+            self.dispatch_fn = functools.partial(self.dispatch_fn,
+                                                 mesh=mesh)
+            self.cards = list(dict.fromkeys(mesh.devices))
         self.keep = set(keep)
         self.n = 0
         self.traced = False
@@ -54,14 +64,16 @@ class ClosedLoop:
             yield
             rec[name] = time.perf_counter_ns() - t0
 
-    def _event(self):
+    def _events(self):
+        """An event recorded on each card's current stream (none on the
+        CPU)."""
         import torch
-        dev = self.pool.device
-        if dev.type != "cuda":
-            return None
-        ev = torch.cuda.Event()
-        ev.record(torch.cuda.current_stream(dev))
-        return ev
+        evs = []
+        for dev in self.cards:
+            if dev.type == "cuda":
+                evs.append(torch.cuda.Event())
+                evs[-1].record(torch.cuda.current_stream(dev))
+        return evs
 
     def run(self, seconds: float = None, dispatches: int = None) -> dict:
         """Dispatch until ``seconds`` have passed and every pool chunk was
@@ -76,9 +88,9 @@ class ClosedLoop:
                    kept={})
 
         def drain():
-            idx, handle, ev, start, rec = pending.popleft()
+            idx, handle, evs, start, rec = pending.popleft()
             with self._span("wait", rec):
-                if ev is not None:
+                for ev in evs:
                     ev.synchronize()
             with self._span("finalize", rec):
                 chunks = self.finalize_fn(handle)
@@ -109,7 +121,7 @@ class ClosedLoop:
                     self.pool[first:first + self.batch]
             with self._span("dispatch", rec):
                 handle = self.dispatch_fn(frames)
-            pending.append((idx, handle, self._event(), start, rec))
+            pending.append((idx, handle, self._events(), start, rec))
             self.n += 1
             made += 1
             if len(pending) == self.in_flight:

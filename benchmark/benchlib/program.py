@@ -29,8 +29,8 @@ OUTSIDE = "outside the program"
 
 
 def collect(events) -> dict:
-    """A profiler's kineto events → ``device`` [(name, start, end)] (the
-    kernels, copies and sets), ``spans`` (the ``bench.*`` host spans),
+    """A profiler's kineto events → ``device`` [(name, start, end, card)]
+    (the kernels, copies and sets), ``spans`` (the ``bench.*`` host spans),
     ``program`` (the ``flu.*`` host spans) and ``other`` {name: count}
     of the CUDA-typed activities left out: ``trace.profiled``'s record
     with the program's spans beside it. A program span mirrored onto the
@@ -44,7 +44,8 @@ def collect(events) -> dict:
                         or name in trace.NOT_WORK):
             other[name] += 1
         elif on_card:
-            device.append((name, e.start_ns(), e.end_ns()))
+            device.append((name, e.start_ns(), e.end_ns(),
+                           e.device_index()))
         elif name.startswith(trace.SPAN):
             spans.append((name[len(trace.SPAN):], e.start_ns(), e.end_ns()))
         elif name.startswith(PREFIX):
@@ -187,15 +188,16 @@ def _innermost(spans, labels, lo: int, hi: int):
 
 
 def idle_by_span(run):
-    """The device's idle ns in the window, each cut by the innermost
-    program span open at that time (``OUTSIDE`` where none is; a phase
-    that a redispatch holds as ``redispatch/<phase>``) → {name: ns}."""
+    """The device's idle ns in the window (no card busy), each cut by the
+    innermost program span open at that time (``OUTSIDE`` where none is;
+    a phase that a redispatch holds as ``redispatch/<phase>``) → {name:
+    ns}."""
     dev, spans = readers.window_device(run), window_spans(run)
     if not dev or spans is None:
         return None
     lo, hi = run.window_ns
     idle, t = [], lo
-    for a, b in trace.merged([(a, b) for _, a, b in dev]) + [[hi, hi]]:
+    for a, b in trace.merged([(a, b) for _, a, b, _ in dev]) + [[hi, hi]]:
         if a > t:
             idle.append((t, a))
         t = max(t, b)

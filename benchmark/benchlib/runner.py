@@ -7,6 +7,7 @@ from __future__ import annotations
 import random
 import sys
 import time
+from collections import Counter
 
 from . import readers, ref_fvc, trace
 from .loop import ClosedLoop
@@ -19,12 +20,15 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "flutpu")
 class Run:
     """What a metric's reader reads: the cell, its configuration and
     traffic, the window's records (``records``: see ``ClosedLoop.run``),
-    ``setup_s``, ``window_s``, ``batch``, and in a traced run ``trace``
-    ({"device", "spans"}: see ``trace.profiled``) with ``window_ns``."""
+    ``setup_s``, ``window_s``, ``batch``, ``shards`` (the chunk mesh's
+    shards, over which a dispatch's C chunks split; 1 without a mesh),
+    ``cards`` (the device indices of the cards the run uses), and in a
+    traced run ``trace`` ({"device", "spans"}: see ``trace.profiled``)
+    with ``window_ns``."""
 
-    def __init__(self, cell, config, traffic, batch):
+    def __init__(self, cell, config, traffic, batch, shards=1, cards=(0,)):
         self.cell, self.config, self.traffic = cell, config, traffic
-        self.batch = batch
+        self.batch, self.shards, self.cards = batch, shards, list(cards)
         self.records = None
         self.setup_s = self.window_s = None
         self.trace = None
@@ -61,10 +65,11 @@ TRAFFIC_KEYS = {"name", "frames", "content", "texture_box_passes",
                 "assumed", "about"}
 
 
-def validate(config: dict, traffic: dict, batch: int):
+def validate(config: dict, traffic: dict, batch: int, chips: int = 1):
     """Refuse a configuration or traffic that states what this harness
-    would not run: an unknown key, or a codec setting that neither the
-    program's call nor the reference takes."""
+    would not run: an unknown key, a codec setting that neither the
+    program's call nor the reference takes, or a cell on several cards
+    whose dispatch does not split evenly over them."""
     for what, d, keys in (("configuration", config, CONFIG_KEYS),
                           ("traffic", traffic, TRAFFIC_KEYS)):
         unknown = sorted(set(d) - keys)
@@ -77,14 +82,31 @@ def validate(config: dict, traffic: dict, batch: int):
                              f"{config.get(k)!r}; the harness codes {v!r}")
     if config["search"] not in ("full", "hier"):
         raise ValueError(f"search {config['search']!r}")
-    if config["pool_chunks"] % batch:
+    if pool_size(config, chips) % batch:
         raise ValueError("pool_chunks must be a multiple of the chunks a "
                          "dispatch, so each pool chunk keeps its position")
+    if chips > 1 and (traffic["entry"] != "chunks" or batch % chips):
+        raise ValueError(f"a cell on {chips} cards dispatches through "
+                         "entry 'chunks', its chunks a dispatch a multiple "
+                         "of the cards")
 
 
 def batch_of(config: dict, traffic: dict) -> int:
     """Chunks a dispatch: the traffic's, else the configuration's."""
     return traffic["chunks_per_dispatch"] or config["chunks_per_dispatch"]
+
+
+def pool_size(config: dict, chips: int) -> int:
+    """Pool chunks: the configuration's for each of the cell's cards."""
+    return config["pool_chunks"] * chips
+
+
+def mesh_devices(dev, chips: int):
+    """The devices of a cell's chunk mesh: cards 0 .. chips - 1 (the CPU
+    stands in for each card)."""
+    import torch
+    return [torch.device("cuda", i) if dev.type == "cuda" else dev
+            for i in range(chips)]
 
 
 def sample(seed: int, pool: int, n: int, batch: int = 1):
@@ -112,13 +134,14 @@ def make_encoder(config: dict, device):
                       segmented=config["segmented"], device=device)
 
 
-def make_pool(config: dict, traffic: dict, seed: int, device):
+def make_pool(config: dict, traffic: dict, seed: int, device,
+              chips: int = 1):
     h, w = config["height"], config["width"]
 
     def scale(v):
         return [s * h // 1080 for s in v]
     return SOURCES[traffic["frames"]](
-        config["pool_chunks"], config["chunk_frames"], h, w,
+        pool_size(config, chips), config["chunk_frames"], h, w,
         scale(traffic["pan_per_1080_rows"]), traffic["texture_box_passes"],
         seed, device, scale(traffic["object_size_per_1080_rows"]),
         [scale(v) for v in traffic["object_speeds_per_1080_rows"]],
@@ -133,39 +156,81 @@ def reference(config: dict, frames, dtype=None) -> bytes:
                                 dtype or torch.float32)
 
 
+def _synchronize(cards):
+    import torch
+    for d in cards:
+        if d.type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def prepare(manifest, name: str, seed: int, device, marks=None):
+    """Cell ``name``'s set-up: the pool made from the seed on ``device``
+    (a cell on several chips then keeps it in host memory, as
+    ``cudahype`` keeps a batch for a mesh of several cards, so that the
+    program's mesh entry uploads each shard's block to its own card),
+    the encoder there, the chunks the check samples and the closed loop
+    (a cell on several chips dispatches over a ``ChunkMesh`` of
+    ``mesh_devices``), which has made one warm pass over the pool with
+    every card then synchronized. ``marks`` gets (step,
+    ``perf_counter``) after each step. Returns (the ``Run``, the loop,
+    the pool, the sampled pool chunks)."""
+    import torch
+    marks = [] if marks is None else marks
+    cell = manifest.cell(name)
+    config = manifest.config(cell["config"])
+    traffic = manifest.traffic(cell["traffic"])
+    batch = batch_of(config, traffic)
+    chips = cell["chips"]
+    validate(config, traffic, batch, chips)
+    dev = torch.device(device)
+    mesh = None
+    if chips > 1:
+        from flutpu_torch.parallel.mesh import ChunkMesh
+        mesh = ChunkMesh(mesh_devices(dev, chips))
+    n_pool = pool_size(config, chips)
+
+    marks.append(("start to here", time.perf_counter()))
+    pool = make_pool(config, traffic, seed, dev, chips)
+    _synchronize([dev])
+    if chips > 1:
+        pool = pool.cpu()
+    marks.append(("pool", time.perf_counter()))
+    enc = make_encoder(config, dev)
+    marks.append(("encoder", time.perf_counter()))
+    keep = sample(seed, n_pool, traffic["sample_chunks"], batch)
+    loop = ClosedLoop(enc, pool, batch, traffic["in_flight"],
+                      traffic["entry"], keep, mesh)
+    # warm: every pool chunk once, in the window's loop shape (the
+    # encoder's buffer sizes adapt to them)
+    loop.run(dispatches=max(-(-n_pool // batch), traffic["in_flight"] + 1))
+    _synchronize(loop.cards)
+    marks.append(("warm pass", time.perf_counter()))
+    run = Run(cell, config, traffic, batch, mesh.size if mesh else 1,
+              [d.index or 0 for d in loop.cards])
+    return run, loop, pool, keep
+
+
+def free(cards):
+    """Release the cached memory of every card (the program's state
+    already dropped), before the reference runs."""
+    import torch
+    for d in cards:
+        if d.type == "cuda":
+            with torch.cuda.device(d):
+                torch.cuda.empty_cache()
+
+
 def run_cell(manifest, name: str, seed: int, seconds: float, traced: bool,
              device="cuda", t_start: float = None):
     """Run cell ``name`` → the result dict (``correct``, ``attempted``,
     ``failed``, ``metrics``, ``device``, [``breakdown``], ``checks``)."""
     import torch
     t_start = time.perf_counter() if t_start is None else t_start
-    cell = manifest.cell(name)
-    config = manifest.config(cell["config"])
-    traffic = manifest.traffic(cell["traffic"])
-    batch = batch_of(config, traffic)
-    validate(config, traffic, batch)
+    marks = []
+    run, loop, pool, keep = prepare(manifest, name, seed, device, marks)
+    config, chips, cards = run.config, run.cell["chips"], loop.cards
     dev = torch.device(device)
-    run = Run(cell, config, traffic, batch)
-
-    marks = [("start to here", time.perf_counter())]
-    pool = make_pool(config, traffic, seed, dev)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    marks.append(("pool", time.perf_counter()))
-    enc = make_encoder(config, dev)
-    marks.append(("encoder", time.perf_counter()))
-    keep = sample(seed, config["pool_chunks"], traffic["sample_chunks"],
-                  batch)
-    loop = ClosedLoop(enc, pool, batch, traffic["in_flight"],
-                      traffic["entry"], keep)
-    # warm: every pool chunk once, in the window's loop shape (the
-    # encoder's buffer sizes adapt to them)
-    loop.run(dispatches=max(-(-config["pool_chunks"] // batch),
-                            traffic["in_flight"] + 1))
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    run.setup_s = time.perf_counter() - t_start
-    marks.append(("warm pass", time.perf_counter()))
+    run.setup_s = marks[-1][1] - t_start
     print("set-up s: " + ", ".join(
         f"{k} {b - a:.3f}" for (k, b), (_, a)
         in zip(marks, [("", t_start)] + marks[:-1])), file=sys.stderr)
@@ -178,7 +243,9 @@ def run_cell(manifest, name: str, seed: int, seconds: float, traced: bool,
             with record_function(trace.SPAN + "window"):
                 records = loop.run(seconds=seconds)
             t_read = time.perf_counter()
-        print(f"trace: {len(got['device'])} device operations, read in "
+        per_card = Counter(e[3] for e in got["device"])
+        print(f"trace: {len(got['device'])} device operations (by card "
+              f"{dict(sorted(per_card.items()))}), read in "
               f"{time.perf_counter() - t_read:.1f} s", file=sys.stderr)
         run.trace = got
         win = [s for s in got["spans"] if s[0] == "window"]
@@ -195,14 +262,14 @@ def run_cell(manifest, name: str, seed: int, seconds: float, traced: bool,
         + f"; {records['chunks']} chunks in {run.window_s:.3f} s"
         + (f"; other CUDA activities {run.trace['other']}" if traced else ""),
         file=sys.stderr)
-    peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else 0
+    peaks = [torch.cuda.max_memory_allocated(d) if d.type == "cuda" else 0
+             for d in cards]
 
-    # the check: the program's state freed, the reference on the kept
-    # pool chunks' frames
-    frames = {i: pool[i].clone() for i in keep}
-    del loop, enc, pool
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
+    # the check: the program's state freed on every card, the reference
+    # on the kept pool chunks' frames
+    frames = {i: pool[i].to(dev, copy=True) for i in keep}
+    del loop, pool
+    free(cards)
     t_ref = time.perf_counter()
     want = {i: reference(config, frames[i]) for i in keep}
     print(f"reference: {len(keep)} chunk(s) in "
@@ -226,17 +293,21 @@ def run_cell(manifest, name: str, seed: int, seconds: float, traced: bool,
     info = {"platform": "gpu" if dev.type == "cuda" else dev.type,
             "kind": (torch.cuda.get_device_name(dev) if dev.type == "cuda"
                      else "cpu"),
-            "count": cell["chips"], "memory_peak_bytes": peak}
+            "count": chips, "memory_peak_bytes": max(peaks),
+            "memory_peak_bytes_per_card": peaks}
     result = {"correct": bool(correct), "attempted": records["chunks"],
               "failed": differing, "metrics": metrics, "device": info}
     if traced and run.window_ns is not None:
         lo, hi = run.window_ns
         dev_ev = readers.window_device(run)
-        info["busy_s"] = trace.union_ns([(a, b) for _, a, b in dev_ev]) / 1e9
+        busy = [b / 1e9 for b in readers.card_busy_ns(run)
+                or [0] * len(run.cards)]
+        info["busy_s"] = sum(busy) / len(busy)
+        info["busy_s_per_card"] = busy
         info["window_s"] = (hi - lo) / 1e9
         ops = sorted(trace.device_ops(dev_ev).items(), key=lambda kv: -kv[1])
         gaps = sorted(trace.idle_gaps(dev_ev, run.trace["spans"],
-                                      run.window_ns).items(),
+                                      run.window_ns, run.cards).items(),
                       key=lambda kv: -kv[1])
         result["breakdown"] = {
             "device_ops": [[k, v / 1e9] for k, v in ops[:10]],

@@ -21,7 +21,8 @@ NOT_WORK = ("Event Sync", "Stream Sync", "Context Sync", "Stream Wait Event",
 @contextlib.contextmanager
 def profiled(out: dict):
     """Trace CPU and CUDA activity in the block; on exit ``out`` holds
-    ``device`` [(name, start_ns, end_ns)] (kernels, copies, sets) and
+    ``device`` [(name, start_ns, end_ns, card)] (kernels, copies, sets;
+    ``card`` the CUDA device index) and
     ``spans`` [(name, start_ns, end_ns)] of the ``bench.*`` annotations,
     on the profiler's one clock, and ``other`` {name: count} of the
     CUDA-typed activities left out."""
@@ -36,7 +37,7 @@ def profiled(out: dict):
         if on_card and (name.startswith(SPAN) or name in NOT_WORK):
             other[name] += 1
         elif on_card:
-            device.append((name, e.start_ns(), e.end_ns()))
+            device.append((name, e.start_ns(), e.end_ns(), e.device_index()))
         elif name.startswith(SPAN):
             spans.append((name[len(SPAN):], e.start_ns(), e.end_ns()))
     out.update(device=device, spans=spans, other=dict(other))
@@ -58,25 +59,36 @@ def merged(intervals):
     return out
 
 
-def idle_gaps(device, spans, window):
-    """Idle time of the device inside ``window`` (start, end), summed by
-    the benchmark's host span open at each gap's middle (the host's
-    spans follow one another) → {span name: ns}."""
+def by_card(device, cards):
+    """Device intervals by card → {card: [(start, end)]}, with an empty
+    list for each of ``cards`` that ran nothing."""
+    out = {c: [] for c in cards}
+    for _, a, b, c in device:
+        out.setdefault(c, []).append((a, b))
+    return out
+
+
+def idle_gaps(device, spans, window, cards):
+    """Idle time of each card inside ``window`` (start, end), summed over
+    the cards (card-ns) by the benchmark's host span open at each gap's
+    middle (the host's spans follow one another) → {span name: ns}."""
     lo, hi = window
-    busy = [(max(a, lo), min(b, hi)) for _, a, b in device
-            if b > lo and a < hi]
     inner = sorted((s for s in spans if s[0] != "window"),
                    key=lambda s: s[1])
     starts = [s[1] for s in inner]
-    out, t = defaultdict(int), lo
-    for a, b in merged(busy) + [[hi, hi]]:
-        if a > t:
-            mid = (t + a) // 2
-            k = bisect.bisect_right(starts, mid) - 1
-            name = inner[k][0] if k >= 0 and inner[k][2] >= mid \
-                else "no span"
-            out[name] += a - t
-        t = max(t, b)
+    out = defaultdict(int)
+    for card in by_card(device, cards).values():
+        busy = [(max(a, lo), min(b, hi)) for a, b in card
+                if b > lo and a < hi]
+        t = lo
+        for a, b in merged(busy) + [[hi, hi]]:
+            if a > t:
+                mid = (t + a) // 2
+                k = bisect.bisect_right(starts, mid) - 1
+                name = inner[k][0] if k >= 0 and inner[k][2] >= mid \
+                    else "no span"
+                out[name] += a - t
+            t = max(t, b)
     return dict(out)
 
 
@@ -93,8 +105,9 @@ def short_name(name: str) -> str:
 
 
 def device_ops(device):
-    """Device time by operation (short) name → {name: ns}."""
+    """Device time by operation (short) name, summed over the cards →
+    {name: ns}."""
     out = defaultdict(int)
-    for name, a, b in device:
+    for name, a, b, _ in device:
         out[short_name(name)] += b - a
     return dict(out)

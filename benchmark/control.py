@@ -27,19 +27,19 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     import torch
     from benchlib.manifest import Manifest
-    from benchlib.runner import (batch_of, make_pool, reference,
-                                  sample, validate)
+    from benchlib.runner import (batch_of, make_pool, pool_size,
+                                  reference, sample, validate)
     manifest = Manifest()
     cell = manifest.cell(args.workload)
     config = manifest.config(cell["config"])
     traffic = manifest.traffic(cell["traffic"])
-    batch = batch_of(config, traffic)
-    validate(config, traffic, batch)
+    batch, chips = batch_of(config, traffic), cell["chips"]
+    validate(config, traffic, batch, chips)
     dev = torch.device(args.device)
     for seed in (int(s) for s in args.seeds.split(",")):
-        pool = make_pool(config, traffic, seed, dev)
-        keep = sample(seed, config["pool_chunks"], traffic["sample_chunks"],
-                      batch)
+        pool = make_pool(config, traffic, seed, dev, chips)
+        keep = sample(seed, pool_size(config, chips),
+                      traffic["sample_chunks"], batch)
         frames = {i: pool[i].clone() for i in keep}
         del pool
         differing, secs = 0, {"float32": 0.0, "bfloat16": 0.0}

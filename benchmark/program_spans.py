@@ -36,30 +36,13 @@ REDUCTIONS = ("redispatches_per_dispatch", "fetch_wait_ms_per_chunk",
 def traced_run(manifest, name: str, seed: int, seconds: float, device):
     """One traced run of cell ``name`` → (``runner.Run`` whose ``trace``
     holds ``program``, whether the kept chunks equal the reference's)."""
-    import torch
     from torch.profiler import ProfilerActivity, profile, record_function
     from benchlib import program, runner, trace
-    from benchlib.loop import ClosedLoop
-    cell = manifest.cell(name)
-    config = manifest.config(cell["config"])
-    traffic = manifest.traffic(cell["traffic"])
-    batch = runner.batch_of(config, traffic)
-    runner.validate(config, traffic, batch)
-    dev = torch.device(device)
-    run = runner.Run(cell, config, traffic, batch)
-    pool = runner.make_pool(config, traffic, seed, dev)
-    enc = runner.make_encoder(config, dev)
-    keep = runner.sample(seed, config["pool_chunks"],
-                         traffic["sample_chunks"], batch)
-    loop = ClosedLoop(enc, pool, batch, traffic["in_flight"],
-                      traffic["entry"], keep)
-    loop.run(dispatches=max(-(-config["pool_chunks"] // batch),
-                            traffic["in_flight"] + 1))
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    run, loop, pool, keep = runner.prepare(manifest, name, seed, device)
+    cards = loop.cards
     loop.traced = True
     activities = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if dev.type == "cuda" else [])
+        [ProfilerActivity.CUDA] if cards[0].type == "cuda" else [])
     with profile(activities=activities) as prof:
         with record_function(trace.SPAN + "window"):
             run.records = loop.run(seconds=seconds)
@@ -67,11 +50,10 @@ def traced_run(manifest, name: str, seed: int, seconds: float, device):
     win = [s for s in run.trace["spans"] if s[0] == "window"]
     run.window_ns = (win[0][1], win[0][2]) if win else None
     run.window_s = (run.records["t1"] - run.records["t0"]) / 1e9
-    frames = {i: pool[i].clone() for i in keep}
-    del loop, enc, pool
-    if dev.type == "cuda":
-        torch.cuda.empty_cache()
-    want = {i: runner.reference(config, frames[i]) for i in keep}
+    frames = {i: pool[i].to(device, copy=True) for i in keep}
+    del loop, pool
+    runner.free(cards)
+    want = {i: runner.reference(run.config, frames[i]) for i in keep}
     outs = [(i, data) for i, kept in run.records["kept"].items()
             for data in kept]
     return run, bool(outs) and all(data == want[i] for i, data in outs)

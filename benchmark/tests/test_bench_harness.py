@@ -10,7 +10,7 @@ import sys
 
 import pytest
 
-from bench_helpers import CELLS, tiny_manifest
+from bench_helpers import BATCHED, CELLS, MESH_CELL, tiny_manifest
 from benchlib.runner import run_cell
 
 BENCH = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -37,8 +37,10 @@ def test_tiny_run_is_correct(tmp_path, cell, traced):
         assert set(v) == {"value", "unit"} and v["value"] > 0
     assert set(r["device"]) >= {"platform", "kind", "count",
                                 "memory_peak_bytes"}
+    assert r["device"]["count"] == m.cell(cell)["chips"]
+    assert r["device"]["memory_peak_bytes_per_card"] == [0]
     if traced:
-        assert {"busy_s", "window_s"} <= set(r["device"])
+        assert {"busy_s", "window_s", "busy_s_per_card"} <= set(r["device"])
         assert set(r["breakdown"]) == {"device_ops", "idle_gaps"}
     json.dumps(r)
 
@@ -82,9 +84,23 @@ def _answer_altered(monkeypatch):
     monkeypatch.setattr(fvc.FvcEncoder, "_build_chunk", broken)
 
 
+def _exchange_left_out(monkeypatch):
+    """The exchange between cards left out for one shard: the last
+    card's block of the dispatch never reaches it, and it codes the
+    first card's block in its place."""
+    from flutpu_torch.parallel import gop
+    real = gop.chunk_blocks
+
+    def broken(c, mesh, spatial):
+        blocks = real(c, mesh, spatial)
+        return blocks[:-1] + [(blocks[0][0], blocks[-1][1])]
+    monkeypatch.setattr(gop, "chunk_blocks", broken)
+
+
 FAULTS = {"state_unchanged": (_code_plane_unchanged, CELLS),
-          "half_batch": (_half_batch, CELLS[:2]),
-          "answer_altered": (_answer_altered, CELLS)}
+          "half_batch": (_half_batch, BATCHED),
+          "answer_altered": (_answer_altered, CELLS),
+          "exchange_left_out": (_exchange_left_out, [MESH_CELL])}
 
 
 @pytest.mark.parametrize("fault,cell", [(f, c) for f, (_, cells)
@@ -128,19 +144,85 @@ def test_the_sample_takes_each_half_of_a_dispatch(cell):
     """At the cell's own pool and batch, on 2,000 large seeds: one judged
     chunk from each half of a dispatch's positions (C = 1: any two)."""
     from benchlib.manifest import Manifest
-    from benchlib.runner import batch_of, sample
+    from benchlib.runner import batch_of, pool_size, sample
     m = Manifest()
     config = m.config(m.cell(cell)["config"])
     traffic = m.traffic(m.cell(cell)["traffic"])
     c = batch_of(config, traffic)
+    pool = pool_size(config, m.cell(cell)["chips"])
     seen = set()
     for seed in range(2 ** 31, 2 ** 31 + 2000):
-        keep = sample(seed, config["pool_chunks"], 2, c)
+        keep = sample(seed, pool, 2, c)
         assert len(set(keep)) == 2
         if c > 1:
             assert sorted(i % c < c // 2 for i in keep) == [False, True]
         seen.update(keep)
-    assert seen == set(range(config["pool_chunks"]))
+    assert seen == set(range(pool))
+
+
+def test_the_four_card_sample_takes_one_chunk_a_card():
+    """The four-card cell's own pool (its configuration's on each card)
+    and batch, its own sample size, on 2,000 large seeds: one judged
+    chunk from each card's block of a dispatch, every pool chunk judged
+    on some seed."""
+    from benchlib.manifest import Manifest
+    from benchlib.runner import batch_of, pool_size, sample
+    m = Manifest()
+    cell = m.cell(MESH_CELL)
+    config, traffic = m.config(cell["config"]), m.traffic(cell["traffic"])
+    c, cards = batch_of(config, traffic), cell["chips"]
+    pool = pool_size(config, cards)
+    assert (c, cards, pool) == (32, 4, 64)
+    assert traffic["sample_chunks"] == cards
+    seen = set()
+    for seed in range(2 ** 31, 2 ** 31 + 2000):
+        keep = sample(seed, pool, traffic["sample_chunks"], c)
+        assert sorted(i % c // (c // cards) for i in keep) == \
+            list(range(cards))
+        seen.update(keep)
+    assert seen == set(range(pool))
+
+
+@pytest.mark.parametrize("faulty", [False, True])
+@pytest.mark.parametrize("seed", [2 ** 31 + 5, 2 ** 32 + 7, 3100211907])
+def test_one_cards_fault_is_refused_at_the_cells_pool_and_batch(
+        tmp_path, monkeypatch, seed, faulty):
+    """The four-card cell's own pool, chunks a dispatch and sample over
+    four CPU slots (tiny frames): a fault in the last card's block alone
+    makes the check differ; without it the run is correct."""
+    from benchlib.manifest import Manifest
+    real = Manifest().config(Manifest().cell(MESH_CELL)["config"])
+    m = tiny_manifest(tmp_path, pool_chunks=real["pool_chunks"],
+                      chunks_per_dispatch=real["chunks_per_dispatch"],
+                      chunk_frames=2)
+    if faulty:
+        _exchange_left_out(monkeypatch)
+    r = run_cell(m, MESH_CELL, seed, 0.0, False, "cpu")
+    assert r["checks"]["chunks_compared"]["value"] >= 4
+    assert r["correct"] is not faulty
+    assert (r["checks"]["chunks_differing"]["value"] >= 1) is faulty
+
+
+@pytest.mark.parametrize("config,traffic,message", [
+    ({"pool_chunks": 48}, {"chunks_per_dispatch": 6},
+     "multiple of the cards"),
+    ({"pool_chunks": 15}, {"chunks_per_dispatch": 30},
+     "multiple of the cards"),
+    ({}, {"entry": "chunk", "chunks_per_dispatch": 1}, "entry 'chunks'")])
+def test_a_mesh_it_cannot_split_is_refused(config, traffic, message):
+    """A four-card cell whose dispatch does not split evenly over its
+    cards (its pool a whole number of dispatches), or goes through the
+    one-chunk entry, raises before any work; the cell as it stands
+    passes."""
+    from benchlib.manifest import Manifest
+    from benchlib.runner import batch_of, validate
+    m = Manifest()
+    cell = m.cell(MESH_CELL)
+    real, mix = m.config(cell["config"]), m.traffic(cell["traffic"])
+    validate(real, mix, batch_of(real, mix), 4)
+    config, mix = dict(real, **config), dict(mix, **traffic)
+    with pytest.raises(ValueError, match=message):
+        validate(config, mix, batch_of(config, mix), 4)
 
 
 @pytest.mark.parametrize("where,key,value", [

@@ -40,8 +40,8 @@ BENCH = [("window", 0, 100 * MS),
 #: busy 0-2, 20-40 and 55-99 ms; idle 2-20 (the first dispatch from its
 #: codec on, the second whole), 40-55 (the second wait, then finalize's
 #: host work) and 99-100 (no span)
-DEVICE = [("k", 0, 2 * MS), ("k", 20 * MS, 40 * MS),
-          ("k", 55 * MS, 99 * MS)]
+DEVICE = [("k", 0, 2 * MS, 0), ("k", 20 * MS, 40 * MS, 0),
+          ("k", 55 * MS, 99 * MS, 0)]
 
 
 def _run(spans=PROGRAM, traced=True):
@@ -80,7 +80,7 @@ def test_idle_by_the_innermost_span_open():
         "fvc.container": 1 * MS}
     # a gap inside the redispatch: its codec, not the redispatch
     run = _run()
-    run.trace["device"] = [("k", 0, 33 * MS), ("k", 35 * MS, 100 * MS)]
+    run.trace["device"] = [("k", 0, 33 * MS, 0), ("k", 35 * MS, 100 * MS, 0)]
     assert program.idle_by_span(run) == {"redispatch/fvc.codec": 2 * MS}
 
 
@@ -107,7 +107,8 @@ def _event(name, on_card, a, b):
     from torch.autograd import DeviceType
     kind = DeviceType.CUDA if on_card else DeviceType.CPU
     return SimpleNamespace(name=lambda: name, device_type=lambda: kind,
-                           start_ns=lambda: a, end_ns=lambda: b)
+                           start_ns=lambda: a, end_ns=lambda: b,
+                           device_index=lambda: 0 if on_card else -1)
 
 
 def test_collect_keeps_program_spans_off_the_device():
@@ -117,7 +118,7 @@ def test_collect_keeps_program_spans_off_the_device():
         _event("bench.dispatch", False, 0, 6),
         _event("bench.dispatch", True, 2, 4), _event("kernel", True, 2, 3),
         _event("Stream Sync", True, 3, 4), _event("aten::add", False, 1, 2)])
-    assert got == {"device": [("kernel", 2, 3)],
+    assert got == {"device": [("kernel", 2, 3, 0)],
                    "spans": [("dispatch", 0, 6)],
                    "program": [("fvc.codec", 1, 5)],
                    "other": {"flu.fvc.codec": 1, "bench.dispatch": 1,
@@ -157,5 +158,6 @@ def test_the_harness_trace_holds_no_program_span_on_the_card(card):
     with trace.profiled(got):
         enc.encode_chunk(frames)
     assert got["device"]
-    assert not [n for n, _, _ in got["device"] if n.startswith("flu.")]
+    assert not [e for e in got["device"] if e[0].startswith("flu.")]
+    assert {e[3] for e in got["device"]} == {card.index}
     assert not [n for n in got["other"] if n.startswith("flu.")]
