@@ -14,18 +14,15 @@ from torch.profiler import record_function
 
 from .trace import SPAN
 
-#: the program's entries per traffic ``entry``: (dispatch, finalize)
-ENTRIES = {
-    "chunks": ("encode_chunks_dispatch", "encode_chunks_finalize"),
-    "chunk": ("encode_chunk_dispatch", "encode_chunk_finalize"),
-}
-
 
 class ClosedLoop:
-    """``enc``'s dispatch/finalize over ``pool`` (P, F, H, W, 3), C chunks
-    a dispatch (dispatch d takes pool chunks d*C .. d*C + C - 1, modulo
-    P, a multiple of C), with ``mesh`` (a ``ChunkMesh``; the entry
-    ``chunks`` only) passed to each dispatch where one is given. The
+    """A program's entries ``(dispatch, finalize)`` (an adapter's
+    ``entries``: dispatch takes C chunks (C, F, H, W, 3) and returns a
+    handle, finalize takes the handle and returns each chunk's output,
+    in order) over ``pool`` (P, F, H, W, 3), C chunks a dispatch
+    (dispatch d takes pool chunks d*C .. d*C + C - 1, modulo P, a
+    multiple of C), on ``cards`` (the cell's devices), with ``mesh`` (a
+    ``ChunkMesh``) passed to each dispatch where one is given. The
     outputs of the pool chunks in ``keep`` are kept for the check.
     Per dispatch it records its spans in ns: ``source`` (slicing the
     pool), ``dispatch``, ``wait`` (until the events recorded on every
@@ -33,23 +30,15 @@ class ClosedLoop:
     its copies back), ``finalize``; and per chunk its latency, from the
     dispatch call to the return of its finalize."""
 
-    def __init__(self, enc, pool, batch: int, in_flight: int, entry: str,
+    def __init__(self, entries, pool, batch: int, in_flight: int, cards,
                  keep=(), mesh=None):
-        self.enc, self.pool, self.batch = enc, pool, batch
+        self.pool, self.batch = pool, batch
         self.in_flight = in_flight
-        self.single = entry == "chunk"
-        if self.single and batch != 1:
-            raise ValueError("entry 'chunk' dispatches one chunk at a time")
-        names = ENTRIES[entry]
-        self.dispatch_fn = getattr(enc, names[0])
-        self.finalize_fn = getattr(enc, names[1])
-        self.cards = [pool.device]
+        self.dispatch_fn, self.finalize_fn = entries
         if mesh is not None:
-            if self.single:
-                raise ValueError("entry 'chunk' takes no mesh")
             self.dispatch_fn = functools.partial(self.dispatch_fn,
                                                  mesh=mesh)
-            self.cards = list(dict.fromkeys(mesh.devices))
+        self.cards = list(cards)
         self.keep = set(keep)
         self.n = 0
         self.traced = False
@@ -77,10 +66,11 @@ class ClosedLoop:
 
     def run(self, seconds: float = None, dispatches: int = None) -> dict:
         """Dispatch until ``seconds`` have passed and every pool chunk was
-        dispatched once (or until ``dispatches`` were made), then drain. Returns the window's records: ``t0``/``t1`` ns
-        (the first dispatch call, the last finalize's return),
+        dispatched once (or until ``dispatches`` were made), then drain.
+        Returns the window's records: ``t0``/``t1`` ns (the first
+        dispatch call, the last finalize's return),
         ``dispatches`` [span dict], ``latency_ns`` per chunk, ``chunks``,
-        ``frames``, ``kept`` {pool index: [chunk bytes]}."""
+        ``frames``, ``kept`` {pool index: [chunk output]}."""
         p = self.pool.shape[0]
         f = self.pool.shape[1]
         pending = deque()
@@ -95,8 +85,6 @@ class ClosedLoop:
             with self._span("finalize", rec):
                 chunks = self.finalize_fn(handle)
             done = time.perf_counter_ns()
-            if self.single:
-                chunks = [chunks]
             for i, data in zip(idx, chunks):
                 out["latency_ns"].append(done - start)
                 if i in self.keep:
@@ -117,8 +105,7 @@ class ClosedLoop:
             first = (self.n * self.batch) % p
             idx = [(first + b) % p for b in range(self.batch)]
             with self._span("source", rec):
-                frames = self.pool[first] if self.single else \
-                    self.pool[first:first + self.batch]
+                frames = self.pool[first:first + self.batch]
             with self._span("dispatch", rec):
                 handle = self.dispatch_fn(frames)
             pending.append((idx, handle, self._events(), start, rec))

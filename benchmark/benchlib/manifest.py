@@ -1,6 +1,8 @@
 """``BENCHMARK.json`` and the files it names: a cell's configuration
-(``configs/<config>.json``), traffic (``traffic/<mix>.json``) and each
-metric's reader (``metrics/<metric>.py``), found by name."""
+(``configs/<config>.json``), traffic (``traffic/<mix>.json``), the
+adapter of the program that the configuration runs
+(``systems/<adapter>.py``) and each metric's reader
+(``metrics/<metric>.py``), found by name."""
 
 from __future__ import annotations
 
@@ -14,8 +16,8 @@ ROOT = os.path.dirname(BENCH_DIR)
 
 class Manifest:
     """``data``: BENCHMARK.json's content (default: the file at the root);
-    ``bench_dir``: where ``configs/``, ``traffic/`` and ``metrics/``
-    lie."""
+    ``bench_dir``: where ``configs/``, ``traffic/``, ``systems/`` and
+    ``metrics/`` lie."""
 
     def __init__(self, data: dict = None, bench_dir: str = BENCH_DIR):
         if data is None:
@@ -49,10 +51,33 @@ class Manifest:
 
     def reader(self, metric: str):
         """``metrics/<metric>.py``'s ``read(run)``."""
-        path = os.path.join(self.bench_dir, "metrics", metric + ".py")
+        return self._module("metrics", metric).read
+
+    def system(self, config: dict):
+        """The adapter that ``config`` names under ``"adapter"``:
+        ``systems/<adapter>.py`` as a module, which builds, drives and
+        checks the configuration's program (``KEYS``, ``MESH_ENTRIES``,
+        ``check``, ``make``, ``entries``, ``reference``: see
+        ``systems/fvc.py``). Raises ValueError, naming the file, where
+        the configuration names none or the file is not there."""
+        name = config.get("adapter")
+        where = os.path.join(self.bench_dir, "systems")
+        if not name:
+            raise ValueError(f"configuration {config.get('name')!r} names "
+                             "no adapter: give it \"adapter\" and the file "
+                             f"{where}/<adapter>.py")
+        if not os.path.isfile(os.path.join(where, name + ".py")):
+            raise ValueError(f"configuration {config.get('name')!r}: its "
+                             f"adapter's file {where}/{name}.py is not "
+                             "there")
+        return self._module("systems", name)
+
+    def _module(self, kind: str, name: str):
+        """``<kind>/<name>.py``, loaded anew."""
+        path = os.path.join(self.bench_dir, kind, name + ".py")
         spec = importlib.util.spec_from_file_location(
-            "benchmark_metric_" + metric.replace(".", "_").replace("-", "_"),
+            f"benchmark_{kind}_" + name.replace(".", "_").replace("-", "_"),
             path)
         mod = importlib.util.module_from_spec(spec)
         spec.loader.exec_module(mod)
-        return mod.read
+        return mod

@@ -1,13 +1,14 @@
 """The program's own spans in a traced run (``flutpu_torch/core/log.py``:
 ``flu.*``, recorded by the same profiler as the device's operations, so
-on one clock with them), and the reductions over them: the phases of the
-FVC encoder's dispatch and finalize per chunk, redispatches per
-dispatch, how much of the benchmark's ``bench.dispatch`` and
-``bench.finalize`` the phases account for, and the device's idle time by
-the innermost span open. A reduction reads ``run.trace["program"]``
-([(span name less the prefix, start ns, end ns)]) in the window and
-returns None where the run holds no program span there: an untraced run,
-or a program that records none."""
+on one clock with them; ``trace.profiled`` keeps them), and the
+reductions over them: the phases of the FVC encoder's dispatch and
+finalize per chunk, redispatches per dispatch, how much of the
+benchmark's ``bench.dispatch`` and ``bench.finalize`` the phases account
+for, and the device's idle time by the innermost span open. A
+reduction reads ``run.trace["program"]`` ([(span name less the prefix,
+start ns, end ns)]) in the window and returns None where the run holds
+no program span there: an untraced run, or a program that records
+none."""
 
 from __future__ import annotations
 
@@ -16,8 +17,6 @@ from collections import defaultdict
 
 from . import readers, trace
 
-#: prefix of the program's spans
-PREFIX = "flu."
 #: the phases inside the program's dispatch call, and inside its finalize
 DISPATCH = ("fvc.codec", "jpeg.pack", "jpeg.copy")
 FINALIZE = ("jpeg.fetch_wait", "jpeg.redispatch", "jpeg.compact",
@@ -26,32 +25,6 @@ FINALIZE = ("jpeg.fetch_wait", "jpeg.redispatch", "jpeg.compact",
 FINALIZE_HOST = ("jpeg.compact", "fvc.vectors", "fvc.container")
 REDISPATCH = "jpeg.redispatch"
 OUTSIDE = "outside the program"
-
-
-def collect(events) -> dict:
-    """A profiler's kineto events → ``device`` [(name, start, end, card)]
-    (the kernels, copies and sets), ``spans`` (the ``bench.*`` host spans),
-    ``program`` (the ``flu.*`` host spans) and ``other`` {name: count}
-    of the CUDA-typed activities left out: ``trace.profiled``'s record
-    with the program's spans beside it. A program span mirrored onto the
-    device would be counted in ``other``, never as device work."""
-    from torch.autograd import DeviceType
-    device, spans, program = [], [], []
-    other = defaultdict(int)
-    for e in events:
-        name, on_card = e.name(), e.device_type() == DeviceType.CUDA
-        if on_card and (name.startswith((trace.SPAN, PREFIX))
-                        or name in trace.NOT_WORK):
-            other[name] += 1
-        elif on_card:
-            device.append((name, e.start_ns(), e.end_ns(),
-                           e.device_index()))
-        elif name.startswith(trace.SPAN):
-            spans.append((name[len(trace.SPAN):], e.start_ns(), e.end_ns()))
-        elif name.startswith(PREFIX):
-            program.append((name[len(PREFIX):], e.start_ns(), e.end_ns()))
-    return dict(device=device, spans=spans, program=program,
-                other=dict(other))
 
 
 def window_spans(run):

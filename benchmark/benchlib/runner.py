@@ -9,8 +9,9 @@ import sys
 import time
 from collections import Counter
 
-from . import readers, ref_fvc, trace
+from . import readers, roofline, trace
 from .loop import ClosedLoop
+from .manifest import Manifest
 from .source import SOURCES
 
 #: top-level module names a run may not hold once its window has closed
@@ -22,14 +23,15 @@ class Run:
     traffic, the window's records (``records``: see ``ClosedLoop.run``),
     ``setup_s``, ``window_s``, ``batch``, ``shards`` (the chunk mesh's
     shards, over which a dispatch's C chunks split; 1 without a mesh),
-    ``cards`` (the device indices of the cards the run uses), and in a
-    traced run ``trace`` ({"device", "spans"}: see ``trace.profiled``)
-    with ``window_ns``."""
+    ``cards`` (the device indices of the cards the run uses), ``system``
+    (the configuration's adapter, ``systems/<adapter>.py``), and in a
+    traced run ``trace`` ({"device", "spans", "program"}: see
+    ``trace.profiled``) with ``window_ns``."""
 
     def __init__(self, cell, config, traffic, batch, shards=1, cards=(0,)):
         self.cell, self.config, self.traffic = cell, config, traffic
         self.batch, self.shards, self.cards = batch, shards, list(cards)
-        self.records = None
+        self.records = self.system = None
         self.setup_s = self.window_s = None
         self.trace = None
         self.window_ns = None
@@ -37,8 +39,8 @@ class Run:
     @property
     def coded(self):
         """The coded (rows, columns): whole 16x16 macroblocks."""
-        return (ref_fvc.pad16(self.config["height"]),
-                ref_fvc.pad16(self.config["width"]))
+        return tuple(-(-self.config[k] // roofline.MB) * roofline.MB
+                     for k in ("height", "width"))
 
 
 def loaded_forbidden():
@@ -48,47 +50,51 @@ def loaded_forbidden():
                   & set(FORBIDDEN))
 
 
-#: keys a configuration file may hold: what the run reads, and the
-#: description beside it
-CONFIG_KEYS = {"name", "source", "deployment", "system", "width", "height",
-               "chroma", "codec", "version", "quality", "motion", "search",
-               "search_range", "subpel", "bframes", "chunk_frames",
-               "chunks_per_dispatch", "pool_chunks", "engine", "segmented",
-               "precision", "guarantees", "documented", "assumed"}
-#: the one value of each codec key that the loop and the reference code
-CONFIG_FIXED = {"codec": "fvc", "version": 2, "chroma": "4:2:0",
-                "motion": True, "subpel": False, "bframes": 0}
+#: keys a configuration file may hold beside its adapter's ``KEYS``: what
+#: the harness reads, and the description beside it
+CONFIG_KEYS = {"name", "source", "deployment", "system", "adapter", "width",
+               "height", "chunk_frames", "chunks_per_dispatch",
+               "pool_chunks", "precision", "guarantees", "documented",
+               "assumed"}
 TRAFFIC_KEYS = {"name", "frames", "content", "texture_box_passes",
                 "pan_per_1080_rows", "object_size_per_1080_rows",
                 "object_speeds_per_1080_rows", "noise_sigma", "entry",
-                "chunks_per_dispatch", "in_flight", "sample_chunks",
+                "chunks_per_dispatch", "in_flight", "sample_chunks", "pool",
                 "assumed", "about"}
+#: where a traffic's ``pool`` may lie
+POOL_PLACES = ("device", "host")
 
 
-def validate(config: dict, traffic: dict, batch: int, chips: int = 1):
+def validate(config: dict, traffic: dict, batch: int, chips: int = 1,
+             manifest: Manifest = None):
     """Refuse a configuration or traffic that states what this harness
-    would not run: an unknown key, a codec setting that neither the
-    program's call nor the reference takes, or a cell on several cards
-    whose dispatch does not split evenly over them."""
-    for what, d, keys in (("configuration", config, CONFIG_KEYS),
+    would not run: a configuration without an adapter
+    (``manifest.system``; default: the benchmark's own ``systems/``), an
+    unknown key, what the adapter's ``check`` refuses, a pool that is no
+    whole number of dispatches, or a cell on several cards whose dispatch
+    does not split evenly over them. Returns the adapter."""
+    system = (manifest or Manifest({})).system(config)
+    for what, d, keys in (("configuration", config,
+                           CONFIG_KEYS | system.KEYS),
                           ("traffic", traffic, TRAFFIC_KEYS)):
         unknown = sorted(set(d) - keys)
         if unknown:
             raise ValueError(f"{what} {d.get('name')!r}: keys {unknown} "
                              "are not read by the harness")
-    for k, v in CONFIG_FIXED.items():
-        if config.get(k) != v:
-            raise ValueError(f"configuration {config['name']!r}: {k} = "
-                             f"{config.get(k)!r}; the harness codes {v!r}")
-    if config["search"] not in ("full", "hier"):
-        raise ValueError(f"search {config['search']!r}")
+    if traffic.get("pool", "device") not in POOL_PLACES:
+        raise ValueError(f"traffic {traffic['name']!r}: pool "
+                         f"{traffic['pool']!r}, not one of {POOL_PLACES}")
+    system.check(config, traffic, batch)
     if pool_size(config, chips) % batch:
         raise ValueError("pool_chunks must be a multiple of the chunks a "
                          "dispatch, so each pool chunk keeps its position")
-    if chips > 1 and (traffic["entry"] != "chunks" or batch % chips):
+    if chips > 1 and (traffic["entry"] not in system.MESH_ENTRIES
+                      or batch % chips):
+        entries = " or ".join(map(repr, system.MESH_ENTRIES)) or "none"
         raise ValueError(f"a cell on {chips} cards dispatches through "
-                         "entry 'chunks', its chunks a dispatch a multiple "
-                         "of the cards")
+                         f"entry {entries}, its chunks a dispatch a "
+                         "multiple of the cards")
+    return system
 
 
 def batch_of(config: dict, traffic: dict) -> int:
@@ -99,6 +105,14 @@ def batch_of(config: dict, traffic: dict) -> int:
 def pool_size(config: dict, chips: int) -> int:
     """Pool chunks: the configuration's for each of the cell's cards."""
     return config["pool_chunks"] * chips
+
+
+def pool_on_host(traffic: dict, chips: int) -> bool:
+    """Whether the pool lies in (pageable) host memory: the traffic's
+    ``pool``; without one, on a cell of several cards, as ``cudahype``
+    keeps a batch that a mesh of several cards codes, and otherwise on
+    the device."""
+    return traffic.get("pool", "host" if chips > 1 else "device") == "host"
 
 
 def mesh_devices(dev, chips: int):
@@ -125,15 +139,6 @@ def sample(seed: int, pool: int, n: int, batch: int = 1):
     return sorted(keep)
 
 
-def make_encoder(config: dict, device):
-    from flutpu_torch.codec.fvc import FvcEncoder
-    return FvcEncoder(config["quality"], motion=config["motion"],
-                      search_range=config["search_range"],
-                      hier=config["search"] == "hier",
-                      engine=config["engine"],
-                      segmented=config["segmented"], device=device)
-
-
 def make_pool(config: dict, traffic: dict, seed: int, device,
               chips: int = 1):
     h, w = config["height"], config["width"]
@@ -148,14 +153,6 @@ def make_pool(config: dict, traffic: dict, seed: int, device,
         traffic["noise_sigma"])
 
 
-def reference(config: dict, frames, dtype=None) -> bytes:
-    import torch
-    return ref_fvc.encode_chunk(frames, config["quality"],
-                                config["search_range"],
-                                config["search"] == "hier",
-                                dtype or torch.float32)
-
-
 def _synchronize(cards):
     import torch
     for d in cards:
@@ -165,15 +162,15 @@ def _synchronize(cards):
 
 def prepare(manifest, name: str, seed: int, device, marks=None):
     """Cell ``name``'s set-up: the pool made from the seed on ``device``
-    (a cell on several chips then keeps it in host memory, as
-    ``cudahype`` keeps a batch for a mesh of several cards, so that the
-    program's mesh entry uploads each shard's block to its own card),
-    the encoder there, the chunks the check samples and the closed loop
-    (a cell on several chips dispatches over a ``ChunkMesh`` of
-    ``mesh_devices``), which has made one warm pass over the pool with
-    every card then synchronized. ``marks`` gets (step,
-    ``perf_counter``) after each step. Returns (the ``Run``, the loop,
-    the pool, the sampled pool chunks)."""
+    and then kept in host memory where ``pool_on_host`` says so (on
+    several cards, so that the program's mesh entry uploads each shard's
+    block to its own card), the program that the configuration's adapter
+    makes there, the chunks the check samples and the closed loop over
+    the adapter's entries and the cell's cards (``mesh_devices``; a cell
+    on several chips dispatches over a ``ChunkMesh`` of them), which has
+    made one warm pass over the pool with every card then synchronized.
+    ``marks`` gets (step, ``perf_counter``) after each step. Returns (the
+    ``Run``, the loop, the pool, the sampled pool chunks)."""
     import torch
     marks = [] if marks is None else marks
     cell = manifest.cell(name)
@@ -181,32 +178,35 @@ def prepare(manifest, name: str, seed: int, device, marks=None):
     traffic = manifest.traffic(cell["traffic"])
     batch = batch_of(config, traffic)
     chips = cell["chips"]
-    validate(config, traffic, batch, chips)
+    system = validate(config, traffic, batch, chips, manifest)
     dev = torch.device(device)
+    devices = mesh_devices(dev, chips)
+    cards = list(dict.fromkeys(devices))
     mesh = None
     if chips > 1:
         from flutpu_torch.parallel.mesh import ChunkMesh
-        mesh = ChunkMesh(mesh_devices(dev, chips))
+        mesh = ChunkMesh(devices)
     n_pool = pool_size(config, chips)
 
     marks.append(("start to here", time.perf_counter()))
     pool = make_pool(config, traffic, seed, dev, chips)
     _synchronize([dev])
-    if chips > 1:
+    if pool_on_host(traffic, chips):
         pool = pool.cpu()
     marks.append(("pool", time.perf_counter()))
-    enc = make_encoder(config, dev)
-    marks.append(("encoder", time.perf_counter()))
+    program = system.make(config, dev)
+    marks.append(("program", time.perf_counter()))
     keep = sample(seed, n_pool, traffic["sample_chunks"], batch)
-    loop = ClosedLoop(enc, pool, batch, traffic["in_flight"],
-                      traffic["entry"], keep, mesh)
+    loop = ClosedLoop(system.entries(program, traffic["entry"]), pool,
+                      batch, traffic["in_flight"], cards, keep, mesh)
     # warm: every pool chunk once, in the window's loop shape (the
-    # encoder's buffer sizes adapt to them)
+    # program's buffer sizes adapt to them)
     loop.run(dispatches=max(-(-n_pool // batch), traffic["in_flight"] + 1))
-    _synchronize(loop.cards)
+    _synchronize(cards)
     marks.append(("warm pass", time.perf_counter()))
     run = Run(cell, config, traffic, batch, mesh.size if mesh else 1,
-              [d.index or 0 for d in loop.cards])
+              [d.index or 0 for d in cards])
+    run.system = system
     return run, loop, pool, keep
 
 
@@ -218,6 +218,31 @@ def free(cards):
         if d.type == "cuda":
             with torch.cuda.device(d):
                 torch.cuda.empty_cache()
+
+
+def measure(run, loop, seconds: float, traced: bool) -> dict:
+    """The window: ``loop`` for ``seconds``, with ``traced`` under
+    ``trace.profiled`` (``run.trace``, ``run.window_ns``: the
+    ``bench.window`` span). Sets ``run.records`` and ``run.window_s``
+    and returns the records."""
+    if traced:
+        from torch.profiler import record_function
+        loop.traced = True
+        run.trace = {}
+        with trace.profiled(run.trace):
+            with record_function(trace.SPAN + "window"):
+                run.records = loop.run(seconds=seconds)
+            t_read = time.perf_counter()
+        per_card = Counter(e[3] for e in run.trace["device"])
+        print(f"trace: {len(run.trace['device'])} device operations (by "
+              f"card {dict(sorted(per_card.items()))}), read in "
+              f"{time.perf_counter() - t_read:.1f} s", file=sys.stderr)
+        win = [s for s in run.trace["spans"] if s[0] == "window"]
+        run.window_ns = (win[0][1], win[0][2]) if win else None
+    else:
+        run.records = loop.run(seconds=seconds)
+    run.window_s = (run.records["t1"] - run.records["t0"]) / 1e9
+    return run.records
 
 
 def run_cell(manifest, name: str, seed: int, seconds: float, traced: bool,
@@ -235,25 +260,7 @@ def run_cell(manifest, name: str, seed: int, seconds: float, traced: bool,
         f"{k} {b - a:.3f}" for (k, b), (_, a)
         in zip(marks, [("", t_start)] + marks[:-1])), file=sys.stderr)
 
-    if traced:
-        loop.traced = True
-        got = {}
-        with trace.profiled(got):
-            from torch.profiler import record_function
-            with record_function(trace.SPAN + "window"):
-                records = loop.run(seconds=seconds)
-            t_read = time.perf_counter()
-        per_card = Counter(e[3] for e in got["device"])
-        print(f"trace: {len(got['device'])} device operations (by card "
-              f"{dict(sorted(per_card.items()))}), read in "
-              f"{time.perf_counter() - t_read:.1f} s", file=sys.stderr)
-        run.trace = got
-        win = [s for s in got["spans"] if s[0] == "window"]
-        run.window_ns = (win[0][1], win[0][2]) if win else None
-    else:
-        records = loop.run(seconds=seconds)
-    run.records = records
-    run.window_s = (records["t1"] - records["t0"]) / 1e9
+    records = measure(run, loop, seconds, traced)
     spans = {k: sum(d.get(k, 0) for d in records["dispatches"])
              / len(records["dispatches"]) / 1e6
              for k in ("source", "dispatch", "wait", "finalize")}
@@ -271,7 +278,7 @@ def run_cell(manifest, name: str, seed: int, seconds: float, traced: bool,
     del loop, pool
     free(cards)
     t_ref = time.perf_counter()
-    want = {i: reference(config, frames[i]) for i in keep}
+    want = {i: run.system.reference(config, frames[i]) for i in keep}
     print(f"reference: {len(keep)} chunk(s) in "
           f"{time.perf_counter() - t_ref:.2f} s", file=sys.stderr)
     compared = differing = 0

@@ -1,7 +1,7 @@
 """The traced run: torch.profiler over the window, read into device
-intervals and the benchmark's host spans, and the reductions the
-per-layer readers and the breakdown share (interval union, idle gaps by
-the host span that was open)."""
+intervals, the benchmark's host spans and the program's, and the
+reductions the per-layer readers and the breakdown share (interval
+union, idle gaps by the host span that was open)."""
 
 from __future__ import annotations
 
@@ -11,6 +11,9 @@ from collections import defaultdict
 
 #: prefix of the benchmark's own host spans (torch.profiler annotations)
 SPAN = "bench."
+#: prefix of the program's own host spans (``flutpu_torch/core/log.py``:
+#: ``trace_span``)
+PROGRAM = "flu."
 #: CUDA-typed profiler activities that are no device work: the
 #: synchronizations (a host's wait, Kineto's names) and the annotations'
 #: shadows on the device (named as the host span)
@@ -22,25 +25,33 @@ NOT_WORK = ("Event Sync", "Stream Sync", "Context Sync", "Stream Wait Event",
 def profiled(out: dict):
     """Trace CPU and CUDA activity in the block; on exit ``out`` holds
     ``device`` [(name, start_ns, end_ns, card)] (kernels, copies, sets;
-    ``card`` the CUDA device index) and
-    ``spans`` [(name, start_ns, end_ns)] of the ``bench.*`` annotations,
-    on the profiler's one clock, and ``other`` {name: count} of the
-    CUDA-typed activities left out."""
+    ``card`` the CUDA device index),
+    ``spans`` [(name, start_ns, end_ns)] of the ``bench.*`` annotations
+    and ``program`` [(name, start_ns, end_ns)] of the program's
+    ``flu.*`` spans, each name less its prefix, on the profiler's one
+    clock, and ``other`` {name: count} of the CUDA-typed activities left
+    out (a span of either kind mirrored onto the device among them,
+    never device work)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         yield
-    device, spans, other = [], [], defaultdict(int)
+    device, spans, program = [], [], []
+    other = defaultdict(int)
     for e in prof.profiler.kineto_results.events():
         name, on_card = e.name(), e.device_type() == DeviceType.CUDA
-        if on_card and (name.startswith(SPAN) or name in NOT_WORK):
+        if on_card and (name.startswith((SPAN, PROGRAM))
+                        or name in NOT_WORK):
             other[name] += 1
         elif on_card:
             device.append((name, e.start_ns(), e.end_ns(), e.device_index()))
         elif name.startswith(SPAN):
             spans.append((name[len(SPAN):], e.start_ns(), e.end_ns()))
-    out.update(device=device, spans=spans, other=dict(other))
+        elif name.startswith(PROGRAM):
+            program.append((name[len(PROGRAM):], e.start_ns(), e.end_ns()))
+    out.update(device=device, spans=spans, program=program,
+               other=dict(other))
 
 
 def union_ns(intervals) -> int:

@@ -27,14 +27,14 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     import torch
     from benchlib.manifest import Manifest
-    from benchlib.runner import (batch_of, make_pool, pool_size,
-                                  reference, sample, validate)
+    from benchlib.runner import (batch_of, make_pool, pool_size, sample,
+                                  validate)
     manifest = Manifest()
     cell = manifest.cell(args.workload)
     config = manifest.config(cell["config"])
     traffic = manifest.traffic(cell["traffic"])
     batch, chips = batch_of(config, traffic), cell["chips"]
-    validate(config, traffic, batch, chips)
+    system = validate(config, traffic, batch, chips, manifest)
     dev = torch.device(args.device)
     for seed in (int(s) for s in args.seeds.split(",")):
         pool = make_pool(config, traffic, seed, dev, chips)
@@ -48,7 +48,7 @@ def main(argv=None) -> int:
             for name, dtype in (("float32", torch.float32),
                                 ("bfloat16", torch.bfloat16)):
                 t0 = time.perf_counter()
-                got[name] = reference(config, frames[i], dtype)
+                got[name] = system.reference(config, frames[i], dtype)
                 secs[name] += time.perf_counter() - t0
             differing += got["bfloat16"] != got["float32"]
         print(json.dumps({"workload": args.workload, "seed": seed,

@@ -1,15 +1,15 @@
-"""Where the FVC encoder's dispatch and finalize spend the host's time,
-read from the program's own spans in one traced run of a cell.
+"""Where the program's dispatch and finalize spend the host's time, read
+from the program's own spans in one traced run of a cell.
 
     python3 benchmark/program_spans.py --workload <cell> --seed <n> \
         --seconds <s>
 
 from the root of a checkout, on a machine with the cell's card. Runs the
 cell as ``benchmark/run.py --trace 1`` does (set-up, the closed loop
-under torch.profiler for ``--seconds``, the check against the plain
-reference) and keeps, beside the device's operations and the
-benchmark's ``bench.*`` spans, the program's ``flu.*`` spans
-(``flutpu_torch/core/log.py``; ``benchlib/program.py`` reads them).
+under torch.profiler for ``--seconds`` (``trace.profiled``: the
+device's operations, the benchmark's ``bench.*`` spans and the
+program's ``flu.*`` spans, which ``benchlib/program.py`` reads), the
+check against the plain reference).
 Prints on standard error the program's ms per dispatch by span, the
 device's idle seconds by the innermost program span open, and the shares
 of ``bench.dispatch`` and ``bench.finalize`` that the spans account for;
@@ -36,24 +36,14 @@ REDUCTIONS = ("redispatches_per_dispatch", "fetch_wait_ms_per_chunk",
 def traced_run(manifest, name: str, seed: int, seconds: float, device):
     """One traced run of cell ``name`` → (``runner.Run`` whose ``trace``
     holds ``program``, whether the kept chunks equal the reference's)."""
-    from torch.profiler import ProfilerActivity, profile, record_function
-    from benchlib import program, runner, trace
+    from benchlib import runner
     run, loop, pool, keep = runner.prepare(manifest, name, seed, device)
     cards = loop.cards
-    loop.traced = True
-    activities = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if cards[0].type == "cuda" else [])
-    with profile(activities=activities) as prof:
-        with record_function(trace.SPAN + "window"):
-            run.records = loop.run(seconds=seconds)
-    run.trace = program.collect(prof.profiler.kineto_results.events())
-    win = [s for s in run.trace["spans"] if s[0] == "window"]
-    run.window_ns = (win[0][1], win[0][2]) if win else None
-    run.window_s = (run.records["t1"] - run.records["t0"]) / 1e9
+    runner.measure(run, loop, seconds, True)
     frames = {i: pool[i].to(device, copy=True) for i in keep}
     del loop, pool
     runner.free(cards)
-    want = {i: runner.reference(run.config, frames[i]) for i in keep}
+    want = {i: run.system.reference(run.config, frames[i]) for i in keep}
     outs = [(i, data) for i, kept in run.records["kept"].items()
             for data in kept]
     return run, bool(outs) and all(data == want[i] for i, data in outs)

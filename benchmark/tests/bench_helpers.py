@@ -14,8 +14,8 @@ RANGE = {"full": 6, "hier": 10}
 
 def tiny_manifest(tmp_path, **config) -> Manifest:
     """BENCHMARK.json's cells over shrunken copies of their files, the
-    benchmark's readers beside them; ``config`` keys replace the tiny
-    ones."""
+    benchmark's readers and adapters beside them; ``config`` keys replace
+    the tiny ones."""
     with open(os.path.join(ROOT, "BENCHMARK.json")) as fh:
         data = json.load(fh)
     for kind in ("configs", "traffic"):
@@ -38,7 +38,8 @@ def tiny_manifest(tmp_path, **config) -> Manifest:
                     d["chunks_per_dispatch"] = cards * config.get(
                         "chunks_per_dispatch", TINY["chunks_per_dispatch"])
             (tmp_path / kind / name).write_text(json.dumps(d))
-    os.symlink(os.path.join(BENCH_DIR, "metrics"), tmp_path / "metrics")
+    for kind in ("metrics", "systems"):
+        os.symlink(os.path.join(BENCH_DIR, kind), tmp_path / kind)
     return Manifest(data, str(tmp_path))
 
 

@@ -1,7 +1,8 @@
 """The program's spans in a traced run (``benchlib/program.py``,
-``program_spans.py``): each reduction on hand-made spans, the collector
-on hand-made events, tiny traced runs on the CPU, and on the card the
-harness's own device record holding no program span."""
+``trace.profiled``, ``program_spans.py``): each reduction on hand-made
+spans, the collector on hand-made events and around an encode on the
+CPU, tiny traced runs on the CPU and the span metrics they read, and on
+the card the harness's own device record holding no program span."""
 
 from types import SimpleNamespace
 
@@ -10,7 +11,7 @@ import pytest
 import program_spans
 from bench_helpers import CELLS, tiny_manifest
 from benchlib import program, trace
-from benchlib.runner import Run
+from benchlib.runner import Run, run_cell
 
 MS = 1_000_000
 #: a window of 100 ms holding two dispatches of two chunks: the first
@@ -111,8 +112,33 @@ def _event(name, on_card, a, b):
                            device_index=lambda: 0 if on_card else -1)
 
 
-def test_collect_keeps_program_spans_off_the_device():
-    got = program.collect([
+def replayed(monkeypatch, events) -> dict:
+    """``trace.profiled``'s record of ``events``: a profiler that hands
+    them back in its kineto results."""
+    import torch.profiler
+
+    class Replay:
+        profiler = SimpleNamespace(kineto_results=SimpleNamespace(
+            events=lambda: list(events)))
+
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+    monkeypatch.setattr(torch.profiler, "profile", Replay)
+    got = {}
+    with trace.profiled(got):
+        pass
+    return got
+
+
+def test_collect_keeps_program_spans_off_the_device(monkeypatch):
+    """``trace.profiled``, the one collector, on hand-made events."""
+    got = replayed(monkeypatch, [
         _event("flu.fvc.codec", False, 1, 5),
         _event("flu.fvc.codec", True, 2, 4),
         _event("bench.dispatch", False, 0, 6),
@@ -123,6 +149,24 @@ def test_collect_keeps_program_spans_off_the_device():
                    "program": [("fvc.codec", 1, 5)],
                    "other": {"flu.fvc.codec": 1, "bench.dispatch": 1,
                              "Stream Sync": 1}}
+
+
+def test_profiled_holds_the_programs_spans_on_the_cpu():
+    """A small encode on the CPU under ``trace.profiled``: the program's
+    ``flu.*`` spans of the dispatch and the finalize, none of them
+    counted as device work."""
+    import torch
+    from flutpu_torch.codec.fvc import FvcEncoder
+    frames = torch.randint(0, 256, (3, 32, 48, 3), dtype=torch.uint8,
+                           generator=torch.Generator().manual_seed(3))
+    enc = FvcEncoder(85, motion=True, search_range=4, device="cpu")
+    got = {}
+    with trace.profiled(got):
+        enc.encode_chunk(frames)
+    names = {n for n, _, _ in got["program"]}
+    assert {"fvc.codec", "jpeg.fetch_wait", "fvc.container"} <= names
+    assert all(a <= b for _, a, b in got["program"])
+    assert not [e for e in got["device"] if e[0].startswith("flu.")]
 
 
 @pytest.mark.parametrize("cell", CELLS)
@@ -141,6 +185,28 @@ def test_tiny_traced_run_on_the_cpu(tmp_path, cell):
     assert {"fvc.codec", "jpeg.pack", "jpeg.copy", "jpeg.fetch_wait",
             "jpeg.compact", "fvc.vectors", "fvc.container"} \
         <= set(out["ms_per_dispatch"])
+
+
+#: the per-layer metrics that read the program's spans
+SPAN_METRICS = ("codec_enqueue_ms_per_chunk.vod",
+                "codec_enqueue_ms_per_chunk.stream",
+                "finalize_host_ms_per_chunk.vod",
+                "finalize_host_ms_per_chunk.stream")
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_span_metrics_read_in_every_cell_they_list(tmp_path, cell):
+    """A tiny traced run of each cell: every span metric that lists the
+    cell reads a number above 0 from ``trace.profiled``'s ``program``."""
+    m = tiny_manifest(tmp_path)
+    mine = [e["name"] for e in m.metrics(cell, True)
+            if e["name"] in SPAN_METRICS]
+    assert len(mine) == 2
+    r = run_cell(m, cell, 2 ** 31 + 29, 0.3, True, "cpu")
+    assert r["correct"] is True
+    for name in mine:
+        assert r["metrics"][name]["value"] > 0, name
+        assert r["metrics"][name]["unit"] == "ms"
 
 
 @pytest.mark.cuda
