@@ -99,6 +99,7 @@ from .encoder import SCENE_NEW_EVENT_NAME
 from .jpeg import JpegEncoder, _edge_pad, _HostCopy, _pad_to, \
     segmented_property
 from .ops.colorspace import i420_to_rgb, planes_to_i420
+from .ops.constants import on_device
 from .ops.dct import (blockize, check_full_fp32, plane_dct, plane_dct_planar,
                       plane_idct, plane_idct_planar, unblockize)
 from .ops.entropy import encode_gop_scans_layout
@@ -523,8 +524,9 @@ def fvc_mc_encode_chunk_b(frames, qy: torch.Tensor, qc: torch.Tensor,
     zero_mode = torch.zeros_like(amv[..., 0])
     # interleave back to display order
     dev = ary.device
-    perm = torch.as_tensor(np.argsort(np.asarray(anchor_idx + b_idx)),
-                           device=dev)
+    order = tuple(anchor_idx + b_idx)
+    perm = on_device(("display_order", order), np.argsort(order), dev,
+                     torch.long)
 
     def cat(a, b):
         return torch.cat([a, b], dim=1)[:, perm]
@@ -1345,8 +1347,8 @@ def fvc_mc_decode_chunk_b(a_ry, a_rcb, a_rcr, a_mvs, a_itypes,
     ay, acb, acr = fvc_mc_decode_chunk(a_ry, a_rcb, a_rcr, a_mvs, a_itypes,
                                        qy, qc, planar=planar)
     dev = ay.device
-    pm = torch.as_tensor(prev_map, dtype=torch.long, device=dev)
-    nm = torch.as_tensor(next_map, dtype=torch.long, device=dev)
+    pm, nm = (on_device(("anchor_map", tuple(m)), np.asarray(m), dev,
+                        torch.long) for m in (prev_map, next_map))
     fwd, bwd = b_fwd.to(torch.int64), b_bwd.to(torch.int64)
     mode = b_modes.to(torch.int64)
     mode_y, mode_c = _repeat_blocks(mode, MB), _repeat_blocks(mode, 8)

@@ -11,6 +11,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .constants import on_device
+
 # BT.601 full-range RGB -> YCbCr (JFIF); copy of
 # flutpu.codec.ops.colorspace._RGB2YCBCR
 _RGB2YCBCR = np.array(
@@ -18,6 +20,7 @@ _RGB2YCBCR = np.array(
      [-0.168735892, -0.331264108, 0.5],
      [0.5, -0.418687589, -0.081312411]], dtype=np.float32)
 _YCBCR2RGB = np.linalg.inv(_RGB2YCBCR).astype(np.float32)
+_YCBCR_OFFSET = np.array([0.0, 128.0, 128.0], dtype=np.float32)
 
 
 def ycbcr_from_channels(r: torch.Tensor, g: torch.Tensor, b: torch.Tensor):
@@ -76,8 +79,8 @@ def rgb_to_i420(rgb: torch.Tensor):
 
 def ycbcr_to_rgb(ycbcr: torch.Tensor) -> torch.Tensor:
     """[..., H, W, 3] float YCbCr → float32 RGB in [0,255] (unclipped)."""
-    off = torch.tensor([0.0, 128.0, 128.0], device=ycbcr.device)
-    m = torch.as_tensor(_YCBCR2RGB.T, device=ycbcr.device)
+    off = on_device("ycbcr_offset", _YCBCR_OFFSET, ycbcr.device)
+    m = on_device("ycbcr_to_rgb", _YCBCR2RGB.T, ycbcr.device)
     return (ycbcr.to(torch.float32) - off) @ m
 
 

@@ -21,6 +21,8 @@ import functools
 import numpy as np
 import torch
 
+from .constants import on_device
+
 
 @functools.lru_cache()
 def dct_matrix(n: int = 8) -> np.ndarray:
@@ -34,8 +36,9 @@ def dct_matrix(n: int = 8) -> np.ndarray:
     return c.astype(np.float32)
 
 
-def _c(n: int, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(dct_matrix(n), device=like.device)
+def _dct_on(device: torch.device, n: int = 8) -> torch.Tensor:
+    """The n x n DCT matrix on ``device``, uploaded once."""
+    return on_device(("dct", n), dct_matrix(n), device)
 
 
 def blockize(plane: torch.Tensor, block: int = 8) -> torch.Tensor:
@@ -53,13 +56,13 @@ def unblockize(blocks: torch.Tensor) -> torch.Tensor:
 
 def dct2(blocks: torch.Tensor) -> torch.Tensor:
     """2-D DCT-II over the trailing (8, 8) axes, any leading batch shape."""
-    c = _c(blocks.shape[-1], blocks)
+    c = _dct_on(blocks.device, blocks.shape[-1])
     return c @ blocks.to(torch.float32) @ c.T
 
 
 def idct2(coefs: torch.Tensor) -> torch.Tensor:
     """Inverse 2-D DCT over trailing (8, 8) axes."""
-    c = _c(coefs.shape[-1], coefs)
+    c = _dct_on(coefs.device, coefs.shape[-1])
     return c.T @ coefs.to(torch.float32) @ c
 
 
@@ -98,12 +101,6 @@ def check_full_fp32(device: torch.device) -> None:
             "FVC motion mode needs full-fp32 matmuls on the card: set "
             "torch.backends.cuda.matmul.allow_tf32 = False and "
             "torch.set_float32_matmul_precision('highest')")
-
-
-@functools.lru_cache(maxsize=32)
-def _dct_on(device: torch.device) -> torch.Tensor:
-    """The 8x8 DCT matrix on ``device``, uploaded once."""
-    return torch.as_tensor(dct_matrix(8), device=device)
 
 
 def _planar_products(x: torch.Tensor, inverse: bool) -> torch.Tensor:

@@ -41,6 +41,7 @@ import torch
 
 from .. import jpeg_tables as T
 from ...core.env import env_flag
+from .constants import on_device
 from .entropy_kernels import (BLOCK_WORDS, _as_word_bits, _magnitude,
                               _tables, pack_block_bits64,
                               pack_block_bits_fused, pack_segments)
@@ -158,6 +159,20 @@ def _device_tables():
     return dc_code, dc_len, ac_code, ac_len
 
 
+#: the dtype of each McuLayout index map on the device
+_LAYOUT_DTYPES = {"block_sel": torch.long, "prev_same_comp": torch.long,
+                  "comp_is_chroma": torch.int32}
+
+
+def layout_table(layout: McuLayout, name: str,
+                 device: torch.device) -> torch.Tensor:
+    """The layout's index map ``name`` (``block_sel``, ``prev_same_comp``
+    or ``comp_is_chroma``) on ``device``, uploaded once per geometry
+    (``constants.on_device``)."""
+    return on_device(("mcu", name, layout._key), getattr(layout, name),
+                     device, _LAYOUT_DTYPES[name])
+
+
 def _mcu_blocks(yq: torch.Tensor, cbq: torch.Tensor, crq: torch.Tensor,
                 layout: McuLayout):
     """MCU reorder (a reshape/permute for the standard interleaves) + DC
@@ -181,15 +196,13 @@ def _mcu_blocks(yq: torch.Tensor, cbq: torch.Tensor, crq: torch.Tensor,
     else:
         allb = torch.cat([y32.reshape(f, -1, 64), cb32.reshape(f, -1, 64),
                           cr32.reshape(f, -1, 64)], dim=1)
-        mcu = allb[:, torch.as_tensor(layout.block_sel, dtype=torch.long,
-                                      device=dev)]
-    prev = torch.as_tensor(layout.prev_same_comp, dtype=torch.long, device=dev)
+        mcu = allb[:, layout_table(layout, "block_sel", dev)]
+    prev = layout_table(layout, "prev_same_comp", dev)
     dc = mcu[:, :, 0]
     prev_dc = torch.where(prev >= 0, dc[:, prev.clamp(min=0)],
                           torch.zeros_like(dc))
     mcu = torch.cat([(dc - prev_dc)[..., None], mcu[..., 1:]], dim=-1)
-    comp = torch.as_tensor(layout.comp_is_chroma, dtype=torch.int32, device=dev)
-    return mcu, comp
+    return mcu, layout_table(layout, "comp_is_chroma", dev)
 
 
 def _concat_segments_aligned(segbuf: torch.Tensor, segbits: torch.Tensor,

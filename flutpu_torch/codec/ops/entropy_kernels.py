@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from ... import _build
+from .constants import on_device
 
 _ready_devices = set()
 _init_lock = threading.Lock()
@@ -120,8 +121,8 @@ def _magnitude(v: torch.Tensor, max_bits: int) -> torch.Tensor:
 
 def _tables(device):
     from .entropy import _device_tables
-    return tuple(torch.as_tensor(t, dtype=torch.int64, device=device)
-                 for t in _device_tables())
+    return tuple(on_device(("huffman", i), t, device, torch.int64)
+                 for i, t in enumerate(_device_tables()))
 
 
 def _block_items(z: torch.Tensor, comp: torch.Tensor, tables):

@@ -3,7 +3,8 @@ flutpu/codec/ops/quant.py).
 
 The tables, ``scale_qtable`` and the zigzag orders are numpy, copied from
 the original (that package imports jax); the tensor functions take and
-return torch tensors on whatever device their inputs lie on.
+return torch tensors on whatever device their inputs lie on, the zigzag
+orders uploaded there once (``constants.on_device``).
 """
 
 from __future__ import annotations
@@ -12,6 +13,8 @@ import functools
 
 import numpy as np
 import torch
+
+from .constants import on_device
 
 # ITU-T T.81 Annex K.1 example quantization tables (public constants)
 LUMA_QTABLE = np.array([
@@ -71,20 +74,28 @@ def dequantize(qcoefs: torch.Tensor, qtable: torch.Tensor) -> torch.Tensor:
     return qcoefs.to(torch.float32) * qtable.to(torch.float32)
 
 
-def _index(order: np.ndarray, like: torch.Tensor) -> torch.Tensor:
-    return torch.as_tensor(order, dtype=torch.long, device=like.device)
+def zigzag_index(n: int, device: torch.device) -> torch.Tensor:
+    """``zigzag_order(n)`` as a long tensor on ``device`` (``on_device``:
+    uploaded once)."""
+    return on_device(("zigzag", n), zigzag_order(n), device, torch.long)
+
+
+def inverse_zigzag_index(n: int, device: torch.device) -> torch.Tensor:
+    """``inverse_zigzag_order(n)`` as a long tensor on ``device``."""
+    return on_device(("inverse_zigzag", n), inverse_zigzag_order(n), device,
+                     torch.long)
 
 
 def zigzag_flatten(blocks: torch.Tensor) -> torch.Tensor:
     """[..., 8, 8] → [..., 64] in zigzag order."""
     n = blocks.shape[-1]
     flat = blocks.reshape(*blocks.shape[:-2], n * n)
-    return flat[..., _index(zigzag_order(n), flat)]
+    return flat[..., zigzag_index(n, flat.device)]
 
 
 def zigzag_unflatten(flat: torch.Tensor, n: int = 8) -> torch.Tensor:
     """[..., 64] zigzag → [..., 8, 8] row-major blocks."""
-    inv = _index(inverse_zigzag_order(n), flat)
+    inv = inverse_zigzag_index(n, flat.device)
     return flat[..., inv].reshape(*flat.shape[:-1], n, n)
 
 

@@ -22,8 +22,8 @@ from flutpu_torch.codec.ops.quant import (CHROMA_QTABLE, LUMA_QTABLE,
                                           scale_qtable)
 from flutpu_torch.core.elements import make_test_frame
 from torch_helpers import (chunk_pairs, cuda_device,  # noqa: F401
-                           pack_edge_blocks, planar_drift, rand_planes,
-                           slot_tables, tie_contract)
+                           dispatch_entries, pack_edge_blocks, planar_drift,
+                           rand_planes, slot_tables, tie_contract)
 
 torch.set_num_threads(1)
 
@@ -1695,3 +1695,29 @@ def test_a_1080p_chunk_codes_once_at_the_learned_window(cuda_device):
     assert (r0, r1, r2) == (1, 0, 0)
     assert a == b == warm
     assert n0 == 2 * n1 == 2 * n2 > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry,hier,search_range", [
+    ("chunk", False, 64), ("chunks", False, 64), ("chunks", True, 126),
+    ("jpeg", False, 7)])
+def test_warmed_dispatch_never_syncs(cuda_device, entry, hier,
+                                     search_range):
+    """A warmed dispatch of each one-card entry (C = 4 chunks of 8
+    frames at 272x480; the FVC search at full ±64 or hier ±126) under
+    ``set_sync_debug_mode("error")`` raises at no synchronizing call and
+    uploads no table; its bytes equal the same encoder's without the
+    debug mode."""
+    from flutpu_torch.codec.ops.constants import on_device
+    dispatch, finalize, enc, _ = dispatch_entries(
+        cuda_device, 4, 8, 272, 480, hier, search_range)[entry]
+    want = finalize(enc, dispatch(enc))
+    before = on_device.uploads
+    torch.cuda.synchronize(cuda_device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        handle = dispatch(enc)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert on_device.uploads == before
+    assert finalize(enc, handle) == want

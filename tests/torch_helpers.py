@@ -417,3 +417,50 @@ def profiled_spans(fn):
                     if e.name().startswith(log.SPAN_PREFIX)),
                    key=lambda s: (s[1], -s[2]))
     return out, spans
+
+
+def pan_clip(c: int, f: int, h: int, w: int, step=(2, 6), seed: int = 5):
+    """(C, F, H, W, 3) uint8: a random texture panned ``step`` px a
+    frame, each chunk from its own start."""
+    rng = np.random.default_rng(seed)
+    sy, sx = step
+    tex = rng.integers(0, 256, (h + sy * (c * f + 1), w + sx * (c * f + 1),
+                                3), np.uint8)
+    out = np.empty((c, f, h, w, 3), np.uint8)
+    for ci in range(c):
+        for i in range(f):
+            k = ci * f + i
+            out[ci, i] = tex[k * sy:k * sy + h, k * sx:k * sx + w]
+    return out
+
+
+def dispatch_entries(device, c: int, f: int, h: int, w: int,
+                     hier: bool = False, search_range: int = 7):
+    """The one-device dispatch entries on one ``pan_clip`` of C chunks:
+    name → (dispatch(enc) → handle, finalize(enc, handle) → list of
+    bytes, an encoder, a factory of fresh ones). ``chunk``: the FVC
+    encoder's ``encode_chunk_dispatch`` of chunk 0; ``chunks``: its
+    ``encode_chunks_dispatch`` of all C; ``jpeg``: ``JpegEncoder``'s
+    ``encode_gop_dispatch`` of chunk 0's frames."""
+    from flutpu_torch.codec.fvc import FvcEncoder
+    from flutpu_torch.codec.jpeg import JpegEncoder
+
+    def fvc():
+        return FvcEncoder(85, motion=True, search_range=search_range,
+                          hier=hier, device=device)
+
+    def jpeg():
+        return JpegEncoder(85, device=device)
+
+    frames = torch.from_numpy(pan_clip(c, f, h, w)).to(device)
+    return {
+        "chunk": (lambda enc: enc.encode_chunk_dispatch(frames[0]),
+                  lambda enc, hd: [enc.encode_chunk_finalize(hd)],
+                  fvc(), fvc),
+        "chunks": (lambda enc: enc.encode_chunks_dispatch(frames),
+                   lambda enc, hd: enc.encode_chunks_finalize(hd),
+                   fvc(), fvc),
+        "jpeg": (lambda enc: enc.encode_gop_dispatch(frames[0], h, w),
+                 lambda enc, hd: enc.encode_gop_finalize(hd),
+                 jpeg(), jpeg),
+    }
