@@ -398,7 +398,7 @@ def _native_scan(lib, y, cb, cr, subsample: bool = True) -> bytes:
     """flu_jpeg_encode_scan of one frame's (BH, BW, 64) int16 planes
     (4:2:0, or 4:4:4 without ``subsample``)."""
     import numpy as np
-    from flutpu_torch.codec.jpeg import _encode_scan_native
+    from flutpu_torch.codec.scans import _encode_scan_native
     out = _encode_scan_native(lib, *(np.ascontiguousarray(a, np.int16)
                                      for a in (y, cb, cr)), subsample)
     _require(out is not None, "flu_jpeg_encode_scan failed")
@@ -434,7 +434,7 @@ def _check_frames(lib, payloads, coefs, sources, enc, label,
         _require(info["scan"] == _native_scan(lib, y[i], cb[i], cr[i],
                                               subsample),
                  f"{label} frame {i}: scan differs from flu_jpeg_encode_scan")
-    rgb = coefs_to_rgb(*coefs, enc._qy_dev, enc._qc_dev, H, W,
+    rgb = coefs_to_rgb(*coefs, enc.scans.qy_dev, enc.scans.qc_dev, H, W,
                        subsample=subsample)
     mse = ((rgb.float() - sources.float()) ** 2).mean(dim=(1, 2, 3))
     psnr = (10 * torch.log10(255.0 ** 2 / mse.clamp(min=1e-12))).cpu()
@@ -508,7 +508,7 @@ def run(dev):
 
     # -- 2. kernels against their plain versions ---------------------------
     enc = JpegEncoder(quality=QUALITY, device=dev)
-    qy, qc = enc._qy_dev, enc._qc_dev
+    qy, qc = enc.scans.qy_dev, enc.scans.qc_dev
     layout = mcu_layout(PW // 8, PH // 8, PW // 16, PH // 16, True)
     results = {}
 
@@ -606,8 +606,8 @@ def run(dev):
     frame_bytes = np.mean([len(p) for v in payloads for p in v])
     print(f"main path: {N_GOPS} GOPs x {GOP} frames in {wall:.3f} s = "
           f"{fps:.1f} frames/s; device span {dev_ms:.3f} ms per GOP "
-          f"(CUDA events); seg_words {enc._seg_words}, prefix window "
-          f"{enc._prefix_window}; mean {frame_bytes:.0f} bytes/frame",
+          f"(CUDA events); seg_words {enc.scans._seg_words}, prefix window "
+          f"{enc.scans._prefix_window}; mean {frame_bytes:.0f} bytes/frame",
           flush=True)
 
     bufs, pipe_wall = _pipeline(
@@ -886,7 +886,7 @@ def run_4k(dev, lib):
 
     h4, w4, f4 = 2160, 3840, 8
     enc = JpegEncoder(quality=QUALITY, device=dev)
-    qy, qc = enc._qy_dev, enc._qc_dev
+    qy, qc = enc.scans.qy_dev, enc.scans.qc_dev
     rng = np.random.default_rng(12)
     noise = tuple(torch.from_numpy(rng.integers(0, 256, (2, h4, w4),
                                                 np.uint8)).to(dev)
@@ -1267,7 +1267,8 @@ def run_jpeg_blocks(dev, lib, seg_enc, seg_payloads, seg_fps, seg_pipe):
     print(f"non-segment path: {N_GOPS} GOPs x {GOP} frames in {wall:.3f} s "
           f"= {fps:.1f} frames/s (segment path {seg_fps:.1f} in this run); "
           f"device span {dev_ms:.3f} ms per GOP (CUDA events); prefix "
-          f"window {enc._prefix_window}; kernel launches {n}", flush=True)
+          f"window {enc.scans._prefix_window}; kernel launches {n}",
+          flush=True)
     _require(n["front_end"] > 0 and n["pack_block_bits_fused"] > 0,
              "K1 and K7 must launch on the non-segment path")
     _require(n["pack_segments"] == 0 and n["pack_block_bits64"] == 0,
@@ -1277,7 +1278,7 @@ def run_jpeg_blocks(dev, lib, seg_enc, seg_payloads, seg_fps, seg_pipe):
     worst = float("inf")
     for gi in range(N_GOPS):
         planes = source(PH, PW, gi * GOP)
-        coefs = F.front_end(*planes, enc._qy_dev, enc._qc_dev)
+        coefs = F.front_end(*planes, enc.scans.qy_dev, enc.scans.qc_dev)
         frames = torch.stack(planes, dim=-1)[:, :H, :W]
         worst = min(worst, _check_frames(lib, payloads[gi], coefs, frames,
                                          enc, f"non-segment GOP {gi}"))
@@ -1935,7 +1936,7 @@ def run_burnin(dev, lib, k1_ms):
     from flutpu_torch.ttml.render.fonts import font_backend
 
     enc = JpegEncoder(quality=QUALITY, device=dev)
-    qy, qc = enc._qy_dev, enc._qc_dev
+    qy, qc = enc.scans.qy_dev, enc.scans.qc_dev
 
     # -- 10a. K1 with its overlay branch --------------------------------------
     src = gradient_ball_planes(PH, PW, GOP, 0, device=dev)
@@ -2407,7 +2408,8 @@ def run_hype(dev, lib, lap, single_ms):
                  f"hype GOP {g} differs from a JpegEncoder encode")
         planes = [_edge_pad(frames[..., c], PH, PW) for c in range(3)]
         worst = min(worst, _check_frames(
-            lib, got, F.front_end(*planes, enc._qy_dev, enc._qc_dev),
+            lib, got,
+            F.front_end(*planes, enc.scans.qy_dev, enc.scans.qc_dev),
             frames, enc, f"hype GOP {g}", size=(H, W, PH, PW)))
     print(f"13a checks: {HYPE_FRAMES} frames in order (pts strictly "
           f"increasing), each byte-identical to a JpegEncoder encode, "
@@ -3012,7 +3014,7 @@ def _run_subpel_444(dev, lib):
              f"14c 4:4:4 GOP: K2 must launch, K1 not ({n})")
     add(n)
     planes = [gop[..., c].contiguous() for c in range(3)]
-    coefs = front_end_444(*planes, jenc._qy_dev, jenc._qc_dev)
+    coefs = front_end_444(*planes, jenc.scans.qy_dev, jenc.scans.qc_dev)
     worst = _check_frames(lib, payloads, coefs, gop, jenc, "14c 4:4:4 GOP",
                           size=(H, W, H, W), subsample=False)
     from flutpu_torch.core import make
@@ -3031,7 +3033,7 @@ def _run_subpel_444(dev, lib):
              "14c 4:4:4 FVC chunk header")
     res = [r.cpu().numpy() for r in fvc_residuals(*front_end_444(
         *(frames[:CHUNK, ..., c].contiguous() for c in range(3)),
-        fenc._scan_coder._qy_dev, fenc._scan_coder._qc_dev))]
+        fenc.scans.qy_dev, fenc.scans.qc_dev))]
     for i, (_, _, payload) in enumerate(recs):
         got = decode_scan_to_coefs(payload, W // 8, H // 8, W // 8, H // 8,
                                    False)
@@ -3961,7 +3963,7 @@ def _config4_jpeg(dev, lib):
         planes = [_edge_pad(src[..., k], K4_H, K4_W) for k in range(3)]
         worst = min(worst, _check_frames(
             lib, probe["out"][g:g + GOP],
-            F.front_end(*planes, enc._qy_dev, enc._qc_dev), src, enc,
+            F.front_end(*planes, enc.scans.qy_dev, enc.scans.qc_dev), src, enc,
             f"16a frames {g}-{g + GOP - 1}", size=(K4_H, K4_W, K4_H, K4_W)))
     print(f"16a checks: {n} 4K frames through {STRIPES} stripes "
           f"byte-identical to spatial=1, each decoding to K1's "
@@ -4195,7 +4197,7 @@ def _shards_on_cards(dev):
         :, :H, :W].reshape(c, CHUNK, H, W, 3)
     jenc = JpegEncoder(QUALITY, device=dev)
     enc = FvcEncoder(QUALITY, motion=True, device=dev)
-    coefs = encode_chunks(frames, jenc._qy_dev, jenc._qc_dev)
+    coefs = encode_chunks(frames, jenc.scans.qy_dev, jenc.scans.qc_dev)
     ref = enc.encode_chunks_finalize(enc.encode_chunks_dispatch(frames))
     sets = [("one card", [dev])]
     cards = visible_devices()
@@ -4207,7 +4209,7 @@ def _shards_on_cards(dev):
     for set_name, devices in sets:
         for name, mesh in _shard_meshes(devices):
             spatial = mesh.spatial > 1
-            got = encode_chunks(frames, jenc._qy_dev, jenc._qc_dev,
+            got = encode_chunks(frames, jenc.scans.qy_dev, jenc.scans.qc_dev,
                                 mesh=mesh, spatial=spatial)
             _require(all(torch.equal(a, b.to(a.device)) for a, b in
                          zip(coefs, got)),
@@ -4394,8 +4396,8 @@ def _cli_in_process(dev, lib, tmp, lap):
             for i in range(g0, g0 + GOP)])).to(dev)
         planes = [_edge_pad(frames[..., c], PH, PW) for c in range(3)]
         worst = min(worst, _check_frames(
-            lib, jfif[g0:g0 + GOP], F.front_end(*planes, enc._qy_dev,
-                                                enc._qc_dev),
+            lib, jfif[g0:g0 + GOP], F.front_end(*planes, enc.scans.qy_dev,
+                                                enc.scans.qc_dev),
             frames, enc, f"17a launch JPEG frames {g0}-{g0 + GOP - 1}"))
     print(f"17a launch {_jpeg_line(n)} ! filesink: {n} frames in "
           f"{wall:.3f} s = {n / wall:.1f} frames/s (the same line through "
@@ -4696,7 +4698,7 @@ def _host_jpeg(dev, lib):
     _require(dev_arm["pack_segments"] > 0, f"18a device arm: K2 ({dev_arm})")
     _require(res["host"][0] == res["device"][0], "18a: the host engine's "
              "JFIF differ from the device engine's")
-    qy, qc = arms["host"]._qy_dev, arms["host"]._qc_dev
+    qy, qc = arms["host"].scans.qy_dev, arms["host"].scans.qc_dev
     low = _check_frames(lib, res["host"][0][0], F.front_end(
         *_edge_pad_planes(gops[0]), qy, qc), gops[0], arms["host"],
         "18a host GOP 0")
@@ -4823,7 +4825,7 @@ def _planar_in_loop(enc, frames, chunk, stripes: int, dev, label: str):
     import torch
     from flutpu_torch.codec import fvc as FV
     from flutpu_torch.codec.decode import decode_scan_to_coefs
-    qy, qc = enc._scan_coder._qy_dev, enc._scan_coder._qc_dev
+    qy, qc = enc.scans.qy_dev, enc.scans.qc_dev
     hs = PH // stripes
     parts = [tuple(p[:, s * hs:(s + 1) * hs] for p in _edge_pad_planes(
         frames)) for s in range(stripes)]
@@ -4916,7 +4918,7 @@ def _planar_and_pack(dev, lib, per_block):
           f"the CPU's bits with TF32 on and off; launches {counts}",
           flush=True)
 
-    qy, qc = enc._scan_coder._qy_dev, enc._scan_coder._qc_dev
+    qy, qc = enc.scans.qy_dev, enc.scans.qc_dev
     coefs = encode_gop_to_coefs(frames, qy, qc, PH, PW)
     layout = mcu_layout(PW // 8, PH // 8, PW // 16, PH // 16, True)
     # the plain version, on the card: encode_gop_scans's stages with each
@@ -5027,7 +5029,7 @@ def run_transform(dev):
     from flutpu_torch.codec.jpeg import JpegEncoder
     from flutpu_torch.codec.ops import transform_kernels as T
     from flutpu_torch.codec.ops.dct import _dct_on, blockize
-    qy = JpegEncoder(QUALITY, device=dev)._qy_dev
+    qy = JpegEncoder(QUALITY, device=dev).scans.qy_dev
     results = {}
     for i, (label, shape) in enumerate(TRANSFORM_SHAPES):
         x_cpu, x_dev, d_cpu, d_dev = _transform_inputs(shape, label, 19 + i,

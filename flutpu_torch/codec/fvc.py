@@ -93,16 +93,13 @@ from ..core import Buffer, Caps, PropertySpec, register
 from ..core.env import env_flag
 from ..core.log import SPAN_PREFIX, trace_span
 from .base import VideoEncoder
-from .convert import encoder_state_from_numpy
 from .decode import coefs_to_rgb, decode_scan_to_coefs
 from .encoder import SCENE_NEW_EVENT_NAME
-from .jpeg import JpegEncoder, _edge_pad, _HostCopy, _pad_to, \
-    segmented_property
+from .jpeg import _edge_pad, _pad_to, segmented_property
 from .ops.colorspace import i420_to_rgb, planes_to_i420
 from .ops.constants import on_device
-from .ops.dct import (blockize, check_full_fp32, plane_dct, plane_dct_planar,
-                      plane_idct, plane_idct_planar, unblockize)
-from .ops.entropy import encode_gop_scans_layout
+from .ops.dct import (blockize, plane_dct, plane_dct_planar, plane_idct,
+                      plane_idct_planar, unblockize)
 from .ops.motion import (MB, _mb_sums, motion_compensate,
                          motion_compensate_subpel, subpel_refine)
 from .ops.motion_kernels import (chroma_mc, chroma_mc_striped,
@@ -112,6 +109,7 @@ from .ops.motion_kernels import (chroma_mc, chroma_mc_striped,
 from .ops.quant import (CHROMA_QTABLE, LUMA_QTABLE, dequantize,
                         dequantize_planar, quantize, quantize_planar,
                         scale_qtable, zigzag_flatten, zigzag_unflatten)
+from .scans import ScanCoder
 
 # copies of flutpu.codec.fvc's constants
 MAGIC = b"FVC1"
@@ -206,7 +204,6 @@ def _i420_planes(frames, pad_h: int, pad_w: int):
     """(r, g, b) uint8 planes (..., H, W) or interleaved (..., H, W, 3)
     frames, edge-padded to (pad_h, pad_w) → float32 (Y, Cb, Cr) planes."""
     r, g, b = (_edge_pad(p, pad_h, pad_w) for p in _planes(frames))
-    check_full_fp32(r.device)
     return planes_to_i420(r, g, b)
 
 
@@ -547,28 +544,25 @@ def fvc_residuals_chunks(yq: torch.Tensor, cbq: torch.Tensor,
     return tuple(p.transpose(0, 1) for p in out)
 
 
-def _combined_rows(parts, layout, prefix_words, seg_g, seg_words):
+def _scan_rows(parts):
     """The chunk codec's output for C chunks of F frames (``fvc_chunks``:
     (ry, rcb, rcr), and with motion the vectors (or fwd, bwd and modes)
-    and the frame types) → one (C * F, X) int32 array, a row per frame
-    in chunk order, so one copy brings back every chunk: the frame's
-    scan words (``encode_gop_scans_layout``: the segment layout, or the
-    non-segment one where ``seg_words`` is None), then with motion its
-    int8 side columns packed four to a word and its frame-type word (0
-    P, 1 I, 2 B)."""
+    and the frame types) → the arguments of the scan stage's ``pack``
+    (``ScanCoder.dispatch``), a row per frame in chunk order: the (C *
+    F, BH, BW, 64) residual planes, then with motion the frame's int8
+    side columns packed four to an int32 word and its frame-type word (0
+    P, 1 I, 2 B), which follow its scan words in its row."""
     c, f = parts[0].shape[:2]
-    ry, rcb, rcr = (p.flatten(0, 1) for p in parts[:3])
-    combined = encode_gop_scans_layout(ry, rcb, rcr, layout, prefix_words,
-                                       seg_g, seg_words)
+    rows = [p.flatten(0, 1) for p in parts[:3]]
     if len(parts) == 3:
-        return combined
+        return rows
     side = torch.cat([p.reshape(c * f, -1) for p in parts[3:-1]], dim=1)
     pad = (-side.shape[1]) % 4
     if pad:
         side = torch.nn.functional.pad(side, (0, pad))
     side_words = side.contiguous().view(torch.int32)   # little-endian bytes
     itypes = parts[-1].reshape(c * f).to(torch.int32)
-    return torch.cat([combined, side_words, itypes[:, None]], dim=1)
+    return rows + [side_words, itypes[:, None]]
 
 
 # ----------------------------------------------------------------------------
@@ -586,25 +580,13 @@ def _table_quality(qy, qc) -> int:
     raise ValueError("the quant tables are not those of any quality 1..100")
 
 
-class _HostChunkHandle(NamedTuple):
-    """A dispatch of the host engine: the codec's outputs (residual planes,
-    and with motion the vectors or fwd, bwd and modes, and the frame
-    types) on their way into pinned memory."""
-    parts: _HostCopy
-    f: int
-    h: int
-    w: int
-    ph: int
-    pw: int
-
-
 class _ChunkHandle(NamedTuple):
-    combined: _HostCopy
-    prefix: int
-    prefix_bound: int         # theoretical words/frame of this geometry
-    n_segs: int               # 0: the non-segment layout
-    seg_words: Optional[int]  # None: the non-segment layout
-    build: Optional[object]   # None once a redispatch was made
+    """A dispatch of C chunks of ``f`` frames each: per chunk shard, in
+    chunk order, the scan coder's result (``ScanCoder.dispatch``) and the
+    number of chunks it holds (one shard where the dispatch has no
+    mesh), and the chunks' frame size and coded size."""
+    scans: Tuple[object, ...]
+    chunks: Tuple[int, ...]
     f: int
     h: int
     w: int
@@ -622,13 +604,12 @@ class FvcEncoder:
     codes version 1 chunks in 4:4:4 (flags bit 0 clear); motion needs
     4:2:0. ``device`` is where the encode runs: a
     CUDA device launches the kernels; ``"cpu"`` runs their plain PyTorch
-    versions. The bitstream layout of the entropy stage (``segmented``)
-    and its sizing (compressed-prefix window, segment staging, overflow
-    redispatch) are the port's JpegEncoder's, as in flutpu. ``engine``:
-    ``"auto"`` or ``"device"`` code the scans on the device; ``"host"``
-    runs the codec on the device and the native scan coder on the host
-    (``encode_chunk`` and ``encode_chunk_dispatch`` only, as flutpu's
-    host route; the source-fed, batched and multi-chunk dispatches raise
+    versions. The scan stage (``scans``, a ``ScanCoder``: the bitstream
+    layout ``segmented``, the compressed-prefix window, segment staging
+    and overflow redispatch) is the JPEG encoder's, as in flutpu.
+    ``engine``: ``"auto"`` or ``"device"`` code the scans on the device;
+    ``"host"`` runs the codec on the device and the native scan coder on
+    the host (every entry but ``encode_chunks_dispatch``, which raises
     ValueError). The attribute ``planar`` (default False, on every
     device) selects the in-loop DCT of header flags bit 3."""
 
@@ -673,13 +654,10 @@ class FvcEncoder:
         self.subpel = bool(subpel)
         self.search_range = int(search_range)
         self.device = torch.device(device)
-        # shared scan coder: its tables, engine, sizing policy and
-        # overflow bounds (it refuses an unknown engine)
-        self._scan_coder = JpegEncoder(quality, subsample=subsample,
-                                       engine=engine, segmented=segmented,
-                                       device=self.device)
-        self.engine = engine
-        self.qy, self.qc = self._scan_coder.qy, self._scan_coder.qc
+        # the scan stage refuses an unknown engine
+        self.scans = ScanCoder(quality, self.subsample, engine=engine,
+                               segmented=segmented, device=self.device)
+        self.qy, self.qc = self.scans.qy, self.scans.qc
         self._qyb_dev = self._qcb_dev = None
         if self.bquality is not None:
             self._qyb_dev, self._qcb_dev = (
@@ -700,17 +678,18 @@ class FvcEncoder:
         """An encoder with given quantization tables and adaptive sizes
         (e.g. flutpu's ``qy``, ``qc``, ``search_range``, ``hier``,
         ``subpel``, ``subsample``, ``bframes``, ``bquality`` and its scan
-        coder's ``_seg_words``,
-        ``_prefix_window``). The tables must be a quality's: the chunk
-        header carries the quality."""
+        coder's ``_seg_words``, ``_prefix_window``). The tables must be a
+        quality's: the chunk header carries the quality."""
         enc = cls(_table_quality(qy, qc), subsample=subsample, motion=motion,
                   search_range=search_range, hier=hier, subpel=subpel,
                   segmented=segmented, bframes=bframes, bquality=bquality,
                   engine=engine, device=device)
-        enc._scan_coder._set_state(encoder_state_from_numpy(
-            qy, qc, seg_words=seg_words, prefix_window=prefix_window,
-            device=enc.device))
+        enc.scans.set_state(qy, qc, seg_words, prefix_window)
         return enc
+
+    @property
+    def engine(self) -> str:
+        return self.scans.engine
 
     # -- dispatch / finalize ------------------------------------------------
     def _codec(self, frames, mesh=None, spatial: bool = False):
@@ -719,81 +698,44 @@ class FvcEncoder:
         bwd and modes) and the frame types, each with a leading chunk
         axis."""
         from ..parallel.gop import fvc_chunks
-        sc = self._scan_coder
         return fvc_chunks(
-            frames, sc._qy_dev, sc._qc_dev, mesh=mesh, motion=self.motion,
-            search_range=self.search_range, hier=self.hier,
-            subpel=self.subpel, spatial=spatial, bframes=self.bframes,
-            qy_b=self._qyb_dev, qc_b=self._qcb_dev, subsample=self.subsample,
-            planar=self.planar)
+            frames, self.scans.qy_dev, self.scans.qc_dev, mesh=mesh,
+            motion=self.motion, search_range=self.search_range,
+            hier=self.hier, subpel=self.subpel, spatial=spatial,
+            bframes=self.bframes, qy_b=self._qyb_dev, qc_b=self._qcb_dev,
+            subsample=self.subsample, planar=self.planar)
 
-    def _dispatch(self, frames_fn, f: int, h: int, w: int,
-                  shard=None) -> _ChunkHandle:
-        """Enqueue ``frames_fn()``'s chunks (one chunk's frames, or C
-        chunks' with a leading chunk axis) through ``fvc_chunks`` and the
-        entropy stage, one row per frame in chunk order. ``shard``: the
-        devices of one chunk shard's row stripes (None: the frames'
-        device, unstriped); the pack and the copy run on the first."""
+    def _enqueue(self, frames_fn, ph: int, pw: int, shard=None):
+        """Enqueue ``frames_fn(ph, pw)``'s chunks (one chunk's frames, or C
+        chunks' with a leading chunk axis), coded at (ph, pw), through
+        ``fvc_chunks`` and the scan stage, one row per frame in chunk
+        order → the scan coder's result. ``shard``: the devices of one
+        chunk shard's row stripes (None: the frames' device, unstriped);
+        the pack and the copy run on the first."""
         from ..parallel.mesh import ChunkMesh, ChunkSpatialMesh
-        sc = self._scan_coder
         n_sp = 1 if shard is None else len(shard)
-        ph, pw = _pad_to(h, sc.mult * n_sp), _pad_to(w, sc.mult)
         mesh = None
         if shard is not None:
             mesh = ChunkSpatialMesh(1, n_sp, shard) if n_sp > 1 \
                 else ChunkMesh(shard)
 
-        def program(layout, prefix_words, seg_words):
+        def program(pack):
             with trace_span(SPAN_PREFIX + "fvc.codec"):
-                parts = self._codec(_chunked(frames_fn())[0], mesh, n_sp > 1)
+                parts = self._codec(_chunked(frames_fn(ph, pw))[0], mesh,
+                                    n_sp > 1)
             with trace_span(SPAN_PREFIX + "jpeg.pack"):
-                return _combined_rows(parts, layout, prefix_words, sc.SEG_G,
-                                      seg_words)
+                return pack(*_scan_rows(parts))
 
-        return _ChunkHandle(*sc._run_sized(program, ph, pw), f, h, w, ph,
-                            pw)
+        return self.scans.dispatch(program, ph, pw)
 
-    def _host_dispatch(self, frames, f: int, h: int, w: int):
-        """The host engine's device half (flutpu's ``_encode_host`` up to
-        its fetch): the device engine's codec on the frames' device (one
-        chunk's frames, or C chunks' with a leading chunk axis), then one
-        copy of its outputs into pinned memory in place of the entropy
-        stage."""
-        mult = self._scan_coder.mult
-        parts = self._codec(_chunked(frames)[0])
-        return _HostChunkHandle(_HostCopy(*parts), f, h, w,
-                                _pad_to(h, mult), _pad_to(w, mult))
-
-    def _finalize_host(self, handle: _HostChunkHandle) -> List[bytes]:
-        """The host engine's host half: the scans of every chunk's frames
-        by the native coder (``JpegEncoder._scans_host``), then each
-        chunk's container, in chunk order."""
-        arrs = [a.reshape(-1, *a.shape[2:]) for a in handle.parts.arrays()]
-        payloads = self._scan_coder._scans_host(arrs[:3])
-        mvs = itypes = None
-        if self.motion and self.bframes:
-            fwd, bwd, modes, ftypes = arrs[3:]
-            mvs = list(zip(fwd, bwd, modes))
-            itypes = ftypes.astype(np.int64)
-        elif self.motion:
-            mvs, itypes = list(arrs[3]), arrs[4].astype(np.int64)
-        f = handle.f
-        return [self._build_chunk(
-            payloads[i:i + f], None if mvs is None else mvs[i:i + f],
-            None if itypes is None else itypes[i:i + f], f, handle.h,
-            handle.w, handle.ph, handle.pw)
-            for i in range(0, len(payloads), f)]
-
-    def _device_only(self, entry: str) -> None:
-        """Raise for an entry point without a host route: the multi-chunk
-        dispatch, which exists only in the port (flutpu's
-        ``fvc_chunks_sharded`` takes no engine); never code such a call on
-        the device for an encoder asked for the host."""
-        if self.engine == "host":
-            raise ValueError(f"FvcEncoder.{entry}: engine='host' has no "
-                             "route here; use encode_chunk,"
-                             " encode_chunk_dispatch or the source-fed "
-                             "entries, or engine='device'")
+    def _dispatch(self, frames_fn, c: int, f: int, h: int,
+                  w: int) -> _ChunkHandle:
+        """One dispatch of ``c`` chunks of ``f`` frames (``_enqueue``) on
+        the frames' device."""
+        mult = self.scans.mult
+        ph, pw = _pad_to(h, mult), _pad_to(w, mult)
+        return _ChunkHandle((self._enqueue(frames_fn, ph, pw),), (c,), f, h,
+                            w, ph, pw)
 
     def encode_chunk_dispatch(self, frames):
         """Enqueue the encode of (F, H, W, 3) uint8 RGB frames (numpy or
@@ -803,9 +745,7 @@ class FvcEncoder:
                             if isinstance(frames, np.ndarray) else frames)
         t = t.to(self.device)
         f, h, w, _ = t.shape
-        if self.engine == "host":
-            return self._host_dispatch(t, f, h, w)
-        return self._dispatch(lambda: t, f, h, w)
+        return self._dispatch(lambda ph, pw: t, 1, f, h, w)
 
     def encode_chunks_dispatch(self, frames, mesh=None):
         """Enqueue C GOP chunks of (C, F, H, W, 3) uint8 RGB frames (numpy
@@ -818,18 +758,29 @@ class FvcEncoder:
         encoder's device): shard m takes the m-th contiguous block of C /
         M chunks as one dispatch on its devices (M does not divide C:
         ValueError), its frames cut into the mesh's row stripes; the
-        handle is the list of the blocks' handles."""
-        self._device_only("encode_chunks_dispatch")
+        handle holds the blocks' results in chunk order."""
+        if self.engine == "host":
+            # the multi-chunk dispatch exists only in the port (flutpu's
+            # ``fvc_chunks_sharded`` takes no engine): never code it on
+            # the device for an encoder asked for the host
+            raise ValueError("FvcEncoder.encode_chunks_dispatch: "
+                             "engine='host' has no route here; use "
+                             "encode_chunk, encode_chunk_dispatch or the "
+                             "source-fed entries, or engine='device'")
         t = torch.as_tensor(np.ascontiguousarray(frames)
                             if isinstance(frames, np.ndarray) else frames)
         c, f, h, w, _ = t.shape
         if mesh is None:
             t = t.to(self.device)
-            return self._dispatch(lambda: t, f, h, w)
+            return self._dispatch(lambda ph, pw: t, c, f, h, w)
         from ..parallel.gop import chunk_blocks
-        return [self._dispatch(lambda b=t[sl].to(shard[0]): b, f, h, w,
-                               shard)
-                for sl, shard in chunk_blocks(c, mesh, spatial=True)]
+        blocks = chunk_blocks(c, mesh, spatial=True)
+        mult = self.scans.mult
+        ph, pw = _pad_to(h, mult * len(blocks[0][1])), _pad_to(w, mult)
+        return _ChunkHandle(
+            tuple(self._enqueue(lambda ph, pw, b=t[sl].to(shard[0]): b, ph,
+                                pw, shard) for sl, shard in blocks),
+            tuple(sl.stop - sl.start for sl, _ in blocks), f, h, w, ph, pw)
 
     def encode_chunk_dispatch_src(self, src_fn, start, n: int, h: int,
                                   w: int) -> _ChunkHandle:
@@ -839,11 +790,8 @@ class FvcEncoder:
         size (h, w rounded up to 16, or to 8 for 4:4:4). The host engine
         codes the source's frames through its own route, with the device
         engine's bytes (flutpu's gives them too)."""
-        mult = self._scan_coder.mult
-        ph, pw = _pad_to(h, mult), _pad_to(w, mult)
-        if self.engine == "host":
-            return self._host_dispatch(src_fn(ph, pw, n, start), n, h, w)
-        return self._dispatch(lambda: src_fn(ph, pw, n, start), n, h, w)
+        return self._dispatch(lambda ph, pw: src_fn(ph, pw, n, start), 1, n,
+                              h, w)
 
     def encode_chunk_batch_dispatch_src(self, src_fn, start, n: int, h: int,
                                         w: int, batch: int = 2
@@ -858,94 +806,63 @@ class FvcEncoder:
         host engine runs the batch as one codec call and one copy, and
         codes the scans on the host. Finalize with
         ``encode_chunk_batch_finalize``."""
-        mult = self._scan_coder.mult
-        ph, pw = _pad_to(h, mult), _pad_to(w, mult)
-
-        def frames():
+        def frames(ph, pw):
             outs = [src_fn(ph, pw, n, start + b * n) for b in range(batch)]
             if isinstance(outs[0], (tuple, list)):
                 return tuple(torch.stack(p) for p in zip(*outs))
             return torch.stack(outs)
 
-        if self.engine == "host":
-            return self._host_dispatch(frames(), n, h, w)
-        return self._dispatch(frames, n, h, w)
-
-    def encode_chunk_batch_finalize(self, handle) -> List[bytes]:
-        """Blocking half of ``encode_chunk_batch_dispatch_src``: the one
-        copy, then each chunk's container, in chunk order (for the host
-        engine, after its scans are coded on the host)."""
-        if isinstance(handle, _HostChunkHandle):
-            return self._finalize_host(handle)
-        return self.encode_chunks_finalize(handle)
-
-    def encode_chunk_finalize(self, handle) -> bytes:
-        """Blocking half: wait for the copy, check the sizes (redispatch
-        once on overflow), compact the scans, assemble the chunk; for the
-        host engine, code the scans on the host."""
-        if isinstance(handle, _HostChunkHandle):
-            return self._finalize_host(handle)[0]
-        return self.encode_chunks_finalize(handle)[0]
+        return self._dispatch(frames, batch, n, h, w)
 
     def encode_chunks_finalize(self, handle: _ChunkHandle,
                                counts=None) -> List[bytes]:
-        """``encode_chunk_finalize`` of a dispatch of C chunks → C chunk
-        containers in chunk order. ``counts[i]`` keeps the first frames of
-        chunk i alone (default: all F); the P chain is causal, so they
-        are the bytes of an encode of those frames alone (a truncated B
-        structure is not: re-encode such a tail). A mesh dispatch's list
-        of handles finalizes block by block, in chunk order."""
-        if isinstance(handle, list):
-            out = []
-            for hd in handle:
-                n = hd.combined.bufs[0].shape[0] // hd.f
-                out += self.encode_chunks_finalize(
-                    hd, None if counts is None else counts[len(out):
-                                                           len(out) + n])
-            return out
-        payloads, mvs, itypes = self._finalize(handle)
+        """Blocking half of every dispatch entry → its C chunk containers
+        in chunk order: per shard, the scans of its frames and the words
+        after them (``ScanCoder``'s finalize of either engine: wait for
+        the copy, check the sizes and redispatch once on overflow, compact
+        the scans; or code them on the host), the vectors and frame types
+        from those words, then each chunk's container. ``counts[i]`` keeps
+        the first frames of chunk i alone (default: all F); the P chain is
+        causal, so they are the bytes of an encode of those frames alone
+        (a truncated B structure is not: re-encode such a tail)."""
         f = handle.f
         out = []
-        with trace_span(SPAN_PREFIX + "fvc.container"):
-            for ci in range(len(payloads) // f):
-                n = f if counts is None else int(counts[ci])
-                rows = slice(ci * f, ci * f + n)
-                out.append(self._build_chunk(
-                    payloads[rows], None if mvs is None else mvs[rows],
-                    None if itypes is None else itypes[rows], n, handle.h,
-                    handle.w, handle.ph, handle.pw))
+        for res, c in zip(handle.scans, handle.chunks):
+            payloads, side = res.finalize()
+            mvs = itypes = None
+            if self.motion:
+                with trace_span(SPAN_PREFIX + "fvc.vectors"):
+                    mvs, itypes = self._side_words(side, handle)
+            with trace_span(SPAN_PREFIX + "fvc.container"):
+                for ci in range(c):
+                    n = f if counts is None else int(counts[len(out)])
+                    rows = slice(ci * f, ci * f + n)
+                    out.append(self._build_chunk(
+                        payloads[rows], None if mvs is None else mvs[rows],
+                        None if itypes is None else itypes[rows], n,
+                        handle.h, handle.w, handle.ph, handle.pw))
         return out
+
+    #: the blocking half of ``encode_chunk_batch_dispatch_src``
+    encode_chunk_batch_finalize = encode_chunks_finalize
+
+    def encode_chunk_finalize(self, handle) -> bytes:
+        """Blocking half of the one-chunk entries: their one container."""
+        return self.encode_chunks_finalize(handle)[0]
 
     def encode_chunk(self, frames) -> bytes:
         """(F, H, W, 3) uint8 → one FVC chunk (frame 0 is the I frame)."""
         return self.encode_chunk_finalize(self.encode_chunk_dispatch(frames))
 
-    def _finalize(self, handle: _ChunkHandle):
-        """Per frame, segments: [0] = aligned words, [1..S] = segment
-        bits, [S+1..S+prefix] = word-aligned stream; blocks (S = 0): [0] =
-        bits, [1..prefix] = the stream. Then (motion) the side words
-        (vectors, or fwd | bwd | modes with B frames) and the frame-type
-        word."""
-        arr, handle = self._scan_coder._fetch(handle)
-        n = handle.n_segs
-        scan_end = 1 + n + handle.prefix
-        with trace_span(SPAN_PREFIX + "jpeg.compact"):
-            payloads = [JpegEncoder._scan_bytes(row, n, handle.prefix)
-                        for row in arr]
-        mvs = itypes = None
-        if self.motion:
-            with trace_span(SPAN_PREFIX + "fvc.vectors"):
-                mvs, itypes = self._side_words(arr, scan_end, handle)
-        return payloads, mvs, itypes
-
-    def _side_words(self, arr, scan_end: int, handle: _ChunkHandle):
+    def _side_words(self, side: np.ndarray, handle: _ChunkHandle):
         """Each frame's vectors (fwd, or with B frames (fwd, bwd, modes))
-        and the frame-type words from the combined rows' side columns."""
+        and frame type (1 = I frame, 2 = B) from the words after its scan
+        (``_scan_rows``'s side columns and frame-type word)."""
         mbh, mbw = handle.ph // 16, handle.pw // 16
         mv_len = mbh * mbw * 2
         mvs = []
-        for i in range(arr.shape[0]):
-            raw = np.frombuffer(arr[i, scan_end:-1].tobytes(), np.int8)
+        for row in side:
+            raw = np.frombuffer(row[:-1].tobytes(), np.int8)
             fwd = raw[:mv_len].reshape(mbh, mbw, 2)
             if self.bframes:   # side columns: fwd | bwd | modes
                 mvs.append((fwd,
@@ -954,7 +871,7 @@ class FvcEncoder:
                             .reshape(mbh, mbw)))
             else:
                 mvs.append(fwd)
-        return mvs, arr[:, -1].astype(np.int64)   # 1 = I frame, 2 = B
+        return mvs, side[:, -1].astype(np.int64)
 
     def _build_chunk(self, payloads, mvs, itypes, f: int, h: int,
                      w: int, ph: Optional[int] = None,
@@ -964,7 +881,7 @@ class FvcEncoder:
         after the search-range byte where the coded size (ph, pw) exceeds
         the minimum macroblock padding; None: that padding)."""
         version = 2 if self.motion else VERSION
-        mult = self._scan_coder.mult
+        mult = self.scans.mult
         ph = _pad_to(h, mult) if ph is None else ph
         pw = _pad_to(w, mult) if pw is None else pw
         coded_ext = (ph, pw) != (_pad_to(h, mult), _pad_to(w, mult))

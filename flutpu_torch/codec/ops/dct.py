@@ -88,21 +88,6 @@ def plane_idct(coefs: torch.Tensor) -> torch.Tensor:
 # the planar formulation (FVC header flags bit 3)
 # ----------------------------------------------------------------------------
 
-def check_full_fp32(device: torch.device) -> None:
-    """The in-loop DCT/IDCT is codec state, which the decoder rebuilds in
-    full fp32: the FVC encoder refuses TF32 matmuls on the card. Since K9
-    the loop runs no matmul (nor do the planar products), so the setting
-    cannot change its bits; the refusal only keeps the encoder's stated
-    contract."""
-    if device.type == "cuda" and (
-            torch.backends.cuda.matmul.allow_tf32
-            or torch.get_float32_matmul_precision() != "highest"):
-        raise RuntimeError(
-            "FVC motion mode needs full-fp32 matmuls on the card: set "
-            "torch.backends.cuda.matmul.allow_tf32 = False and "
-            "torch.set_float32_matmul_precision('highest')")
-
-
 def _planar_products(x: torch.Tensor, inverse: bool) -> torch.Tensor:
     """``bh @ x @ bw.T`` (``bh.T @ x @ bw`` for the inverse) over the
     trailing (H, W) of ``x``, ``bh`` and ``bw`` being flutpu's

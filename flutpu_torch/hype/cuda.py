@@ -257,7 +257,7 @@ class CudaHype(VideoEncoder):
         for sl, shard in chunk_blocks(chunks.shape[0], mesh, spatial=True):
             sub = ChunkSpatialMesh(1, len(shard), shard)
             yq, cbq, crq = (x.flatten(0, 1) for x in encode_chunks(
-                chunks[sl], jenc._qy_dev, jenc._qc_dev, mesh=sub,
+                chunks[sl], jenc.scans.qy_dev, jenc.scans.qc_dev, mesh=sub,
                 spatial=True))
             handles.append(jenc.scan_planes_dispatch(
                 (yq[:, :mh // 8], cbq[:, :mh // 16], crq[:, :mh // 16])))
@@ -296,7 +296,7 @@ class CudaHype(VideoEncoder):
         if self._tail_enc is None:
             enc = self._fvc()
             self._tail_enc = FvcEncoder(
-                enc.quality, segmented=enc._scan_coder.segmented,
+                enc.quality, segmented=enc.scans.segmented,
                 device=enc.device, bquality=enc.bquality,
                 **self._motion_args())
         return self._tail_enc

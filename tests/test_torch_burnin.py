@@ -267,7 +267,7 @@ def test_overflow_redispatch_blends_again(segmented, state):
     handle = te.encode_gop_dispatch(torch.from_numpy(frames), 32, 48,
                                     overlay=torch.from_numpy(ov))
     assert te.encode_gop_finalize(handle) == want
-    assert (te._seg_words, te._prefix_window) != (
+    assert (te.scans._seg_words, te.scans._prefix_window) != (
         state.get("seg_words", te.SEG_WORDS0), state.get("prefix_window"))
 
 
@@ -282,7 +282,8 @@ def test_port_source_with_overlay_decodes_to_the_blend():
     out = te.encode_gop_finalize(te.encode_gop_dispatch_src(
         src, 0, 48, 64, 48, 64, overlay=ov))
     blended = t_comp.overlay_on_planes(*src(48, 64, 0), ov)
-    coefs = _planes_front_end(*blended, te._qy_dev, te._qc_dev, 48, 64)
+    coefs = _planes_front_end(*blended, te.scans.qy_dev, te.scans.qc_dev, 48,
+                              64)
     for i, data in enumerate(out):
         dec = decode_scan_to_coefs(parse_jfif(data)["scan"], 8, 6, 4, 3, True)
         for a, c in zip(dec, coefs):

@@ -686,17 +686,25 @@ def test_fvc_on_card_matches_cpu(cuda_device, motion, segmented):
 
 
 @pytest.mark.cuda
-def test_fvc_motion_refuses_tf32(cuda_device):
-    """The in-loop DCT is codec state: a TF32 matmul would drift the
-    decoder's P chain, so the encoder raises rather than run with it."""
-    frames = np.zeros((2, 32, 48, 3), np.uint8)
+@pytest.mark.parametrize("planar", [False, True])
+def test_fvc_motion_bytes_alike_with_tf32(cuda_device, planar):
+    """The in-loop DCT is codec state, and the loop runs no matmul (K9,
+    and the planar products in full fp32): a motion chunk's bytes are the
+    same with TF32 matmuls allowed and not."""
+    frames = np.concatenate([
+        np.stack([make_test_frame("ball", 160, 88, i) for i in range(4)]),
+        np.stack([make_test_frame("noise", 160, 88, i) for i in range(4)])])
     enc = FvcEncoder(motion=True, device=cuda_device)
+    enc.planar = planar
+    want = enc.encode_chunk(frames)
     torch.backends.cuda.matmul.allow_tf32 = True
+    torch.set_float32_matmul_precision("high")
     try:
-        with pytest.raises(RuntimeError):
-            enc.encode_chunk(frames)
+        got = enc.encode_chunk(frames)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = False
+        torch.set_float32_matmul_precision("highest")
+    assert got == want
 
 
 @pytest.mark.cuda

@@ -78,7 +78,7 @@ def test_chunk_without_segments_byte_identical(jax_chunks, motion, clip):
     layout flutpu's encoder takes on the CPU."""
     je = jf.FvcEncoder(85, motion=motion)
     te = _port(je, segmented=False)
-    assert te._scan_coder.segmented is False
+    assert te.scans.segmented is False
     assert te.encode_chunk(CLIPS[clip]) == jax_chunks[(motion, clip)]
 
 
@@ -118,7 +118,7 @@ def _tie_contract(frames, je, te):
                                      search_range=r, planar=False)
     j_rec = np.asarray(jf.fvc_mc_decode_chunk(
         *j_parts, je._qy_dev, je._qc_dev, search_range=r, planar=False)[0])
-    qy, qc = te._scan_coder._qy_dev, te._scan_coder._qc_dev
+    qy, qc = te.scans.qy_dev, te.scans.qc_dev
     t_parts = tf.fvc_mc_encode_chunk(torch.from_numpy(frames), qy, qc, H, W,
                                      r)
     t_rec = tf.fvc_mc_decode_chunk(*t_parts, qy, qc)[0].numpy()
@@ -257,8 +257,8 @@ def test_motion_chunk_program_matches_jax():
                                   search_range=7, planar=False)
     te = _port(je)
     got = tf.fvc_mc_encode_chunk(torch.from_numpy(frames),
-                                 te._scan_coder._qy_dev,
-                                 te._scan_coder._qc_dev, H, W, 7)
+                                 te.scans.qy_dev,
+                                 te.scans.qc_dev, H, W, 7)
     for g, w_ in zip(got, want):
         assert g.dtype == {np.int16: torch.int16, np.int8: torch.int8}[
             np.asarray(w_).dtype.type]
@@ -283,7 +283,7 @@ def test_residual_scan_and_accumulate_match_jax():
 def test_overflow_redispatches_at_reported_size(jax_chunks, state):
     te = _port(jf.FvcEncoder(85, motion=True), **state)
     assert te.encode_chunk(CLIPS["cut"]) == jax_chunks[(True, "cut")]
-    sc = te._scan_coder
+    sc = te.scans
     if "seg_words" in state:
         assert sc._seg_words > 2
     else:
@@ -296,12 +296,12 @@ def test_overflow_without_segments_redispatches(jax_chunks):
     te = _port(jf.FvcEncoder(85, motion=True), prefix_window=16,
                segmented=False)
     assert te.encode_chunk(CLIPS["cut"]) == jax_chunks[(True, "cut")]
-    assert te._scan_coder._prefix_window > 16
+    assert te.scans._prefix_window > 16
 
 
 def test_beyond_theoretical_bound_raises():
     te = _port(jf.FvcEncoder(85, motion=True), seg_words=2)
-    te._scan_coder.BLOCK_BITS_BOUND = 8   # a bound no real content fits
+    te.scans.BLOCK_BITS_BOUND = 8   # a bound no real content fits
     with pytest.raises(OverflowError):
         te.encode_chunk(CLIPS["cut"][:2])
 
@@ -377,7 +377,7 @@ def test_unported_stream_features_raise(jax_chunks, bit):
             jf.FvcEncoder(85, motion=True).encode_chunk(CLIPS["ball"]))[0])
 
 
-def test_unported_program_options_raise():
+def test_every_program_option_runs():
     """Every option runs: hier the coarse-to-fine search; subpel the
     half-pel loop and planar the block-diagonal in-loop DCT, each equal
     to flutpu's program on these frames."""
@@ -406,7 +406,7 @@ def test_unported_program_options_raise():
 
 @pytest.mark.parametrize("prop", ["bitrate=100000", "search=hier",
                                   "subpel=true", "bframes=1"])
-def test_cudafvcenc_unported_properties_raise(prop):
+def test_cudafvcenc_properties_reach_the_encoder(prop):
     """Every one now reaches the encoder: search=hier, subpel and bframes
     its settings; bitrate the rate controller, whose first chunk is
     encoded at the quality property (``test_torch_ratecontrol.py`` holds
@@ -468,7 +468,7 @@ def _subpel_tie_contract(frames, je, te):
     j_rec = np.asarray(jf.fvc_mc_decode_chunk(
         *j_parts, je._qy_dev, je._qc_dev, search_range=r, subpel=True,
         planar=False)[0])
-    qy, qc = te._scan_coder._qy_dev, te._scan_coder._qc_dev
+    qy, qc = te.scans.qy_dev, te.scans.qc_dev
     t_parts = tf.fvc_mc_encode_chunk(torch.from_numpy(frames), qy, qc, H, W,
                                      r, hier=hier, subpel=True)
     t_rec = tf.fvc_mc_decode_chunk(*t_parts, qy, qc, subpel=True)[0].numpy()

@@ -91,8 +91,8 @@ def _tie_contract_b(frames, je, te):
         jnp.asarray(frames), je._qy_dev, je._qc_dev, pad_h=H, pad_w=W,
         hier=je.hier, planar=False, qy_b=je._qyb_dev, qc_b=je._qcb_dev, **kw)
     t_parts = tf.fvc_mc_encode_chunk_b(
-        torch.from_numpy(frames), te._scan_coder._qy_dev,
-        te._scan_coder._qc_dev, H, W, hier=te.hier, qy_b=te._qyb_dev,
+        torch.from_numpy(frames), te.scans.qy_dev,
+        te.scans.qc_dev, H, W, hier=te.hier, qy_b=te._qyb_dev,
         qc_b=te._qcb_dev, **kw)
     j_parts = [np.asarray(p) for p in j_parts]
     t_parts = [p.numpy() for p in t_parts]
@@ -135,11 +135,11 @@ def test_bframes_2_tie_is_a_half_step():
     te = _port(je)
     frames = CLIPS["ball"]
     y, cb, cr = tf._i420_planes(torch.from_numpy(frames), H, W)
-    qy = te._scan_coder._qy_dev
+    qy = te.scans.qy_dev
     anchors = [0, 3, 6, 7]
     (stripe,), itypes, recs = tf._anchor_loop(
         [y[None, anchors]], [cb[None, anchors]], [cr[None, anchors]], qy,
-        te._scan_coder._qc_dev, tf._search_fn(False), 7)
+        te.scans.qc_dev, tf._search_fn(False), 7)
     mv = stripe[3]
     assert itypes.tolist() == [[1, 0, 0, 0]] and (mv[0, 1, 5, 7] == 0).all()
     resid = (y[3] - recs[0][0][0][0])[80:88, 120:128].double()
@@ -148,7 +148,7 @@ def test_bframes_2_tie_is_a_half_step():
         jnp.asarray(frames), je._qy_dev, je._qc_dev, pad_h=H, pad_w=W,
         bframes=2, planar=False, qy_b=je._qyb_dev, qc_b=je._qcb_dev)[0])
     t_ry = tf.fvc_mc_encode_chunk_b(
-        torch.from_numpy(frames), qy, te._scan_coder._qc_dev, H, W,
+        torch.from_numpy(frames), qy, te.scans.qc_dev, H, W,
         bframes=2, qy_b=te._qyb_dev, qc_b=te._qcb_dev)[0].numpy()
     assert (j_ry[3, 10, 15, 0], t_ry[3, 10, 15, 0]) == (127, 128)
 
@@ -173,8 +173,8 @@ def test_b_chunk_program_matches_jax():
         search_range=7, bframes=1, hier=True, planar=False,
         qy_b=je._qyb_dev, qc_b=je._qcb_dev)
     got = tf.fvc_mc_encode_chunk_b(
-        torch.from_numpy(frames), te._scan_coder._qy_dev,
-        te._scan_coder._qc_dev, H, W, 7, 1, True, qy_b=te._qyb_dev,
+        torch.from_numpy(frames), te.scans.qy_dev,
+        te.scans.qc_dev, H, W, 7, 1, True, qy_b=te._qyb_dev,
         qc_b=te._qcb_dev)
     for g, w_ in zip(got, want):
         assert g.dtype == {np.int16: torch.int16, np.int8: torch.int8}[
@@ -302,7 +302,7 @@ def test_dispatch_src_two_in_flight_and_redispatch(chunks):
     second = te.encode_chunk_dispatch(CLIPS["cut"])
     assert te.encode_chunk_finalize(first) == want
     assert te.encode_chunk_finalize(second) == chunks[(True, 1), "cut"][0]
-    assert te._scan_coder._seg_words > 2
+    assert te.scans._seg_words > 2
 
 
 @pytest.mark.parametrize("n", [1, 2, 3])

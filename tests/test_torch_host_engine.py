@@ -2,7 +2,7 @@
 against flutpu on the CPU.
 
 Contract: the port's host scan coder (``encode_scan``: the native coder,
-held to ``_encode_scan_python``) gives flutpu's bytes; ``engine="host"``
+held to ``encode_scan_python``) gives flutpu's bytes; ``engine="host"``
 on ``JpegEncoder``, ``cudajpegenc``, ``FvcEncoder`` and ``cudafvcenc``
 gives flutpu's ``engine="host"`` bytes and the port's own device
 engine's; ``encode_gop_to_coefs`` / ``encode_gop_planes_to_coefs`` give
@@ -24,6 +24,7 @@ from flutpu.codec.ops import colorspace as j_cs
 from flutpu.codec.ops import entropy as j_entropy
 from flutpu.core.elements import make_test_frame
 from flutpu_torch.codec import jpeg as tj
+from flutpu_torch.codec import scans as ts
 from flutpu_torch.codec.fvc import FvcEncoder
 from flutpu_torch.codec.jpeg import JpegEncoder
 from flutpu_torch.codec.ops import colorspace as t_cs
@@ -61,27 +62,27 @@ def test_encode_scan_equals_flutpus(pattern, subsample):
     port's scan of every frame equals flutpu's, and its native coder
     equals the Python one."""
     _, _, _, (y, cb, cr) = _j_coefs(_frames(pattern, 48, 64), subsample)
-    lib = tj.native.get_lib()
+    lib = ts.native.get_lib()
     assert lib is not None
     for i in range(y.shape[0]):
         want = jj.encode_scan(y[i], cb[i], cr[i], subsample)
-        assert tj.encode_scan(y[i], cb[i], cr[i], subsample) == want
-        assert tj._encode_scan_native(lib, y[i], cb[i], cr[i],
+        assert ts.encode_scan(y[i], cb[i], cr[i], subsample) == want
+        assert ts._encode_scan_native(lib, y[i], cb[i], cr[i],
                                       subsample) == want
-        assert tj._encode_scan_python(y[i], cb[i], cr[i], subsample) == want
+        assert ts.encode_scan_python(y[i], cb[i], cr[i], subsample) == want
 
 
 def test_encode_scan_without_the_native_library(monkeypatch):
     """Where the native library is absent, ``encode_scan`` takes the
     Python coder: the same bytes."""
     _, _, _, (y, cb, cr) = _j_coefs(_frames("ball", 48, 64, n=1), True)
-    want = tj.encode_scan(y[0], cb[0], cr[0], True)
-    monkeypatch.setattr(tj.native, "get_lib", lambda: None)
-    assert tj.encode_scan(y[0], cb[0], cr[0], True) == want
+    want = ts.encode_scan(y[0], cb[0], cr[0], True)
+    monkeypatch.setattr(ts.native, "get_lib", lambda: None)
+    assert ts.encode_scan(y[0], cb[0], cr[0], True) == want
 
 
 def test_native_tables_are_flutpus():
-    mine, theirs = tj._native_tables(), jj._native_tables()
+    mine, theirs = ts._native_tables(), jj._native_tables()
     assert mine.keys() == theirs.keys()
     for name in mine:
         for a, b in zip(mine[name], theirs[name]):
@@ -180,8 +181,8 @@ def test_auto_never_reaches_the_host_coder(monkeypatch):
     def refuse(*args, **kwargs):
         raise AssertionError("the host coder ran")
 
-    monkeypatch.setattr(JpegEncoder, "_scans_host", refuse)
-    monkeypatch.setattr(tj, "encode_scan", refuse)
+    monkeypatch.setattr(ts.ScanCoder, "_code_on_host", refuse)
+    monkeypatch.setattr(ts, "encode_scan", refuse)
     frames = _frames("noise", 48, 64)
     je = jj.JpegEncoder(85, use_pallas=False)
     want = je.encode_gop(frames)
@@ -191,11 +192,11 @@ def test_auto_never_reaches_the_host_coder(monkeypatch):
                                           device="cpu")
         assert te.encode_gop(frames) == want
         te = JpegEncoder(85, engine=engine, device="cpu")
-        te.BLOCK_BITS_BOUND = 8   # a bound no real content fits
+        te.scans.BLOCK_BITS_BOUND = 8   # a bound no real content fits
         with pytest.raises(OverflowError):
             te.encode_gop(frames)
     fe = FvcEncoder(85, motion=True, device="cpu")
-    fe._scan_coder.BLOCK_BITS_BOUND = 8
+    fe.scans.BLOCK_BITS_BOUND = 8
     with pytest.raises(OverflowError):
         fe.encode_chunk(frames)
 
@@ -231,7 +232,7 @@ def test_fvc_host_engine_equals_flutpus(config, clip):
         je.qy, je.qc, je.search_range, motion=je.motion, hier=je.hier,
         subpel=je.subpel, subsample=je.subsample, bframes=je.bframes,
         bquality=je.bquality, engine="host", device="cpu")
-    assert te.engine == te._scan_coder.engine == "host"
+    assert te.engine == te.scans.engine == "host"
     got = te.encode_chunk(frames)
     assert got == FvcEncoder(85, device="cpu", **kw).encode_chunk(frames)
     if (config, clip) in SUBPEL_TIES:
@@ -255,13 +256,16 @@ SRC_CONFIGS = {"v1": {}, "P": {"motion": True}}
 
 
 @pytest.mark.parametrize("config", list(SRC_CONFIGS))
-@pytest.mark.parametrize("entry", ["src", "batch", "element", "chunks"])
+@pytest.mark.parametrize("entry", ["src", "batch", "counts", "element",
+                                   "chunks"])
 def test_fvc_host_engine_codes_source_fed_entries_refuses_chunks(entry,
                                                                  config):
     """The source-fed entries, alone and batched, code through the host
     engine: flutpu's ``engine="host"`` bytes on the same entry (flutpu
-    codes them on the device) and the port's device engine's; so does
-    ``cudafvcenc engine=host`` from ``videotestsrc`` against ``fvcenc``.
+    codes them on the device) and the port's device engine's, also where
+    the batch finalizes through ``encode_chunks_finalize`` with
+    ``counts``; so does ``cudafvcenc engine=host`` from ``videotestsrc``
+    against ``fvcenc``.
     The multi-chunk dispatch, which flutpu has no engine for, raises
     instead of coding on the device."""
     import jax
@@ -294,6 +298,13 @@ def test_fvc_host_engine_codes_source_fed_entries_refuses_chunks(entry,
 
     je = jf.FvcEncoder(85, engine="host", **kw)
     dev = FvcEncoder(85, device="cpu", **kw)
+    if entry == "counts":
+        got, same = (e.encode_chunks_finalize(
+            e.encode_chunk_batch_dispatch_src(t_src, 0, 4, 48, 64, batch=2),
+            counts=[4, 2]) for e in (enc, dev))
+        assert got == same and len(got) == 2
+        assert got[1] == enc.encode_chunk(frames[4:6])
+        return
     if entry == "src":
         want = [je.encode_chunk_finalize(je.encode_chunk_dispatch_src(
             j_src, 4, 4, 48, 64))]

@@ -91,35 +91,36 @@ def test_segment_overflow_redispatches_at_reported_size():
     frames = _frames("noise", 48, 32, n=2)
     got = te.encode_gop(frames)
     assert got == je.encode_gop(frames)
-    assert te._seg_words > 2      # grew to cover the densest segment
+    assert te.scans._seg_words > 2      # grew to cover the densest segment
 
 
 def test_prefix_overflow_redispatches_at_reported_size():
     je, te = _pair(prefix_window=16)
     frames = _frames("noise", 48, 32, n=2)
     assert te.encode_gop(frames) == je.encode_gop(frames)
-    assert te._prefix_window > 16
+    assert te.scans._prefix_window > 16
 
 
 def test_encode_gop_starts_at_the_learned_window(monkeypatch):
     """With the prefix cap below the GOP's usage only the first dispatch
     overflows; the next starts at the learned window and codes once."""
     je, te = _pair()
-    starts = capped_prefix(monkeypatch, te, 64)
+    starts = capped_prefix(monkeypatch, te.scans, 64)
     frames = _frames("noise", 48, 32, n=2)
     first, spans = profiled_spans(lambda: te.encode_gop(frames))
     assert [s[0] for s in spans] == ["jpeg.copy", "jpeg.fetch_wait",
                                      "jpeg.redispatch", "jpeg.copy",
-                                     "jpeg.fetch_wait"]
+                                     "jpeg.fetch_wait", "jpeg.compact"]
     again, spans = profiled_spans(lambda: te.encode_gop(frames))
-    assert [s[0] for s in spans] == ["jpeg.copy", "jpeg.fetch_wait"]
+    assert [s[0] for s in spans] == ["jpeg.copy", "jpeg.fetch_wait",
+                                     "jpeg.compact"]
     assert starts[0] == 64 < starts[1]
     assert first == again == je.encode_gop(frames)
 
 
 def test_beyond_theoretical_bound_raises():
     _, te = _pair(seg_words=2)
-    te.BLOCK_BITS_BOUND = 8       # a bound no real content fits under
+    te.scans.BLOCK_BITS_BOUND = 8       # a bound no real content fits under
     with pytest.raises(OverflowError):
         te.encode_gop(_frames("noise", 48, 32, n=1))
 
@@ -127,16 +128,17 @@ def test_beyond_theoretical_bound_raises():
 def test_adaptive_sizes_follow_usage():
     """Usage recorded at finalize sizes the next dispatch."""
     _, te = _pair()
-    assert te._prefix_target() is None
+    assert te.scans._prefix_target() is None
     te.encode_gop(_frames("gradient", 64, 48, n=2))
-    assert te._prefix_used_words > 0
-    target = te._prefix_target()
+    assert te.scans._prefix_used_words > 0
+    target = te.scans._prefix_target()
     assert target >= 8192
     h = te.encode_gop_dispatch(torch.from_numpy(_frames("gradient", 64, 48)),
                                48, 64)
     # adopted, and clamped by the frame's theoretical bound
-    assert te._prefix_window == target
-    assert h.prefix == min(target, 72 * JpegEncoder.BLOCK_BITS_BOUND // 32)
+    assert te.scans._prefix_window == target
+    assert h.scans.prefix == min(target,
+                                 72 * JpegEncoder.BLOCK_BITS_BOUND // 32)
 
 
 def test_encoder_state_from_numpy():
@@ -275,13 +277,14 @@ def test_scan_decodes_to_front_end_coefficients():
     _, te = _pair()
     frames = _frames("gradient", 64, 48, n=2)
     t = torch.from_numpy(frames)
-    coefs = _planes_front_end(t[..., 0], t[..., 1], t[..., 2], te._qy_dev,
-                              te._qc_dev, 48, 64)
+    coefs = _planes_front_end(t[..., 0], t[..., 1], t[..., 2], te.scans.qy_dev,
+                              te.scans.qc_dev, 48, 64)
     for i, data in enumerate(te.encode_gop(frames)):
         dec = decode_scan_to_coefs(parse_jfif(data)["scan"], 8, 6, 4, 3, True)
         for a, c in zip(dec, coefs):
             np.testing.assert_array_equal(a, c[i].numpy())
-    rgb = coefs_to_rgb(*coefs, te._qy_dev, te._qc_dev, 48, 64).numpy()
+    rgb = coefs_to_rgb(*coefs, te.scans.qy_dev, te.scans.qc_dev, 48,
+                       64).numpy()
     mse = ((rgb.astype(np.float64) - frames) ** 2).mean()
     assert 10 * np.log10(255.0 ** 2 / mse) > 30
 
@@ -345,7 +348,7 @@ def test_nonsegment_dispatch_finalize_and_source():
         lambda ph_, pw_, start: gradient_ball_planes(ph_, pw_, 4, start,
                                                      device="cpu"),
         8, h, w, ph, pw)
-    assert handle.n_segs == 0 and handle.seg_words is None
+    assert handle.scans.n_segs == 0 and handle.scans.seg_words is None
     frames = np.array(j_ball_frames(ph, pw, 4, jnp.float32(8)))
     second = te.encode_gop_dispatch(torch.from_numpy(frames), h, w)
     assert te.encode_gop_finalize(handle) == want
@@ -358,8 +361,8 @@ def test_nonsegment_prefix_overflow_redispatches():
     je, te = _blocks_pair(prefix_window=16)
     frames = _frames("noise", 48, 32, n=2)
     assert te.encode_gop(frames) == je.encode_gop(frames)
-    assert te._prefix_window > 16
-    assert te._seg_used_words == 0       # no segment usage recorded
+    assert te.scans._prefix_window > 16
+    assert te.scans._seg_used_words == 0       # no segment usage recorded
 
 
 def test_nonsegment_matches_flutpu_k7_in_interpret_mode():

@@ -134,7 +134,7 @@ def test_planar_program_matches_flutpus(kw, clip):
     want = jf.fvc_mc_encode_chunk(
         jnp.asarray(frames), je._qy_dev, je._qc_dev, pad_h=H, pad_w=W,
         search_range=r, hier=je.hier, subpel=je.subpel, planar=True)
-    qy, qc = te._scan_coder._qy_dev, te._scan_coder._qc_dev
+    qy, qc = te.scans.qy_dev, te.scans.qc_dev
     got = tf.fvc_mc_encode_chunk(torch.from_numpy(frames), qy, qc, H, W, r,
                                  hier=te.hier, subpel=te.subpel, planar=True)
     split_at_ties(frames, [g.numpy() for g in got],
@@ -152,8 +152,8 @@ def test_planar_b_program_matches_flutpus(hier, bframes, clip):
         search_range=je.search_range, bframes=bframes, hier=hier,
         planar=True, qy_b=je._qyb_dev, qc_b=je._qcb_dev)
     got = tf.fvc_mc_encode_chunk_b(
-        torch.from_numpy(frames), te._scan_coder._qy_dev,
-        te._scan_coder._qc_dev, H, W, je.search_range, bframes, hier=hier,
+        torch.from_numpy(frames), te.scans.qy_dev,
+        te.scans.qc_dev, H, W, je.search_range, bframes, hier=hier,
         planar=True, qy_b=te._qyb_dev, qc_b=te._qcb_dev)
     split_at_ties(frames, [g.numpy() for g in got],
                   [np.asarray(w_) for w_ in want], je.qy, je.qc,
@@ -191,7 +191,7 @@ def test_planar_chunk_equals_flutpus(config, engine):
     the per-block chunk has too (``test_torch_fvc.py``), and
     ``split_at_ties`` holds."""
     je, te = _planar_pair(**CONFIGS[config])
-    te._scan_coder.engine = te.engine = engine
+    te.scans.engine = engine
     frames = CLIPS["ball"]
     got = te.encode_chunk(frames)
     assert got[5] == FLAGS[config]

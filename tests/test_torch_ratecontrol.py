@@ -129,6 +129,6 @@ def test_batch_src_is_one_copy_back():
     te = FvcEncoder(85, motion=True, device="cpu")
     handle = te.encode_chunk_batch_dispatch_src(_src, 0, 2, 32, 48, batch=4)
     assert isinstance(handle, tf._ChunkHandle) and handle.f == 2
-    arr, _ = te._scan_coder._fetch(handle)
+    arr, _ = handle.scans[0].fetch()
     assert arr.shape[0] == 8
     assert len(te.encode_chunk_batch_finalize(handle)) == 4

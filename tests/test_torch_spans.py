@@ -38,7 +38,7 @@ def _encoder(**state):
     enc = FvcEncoder(85, motion=True, device="cpu")
     if not state:
         return enc
-    sc = enc._scan_coder
+    sc = enc.scans
     return FvcEncoder.from_numpy_state(sc.qy, sc.qc, enc.search_range,
                                        motion=True, device="cpu", **state)
 
@@ -101,7 +101,7 @@ def test_a_dispatch_starts_at_the_learned_window(monkeypatch, entry):
     cap, and codes once, with the bytes of an encoder whose cap never
     binds."""
     enc = _encoder()
-    starts = capped_prefix(monkeypatch, enc._scan_coder, CAP)
+    starts = capped_prefix(monkeypatch, enc.scans, CAP)
     first, spans = profiled_spans(lambda: ENTRIES[entry](enc))
     assert _redispatches(spans) == 1
     again, spans = profiled_spans(lambda: ENTRIES[entry](enc))
@@ -116,7 +116,7 @@ def test_another_frame_size_starts_at_the_cap(monkeypatch):
     next at that size starts at the window learned there, and both give
     a fresh encoder's bytes."""
     enc = _encoder()
-    starts = capped_prefix(monkeypatch, enc._scan_coder, CAP)
+    starts = capped_prefix(monkeypatch, enc.scans, CAP)
     enc.encode_chunk(FRAMES)
     enc.encode_chunk(FRAMES)
     assert starts[1] > CAP

@@ -387,19 +387,19 @@ def planar_drift(frames, qy, qc, stripes: int = 1, planar: bool = True,
 
 
 def capped_prefix(monkeypatch, coder, cap: int) -> list:
-    """Patch ``coder``'s (a ``JpegEncoder``) prefix cap to ``cap`` words a
-    frame → the list that collects the window each dispatch starts at
-    (an overflow's redispatch is not a start)."""
+    """Patch ``coder``'s (an encoder's ``ScanCoder``) prefix cap to ``cap``
+    words a frame → the list that collects the window each dispatch
+    starts at (an overflow's redispatch is not a start)."""
     starts = []
-    run = coder._run_sized
+    run = coder.dispatch
 
     def spy(*args):
         out = run(*args)
-        starts.append(out[1])
+        starts.append(out.prefix)
         return out
 
     monkeypatch.setattr(coder, "_prefix_cap", lambda layout: cap)
-    monkeypatch.setattr(coder, "_run_sized", spy)
+    monkeypatch.setattr(coder, "dispatch", spy)
     return starts
 
 
